@@ -1,0 +1,115 @@
+"""Shared set-up of the PyTorch-port parity tests (not a test module).
+
+Builds the slice configuration for both packages and a mid-stream map
+snapshot of the reference, so port functions run on exactly the
+reference's state (carried across as numpy).
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from visual_sgraphs_tpu import config as rcfg
+from visual_sgraphs_tpu.core import lie as rlie
+from visual_sgraphs_tpu.io.synthetic import SyntheticScene
+from visual_sgraphs_tpu.slam.frame import make_frame_obs
+from visual_sgraphs_tpu.slam.map_state import empty_map
+from visual_sgraphs_tpu.slam.mapping import insert_keyframe
+from visual_sgraphs_tpu.slam.tracking import track_frame_full
+from visual_sgraphs_tpu_torch import interop
+
+H, W, N_FEATURES = 240, 320, 300
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops are small; one intra-op thread per test worker
+    avoids oversubscribing the cores the parallel test run shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def slice_config(scene) -> rcfg.SystemConfig:
+    """The slice at test size: RGB-D, 300 features, 32 keyframes / 4096
+    points, serial path, loops and scene graph off."""
+    return rcfg.SystemConfig(
+        sensor=rcfg.Sensor.RGBD,
+        camera=scene.cam,
+        orb=rcfg.OrbConfig(n_features=N_FEATURES),
+        capacity=rcfg.CapacityConfig(max_keyframes=32, max_points=4096),
+        mapping=rcfg.MappingConfig(lba_iters=6, lba_interval=2,
+                                   cull_interval=2),
+    )
+
+
+def port_config(cfg: rcfg.SystemConfig):
+    return interop.config_from_dict(dataclasses.asdict(cfg))
+
+
+def reference_frames(n: int, kind: str = "arc"):
+    """[(gray, depth, T_wc, ts)] rendered by the reference, as numpy."""
+    scene = SyntheticScene(h=H, w=W)
+    return scene, [(np.asarray(g, np.float32), np.asarray(d, np.float32),
+                    np.asarray(T, np.float32), ts)
+                   for g, d, T, ts in scene.frames(n, kind=kind)]
+
+
+def to_np(nt) -> dict:
+    return {k: np.asarray(v) for k, v in nt._asdict().items()}
+
+
+def snapshot(n_frames: int = 10):
+    """A mid-stream reference map, built with the reference's own
+    functions: frame 0 is the origin keyframe, frames 1.. are tracked with
+    ``track_frame_full`` (point stats folded in), and frame
+    ``n_frames // 2`` becomes a second keyframe.  Returns the map, the
+    configuration, frame ``n_frames``'s observation (reference FrameObs)
+    and the tracker's last pose / velocity / reference keyframe."""
+    scene, frames = reference_frames(n_frames + 1)
+    cfg = slice_config(scene)
+    K = jnp.asarray(cfg.camera.K)
+    bf = jnp.asarray(np.float32(cfg.camera.bf))
+    obs = [make_frame_obs(jnp.asarray(g), jnp.asarray(d), ts, cfg.camera,
+                          cfg.orb) for g, d, _, ts in frames]
+    F = cfg.orb.n_features
+    m = empty_map(cfg.capacity, cfg.orb)
+    T_last = vel = rlie.se3_identity()
+    m, _, _ = insert_keyframe(m, obs[0], T_last,
+                              jnp.full((F,), -1, jnp.int32), K,
+                              slot=jnp.asarray(0, jnp.int32))
+    ref_kf = 0
+    for i in range(1, n_frames):
+        T_pred = rlie.se3_normalize(rlie.se3_multiply(vel, T_last))
+        res, m, _ = track_frame_full(
+            m, obs[i], T_pred, T_last, jnp.asarray(ref_kf, jnp.int32), K,
+            jnp.asarray(15, jnp.int32), n_window=10, fx_radius=15.0,
+            fine_radius=7.0, cam_bf=bf,
+            img_wh=(cfg.camera.width, cfg.camera.height))
+        pose = rlie.se3_normalize(res.pose)
+        vel = rlie.se3_normalize(rlie.se3_multiply(pose,
+                                                   rlie.se3_inverse(T_last)))
+        T_last = pose
+        if i == n_frames // 2:
+            m, _, _ = insert_keyframe(m, obs[i], pose, res.slot_pt, K,
+                                      slot=jnp.asarray(1, jnp.int32))
+            ref_kf = 1
+    return dict(cfg=cfg, map=m, frame=obs[n_frames],
+                last_pose=np.asarray(T_last, np.float32),
+                velocity=np.asarray(vel, np.float32), ref_kf=ref_kf)
+
+
+def port_map(ref_map):
+    return interop.map_from_numpy(to_np(ref_map))
+
+
+def port_frame(ref_frame):
+    return interop.frame_from_numpy(to_np(ref_frame))
+
+
+def t(x):
+    return torch.from_numpy(np.asarray(x))

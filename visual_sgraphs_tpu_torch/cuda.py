@@ -1,0 +1,180 @@
+"""Build, load and call the port's hand-written CUDA kernels.
+
+All kernels live in ``csrc/*.cu`` with a plain C interface.  On first use
+they are compiled by ``nvcc`` for ``sm_90a`` into one shared library,
+``build/kernels/libvsg_kernels.so`` at the repository root, and loaded
+with ``ctypes``.  The library is rebuilt whenever the hash of the sources
+changes.  Nothing here runs at import time: importing this module needs
+neither a card nor a compiler.
+
+Every kernel has a wrapper (which launches it on a CUDA tensor, counts the
+launch in ``wrapper.launches``, and raises if the C entry point reports a
+CUDA error) and a plain PyTorch twin in the same module (which counts the
+calls it receives on CUDA tensors in ``twin.cuda_calls``).  ``KERNELS``
+names them for the smoke test and the GPU tests.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import importlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
+LIB_NAME = "libvsg_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# (name, module, wrapper, twin, source, TPU-path function it replaces)
+KERNELS = (
+    ("fast_nms", "visual_sgraphs_tpu_torch.features.fast", "fast_nms",
+     "fast_nms_torch", "visual_sgraphs_tpu_torch/csrc/fast.cu",
+     "visual_sgraphs_tpu/features/fast.py:36"),
+    ("orb_desc", "visual_sgraphs_tpu_torch.features.orb", "orb_describe",
+     "orb_describe_torch", "visual_sgraphs_tpu_torch/csrc/orb_desc.cu",
+     "visual_sgraphs_tpu/features/orb.py:121"),
+    ("match_window", "visual_sgraphs_tpu_torch.features.match",
+     "match_window", "match_window_torch",
+     "visual_sgraphs_tpu_torch/csrc/match.cu",
+     "visual_sgraphs_tpu/features/match.py:104"),
+    ("pose_gn", "visual_sgraphs_tpu_torch.slam.tracking", "pose_only_gn",
+     "pose_only_gn_torch", "visual_sgraphs_tpu_torch/csrc/pose_gn.cu",
+     "visual_sgraphs_tpu/slam/tracking.py:73"),
+)
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "vsg_fast_nms": [_VP, _VP, _VP, _I, _I, _VP],
+    "vsg_orb_desc": [_VP, _I, _I, _VP, _I, _VP, _VP, _VP, _VP, _VP],
+    "vsg_match_window": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                         _F, _I, _F, _I, _VP, _VP, _VP, _VP],
+    "vsg_pose_gn": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F,
+                    _F, _F, _VP, _VP, _VP],
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def sources() -> list[Path]:
+    return sorted(list(CSRC_DIR.glob("*.cu")) + list(CSRC_DIR.glob("*.cuh")))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
+def find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build(force: bool = False, verbose: bool = False) -> tuple[Path, float]:
+    """Compile ``csrc/*.cu`` into the shared library unless an up-to-date
+    build exists (``verbose``: print ptxas's registers, shared memory and
+    spills per kernel).  Returns (library path, seconds spent compiling)."""
+    lib_path = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+    digest = source_hash()
+    if (not force and lib_path.exists() and stamp.exists()
+            and stamp.read_text().strip() == digest):
+        return lib_path, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / (LIB_NAME + f".tmp{os.getpid()}")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in sources() if p.suffix == ".cu"]]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if verbose and proc.stderr:
+        print(proc.stderr)
+    os.replace(tmp, lib_path)
+    stamp.write_text(digest)
+    return lib_path, dt
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.vsg_error_string.argtypes = [ctypes.c_int]
+        lib.vsg_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def call(name: str, *args) -> None:
+    """Call C entry point ``name``; raise if it reports a CUDA error."""
+    lib = library()
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        msg = lib.vsg_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: expected CUDA tensors on one device, "
+                             f"got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous tensors")
+
+
+def kernel_functions():
+    """[(name, wrapper, twin, source, replaces)] for every kernel."""
+    out = []
+    for name, mod, wrapper, twin, src, replaces in KERNELS:
+        m = importlib.import_module(mod)
+        out.append((name, getattr(m, wrapper), getattr(m, twin), src,
+                    replaces))
+    return out
+
+
+def reset_counts() -> None:
+    for _, wrapper, twin, _, _ in kernel_functions():
+        wrapper.launches = 0
+        twin.cuda_calls = 0
+
+
+def counts() -> dict:
+    """{name: (launches, twin calls on CUDA tensors)}."""
+    return {name: (wrapper.launches, twin.cuda_calls)
+            for name, wrapper, twin, _, _ in kernel_functions()}

@@ -1,0 +1,275 @@
+"""ORB extractor: grid-distributed FAST + IC angle + steered rBRIEF.
+
+Port of ``visual_sgraphs_tpu/features/orb.py``:
+
+- per-level FAST score + NMS is kernel K2 (``features/fast.py``);
+- ``_detect_level`` (K3: per-32x32-cell top-2, then per-level top-budget)
+  stays plain PyTorch; stable descending sorts reproduce ``lax.top_k``'s
+  lower-index-first tie order;
+- ``orb_describe`` is kernel K4 (IC angle over the r=15 disc + steered
+  BRIEF-256 from the blurred level, ``csrc/orb_desc.cu``) with the plain
+  twin ``orb_describe_torch``.
+
+The BRIEF pattern is the reference's seeded numpy pattern, drawn with the
+same numpy call.  All keypoint tensors are fixed capacity with validity
+masks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from visual_sgraphs_tpu_torch import cuda
+from visual_sgraphs_tpu_torch.features.fast import fast_nms
+from visual_sgraphs_tpu_torch.features.pyramid import (
+    build_pyramid,
+    gaussian_blur,
+)
+
+PATCH_RADIUS = 15  # IC-angle circular patch
+GATHER_RADIUS = 20  # descriptor sampling patch (covers rotated +-13 offsets)
+
+
+@dataclasses.dataclass(frozen=True)
+class OrbParams:
+    n_features: int = 1000
+    n_levels: int = 8
+    scale: float = 1.2
+    ini_thresh: float = 20.0
+    min_thresh: float = 7.0
+    cell_size: int = 32
+    pattern_seed: int = 42
+
+
+class Keypoints(NamedTuple):
+    """Fixed-capacity keypoint set for one image (K = n_features)."""
+
+    uv: torch.Tensor  # (K, 2) float32, level-0 pixel coords (x, y)
+    response: torch.Tensor  # (K,) FAST score
+    level: torch.Tensor  # (K,) int32 pyramid level
+    angle: torch.Tensor  # (K,) radians
+    valid: torch.Tensor  # (K,) bool
+    desc: torch.Tensor  # (K, 32) uint8 packed 256-bit descriptors
+
+
+def level_budgets(params: OrbParams) -> list[int]:
+    """Geometric per-level feature budget (ORBextractor.cc ctor)."""
+    inv = 1.0 / params.scale
+    per0 = params.n_features * (1 - inv) / (1 - inv**params.n_levels)
+    budgets = [int(round(per0 * inv**lv)) for lv in range(params.n_levels)]
+    budgets[-1] = max(0, params.n_features - sum(budgets[:-1]))
+    return budgets
+
+
+def _brief_pattern(seed: int) -> np.ndarray:
+    """(256, 4) int8 sampling offsets (x1, y1, x2, y2), Gaussian sigma=S/5."""
+    rng = np.random.default_rng(seed)
+    sigma = 31 / 5.0
+    pts = rng.normal(0.0, sigma, size=(256, 4))
+    return np.clip(np.round(pts), -13, 13).astype(np.int8)
+
+
+def _circular_mask(radius: int) -> np.ndarray:
+    ys, xs = np.mgrid[-radius: radius + 1, -radius: radius + 1]
+    return (xs * xs + ys * ys) <= radius * radius
+
+
+@functools.lru_cache(maxsize=None)
+def _ic_weights(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    mask = _circular_mask(PATCH_RADIUS)
+    ys, xs = np.mgrid[-PATCH_RADIUS: PATCH_RADIUS + 1,
+                      -PATCH_RADIUS: PATCH_RADIUS + 1]
+    return (torch.from_numpy(np.asarray(xs * mask, np.float32)).to(device),
+            torch.from_numpy(np.asarray(ys * mask, np.float32)).to(device))
+
+
+@functools.lru_cache(maxsize=None)
+def brief_pattern_tensor(seed: int, device: torch.device) -> torch.Tensor:
+    """(256, 4) float32 pattern on ``device`` (made once per device)."""
+    return torch.from_numpy(_brief_pattern(seed).astype(np.float32)).to(device)
+
+
+def _topk_stable(x: torch.Tensor, k: int, dim: int = -1):
+    """Top-k values/indices with lax.top_k's tie order (lower index first)."""
+    vals, idx = torch.sort(x, dim=dim, descending=True, stable=True)
+    return vals.narrow(dim, 0, k), idx.narrow(dim, 0, k)
+
+
+def _detect_level(score: torch.Tensor, budget: int, params: OrbParams):
+    """Per-cell top-2 then global top-``budget`` keypoints on one level (K3).
+
+    Returns (rc (budget, 2) int32, resp (budget,), valid (budget,))."""
+    h, w = score.shape
+    cs = params.cell_size
+    ncy, ncx = -(-h // cs), -(-w // cs)
+    padded = torch.nn.functional.pad(score, (0, ncx * cs - w, 0, ncy * cs - h))
+    cells = padded.reshape(ncy, cs, ncx, cs).permute(0, 2, 1, 3)
+    cells = cells.reshape(ncy * ncx, cs * cs)
+    vals, idx = _topk_stable(cells, 2, dim=1)  # (C, 2)
+    cell_ids = torch.arange(ncy * ncx, device=score.device)
+    cy, cx = cell_ids // ncx, cell_ids % ncx
+    rr = cy[:, None] * cs + idx // cs
+    cc = cx[:, None] * cs + idx % cs
+    cand_r = rr.reshape(-1)
+    cand_c = cc.reshape(-1)
+    cand_v = vals.reshape(-1)
+    k = min(budget, cand_v.shape[0])
+    top_v, top_i = _topk_stable(cand_v, k)
+    rc = torch.stack([cand_r[top_i], cand_c[top_i]], dim=-1).to(torch.int32)
+    valid = top_v >= params.min_thresh
+    if k < budget:  # tiny levels: pad to static budget
+        pad = budget - k
+        dev = score.device
+        rc = torch.cat([rc, torch.zeros((pad, 2), dtype=torch.int32,
+                                        device=dev)])
+        top_v = torch.cat([top_v, torch.zeros((pad,), dtype=top_v.dtype,
+                                              device=dev)])
+        valid = torch.cat([valid, torch.zeros((pad,), dtype=torch.bool,
+                                              device=dev)])
+    return rc, top_v, valid
+
+
+def _patch_index(img: torch.Tensor, rc: torch.Tensor):
+    """Row/col index grids (K, 41, 41) of each keypoint's patch: origin
+    clipped into the image, reads past a too-small level clamped to its
+    last row/column (the reference's edge pad)."""
+    size = 2 * GATHER_RADIUS + 1
+    h, w = img.shape
+    hp, wp = max(h, size), max(w, size)
+    r0 = torch.clamp(rc[:, 0].long() - GATHER_RADIUS, 0, hp - size)
+    c0 = torch.clamp(rc[:, 1].long() - GATHER_RADIUS, 0, wp - size)
+    ar = torch.arange(size, device=img.device)
+    rows = torch.clamp(r0[:, None] + ar[None, :], max=h - 1)  # (K, 41)
+    cols = torch.clamp(c0[:, None] + ar[None, :], max=w - 1)
+    return rows, cols
+
+
+def _gather_patches(img: torch.Tensor, rc: torch.Tensor) -> torch.Tensor:
+    rows, cols = _patch_index(img, rc)
+    return img[rows[:, :, None], cols[:, None, :]]  # (K, 41, 41)
+
+
+@functools.lru_cache(maxsize=None)
+def _ic_terms(axis: int) -> tuple[tuple[int, int], ...]:
+    """Row-major (row, col) positions of the r=15 disc whose moment weight
+    along ``axis`` (0: x, 1: y) is non-zero."""
+    mask = _circular_mask(PATCH_RADIUS)
+    r = PATCH_RADIUS
+    return tuple((i, j) for i in range(2 * r + 1) for j in range(2 * r + 1)
+                 if mask[i, j] and (j - r if axis == 0 else i - r) != 0)
+
+
+def _ic_angle(patches: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid angle over the r=15 disc.  The moments are
+    summed term by term in row-major float32 order — the order of XLA's
+    CPU reduction in the reference and of the K4 kernel — so the angle
+    reproduces exactly; zero-weight terms add +0 and are skipped."""
+    d = GATHER_RADIUS - PATCH_RADIUS
+    sz = 2 * PATCH_RADIUS + 1
+    central = patches[:, d:d + sz, d:d + sz]
+    xs, ys = _ic_weights(patches.device)
+    moments = []
+    for axis, wgt in ((0, xs), (1, ys)):
+        prod = central * wgt
+        m = torch.zeros(patches.shape[0], dtype=patches.dtype,
+                        device=patches.device)
+        for i, j in _ic_terms(axis):
+            m = m + prod[:, i, j]
+        moments.append(m)
+    return torch.atan2(moments[1], moments[0])
+
+
+def _steered_brief(patches: torch.Tensor, angles: torch.Tensor,
+                   pattern: torch.Tensor) -> torch.Tensor:
+    ca, sa = torch.cos(angles), torch.sin(angles)
+    px1, py1, px2, py2 = pattern.unbind(1)
+
+    def rot_rc(px, py):
+        x = ca[:, None] * px[None, :] - sa[:, None] * py[None, :]
+        y = sa[:, None] * px[None, :] + ca[:, None] * py[None, :]
+        r = torch.clamp(torch.round(y) + GATHER_RADIUS, 0, 2 * GATHER_RADIUS)
+        c = torch.clamp(torch.round(x) + GATHER_RADIUS, 0, 2 * GATHER_RADIUS)
+        return r.long(), c.long()
+
+    r1, c1 = rot_rc(px1, py1)
+    r2, c2 = rot_rc(px2, py2)
+    flat = patches.reshape(patches.shape[0], -1)
+    wdt = 2 * GATHER_RADIUS + 1
+    v1 = torch.gather(flat, 1, r1 * wdt + c1)
+    v2 = torch.gather(flat, 1, r2 * wdt + c2)
+    bits = (v1 < v2).to(torch.uint8).reshape(-1, 32, 8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=patches.device)
+    return torch.sum(bits << shifts, dim=-1, dtype=torch.uint8)
+
+
+def orb_describe_torch(blurred: torch.Tensor, rc: torch.Tensor,
+                       pattern: torch.Tensor, angle: torch.Tensor | None = None):
+    """Plain PyTorch twin of K4: (angle (K,), desc (K, 32) uint8) of the
+    keypoints ``rc`` (K, 2) int32 (row, col) on one blurred level.  Given
+    ``angle``, the IC angle is not recomputed."""
+    if blurred.is_cuda:
+        orb_describe_torch.cuda_calls += 1
+    patches = _gather_patches(blurred, rc)
+    if angle is None:
+        angle = _ic_angle(patches)
+    return angle, _steered_brief(patches, angle, pattern)
+
+
+orb_describe_torch.cuda_calls = 0
+
+
+def orb_describe(blurred: torch.Tensor, rc: torch.Tensor,
+                 pattern: torch.Tensor, angle: torch.Tensor | None = None):
+    """IC angle + steered BRIEF of one level's keypoints (kernel K4 on
+    CUDA tensors, the plain twin on CPU tensors)."""
+    if blurred.device.type == "cpu":
+        return orb_describe_torch(blurred, rc, pattern, angle)
+    tensors = [blurred, rc, pattern] + ([angle] if angle is not None else [])
+    cuda.require_cuda("orb_describe", *tensors)
+    if (blurred.dtype != torch.float32 or rc.dtype != torch.int32
+            or pattern.dtype != torch.float32 or pattern.shape != (256, 4)
+            or (angle is not None and angle.dtype != torch.float32)):
+        raise ValueError("orb_describe: bad dtype or shape")
+    h, w = blurred.shape
+    n = rc.shape[0]
+    angle_out = torch.empty((n,), dtype=torch.float32, device=blurred.device)
+    desc = torch.empty((n, 32), dtype=torch.uint8, device=blurred.device)
+    cuda.call("vsg_orb_desc", cuda.ptr(blurred), h, w, cuda.ptr(rc), n,
+              cuda.ptr(pattern), cuda.ptr(angle), cuda.ptr(angle_out),
+              cuda.ptr(desc), cuda.stream())
+    orb_describe.launches += 1
+    return angle_out, desc
+
+
+orb_describe.launches = 0
+
+
+def extract_orb(img: torch.Tensor, params: OrbParams = OrbParams()) -> Keypoints:
+    """Full ORB extraction on a grayscale image (H, W) float32 [0, 255]."""
+    pattern = brief_pattern_tensor(params.pattern_seed, img.device)
+    levels = build_pyramid(img, params.n_levels, params.scale)
+    budgets = level_budgets(params)
+    out = {k: [] for k in Keypoints._fields}
+    for lv, (level_img, budget) in enumerate(zip(levels, budgets)):
+        if budget <= 0:
+            continue
+        score = fast_nms(level_img)
+        rc, resp, valid = _detect_level(score, budget, params)
+        blurred = gaussian_blur(level_img)
+        angle, desc = orb_describe(blurred, rc, pattern)
+        scale_f = params.scale**lv
+        uv = torch.stack([rc[:, 1].to(torch.float32),
+                          rc[:, 0].to(torch.float32)], dim=-1) * scale_f
+        out["uv"].append(uv)
+        out["response"].append(resp)
+        out["level"].append(torch.full((budget,), lv, dtype=torch.int32,
+                                       device=img.device))
+        out["angle"].append(angle)
+        out["valid"].append(valid)
+        out["desc"].append(desc)
+    return Keypoints(**{k: torch.cat(v) for k, v in out.items()})

@@ -1,0 +1,104 @@
+"""Carry configuration and state between the JAX package and the port.
+
+Everything crosses as numpy: a reference ``MapState`` / ``FrameObs`` /
+``TrackResult`` becomes ``{field: np.asarray(value)}`` (``m._asdict()``),
+and the port's tuples load from and dump to such dicts, field for field
+with the port's canonical dtypes.  A reference ``SystemConfig`` crosses as
+``dataclasses.asdict``.  This module imports neither package's JAX side.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from visual_sgraphs_tpu_torch import config as cfg_mod
+from visual_sgraphs_tpu_torch.slam.frame import FrameObs
+from visual_sgraphs_tpu_torch.slam.map_state import MapState, empty_map
+from visual_sgraphs_tpu_torch.slam.tracking import TrackResult
+
+
+@functools.lru_cache(maxsize=None)
+def _map_dtypes() -> dict:
+    tiny = empty_map(cfg_mod.CapacityConfig(max_keyframes=1, max_points=1,
+                                            max_retired=1),
+                     cfg_mod.OrbConfig(n_features=1))
+    return {k: v.dtype for k, v in tiny._asdict().items()}
+
+
+_FRAME_DTYPES = dict(uv=torch.float32, depth=torch.float32,
+                     level=torch.int32, angle=torch.float32,
+                     desc=torch.uint8, valid=torch.bool,
+                     timestamp=torch.float32)
+_TRACK_DTYPES = dict(pose=torch.float32, slot_pt=torch.int32,
+                     vis_pt=torch.int32, n_matches=torch.int32,
+                     n_inliers=torch.int32, n_local_pts=torch.int32)
+
+
+def _load(cls, dtypes: dict, d: dict, device):
+    missing = set(cls._fields) - set(d)
+    if missing:
+        raise KeyError(f"{cls.__name__}: missing fields {sorted(missing)}")
+    return cls(**{
+        k: torch.from_numpy(np.array(d[k])).to(device=device,
+                                                dtype=dtypes[k])
+        for k in cls._fields
+    })
+
+
+def to_numpy(nt) -> dict:
+    """Any of the port's state tuples -> {field: np.ndarray}."""
+    return {k: v.detach().cpu().numpy() for k, v in nt._asdict().items()}
+
+
+def map_from_numpy(d: dict, device=None) -> MapState:
+    return _load(MapState, _map_dtypes(), d, device)
+
+
+def map_to_numpy(m: MapState) -> dict:
+    return to_numpy(m)
+
+
+def frame_from_numpy(d: dict, device=None) -> FrameObs:
+    return _load(FrameObs, _FRAME_DTYPES, d, device)
+
+
+def frame_to_numpy(f: FrameObs) -> dict:
+    return to_numpy(f)
+
+
+def track_from_numpy(d: dict, device=None) -> TrackResult:
+    return _load(TrackResult, _TRACK_DTYPES, d, device)
+
+
+def track_to_numpy(r: TrackResult) -> dict:
+    return to_numpy(r)
+
+
+_NESTED_TUPLES = {("EnvDatabase", "rooms"): cfg_mod.EnvRoom,
+                  ("EnvDatabase", "doors"): cfg_mod.EnvDoor}
+
+
+def _build(cls, d: dict):
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        item_cls = _NESTED_TUPLES.get((cls.__name__, f.name))
+        if item_cls is not None:
+            v = tuple(_build(item_cls, x) for x in v)
+        elif isinstance(v, dict) and dataclasses.is_dataclass(f.default):
+            v = _build(type(f.default), v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kwargs[f.name] = v
+    return cls(**kwargs)
+
+
+def config_from_dict(d: dict) -> cfg_mod.SystemConfig:
+    """SystemConfig from ``dataclasses.asdict`` of the reference config."""
+    return _build(cfg_mod.SystemConfig, d)

@@ -1,0 +1,173 @@
+"""Landmark-grouped Schur reduction for bundle adjustment (one device).
+
+Port of the single-device core of ``visual_sgraphs_tpu/parallel/
+dist_ba.py``: with landmark n observed by keyframes k in obs(n),
+
+    S  =  H_pp  -  sum_n  W_n^T Hxx_n^-1 W_n,      rhs analogous,
+
+so the reduction is local to each landmark.  Observations are grouped per
+landmark into (N, O) tables; the reduced (6K, 6K) camera system is
+assembled densely in float32 (TF32 must stay off: the terms span ~8
+orders of magnitude) and the landmarks are back-substituted.  The mesh /
+NCCL path is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from visual_sgraphs_tpu_torch.core import lie
+
+
+def group_observations(obs_kf, obs_pt, uvr, valid, n_pt: int,
+                       max_obs: int = 8):
+    """Flat observation lists -> per-landmark (N, O) tables: each
+    observation lands in its landmark's next free slot (rank = earlier list
+    entries of the same point: stable sort + run position).  Overflow
+    beyond ``max_obs`` is dropped.  Returns (kf (N, O) int32, uvr (N, O, 3),
+    valid (N, O) bool, n_dropped)."""
+    m = obs_kf.shape[0]
+    dev = obs_kf.device
+    pt = torch.where(valid, obs_pt, n_pt).long()
+    pt_sorted, order = torch.sort(pt, stable=True)
+    pos = torch.arange(m, device=dev)
+    first = torch.searchsorted(pt_sorted, pt_sorted, side="left")
+    rank = torch.empty((m,), dtype=torch.int64, device=dev)
+    rank[order] = pos - first
+    keep = valid & (rank < max_obs) & (obs_pt >= 0) & (obs_pt < n_pt)
+    # rows that are not kept all land in the dump row n_pt (cut below)
+    row = torch.where(keep, obs_pt.long(), n_pt)
+    col = torch.where(keep, rank, 0)
+    out_kf = torch.full((n_pt + 1, max_obs), -1, dtype=torch.int32,
+                        device=dev)
+    out_kf[row, col] = torch.where(keep, obs_kf.to(torch.int32), -1)
+    out_uvr = torch.zeros((n_pt + 1, max_obs, 3), dtype=uvr.dtype, device=dev)
+    out_uvr[row, col] = torch.where(keep[:, None], uvr, 0.0)
+    out_valid = torch.zeros((n_pt + 1, max_obs), dtype=torch.bool, device=dev)
+    out_valid[row, col] = keep
+    n_dropped = (valid & (rank >= max_obs)).sum(dtype=torch.int32)
+    return out_kf[:n_pt], out_uvr[:n_pt], out_valid[:n_pt], n_dropped
+
+
+def _landmark_terms(kf_pose, X_w, kf_idx, uvr, ovalid, cam_K, bf, huber):
+    """Schur terms of every landmark at once: residuals r (n, O, 3), pose
+    Jacobians Jp (n, O, 3, 6), point Jacobians Jx (n, O, 3, 3), weights
+    w (n, O) and the cost."""
+    fx, fy, cx, cy = cam_K[0], cam_K[1], cam_K[2], cam_K[3]
+    T = kf_pose[torch.clamp(kf_idx, min=0).long()]  # (n, O, 7)
+    R = lie.quat_to_matrix(T[..., :4])  # (n, O, 3, 3)
+    p = torch.einsum("noij,nj->noi", R, X_w) + T[..., 4:7]
+    z = torch.clamp(p[..., 2], min=1e-6)
+    inv_z = 1.0 / z
+    u_hat = fx * p[..., 0] * inv_z + cx
+    v_hat = fy * p[..., 1] * inv_z + cy
+    has_ur = uvr[..., 2] > 0
+    ur_hat = u_hat - bf * inv_z
+    disp = torch.clamp(uvr[..., 0] - uvr[..., 2], min=1e-3)
+    z_meas = torch.where(has_ur, bf / disp, 1.0)
+    w_ur = torch.clamp((2.5 / torch.clamp(z_meas, min=0.1)) ** 2, max=1.0)
+    r = torch.stack([
+        u_hat - uvr[..., 0],
+        v_hat - uvr[..., 1],
+        torch.where(has_ur, (ur_hat - uvr[..., 2]) * w_ur, 0.0),
+    ], dim=-1)
+    chi2 = torch.sum(r * r, dim=-1)
+    ok = ovalid & (kf_idx >= 0) & (p[..., 2] > 0.05)
+    w = torch.where(ok, 1.0, 0.0) * torch.clamp(
+        huber / torch.sqrt(torch.clamp(chi2, min=1e-12)), max=1.0)
+    zero = torch.zeros_like(z)
+    Jp_p = torch.stack([
+        torch.stack([fx * inv_z, zero, -fx * p[..., 0] * inv_z * inv_z], -1),
+        torch.stack([zero, fy * inv_z, -fy * p[..., 1] * inv_z * inv_z], -1),
+        torch.stack([fx * inv_z, zero,
+                     (-fx * p[..., 0] + bf) * inv_z * inv_z], -1)
+        * (has_ur * w_ur)[..., None],
+    ], dim=-2)  # (n, O, 3, 3)
+    eye = torch.eye(3, dtype=p.dtype, device=p.device).expand(
+        p.shape[:-1] + (3, 3))
+    Jx_pose = torch.cat([eye, -lie.hat(p)], dim=-1)  # (n, O, 3, 6)
+    Jp = Jp_p @ Jx_pose
+    Jx = Jp_p @ R
+    cost = torch.sum(w * chi2)
+    return r, Jp, Jx, w, cost
+
+
+def _inv3x3(M):
+    """Closed-form batched 3x3 inverse (adjugate / determinant)."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A = e * i - f * h
+    B = c * h - b * i
+    C_ = b * f - c * e
+    D = f * g - d * i
+    E_ = a * i - c * g
+    F = c * d - a * f
+    G = d * h - e * g
+    H = b * g - a * h
+    I_ = a * e - b * d
+    det = a * A + b * D + c * G
+    inv_det = 1.0 / torch.where(torch.abs(det) > 1e-12, det, 1e-12)
+    adj = torch.stack([
+        torch.stack([A, B, C_], dim=-1),
+        torch.stack([D, E_, F], dim=-1),
+        torch.stack([G, H, I_], dim=-1),
+    ], dim=-2)
+    return adj * inv_det[..., None, None]
+
+
+def _local_reduced_system(kf_pose, pts, kf_tab, uvr_tab, val_tab, cam_K, bf,
+                          lam, huber):
+    """Dense reduced system + landmark factor cache.
+
+    Returns (S (6K, 6K), rhs (6K,), Hinv (n, 3, 3) of the damped Hxx,
+    bx (n, 3), W (n, O, 6, 3), cost)."""
+    K = kf_pose.shape[0]
+    n, O = kf_tab.shape
+    r, Jp, Jx, w, cost = _landmark_terms(kf_pose, pts, kf_tab, uvr_tab,
+                                         val_tab, cam_K, bf, huber)
+    Hpp = torch.einsum("nori,norj,no->noij", Jp, Jp, w)  # (n, O, 6, 6)
+    Hxx = torch.einsum("nori,norj,no->nij", Jx, Jx, w)  # (n, 3, 3)
+    W = torch.einsum("nori,norj,no->noij", Jp, Jx, w)  # (n, O, 6, 3)
+    gp = torch.einsum("nori,nor,no->noi", Jp, r, w)  # (n, O, 6)
+    bx = torch.einsum("nori,nor,no->ni", Jx, r, w)  # (n, 3)
+
+    eye3 = torch.eye(3, dtype=r.dtype, device=r.device)
+    dx = torch.clamp(torch.diagonal(Hxx, dim1=-2, dim2=-1), min=1e-6)
+    Hxx = Hxx + (lam * dx + 1e-5)[..., None] * eye3
+    Hinv = _inv3x3(Hxx)
+
+    kf_safe = torch.clamp(kf_tab, min=0).long()
+    slot_ok = val_tab & (kf_tab >= 0)
+    # one-hot observation -> keyframe assignment (n, O, K): every
+    # contraction below is then a plain matrix product
+    E = ((kf_safe[..., None] == torch.arange(K, device=r.device))
+         & slot_ok[..., None]).to(r.dtype)
+    S1 = torch.einsum("nak,naij->kij", E, Hpp)  # (K, 6, 6)
+    WH = torch.einsum("nari,nij->narj", W, Hinv)  # (n, O, 6, 3)
+
+    def factor4(Mx):
+        # (n, O, 6, 3) -> A[n, i, r, k] = sum_{a -> k} Mx[n, a, r, i]
+        M18 = Mx.transpose(2, 3).reshape(n, O, 18)
+        return torch.einsum("noi,nok->nik", M18, E).reshape(n, 3, 6, K)
+
+    S2 = torch.einsum("nirk,nism->rksm", factor4(WH), factor4(W))
+    S2 = S2.permute(1, 0, 3, 2).reshape(6 * K, 6 * K)
+    S = (-0.5 * (S2 + S2.T)).reshape(K, 6, K, 6)
+    kk = torch.arange(K, device=r.device)
+    S[kk, :, kk, :] += S1
+    hb = torch.einsum("nij,nj->ni", Hinv, bx)
+    Wb = torch.einsum("nari,ni->nar", W, hb)
+    rhs = torch.einsum("nak,nar->kr", E, Wb - gp)
+    return S.reshape(6 * K, 6 * K), rhs.reshape(6 * K), Hinv, bx, W, cost
+
+
+def _back_substitute(Hinv, bx, W, kf_tab, val_tab, dxr6):
+    """Per-landmark update given the reduced solve:
+    dx_n = -Hxx^-1 (bx + sum_a W_a^T dxi_{kf_a})."""
+    kf_safe = torch.clamp(kf_tab, min=0).long()
+    slot_ok = val_tab & (kf_tab >= 0)
+    dpose = dxr6[kf_safe] * slot_ok[..., None]
+    y = bx + torch.einsum("nari,nar->ni", W, dpose)
+    dxe = -torch.einsum("nij,nj->ni", Hinv, y)
+    return torch.where(torch.isfinite(dxe), dxe, 0.0)

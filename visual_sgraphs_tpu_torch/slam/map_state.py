@@ -1,0 +1,173 @@
+"""The map as a NamedTuple of fixed-capacity tensors.
+
+Port of ``visual_sgraphs_tpu/slam/map_state.py``: the same field names,
+shapes and dtypes, so a reference map converts field for field
+(``interop.map_from_numpy``).  Keyframes own per-slot keypoint tables;
+``kf_obs_pt`` is the primary keyframe -> point association, from which
+covisibility is derived on demand by batched reductions.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from visual_sgraphs_tpu_torch.config import CapacityConfig, OrbConfig
+
+
+class MapState(NamedTuple):
+    """Fixed-capacity SLAM map (see the reference for field semantics)."""
+
+    kf_pose: torch.Tensor  # (K, 7) T_cw
+    kf_valid: torch.Tensor  # (K,) bool
+    kf_timestamp: torch.Tensor  # (K,)
+    kf_uv: torch.Tensor  # (K, F, 2)
+    kf_depth: torch.Tensor  # (K, F) metric depth (<=0: unknown)
+    kf_level: torch.Tensor  # (K, F) int32
+    kf_angle: torch.Tensor  # (K, F)
+    kf_desc: torch.Tensor  # (K, F, 32) uint8
+    kf_kp_valid: torch.Tensor  # (K, F) bool
+    kf_obs_pt: torch.Tensor  # (K, F) int32 map-point id or -1
+    kf_seq: torch.Tensor  # (K,) int32 insertion sequence (-1 invalid)
+    pt_pos: torch.Tensor  # (N, 3) world
+    pt_valid: torch.Tensor  # (N,) bool
+    pt_desc: torch.Tensor  # (N, 32) uint8
+    pt_first_kf: torch.Tensor  # (N,) creating keyframe slot
+    pt_first_seq: torch.Tensor  # (N,) creating keyframe sequence
+    pt_freed_seq: torch.Tensor  # (N,) n_kf when culled (reuse quarantine)
+    pt_visible: torch.Tensor  # (N,) int32
+    pt_found: torch.Tensor  # (N,) int32
+    led_seq: torch.Tensor  # (E,) retired keyframe's sequence number
+    led_parent_seq: torch.Tensor  # (E,) surviving parent's sequence
+    led_T_cp: torch.Tensor  # (E, 7) T_retired_cw . T_parent_cw^-1
+    led_n: torch.Tensor  # () int32 ledger length
+    n_kf: torch.Tensor  # () int32
+    n_pt: torch.Tensor  # () int32
+
+    @property
+    def K(self) -> int:
+        return self.kf_pose.shape[0]
+
+    @property
+    def F(self) -> int:
+        return self.kf_uv.shape[1]
+
+    @property
+    def N(self) -> int:
+        return self.pt_pos.shape[0]
+
+    @property
+    def E(self) -> int:
+        return self.led_seq.shape[0]
+
+
+def empty_map(cap: CapacityConfig = CapacityConfig(),
+              orb: OrbConfig = OrbConfig(),
+              device: torch.device | str | None = None) -> MapState:
+    K, F, N = cap.max_keyframes, orb.n_features, cap.max_points
+    E = cap.max_retired
+    f32, i32 = torch.float32, torch.int32
+
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    kf_pose = full((K, 7), 0.0, f32)
+    kf_pose[:, 0] = 1.0
+    led_T_cp = full((E, 7), 0.0, f32)
+    led_T_cp[:, 0] = 1.0
+    return MapState(
+        kf_pose=kf_pose,
+        kf_valid=full((K,), False, torch.bool),
+        kf_timestamp=full((K,), 0.0, f32),
+        kf_uv=full((K, F, 2), 0.0, f32),
+        kf_depth=full((K, F), -1.0, f32),
+        kf_level=full((K, F), 0, i32),
+        kf_angle=full((K, F), 0.0, f32),
+        kf_desc=full((K, F, 32), 0, torch.uint8),
+        kf_kp_valid=full((K, F), False, torch.bool),
+        kf_obs_pt=full((K, F), -1, i32),
+        kf_seq=full((K,), -1, i32),
+        pt_pos=full((N, 3), 0.0, f32),
+        pt_valid=full((N,), False, torch.bool),
+        pt_desc=full((N, 32), 0, torch.uint8),
+        pt_first_kf=full((N,), -1, i32),
+        pt_first_seq=full((N,), -1, i32),
+        pt_freed_seq=full((N,), -(10**6), i32),
+        pt_visible=full((N,), 0, i32),
+        pt_found=full((N,), 0, i32),
+        led_seq=full((E,), -1, i32),
+        led_parent_seq=full((E,), -1, i32),
+        led_T_cp=led_T_cp,
+        led_n=full((), 0, i32),
+        n_kf=full((), 0, i32),
+        n_pt=full((), 0, i32),
+    )
+
+
+def compact_true(mask: torch.Tensor, size: int) -> torch.Tensor:
+    """Indices of the first ``size`` True entries of 1-D ``mask`` in
+    ascending order, padded with -1 — ``jnp.nonzero(mask, size=size,
+    fill_value=-1)`` without a device-to-host sync (cumsum + scatter
+    instead of torch.nonzero)."""
+    n = mask.shape[0]
+    pos = torch.cumsum(mask.to(torch.int64), 0) - 1
+    keep = mask & (pos < size)
+    out = torch.full((size + 1,), -1, dtype=torch.int64, device=mask.device)
+    # rows that are not kept all land in the dump slot ``size``
+    out.scatter_(0, torch.where(keep, pos, size),
+                 torch.arange(n, device=mask.device))
+    return out[:size]
+
+
+def index_set_last(dst: torch.Tensor, idx: torch.Tensor,
+                   src: torch.Tensor) -> torch.Tensor:
+    """``dst.at[idx].set(src)`` with XLA's duplicate order: updates apply
+    in sequence, so for a repeated index the LAST entry wins.  Every entry
+    writes its index's winning value, so the in-place scatter is
+    deterministic.  Returns ``dst`` (updated in place)."""
+    n = idx.shape[0]
+    pos = torch.arange(n, device=idx.device)
+    last = torch.full((dst.shape[0],), -1, dtype=torch.int64,
+                      device=idx.device)
+    last.scatter_reduce_(0, idx, pos, "amax")
+    dst[idx] = src[last[idx]]
+    return dst
+
+
+def point_obs_count(m: MapState) -> torch.Tensor:
+    """(N,) number of keyframe observations per map point."""
+    obs = torch.where(m.kf_kp_valid & m.kf_valid[:, None], m.kf_obs_pt, -1)
+    flat = torch.clamp(obs.reshape(-1), -1, m.N - 1).long() + 1
+    counts = torch.zeros((m.N + 1,), dtype=torch.int32, device=flat.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    return counts[1:]
+
+
+def _member_of(obs_flat: torch.Tensor, n: int) -> torch.Tensor:
+    """(n + 1,) bool membership of point ids (-1 -> slot 0)."""
+    member = torch.zeros((n + 1,), dtype=torch.bool, device=obs_flat.device)
+    return member.index_fill_(0, obs_flat.long() + 1, True)
+
+
+def covisibility_counts(m: MapState, kf_id) -> torch.Tensor:
+    """(K,) number of valid map points shared between keyframe ``kf_id``
+    and every keyframe (KeyFrame::UpdateConnections)."""
+    obs_k = m.kf_obs_pt[kf_id]
+    member = _member_of(torch.where(m.kf_kp_valid[kf_id], obs_k, -1), m.N)
+    member[0].fill_(False)
+    member[1:] &= m.pt_valid
+    shared = member[torch.where(m.kf_kp_valid, m.kf_obs_pt, -1).long() + 1]
+    counts = torch.sum(shared, dim=1).to(torch.int32)
+    counts = torch.where(m.kf_valid, counts, 0)
+    counts[kf_id].fill_(0)
+    return counts
+
+
+def observed_mask(m: MapState, kf_ids: torch.Tensor,
+                  kf_mask: torch.Tensor) -> torch.Tensor:
+    """(N,) bool — map points observed by any of ``kf_ids`` (masked)."""
+    obs = m.kf_obs_pt[kf_ids]
+    ok = m.kf_kp_valid[kf_ids] & kf_mask[:, None]
+    flat = torch.where(ok, obs, -1).reshape(-1)
+    return _member_of(flat, m.N)[1:]

@@ -1,0 +1,235 @@
+"""Mapping: keyframe insertion + RGB-D point seeding, observation fusion,
+point and keyframe culling.
+
+Port of the RGB-D keyframe path of ``visual_sgraphs_tpu/slam/mapping.py``
+(LocalMapping.cc:58-278): ``retire_keyframe``, ``insert_keyframe``,
+``apply_found_stats``, ``fuse_observations``, ``cull_points`` and
+``cull_keyframes``.  Functions return a new ``MapState`` and never modify
+their input map: each changed field is cloned once and then updated in
+place (``index_put_``) instead of rebuilt.
+
+Scatters with repeated indices keep the reference's results: ``.max`` /
+``.min`` / ``.add`` become ``scatter_reduce`` / ``scatter_add``, and a
+plain ``.at[].set`` whose index can repeat goes through
+``map_state.index_set_last`` (XLA applies the updates in order, so the last
+one wins).  The local BA lives in ``optim/fast_ba.py``; the generic LM
+engine (``local_ba``) and monocular point creation are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from visual_sgraphs_tpu_torch.core import cameras, lie
+from visual_sgraphs_tpu_torch.features.match import match_window
+from visual_sgraphs_tpu_torch.slam.frame import FrameObs
+from visual_sgraphs_tpu_torch.slam.map_state import (
+    MapState,
+    compact_true,
+    covisibility_counts,
+    index_set_last,
+    observed_mask,
+    point_obs_count,
+)
+from visual_sgraphs_tpu_torch.slam.tracking import topk_stable
+
+
+def retire_keyframe(m: MapState, slot, do: torch.Tensor) -> MapState:
+    """Retire keyframe ``slot`` (cull or capacity eviction), masked by the
+    device bool ``do``: invalidate the slot, append (seq, parent_seq, T_cp)
+    to the retirement ledger (when a parent exists and the ledger has room)
+    and re-point ``pt_first_kf`` at the parent."""
+    # ``slot`` may be a device scalar (the keyframe cull's choice), so
+    # rows are read with index_select and written through one-hot masks:
+    # indexing with a 0-d CUDA tensor would read it back to the host
+    K, E = m.K, m.E
+    dev = m.kf_seq.device
+    at_slot = torch.arange(K, device=dev) == slot
+    s = torch.argmax(at_slot.to(torch.int32)).reshape(1)
+    seq_s = m.kf_seq.index_select(0, s)[0]
+    cand = m.kf_valid & ~at_slot
+    dist = torch.where(cand, torch.abs(m.kf_seq - seq_s), 2**30)
+    parent = torch.argmin(dist).reshape(1)
+    T_cp = lie.se3_normalize(lie.se3_multiply(
+        m.kf_pose.index_select(0, s)[0],
+        lie.se3_inverse(m.kf_pose.index_select(0, parent)[0])))
+    any_cand = cand.any()
+    write = do & any_cand & (m.led_n < E)
+    at_e = (torch.arange(E, device=dev) == torch.clamp(m.led_n, max=E - 1)
+            ) & write
+    return m._replace(
+        kf_valid=m.kf_valid & ~(at_slot & do),
+        pt_first_kf=torch.where(
+            do & any_cand & (m.pt_first_kf == slot),
+            parent[0].to(m.pt_first_kf.dtype), m.pt_first_kf),
+        led_seq=torch.where(at_e, seq_s, m.led_seq),
+        led_parent_seq=torch.where(at_e, m.kf_seq.index_select(0, parent)[0],
+                                   m.led_parent_seq),
+        led_T_cp=torch.where(at_e[:, None], T_cp, m.led_T_cp),
+        led_n=torch.clamp(m.led_n + write.to(torch.int32), max=E),
+    )
+
+
+def insert_keyframe(m: MapState, frame: FrameObs, pose: torch.Tensor,
+                    slot_pt: torch.Tensor, cam_K: torch.Tensor, slot: int,
+                    quarantine: int = 3):
+    """Write the frame into keyframe slot ``slot`` (chosen by the host) and
+    seed new map points from keypoints with valid depth that matched no
+    existing point (Tracking.cc:3318-3394).  A still-valid occupant of the
+    slot retires through the ledger first.
+
+    Returns (new_map, kf_slot, evicted: device bool)."""
+    F = m.F
+    k = int(slot)
+    dev = m.kf_valid.device
+    evicted = m.kf_valid[k]
+    m = retire_keyframe(m, k, evicted)
+
+    T_wc = lie.se3_inverse(pose)
+    rays = cameras.unproject_pinhole(cam_K, frame.uv)
+    p_world = lie.se3_apply(T_wc, rays * frame.depth[:, None])
+    new_mask = frame.valid & (frame.depth > 0) & (slot_pt < 0)
+    # freed ids stay quarantined for ``quarantine`` keyframes
+    allocatable = ~m.pt_valid & (m.n_kf - m.pt_freed_seq >= quarantine)
+    free_ids = compact_true(allocatable, F)
+    order = torch.cumsum(new_mask.to(torch.int64), 0) - 1
+    new_ids = torch.where(new_mask, free_ids[torch.clamp(order, 0, F - 1)],
+                          -1)
+    alloc = new_ids >= 0
+    safe = torch.clamp(new_ids, min=0)
+
+    def put(field, value):
+        return index_set_last(field.clone(), safe, value)
+
+    obs_pt = torch.where(alloc, new_ids, slot_pt.long()).to(torch.int32)
+
+    def row(field, value):
+        out = field.clone()
+        out[k] = value
+        return out
+
+    new_m = m._replace(
+        kf_pose=row(m.kf_pose, pose),
+        kf_valid=row(m.kf_valid, torch.ones((), dtype=torch.bool,
+                                            device=dev)),
+        kf_timestamp=row(m.kf_timestamp, frame.timestamp),
+        kf_uv=row(m.kf_uv, frame.uv),
+        kf_depth=row(m.kf_depth, frame.depth),
+        kf_level=row(m.kf_level, frame.level),
+        kf_angle=row(m.kf_angle, frame.angle),
+        kf_desc=row(m.kf_desc, frame.desc),
+        kf_kp_valid=row(m.kf_kp_valid, frame.valid),
+        kf_obs_pt=row(m.kf_obs_pt, obs_pt),
+        kf_seq=row(m.kf_seq, m.n_kf),
+        pt_pos=put(m.pt_pos, torch.where(alloc[:, None], p_world,
+                                         m.pt_pos[safe])),
+        pt_valid=put(m.pt_valid, alloc | m.pt_valid[safe]),
+        pt_desc=put(m.pt_desc, torch.where(alloc[:, None], frame.desc,
+                                           m.pt_desc[safe])),
+        pt_first_kf=put(m.pt_first_kf, torch.where(
+            alloc, torch.full((), k, dtype=torch.int32, device=dev),
+            m.pt_first_kf[safe])),
+        pt_first_seq=put(m.pt_first_seq, torch.where(
+            alloc, m.n_kf, m.pt_first_seq[safe])),
+        # reused point slots must not inherit the culled point's stats
+        pt_visible=put(m.pt_visible, torch.where(
+            alloc, torch.ones_like(m.pt_visible[safe]), m.pt_visible[safe])),
+        pt_found=put(m.pt_found, torch.where(
+            alloc, torch.ones_like(m.pt_found[safe]), m.pt_found[safe])),
+        n_kf=m.n_kf + 1,
+        n_pt=m.n_pt + alloc.sum(dtype=torch.int32),
+    )
+    return new_m, k, evicted
+
+
+def apply_found_stats(m: MapState, slot_pts: torch.Tensor,
+                      vis_pts: torch.Tensor | None = None) -> MapState:
+    """Fold batches of per-frame match tables (B, F) into the found
+    counters and visibility tables (B, n_local) into the visible counters
+    (MapPoint::IncreaseFound/IncreaseVisible, accumulated lazily)."""
+    flat = slot_pts.reshape(-1)
+    pt_found = m.pt_found.scatter_add(
+        0, torch.clamp(flat, min=0).long(), (flat >= 0).to(torch.int32))
+    pt_visible = m.pt_visible
+    if vis_pts is not None:
+        vflat = vis_pts.reshape(-1)
+        pt_visible = pt_visible.scatter_add(
+            0, torch.clamp(vflat, min=0).long(), (vflat >= 0).to(torch.int32))
+    return m._replace(pt_found=pt_found, pt_visible=pt_visible)
+
+
+def fuse_observations(m: MapState, kf_id: int, cam_K: torch.Tensor,
+                      n_local: int = 4096, radius: float = 4.0) -> MapState:
+    """Link map points seen by covisible keyframes to this keyframe's
+    unassociated keypoints (the observation-completing half of
+    LocalMapping::SearchInNeighbors): one projection + window match
+    (kernel K5), then a scatter-max."""
+    counts = covisibility_counts(m, kf_id)
+    _, top_kfs = topk_stable(counts, 8)
+    kf_mask = counts[top_kfs] > 0
+    pmask = observed_mask(m, top_kfs, kf_mask) & m.pt_valid
+    ids = compact_true(pmask, n_local)
+    lvalid = ids >= 0
+    safe = torch.clamp(ids, min=0)
+    xw = m.pt_pos[safe]
+    p_cam = lie.se3_apply(m.kf_pose[kf_id], xw)
+    uv_pred = cameras.project_pinhole(cam_K, p_cam).contiguous()
+    vis = (p_cam[:, 2] > 0.05) & lvalid
+    free = m.kf_kp_valid[kf_id] & (m.kf_obs_pt[kf_id] < 0)
+    match, _ = match_window(
+        m.pt_desc[safe].contiguous(), uv_pred, vis,
+        m.kf_desc[kf_id].contiguous(), m.kf_uv[kf_id].contiguous(), free,
+        radius=radius,
+    )
+    ok = match >= 0
+    slot = torch.where(ok, match, m.F - 1).long()
+    new_obs = m.kf_obs_pt[kf_id].scatter_reduce(
+        0, slot, torch.where(ok, ids, -1).to(torch.int32), "amax")
+    kf_obs_pt = m.kf_obs_pt.clone()
+    kf_obs_pt[kf_id] = new_obs
+    return m._replace(kf_obs_pt=kf_obs_pt)
+
+
+def cull_keyframes(m: MapState, kf_id: int, redundancy: float = 0.9):
+    """Retire the first covisible keyframe >90% of whose points are seen by
+    >=3 other keyframes (KeyFrameCulling, LocalMapping.cc:898); keyframe 0
+    and ``kf_id`` survive.  Returns (map, dropped slot or -1 as a device
+    int32)."""
+    nobs = point_obs_count(m)
+    counts = covisibility_counts(m, kf_id)
+    candidate = (counts > 0) & m.kf_valid
+    candidate[0].fill_(False)
+    candidate[kf_id].fill_(False)
+    obs = m.kf_obs_pt
+    safe = torch.clamp(obs, min=0).long()
+    ok = m.kf_kp_valid & (obs >= 0) & m.pt_valid[safe]
+    redundant_obs = ok & (nobs[safe] >= 4)
+    n_obs_kf = ok.sum(1)
+    n_red = redundant_obs.sum(1)
+    ratio = n_red.to(torch.float32) / torch.clamp(n_obs_kf, min=1).to(
+        torch.float32)
+    drop = candidate & (ratio > redundancy) & (n_obs_kf > 0)
+    first_drop = torch.argmax(drop.to(torch.int32))
+    do = drop.any()
+    m = retire_keyframe(m, first_drop, do)
+    return m, torch.where(do, first_drop, -1).to(torch.int32)
+
+
+def cull_points(m: MapState, min_obs: int = 2,
+                min_found_ratio: float = 0.25) -> MapState:
+    """Drop points observed by fewer than ``min_obs`` keyframes once they
+    are 3 keyframes old, or recently created points whose found/visible
+    ratio collapsed (MapPointCulling, LocalMapping.cc:341)."""
+    nobs = point_obs_count(m)
+    age = m.n_kf - m.pt_first_seq
+    ratio = m.pt_found.to(torch.float32) / torch.clamp(
+        m.pt_visible.to(torch.float32), min=1.0)
+    low_ratio = (age <= 3) & (m.pt_visible >= 8) & (ratio < min_found_ratio)
+    bad = m.pt_valid & (((age >= 3) & (nobs < min_obs)) | low_ratio)
+    obs = m.kf_obs_pt
+    linked_bad = (obs >= 0) & bad[torch.clamp(obs, min=0).long()]
+    return m._replace(
+        pt_valid=m.pt_valid & ~bad,
+        pt_freed_seq=torch.where(bad, m.n_kf, m.pt_freed_seq),
+        kf_obs_pt=torch.where(linked_bad, -1, obs),
+    )

@@ -1,0 +1,545 @@
+"""Host-side SLAM facade: the single-writer tracking + mapping loop.
+
+Port of the RGB-D, non-inertial, ``pipeline_depth=1`` path of
+``visual_sgraphs_tpu/slam/system.py`` (System::TrackRGBD, Tracking.cc
+state machine):
+
+1. the first frame initialises the map (``_initialize``: the origin
+   keyframe, every depth-valid keypoint a map point) into a host-chosen
+   keyframe slot;
+2. every later frame runs the tracking step (ORB, prediction, coarse /
+   retry / fine tracking) and, one frame later, its host decisions
+   (``_resolve_pending``): trajectory row, keyframe policy;
+3. a keyframe runs the keyframe program (insert, fuse, cull, local BA)
+   and leaves a slot board that the next keyframe checks;
+4. ``frame_poses`` / ``positions`` recompose the trajectory against the
+   current keyframe poses, re-basing rows of retired keyframes through the
+   retirement ledger.
+
+The step reads one packed vector back per frame (two when it retries);
+``host_readbacks`` counts every device-to-host read the loop makes.  Not
+ported yet, and raising ``NotImplementedError`` where the path would reach
+them: the B-frame pipeline, loop closing, the scene graph, mono / stereo /
+inertial input, the Atlas (stash / merge / relocalisation) and the generic
+LM local BA of the recovery keyframe.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+import numpy as np
+import torch
+
+from visual_sgraphs_tpu_torch.config import Sensor, SystemConfig
+from visual_sgraphs_tpu_torch.core import lie
+from visual_sgraphs_tpu_torch.slam import mapping, tracking
+from visual_sgraphs_tpu_torch.slam.frame import FrameObs, make_frame_obs
+from visual_sgraphs_tpu_torch.slam.kf_program import make_kf_program
+from visual_sgraphs_tpu_torch.slam.map_state import MapState, empty_map
+from visual_sgraphs_tpu_torch.utils.events import EventLog
+from visual_sgraphs_tpu_torch.utils.timing import StageTimers
+
+
+class TrackState(enum.Enum):
+    NOT_INITIALIZED = 0
+    OK = 1
+    RECENTLY_LOST = 2
+    LOST = 3
+
+
+# numpy SE3 helpers for export-time trajectory recomposition
+def _np_qmul(q, p):
+    qw, qx, qy, qz = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    pw, px, py, pz = p[..., 0], p[..., 1], p[..., 2], p[..., 3]
+    return np.stack([
+        qw * pw - qx * px - qy * py - qz * pz,
+        qw * px + qx * pw + qy * pz - qz * py,
+        qw * py - qx * pz + qy * pw + qz * px,
+        qw * pz + qx * py - qy * px + qz * pw,
+    ], axis=-1)
+
+
+def _np_qrot(q, v):
+    u = q[..., 1:4]
+    w = q[..., 0:1]
+    uv = np.cross(u, v)
+    return v + 2.0 * (w * uv + np.cross(u, uv))
+
+
+def _np_se3_mul(A, B):
+    q = _np_qmul(A[..., :4], B[..., :4])
+    t = _np_qrot(A[..., :4], B[..., 4:7]) + A[..., 4:7]
+    q = q / np.maximum(np.linalg.norm(q, axis=-1, keepdims=True), 1e-12)
+    return np.concatenate([q, t], axis=-1)
+
+
+def _velocity_of(new, last):
+    return lie.se3_normalize(lie.se3_multiply(new, lie.se3_inverse(last)))
+
+
+class SlamSystem:
+    """Single-session SLAM over an RGB-D stream, on ``device``."""
+
+    def __init__(self, config: SystemConfig = SystemConfig(),
+                 device: torch.device | str = "cpu"):
+        t = config.tracking
+        fx_scale = config.camera.fx / t.match_radius_ref_fx
+        if abs(fx_scale - 1.0) > 0.05:
+            # match windows are angular: pixels at the reference focal
+            # length, scaled to the live camera
+            config = dataclasses.replace(config, tracking=dataclasses.replace(
+                t,
+                match_radius_coarse=t.match_radius_coarse * fx_scale,
+                match_radius_fine=t.match_radius_fine * fx_scale,
+            ))
+        for unsupported, what in (
+            (config.sensor != Sensor.RGBD, "non-RGB-D sensors"),
+            (config.tracking.pipeline_depth > 1, "the B-frame pipeline"),
+            (config.loop_closing, "loop closing"),
+            (not config.mapping.fast_ba, "the generic LM local BA"),
+        ):
+            if unsupported:
+                raise NotImplementedError(f"SlamSystem: {what} not ported yet")
+        self.cfg = config
+        self.device = torch.device(device)
+        self.cam_K = torch.from_numpy(config.camera.K).to(self.device)
+        self.cam_bf = torch.full((), config.camera.bf, dtype=torch.float32,
+                                 device=self.device)
+        self.map: MapState = empty_map(config.capacity, config.orb,
+                                       self.device)
+        self.state = TrackState.NOT_INITIALIZED
+        self.last_pose = lie.se3_identity(device=self.device)
+        self.velocity = lie.se3_identity(device=self.device)
+        # the reference keyframe slot; the host chooses every slot, so it
+        # never needs to read this back
+        self.ref_kf_host = 0
+        self.n_kf_host = 0
+        K = config.capacity.max_keyframes
+        self._kf_valid_mirror = np.zeros(K, bool)
+        self._kf_seq_mirror = np.full(K, -1, np.int64)
+        self.frames_since_kf = 0
+        self.last_kf_inliers = 1
+        self.peak_inliers = 1
+        # (timestamp, epoch, ref_kf_slot, ref_kf_seq, T_rel, tracked): frame
+        # poses relative to their reference keyframe, recomposed at export
+        self.trajectory: list[tuple] = []
+        self.epoch = 0
+        self.lost_frames = 0
+        self._last_ts: float | None = None
+        self.timers = StageTimers(config.profile, config.profile_sync)
+        self.events = EventLog(verbose=config.verbose_events)
+        self.host_readbacks = 0
+        self._pending = None
+        self._stats_buf: list = []
+        self._kf_counter = 0
+        self._serial_board = None
+        self._step = tracking.make_frame_step(
+            config.camera, config.orb, config.mapping.local_window, 4096,
+            config.tracking.match_radius_coarse,
+            config.tracking.match_radius_fine, True)
+        mc = config.mapping
+        self._kf_program = make_kf_program(
+            None, False, mc.local_window, mc.lba_iters,
+            mc.point_cull_min_obs, mc.point_cull_min_found_ratio,
+            mc.kf_cull_redundancy, 10, 3, self._pt_quarantine())
+
+    # ------------------------------------------------------------------ api
+
+    def track_rgbd(self, gray, depth, timestamp: float) -> torch.Tensor:
+        """Process one RGB-D frame; returns T_cw (7,) (System::TrackRGBD).
+        ``gray`` / ``depth``: (H, W) arrays or tensors, moved to the
+        system's device."""
+        gray = torch.as_tensor(gray, dtype=torch.float32, device=self.device)
+        depth = torch.as_tensor(depth, dtype=torch.float32,
+                                device=self.device)
+        if self.state == TrackState.OK:
+            # one tracking step now, the previous frame's host decisions
+            # after it (the reference's one-frame-deferred resolution)
+            return self._track_fused(gray, depth, timestamp)
+        self.flush()
+        frame = make_frame_obs(gray, depth, timestamp, self.cfg.camera,
+                               self.cfg.orb)
+        return self._track(frame, timestamp)
+
+    # ------------------------------------------------------------- internals
+
+    def _read(self, t: torch.Tensor) -> np.ndarray:
+        """Device-to-host read (counted)."""
+        self.host_readbacks += 1
+        return t.cpu().numpy()
+
+    def _track_fused(self, gray, depth, timestamp: float):
+        t = self.cfg.tracking
+        ts = float(timestamp)
+        self._last_ts = ts
+        with self.timers.stage("track_dispatch"):
+            frame, res, pose_sel, vel_sel, T_rel, packed, n_read = self._step(
+                self.map, gray, depth, ts, self.last_pose, self.velocity,
+                self.ref_kf_host, self.cam_K, t.min_inliers_ok, self.cam_bf,
+                self.timers)
+        self.host_readbacks += n_read
+        self.last_pose = pose_sel
+        self.velocity = vel_sel
+        prev = self._pending
+        self._pending = {
+            "ts": ts, "frame": frame, "res": res, "T_rel": T_rel,
+            "packed": packed, "ref_host": self.ref_kf_host,
+            "ref_seq": self._ref_seq(self.ref_kf_host), "epoch": self.epoch,
+        }
+        if prev is not None:
+            self._resolve_pending(prev)
+        return self.last_pose
+
+    def _pt_quarantine(self) -> int:
+        return max(3, self.cfg.tracking.pipeline_depth)
+
+    def _host_alloc_kf_slot(self) -> int:
+        """Choose the next keyframe slot from the host mirror (first free
+        slot; else evict the oldest non-anchor)."""
+        free = np.flatnonzero(~self._kf_valid_mirror)
+        if free.size:
+            slot = int(free[0])
+        else:
+            seqs = self._kf_seq_mirror.copy()
+            seqs[0] = np.iinfo(np.int64).max  # slot 0 = gauge anchor
+            if self.ref_kf_host < len(seqs):
+                seqs[self.ref_kf_host] = np.iinfo(np.int64).max
+            slot = int(np.argmin(seqs))
+            self.events.emit("capacity_evict", slot=slot,
+                             seq=int(self._kf_seq_mirror[slot]))
+        self._kf_valid_mirror[slot] = True
+        self._kf_seq_mirror[slot] = self.n_kf_host
+        self.n_kf_host += 1
+        return slot
+
+    def _sync_kf_mirror(self) -> None:
+        self._kf_valid_mirror = self._read(self.map.kf_valid).copy()
+        self._kf_seq_mirror = self._read(self.map.kf_seq).astype(np.int64)
+
+    def _ref_seq(self, slot: int) -> int:
+        if 0 <= slot < len(self._kf_seq_mirror):
+            return int(self._kf_seq_mirror[slot])
+        return -1
+
+    def _verify_slot_board(self, expected_kf, expected_n_kf, board) -> None:
+        """Check the device's keyframe slot against the host's choice and
+        fold the device-side cull into the validity mirror."""
+        bd = self._read(board)
+        culled = int(bd[3])
+        if culled >= 0:
+            self._kf_valid_mirror[culled] = False
+            self.events.emit("kf_culled", slot=culled)
+        dev_kf, dev_n_kf = int(bd[0]), int(bd[1])
+        if dev_kf == expected_kf and dev_n_kf == expected_n_kf:
+            return
+        self.events.emit("slot_divergence", host_kf=expected_kf,
+                         dev_kf=dev_kf, host_n_kf=expected_n_kf,
+                         dev_n_kf=dev_n_kf)
+        if self.cfg.strict_slot_check:
+            raise RuntimeError(
+                f"host/device keyframe slot divergence: host slot "
+                f"{expected_kf} (n_kf {expected_n_kf}) vs device slot "
+                f"{dev_kf} (n_kf {dev_n_kf})")
+        self.n_kf_host = dev_n_kf
+        if self.ref_kf_host == expected_kf:
+            self.ref_kf_host = dev_kf
+        self._sync_kf_mirror()
+        self.n_kf_host = max(self.n_kf_host,
+                             int(self._kf_seq_mirror.max()) + 1)
+
+    def _resolve_pending(self, p) -> None:
+        """Apply frame ``p``'s host-side decisions (its counters are
+        already on the host)."""
+        t = self.cfg.tracking
+        with self.timers.stage("track_resolve"):
+            n_inl = int(p["packed"][1])
+        accepted = n_inl >= t.min_inliers_ok
+        self.trajectory.append((p["ts"], p["epoch"], p["ref_host"],
+                                p["ref_seq"], p["T_rel"], accepted))
+        if accepted:
+            self.state = TrackState.OK
+            self.lost_frames = 0
+            self.peak_inliers = max(self.peak_inliers, n_inl)
+            self._stats_buf.append((p["res"].slot_pt, p["res"].vis_pt))
+            if self._need_keyframe(n_inl):
+                with self.timers.stage("kf_insert"):
+                    self._insert_keyframe_fused(p["frame"], p["res"], n_inl)
+            return
+        # lost handling (Tracking.cc:2024-2098); no relocalisation yet
+        self.state = TrackState.RECENTLY_LOST
+        self.velocity = lie.se3_identity(device=self.device)
+        self.lost_frames += 1
+        budget = int(t.recently_lost_budget * self.cfg.camera.fps)
+        if self.lost_frames >= budget:
+            self._new_map()
+
+    def flush(self) -> None:
+        """Resolve the in-flight frame decision (call before reading
+        host-visible state such as the trajectory)."""
+        p, self._pending = self._pending, None
+        if p is not None:
+            self._resolve_pending(p)
+        if self._serial_board is not None:
+            board, self._serial_board = self._serial_board, None
+            self._verify_slot_board(*board)
+
+    def _abort_pending(self) -> None:
+        """Record an in-flight frame whose map is being replaced as
+        untracked, so the trajectory stays frame-aligned."""
+        p, self._pending = self._pending, None
+        if p is not None:
+            self.trajectory.append((p["ts"], p["epoch"], p["ref_host"],
+                                    p["ref_seq"], p["T_rel"], False))
+        self._stats_buf = []
+        self._serial_board = None
+
+    def _stacked_stats(self):
+        """((B, F), (B, n_local)) -1-padded batches of the per-frame match
+        and visibility tables since the last keyframe."""
+        F = self.map.F
+        B = 32  # static bucket (kf_max_interval is 30)
+        buf, self._stats_buf = self._stats_buf, []
+        if not buf:
+            return torch.full((B, F), -1, dtype=torch.int32,
+                              device=self.device), None
+        slots = torch.stack([s for s, _ in buf])[-B:]
+        vis = torch.stack([v for _, v in buf])[-B:]
+        nrow = slots.shape[0]
+        if nrow < B:
+            slots = torch.cat([slots, torch.full(
+                (B - nrow, F), -1, dtype=torch.int32, device=self.device)])
+            vis = torch.cat([vis, torch.full(
+                (B - nrow, vis.shape[1]), -1, dtype=torch.int32,
+                device=self.device)])
+        return slots, vis
+
+    def _insert_keyframe_fused(self, frame: FrameObs,
+                               res: tracking.TrackResult, n_inl: int):
+        """Keyframe path (slam/kf_program.py).  ``lba_interval`` /
+        ``cull_interval`` skip the heavy stages on intermediate keyframes
+        (the reference's LBA is likewise aborted under load)."""
+        mc = self.cfg.mapping
+        self._kf_counter += 1
+        do_lba = (self._kf_counter % mc.lba_interval) == 0
+        do_cull = (self._kf_counter % mc.cull_interval) == 0
+        stats_slots, stats_vis = self._stacked_stats()
+        if stats_vis is None:
+            stats_vis = torch.full((stats_slots.shape[0], 1), -1,
+                                   dtype=torch.int32, device=self.device)
+        if self._serial_board is not None:
+            # the previous keyframe's board: long finished on the device
+            prev_board, self._serial_board = self._serial_board, None
+            self._verify_slot_board(*prev_board)
+        kf_slot = self._host_alloc_kf_slot()
+        with self.timers.stage("kf_program", sync_on=self.map.n_kf):
+            new_map, kf, board = self._kf_program(
+                self.map, frame, res.pose, res.slot_pt, kf_slot,
+                stats_slots, stats_vis, self.cam_K, self.cam_bf, do_lba,
+                do_cull)
+        self.map = new_map
+        self._serial_board = (kf_slot, self.n_kf_host, board)
+        self.events.emit("keyframe", kf=kf_slot, n_inliers=n_inl,
+                         lba=do_lba, cull=do_cull)
+        self.ref_kf_host = kf_slot
+        self.frames_since_kf = 0
+        self.last_kf_inliers = max(n_inl, 1)
+        self.peak_inliers = self.last_kf_inliers
+        if self._pending is None:
+            # no newer frame in flight: re-anchor on the BA-adjusted pose
+            self.last_pose = self.map.kf_pose[kf_slot]
+
+    def _track(self, frame: FrameObs, timestamp):
+        ts = float(timestamp)
+        if self.state == TrackState.NOT_INITIALIZED:
+            self._initialize(frame)
+            self._record(ts)
+            return self.last_pose
+        t = self.cfg.tracking
+        T_pred = lie.se3_normalize(lie.se3_multiply(self.velocity,
+                                                    self.last_pose))
+        res, map_stats, packed = tracking.track_frame_full(
+            self.map, frame, T_pred, self.last_pose, self.ref_kf_host,
+            self.cam_K, t.min_inliers_ok,
+            n_window=self.cfg.mapping.local_window,
+            fx_radius=t.match_radius_coarse, fine_radius=t.match_radius_fine,
+            cam_bf=self.cam_bf,
+            img_wh=(self.cfg.camera.width, self.cfg.camera.height))
+        self.host_readbacks += 1 + int(packed[3])
+        n_inl = int(packed[1])
+        if n_inl >= t.min_inliers_ok:
+            recovered = self.state != TrackState.OK
+            self.state = TrackState.OK
+            self.lost_frames = 0
+            new_pose = lie.se3_normalize(res.pose)
+            self.velocity = _velocity_of(new_pose, self.last_pose)
+            self._last_ts = ts
+            self.last_pose = new_pose
+            self.map = map_stats
+            self.peak_inliers = max(self.peak_inliers, n_inl)
+            if recovered or self._need_keyframe(n_inl):
+                self._insert_keyframe(frame, res, n_inl)
+        else:
+            self.state = (TrackState.RECENTLY_LOST
+                          if self.state in (TrackState.OK,
+                                            TrackState.RECENTLY_LOST)
+                          else TrackState.LOST)
+            self.velocity = lie.se3_identity(device=self.device)
+            self.lost_frames += 1
+            budget = int(t.recently_lost_budget * self.cfg.camera.fps)
+            if self.lost_frames >= budget:
+                self._new_map()
+        self._record(ts)
+        return self.last_pose
+
+    def _new_map(self, stash: bool = True):
+        """Restart tracking on a fresh map (CreateMapInAtlas)."""
+        if stash and self.n_kf_host >= 5:
+            raise NotImplementedError(
+                "SlamSystem._new_map: stashing the lost map in the Atlas is "
+                "not ported yet")
+        self._abort_pending()
+        self.map = empty_map(self.cfg.capacity, self.cfg.orb, self.device)
+        self.state = TrackState.NOT_INITIALIZED
+        self.last_pose = lie.se3_identity(device=self.device)
+        self.velocity = lie.se3_identity(device=self.device)
+        self.ref_kf_host = 0
+        self.n_kf_host = 0
+        self._kf_valid_mirror[:] = False
+        self._kf_seq_mirror[:] = -1
+        self.lost_frames = 0
+        self.peak_inliers = 1
+
+    def _initialize(self, frame: FrameObs):
+        """StereoInitialization (Tracking.cc:2396): the first frame is the
+        origin keyframe; every depth-valid keypoint becomes a map point."""
+        if not bool(self._read(torch.any(frame.depth > 0))):
+            raise NotImplementedError(
+                "SlamSystem: initialisation without depth (monocular "
+                "two-view bootstrap) is not ported yet")
+        pose = lie.se3_identity(device=self.device)
+        slot_pt = torch.full((frame.uv.shape[0],), -1, dtype=torch.int32,
+                             device=self.device)
+        kf_host = self._host_alloc_kf_slot()
+        self.map, kf, _ = mapping.insert_keyframe(
+            self.map, frame, pose, slot_pt, self.cam_K, slot=kf_host)
+        n_pts = int(self._read(self.map.n_pt))
+        if n_pts >= 100:
+            self.ref_kf_host = kf_host
+            self.last_pose = pose
+            self.state = TrackState.OK
+            self.frames_since_kf = 0
+            self.last_kf_inliers = n_pts
+
+    def _need_keyframe(self, n_inliers: int) -> bool:
+        """NeedNewKeyFrame (Tracking.cc:3133): minimum spacing, decay of
+        tracked inliers relative to the peak since the last keyframe, an
+        absolute floor and a maximum interval."""
+        t = self.cfg.tracking
+        self.frames_since_kf += 1
+        if self.frames_since_kf < t.kf_min_interval:
+            return False
+        if self.frames_since_kf >= t.kf_max_interval:
+            return True
+        if n_inliers < 3 * t.min_inliers_ok:
+            return True
+        return n_inliers < t.kf_min_tracked_ratio * self.peak_inliers
+
+    def _insert_keyframe(self, frame: FrameObs, res, n_inl: int = 0):
+        raise NotImplementedError(
+            "SlamSystem._insert_keyframe: the recovery keyframe's local BA "
+            "runs on the generic LM engine (mapping.local_ba), which is not "
+            "ported yet")
+
+    def _record(self, ts: float):
+        T_rel = _velocity_of(self.last_pose, self.map.kf_pose[self.ref_kf_host])
+        self.trajectory.append((ts, self.epoch, self.ref_kf_host,
+                                self._ref_seq(self.ref_kf_host), T_rel,
+                                self.state == TrackState.OK))
+
+    # ------------------------------------------------------------- exports
+
+    def _ledger_tables(self, m: MapState):
+        """Host-side (alive seq -> slot, retired seq -> (parent_seq, T_cp))."""
+        kf_seq = self._read(m.kf_seq)
+        kf_valid = self._read(m.kf_valid)
+        alive = {int(kf_seq[s]): s for s in range(len(kf_seq))
+                 if kf_valid[s] and kf_seq[s] >= 0}
+        ln = int(self._read(m.led_n))
+        led_seq = self._read(m.led_seq)[:ln]
+        led_parent = self._read(m.led_parent_seq)[:ln]
+        led_T = self._read(m.led_T_cp)[:ln].astype(np.float64)
+        ledger = {int(led_seq[i]): (int(led_parent[i]), led_T[i])
+                  for i in range(ln)}
+        return alive, ledger
+
+    @staticmethod
+    def _resolve_retired(seq: int, alive: dict, ledger: dict, memo: dict):
+        """Walk the retirement ledger from ``seq`` to an alive keyframe,
+        accumulating the relative-pose chain.  Returns (slot, T_acc) or
+        None."""
+        if seq in memo:
+            return memo[seq]
+        T_acc = np.array([1.0, 0, 0, 0, 0, 0, 0])
+        s = seq
+        for _ in range(len(ledger) + 1):
+            if s in alive:
+                memo[seq] = (alive[s], T_acc)
+                return memo[seq]
+            e = ledger.get(s)
+            if e is None:
+                break
+            parent, T_cp = e
+            T_acc = _np_se3_mul(T_acc, T_cp)
+            s = parent
+        memo[seq] = None
+        return None
+
+    def frame_poses(self) -> np.ndarray:
+        """(T, 7) current-best T_cw per recorded frame: relative poses
+        recomposed against the current keyframe poses; rows of retired
+        keyframes re-base through the ledger."""
+        self.flush()
+        if not self.trajectory:
+            return np.zeros((0, 7), np.float32)
+        rels = self._read(torch.stack([r[4] for r in self.trajectory])
+                          ).astype(np.float64)
+        refs = np.asarray([r[2] for r in self.trajectory])
+        seqs = np.asarray([r[3] for r in self.trajectory])
+        pose = self._read(self.map.kf_pose).astype(np.float64)
+        alive, ledger = self._ledger_tables(self.map)
+        memo: dict = {}
+        K = pose.shape[0]
+        bases = np.zeros((len(self.trajectory), 7))
+        for i in range(len(self.trajectory)):
+            s = int(seqs[i])
+            if s in alive:
+                bases[i] = pose[alive[s]]
+                continue
+            res = self._resolve_retired(s, alive, ledger, memo) \
+                if s >= 0 else None
+            if res is not None:
+                slot, T_acc = res
+                rels[i] = _np_se3_mul(rels[i], T_acc)
+                bases[i] = pose[slot]
+            else:
+                if s >= 0 and self.trajectory[i][5]:
+                    # unresolvable chain: the slot may hold an unrelated
+                    # reused keyframe, so the row is untracked
+                    self.trajectory[i] = self.trajectory[i][:5] + (False,)
+                bases[i] = pose[min(max(int(refs[i]), 0), K - 1)]
+        return _np_se3_mul(rels, bases).astype(np.float32)
+
+    def positions(self) -> np.ndarray:
+        """(T, 3) camera centres in the world frame (all frames; mask with
+        ``tracked_mask()`` for evaluation)."""
+        poses = self.frame_poses()
+        if poses.shape[0] == 0:
+            return np.zeros((0, 3))
+        return lie.se3_inverse(torch.from_numpy(poses))[:, 4:7].numpy()
+
+    def tracked_mask(self) -> np.ndarray:
+        """(T,) bool — frames with a real pose estimate."""
+        self.flush()
+        return np.asarray([r[-1] for r in self.trajectory], bool)

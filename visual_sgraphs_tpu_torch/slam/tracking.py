@@ -1,0 +1,337 @@
+"""Tracking: local-map matching + motion-only pose solve (kernel K6).
+
+Port of ``visual_sgraphs_tpu/slam/tracking.py`` (Tracking::Track's
+TrackWithMotionModel / TrackLocalMap / PoseOptimization): gather the local
+map of the reference keyframe's covisibility neighbourhood, window-match it
+against the frame's keypoints at the predicted pose (kernel K5), solve the
+pose (kernel K6), then re-match tighter at the refined pose and solve
+again.  When too few inliers survive, the same two passes re-run from the
+last good pose with 4x / 2x windows.
+
+The reference decides that retry on the device (``lax.cond``).  The port
+runs eagerly, so it reads the first attempt's three counters back to the
+host (one readback per frame) and decides there; the same host copy then
+serves the keyframe policy, so no second readback is needed.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from visual_sgraphs_tpu_torch import cuda
+from visual_sgraphs_tpu_torch.core import cameras, lie
+from visual_sgraphs_tpu_torch.features.match import match_window
+from visual_sgraphs_tpu_torch.slam.frame import FrameObs, make_frame_obs
+from visual_sgraphs_tpu_torch.slam.map_state import (
+    MapState,
+    compact_true,
+    covisibility_counts,
+    observed_mask,
+)
+
+CHI2_MONO = 5.991
+
+
+class TrackResult(NamedTuple):
+    pose: torch.Tensor  # (7,) optimized T_cw
+    slot_pt: torch.Tensor  # (F,) int32 map-point id per frame keypoint, -1
+    vis_pt: torch.Tensor  # (n_local,) int32 point ids predicted visible, -1
+    n_matches: torch.Tensor  # () int32 matches fed to the solver
+    n_inliers: torch.Tensor  # () int32 inliers after gating
+    n_local_pts: torch.Tensor  # () int32 size of the local map used
+
+
+def topk_stable(x: torch.Tensor, k: int):
+    """1-D top-k with lax.top_k's tie order (lower index first)."""
+    vals, idx = torch.sort(x, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
+def _local_point_table(m: MapState, ref_kf: int, n_window: int,
+                       n_local: int):
+    """(ids, safe, valid) compact table of the points seen by the
+    covisibility neighbourhood of ``ref_kf`` (UpdateLocalKeyFrames/Points,
+    Tracking.cc:3536/3507).  ``ids`` ascending, -1 padded."""
+    counts = covisibility_counts(m, ref_kf)
+    top_counts, top_kfs = topk_stable(counts, n_window)
+    dev = counts.device
+    kf_ids = torch.cat([torch.full((1,), ref_kf, device=dev), top_kfs])
+    kf_mask = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
+                         top_counts > 0]) & m.kf_valid[kf_ids]
+    mask = observed_mask(m, kf_ids, kf_mask) & m.pt_valid
+    ids = compact_true(mask, n_local)
+    valid = ids >= 0
+    safe = torch.clamp(ids, min=0)
+    return ids.to(torch.int32), safe, valid
+
+
+def _gate_schedule(iters: int, chi2_gate: float, gate0):
+    final_gate = chi2_gate * 4.0
+    if gate0 is None or gate0 < final_gate:
+        gate0 = final_gate
+    n_wide = max(iters // 4, 1) if gate0 > final_gate else 0
+    return n_wide, float(np.float32(gate0)), float(np.float32(final_gate))
+
+
+def pose_only_gn_torch(T_init, xw, uv, valid, cam_K, iters: int = 10,
+                       chi2_gate: float = CHI2_MONO, huber: float = 2.447,
+                       gate0: float | None = None, depth=None, bf=None,
+                       T_prior=None, prior_weight: float = 0.0):
+    """Plain PyTorch twin of K6 (the reference's pose_only_gn, step for
+    step).  Returns (T (7,), inliers (M,) bool)."""
+    if xw.is_cuda:
+        pose_only_gn_torch.cuda_calls += 1
+    fx, fy = cam_K[0], cam_K[1]
+    M = xw.shape[0]
+    n_wide, g0, gf = _gate_schedule(iters, chi2_gate, gate0)
+    use_stereo = depth is not None and bf is not None
+    if use_stereo:
+        has_d = valid & (depth > 0)
+        ur_obs = uv[:, 0] - bf / torch.where(has_d, depth, 1.0)
+        w_ur = torch.clamp((2.5 / torch.clamp(depth, min=0.1)) ** 2, max=1.0)
+    eye3 = torch.eye(3, dtype=xw.dtype, device=xw.device).expand(M, 3, 3)
+    T = T_init
+    for it in range(iters):
+        gate = g0 if it < n_wide else gf
+        R = lie.quat_to_matrix(T[:4])
+        p = xw @ R.T + T[4:7]
+        z = torch.clamp(p[:, 2], min=1e-6)
+        inv_z = 1.0 / z
+        u_hat = fx * p[:, 0] * inv_z + cam_K[2]
+        v_hat = fy * p[:, 1] * inv_z + cam_K[3]
+        res = [u_hat - uv[:, 0], v_hat - uv[:, 1]]
+        if use_stereo:
+            ur_hat = u_hat - bf * inv_z
+            res.append(torch.where(has_d, (ur_hat - ur_obs) * w_ur, 0.0))
+        r = torch.stack(res, dim=1)
+        chi2 = torch.sum(r * r, dim=1)
+        ok = valid & (p[:, 2] > 0.05)
+        s = torch.sqrt(torch.clamp(chi2, min=1e-12))
+        w = torch.where(ok & (chi2 <= gate),
+                        torch.clamp(huber / s, max=1.0), 0.0)
+        zero = torch.zeros_like(z)
+        rows = [
+            torch.stack([fx * inv_z, zero, -fx * p[:, 0] * inv_z * inv_z], 1),
+            torch.stack([zero, fy * inv_z, -fy * p[:, 1] * inv_z * inv_z], 1),
+        ]
+        if use_stereo:
+            rows.append(torch.stack([
+                fx * inv_z, zero, (-fx * p[:, 0] + bf) * inv_z * inv_z,
+            ], 1) * (has_d * w_ur)[:, None])
+        Jp = torch.stack(rows, dim=1)
+        R_dim = Jp.shape[1]
+        Jx = torch.cat([eye3, -lie.hat(p)], dim=2)
+        J = torch.einsum("mij,mjk->mik", Jp, Jx)
+        Jw = J * w[:, None, None]
+        H = Jw.reshape(M * R_dim, 6).T @ J.reshape(M * R_dim, 6)
+        g = torch.einsum("mri,mr->i", Jw, r)
+        if T_prior is not None and prior_weight > 0.0:
+            r_p = lie.se3_log(lie.se3_multiply(T, lie.se3_inverse(T_prior)))
+            H = H + torch.eye(6, dtype=H.dtype, device=H.device) * prior_weight
+            g = g + prior_weight * r_p
+        H = H + torch.eye(6, dtype=H.dtype, device=H.device) * 1e-3
+        dx = torch.linalg.solve_ex(H, -g)[0]
+        dx = torch.where(torch.isfinite(dx), dx, 0.0)
+        T = lie.se3_normalize(lie.se3_boxplus(T, dx))
+    p = lie.se3_apply(T, xw)
+    uv_hat = cameras.project_pinhole(cam_K, p)
+    chi2 = torch.sum((uv_hat - uv) ** 2, dim=1)
+    inl = valid & (p[:, 2] > 0.05) & (chi2 <= chi2_gate)
+    return T, inl
+
+
+pose_only_gn_torch.cuda_calls = 0
+
+
+def pose_only_gn(T_init, xw, uv, valid, cam_K, iters: int = 10,
+                 chi2_gate: float = CHI2_MONO, huber: float = 2.447,
+                 gate0: float | None = None, depth=None, bf=None,
+                 T_prior=None, prior_weight: float = 0.0):
+    """Motion-only Gauss-Newton (PoseOptimization, Optimizer.cc:1063):
+    kernel K6 on CUDA tensors, the plain twin on CPU tensors.  ``depth`` /
+    ``bf`` add the RGB-D stereo row.  Returns (T (7,), inliers (M,) bool)."""
+    if xw.device.type == "cpu":
+        return pose_only_gn_torch(T_init, xw, uv, valid, cam_K, iters,
+                                  chi2_gate, huber, gate0, depth, bf,
+                                  T_prior, prior_weight)
+    if T_prior is not None and prior_weight > 0.0:
+        raise NotImplementedError(
+            "pose_only_gn: the K6 kernel has no pose prior (inertial "
+            "tracking is not ported yet)")
+    use_stereo = depth is not None and bf is not None
+    tensors = [T_init, xw, uv, valid, cam_K] + (
+        [depth, bf] if use_stereo else [])
+    cuda.require_cuda("pose_only_gn", *tensors)
+    if any(t.dtype != torch.float32 for t in tensors if t is not valid) \
+            or valid.dtype != torch.bool:
+        raise ValueError("pose_only_gn: expected float32 tensors + bool mask")
+    n_wide, g0, gf = _gate_schedule(iters, chi2_gate, gate0)
+    M = xw.shape[0]
+    T_out = torch.empty((7,), dtype=torch.float32, device=xw.device)
+    inliers = torch.empty((M,), dtype=torch.bool, device=xw.device)
+    cuda.call("vsg_pose_gn", cuda.ptr(T_init), cuda.ptr(xw), cuda.ptr(uv),
+              cuda.ptr(valid), cuda.ptr(cam_K),
+              cuda.ptr(depth) if use_stereo else None,
+              cuda.ptr(bf) if use_stereo else None, M, iters, n_wide, g0, gf,
+              float(np.float32(huber)), float(np.float32(chi2_gate)),
+              cuda.ptr(T_out), cuda.ptr(inliers), cuda.stream())
+    pose_only_gn.launches += 1
+    return T_out, inliers
+
+
+pose_only_gn.launches = 0
+
+
+def _track_frame_impl(m: MapState, frame: FrameObs, T_pred, ref_kf: int,
+                      cam_K, n_window: int = 10, n_local: int = 4096,
+                      fx_radius: float = 15.0, fine_radius: float = 7.0,
+                      cam_bf=None, img_wh: tuple | None = None,
+                      local_table=None) -> TrackResult:
+    """Track one frame against the local map from predicted pose
+    ``T_pred``: coarse window match + solve, then fine re-match + solve."""
+    if local_table is None:
+        local_table = _local_point_table(m, ref_kf, n_window, n_local)
+    ids, safe, lvalid = local_table
+    xw = m.pt_pos[safe].contiguous()
+    desc = m.pt_desc[safe].contiguous()
+
+    def predict_uv(T):
+        p_cam = lie.se3_apply(T, xw)
+        uvp = cameras.project_pinhole(cam_K, p_cam)
+        vis = (p_cam[:, 2] > 0.05) & lvalid
+        if img_wh is not None:
+            w, h = img_wh
+            vis = vis & (uvp[:, 0] >= 0) & (uvp[:, 0] < w) & \
+                (uvp[:, 1] >= 0) & (uvp[:, 1] < h)
+        return uvp.contiguous(), vis
+
+    def solve(T0, match, gate0):
+        ok = match >= 0
+        slot = torch.clamp(match, min=0).long()
+        return ok, pose_only_gn(
+            T0, xw, frame.uv[slot].contiguous(), ok, cam_K, iters=12,
+            gate0=gate0,
+            depth=frame.depth[slot].contiguous() if cam_bf is not None
+            else None,
+            bf=cam_bf)
+
+    uv_pred, vis = predict_uv(T_pred)
+    match, _ = match_window(desc, uv_pred, vis, frame.desc, frame.uv,
+                            frame.valid, radius=fx_radius)
+    _, (T1, _) = solve(T_pred, match, (2.0 * fx_radius) ** 2)
+
+    uv_pred2, vis2 = predict_uv(T1)
+    match2, _ = match_window(desc, uv_pred2, vis2, frame.desc, frame.uv,
+                             frame.valid, radius=fine_radius)
+    ok2, (T2, inlier_mask) = solve(T1, match2, None)
+
+    F = frame.uv.shape[0]
+    keep = ok2 & inlier_mask
+    slot_pt = torch.full((F,), -1, dtype=torch.int32, device=ids.device)
+    slot_pt = slot_pt.scatter_reduce(
+        0, torch.where(keep, match2, F - 1).long(),
+        torch.where(keep, ids, -1), "amax")
+    vis_pt = torch.where(vis2, ids, -1)
+    return TrackResult(
+        pose=T2,
+        slot_pt=slot_pt,
+        vis_pt=vis_pt,
+        n_matches=ok2.sum(dtype=torch.int32),
+        n_inliers=keep.sum(dtype=torch.int32),
+        n_local_pts=lvalid.sum(dtype=torch.int32),
+    )
+
+
+def _packed(res: TrackResult, retried) -> torch.Tensor:
+    return torch.stack([
+        res.n_matches.to(torch.float32), res.n_inliers.to(torch.float32),
+        res.n_local_pts.to(torch.float32),
+        torch.full((), float(retried), device=res.pose.device),
+    ])
+
+
+def _track_with_retry(m: MapState, frame: FrameObs, T_pred, T_last,
+                      ref_kf: int, cam_K, min_inliers: int, n_window: int,
+                      n_local: int, fx_radius: float, fine_radius: float,
+                      cam_bf, img_wh):
+    """Coarse track at the predicted pose and, when inliers fall short,
+    the wide-window re-track from the last good pose.  Returns (result,
+    packed host (4,) float32 array [n_matches, n_inliers, n_local_pts,
+    retried], device-to-host reads made: 1, or 2 when it retried)."""
+    res = _track_frame_impl(m, frame, T_pred, ref_kf, cam_K, n_window,
+                            n_local, fx_radius, fine_radius, cam_bf, img_wh)
+    packed = _packed(res, False).cpu().numpy()
+    if packed[1] >= min_inliers:
+        return res, packed, 1
+    res = _track_frame_impl(m, frame, T_last, ref_kf, cam_K, n_window,
+                            n_local, fx_radius * 4.0, fine_radius * 2.0,
+                            cam_bf, img_wh)
+    return res, _packed(res, True).cpu().numpy(), 2
+
+
+def track_frame_full(m: MapState, frame: FrameObs, T_pred, T_last,
+                     ref_kf: int, cam_K, min_inliers: int,
+                     n_window: int = 10, n_local: int = 4096,
+                     fx_radius: float = 15.0, fine_radius: float = 7.0,
+                     cam_bf=None, img_wh: tuple | None = None):
+    """Tracking with the retry branch, with the point-stats update folded
+    in.  Returns (result, new_map, packed host (4,) float32 array
+    [n_matches, n_inliers, n_local_pts, retried])."""
+    res, packed, _ = _track_with_retry(
+        m, frame, T_pred, T_last, ref_kf, cam_K, min_inliers, n_window,
+        n_local, fx_radius, fine_radius, cam_bf, img_wh)
+    return res, update_point_stats(m, res), packed
+
+
+def make_frame_step(cam, orb, n_window: int, n_local: int, fx_radius: float,
+                    fine_radius: float, has_depth: bool) -> Callable:
+    """The per-frame step: ORB extraction + prediction + coarse/retry/fine
+    tracking + trajectory bookkeeping.
+
+    ``step(m, gray, depth_img, ts, T_last, velocity, ref_kf, cam_K,
+    min_inliers, cam_bf=None, timers=None)`` returns (frame, res, pose_sel,
+    vel_sel, T_rel, packed, n_readbacks) where ``packed`` is the host
+    (4,) float32 array [n_matches, n_inliers, n_local_pts, retried] and
+    ``n_readbacks`` the device-to-host reads the step made (1, or 2 when
+    it retried)."""
+    wh = (cam.width, cam.height)
+
+    def step(m: MapState, gray, depth_img, ts, T_last, velocity,
+             ref_kf: int, cam_K, min_inliers: int, cam_bf=None, timers=None):
+        with (timers.stage("orb_extract") if timers is not None
+              else contextlib.nullcontext()):
+            frame = make_frame_obs(gray, depth_img if has_depth else None,
+                                   ts, cam, orb)
+        T_pred = lie.se3_normalize(lie.se3_multiply(velocity, T_last))
+        res, packed, n_read = _track_with_retry(
+            m, frame, T_pred, T_last, ref_kf, cam_K, min_inliers, n_window,
+            n_local, fx_radius, fine_radius, cam_bf, wh)
+        accepted = bool(packed[1] >= min_inliers)
+        new_pose = lie.se3_normalize(res.pose)
+        pose_sel = new_pose if accepted else T_last
+        vel_sel = (lie.se3_normalize(lie.se3_multiply(
+            new_pose, lie.se3_inverse(T_last))) if accepted
+            else lie.se3_identity(device=new_pose.device))
+        T_rel = lie.se3_normalize(
+            lie.se3_multiply(pose_sel, lie.se3_inverse(m.kf_pose[ref_kf])))
+        return frame, res, pose_sel, vel_sel, T_rel, packed, n_read
+
+    return step
+
+
+def update_point_stats(m: MapState, track: TrackResult) -> MapState:
+    """Increment visible/found counters used by point culling
+    (MapPoint::IncreaseVisible/IncreaseFound)."""
+    found_ids = track.slot_pt
+    pt_found = m.pt_found.scatter_add(
+        0, torch.clamp(found_ids, min=0).long(),
+        (found_ids >= 0).to(torch.int32))
+    vis_ids = track.vis_pt
+    pt_visible = m.pt_visible.scatter_add(
+        0, torch.clamp(vis_ids, min=0).long(),
+        (vis_ids >= 0).to(torch.int32))
+    return m._replace(pt_found=pt_found, pt_visible=pt_visible)

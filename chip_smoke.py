@@ -9,17 +9,27 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    versions, nvcc version;
 2. build of the hand-written kernels (visual_sgraphs_tpu_torch/csrc) into
    build/kernels/libvsg_kernels.so, with the seconds it took;
-3. every kernel (K2 FAST+NMS, K4 ORB descriptor, K5 window matcher, K6
-   pose-only GN) against its plain PyTorch twin on the card, at the
-   slice's shapes, with kernel and twin times (CUDA events, median of 20
-   after 3 warm-ups);
-4. the slice at full size through the port's public entry point
-   (``SlamSystem.track_rgbd``): 640x480 RGB-D, 1000 ORB features,
-   128 keyframes / 32768 points, serial path, loops and scene graph off,
-   96 frames of the two-lap ``orbit2`` sequence rendered on the card; the
-   kernel launch counters are zeroed just before and read just after;
+3. every kernel against its plain PyTorch twin on the card, at the main
+   path's shapes (K2 FAST+NMS, K4 ORB descriptor, K5 window matcher, K6
+   pose-only GN, K8 Schur reduction and back-substitution, K12 depth cloud
+   + voxel downsample, K13 weighted RANSAC, K14 plane statistics), with
+   kernel and twin times (CUDA events, median of 20 after 3 warm-ups) and
+   the bytes / operations each function needs, from which its bound is
+   derived;
+4. the port's main paths at full size through its public entry point
+   (``SlamSystem.track_rgbd``), 640x480 RGB-D, 1000 ORB features,
+   128 keyframes / 32768 points, serial path, loops off, 96 frames of the
+   two-lap ``orbit2`` sequence rendered on the card:
+   a. scene graph off (the tracking + local-mapping path);
+   b. scene graph on (``SceneGraphManager`` attached, semantics provided
+      per frame, plane covisibility and semantic point refinement on);
+   c. path (b) again over frames 0-47 under ``torch.cuda.set_sync_debug_
+      mode``: synchronising calls per frame against counted readbacks;
+   the kernel launch counters are zeroed just before each of (a) and (b)
+   and read just after;
 5. the same 12 small frames through the port on the card (kernels) and on
-   the CPU (twins), whose positions must agree;
+   the CPU (twins), with the scene graph off and on, whose positions must
+   agree;
 6. the card's name and power limit, the JSON kernel table, and the
    result line.
 
@@ -28,13 +38,24 @@ Needs torch, numpy and nvcc; no JAX and no network.
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
+
+# NVIDIA H100 SXM peaks (data sheet, as the on-chip-measurement guide
+# lists them): HBM3 bandwidth, and float32 outside the tensor cores; the
+# kernels' 32-bit integer work is counted against the same rate
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+
+N_FRAMES, WARM = 96, 16
 
 
 def _line(tag: str, **kw) -> None:
@@ -54,19 +75,118 @@ def _check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    from visual_sgraphs_tpu_torch import cuda, selfcheck
+def _bound(r: dict) -> tuple[float, str]:
+    """Least time the card could take: bytes over the memory rate or
+    operations over the peak rate, whichever is larger (ms)."""
+    t_bytes = r["bytes"] / PEAK_BYTES_PER_S
+    t_ops = r["ops"] / PEAK_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _configs(scene, n_features: int, capacity):
     from visual_sgraphs_tpu_torch.config import (
-        CapacityConfig,
         MappingConfig,
         OrbConfig,
         SystemConfig,
     )
-    from visual_sgraphs_tpu_torch.core import geometry
-    from visual_sgraphs_tpu_torch.io.synthetic import SyntheticScene
+    cfg = SystemConfig(
+        camera=scene.cam, orb=OrbConfig(n_features=n_features),
+        capacity=capacity,
+        mapping=MappingConfig(lba_iters=6, lba_interval=2, cull_interval=2),
+        profile=True)
+    # the headline configuration's scene-graph behaviours (bench.py:87-88)
+    return cfg, dataclasses.replace(cfg, scenegraph=dataclasses.replace(
+        cfg.scenegraph, plane_covis_enabled=True, refine_map_points=True))
+
+
+def _system(cfg, device, with_sg: bool):
+    from visual_sgraphs_tpu_torch.scenegraph import SceneGraphManager
     from visual_sgraphs_tpu_torch.slam.system import SlamSystem
+    system = SlamSystem(cfg, device=device)
+    if with_sg:
+        system.scenegraph = SceneGraphManager(cfg.scenegraph, cfg.capacity,
+                                              device=device)
+    return system
+
+
+def _drive(system, frames, warm: int = WARM, sync_window=None) -> dict:
+    """Feed ``frames`` [(gray, depth, sem, T_wc, ts)]; returns timing and
+    readback figures over frames ``warm``.. (and, with ``sync_window``
+    (lo, hi), the synchronising calls counted by sync-debug mode over
+    frames lo..hi-1)."""
+    torch.cuda.synchronize()
+    t_warm = readbacks_warm = None
+    syncs = None
+    caught = None
+    for i, (gray, depth, sem, _, ts) in enumerate(frames):
+        if i == warm:
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter()
+            readbacks_warm = system.host_readbacks
+            system.timers.reset()
+        if sync_window is not None and i == sync_window[0]:
+            rb_lo = system.host_readbacks
+            # switching the mode on warns once itself: record after it
+            torch.cuda.set_sync_debug_mode(1)
+            caught = warnings.catch_warnings(record=True)
+            log = caught.__enter__()
+            warnings.simplefilter("always")
+        if system.scenegraph is not None:
+            system.scenegraph.provide_semantics(ts, sem)
+        system.track_rgbd(gray, depth, ts)
+        if sync_window is not None and i == sync_window[1] - 1:
+            caught.__exit__(None, None, None)
+            torch.cuda.set_sync_debug_mode(0)
+            n = sync_window[1] - sync_window[0]
+            sites = collections.Counter(
+                f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in log
+                if "synchroniz" in str(w.message))
+            syncs = dict(
+                syncs_per_frame=sum(sites.values()) / n,
+                readbacks_per_frame=(system.host_readbacks - rb_lo) / n,
+                sync_sites=dict(sites.most_common(8)))
+    system.flush()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    out = dict(fps=(len(frames) - warm) / (t_end - t_warm),
+               readbacks_per_frame=(system.host_readbacks - readbacks_warm)
+               / (len(frames) - warm))
+    if syncs is not None:
+        out.update(syncs)
+    return out
+
+
+def _accuracy(system, frames) -> dict:
+    from visual_sgraphs_tpu_torch.core import geometry
+    gt = np.stack([T[4:7] for _, _, _, T, _ in frames])
+    pos = system.positions()
+    tracked = system.tracked_mask()
+    ate = float(geometry.ate_rmse(torch.from_numpy(pos[tracked]),
+                                  torch.from_numpy(gt[tracked]))[0])
+    _check(np.isfinite(pos).all() and pos.shape == (len(frames), 3),
+           "positions not finite")
+    return dict(tracked=int(tracked.sum()), n_kf=int(system.map.n_kf),
+                n_pt=int(system.map.n_pt), ate_m=ate)
+
+
+def _scenegraph_summary(system) -> dict:
+    from visual_sgraphs_tpu_torch.scenegraph.manager import sign_duplicates
+    mgr = system.scenegraph
+    planes = mgr.planes()
+    return dict(n_planes=int(len(planes["coeffs"])),
+                plane_classes=planes["semantic"].tolist(),
+                plane_coeffs=np.round(planes["coeffs"], 4).tolist(),
+                n_rooms=int(mgr.state.n_rooms), n_obs=int(mgr.state.n_obs),
+                sign_duplicates=sign_duplicates(planes["coeffs"]))
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    from visual_sgraphs_tpu_torch import cuda, selfcheck
+    from visual_sgraphs_tpu_torch.config import CapacityConfig
+    from visual_sgraphs_tpu_torch.io.synthetic import SyntheticScene
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -86,92 +206,106 @@ def main() -> None:
     cuda.library()
     _line("build", seconds=build_s, lib=str(cuda.BUILD_DIR / cuda.LIB_NAME))
 
-    # ---- 3. each kernel against its twin at the slice's shapes
+    # ---- 3. each kernel against its twin at the main path's shapes
     checks = {r["name"]: r for r in selfcheck.run_all(device)}
     for r in checks.values():
+        bound_ms, bound_by = _bound(r)
+        r.update(bound_ms=bound_ms, bound_by=bound_by)
         _line("kernel", **r)
     bad = [n for n, r in checks.items() if not r["ok"]]
     _check(not bad, f"kernels disagree with their twins: {bad}")
+    _check(set(checks) == {k[0] for k in cuda.KERNELS},
+           "a kernel has no check")
 
-    # ---- 4. the slice at full size
-    n_frames, warm = 96, 16
+    # ---- 4. the main paths at full size
     scene = SyntheticScene(h=480, w=640, device=device)
-    frames = list(scene.frames(n_frames, kind="orbit2"))
-    gt = np.stack([T[4:7] for _, _, T, _ in frames])
-    cfg = SystemConfig(
-        camera=scene.cam, orb=OrbConfig(n_features=1000),
-        capacity=CapacityConfig(max_keyframes=128, max_points=32768),
-        mapping=MappingConfig(lba_iters=6, lba_interval=2, cull_interval=2),
-        profile=True)
-    torch.cuda.synchronize()
-    cuda.reset_counts()
-    system = SlamSystem(cfg, device=device)
-    t0 = time.perf_counter()
-    t_warm = None
-    for i, (gray, depth, _, ts) in enumerate(frames):
-        if i == warm:
-            torch.cuda.synchronize()
-            t_warm = time.perf_counter()
-            readbacks_warm = system.host_readbacks
-            system.timers.reset()
-        system.track_rgbd(gray, depth, ts)
-    system.flush()
-    torch.cuda.synchronize()
-    t_end = time.perf_counter()
-    counts = cuda.counts()
-    pos = system.positions()
-    tracked = system.tracked_mask()
-    ate = float(geometry.ate_rmse(torch.from_numpy(pos[tracked]),
-                                  torch.from_numpy(gt[tracked]))[0])
-    n_kf = int(system.map.n_kf)
-    _line("slice", frames=n_frames, tracked=int(tracked.sum()), n_kf=n_kf,
-          n_pt=int(system.map.n_pt), ate_m=ate,
-          fps_16_95=(n_frames - warm) / (t_end - t_warm),
-          total_s=t_end - t0,
-          host_readbacks_per_frame=(system.host_readbacks - readbacks_warm)
-          / (n_frames - warm),
-          keyframes=system.events.count("keyframe"),
-          kf_culled=system.events.count("kf_culled"),
-          peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
-    _line("stages", **system.timers.summary())
-    _line("launches", **{k: {"launches": v[0], "twin_calls_on_cuda": v[1]}
-                         for k, v in counts.items()})
-    _check(np.isfinite(pos).all() and pos.shape == (n_frames, 3),
-           "positions not finite")
-    _check(int(tracked.sum()) >= 90, f"tracked {int(tracked.sum())}/96")
-    _check(n_kf >= 2, f"n_kf {n_kf}")
-    _check(ate < 0.05, f"ATE {ate:.4f} m")
-    _check(all(v[0] > 0 for v in counts.values()),
-           f"a kernel was not launched on the main path: {counts}")
-    _check(all(v[1] == 0 for v in counts.values()),
-           f"a twin ran on CUDA tensors on the main path: {counts}")
+    frames = list(scene.frames_with_semantics(N_FRAMES, kind="orbit2"))
+    cfg, sg_cfg = _configs(scene, 1000, CapacityConfig(max_keyframes=128,
+                                                       max_points=32768))
+    counts = {}
+    for tag, c, with_sg in (("slice", cfg, False),
+                            ("scenegraph_slice", sg_cfg, True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_counts()
+        system = _system(c, device, with_sg)
+        t0 = time.perf_counter()
+        perf = _drive(system, frames)
+        total_s = time.perf_counter() - t0
+        counts[tag] = cuda.counts()
+        acc = _accuracy(system, frames)
+        extra = _scenegraph_summary(system) if with_sg else {}
+        _line(tag, frames=N_FRAMES, **acc, fps_16_95=perf["fps"],
+              total_s=total_s,
+              host_readbacks_per_frame=perf["readbacks_per_frame"],
+              keyframes=system.events.count("keyframe"),
+              kf_culled=system.events.count("kf_culled"),
+              peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20, **extra)
+        _line(tag + "_stages", **system.timers.summary())
+        _line(tag + "_launches", **{
+            k: {"launches": v[0], "twin_calls_on_cuda": v[1]}
+            for k, v in counts[tag].items()})
+        _check(acc["tracked"] >= 90, f"{tag}: tracked {acc['tracked']}/96")
+        _check(acc["n_kf"] >= 2, f"{tag}: n_kf {acc['n_kf']}")
+        _check(acc["ate_m"] < 0.05, f"{tag}: ATE {acc['ate_m']:.4f} m")
+        _check(all(v[1] == 0 for v in counts[tag].values()),
+               f"{tag}: a twin ran on CUDA tensors: {counts[tag]}")
+        if with_sg:
+            _check(extra["n_planes"] >= 2,
+                   f"{tag}: n_planes {extra['n_planes']}")
+            _check(not extra["sign_duplicates"],
+                   f"{tag}: sign-duplicate planes {extra['sign_duplicates']}")
+            _check(all(v[0] > 0 for v in counts[tag].values()),
+                   f"{tag}: a kernel was not launched: {counts[tag]}")
+        else:
+            sg_only = {"depth_cloud", "extract_planes", "plane_epilogue"}
+            _check(all(v[0] > 0 for k, v in counts[tag].items()
+                       if k not in sg_only),
+                   f"{tag}: a kernel was not launched: {counts[tag]}")
+        del system
+
+    # 4c. hidden host syncs of the scene-graph path
+    system = _system(sg_cfg, device, True)
+    syncs = _drive(system, frames[:48], sync_window=(16, 48))
+    _line("scenegraph_sync_debug", frames="16-47",
+          syncs_per_frame=syncs["syncs_per_frame"],
+          readbacks_per_frame=syncs["readbacks_per_frame"],
+          sync_sites=syncs["sync_sites"])
+    _check(syncs["syncs_per_frame"] <= syncs["readbacks_per_frame"],
+           f"hidden host syncs on the scene-graph path: {syncs}")
+    del system
 
     # ---- 5. the card's path against the CPU twins on a small input
-    small = SyntheticScene(h=240, w=320)
-    small_cfg = SystemConfig(
-        camera=small.cam, orb=OrbConfig(n_features=300),
-        capacity=CapacityConfig(32, 4096),
-        mapping=MappingConfig(lba_iters=6, lba_interval=2, cull_interval=2))
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        s = SlamSystem(small_cfg, device=dev)
-        for gray, depth, _, ts in small.frames(12, kind="arc"):
-            s.track_rgbd(gray, depth, ts)
-        runs[dev] = (s.positions(), int(s.map.n_kf))
-    diff = float(np.abs(runs["cuda"][0] - runs["cpu"][0]).max())
-    _line("small_vs_cpu_twins", max_pos_diff_m=diff,
-          n_kf=[runs["cuda"][1], runs["cpu"][1]])
-    _check(diff < 0.01 and runs["cuda"][1] == runs["cpu"][1],
-           "card path disagrees with the CPU twin path")
+    small = SyntheticScene(h=240, w=320, device="cpu")
+    small_frames = list(small.frames_with_semantics(12, kind="arc"))
+    small_cfg, small_sg = _configs(small, 300, CapacityConfig(32, 4096))
+    for tag, c, with_sg in (("small_vs_cpu_twins", small_cfg, False),
+                            ("small_sg_vs_cpu_twins", small_sg, True)):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            s = _system(c, dev, with_sg)
+            for gray, depth, sem, _, ts in small_frames:
+                if with_sg:
+                    s.scenegraph.provide_semantics(ts, sem.to(dev))
+                s.track_rgbd(gray, depth, ts)
+            runs[dev] = (s.positions(), int(s.map.n_kf),
+                         int(s.scenegraph.state.n_planes) if with_sg else 0)
+        diff = float(np.abs(runs["cuda"][0] - runs["cpu"][0]).max())
+        _line(tag, max_pos_diff_m=diff,
+              n_kf=[runs["cuda"][1], runs["cpu"][1]],
+              n_planes=[runs["cuda"][2], runs["cpu"][2]])
+        _check(diff < 0.01 and runs["cuda"][1:] == runs["cpu"][1:],
+               f"{tag}: card path disagrees with the CPU twin path")
 
     # ---- 6. result lines
     kernels = []
     for name, _, _, src, replaces in cuda.kernel_functions():
         r = checks[name]
-        kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces, launches=counts[name][0],
-                            max_abs_err=r["max_abs_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"]))
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=counts["scenegraph_slice"][name][0],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
     print(_card(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -51,6 +51,24 @@ def test_pose_gn_kernel(device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("L", [11, 32])
+def test_schur_kernels(device, L):
+    # L = 11: the local BA's window (shared-memory accumulator); L = 32:
+    # the global-atomics branch a global BA takes
+    for r in selfcheck.check_schur(device, n=8192 if L <= 16 else 2048,
+                                   L=L):
+        assert r["ok"], r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["depth_cloud", "extract_planes",
+                                  "plane_epilogue"])
+def test_scenegraph_kernels(device, name):
+    r = {r["name"]: r for r in selfcheck.check_scenegraph(device)}[name]
+    assert r["ok"], r
+
+
+@pytest.mark.gpu
 def test_slice_on_card_uses_every_kernel(device):
     from visual_sgraphs_tpu_torch.config import (
         CapacityConfig, MappingConfig, OrbConfig, SystemConfig)
@@ -62,6 +80,7 @@ def test_slice_on_card_uses_every_kernel(device):
                        capacity=CapacityConfig(32, 4096),
                        mapping=MappingConfig(lba_iters=6, lba_interval=2,
                                              cull_interval=2))
+    sg_only = ("depth_cloud", "extract_planes", "plane_epilogue")
     cuda.reset_counts()
     system = SlamSystem(cfg, device=device)
     gt = []
@@ -71,7 +90,43 @@ def test_slice_on_card_uses_every_kernel(device):
     pos = system.positions()
     counts = cuda.counts()
     assert all(launches > 0 and twin == 0
-               for launches, twin in counts.values()), counts
+               for name, (launches, twin) in counts.items()
+               if name not in sg_only), counts
     assert np.isfinite(pos).all() and system.tracked_mask().all()
     err = np.linalg.norm(pos - pos[0] - (np.stack(gt) - gt[0]), axis=1)
     assert err.max() < 0.1
+
+
+@pytest.mark.gpu
+def test_scenegraph_slice_on_card_uses_every_kernel(device):
+    import dataclasses
+
+    from visual_sgraphs_tpu_torch.config import (
+        CapacityConfig, MappingConfig, OrbConfig, SystemConfig)
+    from visual_sgraphs_tpu_torch.io.synthetic import SyntheticScene
+    from visual_sgraphs_tpu_torch.scenegraph import SceneGraphManager
+    from visual_sgraphs_tpu_torch.scenegraph.manager import sign_duplicates
+    from visual_sgraphs_tpu_torch.slam.system import SlamSystem
+
+    scene = SyntheticScene(h=240, w=320, device=device)
+    cfg = SystemConfig(camera=scene.cam, orb=OrbConfig(n_features=300),
+                       capacity=CapacityConfig(32, 4096),
+                       mapping=MappingConfig(lba_iters=6, lba_interval=2,
+                                             cull_interval=2))
+    cfg = dataclasses.replace(cfg, scenegraph=dataclasses.replace(
+        cfg.scenegraph, plane_covis_enabled=True, refine_map_points=True))
+    cuda.reset_counts()
+    system = SlamSystem(cfg, device=device)
+    system.scenegraph = SceneGraphManager(cfg.scenegraph, cfg.capacity,
+                                          device=device)
+    for g, d, s, _, ts in scene.frames_with_semantics(12, kind="arc"):
+        system.scenegraph.provide_semantics(ts, s)
+        system.track_rgbd(g, d, ts)
+    pos = system.positions()
+    counts = cuda.counts()
+    assert all(launches > 0 and twin == 0
+               for launches, twin in counts.values()), counts
+    assert np.isfinite(pos).all() and system.tracked_mask().all()
+    planes = system.scenegraph.planes()
+    assert len(planes["coeffs"]) >= 2
+    assert not sign_duplicates(planes["coeffs"])

@@ -20,7 +20,7 @@ def test_render_matches(kind):
     # texture hash sin(x)*43758 amplifies last-bit differences of the hit
     # point at cell edges
     ref = rsyn.SyntheticScene(h=120, w=160)
-    port = psyn.SyntheticScene(h=120, w=160)
+    port = psyn.SyntheticScene(h=120, w=160, device="cpu")
     traj = ref.trajectory(9, kind)
     np.testing.assert_allclose(port.trajectory(9, kind), traj, rtol=0,
                                atol=1e-5)
@@ -35,7 +35,7 @@ def test_render_matches(kind):
 
 def test_scene_camera_matches():
     r = rsyn.SyntheticScene(h=480, w=640).cam
-    p = psyn.SyntheticScene(h=480, w=640).cam
+    p = psyn.SyntheticScene(h=480, w=640, device="cpu").cam
     assert (r.fx, r.fy, r.cx, r.cy, r.width, r.height, r.bf) == \
         (p.fx, p.fy, p.cx, p.cy, p.width, p.height, p.bf)
 
@@ -52,3 +52,36 @@ def test_room_planes_match():
     ref_tex = np.asarray(jax.jit(rsyn.cell_texture)(jnp.asarray(pts)))
     port_tex = psyn.cell_texture(torch.from_numpy(pts)).numpy()
     assert np.mean(port_tex == ref_tex) >= 0.99
+
+
+def test_frames_with_semantics_match():
+    # class images exact, depth within 1e-5 relative, poses and stamps
+    # equal
+    ref = rsyn.SyntheticScene(h=120, w=160)
+    port = psyn.SyntheticScene(h=120, w=160, device="cpu")
+    for (_, rd, rs, rT, rts), (_, pd, ps, pT, pts) in zip(
+            ref.frames_with_semantics(5, "orbit2"),
+            port.frames_with_semantics(5, "orbit2")):
+        np.testing.assert_array_equal(ps.numpy(), np.asarray(rs))
+        np.testing.assert_allclose(pd.numpy(), np.asarray(rd), rtol=1e-5,
+                                   atol=0)
+        np.testing.assert_allclose(pT, np.asarray(rT), rtol=0, atol=1e-5)
+        assert pts == rts
+
+
+def test_entry_points_default_to_the_card():
+    # SlamSystem, SyntheticScene and SceneGraphManager run on the card
+    # unless asked for the CPU, and raise (never fall back) without one
+    from visual_sgraphs_tpu_torch.config import SystemConfig
+    from visual_sgraphs_tpu_torch.scenegraph import SceneGraphManager
+    from visual_sgraphs_tpu_torch.slam.system import SlamSystem
+
+    makers = (lambda: psyn.SyntheticScene(h=24, w=32),
+              lambda: SceneGraphManager(),
+              lambda: SlamSystem(SystemConfig()))
+    for make in makers:
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="cuda"):
+                make()

@@ -49,6 +49,26 @@ KERNELS = (
     ("pose_gn", "visual_sgraphs_tpu_torch.slam.tracking", "pose_only_gn",
      "pose_only_gn_torch", "visual_sgraphs_tpu_torch/csrc/pose_gn.cu",
      "visual_sgraphs_tpu/slam/tracking.py:73"),
+    ("schur_reduce", "visual_sgraphs_tpu_torch.parallel.dist_ba",
+     "local_reduced_system", "local_reduced_system_torch",
+     "visual_sgraphs_tpu_torch/csrc/schur.cu",
+     "visual_sgraphs_tpu/parallel/dist_ba.py:148"),
+    ("schur_backsub", "visual_sgraphs_tpu_torch.parallel.dist_ba",
+     "back_substitute", "back_substitute_torch",
+     "visual_sgraphs_tpu_torch/csrc/schur.cu",
+     "visual_sgraphs_tpu/parallel/dist_ba.py:257"),
+    ("depth_cloud", "visual_sgraphs_tpu_torch.scenegraph.pointcloud",
+     "depth_cloud", "depth_cloud_torch",
+     "visual_sgraphs_tpu_torch/csrc/voxel.cu",
+     "visual_sgraphs_tpu/scenegraph/pointcloud.py:43"),
+    ("extract_planes", "visual_sgraphs_tpu_torch.scenegraph.plane_fit",
+     "extract_planes", "extract_planes_torch",
+     "visual_sgraphs_tpu_torch/csrc/ransac.cu",
+     "visual_sgraphs_tpu/scenegraph/plane_fit.py:24"),
+    ("plane_epilogue", "visual_sgraphs_tpu_torch.scenegraph.epilogue",
+     "plane_epilogue", "plane_epilogue_torch",
+     "visual_sgraphs_tpu_torch/csrc/plane_epilogue.cu",
+     "visual_sgraphs_tpu/scenegraph/manager.py:254"),
 )
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -59,6 +79,11 @@ _ARGTYPES = {
                          _F, _I, _F, _I, _VP, _VP, _VP, _VP],
     "vsg_pose_gn": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F,
                     _F, _F, _VP, _VP, _VP],
+    "vsg_schur_reduce": [_VP] * 7 + [_I, _I, _I, _F, _F] + [_VP] * 8,
+    "vsg_schur_backsub": [_VP] * 6 + [_I, _I, _I, _VP, _VP],
+    "vsg_depth_cloud": [_VP] * 4 + [_I, _I, _I, _F, _I, _I] + [_VP] * 10,
+    "vsg_extract_planes": [_VP] * 4 + [_I, _I, _I, _F, _F] + [_VP] * 7,
+    "vsg_plane_epilogue": [_VP] * 7 + [_I, _I, _F, _F, _I] + [_VP] * 7,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -145,6 +170,18 @@ def stream() -> int:
 
 def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """``torch.device(device)``; raises for a CUDA device when no card is
+    available (entry points default to the card and never fall back to
+    the CPU on their own)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested but torch.cuda.is_available() is "
+            "false; pass device='cpu' to run on the CPU")
+    return dev
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -1,7 +1,7 @@
 """Carry configuration and state between the JAX package and the port.
 
-Everything crosses as numpy: a reference ``MapState`` / ``FrameObs`` /
-``TrackResult`` becomes ``{field: np.asarray(value)}`` (``m._asdict()``),
+Everything crosses as numpy: a reference ``MapState`` /
+``SceneGraphState`` / ``FrameObs`` / ``TrackResult`` becomes ``{field: np.asarray(value)}`` (``m._asdict()``),
 and the port's tuples load from and dump to such dicts, field for field
 with the port's canonical dtypes.  A reference ``SystemConfig`` crosses as
 ``dataclasses.asdict``.  This module imports neither package's JAX side.
@@ -16,6 +16,10 @@ import numpy as np
 import torch
 
 from visual_sgraphs_tpu_torch import config as cfg_mod
+from visual_sgraphs_tpu_torch.scenegraph.state import (
+    SceneGraphState,
+    empty_scenegraph,
+)
 from visual_sgraphs_tpu_torch.slam.frame import FrameObs
 from visual_sgraphs_tpu_torch.slam.map_state import MapState, empty_map
 from visual_sgraphs_tpu_torch.slam.tracking import TrackResult
@@ -26,6 +30,14 @@ def _map_dtypes() -> dict:
     tiny = empty_map(cfg_mod.CapacityConfig(max_keyframes=1, max_points=1,
                                             max_retired=1),
                      cfg_mod.OrbConfig(n_features=1))
+    return {k: v.dtype for k, v in tiny._asdict().items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _scenegraph_dtypes() -> dict:
+    tiny = empty_scenegraph(cfg_mod.CapacityConfig(
+        max_planes=1, max_rooms=1, max_doors=1, max_markers=1,
+        plane_vox_slots=1), max_obs=1)
     return {k: v.dtype for k, v in tiny._asdict().items()}
 
 
@@ -60,6 +72,15 @@ def map_from_numpy(d: dict, device=None) -> MapState:
 
 def map_to_numpy(m: MapState) -> dict:
     return to_numpy(m)
+
+
+def scenegraph_from_numpy(d: dict, device=None) -> SceneGraphState:
+    """A reference ``SceneGraphState`` (as numpy) in the port's dtypes."""
+    return _load(SceneGraphState, _scenegraph_dtypes(), d, device)
+
+
+def scenegraph_to_numpy(sg: SceneGraphState) -> dict:
+    return to_numpy(sg)
 
 
 def frame_from_numpy(d: dict, device=None) -> FrameObs:

@@ -20,6 +20,7 @@ import torch
 
 from visual_sgraphs_tpu_torch.config import CameraConfig
 from visual_sgraphs_tpu_torch.core import lie
+from visual_sgraphs_tpu_torch.cuda import resolve_device
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,17 +132,19 @@ def render(T_wc: torch.Tensor, planes: PlaneSet, cam_K: torch.Tensor,
 
 
 class SyntheticScene:
-    """A room + trajectory; yields (gray, depth, T_wc_gt, timestamp)."""
+    """A room + trajectory; yields (gray, depth, T_wc_gt, timestamp).
+    Frames render on ``device`` (the card unless the caller asks for the
+    CPU; raises when no card is there)."""
 
     def __init__(self, cam: CameraConfig | None = None, h: int = 240,
-                 w: int = 320, device: torch.device | str | None = None):
+                 w: int = 320, device: torch.device | str = "cuda"):
         self.cam = cam or CameraConfig(
             fx=260.0, fy=260.0, cx=w / 2 - 0.5, cy=h / 2 - 0.5,
             width=w, height=h, k1=0.0, k2=0.0, k3=0.0,
             bf=0.08 * 260.0,
         )
         self.h, self.w = h, w
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.planes = room_planes(device=self.device)
         self.cam_K = torch.from_numpy(self.cam.K).to(self.device)
 
@@ -186,3 +189,12 @@ class SyntheticScene:
         for i, T_wc in enumerate(traj):
             gray, depth, _ = self.render(T_wc)
             yield gray, depth, T_wc, i / fps
+
+    def frames_with_semantics(self, n_frames: int, kind: str = "arc",
+                              fps: float = 30.0):
+        """Like ``frames``, with the per-pixel class image: yields (gray,
+        depth, sem (int32, -1 where no plane), T_wc_gt, timestamp)."""
+        traj = self.trajectory(n_frames, kind)
+        for i, T_wc in enumerate(traj):
+            gray, depth, sem = self.render(T_wc)
+            yield gray, depth, sem, T_wc, i / fps

@@ -1,4 +1,4 @@
-"""Landmark-grouped Schur reduction for bundle adjustment (one device).
+"""Landmark-grouped Schur reduction for bundle adjustment (kernel K8).
 
 Port of the single-device core of ``visual_sgraphs_tpu/parallel/
 dist_ba.py``: with landmark n observed by keyframes k in obs(n),
@@ -8,14 +8,22 @@ dist_ba.py``: with landmark n observed by keyframes k in obs(n),
 so the reduction is local to each landmark.  Observations are grouped per
 landmark into (N, O) tables; the reduced (6K, 6K) camera system is
 assembled densely in float32 (TF32 must stay off: the terms span ~8
-orders of magnitude) and the landmarks are back-substituted.  The mesh /
-NCCL path is not ported yet.
+orders of magnitude) and the landmarks are back-substituted.
+
+``local_reduced_system`` and ``back_substitute`` launch the hand kernels
+in ``csrc/schur.cu`` on CUDA tensors and run the plain twins
+``local_reduced_system_torch`` / ``back_substitute_torch`` on CPU
+tensors.  The twins keep the reference's one-hot contractions, a layout
+chosen for the TPU's matrix unit; the kernels reduce per landmark instead.
+The mesh / NCCL path is not ported yet.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from visual_sgraphs_tpu_torch import cuda
 from visual_sgraphs_tpu_torch.core import lie
 
 
@@ -116,12 +124,15 @@ def _inv3x3(M):
     return adj * inv_det[..., None, None]
 
 
-def _local_reduced_system(kf_pose, pts, kf_tab, uvr_tab, val_tab, cam_K, bf,
-                          lam, huber):
-    """Dense reduced system + landmark factor cache.
+def local_reduced_system_torch(kf_pose, pts, kf_tab, uvr_tab, val_tab, cam_K,
+                               bf, lam, huber):
+    """Plain twin of K8's reduction: dense reduced system + landmark
+    factor cache.
 
     Returns (S (6K, 6K), rhs (6K,), Hinv (n, 3, 3) of the damped Hxx,
     bx (n, 3), W (n, O, 6, 3), cost)."""
+    if kf_pose.is_cuda:
+        local_reduced_system_torch.cuda_calls += 1
     K = kf_pose.shape[0]
     n, O = kf_tab.shape
     r, Jp, Jx, w, cost = _landmark_terms(kf_pose, pts, kf_tab, uvr_tab,
@@ -162,12 +173,90 @@ def _local_reduced_system(kf_pose, pts, kf_tab, uvr_tab, val_tab, cam_K, bf,
     return S.reshape(6 * K, 6 * K), rhs.reshape(6 * K), Hinv, bx, W, cost
 
 
-def _back_substitute(Hinv, bx, W, kf_tab, val_tab, dxr6):
-    """Per-landmark update given the reduced solve:
-    dx_n = -Hxx^-1 (bx + sum_a W_a^T dxi_{kf_a})."""
+def back_substitute_torch(Hinv, bx, W, kf_tab, val_tab, dxr6):
+    """Plain twin of K8's back-substitution: the per-landmark update
+    dx_n = -Hxx^-1 (bx + sum_a W_a^T dxi_{kf_a}) (non-finite -> 0)."""
+    if Hinv.is_cuda:
+        back_substitute_torch.cuda_calls += 1
     kf_safe = torch.clamp(kf_tab, min=0).long()
     slot_ok = val_tab & (kf_tab >= 0)
     dpose = dxr6[kf_safe] * slot_ok[..., None]
     y = bx + torch.einsum("nari,nar->ni", W, dpose)
     dxe = -torch.einsum("nij,nj->ni", Hinv, y)
     return torch.where(torch.isfinite(dxe), dxe, 0.0)
+
+
+local_reduced_system_torch.cuda_calls = 0
+back_substitute_torch.cuda_calls = 0
+
+
+def _check_tables(name, kf_tab, uvr_tab, val_tab):
+    if kf_tab.dtype != torch.int32 or val_tab.dtype != torch.bool:
+        raise ValueError(f"{name}: kf_tab must be int32 and val_tab bool")
+    if kf_tab.shape[1] > 32:
+        raise ValueError(f"{name}: at most 32 observations per landmark "
+                         f"(one warp lane each), got {kf_tab.shape[1]}")
+    if uvr_tab is not None and uvr_tab.dtype != torch.float32:
+        raise ValueError(f"{name}: uvr_tab must be float32")
+
+
+def local_reduced_system(kf_pose, pts, kf_tab, uvr_tab, val_tab, cam_K, bf,
+                         lam: float, huber: float):
+    """Reduced camera system (kernel K8 on CUDA tensors, the twin on CPU).
+    ``bf`` is a 0-d tensor on the tables' device.  Same results as
+    ``local_reduced_system_torch``."""
+    if kf_pose.device.type == "cpu":
+        return local_reduced_system_torch(kf_pose, pts, kf_tab, uvr_tab,
+                                          val_tab, cam_K, bf, lam, huber)
+    cuda.require_cuda("local_reduced_system", kf_pose, pts, kf_tab, uvr_tab,
+                      val_tab, cam_K, bf)
+    for t in (kf_pose, pts, cam_K, bf):
+        if t.dtype != torch.float32:
+            raise ValueError("local_reduced_system: float32 inputs only")
+    _check_tables("local_reduced_system", kf_tab, uvr_tab, val_tab)
+    L = kf_pose.shape[0]
+    n, O = kf_tab.shape
+    dev = kf_pose.device
+    S = torch.empty((6 * L, 6 * L), dtype=torch.float32, device=dev)
+    rhs = torch.empty((6 * L,), dtype=torch.float32, device=dev)
+    Hinv = torch.empty((n, 3, 3), dtype=torch.float32, device=dev)
+    bx = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    W = torch.empty((n, O, 6, 3), dtype=torch.float32, device=dev)
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+    # pair blocks (6L)^2 | Hpp blocks L*36 | rhs 6L | cost
+    acc = torch.empty((36 * L * L + 36 * L + 6 * L + 1,),
+                      dtype=torch.float32, device=dev)
+    cuda.call(
+        "vsg_schur_reduce", cuda.ptr(kf_pose), cuda.ptr(pts),
+        cuda.ptr(kf_tab), cuda.ptr(uvr_tab), cuda.ptr(val_tab),
+        cuda.ptr(cam_K), cuda.ptr(bf), n, O, L, float(np.float32(lam)),
+        float(np.float32(huber)), cuda.ptr(S), cuda.ptr(rhs), cuda.ptr(Hinv),
+        cuda.ptr(bx), cuda.ptr(W), cuda.ptr(cost), cuda.ptr(acc),
+        cuda.stream())
+    local_reduced_system.launches += 1
+    return S, rhs, Hinv, bx, W, cost
+
+
+local_reduced_system.launches = 0
+
+
+def back_substitute(Hinv, bx, W, kf_tab, val_tab, dxr6):
+    """Landmark back-substitution (kernel K8 on CUDA tensors, the twin on
+    CPU).  Same results as ``back_substitute_torch``."""
+    if Hinv.device.type == "cpu":
+        return back_substitute_torch(Hinv, bx, W, kf_tab, val_tab, dxr6)
+    cuda.require_cuda("back_substitute", Hinv, bx, W, kf_tab, val_tab, dxr6)
+    for t in (Hinv, bx, W, dxr6):
+        if t.dtype != torch.float32:
+            raise ValueError("back_substitute: float32 inputs only")
+    _check_tables("back_substitute", kf_tab, None, val_tab)
+    n, O = kf_tab.shape
+    dxe = torch.empty((n, 3), dtype=torch.float32, device=Hinv.device)
+    cuda.call("vsg_schur_backsub", cuda.ptr(Hinv), cuda.ptr(bx), cuda.ptr(W),
+              cuda.ptr(kf_tab), cuda.ptr(val_tab), cuda.ptr(dxr6), n, O,
+              dxr6.shape[0], cuda.ptr(dxe), cuda.stream())
+    back_substitute.launches += 1
+    return dxe
+
+
+back_substitute.launches = 0

@@ -3,10 +3,15 @@
 Each check builds seeded inputs of the shapes the main path gives the
 kernel (a rendered 480x640 frame's 8 pyramid levels and 1000 keypoints;
 4096 local-map points against 1000 keypoints; 4096 matches with stereo
-rows), runs the hand kernel and its plain PyTorch twin on the same device,
-compares them at the stated tolerance and times both with CUDA events.
-``chip_smoke.py`` and the GPU tests call these; nothing here runs on
-import.
+rows; the 480x640 depth / class image of a keyframe, its 2048-point
+cloud, 4 x 192 RANSAC samples and 4 detections; an 8192-landmark,
+12-observation, 11-keyframe local BA), runs the hand kernel and its plain
+PyTorch twin on the same device, compares them at the stated tolerance
+and times both with CUDA events.  Each result also carries the bytes the
+function must move (each input read once, each output written once) and
+the operations it does on this run's inputs, from which ``chip_smoke.py``
+derives the kernel's bound.  ``chip_smoke.py`` and the GPU tests call
+these; nothing here runs on import.
 """
 
 from __future__ import annotations
@@ -18,7 +23,10 @@ import numpy as np
 import torch
 
 from visual_sgraphs_tpu_torch.core import lie
+from visual_sgraphs_tpu_torch.core import plane as plane_mod
 from visual_sgraphs_tpu_torch.features import fast, match, orb
+from visual_sgraphs_tpu_torch.parallel import dist_ba
+from visual_sgraphs_tpu_torch.scenegraph import epilogue, plane_fit, pointcloud
 from visual_sgraphs_tpu_torch.features.pyramid import (
     build_pyramid,
     gaussian_blur,
@@ -30,6 +38,25 @@ from visual_sgraphs_tpu_torch.slam import tracking
 ANGLE_TOL = 1e-5  # rad, IC angle
 POSE_TOL = 1e-4  # per pose component, K6
 INLIER_AGREE = 0.99  # fraction of equal inlier flags, K6
+CLOUD_TOL = 1e-5  # m, K12 centroids (atomic summation order)
+PLANE_TOL = 1e-4  # per coefficient, K13 (sign pinned in both)
+ASSIGN_AGREE = 0.999  # fraction of equal point assignments, K13
+REL_TOL = 1e-4  # relative, K14 sums and K8 back-substitution
+# K8's reduction against the float64 twin, relative to each output's
+# largest entry: its terms span ~8 orders of magnitude and rhs is a
+# difference of large sums, so float32 in any summation order is ~1e-4
+# off (the float32 twin's own error is reported beside it)
+SCHUR_TOL = 1e-3
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _rel(a, b) -> float:
+    """max |a - b| / max(max |b|, tiny)."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
 def time_cuda(fn: Callable[[], object], warmup: int = 3,
@@ -79,8 +106,12 @@ def check_fast_nms(levels) -> dict:
         err = max(err, float((k - t).abs().max()))
     ms = time_cuda(lambda: [fast.fast_nms(lv) for lv in levels])
     plain = time_cuda(lambda: [fast.fast_nms_torch(lv) for lv in levels])
+    pixels = sum(lv.numel() for lv in levels)
+    # per pixel: 32 ring differences, 16 arcs x 2 polarities x 8 mins,
+    # 32 maxima, 8 NMS comparisons
     return dict(name="fast_nms", max_abs_err=err, ms=ms, plain_ms=plain,
-                ok=err == 0.0, shapes=[list(lv.shape) for lv in levels])
+                ok=err == 0.0, shapes=[list(lv.shape) for lv in levels],
+                bytes=2 * 4 * pixels, ops=330 * pixels)
 
 
 def check_orb_desc(rcs, blurred) -> dict:
@@ -100,9 +131,14 @@ def check_orb_desc(rcs, blurred) -> dict:
     plain = time_cuda(lambda: [orb.orb_describe_torch(bl, rc, pattern)
                                for rc, bl in zip(rcs, blurred)],
                       warmup=1, reps=5)
+    n_kp = sum(int(rc.shape[0]) for rc in rcs)
+    # per keypoint: intensity moments over the r=15 disc (~709 px x 3)
+    # and 256 rotated pair tests (~14 operations each)
     return dict(name="orb_desc", max_abs_err=err, ms=ms, plain_ms=plain,
                 ok=err <= ANGLE_TOL and bits == 0, desc_bytes_differ=bits,
-                n_keypoints=sum(int(rc.shape[0]) for rc in rcs))
+                n_keypoints=n_kp,
+                bytes=nbytes(*blurred, *rcs, pattern) + n_kp * (32 + 4),
+                ops=5700 * n_kp)
 
 
 def match_inputs(device, n_a: int = 4096, n_b: int = 1000, seed: int = 0):
@@ -136,8 +172,11 @@ def check_match_window(device, radius: float = 15.0) -> dict:
     err = float(max((km - tm).abs().max(), (kd - td).abs().max()))
     ms = time_cuda(lambda: match.match_window(*args, radius=radius))
     plain = time_cuda(lambda: match.match_window_torch(*args, radius=radius))
+    # per pair: window test (6), 8 XOR + 8 popcount + 7 adds, best-2 (4)
     return dict(name="match_window", max_abs_err=err, ms=ms, plain_ms=plain,
-                ok=err == 0.0, n_matched=int((km >= 0).sum()))
+                ok=err == 0.0, n_matched=int((km >= 0).sum()),
+                bytes=nbytes(*args, km, kd),
+                ops=35 * args[0].shape[0] * args[3].shape[0])
 
 
 def pose_inputs(device, n: int = 4096, seed: int = 0):
@@ -179,13 +218,184 @@ def check_pose_gn(device) -> dict:
     ms = time_cuda(lambda: tracking.pose_only_gn(T0, xw, uv, valid, K, **kw))
     plain = time_cuda(
         lambda: tracking.pose_only_gn_torch(T0, xw, uv, valid, K, **kw))
+    # per match and iteration: transform, projection, stereo row,
+    # Jacobian, robust weight and the 27 normal-equation sums (~135)
     return dict(name="pose_gn", max_abs_err=err, ms=ms, plain_ms=plain,
                 ok=err <= POSE_TOL and agree >= INLIER_AGREE,
-                inlier_agreement=agree, n_inliers=int(kin.sum()))
+                inlier_agreement=agree, n_inliers=int(kin.sum()),
+                bytes=nbytes(T0, xw, uv, valid, K, depth, kT, kin),
+                ops=135 * xw.shape[0] * kw["iters"])
+
+
+def schur_inputs(device, n: int = 8192, O: int = 12, L: int = 11,
+                 seed: int = 0):
+    """Seeded local-BA problem at the keyframe path's shapes: L keyframe
+    poses (T_cw), n points 2-7 m ahead, each seen by 2..L distinct window
+    rows (-1 padded to O), 80% with a stereo coordinate, noisy pixels."""
+    rng = np.random.default_rng(seed)
+    K = np.array([260.0, 260.0, 319.5, 239.5], np.float32)
+    bf = 20.8
+    xi = rng.normal(size=(L, 6)) * [0.3, 0.1, 0.3, 0.03, 0.1, 0.03]
+    T = lie.se3_exp(torch.tensor(xi, dtype=torch.float32))
+    X = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                  rng.uniform(2.0, 7.0, n)], -1).astype(np.float32)
+    kf_tab = np.full((n, O), -1, np.int32)
+    for i in range(n):
+        m = int(rng.integers(2, min(L, O) + 1))
+        kf_tab[i, :m] = rng.choice(L, m, replace=False)
+    Tk = T[torch.from_numpy(np.maximum(kf_tab, 0)).long()]
+    p = lie.se3_apply(Tk, torch.from_numpy(X)[:, None, :]).numpy()
+    z = np.maximum(p[..., 2], 1e-3)
+    u = K[0] * p[..., 0] / z + K[2] + rng.normal(size=z.shape)
+    v = K[1] * p[..., 1] / z + K[3] + rng.normal(size=z.shape)
+    ur = np.where(rng.uniform(size=z.shape) < 0.8, u - bf / z, -1.0)
+    uvr = np.stack([u, v, ur], -1).astype(np.float32)
+    val = (kf_tab >= 0) & (rng.uniform(size=kf_tab.shape) > 0.05)
+    X0 = X + rng.normal(size=X.shape).astype(np.float32) * 0.02
+    f = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa
+    return (T.to(device), f(X0), f(kf_tab), f(uvr), f(val), f(K),
+            torch.full((), bf, dtype=torch.float32, device=device))
+
+
+def check_schur(device, n: int = 8192, O: int = 12,
+                L: int = 11) -> list[dict]:
+    """K8 at n x O x L (the local BA's 8192 x 12 x 11 by default; L > 16
+    takes the kernel's global-atomics branch).  Reduction: every output
+    within SCHUR_TOL of the float64 twin's, relative to the output's
+    largest entry.  Back-substitution (given the same factors): within
+    REL_TOL of the float32 twin."""
+    args = schur_inputs(device, n, O, L)
+    kw = dict(lam=1e-4, huber=2.45)
+    kout = dist_ba.local_reduced_system(*args, **kw)
+    tout = dist_ba.local_reduced_system_torch(*args, **kw)
+    f64 = [a.double() if a.is_floating_point() else a for a in args]
+    t64 = dist_ba.local_reduced_system_torch(*f64, **kw)
+    torch.cuda.synchronize()
+    names = ("S", "rhs", "Hinv", "bx", "W", "cost")
+    errs = {nm: _rel(k.double(), t) for nm, k, t in zip(names, kout, t64)}
+    twin_errs = {nm: _rel(k.double(), t)
+                 for nm, k, t in zip(names, tout, t64)}
+    ms = time_cuda(lambda: dist_ba.local_reduced_system(*args, **kw))
+    plain = time_cuda(lambda: dist_ba.local_reduced_system_torch(*args, **kw))
+    T, X, kf_tab, uvr, val = args[:5]
+    n, O = kf_tab.shape
+    L = T.shape[0]
+    n_obs = val.sum(dim=1).to(torch.float64)
+    # per observation: projection, Jacobians, Hxx / bx, W, Hinv W^T, Hpp,
+    # gp (~620 flops); per ordered pair of valid observations a 6x6 block
+    # W_a (Hinv W_b^T) (216); per landmark the 3x3 inverse (~60)
+    ops = int(620 * n * O + 216 * float((n_obs * n_obs).sum()) + 60 * n)
+    reduce = dict(name="schur_reduce", max_abs_err=max(errs.values()),
+                  rel_errs_vs_f64=errs, twin_rel_errs_vs_f64=twin_errs,
+                  ms=ms, plain_ms=plain,
+                  ok=max(errs.values()) <= SCHUR_TOL,
+                  bytes=nbytes(*args, *kout), ops=ops)
+
+    Hinv, bx, W = tout[2], tout[3], tout[4]
+    dx6 = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(L, 6)).astype(np.float32) * 1e-3).to(device)
+    kd = dist_ba.back_substitute(Hinv, bx, W, kf_tab, val, dx6)
+    td = dist_ba.back_substitute_torch(Hinv, bx, W, kf_tab, val, dx6)
+    torch.cuda.synchronize()
+    err = _rel(kd, td)
+    ms = time_cuda(lambda: dist_ba.back_substitute(Hinv, bx, W, kf_tab, val,
+                                                    dx6))
+    plain = time_cuda(lambda: dist_ba.back_substitute_torch(
+        Hinv, bx, W, kf_tab, val, dx6))
+    back = dict(name="schur_backsub", max_abs_err=err, ms=ms, plain_ms=plain,
+                ok=err <= REL_TOL,
+                bytes=nbytes(Hinv, bx, W, kf_tab, val, dx6, kd),
+                ops=36 * n * O + 18 * n)
+    return [reduce, back]
+
+
+def keyframe_inputs(device, h: int = 480, w: int = 640, frame: int = 10,
+                    seed: int = 0):
+    """One rendered ``orbit2`` keyframe at the slice's size: depth, class
+    image, T_cw, cam_K and 4 x 192 seeded RANSAC samples."""
+    scene = SyntheticScene(h=h, w=w, device=device)
+    T_wc = scene.trajectory(96, "orbit2")[frame]
+    _, depth, sem = scene.render(T_wc)
+    T_cw = lie.se3_inverse(torch.from_numpy(T_wc).to(device))
+    gen = torch.Generator().manual_seed(seed)
+    hyp = torch.randint(0, 2048, (4, 192, 3), generator=gen).to(
+        torch.int32).to(device)
+    return depth, sem.to(torch.int32), T_cw, scene.cam_K, hyp
+
+
+def check_scenegraph(device) -> list[dict]:
+    """K12, K13 and K14 on one keyframe at 480x640: K12's integer outputs
+    and backprojected points exactly equal, centroids within CLOUD_TOL;
+    K13's planes within PLANE_TOL (signs pinned in both) and point
+    assignments equal on >= ASSIGN_AGREE; K14's counts and voxel rows
+    exactly equal, centroids / votes / quadrics within REL_TOL.  Each
+    kernel gets the twin's upstream outputs, so each is checked alone."""
+    depth, sem, T_cw, cam_K, hyp = keyframe_inputs(device)
+    out = []
+
+    dc_args = (depth, sem, None, cam_K, 0.08, 2048)
+    k = pointcloud.depth_cloud(*dc_args)
+    t = pointcloud.depth_cloud_torch(*dc_args)
+    torch.cuda.synchronize()
+    exact = all(bool(torch.equal(k[i], t[i])) for i in (0, 1, 2, 3, 5))
+    err = float(max((k[4] - t[4]).abs().max(), (k[6] - t[6]).abs().max()))
+    out.append(dict(
+        name="depth_cloud", max_abs_err=err, ok=exact and err <= CLOUD_TOL,
+        ints_exact=exact, n_voxels=int(t[5].sum()),
+        ms=time_cuda(lambda: pointcloud.depth_cloud(*dc_args)),
+        plain_ms=time_cuda(lambda: pointcloud.depth_cloud_torch(*dc_args)),
+        bytes=nbytes(depth, sem, cam_K, *t),
+        # per point: backprojection (5), hash (9), 5 table adds; per
+        # table slot: compaction and a 4-way divide (~8)
+        ops=19 * t[0].shape[0] + 8 * 4 * 2048))
+    pts, valid, labels, conf, cloud, cvalid, cweight = t
+
+    ep_args = (cloud, cvalid, cweight, hyp, 0.04, 150.0)
+    k = plane_fit.extract_planes(*ep_args)
+    t = plane_fit.extract_planes_torch(*ep_args)
+    torch.cuda.synchronize()
+    err = float((k[0] - t[0]).abs().max())
+    agree = float((k[2] == t[2]).float().mean())
+    same_valid = bool(torch.equal(k[1], t[1]))
+    N, H = cloud.shape[0], hyp.shape[1]
+    out.append(dict(
+        name="extract_planes", max_abs_err=err,
+        ok=same_valid and err <= PLANE_TOL and agree >= ASSIGN_AGREE,
+        assign_agreement=agree, planes_valid=t[1].tolist(),
+        ms=time_cuda(lambda: plane_fit.extract_planes(*ep_args)),
+        plain_ms=time_cuda(lambda: plane_fit.extract_planes_torch(*ep_args)),
+        bytes=nbytes(cloud, cvalid, cweight, hyp, *t),
+        # per round: H x N distances (7) and compares / adds (2), four
+        # refit passes over N (~12 each), the 3x3 eigensolve (~2000)
+        ops=hyp.shape[0] * (9 * H * N + 48 * N + 2000)))
+    coeffs_c = t[0]
+
+    T_wc = lie.se3_inverse(T_cw)
+    coeffs_w = plane_mod.transform(T_wc, coeffs_c)
+    thr = epilogue.member_threshold(0.04)
+    pe_args = (pts, valid, labels, conf, coeffs_c, coeffs_w, T_wc, thr, 512)
+    k = epilogue.plane_epilogue(*pe_args)
+    t = epilogue.plane_epilogue_torch(*pe_args)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(k[0], t[0])) and bool(torch.equal(k[4], t[4]))
+    err = max(_rel(k[i], t[i]) for i in (1, 2, 3))
+    D, M = coeffs_c.shape[0], pts.shape[0]
+    out.append(dict(
+        name="plane_epilogue", max_abs_err=err,
+        ok=exact and err <= REL_TOL, ints_exact=exact,
+        npts=t[0].tolist(),
+        ms=time_cuda(lambda: epilogue.plane_epilogue(*pe_args)),
+        plain_ms=time_cuda(lambda: epilogue.plane_epilogue_torch(*pe_args)),
+        bytes=nbytes(pts, valid, labels, conf, coeffs_c, coeffs_w, T_wc, *t),
+        # per point: world transform (27); per point and detection:
+        # distance (7), 17 member sums, projection + key + hash (~25)
+        ops=27 * M + 49 * M * D))
+    return out
 
 
 def run_all(device) -> list[dict]:
     """Every kernel against its twin at the slice's shapes."""
     levels, rcs, blurred = slice_levels(device)
     return [check_fast_nms(levels), check_orb_desc(rcs, blurred),
-            check_match_window(device), check_pose_gn(device)]
+            check_match_window(device), check_pose_gn(device),
+            *check_schur(device), *check_scenegraph(device)]

@@ -1,11 +1,14 @@
 """The keyframe program: the whole per-keyframe pipeline in one call.
 
-Port of the scene-graph-off, loop-off variant of
-``visual_sgraphs_tpu/slam/kf_program.py``: lazy found/visible stats,
-insertion + point seeding, observation fusion, point + keyframe culling
-and the windowed local BA.  The reference traces the cadence flags as
-``lax.cond``s so one compiled program serves every combination; the port
-runs eagerly, so they are plain Python ``if``s on host booleans.
+Port of the loop-off variant of ``visual_sgraphs_tpu/slam/kf_program.py``:
+lazy found/visible stats, insertion + point seeding, observation fusion,
+point + keyframe culling, and either the plain windowed local BA or, with
+the scene graph on, plane detection (K12-K14) and association, the
+periodic plane maintenance, wall-based room detection, semantic map-point
+refinement and the scene-graph local BA.  The reference traces the
+cadence flags as ``lax.cond``s so one compiled program serves every
+combination; the port runs eagerly, so they are plain Python ``if``s on
+host booleans.
 """
 
 from __future__ import annotations
@@ -14,7 +17,11 @@ import functools
 
 import torch
 
-from visual_sgraphs_tpu_torch.optim.fast_ba import fast_local_ba
+from visual_sgraphs_tpu_torch.optim.fast_ba import (
+    fast_local_ba,
+    fast_scenegraph_ba,
+)
+from visual_sgraphs_tpu_torch.scenegraph import manager as sgm
 from visual_sgraphs_tpu_torch.slam import mapping
 
 
@@ -25,39 +32,91 @@ def make_kf_program(sg_cfg, loop_on: bool, n_window: int, lba_iters: int,
                     quarantine: int = 3):
     """Build the keyframe program.
 
-    ``program(m, frame, pose, slot_pt, kf_slot, stats_slots, stats_vis,
-    cam_K, cam_bf, do_lba, do_cull)`` returns (map, kf_slot, board) where
-    ``board`` is the device (5,) float32 [slot, n_kf, n_pt, culled slot or
-    -1, evicted] that the host checks against its slot mirror."""
-    if sg_cfg is not None:
-        raise NotImplementedError(
-            "kf_program: the scene-graph stages are not ported yet")
+    ``program(m, sg, frame, pose, slot_pt, kf_slot, stats_slots,
+    stats_vis, depth_img, sem_img, conf_img, hyp_idx, cam_K, cam_bf,
+    do_lba, do_cull, do_maint)`` returns (map, scenegraph, kf_slot, board)
+    where ``board`` is the device (6,) float32 [slot, n_kf, n_pt, culled
+    slot or -1, evicted, n_obs] that the host checks against its slot
+    mirror one keyframe later.  With ``sg_cfg=None`` the scene-graph
+    operands are ignored (pass None) and n_obs reads 0."""
     if loop_on:
         raise NotImplementedError(
             "kf_program: the place-recognition query is not ported yet")
+    if sg_cfg is not None and sg_cfg.room_method == "freespace":
+        raise NotImplementedError(
+            "kf_program: free-space rooms are not ported yet")
 
-    def program(m, frame, pose, slot_pt, kf_slot: int, stats_slots,
-                stats_vis, cam_K, cam_bf, do_lba: bool, do_cull: bool):
+    def program(m, sg, frame, pose, slot_pt, kf_slot: int, stats_slots,
+                stats_vis, depth_img, sem_img, conf_img, hyp_idx, cam_K,
+                cam_bf, do_lba: bool, do_cull: bool, do_maint: bool):
+        dev = pose.device
         m = mapping.apply_found_stats(m, stats_slots, stats_vis)
         m, kf, evicted = mapping.insert_keyframe(
             m, frame, pose, slot_pt, cam_K, slot=kf_slot,
             quarantine=quarantine)
         m = mapping.fuse_observations(m, kf, cam_K)
-        culled = torch.full((), -1, dtype=torch.int32, device=pose.device)
+        culled = torch.full((), -1, dtype=torch.int32, device=dev)
         if do_cull:
             m = mapping.cull_points(m, min_obs=cull_min_obs,
                                     min_found_ratio=cull_min_found_ratio)
             m, culled = mapping.cull_keyframes(m, kf, cull_kf_redundancy)
-        if do_lba:
-            m, _ = fast_local_ba(m, kf, cam_K, cam_bf, n_window=n_window,
-                                 iters=lba_iters)
+        if sg_cfg is None:
+            if do_lba:
+                m, _ = fast_local_ba(m, kf, cam_K, cam_bf,
+                                     n_window=n_window, iters=lba_iters)
+            n_obs = torch.zeros((), dtype=torch.int32, device=dev)
+        else:
+            m, sg = _scenegraph_stages(
+                sg_cfg, m, sg, kf, evicted, culled, depth_img, sem_img,
+                conf_img, hyp_idx, cam_K, cam_bf, do_lba, do_maint,
+                n_window, lba_iters)
+            n_obs = sg.n_obs
         board = torch.stack([
-            torch.full((), float(kf), device=pose.device),
+            torch.full((), float(kf), device=dev),
             m.n_kf.to(torch.float32),
             m.n_pt.to(torch.float32),
             culled.to(torch.float32),
             evicted.to(torch.float32),
+            n_obs.to(torch.float32),
         ])
-        return m, kf, board
+        return m, sg, kf, board
 
     return program
+
+
+def _scenegraph_stages(cfg, m, sg, kf: int, evicted, culled, depth_img,
+                       sem_img, conf_img, hyp_idx, cam_K, cam_bf,
+                       do_lba: bool, do_maint: bool, n_window: int,
+                       lba_iters: int):
+    """The reference's ``sg_on`` block (kf_program.py:77-149)."""
+    # observations anchored on a retired keyframe slot must not survive
+    # slot reuse (their Gij / locals belong to the old keyframe)
+    retired = torch.where(evicted, kf, -1)
+    dead = (sg.ob_kf == retired) | (sg.ob_kf == culled)
+    sg = sg._replace(ob_valid=sg.ob_valid & ~dead)
+
+    T_cw = m.kf_pose[kf]
+    (coeffs_w, det_valid, centroid, npts, votes, local, quad,
+     det_vox) = sgm.detect_planes_from_depth(
+        depth_img, sem_img, T_cw, cam_K, hyp_idx, conf_img=conf_img,
+        dist_thresh=cfg.ransac_dist_thresh)
+    sg = sgm.associate_and_update(
+        sg, coeffs_w, det_valid, centroid, npts, votes, local, kf,
+        det_quadric=quad, det_vox=det_vox,
+        ominus_thresh=cfg.plane_assoc_ominus_thresh,
+        dist_thresh=cfg.plane_assoc_dist_thresh)
+    if do_maint:
+        sg = sgm.reassociate_planes(
+            sgm.filter_semantic_planes(sg, min_votes=cfg.plane_min_votes),
+            min_votes=cfg.plane_min_votes)
+    sg = sgm.detect_rooms(sg, min_votes=cfg.plane_min_votes)
+    if cfg.refine_map_points:
+        m = sgm.refine_points_semantic(
+            m, sg, m.kf_pose[kf], min_votes=cfg.plane_min_votes,
+            behind_thresh=cfg.refine_behind_thresh,
+            lateral_radius=cfg.refine_lateral_radius)
+    if do_lba:
+        m, sg, _ = fast_scenegraph_ba(m, sg, kf, cam_K, cam_bf,
+                                      n_window=n_window, iters=lba_iters,
+                                      config=cfg)
+    return m, sg

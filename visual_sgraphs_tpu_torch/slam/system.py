@@ -10,8 +10,11 @@ state machine):
 2. every later frame runs the tracking step (ORB, prediction, coarse /
    retry / fine tracking) and, one frame later, its host decisions
    (``_resolve_pending``): trajectory row, keyframe policy;
-3. a keyframe runs the keyframe program (insert, fuse, cull, local BA)
-   and leaves a slot board that the next keyframe checks;
+3. a keyframe runs the keyframe program (insert, fuse, cull, local BA;
+   with a ``SceneGraphManager`` attached as ``system.scenegraph``, plane
+   detection and association, rooms, semantic point refinement and the
+   scene-graph local BA) and leaves a slot board that the next keyframe
+   checks;
 4. ``frame_poses`` / ``positions`` recompose the trajectory against the
    current keyframe poses, re-basing rows of retired keyframes through the
    retirement ledger.
@@ -19,7 +22,7 @@ state machine):
 The step reads one packed vector back per frame (two when it retries);
 ``host_readbacks`` counts every device-to-host read the loop makes.  Not
 ported yet, and raising ``NotImplementedError`` where the path would reach
-them: the B-frame pipeline, loop closing, the scene graph, mono / stereo /
+them: the B-frame pipeline, loop closing, free-space rooms, mono / stereo /
 inertial input, the Atlas (stash / merge / relocalisation) and the generic
 LM local BA of the recovery keyframe.
 """
@@ -34,6 +37,8 @@ import torch
 
 from visual_sgraphs_tpu_torch.config import Sensor, SystemConfig
 from visual_sgraphs_tpu_torch.core import lie
+from visual_sgraphs_tpu_torch.cuda import resolve_device
+from visual_sgraphs_tpu_torch.scenegraph.state import empty_scenegraph
 from visual_sgraphs_tpu_torch.slam import mapping, tracking
 from visual_sgraphs_tpu_torch.slam.frame import FrameObs, make_frame_obs
 from visual_sgraphs_tpu_torch.slam.kf_program import make_kf_program
@@ -80,10 +85,11 @@ def _velocity_of(new, last):
 
 
 class SlamSystem:
-    """Single-session SLAM over an RGB-D stream, on ``device``."""
+    """Single-session SLAM over an RGB-D stream, on ``device`` (the card
+    unless the caller asks for the CPU; raises when no card is there)."""
 
     def __init__(self, config: SystemConfig = SystemConfig(),
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         t = config.tracking
         fx_scale = config.camera.fx / t.match_radius_ref_fx
         if abs(fx_scale - 1.0) > 0.05:
@@ -103,7 +109,7 @@ class SlamSystem:
             if unsupported:
                 raise NotImplementedError(f"SlamSystem: {what} not ported yet")
         self.cfg = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.cam_K = torch.from_numpy(config.camera.K).to(self.device)
         self.cam_bf = torch.full((), config.camera.bf, dtype=torch.float32,
                                  device=self.device)
@@ -135,15 +141,16 @@ class SlamSystem:
         self._stats_buf: list = []
         self._kf_counter = 0
         self._serial_board = None
+        # attached by the caller (``system.scenegraph = SceneGraphManager(
+        # ...)``); the keyframe program then runs the scene-graph stages
+        self.scenegraph = None
+        # the newest frame's depth, which the scene graph consumes at the
+        # next keyframe (the reference keeps it the same way)
+        self._last_depth_img = None
         self._step = tracking.make_frame_step(
             config.camera, config.orb, config.mapping.local_window, 4096,
             config.tracking.match_radius_coarse,
             config.tracking.match_radius_fine, True)
-        mc = config.mapping
-        self._kf_program = make_kf_program(
-            None, False, mc.local_window, mc.lba_iters,
-            mc.point_cull_min_obs, mc.point_cull_min_found_ratio,
-            mc.kf_cull_redundancy, 10, 3, self._pt_quarantine())
 
     # ------------------------------------------------------------------ api
 
@@ -154,6 +161,7 @@ class SlamSystem:
         gray = torch.as_tensor(gray, dtype=torch.float32, device=self.device)
         depth = torch.as_tensor(depth, dtype=torch.float32,
                                 device=self.device)
+        self._last_depth_img = depth
         if self.state == TrackState.OK:
             # one tracking step now, the previous frame's host decisions
             # after it (the reference's one-frame-deferred resolution)
@@ -227,6 +235,9 @@ class SlamSystem:
         """Check the device's keyframe slot against the host's choice and
         fold the device-side cull into the validity mirror."""
         bd = self._read(board)
+        if self.scenegraph is not None:
+            # the lagged n_obs mirror rides the board: no sync of its own
+            self.scenegraph.n_obs_host = int(bd[5])
         culled = int(bd[3])
         if culled >= 0:
             self._kf_valid_mirror[culled] = False
@@ -265,7 +276,8 @@ class SlamSystem:
             self._stats_buf.append((p["res"].slot_pt, p["res"].vis_pt))
             if self._need_keyframe(n_inl):
                 with self.timers.stage("kf_insert"):
-                    self._insert_keyframe_fused(p["frame"], p["res"], n_inl)
+                    self._insert_keyframe_fused(p["frame"], p["res"], n_inl,
+                                                ts=p["ts"])
             return
         # lost handling (Tracking.cc:2024-2098); no relocalisation yet
         self.state = TrackState.RECENTLY_LOST
@@ -315,8 +327,31 @@ class SlamSystem:
                 device=self.device)])
         return slots, vis
 
+    def _scenegraph_operands(self, ts: float | None):
+        """(do_maint, depth, sem, conf, hypotheses) for this keyframe's
+        scene-graph stages: the maintenance cadence, the newest depth
+        image, the nearest-in-time semantics (within 50 ms of the
+        keyframe's timestamp, else all UNDEFINED / unit confidence) and
+        the RANSAC samples."""
+        mgr = self.scenegraph
+        mgr._kf_count += 1
+        do_maint = (mgr._kf_count % mgr.maintenance_interval) == 0
+        pending = mgr.pop_semantics(ts if ts is not None else self._last_ts)
+        sem_img = conf_img = None
+        if pending is not None:
+            sem_img, conf_img = (
+                None if x is None else torch.as_tensor(x, device=self.device)
+                for x in pending)
+        if sem_img is not None:
+            sem_img = sem_img.to(torch.int32)
+        if conf_img is not None:
+            conf_img = conf_img.to(torch.float32)
+        return (do_maint, self._last_depth_img, sem_img, conf_img,
+                mgr.draw_hypotheses())
+
     def _insert_keyframe_fused(self, frame: FrameObs,
-                               res: tracking.TrackResult, n_inl: int):
+                               res: tracking.TrackResult, n_inl: int,
+                               ts: float | None = None):
         """Keyframe path (slam/kf_program.py).  ``lba_interval`` /
         ``cull_interval`` skip the heavy stages on intermediate keyframes
         (the reference's LBA is likewise aborted under load)."""
@@ -333,12 +368,24 @@ class SlamSystem:
             prev_board, self._serial_board = self._serial_board, None
             self._verify_slot_board(*prev_board)
         kf_slot = self._host_alloc_kf_slot()
+        sg_on = self.scenegraph is not None
+        do_maint, depth, sem_img, conf_img, hyp = (
+            self._scenegraph_operands(ts) if sg_on
+            else (False, None, None, None, None))
+        program = make_kf_program(
+            self.cfg.scenegraph if sg_on else None, False, mc.local_window,
+            mc.lba_iters, mc.point_cull_min_obs,
+            mc.point_cull_min_found_ratio, mc.kf_cull_redundancy, 10, 3,
+            self._pt_quarantine())
         with self.timers.stage("kf_program", sync_on=self.map.n_kf):
-            new_map, kf, board = self._kf_program(
-                self.map, frame, res.pose, res.slot_pt, kf_slot,
-                stats_slots, stats_vis, self.cam_K, self.cam_bf, do_lba,
-                do_cull)
+            new_map, new_sg, kf, board = program(
+                self.map, self.scenegraph.state if sg_on else None, frame,
+                res.pose, res.slot_pt, kf_slot, stats_slots, stats_vis,
+                depth, sem_img, conf_img, hyp, self.cam_K, self.cam_bf,
+                do_lba, do_cull, do_maint)
         self.map = new_map
+        if sg_on:
+            self.scenegraph.state = new_sg
         self._serial_board = (kf_slot, self.n_kf_host, board)
         self.events.emit("keyframe", kf=kf_slot, n_inliers=n_inl,
                          lba=do_lba, cull=do_cull)
@@ -401,6 +448,11 @@ class SlamSystem:
                 "not ported yet")
         self._abort_pending()
         self.map = empty_map(self.cfg.capacity, self.cfg.orb, self.device)
+        if self.scenegraph is not None:
+            self.scenegraph.state = empty_scenegraph(
+                self.cfg.capacity, self.scenegraph.state.ob_kf.shape[0],
+                self.scenegraph.device)
+            self.scenegraph.n_obs_host = 0
         self.state = TrackState.NOT_INITIALIZED
         self.last_pose = lie.se3_identity(device=self.device)
         self.velocity = lie.se3_identity(device=self.device)

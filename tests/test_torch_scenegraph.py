@@ -412,7 +412,10 @@ def test_refine_points_semantic(sem_frames, snap):
                                   "room_4wall", "door_room"])
 def test_factor_linearization(name):
     # whitened residuals and Jacobians (forward-mode AD in both) within
-    # 1e-4 relative
+    # 1e-5; the Gij residual is the square root of pi^T G pi, a
+    # cancellation near zero for points on the plane, so float32 sums in
+    # another order leave it within 1e-4 relative only
+    rtol = 1e-4 if name == "plane_quadric" else 0.0
     sg = synthetic_state()
     poses = _np(rlie.se3_exp(jnp.asarray(
         np.random.default_rng(5).normal(size=(2, 6)) * 0.1, jnp.float32)))
@@ -453,10 +456,10 @@ def test_factor_linearization(name):
                             torch.ones(m, dtype=torch.bool), 2.0)
     r = rgraph.linearize_batch(rb, ref_fams)
     p = pgraph.linearize_batch(pb, port_fams)
-    np.testing.assert_allclose(p[0].numpy(), _np(r[0]), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(p[0].numpy(), _np(r[0]), rtol=rtol, atol=1e-5)
     for pj, rj in zip(p[1], r[1]):
-        np.testing.assert_allclose(pj.numpy(), _np(rj), rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(p[2].numpy(), _np(r[2]), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(pj.numpy(), _np(rj), rtol=rtol, atol=1e-5)
+    np.testing.assert_allclose(p[2].numpy(), _np(r[2]), rtol=0, atol=1e-5)
 
 
 def relocate_keyframe(m, src: int, dst: int):

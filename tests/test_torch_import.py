@@ -31,14 +31,19 @@ def test_port_imports_without_jax():
                or k == "visual_sgraphs_tpu"
                or k.startswith("visual_sgraphs_tpu.")]
         assert not bad, bad
-        print(len(names))
+        print(" ".join(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     # every sub-package and module of the port imported, the scene graph
-    # (core.plane, scenegraph.*, optim.graph / factors) included
-    assert int(out.stdout.strip()) >= 34
+    # included
+    names = set(out.stdout.split())
+    assert len(names) >= 34
+    for mod in ("core.plane", "scenegraph.state", "scenegraph.pointcloud",
+                "scenegraph.plane_fit", "scenegraph.epilogue",
+                "scenegraph.manager", "optim.graph", "optim.factors"):
+        assert "visual_sgraphs_tpu_torch." + mod in names, mod
 
 
 _CLASSES = ("CameraConfig", "OrbConfig", "TrackingConfig", "MappingConfig",

@@ -49,8 +49,8 @@ import warnings
 import numpy as np
 import torch
 
-# NVIDIA H100 SXM peaks (data sheet, as the on-chip-measurement guide
-# lists them): HBM3 bandwidth, and float32 outside the tensor cores; the
+# NVIDIA H100 SXM peaks (data sheet): HBM3 bandwidth, and float32
+# outside the tensor cores; the
 # kernels' 32-bit integer work is counted against the same rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12

@@ -39,7 +39,6 @@ Needs torch, numpy and nvcc; no JAX and no network.
 from __future__ import annotations
 
 import collections
-import dataclasses
 import json
 import subprocess
 import sys
@@ -55,7 +54,7 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
-N_FRAMES, WARM = 96, 16
+WARM = 16
 
 
 def _line(tag: str, **kw) -> None:
@@ -84,32 +83,6 @@ def _bound(r: dict) -> tuple[float, str]:
                                        else "operations")
 
 
-def _configs(scene, n_features: int, capacity):
-    from visual_sgraphs_tpu_torch.config import (
-        MappingConfig,
-        OrbConfig,
-        SystemConfig,
-    )
-    cfg = SystemConfig(
-        camera=scene.cam, orb=OrbConfig(n_features=n_features),
-        capacity=capacity,
-        mapping=MappingConfig(lba_iters=6, lba_interval=2, cull_interval=2),
-        profile=True)
-    # the headline configuration's scene-graph behaviours (bench.py:87-88)
-    return cfg, dataclasses.replace(cfg, scenegraph=dataclasses.replace(
-        cfg.scenegraph, plane_covis_enabled=True, refine_map_points=True))
-
-
-def _system(cfg, device, with_sg: bool):
-    from visual_sgraphs_tpu_torch.scenegraph import SceneGraphManager
-    from visual_sgraphs_tpu_torch.slam.system import SlamSystem
-    system = SlamSystem(cfg, device=device)
-    if with_sg:
-        system.scenegraph = SceneGraphManager(cfg.scenegraph, cfg.capacity,
-                                              device=device)
-    return system
-
-
 def _drive(system, frames, warm: int = WARM, sync_window=None) -> dict:
     """Feed ``frames`` [(gray, depth, sem, T_wc, ts)]; returns timing and
     readback figures over frames ``warm``.. (and, with ``sync_window``
@@ -119,7 +92,8 @@ def _drive(system, frames, warm: int = WARM, sync_window=None) -> dict:
     t_warm = readbacks_warm = None
     syncs = None
     caught = None
-    for i, (gray, depth, sem, _, ts) in enumerate(frames):
+    from visual_sgraphs_tpu_torch import main_path
+    for i, frame in enumerate(frames):
         if i == warm:
             torch.cuda.synchronize()
             t_warm = time.perf_counter()
@@ -132,9 +106,7 @@ def _drive(system, frames, warm: int = WARM, sync_window=None) -> dict:
             caught = warnings.catch_warnings(record=True)
             log = caught.__enter__()
             warnings.simplefilter("always")
-        if system.scenegraph is not None:
-            system.scenegraph.provide_semantics(ts, sem)
-        system.track_rgbd(gray, depth, ts)
+        main_path.feed(system, frame)
         if sync_window is not None and i == sync_window[1] - 1:
             caught.__exit__(None, None, None)
             torch.cuda.set_sync_debug_mode(0)
@@ -184,9 +156,8 @@ def _scenegraph_summary(system) -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    from visual_sgraphs_tpu_torch import cuda, selfcheck
+    from visual_sgraphs_tpu_torch import cuda, main_path, selfcheck
     from visual_sgraphs_tpu_torch.config import CapacityConfig
-    from visual_sgraphs_tpu_torch.io.synthetic import SyntheticScene
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -218,24 +189,23 @@ def main() -> None:
            "a kernel has no check")
 
     # ---- 4. the main paths at full size
-    scene = SyntheticScene(h=480, w=640, device=device)
-    frames = list(scene.frames_with_semantics(N_FRAMES, kind="orbit2"))
-    cfg, sg_cfg = _configs(scene, 1000, CapacityConfig(max_keyframes=128,
-                                                       max_points=32768))
+    scene, frames = main_path.frames(device)
+    n_frames = len(frames)
+    cfg, sg_cfg = main_path.configs(scene)
     counts = {}
     for tag, c, with_sg in (("slice", cfg, False),
                             ("scenegraph_slice", sg_cfg, True)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cuda.reset_counts()
-        system = _system(c, device, with_sg)
+        system = main_path.make_system(c, device, with_sg)
         t0 = time.perf_counter()
         perf = _drive(system, frames)
         total_s = time.perf_counter() - t0
         counts[tag] = cuda.counts()
         acc = _accuracy(system, frames)
         extra = _scenegraph_summary(system) if with_sg else {}
-        _line(tag, frames=N_FRAMES, **acc, fps_16_95=perf["fps"],
+        _line(tag, frames=n_frames, **acc, fps_16_95=perf["fps"],
               total_s=total_s,
               host_readbacks_per_frame=perf["readbacks_per_frame"],
               keyframes=system.events.count("keyframe"),
@@ -245,7 +215,8 @@ def main() -> None:
         _line(tag + "_launches", **{
             k: {"launches": v[0], "twin_calls_on_cuda": v[1]}
             for k, v in counts[tag].items()})
-        _check(acc["tracked"] >= 90, f"{tag}: tracked {acc['tracked']}/96")
+        _check(acc["tracked"] >= 90,
+               f"{tag}: tracked {acc['tracked']}/{n_frames}")
         _check(acc["n_kf"] >= 2, f"{tag}: n_kf {acc['n_kf']}")
         _check(acc["ate_m"] < 0.05, f"{tag}: ATE {acc['ate_m']:.4f} m")
         _check(all(v[1] == 0 for v in counts[tag].values()),
@@ -265,7 +236,7 @@ def main() -> None:
         del system
 
     # 4c. hidden host syncs of the scene-graph path
-    system = _system(sg_cfg, device, True)
+    system = main_path.make_system(sg_cfg, device, True)
     syncs = _drive(system, frames[:48], sync_window=(16, 48))
     _line("scenegraph_sync_debug", frames="16-47",
           syncs_per_frame=syncs["syncs_per_frame"],
@@ -276,18 +247,16 @@ def main() -> None:
     del system
 
     # ---- 5. the card's path against the CPU twins on a small input
-    small = SyntheticScene(h=240, w=320, device="cpu")
-    small_frames = list(small.frames_with_semantics(12, kind="arc"))
-    small_cfg, small_sg = _configs(small, 300, CapacityConfig(32, 4096))
+    small, small_frames = main_path.frames("cpu", 12, 240, 320, "arc")
+    small_cfg, small_sg = main_path.configs(small, 300,
+                                            CapacityConfig(32, 4096))
     for tag, c, with_sg in (("small_vs_cpu_twins", small_cfg, False),
                             ("small_sg_vs_cpu_twins", small_sg, True)):
         runs = {}
         for dev in ("cuda", "cpu"):
-            s = _system(c, dev, with_sg)
-            for gray, depth, sem, _, ts in small_frames:
-                if with_sg:
-                    s.scenegraph.provide_semantics(ts, sem.to(dev))
-                s.track_rgbd(gray, depth, ts)
+            s = main_path.make_system(c, dev, with_sg)
+            for frame in small_frames:
+                main_path.feed(s, frame)
             runs[dev] = (s.positions(), int(s.map.n_kf),
                          int(s.scenegraph.state.n_planes) if with_sg else 0)
         diff = float(np.abs(runs["cuda"][0] - runs["cpu"][0]).max())

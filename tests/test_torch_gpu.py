@@ -60,11 +60,16 @@ def test_schur_kernels(device, L):
         assert r["ok"], r
 
 
+@pytest.fixture(scope="module")
+def scenegraph_checks(device):
+    return {r["name"]: r for r in selfcheck.check_scenegraph(device)}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["depth_cloud", "extract_planes",
                                   "plane_epilogue"])
-def test_scenegraph_kernels(device, name):
-    r = {r["name"]: r for r in selfcheck.check_scenegraph(device)}[name]
+def test_scenegraph_kernels(scenegraph_checks, name):
+    r = scenegraph_checks[name]
     assert r["ok"], r
 
 

@@ -71,11 +71,8 @@ def snap():
 
 @pytest.fixture(scope="module")
 def sem_frames():
-    scene = SyntheticScene(h=240, w=320)
-    frames = [(_np(d).astype(np.float32), _np(s).astype(np.int32),
-               _np(T).astype(np.float32))
-              for _, d, s, T, _ in scene.frames_with_semantics(12, "arc")]
-    return scene, frames
+    scene, frames = tp.semantic_frames(12)
+    return scene, [(d, s, T) for _, d, s, T, _ in frames]
 
 
 # ---------------------------------------------------------------- plane algebra
@@ -454,7 +451,9 @@ def test_factor_linearization(name):
     pb = pgraph.FactorBatch(fams, getattr(pfac, name), res_dim, _t(idx),
                             {k: _t(v) for k, v in const.items()}, _t(info),
                             torch.ones(m, dtype=torch.bool), 2.0)
-    r = rgraph.linearize_batch(rb, ref_fams)
+    # jitted, as the reference's solves run it (eager dispatch of the
+    # vmapped jacfwd costs seconds a factor type)
+    r = jax.jit(rgraph.linearize_batch)(rb, ref_fams)
     p = pgraph.linearize_batch(pb, port_fams)
     np.testing.assert_allclose(p[0].numpy(), _np(r[0]), rtol=rtol, atol=1e-5)
     for pj, rj in zip(p[1], r[1]):

@@ -3,7 +3,8 @@ semantics through the reference SlamSystem and the port's, each with a
 SceneGraphManager attached (plane detection and association, rooms,
 semantic point refinement, plane covisibility, scene-graph local BA; serial
 path, loops off).  The port's manager is given the reference's RANSAC
-samples."""
+samples, and the reference reads each keyframe's own depth image, the
+corrected pairing the port takes (``KeyframeDepthReference``)."""
 
 import dataclasses
 
@@ -14,7 +15,6 @@ import pytest
 import torch
 
 from visual_sgraphs_tpu.core import geometry as rgeo
-from visual_sgraphs_tpu.io.synthetic import SyntheticScene
 from visual_sgraphs_tpu.scenegraph.manager import SceneGraphManager as RefMgr
 from visual_sgraphs_tpu.slam import SlamSystem as RefSystem
 from visual_sgraphs_tpu_torch.core import geometry as pgeo
@@ -28,6 +28,27 @@ import torch_parity as tp
 from torch_parity import one_torch_thread  # noqa: F401
 
 N_FRAMES = 12
+
+
+class KeyframeDepthReference(RefSystem):
+    """The reference SlamSystem with each keyframe's scene-graph stages fed
+    that keyframe's own depth image.  Unmodified, the reference resolves a
+    keyframe one frame late and pairs its pose with the next frame's depth
+    (ROADMAP.md, known reference defects); the port pairs them correctly,
+    and a parity test against the defect would lock it in."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self._depth_at = {}
+
+    def track_rgbd(self, gray, depth, timestamp, imu=None):
+        self._depth_at[float(timestamp)] = jnp.asarray(depth)
+        return super().track_rgbd(gray, depth, timestamp, imu)
+
+    def _insert_keyframe_fused(self, frame, res, n_inl, ts=None):
+        if ts is not None:
+            self._last_depth_img = self._depth_at[float(ts)]
+        return super()._insert_keyframe_fused(frame, res, n_inl, ts=ts)
 
 
 class ReferenceHypotheses:
@@ -46,15 +67,11 @@ class ReferenceHypotheses:
 
 @pytest.fixture(scope="module")
 def runs():
-    scene = SyntheticScene(h=tp.H, w=tp.W)
-    frames = [(np.asarray(g, np.float32), np.asarray(d, np.float32),
-               np.asarray(s, np.int32), np.asarray(T, np.float32), ts)
-              for g, d, s, T, ts in scene.frames_with_semantics(N_FRAMES,
-                                                                "arc")]
+    scene, frames = tp.semantic_frames(N_FRAMES)
     cfg = tp.slice_config(scene)
     cfg = dataclasses.replace(cfg, scenegraph=dataclasses.replace(
         cfg.scenegraph, plane_covis_enabled=True, refine_map_points=True))
-    ref = RefSystem(cfg)
+    ref = KeyframeDepthReference(cfg)
     ref.scenegraph = RefMgr(cfg.scenegraph, cfg.capacity)
     pcfg = tp.port_config(cfg)
     port = PortSystem(pcfg, device="cpu")

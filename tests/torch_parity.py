@@ -2,10 +2,20 @@
 
 Builds the slice configuration for both packages and a mid-stream map
 snapshot of the reference, so port functions run on exactly the
-reference's state (carried across as numpy).
+reference's state (carried across as numpy).  The snapshot and the
+rendered semantic frames are built once per test run and shared by the
+test processes through ``build/test_cache`` (keyed by a digest of the
+reference's sources and this file, under a file lock).
 """
 
 import dataclasses
+import fcntl
+import hashlib
+import os
+import pickle
+from pathlib import Path
+
+import jax
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +32,34 @@ from visual_sgraphs_tpu.slam.tracking import track_frame_full
 from visual_sgraphs_tpu_torch import interop
 
 H, W, N_FEATURES = 240, 320, 300
+REPO = Path(__file__).resolve().parent.parent
+CACHE_DIR = REPO / "build" / "test_cache"
+
+
+def _digest() -> str:
+    h = hashlib.sha256(jax.__version__.encode())
+    for f in sorted((REPO / "visual_sgraphs_tpu").rglob("*.py")):
+        h.update(f.read_bytes())
+    h.update(Path(__file__).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def cached(name: str, build):
+    """``build()``, computed by the first test process that asks and
+    loaded from disk by the others (they wait on its lock meanwhile)."""
+    CACHE_DIR.mkdir(parents=True, exist_ok=True)
+    path = CACHE_DIR / f"{name}_{_digest()}.pkl"
+    with open(path.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        out = build()
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        with open(tmp, "wb") as f:
+            pickle.dump(out, f)
+        os.replace(tmp, path)
+        return out
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -59,11 +97,29 @@ def reference_frames(n: int, kind: str = "arc"):
                    for g, d, T, ts in scene.frames(n, kind=kind)]
 
 
+def semantic_frames(n: int = 12, kind: str = "arc"):
+    """(scene, [(gray, depth, sem, T_wc, ts)]) rendered by the reference
+    with semantics, as numpy."""
+    def build():
+        scene = SyntheticScene(h=H, w=W)
+        return [(np.asarray(g, np.float32), np.asarray(d, np.float32),
+                 np.asarray(s, np.int32), np.asarray(T, np.float32), ts)
+                for g, d, s, T, ts in scene.frames_with_semantics(n, kind)]
+    return SyntheticScene(h=H, w=W), cached(f"semantic_frames_{kind}{n}",
+                                            build)
+
+
 def to_np(nt) -> dict:
     return {k: np.asarray(v) for k, v in nt._asdict().items()}
 
 
 def snapshot(n_frames: int = 10):
+    """The mid-stream reference map of ``build_snapshot``, built once per
+    test run."""
+    return cached(f"snapshot{n_frames}", lambda: build_snapshot(n_frames))
+
+
+def build_snapshot(n_frames: int = 10):
     """A mid-stream reference map, built with the reference's own
     functions: frame 0 is the origin keyframe, frames 1.. are tracked with
     ``track_frame_full`` (point stats folded in), and frame

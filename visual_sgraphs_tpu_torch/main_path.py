@@ -1,0 +1,66 @@
+"""The port's main path as its scripts run it: configuration, frames, feed.
+
+``chip_smoke.py`` and ``profile_slice`` both drive this path, so both take
+the configuration behind their numbers from here: the headline
+configuration of the reference's ``bench.py`` (640x480 RGB-D, 1000 ORB
+features, 128 keyframes / 32768 points, ``MappingConfig(lba_iters=6,
+lba_interval=2, cull_interval=2)``, plane covisibility and semantic point
+refinement on) less what is not ported yet (serial path, loops off), over
+the 96-frame two-lap ``orbit2`` sequence rendered with semantics.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from visual_sgraphs_tpu_torch.config import (
+    CapacityConfig,
+    MappingConfig,
+    OrbConfig,
+    SystemConfig,
+)
+
+N_FRAMES = 96
+HEADLINE_CAPACITY = CapacityConfig(max_keyframes=128, max_points=32768)
+
+
+def frames(device, n: int = N_FRAMES, h: int = 480, w: int = 640,
+           kind: str = "orbit2"):
+    """(scene, [(gray, depth, sem, T_wc, ts)]) rendered on ``device``."""
+    from visual_sgraphs_tpu_torch.io.synthetic import SyntheticScene
+    scene = SyntheticScene(h=h, w=w, device=device)
+    return scene, list(scene.frames_with_semantics(n, kind=kind))
+
+
+def configs(scene, n_features: int = 1000,
+            capacity: CapacityConfig = HEADLINE_CAPACITY):
+    """(scene graph off, scene graph on) system configurations."""
+    cfg = SystemConfig(
+        camera=scene.cam, orb=OrbConfig(n_features=n_features),
+        capacity=capacity,
+        mapping=MappingConfig(lba_iters=6, lba_interval=2, cull_interval=2),
+        profile=True)
+    # the headline configuration's scene-graph behaviours (bench.py:87-88)
+    return cfg, dataclasses.replace(cfg, scenegraph=dataclasses.replace(
+        cfg.scenegraph, plane_covis_enabled=True, refine_map_points=True))
+
+
+def make_system(cfg, device, with_sg: bool):
+    """A ``SlamSystem`` on ``device``, with a ``SceneGraphManager``
+    attached when ``with_sg``."""
+    from visual_sgraphs_tpu_torch.scenegraph import SceneGraphManager
+    from visual_sgraphs_tpu_torch.slam.system import SlamSystem
+    system = SlamSystem(cfg, device=device)
+    if with_sg:
+        system.scenegraph = SceneGraphManager(cfg.scenegraph, cfg.capacity,
+                                              device=device)
+    return system
+
+
+def feed(system, frame) -> None:
+    """One frame (gray, depth, sem, T_wc, ts) into ``system``: its
+    semantics first when a scene graph is attached, then tracking."""
+    gray, depth, sem, _, ts = frame
+    if system.scenegraph is not None:
+        system.scenegraph.provide_semantics(ts, sem)
+    system.track_rgbd(gray, depth, ts)

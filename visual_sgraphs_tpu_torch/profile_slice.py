@@ -2,12 +2,12 @@
 
     python -m visual_sgraphs_tpu_torch.profile_slice [--scenegraph]
 
-Runs the 640x480 / 1000-feature / 96-frame ``orbit2`` slice through
-``SlamSystem.track_rgbd`` on the card (with ``--scenegraph`` the scene
-graph attached, as ``chip_smoke.py`` phase 4b runs it) and profiles frames
-32-63 twice: under ``torch.profiler`` (device time by kernel, device busy
-share of the window, launches a frame) and under ``cProfile`` (host time
-by Python function).  With ``--scenegraph`` it also times one plane-KF
+Runs the main path of ``main_path`` (640x480, 1000 features, 96
+``orbit2`` frames) through ``SlamSystem.track_rgbd`` on the card (with
+``--scenegraph`` the scene graph attached, as ``chip_smoke.py`` phase 4b
+runs it) and profiles frames 32-63 twice: under ``torch.profiler``
+(device time by kernel, device busy share of the window, launches a
+frame) and under ``cProfile`` (host time by Python function).  With ``--scenegraph`` it also times one plane-KF
 factor linearisation (1024 items) with ``torch.func.jacfwd`` and, for
 comparison, ``jacrev``.  Prints one JSON line per result; needs a card.
 """
@@ -30,34 +30,17 @@ def _line(tag: str, **kw) -> None:
 
 
 def _slice(with_sg: bool):
-    import dataclasses
-
-    from visual_sgraphs_tpu_torch.config import (
-        CapacityConfig, MappingConfig, OrbConfig, SystemConfig)
-    from visual_sgraphs_tpu_torch.io.synthetic import SyntheticScene
-    from visual_sgraphs_tpu_torch.scenegraph import SceneGraphManager
-    from visual_sgraphs_tpu_torch.slam.system import SlamSystem
-
-    scene = SyntheticScene(h=480, w=640)
-    frames = list(scene.frames_with_semantics(96, kind="orbit2"))
-    cfg = SystemConfig(
-        camera=scene.cam, orb=OrbConfig(n_features=1000),
-        capacity=CapacityConfig(max_keyframes=128, max_points=32768),
-        mapping=MappingConfig(lba_iters=6, lba_interval=2, cull_interval=2),
-        profile=True)
-    cfg = dataclasses.replace(cfg, scenegraph=dataclasses.replace(
-        cfg.scenegraph, plane_covis_enabled=True, refine_map_points=True))
-    system = SlamSystem(cfg)
-    if with_sg:
-        system.scenegraph = SceneGraphManager(cfg.scenegraph, cfg.capacity)
-    return system, frames
+    from visual_sgraphs_tpu_torch import main_path
+    scene, frames = main_path.frames("cuda")
+    cfg, sg_cfg = main_path.configs(scene)
+    return main_path.make_system(sg_cfg if with_sg else cfg, "cuda",
+                                 with_sg), frames
 
 
 def _feed(system, frames) -> None:
-    for gray, depth, sem, _, ts in frames:
-        if system.scenegraph is not None:
-            system.scenegraph.provide_semantics(ts, sem)
-        system.track_rgbd(gray, depth, ts)
+    from visual_sgraphs_tpu_torch import main_path
+    for frame in frames:
+        main_path.feed(system, frame)
 
 
 def profile(with_sg: bool) -> None:

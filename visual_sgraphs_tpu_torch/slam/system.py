@@ -144,9 +144,6 @@ class SlamSystem:
         # attached by the caller (``system.scenegraph = SceneGraphManager(
         # ...)``); the keyframe program then runs the scene-graph stages
         self.scenegraph = None
-        # the newest frame's depth, which the scene graph consumes at the
-        # next keyframe (the reference keeps it the same way)
-        self._last_depth_img = None
         self._step = tracking.make_frame_step(
             config.camera, config.orb, config.mapping.local_window, 4096,
             config.tracking.match_radius_coarse,
@@ -161,7 +158,6 @@ class SlamSystem:
         gray = torch.as_tensor(gray, dtype=torch.float32, device=self.device)
         depth = torch.as_tensor(depth, dtype=torch.float32,
                                 device=self.device)
-        self._last_depth_img = depth
         if self.state == TrackState.OK:
             # one tracking step now, the previous frame's host decisions
             # after it (the reference's one-frame-deferred resolution)
@@ -193,7 +189,8 @@ class SlamSystem:
         prev = self._pending
         self._pending = {
             "ts": ts, "frame": frame, "res": res, "T_rel": T_rel,
-            "packed": packed, "ref_host": self.ref_kf_host,
+            "packed": packed, "depth_img": depth,
+            "ref_host": self.ref_kf_host,
             "ref_seq": self._ref_seq(self.ref_kf_host), "epoch": self.epoch,
         }
         if prev is not None:
@@ -277,7 +274,8 @@ class SlamSystem:
             if self._need_keyframe(n_inl):
                 with self.timers.stage("kf_insert"):
                     self._insert_keyframe_fused(p["frame"], p["res"], n_inl,
-                                                ts=p["ts"])
+                                                ts=p["ts"],
+                                                depth_img=p["depth_img"])
             return
         # lost handling (Tracking.cc:2024-2098); no relocalisation yet
         self.state = TrackState.RECENTLY_LOST
@@ -327,10 +325,12 @@ class SlamSystem:
                 device=self.device)])
         return slots, vis
 
-    def _scenegraph_operands(self, ts: float | None):
+    def _scenegraph_operands(self, ts: float | None, depth_img):
         """(do_maint, depth, sem, conf, hypotheses) for this keyframe's
-        scene-graph stages: the maintenance cadence, the newest depth
-        image, the nearest-in-time semantics (within 50 ms of the
+        scene-graph stages: the maintenance cadence, the keyframe's own
+        depth image (the reference pairs the keyframe's pose with the next
+        frame's depth: ROADMAP.md, known reference defects), the
+        nearest-in-time semantics (within 50 ms of the
         keyframe's timestamp, else all UNDEFINED / unit confidence) and
         the RANSAC samples."""
         mgr = self.scenegraph
@@ -346,12 +346,12 @@ class SlamSystem:
             sem_img = sem_img.to(torch.int32)
         if conf_img is not None:
             conf_img = conf_img.to(torch.float32)
-        return (do_maint, self._last_depth_img, sem_img, conf_img,
+        return (do_maint, depth_img, sem_img, conf_img,
                 mgr.draw_hypotheses())
 
     def _insert_keyframe_fused(self, frame: FrameObs,
                                res: tracking.TrackResult, n_inl: int,
-                               ts: float | None = None):
+                               ts: float | None = None, depth_img=None):
         """Keyframe path (slam/kf_program.py).  ``lba_interval`` /
         ``cull_interval`` skip the heavy stages on intermediate keyframes
         (the reference's LBA is likewise aborted under load)."""
@@ -370,7 +370,7 @@ class SlamSystem:
         kf_slot = self._host_alloc_kf_slot()
         sg_on = self.scenegraph is not None
         do_maint, depth, sem_img, conf_img, hyp = (
-            self._scenegraph_operands(ts) if sg_on
+            self._scenegraph_operands(ts, depth_img) if sg_on
             else (False, None, None, None, None))
         program = make_kf_program(
             self.cfg.scenegraph if sg_on else None, False, mc.local_window,

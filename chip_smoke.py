@@ -11,25 +11,40 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    build/kernels/libvsg_kernels.so, with the seconds it took;
 3. every kernel against its plain PyTorch twin on the card, at the main
    path's shapes (K2 FAST+NMS, K4 ORB descriptor, K5 window matcher, K6
-   pose-only GN, K8 Schur reduction and back-substitution, K12 depth cloud
-   + voxel downsample, K13 weighted RANSAC, K14 plane statistics), with
-   kernel and twin times (CUDA events, median of 20 after 3 warm-ups) and
-   the bytes / operations each function needs, from which its bound is
-   derived;
+   pose-only GN, K8 Schur reduction and back-substitution at the local
+   BA's L = 11 and the global BA's L = 128, K10 BoW rows, K11 database
+   query, K12 depth cloud + voxel downsample, K13 weighted RANSAC, K14
+   plane statistics; K5's NN-ratio entry, K15's Sim3 half, K16 and K19 on
+   the loop path's map saved at its first accepted loop, after phase 4;
+   K15's PnP half on seeded picks, and again on phase 5's
+   relocalisation), with kernel and twin times
+   (CUDA events, median of 20 after 3 warm-ups) and the bytes /
+   operations each function needs, from which its bound is derived;
 4. the port's main paths at full size through its public entry point
    (``SlamSystem.track_rgbd``), 640x480 RGB-D, 1000 ORB features,
-   128 keyframes / 32768 points, serial path, loops off, 96 frames of the
-   two-lap ``orbit2`` sequence rendered on the card:
-   a. scene graph off (the tracking + local-mapping path);
+   128 keyframes / 32768 points, serial path, 96 frames of the two-lap
+   ``orbit2`` sequence rendered on the card:
+   a. scene graph off, loops off (the tracking + local-mapping path);
    b. scene graph on (``SceneGraphManager`` attached, semantics provided
       per frame, plane covisibility and semantic point refinement on);
    c. path (b) again over frames 0-47 under ``torch.cuda.set_sync_debug_
       mode``: synchronising calls per frame against counted readbacks;
-   the kernel launch counters are zeroed just before each of (a) and (b)
-   and read just after;
+   d. ``loop_slice``: path (b) with loop closing, a global BA after each
+      accepted loop and relocalisation of lost frames;
+   e. path (d) again over frames 0-79 under sync-debug mode, across a loop
+      closure;
+   f. path (d) over frames 0-29, two blank frames and frames 29-39: the
+      repeated frame 29 makes the recovery keyframe (the joint scene-graph
+      BA on the LM engine), which path (d) reaches when a relocalisation
+      fails;
+   the kernel launch counters are zeroed just before each of (a), (b) and
+   (d) and read just after;
 5. the same 12 small frames through the port on the card (kernels) and on
    the CPU (twins), with the scene graph off and on, whose positions must
-   agree;
+   agree; the loop correction chain (verification, pose graph, map
+   correction, fusion, global BA) on the saved map, card against CPU; and
+   relocalisation in the loop path's final map of a frame rendered 0.3 m
+   off the path, card against CPU;
 6. the card's name and power limit, the JSON kernel table, and the
    result line.
 
@@ -55,6 +70,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
 WARM = 16
+SG_ONLY = {"depth_cloud", "extract_planes", "plane_epilogue"}
+LOOP_ONLY = {"bow_vectors", "place_query", "match_nn_ratio", "guided_count",
+             "verify_sim3", "pnp_hypotheses", "pgo_assemble", "pgo_cost"}
 
 
 def _line(tag: str, **kw) -> None:
@@ -153,6 +171,93 @@ def _scenegraph_summary(system) -> dict:
                 sign_duplicates=sign_duplicates(planes["coeffs"]))
 
 
+def _watch_loops(system) -> dict:
+    """Keep a copy of the map just before the first accepted loop's
+    correction, record every accepted loop (a loop accepted at the end of
+    the stream, in ``flush``, emits no ``loop_closed`` event), and count
+    the K8 launches made inside global BAs."""
+    from visual_sgraphs_tpu_torch.parallel import dist_ba
+    from visual_sgraphs_tpu_torch.slam.map_state import MapState
+    lc = system.loop_closer
+    state = {"saved": None, "closed": [], "gba_k8": 0}
+    verify, gba = lc.resolve_verify, system.run_global_ba
+
+    def resolve_verify(sys_):
+        pv, n0 = lc._pending_verify, lc.n_loops_closed
+        snap = None
+        if pv is not None and state["saved"] is None:
+            snap = dict(map=MapState(*(t.clone() for t in sys_.map)),
+                        kf=pv[0], cand=pv[1])
+        out = verify(sys_)
+        if lc.n_loops_closed > n0:
+            state["closed"].append((pv[0], pv[1]))
+            if snap is not None:
+                state["saved"] = snap
+        return out
+
+    def run_global_ba(iters: int = 10):
+        n0 = dist_ba.local_reduced_system.launches
+        gba(iters)
+        state["gba_k8"] += dist_ba.local_reduced_system.launches - n0
+
+    lc.resolve_verify = resolve_verify
+    system.run_global_ba = run_global_ba
+    return state
+
+
+def _loop_summary(system, frames, closed) -> dict:
+    """Loops (``closed``: the accepted (kf, cand) pairs), global BAs,
+    relocalisations, the vocabulary and the position error (after the ATE
+    alignment) every 8 frames."""
+    from visual_sgraphs_tpu_torch.core import geometry, lie
+    ev = system.events
+    verified = [dict(kf=e["kf"], cand=e["cand"], drift=e["drift"],
+                     n_inl=e["n_inl"], n_guided=e["n_guided"],
+                     closed=(e["kf"], e["cand"]) in closed)
+                for e in ev.of_kind("loop_verified")]
+    gt = np.stack([T[4:7] for _, _, _, T, _ in frames])
+    pos, tracked = system.positions(), system.tracked_mask()
+    _, S = geometry.ate_rmse(torch.from_numpy(pos[tracked]),
+                             torch.from_numpy(gt[tracked]))
+    err = np.linalg.norm(lie.sim3_apply(S, torch.from_numpy(pos)).numpy()
+                         - gt, axis=1)
+    lc = system.loop_closer
+    return dict(n_loops_closed=lc.n_loops_closed,
+                loops=[list(c) for c in closed], verified=verified,
+                n_global_ba=ev.count("global_ba"), n_reloc=ev.count("reloc"),
+                reloc_cands=[e["cand"] for e in ev.of_kind("reloc")],
+                recovery_keyframes=[[e["kf"], e["joint_ba"]] for e in
+                                    ev.of_kind("recovery_keyframe")],
+                vocab_words=lc.vocab.n_words if lc.vocab else None,
+                pos_err_every_8=[round(float(err[i]), 4) if tracked[i]
+                                 else None for i in range(0, len(frames), 8)])
+
+
+def _loop_chain(m, kf: int, cand: int, cam_K, cam_bf, pc):
+    """Verification -> pose graph -> map correction -> fusion -> global
+    BA of one loop, on whichever device ``m`` lies (the kernels on the
+    card, the twins on the CPU), on the same samples."""
+    from visual_sgraphs_tpu_torch.core import lie
+    from visual_sgraphs_tpu_torch.parallel.dist_ba import global_ba_sharded
+    from visual_sgraphs_tpu_torch.place import pgo
+    from visual_sgraphs_tpu_torch.place.loop_closer import (
+        _loop_geometry, default_draw)
+    from visual_sgraphs_tpu_torch.slam import mapping
+    S, n_inl, n_guided, _ = _loop_geometry(
+        m, kf, cand, lambda v: default_draw("sim3", 1234, v),
+        pc.loop_inlier_thresh_3d, cam_K, fix_scale=True)
+    edges = pgo.build_covis_edges(m, pc.essential_min_weight,
+                                  pc.essential_max_edges)
+    res = pgo.optimize_essential_graph(
+        m.kf_pose, m.kf_valid, edges, cand, kf, lie.sim3_inverse(S),
+        torch.arange(m.K, device=S.device) == cand, pc.pgo_iters, True)
+    m = mapping.fuse_observations(pgo.correct_map(m, res), kf, cam_K)
+    m, _ = global_ba_sharded(m, cam_K, cam_bf, iters=pc.gba_iters)
+    centres = lie.se3_inverse(m.kf_pose)[:, 4:7]
+    return (S.cpu(), int(n_inl), int(n_guided),
+            centres[m.kf_valid].cpu().numpy())
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -178,15 +283,27 @@ def main() -> None:
     _line("build", seconds=build_s, lib=str(cuda.BUILD_DIR / cuda.LIB_NAME))
 
     # ---- 3. each kernel against its twin at the main path's shapes
-    checks = {r["name"]: r for r in selfcheck.run_all(device)}
-    for r in checks.values():
-        bound_ms, bound_by = _bound(r)
-        r.update(bound_ms=bound_ms, bound_by=bound_by)
-        _line("kernel", **r)
-    bad = [n for n, r in checks.items() if not r["ok"]]
-    _check(not bad, f"kernels disagree with their twins: {bad}")
-    _check(set(checks) == {k[0] for k in cuda.KERNELS},
-           "a kernel has no check")
+    checks = {}
+
+    def report(results):
+        for r in results:
+            bound_ms, bound_by = _bound(r)
+            r.update(bound_ms=bound_ms, bound_by=bound_by)
+            _line("kernel", **r)
+            checks[r["name"]] = r
+        bad = [r["name"] for r in results if not r["ok"]]
+        _check(not bad, f"kernels disagree with their twins: {bad}")
+
+    report(selfcheck.run_all(device) + [
+        selfcheck.check_bow(device), selfcheck.check_place_query(device),
+        *selfcheck.check_schur_gba(device)])
+    # K15's PnP half on seeded picks of six distinct matches, where every
+    # hypothesis is well posed, so every output is compared (phase 5 checks
+    # it again on the loop path's map, where repeated picks occur)
+    report([selfcheck.check_pnp(device)])
+    _check(checks["pnp_hypotheses"]["n_well_posed"] == 192
+           and checks["pnp_hypotheses"]["winner_well_posed"],
+           "K15 PnP: a seeded hypothesis is not well posed")
 
     # ---- 4. the main paths at full size
     scene, frames = main_path.frames(device)
@@ -226,13 +343,12 @@ def main() -> None:
                    f"{tag}: n_planes {extra['n_planes']}")
             _check(not extra["sign_duplicates"],
                    f"{tag}: sign-duplicate planes {extra['sign_duplicates']}")
-            _check(all(v[0] > 0 for v in counts[tag].values()),
-                   f"{tag}: a kernel was not launched: {counts[tag]}")
-        else:
-            sg_only = {"depth_cloud", "extract_planes", "plane_epilogue"}
-            _check(all(v[0] > 0 for k, v in counts[tag].items()
-                       if k not in sg_only),
-                   f"{tag}: a kernel was not launched: {counts[tag]}")
+        # the loop kernels run on loop_slice only, the plane kernels with
+        # the scene graph only
+        skip = LOOP_ONLY | (set() if with_sg else SG_ONLY)
+        _check(all(v[0] > 0 for k, v in counts[tag].items()
+                   if k not in skip),
+               f"{tag}: a kernel was not launched: {counts[tag]}")
         del system
 
     # 4c. hidden host syncs of the scene-graph path
@@ -245,6 +361,100 @@ def main() -> None:
     _check(syncs["syncs_per_frame"] <= syncs["readbacks_per_frame"],
            f"hidden host syncs on the scene-graph path: {syncs}")
     del system
+
+    # 4d. the loop path
+    loop_cfg = main_path.loop_config(sg_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    system = main_path.make_system(loop_cfg, device, True)
+    watch = _watch_loops(system)
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    perf = _drive(system, frames)
+    total_s = time.perf_counter() - t0
+    counts["loop_slice"] = cuda.counts()
+    acc = _accuracy(system, frames)
+    loops = _loop_summary(system, frames, watch["closed"])
+    _line("loop_slice", frames=n_frames, **acc, fps_16_95=perf["fps"],
+          total_s=total_s,
+          host_readbacks_per_frame=perf["readbacks_per_frame"],
+          keyframes=system.events.count("keyframe"),
+          kf_culled=system.events.count("kf_culled"),
+          peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20,
+          **_scenegraph_summary(system), **loops)
+    _line("loop_slice_stages", **system.timers.summary())
+    _line("loop_slice_launches", **{
+        k: {"launches": v[0], "twin_calls_on_cuda": v[1]}
+        for k, v in counts["loop_slice"].items()})
+    _check(acc["tracked"] >= 90, f"loop_slice: tracked {acc['tracked']}")
+    _check(loops["n_loops_closed"] >= 1, "loop_slice: no loop closed")
+    _check(loops["n_global_ba"] >= 1, "loop_slice: no global BA")
+    # the reference itself reads 0.285 m here (PERF.md): a guard against
+    # a gross fault, not a fidelity gate
+    _check(acc["ate_m"] <= 0.35, f"loop_slice: ATE {acc['ate_m']:.4f} m")
+    _check(all(v[1] == 0 for v in counts["loop_slice"].values()),
+           f"loop_slice: a twin ran on CUDA tensors: {counts['loop_slice']}")
+    _check(all(v[0] > 0 for k, v in counts["loop_slice"].items()
+               if k != "pnp_hypotheses"),
+           f"loop_slice: a kernel was not launched: {counts['loop_slice']}")
+    _check(watch["saved"] is not None, "loop_slice: no map saved at a loop")
+    loop_system = system
+
+    # 4e. hidden host syncs of the loop path, across a loop closure
+    system = main_path.make_system(loop_cfg, device, True)
+    syncs = _drive(system, frames[:80], sync_window=(16, 80))
+    _line("loop_sync_debug", frames="16-79",
+          loops_closed=system.loop_closer.n_loops_closed,
+          n_reloc=system.events.count("reloc"),
+          syncs_per_frame=syncs["syncs_per_frame"],
+          readbacks_per_frame=syncs["readbacks_per_frame"],
+          sync_sites=syncs["sync_sites"])
+    _check(system.loop_closer.n_loops_closed >= 1,
+           "loop_sync_debug: no loop closed inside the window")
+    _check(syncs["syncs_per_frame"] <= syncs["readbacks_per_frame"],
+           f"hidden host syncs on the loop path: {syncs}")
+    del system
+
+    # 4f. the recovery keyframe (the loop path reaches it when a
+    # relocalisation fails): frames 0-29, two blank frames (lost, and no
+    # relocalisation without features), frame 29 again (the camera held
+    # still, so tracking resumes from the held pose: the recovery keyframe,
+    # through the joint scene-graph BA on the LM engine), then frames
+    # 30-39, every timestamp three frames later
+    system = main_path.make_system(loop_cfg, device, True)
+    cuda.reset_counts()
+    dt = float(frames[1][4] - frames[0][4])
+    blank = lambda f: (torch.zeros_like(f[0]), torch.zeros_like(f[1]),  # noqa
+                       f[2], f[3])
+    seq = [f[:4] for f in frames[:30]] + [blank(frames[29])] * 2 \
+        + [f[:4] for f in frames[29:40]]
+    for i, (gray, depth, sem, T_wc) in enumerate(seq):
+        main_path.feed(system, (gray, depth, sem, T_wc,
+                                float(frames[0][4]) + i * dt))
+    system.flush()
+    rec = system.events.of_kind("recovery_keyframe")
+    tracked = system.tracked_mask()
+    twin_calls = {k: v[1] for k, v in cuda.counts().items() if v[1]}
+    _line("recovery_keyframe", events=rec, tracked=tracked.astype(
+        int).tolist(), recovery_lba=system.timers.summary().get(
+            "recovery_lba"), twin_calls_on_cuda=twin_calls)
+    _check(len(rec) >= 1 and rec[0]["joint_ba"] and tracked[32],
+           "recovery keyframe: not taken at the repeated frame, or not "
+           "through the joint BA")
+    _check(not twin_calls, "recovery keyframe: a twin ran on CUDA tensors")
+    del system
+
+    # ---- 3 (continued). the loop kernels on the saved map
+    saved = watch["saved"]
+    m_loop, kf, cand = saved["map"], saved["kf"], saved["cand"]
+    cam = torch.from_numpy(loop_cfg.camera.K).to(device)
+    li = selfcheck.loop_map_inputs(m_loop, kf, cand, cam)
+    _line("loop_map", kf=kf, cand=cand, n_inliers=li["n_inliers"],
+          drift=li["drift"])
+    report([selfcheck.check_match_nn(device, li["nn"]),
+            selfcheck.check_guided(device, li["guided"]),
+            selfcheck.check_sim3(device, li["sim3"]),
+            *selfcheck.check_pgo(device, li["pgo"])])
 
     # ---- 5. the card's path against the CPU twins on a small input
     small, small_frames = main_path.frames("cpu", 12, 240, 320, "arc")
@@ -266,15 +476,82 @@ def main() -> None:
         _check(diff < 0.01 and runs["cuda"][1:] == runs["cpu"][1:],
                f"{tag}: card path disagrees with the CPU twin path")
 
+    # 5b. the loop correction chain on the saved map, card against CPU
+    bf = torch.full((), loop_cfg.camera.bf, dtype=torch.float32)
+    t0 = time.perf_counter()
+    chain = {}
+    for dev in ("cuda", "cpu"):
+        m_dev = type(m_loop)(*(t.to(dev) for t in m_loop))
+        chain[dev] = _loop_chain(m_dev, kf, cand, cam.to(dev), bf.to(dev),
+                                 loop_cfg.place)
+    (Sk, nik, ngk, ck), (St, nit, ngt, ct) = chain["cuda"], chain["cpu"]
+    s_err = float((Sk - St).abs().max())
+    c_err = float(np.abs(ck - ct).max())
+    _line("loop_chain_vs_cpu_twins", kf=kf, cand=cand, n_inliers=[nik, nit],
+          n_guided=[ngk, ngt], S_max_abs_diff=s_err,
+          kf_centre_max_diff_m=c_err, seconds=time.perf_counter() - t0)
+    _check(nik == nit and ngk == ngt and s_err <= 1e-4 and c_err <= 1e-3,
+           "loop chain: the card disagrees with the CPU twins")
+
+    # 5c. relocalisation of a frame rendered 0.3 m off the path in the
+    # loop path's final map, card against CPU (launches K15's PnP half)
+    from visual_sgraphs_tpu_torch.core import lie as lie_mod
+    from visual_sgraphs_tpu_torch.place.loop_closer import (
+        _reloc_attempt, default_draw, reloc_in_map)
+    from visual_sgraphs_tpu_torch.slam.frame import make_frame_obs
+    lc = loop_system.loop_closer
+    T_wc = np.array(scene.trajectory(n_frames, "orbit2")[40])
+    T_wc[4] += 0.3
+    gray, depth, _ = scene.render(T_wc)
+    frame = make_frame_obs(gray, depth, 0.0, loop_cfg.camera, loop_cfg.orb)
+    reloc = {}
+    for dev in ("cuda", "cpu"):
+        to = lambda x: x.to(dev)  # noqa: E731
+        m_dev = type(loop_system.map)(*map(to, loop_system.map))
+        f_dev = type(frame)(*map(to, frame))
+        hit = reloc_in_map(m_dev, type(lc.db)(*map(to, lc.db)),
+                           lc.vocab.to(dev), f_dev, to(cam), 30,
+                           draw=default_draw)
+        _check(hit is not None, f"relocalisation failed on {dev}")
+        T, n_inl = _reloc_attempt(
+            m_dev, f_dev, hit[1], to(cam),
+            lambda v: default_draw("pnp", 0, v))
+        reloc[dev] = (hit[1], lie_mod.se3_inverse(hit[0].cpu())[4:7],
+                      int(n_inl))
+    p_err = float((reloc["cuda"][1] - reloc["cpu"][1]).abs().max())
+    truth = float(np.abs(reloc["cuda"][1].numpy() - T_wc[4:7]).max())
+    _line("reloc_vs_cpu_twins", cand=[reloc["cuda"][0], reloc["cpu"][0]],
+          n_inliers=[reloc["cuda"][2], reloc["cpu"][2]],
+          centre_max_diff_m=p_err, centre_vs_render_m=truth)
+    _check(reloc["cuda"][0] == reloc["cpu"][0]
+           and abs(reloc["cuda"][2] - reloc["cpu"][2]) <= 2
+           and p_err <= 1e-3, "relocalisation: card disagrees with CPU")
+    pnp_map = selfcheck.check_pnp(device, selfcheck.reloc_inputs(
+        loop_system.map, frame, reloc["cuda"][0], cam))
+    _line("pnp_real_map", **pnp_map)
+    _check(pnp_map["ok"], "K15 PnP disagrees with its twin on the map")
+
     # ---- 6. result lines
+    _check({k[0] for k in cuda.KERNELS} <= set(checks),
+           "a kernel has no check")
     kernels = []
     for name, _, _, src, replaces in cuda.kernel_functions():
         r = checks[name]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=counts["scenegraph_slice"][name][0],
+            launches=counts["loop_slice"][name][0],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
+    for name, src in (("schur_reduce@L128", "schur_reduce"),
+                      ("schur_backsub@L128", "schur_backsub")):
+        r = checks[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=kernels[
+                [k["name"] for k in kernels].index(src)]["source"],
+            replaces="visual_sgraphs_tpu/parallel/dist_ba.py:395",
+            launches=watch["gba_k8"], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None))
     print(_card(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,11 @@ import torch
 from visual_sgraphs_tpu_torch import cuda, selfcheck
 
 
+# kernels that only the loop path (loop_closing=True) launches
+LOOP_ONLY = ("bow_vectors", "place_query", "match_nn_ratio", "guided_count",
+             "verify_sim3", "pnp_hypotheses", "pgo_assemble", "pgo_cost")
+
+
 @pytest.fixture(scope="module")
 def device():
     if not torch.cuda.is_available():
@@ -73,6 +78,23 @@ def test_scenegraph_kernels(scenegraph_checks, name):
     assert r["ok"], r
 
 
+@pytest.fixture(scope="module")
+def loop_checks(device):
+    return {r["name"]: r for r in selfcheck.run_loop_seeded(device)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    "bow_vectors", "place_query", "match_nn_ratio", "guided_count",
+    "verify_sim3", "pnp_hypotheses", "pgo_assemble", "pgo_cost",
+    "schur_reduce@L128", "schur_backsub@L128"])
+def test_loop_kernels(loop_checks, name):
+    # K10, K11, K5's NN ratio, K16, K15 (both halves), K19 and K8 at the
+    # global BA's L = 128, on seeded inputs of the loop path's shapes
+    r = loop_checks[name]
+    assert r["ok"], r
+
+
 @pytest.mark.gpu
 def test_slice_on_card_uses_every_kernel(device):
     from visual_sgraphs_tpu_torch.config import (
@@ -96,7 +118,7 @@ def test_slice_on_card_uses_every_kernel(device):
     counts = cuda.counts()
     assert all(launches > 0 and twin == 0
                for name, (launches, twin) in counts.items()
-               if name not in sg_only), counts
+               if name not in sg_only + LOOP_ONLY), counts
     assert np.isfinite(pos).all() and system.tracked_mask().all()
     err = np.linalg.norm(pos - pos[0] - (np.stack(gt) - gt[0]), axis=1)
     assert err.max() < 0.1
@@ -130,7 +152,8 @@ def test_scenegraph_slice_on_card_uses_every_kernel(device):
     pos = system.positions()
     counts = cuda.counts()
     assert all(launches > 0 and twin == 0
-               for launches, twin in counts.values()), counts
+               for name, (launches, twin) in counts.items()
+               if name not in LOOP_ONLY), counts
     assert np.isfinite(pos).all() and system.tracked_mask().all()
     planes = system.scenegraph.planes()
     assert len(planes["coeffs"]) >= 2

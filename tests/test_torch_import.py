@@ -39,10 +39,13 @@ def test_port_imports_without_jax():
     # every sub-package and module of the port imported, the scene graph
     # included
     names = set(out.stdout.split())
-    assert len(names) >= 34
+    assert len(names) >= 44
     for mod in ("core.plane", "scenegraph.state", "scenegraph.pointcloud",
                 "scenegraph.plane_fit", "scenegraph.epilogue",
-                "scenegraph.manager", "optim.graph", "optim.factors"):
+                "scenegraph.manager", "scenegraph.joint_ba", "optim.graph", "optim.factors",
+                "optim.solve", "place", "place.vocab", "place.database",
+                "place.sim3_ransac", "place.pnp", "place.pgo",
+                "place.loop_closer"):
         assert "visual_sgraphs_tpu_torch." + mod in names, mod
 
 

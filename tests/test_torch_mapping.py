@@ -126,6 +126,36 @@ def test_fast_local_ba(keyframe_case, port_dtype):
     assert moved > 1e-6  # the solve did move the window
 
 
+@pytest.mark.parametrize("port_dtype", ["float32", "float64"])
+def test_local_ba_generic(keyframe_case, port_dtype):
+    # the recovery keyframe's LM windowed BA (points eliminated), 6
+    # iterations: the rule of test_fast_local_ba against the reference's
+    # float64 solve
+    m4 = keyframe_case["stages"][3]
+    cfg = keyframe_case["snap"]["cfg"]
+    kf = keyframe_case["slot"]
+    bf = np.float32(cfg.camera.bf)
+    r64 = m4._replace(**{f: getattr(m4, f).astype(jnp.float64)
+                         for f in BA_FLOAT_FIELDS})
+    r, r_stats = rmap.local_ba(
+        r64, jnp.asarray(kf, jnp.int32),
+        jnp.asarray(cfg.camera.K, jnp.float64), jnp.asarray(bf, jnp.float64),
+        n_window=10, iters=6)
+    dt = getattr(torch, port_dtype)
+    pm = tp.port_map(m4)
+    pm = pm._replace(**{f: getattr(pm, f).to(dt) for f in BA_FLOAT_FIELDS})
+    p, p_cost = pmap.local_ba(pm, kf, tp.t(cfg.camera.K).to(dt),
+                              torch.tensor(bf, dtype=dt), n_window=10,
+                              iters=6)
+    np.testing.assert_allclose(p.kf_pose.numpy(), np.asarray(r.kf_pose),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(p.pt_pos.numpy(), np.asarray(r.pt_pos),
+                               rtol=0, atol=1e-3)
+    np.testing.assert_allclose(float(p_cost), float(r_stats.cost1),
+                               rtol=1e-3)
+    assert float(r_stats.cost1) < float(r_stats.cost0)
+
+
 def test_group_observations_exact(rng):
     # exact: integer tables and copied coordinates
     n_obs, n_pt, max_obs = 400, 60, 5

@@ -65,10 +65,20 @@ def cached(name: str, build):
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """The port's CPU ops are small; one intra-op thread per test worker
-    avoids oversubscribing the cores the parallel test run shares."""
+    avoids oversubscribing the cores the parallel test run shares.  The
+    BLAS pools (numpy's, and the one the reference's LAPACK calls use) get
+    one thread too: OpenBLAS threads spin while they wait, and with six
+    test workers on an eight-core CPU the reference's joint BA ran some
+    thirty times slower than alone."""
+    # the reference's LAPACK calls go through scipy's OpenBLAS, which
+    # loads on first use: load it now so that the limit reaches it
+    import scipy.linalg  # noqa: F401
+    from threadpoolctl import threadpool_limits
+
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 

@@ -300,3 +300,6 @@ class SystemConfig:
     place: PlaceConfig = PlaceConfig()
     imu: ImuConfig = ImuConfig()
     env: EnvDatabase = EnvDatabase()
+
+    def sensor_is_monocular(self) -> bool:
+        return self.sensor in (Sensor.MONOCULAR, Sensor.IMU_MONOCULAR)

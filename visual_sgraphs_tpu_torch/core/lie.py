@@ -224,9 +224,119 @@ def se3_normalize(T):
 
 
 # ---------------------------------------------------------------------------
-# Sim(3) (what the trajectory alignment needs)
+# Sim(3)  —  [qw qx qy qz tx ty tz s]; tangent [rho(3), omega(3), sigma(1)]
+# with s = exp(sigma)
 # ---------------------------------------------------------------------------
+
+
+def sim3_identity(dtype=torch.float32, device=None):
+    return torch.cat([torch.ones((1,), dtype=dtype, device=device),
+                      torch.zeros((6,), dtype=dtype, device=device),
+                      torch.ones((1,), dtype=dtype, device=device)])
+
+
+def sim3_multiply(A, B):
+    q = quat_multiply(A[..., :4], B[..., :4])
+    t = A[..., 7:8] * quat_rotate(A[..., :4], B[..., 4:7]) + A[..., 4:7]
+    s = A[..., 7:8] * B[..., 7:8]
+    return torch.cat([q, t, s], dim=-1)
+
+
+def sim3_inverse(S):
+    qinv = quat_conjugate(S[..., :4])
+    sinv = 1.0 / S[..., 7:8]
+    t = -sinv * quat_rotate(qinv, S[..., 4:7])
+    return torch.cat([qinv, t, sinv], dim=-1)
 
 
 def sim3_apply(S, p):
     return S[..., 7:8] * quat_rotate(S[..., :4], p) + S[..., 4:7]
+
+
+def sim3_from_se3(T, s=None):
+    if s is None:
+        s = torch.ones(T.shape[:-1] + (1,), dtype=T.dtype, device=T.device)
+    return torch.cat([T, s.expand(T.shape[:-1] + (1,))], dim=-1)
+
+
+def sim3_to_se3(S):
+    """Drop the scale (the caller decides what it means)."""
+    return S[..., :7]
+
+
+def _sim3_W_terms(omega, sigma):
+    """Coefficients (A, B, C) with W = A [w]x + B [w]x^2 + C I (Sophus Sim3
+    exp), with the reference's small-angle / small-scale branches."""
+    theta2 = torch.sum(omega * omega, dim=-1, keepdim=True)
+    s2 = sigma * sigma
+    scale = torch.exp(sigma)
+    small_s = torch.abs(sigma) < 1e-4
+    small_t = theta2 < _EPS2
+    one_s = torch.ones_like(sigma)
+    sig_safe = torch.where(small_s, one_s, sigma)
+    C = torch.where(small_s, 1.0 + sigma / 2.0 + s2 / 6.0,
+                    (scale - 1.0) / sig_safe)
+    th_safe = torch.sqrt(_safe(theta2))
+    cos_t, sin_t = torch.cos(th_safe), torch.sin(th_safe)
+    a_big = scale * sin_t
+    b_big = scale * cos_t
+    denom = s2 + theta2
+    denom = torch.where(denom < 1e-12, torch.ones_like(denom), denom)
+    A_gen = (a_big * sigma + (1.0 - b_big) * th_safe) / (th_safe * denom)
+    B_gen = (C - ((b_big - 1.0) * sigma + a_big * th_safe) / denom) \
+        / _safe(theta2)
+    A_s0 = (1.0 - cos_t) / _safe(theta2)
+    B_s0 = (th_safe - sin_t) / _safe(theta2 * th_safe)
+    s2_safe = torch.where(small_s, torch.ones_like(s2), s2)
+    A_t0 = torch.where(small_s, 0.5 + sigma / 6.0,
+                       ((sigma - 1.0) * scale + 1.0) / s2_safe)
+    B_t0 = torch.where(small_s, 1.0 / 6.0 + sigma / 24.0,
+                       (scale * 0.5 * s2 + scale - 1.0 - sigma * scale)
+                       / torch.where(small_s, torch.ones_like(s2),
+                                     s2 * sig_safe))
+    A = torch.where(small_t, A_t0, torch.where(small_s, A_s0, A_gen))
+    B = torch.where(small_t, B_t0, torch.where(small_s, B_s0, B_gen))
+    return A, B, C
+
+
+def _sim3_W(omega, sigma):
+    A, B, C = _sim3_W_terms(omega, sigma)
+    W_ = hat(omega)
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device).expand_as(W_)
+    return A[..., None] * W_ + B[..., None] * (W_ @ W_) + C[..., None] * eye
+
+
+def sim3_exp(xi):
+    """Tangent [rho(3), omega(3), sigma(1)] -> Sim3."""
+    rho, omega, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6:7]
+    q = so3_exp(omega)
+    t = torch.einsum("...ij,...j->...i", _sim3_W(omega, sigma), rho)
+    return torch.cat([q, t, torch.exp(sigma)], dim=-1)
+
+
+def _solve3(M, b):
+    """M^-1 b for (..., 3, 3) M by the adjugate: elementary operations
+    only, so forward-mode AD under ``torch.func.vmap`` stays exact (the
+    batched forward derivative of ``torch.linalg.solve`` there is not)."""
+    c0 = _cross(M[..., 1, :], M[..., 2, :])
+    c1 = _cross(M[..., 2, :], M[..., 0, :])
+    c2 = _cross(M[..., 0, :], M[..., 1, :])
+    det = torch.sum(M[..., 0, :] * c0, dim=-1, keepdim=True)
+    adj_b = c0 * b[..., 0:1] + c1 * b[..., 1:2] + c2 * b[..., 2:3]
+    return adj_b / det
+
+
+def sim3_log(S):
+    omega = so3_log(S[..., :4])
+    sigma = torch.log(S[..., 7:8])
+    rho = _solve3(_sim3_W(omega, sigma), S[..., 4:7])
+    return torch.cat([rho, omega, sigma], dim=-1)
+
+
+def sim3_boxplus(S, xi):
+    return sim3_multiply(sim3_exp(xi), S)
+
+
+def sim3_normalize(S):
+    return torch.cat([quat_normalize(S[..., :4]), S[..., 4:7],
+                      torch.abs(S[..., 7:8])], dim=-1)

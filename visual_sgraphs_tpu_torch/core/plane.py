@@ -5,8 +5,7 @@ a plane is ``coeffs = [nx, ny, nz, c]`` with ``|n| = 1`` and signed
 distance ``d = -c`` (a point on the plane satisfies ``n·x + c = 0``).  The
 3-dof chart is ``(azimuth, elevation, distance)`` of the normal expressed
 in the frame of a reference plane.  Every function broadcasts over leading
-dimensions and works under ``torch.func`` transforms.  ``transform_sim3``
-waits for the loop-closing slice.
+dimensions and works under ``torch.func`` transforms.
 """
 
 from __future__ import annotations
@@ -80,6 +79,16 @@ def transform(T_se3, coeffs):
     x' = Rx + t): ``n' = R n``, ``c' = c - t·n'`` (plane3d.h:108-115)."""
     n_new = lie.quat_rotate(T_se3[..., :4], coeffs[..., :3])
     c_new = coeffs[..., 3] - torch.sum(T_se3[..., 4:7] * n_new, dim=-1)
+    return normalize(torch.cat([n_new, c_new[..., None]], dim=-1))
+
+
+def transform_sim3(S, coeffs):
+    """Transform plane coefficients by a Sim3 ``[q, t, s]`` (points map
+    x' = s R x + t): ``n' = R n``, ``c' = s c - t·n'``, the similarity
+    form of ``transform`` that carries loop corrections into planes."""
+    n_new = lie.quat_rotate(S[..., :4], coeffs[..., :3])
+    c_new = S[..., 7] * coeffs[..., 3] - torch.sum(S[..., 4:7] * n_new,
+                                                   dim=-1)
     return normalize(torch.cat([n_new, c_new[..., None]], dim=-1))
 
 

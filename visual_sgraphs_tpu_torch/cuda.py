@@ -1,9 +1,10 @@
 """Build, load and call the port's hand-written CUDA kernels.
 
 All kernels live in ``csrc/*.cu`` with a plain C interface.  On first use
-they are compiled by ``nvcc`` for ``sm_90a`` into one shared library,
-``build/kernels/libvsg_kernels.so`` at the repository root, and loaded
-with ``ctypes``.  The library is rebuilt whenever the hash of the sources
+each source is compiled by its own ``nvcc`` for ``sm_90a`` (all started
+together), the objects are linked into one shared library,
+``build/kernels/libvsg_kernels.so`` at the repository root, and it is
+loaded with ``ctypes``.  The library is rebuilt whenever the hash of the sources
 changes.  Nothing here runs at import time: importing this module needs
 neither a card nor a compiler.
 
@@ -32,7 +33,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 LIB_NAME = "libvsg_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # (name, module, wrapper, twin, source, TPU-path function it replaces)
 KERNELS = (
@@ -69,6 +70,35 @@ KERNELS = (
      "plane_epilogue", "plane_epilogue_torch",
      "visual_sgraphs_tpu_torch/csrc/plane_epilogue.cu",
      "visual_sgraphs_tpu/scenegraph/manager.py:254"),
+    ("bow_vectors", "visual_sgraphs_tpu_torch.place.vocab", "bow_vectors",
+     "bow_vectors_torch", "visual_sgraphs_tpu_torch/csrc/bow.cu",
+     "visual_sgraphs_tpu/place/vocab.py:138"),
+    ("place_query", "visual_sgraphs_tpu_torch.place.database",
+     "place_query", "place_query_torch",
+     "visual_sgraphs_tpu_torch/csrc/bow.cu",
+     "visual_sgraphs_tpu/place/database.py:75"),
+    ("match_nn_ratio", "visual_sgraphs_tpu_torch.features.match",
+     "match_nn_ratio", "match_nn_ratio_torch",
+     "visual_sgraphs_tpu_torch/csrc/match.cu",
+     "visual_sgraphs_tpu/features/match.py:62"),
+    ("guided_count", "visual_sgraphs_tpu_torch.features.match",
+     "guided_count", "guided_count_torch",
+     "visual_sgraphs_tpu_torch/csrc/match.cu",
+     "visual_sgraphs_tpu/place/loop_closer.py:86"),
+    ("verify_sim3", "visual_sgraphs_tpu_torch.place.sim3_ransac",
+     "verify_sim3", "verify_sim3_torch",
+     "visual_sgraphs_tpu_torch/csrc/sim3.cu",
+     "visual_sgraphs_tpu/place/sim3_ransac.py:28"),
+    ("pnp_hypotheses", "visual_sgraphs_tpu_torch.place.pnp",
+     "pnp_hypotheses", "pnp_hypotheses_torch",
+     "visual_sgraphs_tpu_torch/csrc/sim3.cu",
+     "visual_sgraphs_tpu/place/pnp.py:65"),
+    ("pgo_assemble", "visual_sgraphs_tpu_torch.place.pgo", "pgo_assemble",
+     "pgo_assemble_torch", "visual_sgraphs_tpu_torch/csrc/pgo.cu",
+     "visual_sgraphs_tpu/place/pgo.py:125"),
+    ("pgo_cost", "visual_sgraphs_tpu_torch.place.pgo", "pgo_cost",
+     "pgo_cost_torch", "visual_sgraphs_tpu_torch/csrc/pgo.cu",
+     "visual_sgraphs_tpu/optim/solve.py:69"),
 )
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -84,6 +114,14 @@ _ARGTYPES = {
     "vsg_depth_cloud": [_VP] * 4 + [_I, _I, _I, _F, _I, _I] + [_VP] * 10,
     "vsg_extract_planes": [_VP] * 4 + [_I, _I, _I, _F, _F] + [_VP] * 7,
     "vsg_plane_epilogue": [_VP] * 7 + [_I, _I, _F, _F, _I] + [_VP] * 7,
+    "vsg_bow_vectors": [_VP] * 3 + [_I] * 13 + [_VP] * 5,
+    "vsg_place_query": [_VP] * 6 + [_I, _I, _F, _I] + [_VP] * 4,
+    "vsg_match_nn_ratio": [_VP] * 6 + [_I, _I, _F, _I, _I] + [_VP] * 4,
+    "vsg_guided_count": [_VP] * 6 + [_I, _I, _F, _I] + [_VP] * 2,
+    "vsg_verify_sim3": [_VP] * 4 + [_I, _I, _F, _I, _I] + [_VP] * 6,
+    "vsg_pnp_hypotheses": [_VP] * 5 + [_I, _I, _F] + [_VP] * 4,
+    "vsg_pgo_assemble": [_VP] * 5 + [_I, _I, _I] + [_VP] * 3,
+    "vsg_pgo_cost": [_VP] * 5 + [_I] + [_VP] * 2,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -113,8 +151,9 @@ def find_nvcc() -> str:
 
 def build(force: bool = False, verbose: bool = False) -> tuple[Path, float]:
     """Compile ``csrc/*.cu`` into the shared library unless an up-to-date
-    build exists (``verbose``: print ptxas's registers, shared memory and
-    spills per kernel).  Returns (library path, seconds spent compiling)."""
+    build exists: one ``nvcc -c`` per source, all started together, then
+    one link (``verbose``: print ptxas's registers, shared memory and
+    spills per kernel).  Returns (library path, seconds spent)."""
     lib_path = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     digest = source_hash()
@@ -122,18 +161,39 @@ def build(force: bool = False, verbose: bool = False) -> tuple[Path, float]:
             and stamp.read_text().strip() == digest):
         return lib_path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / (LIB_NAME + f".tmp{os.getpid()}")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = []
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs.append((obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors, logs = [], []
+    for obj, proc in procs:
+        out, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            errors.append(f"{obj.name} ({proc.returncode}):\n{err}")
+    objs = [obj for obj, _ in procs]
+    try:
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        tmp = BUILD_DIR / (LIB_NAME + f".tmp{os.getpid()}")
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     dt = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr)
+    if verbose:
+        print("".join(logs))
     os.replace(tmp, lib_path)
     stamp.write_text(digest)
     return lib_path, dt

@@ -1,10 +1,15 @@
 """Carry configuration and state between the JAX package and the port.
 
 Everything crosses as numpy: a reference ``MapState`` /
-``SceneGraphState`` / ``FrameObs`` / ``TrackResult`` becomes ``{field: np.asarray(value)}`` (``m._asdict()``),
-and the port's tuples load from and dump to such dicts, field for field
-with the port's canonical dtypes.  A reference ``SystemConfig`` crosses as
-``dataclasses.asdict``.  This module imports neither package's JAX side.
+``SceneGraphState`` / ``FrameObs`` / ``TrackResult`` / ``PlaceDB`` becomes
+``{field: np.asarray(value)}`` (``m._asdict()``), and the port's tuples
+load from and dump to such dicts, field for field with the port's
+canonical dtypes.  A vocabulary crosses as ``{"centers": [per-level
+(K**(l+1), 32) uint8], "idf": (W,) float32}`` (or through the reference's
+``save_vocab`` file, ``place.vocab.load_vocab``): a tree the reference
+trained is the port's "weights", so both compute with the same words.  A
+reference ``SystemConfig`` crosses as ``dataclasses.asdict``.  This module
+imports neither package's JAX side.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ import numpy as np
 import torch
 
 from visual_sgraphs_tpu_torch import config as cfg_mod
+from visual_sgraphs_tpu_torch.place.database import PlaceDB
+from visual_sgraphs_tpu_torch.place.vocab import VocabTree, tree_from_numpy
 from visual_sgraphs_tpu_torch.scenegraph.state import (
     SceneGraphState,
     empty_scenegraph,
@@ -97,6 +104,28 @@ def track_from_numpy(d: dict, device=None) -> TrackResult:
 
 def track_to_numpy(r: TrackResult) -> dict:
     return to_numpy(r)
+
+
+_PLACEDB_DTYPES = dict(bow=torch.float32, has_word=torch.bool,
+                       valid=torch.bool)
+
+
+def placedb_from_numpy(d: dict, device=None) -> PlaceDB:
+    return _load(PlaceDB, _PLACEDB_DTYPES, d, device)
+
+
+def placedb_to_numpy(db: PlaceDB) -> dict:
+    return to_numpy(db)
+
+
+def vocab_from_numpy(d: dict, device=None) -> VocabTree:
+    """A vocabulary tree from {"centers": [...], "idf": ...}."""
+    return tree_from_numpy(d["centers"], d["idf"], device=device)
+
+
+def vocab_to_numpy(tree: VocabTree) -> dict:
+    return {"centers": [c.cpu().numpy() for c in tree.centers],
+            "idf": tree.idf.cpu().numpy()}
 
 
 _NESTED_TUPLES = {("EnvDatabase", "rooms"): cfg_mod.EnvRoom,

@@ -5,8 +5,10 @@ the configuration behind their numbers from here: the headline
 configuration of the reference's ``bench.py`` (640x480 RGB-D, 1000 ORB
 features, 128 keyframes / 32768 points, ``MappingConfig(lba_iters=6,
 lba_interval=2, cull_interval=2)``, plane covisibility and semantic point
-refinement on) less what is not ported yet (serial path, loops off), over
-the 96-frame two-lap ``orbit2`` sequence rendered with semantics.
+refinement on) less what is not ported yet (the serial path), over the
+96-frame two-lap ``orbit2`` sequence rendered with semantics; with
+``loop_config`` the headline's loop closing, global BA after each loop
+and relocalisation of lost frames.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from visual_sgraphs_tpu_torch.config import (
     CapacityConfig,
     MappingConfig,
     OrbConfig,
+    PlaceConfig,
     SystemConfig,
 )
 
@@ -43,6 +46,15 @@ def configs(scene, n_features: int = 1000,
     # the headline configuration's scene-graph behaviours (bench.py:87-88)
     return cfg, dataclasses.replace(cfg, scenegraph=dataclasses.replace(
         cfg.scenegraph, plane_covis_enabled=True, refine_map_points=True))
+
+
+def loop_config(cfg):
+    """``cfg`` with the headline's loop closing (``bench.py:82-86``): the
+    vocabulary trained at 4 keyframes, single-keyframe consistency, an
+    8-keyframe gap, a global BA after each accepted loop."""
+    return dataclasses.replace(cfg, loop_closing=True, place=PlaceConfig(
+        vocab_min_keyframes=4, consistency=1, min_gap=8,
+        gba_after_loop=True))
 
 
 def make_system(cfg, device, with_sg: bool):

@@ -1,22 +1,51 @@
-"""Scene-graph factor residuals for the graph engine.
+"""Factor residuals for the graph engine.
 
-Port of the plane / room / door part of
-``visual_sgraphs_tpu/optim/factors.py``.  Each function is a per-item
-residual ``f(values: tuple, const: dict) -> (res_dim,)`` for a
+Port of the reprojection, plane / room / door and ``relative_sim3``
+factors of ``visual_sgraphs_tpu/optim/factors.py``.  Each function is a
+per-item residual ``f(values: tuple, const: dict) -> (res_dim,)`` for a
 ``FactorBatch``; Jacobians come from forward-mode autodiff.  Keyframe poses
 are T_cw.
 
+- ``reproj_mono`` / ``reproj_stereo`` <- EdgeSE3ProjectXYZ /
+  EdgeStereoSE3ProjectXYZ (OptimizableTypes.h:34-157)
 - ``plane_kf``      <- EdgeVertexPlaneProjectSE3KF (OptimizableTypes.h:336)
+- ``point_on_plane`` <- EdgeVertexPlaneProjectPointXYZ (OptimizableTypes.h:379)
 - ``plane_quadric`` <- EdgeSE3KFPointToPlane (OptimizableTypes.h:296)
 - ``room_2wall`` / ``room_4wall`` <- EdgeVertex{2,4}PlaneProjectSE3Room
 - ``door_room``     <- EdgeSE3DoorProjectSE3Room (translation part)
+- ``relative_sim3`` <- EdgeSim3, the essential-graph edge of loop closing
 """
 
 from __future__ import annotations
 
 import torch
 
+from visual_sgraphs_tpu_torch.core import cameras, lie
 from visual_sgraphs_tpu_torch.core import plane as plane_mod
+
+
+def reproj_mono(values, const):
+    """families (kf_pose T_cw, point X_w); const uv (2,), cam (4,)."""
+    T_cw, X_w = values
+    p_cam = lie.se3_apply(T_cw, X_w)
+    return cameras.project_pinhole(const["cam"], p_cam) - const["uv"]
+
+
+def reproj_stereo(values, const):
+    """families (kf_pose T_cw, point X_w); const uv_ur (3,), cam (4,),
+    bf (): the third row is the right-image u = u - bf / z."""
+    T_cw, X_w = values
+    p_cam = lie.se3_apply(T_cw, X_w)
+    uv_hat = cameras.project_pinhole(const["cam"], p_cam)
+    z = torch.clamp(p_cam[2], min=1e-6)
+    ur_hat = uv_hat[0] - const["bf"] / z
+    return torch.cat([uv_hat, ur_hat[None]]) - const["uv_ur"]
+
+
+def point_on_plane(values, const):
+    """families (plane_w, point X_w): r = n·x + d."""
+    pi_w, X_w = values
+    return plane_mod.point_plane_distance(pi_w, X_w)[None]
 
 
 def plane_kf(values, const):
@@ -68,3 +97,12 @@ def door_room(values, const):
     r = (t_door - c) - rel."""
     T_wd, c = values
     return (T_wd[4:7] - c) - const["rel"]
+
+
+def relative_sim3(values, const):
+    """families (sim3_i, sim3_j); const S_ji (8,):
+    r = log(S_ji_meas^-1 . S_j . S_i^-1)."""
+    S_i, S_j = values
+    S_ji = lie.sim3_multiply(S_j, lie.sim3_inverse(S_i))
+    return lie.sim3_log(lie.sim3_multiply(lie.sim3_inverse(const["S_ji"]),
+                                          S_ji))

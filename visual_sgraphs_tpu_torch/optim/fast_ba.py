@@ -37,6 +37,7 @@ from visual_sgraphs_tpu_torch.parallel.dist_ba import (
     back_substitute,
     group_observations,
     local_reduced_system,
+    solve_damped,
 )
 from visual_sgraphs_tpu_torch.scenegraph.manager import plane_covis_bonus
 from visual_sgraphs_tpu_torch.slam.map_state import (
@@ -98,18 +99,6 @@ def _observation_tables(m: MapState, kf_ids, kf_mask, cam_bf,
     return safe_pt, pt_ok, kf_tab, uvr_tab, val_tab, bf
 
 
-def _solve_damped(S, rhs, free, lam: float):
-    """Levenberg-damped, gauge-masked Cholesky solve.  ``cholesky_ex``
-    reports failure on the device (no sync): a failed factorisation shows
-    up as non-finite steps, zeroed here."""
-    diag = torch.clamp(torch.diagonal(S), min=1e-6)
-    S = S + torch.diag(lam * diag + 1e-5)
-    S = S * free[:, None] * free[None, :] + torch.diag(1.0 - free)
-    chol, _ = torch.linalg.cholesky_ex(S)
-    dx = torch.cholesky_solve((rhs * free)[:, None], chol)[:, 0]
-    return torch.where(torch.isfinite(dx), dx, 0.0) * free
-
-
 def _write_back(m: MapState, kf_ids, kf_mask, kf_fixed, poses, safe_pt,
                 pt_ok, pts) -> MapState:
     new_kf_pose = index_set_last(
@@ -147,7 +136,7 @@ def fast_local_ba(m: MapState, kf_id: int, cam_K: torch.Tensor,
     for _ in range(iters):
         S, rhs, Hinv, bx, W, cost = local_reduced_system(
             poses, pts, kf_tab, uvr_tab, val_tab, cam_K, bf, lam, 2.45)
-        dxr6 = _solve_damped(S, rhs, free, lam).reshape(L, 6)
+        dxr6 = solve_damped(S, rhs, free, lam).reshape(L, 6)
         new_poses = lie.se3_normalize(lie.se3_boxplus(
             poses, torch.where(kf_fixed[:, None], 0.0, dxr6)))
         dxe = back_substitute(Hinv, bx, W, kf_tab, val_tab, dxr6)
@@ -317,7 +306,7 @@ def fast_scenegraph_ba(m: MapState, sg, kf_id: int, cam_K: torch.Tensor,
         S[:kf_dim, :kf_dim] += S_kf
         rhs = -g
         rhs[:kf_dim] += rhs_kf
-        dx = _solve_damped(S, rhs, free, lam)
+        dx = solve_damped(S, rhs, free, lam)
         dkf = dx[:kf_dim].reshape(L, 6)
         off = kf_dim
         dpl = dx[off:off + 3 * P].reshape(P, 3)

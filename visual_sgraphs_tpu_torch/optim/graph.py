@@ -61,6 +61,11 @@ def plane_family(values, fixed=None) -> VarFamily:
                      plane_mod.oplus)
 
 
+def sim3_family(values, fixed=None) -> VarFamily:
+    return VarFamily(values, _fixed_or_none(values, fixed), 7,
+                     lie.sim3_boxplus)
+
+
 @dataclasses.dataclass(frozen=True)
 class FactorBatch:
     """All factors of one type, as a batch of m items.
@@ -127,6 +132,9 @@ def linearize_batch(batch: FactorBatch, families: Mapping[str, VarFamily]):
                 jacfwd(item_residual)(deltas, values, const))
 
     r, jacs = vmap(item_lin)(zeros, gathered, batch.const)
+    # a Python-scalar branch of torch.where (e.g. the projection's depth
+    # floor) gives a float64 tangent under forward AD: keep r's dtype
+    jacs = tuple(j.to(r.dtype) for j in jacs)
 
     sqrt_info = torch.sqrt(batch.info)
     if batch.info.ndim == 1:
@@ -141,3 +149,15 @@ def linearize_batch(batch: FactorBatch, families: Mapping[str, VarFamily]):
         s = torch.sqrt(torch.clamp(chi2, min=1e-12))
         w = w * torch.clamp(batch.huber / s, max=1.0)
     return r, jacs, w
+
+
+def batch_chi2(batch: FactorBatch, families: Mapping[str, VarFamily]):
+    """Per-item whitened squared residual (no Huber)."""
+    fams = [families[name] for name in batch.families]
+    gathered = tuple(f.values[batch.var_idx[:, i].long()]
+                     for i, f in enumerate(fams))
+    r = vmap(lambda vals, c: batch.residual_fn(vals, c))(gathered,
+                                                         batch.const)
+    if batch.info.ndim == 1:
+        return batch.info * torch.sum(r * r, dim=-1)
+    return torch.sum(batch.info * r * r, dim=-1)

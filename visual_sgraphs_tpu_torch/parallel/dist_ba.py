@@ -13,9 +13,16 @@ orders of magnitude) and the landmarks are back-substituted.
 ``local_reduced_system`` and ``back_substitute`` launch the hand kernels
 in ``csrc/schur.cu`` on CUDA tensors and run the plain twins
 ``local_reduced_system_torch`` / ``back_substitute_torch`` on CPU
-tensors.  The twins keep the reference's one-hot contractions, a layout
-chosen for the TPU's matrix unit; the kernels reduce per landmark instead.
-The mesh / NCCL path is not ported yet.
+tensors.  The twins scatter per observation and per ordered observation
+pair with ``index_add_`` (the reference's one-hot contractions, a layout
+chosen for the TPU's matrix unit, cost O(n L^2) and are too slow at the
+global BA's L = 128 on a CPU); the kernels reduce per landmark.
+
+``global_ba_sharded`` is the one-device global BA of loop closing
+(LoopClosing::RunGlobalBundleAdjustment): every keyframe and point of the
+map, observations grouped per landmark (``max_obs`` = 8), K8 at L = K.
+The mesh / NCCL path (landmarks sharded over devices, one all-reduce of
+the reduced system per iteration) is not ported yet.
 """
 
 from __future__ import annotations
@@ -150,26 +157,32 @@ def local_reduced_system_torch(kf_pose, pts, kf_tab, uvr_tab, val_tab, cam_K,
 
     kf_safe = torch.clamp(kf_tab, min=0).long()
     slot_ok = val_tab & (kf_tab >= 0)
-    # one-hot observation -> keyframe assignment (n, O, K): every
-    # contraction below is then a plain matrix product
-    E = ((kf_safe[..., None] == torch.arange(K, device=r.device))
-         & slot_ok[..., None]).to(r.dtype)
-    S1 = torch.einsum("nak,naij->kij", E, Hpp)  # (K, 6, 6)
-    WH = torch.einsum("nari,nij->narj", W, Hinv)  # (n, O, 6, 3)
-
-    def factor4(Mx):
-        # (n, O, 6, 3) -> A[n, i, r, k] = sum_{a -> k} Mx[n, a, r, i]
-        M18 = Mx.transpose(2, 3).reshape(n, O, 18)
-        return torch.einsum("noi,nok->nik", M18, E).reshape(n, 3, 6, K)
-
-    S2 = torch.einsum("nirk,nism->rksm", factor4(WH), factor4(W))
-    S2 = S2.permute(1, 0, 3, 2).reshape(6 * K, 6 * K)
+    okf = slot_ok.to(r.dtype)
+    S1 = torch.zeros((K, 6, 6), dtype=r.dtype, device=r.device)
+    S1.index_add_(0, kf_safe.reshape(-1),
+                  (Hpp * okf[..., None, None]).reshape(-1, 6, 6))
+    # the pair blocks of landmarks with an observation (the tables are
+    # sized for the window's capacity, most rows empty; this twin runs on
+    # the card only to check the kernel, where the index's sync is moot)
+    act = torch.nonzero(slot_ok.any(dim=1))[:, 0]
+    WH = torch.einsum("nari,nij->narj", W[act], Hinv[act])  # (n', O, 6, 3)
+    # every ordered pair of a landmark's observations: the block
+    # (W_a Hinv) W_b^T lands at keyframes (k_a, k_b)
+    oka, kfa = okf[act], kf_safe[act]
+    pair = torch.einsum("nari,nbsi->nabrs", WH, W[act]) \
+        * (oka[:, :, None] * oka[:, None, :])[..., None, None]
+    S2 = torch.zeros((K * K, 6, 6), dtype=r.dtype, device=r.device)
+    S2.index_add_(0, (kfa[:, :, None] * K + kfa[:, None, :]).reshape(-1),
+                  pair.reshape(-1, 6, 6))
+    S2 = S2.reshape(K, K, 6, 6).permute(0, 2, 1, 3).reshape(6 * K, 6 * K)
     S = (-0.5 * (S2 + S2.T)).reshape(K, 6, K, 6)
     kk = torch.arange(K, device=r.device)
     S[kk, :, kk, :] += S1
     hb = torch.einsum("nij,nj->ni", Hinv, bx)
     Wb = torch.einsum("nari,ni->nar", W, hb)
-    rhs = torch.einsum("nak,nar->kr", E, Wb - gp)
+    rhs = torch.zeros((K, 6), dtype=r.dtype, device=r.device)
+    rhs.index_add_(0, kf_safe.reshape(-1),
+                   ((Wb - gp) * okf[..., None]).reshape(-1, 6))
     return S.reshape(6 * K, 6 * K), rhs.reshape(6 * K), Hinv, bx, W, cost
 
 
@@ -188,6 +201,18 @@ def back_substitute_torch(Hinv, bx, W, kf_tab, val_tab, dxr6):
 
 local_reduced_system_torch.cuda_calls = 0
 back_substitute_torch.cuda_calls = 0
+
+
+def solve_damped(S, rhs, free, lam: float):
+    """Levenberg-damped, gauge-masked Cholesky solve.  ``cholesky_ex``
+    reports failure on the device (no sync): a failed factorisation shows
+    up as non-finite steps, zeroed here."""
+    diag = torch.clamp(torch.diagonal(S), min=1e-6)
+    S = S + torch.diag(lam * diag + 1e-5)
+    S = S * free[:, None] * free[None, :] + torch.diag(1.0 - free)
+    chol, _ = torch.linalg.cholesky_ex(S)
+    dx = torch.cholesky_solve((rhs * free)[:, None], chol)[:, 0]
+    return torch.where(torch.isfinite(dx), dx, 0.0) * free
 
 
 def _check_tables(name, kf_tab, uvr_tab, val_tab):
@@ -260,3 +285,59 @@ def back_substitute(Hinv, bx, W, kf_tab, val_tab, dxr6):
 
 
 back_substitute.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# one-device global BA
+# ---------------------------------------------------------------------------
+
+
+def _step_body(kf_pose, pts, kf_tab, uvr_tab, val_tab, valid_pt, cam_K,
+               fixed_kf, lam: float, bf, huber: float, iters: int):
+    """``iters`` Gauss-Newton iterations: K8's reduction, the damped
+    reduced solve, the pose update and K8's back-substitution.  Returns
+    (poses, points, costs (iters,))."""
+    K = kf_pose.shape[0]
+    free = (~fixed_kf).repeat_interleave(6).to(kf_pose.dtype)
+    pose, costs = kf_pose, []
+    for _ in range(iters):
+        S, rhs, Hinv, bx, W, cost = local_reduced_system(
+            pose, pts, kf_tab, uvr_tab, val_tab, cam_K, bf, lam, huber)
+        dxr6 = solve_damped(S, rhs, free, lam).reshape(K, 6)
+        new_pose = lie.se3_normalize(lie.se3_boxplus(
+            pose, torch.where(fixed_kf[:, None], 0.0, dxr6)))
+        dxe = back_substitute(Hinv, bx, W, kf_tab, val_tab, dxr6)
+        pts = pts + torch.where(valid_pt[:, None], dxe, 0.0)
+        pose = new_pose
+        costs.append(cost)
+    return pose, pts, torch.stack(costs)
+
+
+def global_ba_sharded(m, cam_K, cam_bf, iters: int = 10, max_obs: int = 8):
+    """Global BA straight from a ``MapState`` on one device: keyframe slot
+    0 and invalid slots fixed.  Returns (map, costs (iters,))."""
+    K = m.K
+    dev = m.kf_pose.device
+    obs = m.kf_obs_pt
+    ok = m.kf_kp_valid & m.kf_valid[:, None] & (obs >= 0)
+    safe = torch.clamp(obs, min=0)
+    ok = ok & m.pt_valid[safe.long()]
+    kf_rows = torch.arange(K, dtype=torch.int32, device=dev)[:, None].expand(
+        obs.shape)
+    uv = m.kf_uv.reshape(-1, 2)
+    depth = m.kf_depth.reshape(-1)
+    ur = torch.where(depth > 0,
+                     uv[:, 0] - cam_bf / torch.clamp(depth, min=1e-3), -1.0)
+    uvr = torch.cat([uv, ur[:, None]], dim=1)
+    fixed = (~m.kf_valid) | (torch.arange(K, device=dev) == 0)
+    # K9: observations grouped per landmark by ``torch.sort``
+    kf_tab, uvr_tab, val_tab, _ = group_observations(
+        kf_rows.reshape(-1), safe.reshape(-1), uvr, ok.reshape(-1),
+        m.pt_pos.shape[0], max_obs)
+    pose, pts, costs = _step_body(m.kf_pose, m.pt_pos, kf_tab, uvr_tab,
+                                  val_tab, m.pt_valid, cam_K, fixed,
+                                  lam=1e-4, bf=cam_bf, huber=2.45,
+                                  iters=iters)
+    return m._replace(
+        kf_pose=torch.where(fixed[:, None], m.kf_pose, pose),
+        pt_pos=torch.where(m.pt_valid[:, None], pts, m.pt_pos)), costs

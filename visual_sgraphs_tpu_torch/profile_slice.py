@@ -1,6 +1,7 @@
 """Where the time goes on the card: one profiled window of the slice.
 
     python -m visual_sgraphs_tpu_torch.profile_slice [--scenegraph]
+    python -m visual_sgraphs_tpu_torch.profile_slice --loop-runs N
 
 Runs the main path of ``main_path`` (640x480, 1000 features, 96
 ``orbit2`` frames) through ``SlamSystem.track_rgbd`` on the card (with
@@ -9,7 +10,11 @@ runs it) and profiles frames 32-63 twice: under ``torch.profiler``
 (device time by kernel, device busy share of the window, launches a
 frame) and under ``cProfile`` (host time by Python function).  With ``--scenegraph`` it also times one plane-KF
 factor linearisation (1024 items) with ``torch.func.jacfwd`` and, for
-comparison, ``jacrev``.  Prints one JSON line per result; needs a card.
+comparison, ``jacrev``.  With ``--loop-runs N`` it instead runs the loop
+path (``chip_smoke.py``'s ``loop_slice``: scene graph and loop closing on)
+N times and prints each run's loops, relocalisations and ATE: the spread
+that the card's float summation order alone gives one configuration.
+Prints one JSON line per result; needs a card.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import json
 import pstats
 import time
 
+import numpy as np
 import torch
 
 WINDOW = (32, 64)
@@ -128,15 +134,50 @@ def linearization_ms(n_items: int = 1024, reps: int = 10) -> dict:
     return out
 
 
+def loop_spread(n_runs: int) -> None:
+    """The loop path ``n_runs`` times on the same frames and configuration;
+    one line a run, then the ATE's spread."""
+    from visual_sgraphs_tpu_torch import main_path
+    from visual_sgraphs_tpu_torch.core import geometry
+    scene, frames = main_path.frames("cuda")
+    cfg = main_path.loop_config(main_path.configs(scene)[1])
+    gt = torch.from_numpy(np.stack([f[3][4:7] for f in frames]))
+    ates = []
+    for run in range(n_runs):
+        system = main_path.make_system(cfg, "cuda", True)
+        _feed(system, frames)
+        system.flush()
+        pos, tracked = system.positions(), system.tracked_mask()
+        ate = float(geometry.ate_rmse(torch.from_numpy(pos[tracked]),
+                                      gt[tracked])[0])
+        ates.append(ate)
+        ev = system.events
+        _line("loop_run", run=run, tracked=int(tracked.sum()), ate_m=ate,
+              n_loops_closed=system.loop_closer.n_loops_closed,
+              verified=[[e["kf"], e["cand"], e["drift"], e["n_inl"]]
+                        for e in ev.of_kind("loop_verified")],
+              n_global_ba=ev.count("global_ba"), n_reloc=ev.count("reloc"),
+              n_recovery_kf=ev.count("recovery_keyframe"),
+              n_kf=int(system.map.n_kf))
+        del system
+    _line("loop_spread", runs=n_runs, ate_m_min=min(ates),
+          ate_m_median=float(np.median(ates)), ate_m_max=max(ates))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenegraph", action="store_true",
                     help="attach the scene graph")
+    ap.add_argument("--loop-runs", type=int, default=0,
+                    help="run the loop path this many times instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
-    profile(args.scenegraph)
+    if args.loop_runs:
+        loop_spread(args.loop_runs)
+    else:
+        profile(args.scenegraph)
 
 
 if __name__ == "__main__":

@@ -22,10 +22,13 @@ from typing import Callable
 import numpy as np
 import torch
 
-from visual_sgraphs_tpu_torch.core import lie
+from visual_sgraphs_tpu_torch.core import cameras, lie
 from visual_sgraphs_tpu_torch.core import plane as plane_mod
 from visual_sgraphs_tpu_torch.features import fast, match, orb
 from visual_sgraphs_tpu_torch.parallel import dist_ba
+from visual_sgraphs_tpu_torch.place import database, pgo, pnp, sim3_ransac
+from visual_sgraphs_tpu_torch.place import vocab as vocab_mod
+from visual_sgraphs_tpu_torch.place.loop_closer import default_draw
 from visual_sgraphs_tpu_torch.scenegraph import epilogue, plane_fit, pointcloud
 from visual_sgraphs_tpu_torch.features.pyramid import (
     build_pyramid,
@@ -41,7 +44,9 @@ INLIER_AGREE = 0.99  # fraction of equal inlier flags, K6
 CLOUD_TOL = 1e-5  # m, K12 centroids (atomic summation order)
 PLANE_TOL = 1e-4  # per coefficient, K13 (sign pinned in both)
 ASSIGN_AGREE = 0.999  # fraction of equal point assignments, K13
-REL_TOL = 1e-4  # relative, K14 sums and K8 back-substitution
+REL_TOL = 1e-4  # relative, K14 sums, K8 back-substitution, K19's H
+BOW_TOL = 1e-6  # relative, K10 rows and K11 scores (summation order)
+SIM3_TOL = 1e-4  # per Sim3 / pose component, K15 and K19
 # K8's reduction against the float64 twin, relative to each output's
 # largest entry: its terms span ~8 orders of magnitude and rhs is a
 # difference of large sums, so float32 in any summation order is ~1e-4
@@ -424,6 +429,448 @@ def check_scenegraph(device, frames=SG_FRAMES) -> list[dict]:
             ops=27 * M + 49 * M * D),
             ints_exact=exact, npts=t[0].tolist())
     return list(res.values())
+
+
+# ---------------------------------------------------------------------------
+# loop closing and relocalisation (K5's NN ratio, K10, K11, K15, K16, K19)
+# ---------------------------------------------------------------------------
+
+
+def _clustered_descriptors(rng, n: int, n_base: int = 600,
+                           flip: float = 0.08):
+    """(n, 32) uint8 descriptors: perturbed copies of ``n_base`` random
+    prototypes (a few bits flipped), as a scene's features repeat."""
+    base = rng.integers(0, 256, (n_base, 32), dtype=np.uint8)
+    src = rng.integers(0, n_base, n)
+    bits = (rng.uniform(size=(n, 256)) < flip).astype(np.uint8)
+    return base[src] ^ np.packbits(bits, axis=1)
+
+
+def place_inputs(device, R: int = 128, F: int = 1000, seed: int = 0):
+    """A vocabulary trained as the loop closer trains it (4000 clustered
+    descriptors: L = 3, W = 512) and R keyframes' descriptor sets."""
+    rng = np.random.default_rng(seed)
+    train = _clustered_descriptors(rng, 4000)
+    tree = vocab_mod.fit_vocab(train, branching=8, levels=3, seed=0,
+                               device=device)
+    desc = _clustered_descriptors(rng, R * F).reshape(R, F, 32)
+    valid = rng.uniform(size=(R, F)) > 0.1
+    return (tree, torch.from_numpy(desc).to(device),
+            torch.from_numpy(valid).to(device))
+
+
+def check_bow(device, inputs=None) -> dict:
+    """K10 at R = 128 (the backfill) x 1000 descriptors: words exactly
+    equal to the twin's descent, rows within BOW_TOL relative; times are
+    of one keyframe's call (R = 1), the backfill's in ``backfill_ms``."""
+    tree, desc, valid = inputs or place_inputs(device)
+    kw = torch.empty(valid.shape, dtype=torch.int32, device=desc.device)
+    kb = vocab_mod.bow_vectors(tree, desc, valid, words_out=kw)
+    tb = vocab_mod.bow_vectors_torch(tree, desc, valid)
+    tw = vocab_mod.descend(tree, desc.reshape(-1, 32)).reshape(
+        valid.shape)
+    torch.cuda.synchronize()
+    words_equal = bool(torch.equal(kw, tw))
+    err = _rel(kb, tb)
+    d1, v1 = desc[:1].contiguous(), valid[:1].contiguous()
+    R, F = valid.shape
+    L, K, W = len(tree.centers), tree.branching, tree.n_words
+    return dict(name="bow_vectors", max_abs_err=err, ok=words_equal
+                and err <= BOW_TOL, words_equal=words_equal, n_words=W,
+                ms=time_cuda(lambda: vocab_mod.bow_vectors(tree, d1, v1)),
+                plain_ms=time_cuda(
+                    lambda: vocab_mod.bow_vectors_torch(tree, d1, v1)),
+                backfill_ms=time_cuda(
+                    lambda: vocab_mod.bow_vectors(tree, desc, valid)),
+                # one keyframe: its descriptors, the tree, the row; per
+                # descriptor and level K x (8 XOR + 8 popcount + 8 adds)
+                # and the argmin
+                bytes=F * 33 + sum(nbytes(c) for c in tree.centers)
+                + nbytes(tree.idf) + 4 * W,
+                ops=F * L * K * 25 + 3 * W)
+
+
+def check_place_query(device, inputs=None) -> dict:
+    """K11 on a (128, 512) database: packed candidate ids, valid count
+    and ordering exactly equal, scores within BOW_TOL relative."""
+    if inputs is None:
+        tree, desc, valid = place_inputs(device)
+        bows = vocab_mod.bow_vectors_torch(tree, desc, valid)
+        rng = np.random.default_rng(1)
+        K = bows.shape[0]
+        t = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+        db = database.build_db(bows, t(rng.uniform(size=K) > 0.1))
+        q = bows[7]
+        exclude = t(rng.uniform(size=K) < 0.3)
+        covis = t(rng.uniform(size=K) < 0.2)
+    else:
+        db, q, exclude, covis = inputs
+    args = (db, q, exclude, covis, 0.8, 3)
+    k = database.place_query(*args)
+    tw = database.place_query_torch(*args)
+    torch.cuda.synchronize()
+    ids_equal = bool(torch.equal(k[1:4], tw[1:4])) and float(k[7]) == \
+        float(tw[7])
+    err = _rel(torch.cat([k[:1], k[4:7]]), torch.cat([tw[:1], tw[4:7]]))
+    K, W = db.bow.shape
+    return dict(name="place_query", max_abs_err=err,
+                ok=ids_equal and err <= BOW_TOL, ids_equal=ids_equal,
+                packed=k.tolist(),
+                ms=time_cuda(lambda: database.place_query(*args)),
+                plain_ms=time_cuda(lambda: database.place_query_torch(*args)),
+                bytes=K * W * 5 + 4 * W + 3 * K + 4 * 8,
+                # per row and word: min, add, compare, add
+                ops=4 * K * W + 20 * K)
+
+
+def nn_inputs(device, n: int = 1000, seed: int = 0):
+    """Two keyframes' descriptor sets (a third of b's rows are perturbed
+    copies of a's, with a common rotation), validity and angles."""
+    rng = np.random.default_rng(seed)
+    desc_a = _clustered_descriptors(rng, n, n_base=n)
+    desc_b = _clustered_descriptors(rng, n, n_base=n)
+    src = rng.permutation(n)[: n // 3]
+    bits = (rng.uniform(size=(n // 3, 256)) < 0.05).astype(np.uint8)
+    desc_b[: n // 3] = desc_a[src] ^ np.packbits(bits, axis=1)
+    ang_a = rng.uniform(0, 2 * np.pi, n).astype(np.float32)
+    ang_b = rng.uniform(0, 2 * np.pi, n).astype(np.float32)
+    ang_b[: n // 3] = (ang_a[src] + 0.3
+                       + rng.normal(size=n // 3) * 0.05).astype(np.float32)
+    t = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    return (t(desc_a), t(rng.uniform(size=n) > 0.1), t(desc_b),
+            t(rng.uniform(size=n) > 0.1), t(ang_a), t(ang_b))
+
+
+def check_match_nn(device, inputs=None) -> dict:
+    """K5's NN-ratio entry (ratio 0.85, angles), 1000 x 1000: matches and
+    distances exactly equal."""
+    da, va, db_, vb, aa, ab = inputs or nn_inputs(device)
+    kw = dict(ratio=0.85, angle_a=aa, angle_b=ab)
+    km, kd = match.match_nn_ratio(da, va, db_, vb, **kw)
+    tm, td = match.match_nn_ratio_torch(da, va, db_, vb, **kw)
+    torch.cuda.synchronize()
+    err = float(max((km - tm).abs().max(), (kd - td).abs().max()))
+    n_pairs = int(va.sum()) * int(vb.sum())
+    return dict(name="match_nn_ratio", max_abs_err=err, ok=err == 0.0,
+                n_matched=int((km >= 0).sum()),
+                ms=time_cuda(lambda: match.match_nn_ratio(da, va, db_, vb,
+                                                          **kw)),
+                plain_ms=time_cuda(lambda: match.match_nn_ratio_torch(
+                    da, va, db_, vb, **kw)),
+                bytes=nbytes(da, va, db_, vb, aa, ab, km, kd),
+                # per pair of valid rows, once: the distance (8 XOR + 8
+                # popcount + 7 adds), the row's best-2 update (4) and the
+                # column's argmin update (2)
+                ops=29 * n_pairs)
+
+
+def guided_inputs(device, n: int = 1000, seed: int = 0):
+    """Projections of ``cur``'s points into ``cand`` (half near one of its
+    keypoints, with similar descriptors) and ``cand``'s keypoints."""
+    rng = np.random.default_rng(seed)
+    uv_b = rng.uniform((0, 0), (640, 480), (n, 2)).astype(np.float32)
+    uv_a = rng.uniform((0, 0), (640, 480), (n, 2)).astype(np.float32)
+    src = rng.integers(0, n, n // 2)
+    uv_a[: n // 2] = uv_b[src] + rng.normal(size=(n // 2, 2)) * 5
+    desc_b = _clustered_descriptors(rng, n, n_base=n)
+    desc_a = _clustered_descriptors(rng, n, n_base=n)
+    bits = (rng.uniform(size=(n // 2, 256)) < 0.2).astype(np.uint8)
+    desc_a[: n // 2] = desc_b[src] ^ np.packbits(bits, axis=1)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa
+    return (t(uv_a), t(rng.uniform(size=n) > 0.1), t(desc_a), t(uv_b),
+            t(rng.uniform(size=n) > 0.1), t(desc_b))
+
+
+def check_guided(device, inputs=None) -> dict:
+    """K16, 1000 x 1000: the count exactly equal."""
+    args = inputs or guided_inputs(device)
+    k = match.guided_count(*args)
+    tw = match.guided_count_torch(*args)
+    torch.cuda.synchronize()
+    err = float(abs(int(k) - int(tw)))
+    uv_a, va, _, uv_b, vb, _ = args
+    pairs = va[:, None] & vb[None, :]
+    near = pairs & (torch.sum((uv_a[:, None, :] - uv_b[None, :, :]) ** 2,
+                              dim=-1) < 64.0)
+    return dict(name="guided_count", max_abs_err=err, ok=err == 0.0,
+                count=int(k), ms=time_cuda(lambda: match.guided_count(*args)),
+                plain_ms=time_cuda(lambda: match.guided_count_torch(*args)),
+                bytes=nbytes(*args) + 4, n_in_window=int(near.sum()),
+                # per pair of valid rows the window test (5); per pair
+                # inside the 8 px window the distance (8 XOR + 8 popcount
+                # + 7 adds)
+                ops=5 * int(pairs.sum()) + 23 * int(near.sum()))
+
+
+def sim3_inputs(device, n: int = 1000, seed: int = 0):
+    """Matched camera-frame points of two keyframes: p_b = S p_a (+ 1 cm
+    noise) for 60% of the rows, the rest outliers; 90% valid; RANSAC
+    samples drawn as the loop closer draws them."""
+    rng = np.random.default_rng(seed)
+    p_a = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                    rng.uniform(1, 6, n)], -1).astype(np.float32)
+    xi = rng.normal(size=7) * [0.3, 0.1, 0.3, 0.1, 0.3, 0.05, 0.0]
+    S = lie.sim3_exp(torch.tensor(xi, dtype=torch.float32))
+    p_b = lie.sim3_apply(S, torch.from_numpy(p_a)).numpy()
+    p_b = p_b + rng.normal(size=p_b.shape).astype(np.float32) * 0.01
+    out = rng.uniform(size=n) < 0.4
+    p_b[out] += rng.uniform(-1, 1, (int(out.sum()), 3)).astype(np.float32)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa
+    valid = t(rng.uniform(size=n) > 0.1)
+    return (t(p_a), t(p_b.astype(np.float32)), valid,
+            default_draw("sim3", 12345, valid))
+
+
+def check_sim3(device, inputs=None, thresh: float = 0.12) -> dict:
+    """K15's Sim3 half (RANSAC 256 x 1000, polish, five refinement steps,
+    scale fixed): S within SIM3_TOL, inlier count exactly equal."""
+    p_a, p_b, valid, samples = inputs or sim3_inputs(device)
+    kw = dict(inlier_thresh=thresh, fix_scale=True)
+    k = sim3_ransac.verify_sim3(p_a, p_b, valid, samples, **kw)
+    tw = sim3_ransac.verify_sim3_torch(p_a, p_b, valid, samples, **kw)
+    torch.cuda.synchronize()
+    err = float((k.S_ab - tw.S_ab).abs().max())
+    same_n = int(k.n_inliers) == int(tw.n_inliers)
+    H, M = samples.shape[0], p_a.shape[0]
+    return dict(name="verify_sim3", max_abs_err=err,
+                ok=err <= SIM3_TOL and same_n,
+                n_inliers=[int(k.n_inliers), int(tw.n_inliers)],
+                ms=time_cuda(lambda: sim3_ransac.verify_sim3(
+                    p_a, p_b, valid, samples, **kw)),
+                plain_ms=time_cuda(lambda: sim3_ransac.verify_sim3_torch(
+                    p_a, p_b, valid, samples, **kw)),
+                bytes=nbytes(p_a, p_b, valid, samples) + 4 * 9 + M,
+                # per hypothesis: Horn (~1500) and M Sim3 distances (~35);
+                # the polish (2 x 30 M) and five refinement passes (~110 M)
+                ops=H * (1500 + 35 * M) + 60 * M + 5 * 110 * M)
+
+
+def pnp_inputs(device, n: int = 1000, seed: int = 0):
+    """World points seen by a camera: pixels with 0.5 px noise for 60%,
+    the rest random; 90% valid; 192 picks of six distinct valid matches
+    each (the loop closer draws with replacement; a repeated pick leaves
+    the DLT under-determined, which ``check_pnp`` does not compare)."""
+    rng = np.random.default_rng(seed)
+    K = torch.tensor([260.0, 260.0, 319.5, 239.5])
+    T = lie.se3_exp(torch.tensor(rng.normal(size=6) * [0.3, 0.1, 0.3, 0.1,
+                                                       0.3, 0.05],
+                                 dtype=torch.float32))
+    p_cam = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                      rng.uniform(1.5, 7, n)], -1).astype(np.float32)
+    xw = lie.se3_apply(lie.se3_inverse(T), torch.from_numpy(p_cam))
+    uv = cameras.project_pinhole(K, torch.from_numpy(p_cam)).numpy()
+    uv = uv + rng.normal(size=uv.shape).astype(np.float32) * 0.5
+    out = rng.uniform(size=n) < 0.4
+    uv[out] = rng.uniform((0, 0), (640, 480), (int(out.sum()), 2))
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x)).to(device)  # noqa
+    valid = rng.uniform(size=n) > 0.1
+    picks = np.stack([rng.choice(np.flatnonzero(valid), 6, replace=False)
+                      for _ in range(192)]).astype(np.int32)
+    return (xw.contiguous().to(device), t(uv.astype(np.float32)), t(valid),
+            K.to(device), t(picks))
+
+
+def check_pnp(device, inputs=None) -> dict:
+    """K15's PnP half (192 six-point DLTs scored on 1000 matches) against
+    the twin at the kernel's precision (float64 eigensolves): on every
+    hypothesis whose six picks are distinct, the inlier count exactly
+    equal; the winner the same and its pose T0 within SIM3_TOL.  A pick
+    row with a repeated match leaves A with a null space of more than one
+    dimension, in which either eigensolver may return any vector, so those
+    rows are counted, not compared; if one wins, its pose is not compared
+    either (``winner_well_posed``).  Besides, the K6 refinement from each
+    T0: refined poses within SIM3_TOL, inlier counts within 2."""
+    xw, uv, valid, K, picks = inputs or pnp_inputs(device)
+    T0k, ck = pnp.pnp_hypotheses(xw, uv, valid, K, picks)
+    T0t, ct = pnp.pnp_hypotheses_torch(xw, uv, valid, K, picks,
+                                       eig_dtype=torch.float64)
+    _, ct32 = pnp.pnp_hypotheses_torch(xw, uv, valid, K, picks)
+    gn = dict(iters=10, gate0=20.0 ** 2)
+    from visual_sgraphs_tpu_torch.slam import tracking
+    Tk, ik = tracking.pose_only_gn(T0k, xw, uv, valid, K, **gn)
+    Tt, it = tracking.pose_only_gn_torch(T0t, xw, uv, valid, K, **gn)
+    torch.cuda.synchronize()
+    srt = torch.sort(picks.long(), dim=1).values
+    well = torch.all(srt[:, 1:] != srt[:, :-1], dim=1)
+    counts_equal = bool(torch.equal(ck[well], ct[well]))
+    bk, bt = int(torch.argmax(ck)), int(torch.argmax(ct))
+    winner_well = bool(well[bk]) and bool(well[bt])
+    err = float((T0k - T0t).abs().max())
+    refined_err = float((Tk - Tt).abs().max())
+    dn = abs(int(ik.sum()) - int(it.sum()))
+    ok = counts_equal and refined_err <= SIM3_TOL and dn <= 2 and (
+        not winner_well or (bk == bt and err <= SIM3_TOL))
+    H, M = picks.shape[0], xw.shape[0]
+    return dict(name="pnp_hypotheses", max_abs_err=err, ok=ok,
+                counts_equal_well_posed=counts_equal,
+                n_well_posed=int(well.sum()), winner=[bk, bt],
+                winner_well_posed=winner_well,
+                best_counts=[int(ck.max()), int(ct.max())],
+                best_count_f32_twin=int(ct32.max()),
+                refined_pose_err=refined_err,
+                refined_inliers=[int(ik.sum()), int(it.sum())],
+                ms=time_cuda(lambda: pnp.pnp_hypotheses(xw, uv, valid, K,
+                                                        picks)),
+                plain_ms=time_cuda(lambda: pnp.pnp_hypotheses_torch(
+                    xw, uv, valid, K, picks, eig_dtype=torch.float64)),
+                bytes=nbytes(xw, uv, valid, K, picks) + 4 * 7,
+                # per hypothesis: A^T A (12 x 12 x 12 x 2), ~10 Jacobi
+                # sweeps of 66 rotations x 4 x 12 x 6, the procrustes
+                # (~1500); per hypothesis and match the projection (~30)
+                ops=H * (3456 + 10 * 66 * 288 + 1500 + 30 * M))
+
+
+def pgo_inputs(device, K: int = 128, E: int = 512, seed: int = 0):
+    """A Sim3 pose graph: K keyframe poses along a path, consecutive and
+    covisibility edges measuring perturbed relative poses, and one loop
+    edge (information 100) closing 0.3 m of drift."""
+    rng = np.random.default_rng(seed)
+    xi = np.cumsum(rng.normal(size=(K, 6)) * [0.05, 0.01, 0.05, 0.01, 0.05,
+                                              0.01], axis=0)
+    T = lie.se3_exp(torch.tensor(xi, dtype=torch.float32))
+    pairs = [(i, i + 1) for i in range(K - 1)]
+    while len(pairs) < E:
+        i = int(rng.integers(0, K - 3))
+        pairs.append((i, min(i + int(rng.integers(2, 6)), K - 1)))
+    idx = torch.tensor(pairs[:E], dtype=torch.int32)
+    valid = torch.from_numpy(rng.uniform(size=E) > 0.02)
+    edges = pgo.EssentialEdges(idx, valid)
+    S_loop = lie.sim3_exp(torch.tensor(
+        np.r_[rng.normal(size=3) * 0.1, rng.normal(size=3) * 0.02, 0.0],
+        dtype=torch.float32))
+    S_loop = lie.sim3_multiply(S_loop, lie.sim3_multiply(
+        lie.sim3_from_se3(T[0]), lie.sim3_inverse(lie.sim3_from_se3(
+            T[K - 1]))))
+    S_old, var_idx, S_meas, info, e_valid = pgo.essential_graph(
+        T, torch.ones(K, dtype=torch.bool), edges, 0, K - 1, S_loop)
+    S_meas = S_meas.clone()
+    S_meas[:-1] = lie.sim3_boxplus(S_meas[:-1], torch.from_numpy(
+        (rng.normal(size=(E, 7)) * 0.003 * [1, 1, 1, 1, 1, 1, 0]).astype(
+            np.float32)))
+    to = lambda x: x.contiguous().to(device)  # noqa: E731
+    return (to(S_old), to(var_idx), to(S_meas), to(info), to(e_valid),
+            to(T), to(torch.arange(K) == 0))
+
+
+def check_pgo(device, inputs=None, iters: int = 20) -> list[dict]:
+    """K19 on a 128-keyframe, 513-edge Sim3 pose graph (scale fixed):
+    H and g within REL_TOL of the generic linearisation (relative to each
+    one's largest entry), the cost within REL_TOL; and the whole
+    ``iters``-iteration solve with the kernels against the solve with the
+    twins: poses within SIM3_TOL."""
+    S, var_idx, S_meas, info, valid, T, fixed = inputs or pgo_inputs(device)
+    kH, kg = pgo.pgo_assemble(S, var_idx, S_meas, info, valid, True)
+    tH, tg = pgo.pgo_assemble_torch(S, var_idx, S_meas, info, valid, True)
+    kc = pgo.pgo_cost(S, var_idx, S_meas, info, valid)
+    tc = pgo.pgo_cost_torch(S, var_idx, S_meas, info, valid)
+    solve = {}
+    for tag, fns in (("kernel", (pgo.pgo_assemble, pgo.pgo_cost)),
+                     ("plain", (pgo.pgo_assemble_torch, pgo.pgo_cost_torch))):
+        problem = pgo.pgo_problem(S, var_idx, S_meas, info, valid,
+                                  fixed=fixed, fix_scale=True)
+        solve[tag] = pgo.optimize(
+            problem, iters=iters,
+            assemble=lambda v, f=fns[0]: f(v["kf"].contiguous(), var_idx,
+                                           S_meas, info, valid, True),
+            cost=lambda v, f=fns[1]: f(v["kf"].contiguous(), var_idx,
+                                       S_meas, info, valid))
+    torch.cuda.synchronize()
+    errH, errg = _rel(kH, tH), _rel(kg, tg)
+    errc = float(abs(kc - tc) / max(abs(float(tc)), 1e-30))
+    errS = float((solve["kernel"].values["kf"]
+                  - solve["plain"].values["kf"]).abs().max())
+    E, K = var_idx.shape[0], S.shape[0]
+    asm = dict(name="pgo_assemble", max_abs_err=max(errH, errg),
+               ok=max(errH, errg) <= REL_TOL and errS <= SIM3_TOL,
+               rel_err_H=errH, rel_err_g=errg, solve_pose_err=errS,
+               cost=[float(solve["kernel"].cost), float(solve["plain"].cost)],
+               ms=time_cuda(lambda: pgo.pgo_assemble(S, var_idx, S_meas,
+                                                     info, valid, True)),
+               plain_ms=time_cuda(lambda: pgo.pgo_assemble_torch(
+                   S, var_idx, S_meas, info, valid, True), warmup=1, reps=5),
+               # the (7K)^2 system written once, the edges read once;
+               # per edge 14 directions x ~2000 flops of Sim3 algebra and
+               # 196 x 14 products
+               bytes=4 * (49 * K * K + 7 * K) + nbytes(S, var_idx, S_meas,
+                                                       info, valid),
+               ops=E * (14 * 2000 + 196 * 14 + 14 * 14))
+    cost = dict(name="pgo_cost", max_abs_err=errc, ok=errc <= REL_TOL,
+                ms=time_cuda(lambda: pgo.pgo_cost(S, var_idx, S_meas, info,
+                                                  valid)),
+                plain_ms=time_cuda(lambda: pgo.pgo_cost_torch(
+                    S, var_idx, S_meas, info, valid)),
+                bytes=4 + nbytes(S, var_idx, S_meas, info, valid),
+                ops=E * 2000)
+    return [asm, cost]
+
+
+def check_schur_gba(device) -> list[dict]:
+    """K8 at the global BA's shape (L = 128 keyframes, n = 32768 points,
+    O = 8: the global-atomics branch), reported under its own names."""
+    out = check_schur(device, n=32768, O=8, L=128)
+    for r in out:
+        r["name"] += "@L128"
+    return out
+
+
+def loop_map_inputs(m, cur: int, cand: int, cam_K, thresh: float = 0.12,
+                    key: int = 0) -> dict:
+    """The loop path's kernel inputs on a real map (keyframes ``cur`` and
+    ``cand``), each built from the plain twins upstream so every kernel is
+    checked alone: K5's NN ratio, K15's Sim3 half, K16 and K19."""
+    from visual_sgraphs_tpu_torch.place.loop_closer import _loop_drift
+    desc_a, desc_b = m.kf_desc[cur], m.kf_desc[cand]
+    obs_a, obs_b = m.kf_obs_pt[cur], m.kf_obs_pt[cand]
+    va = m.kf_kp_valid[cur] & (obs_a >= 0)
+    vb = m.kf_kp_valid[cand] & (obs_b >= 0)
+    nn = (desc_a, va, desc_b, vb, m.kf_angle[cur], m.kf_angle[cand])
+    match_, _ = match.match_nn_ratio_torch(desc_a, va, desc_b, vb, 0.85,
+                                           angle_a=nn[4], angle_b=nn[5])
+    ok = match_ >= 0
+    pt_a = torch.clamp(obs_a, min=0).long()
+    pt_b = torch.clamp(obs_b[torch.clamp(match_, min=0).long()],
+                       min=0).long()
+    ok = ok & m.pt_valid[pt_a] & m.pt_valid[pt_b]
+    p_a = lie.se3_apply(m.kf_pose[cur], m.pt_pos[pt_a]).contiguous()
+    p_b = lie.se3_apply(m.kf_pose[cand], m.pt_pos[pt_b]).contiguous()
+    sim3 = (p_a, p_b, ok, default_draw("sim3", key, ok))
+    res = sim3_ransac.verify_sim3_torch(*sim3, thresh, True)
+    p_cam = lie.sim3_apply(res.S_ab, p_a)
+    va_all = m.kf_kp_valid[cur] & (obs_a >= 0) & m.pt_valid[pt_a]
+    guided = (cameras.project_pinhole(cam_K, p_cam).contiguous(),
+              va_all & (p_cam[:, 2] > 0.05), desc_a, m.kf_uv[cand],
+              m.kf_kp_valid[cand], desc_b)
+    edges = pgo.build_covis_edges(m, 30, 512)
+    S, var_idx, S_meas, info, valid = pgo.essential_graph(
+        m.kf_pose, m.kf_valid, edges, cand, cur, lie.sim3_inverse(res.S_ab))
+    graph = (S, var_idx, S_meas, info, valid, m.kf_pose,
+             torch.arange(m.K, device=S.device) == cand)
+    return dict(nn=nn, sim3=sim3, guided=guided, pgo=graph,
+                n_inliers=int(res.n_inliers),
+                drift=float(_loop_drift(m.kf_pose, cur, cand, res.S_ab)))
+
+
+def reloc_inputs(m, frame, cand: int, cam_K, key: int = 0):
+    """K15's PnP-half inputs of relocalising ``frame`` against keyframe
+    ``cand`` (the twin's NN-ratio matches upstream)."""
+    obs_b = m.kf_obs_pt[cand]
+    vb = m.kf_kp_valid[cand] & (obs_b >= 0)
+    match_, _ = match.match_nn_ratio_torch(frame.desc, frame.valid,
+                                           m.kf_desc[cand], vb, 0.8)
+    ok = match_ >= 0
+    pt = torch.clamp(obs_b[torch.clamp(match_, min=0).long()],
+                     min=0).long()
+    ok = ok & m.pt_valid[pt]
+    return (m.pt_pos[pt].contiguous(), frame.uv, ok, cam_K,
+            default_draw("pnp", key, ok))
+
+
+def run_loop_seeded(device) -> list[dict]:
+    """The loop path's kernels on seeded inputs of its shapes."""
+    return [check_bow(device), check_place_query(device),
+            check_match_nn(device), check_guided(device),
+            check_sim3(device), check_pnp(device), *check_pgo(device),
+            *check_schur_gba(device)]
 
 
 def run_all(device) -> list[dict]:

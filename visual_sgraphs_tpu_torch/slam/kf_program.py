@@ -1,11 +1,13 @@
 """The keyframe program: the whole per-keyframe pipeline in one call.
 
-Port of the loop-off variant of ``visual_sgraphs_tpu/slam/kf_program.py``:
-lazy found/visible stats, insertion + point seeding, observation fusion,
-point + keyframe culling, and either the plain windowed local BA or, with
-the scene graph on, plane detection (K12-K14) and association, the
-periodic plane maintenance, wall-based room detection, semantic map-point
-refinement and the scene-graph local BA.  The reference traces the
+Port of ``visual_sgraphs_tpu/slam/kf_program.py``: lazy found/visible
+stats, insertion + point seeding, observation fusion, point + keyframe
+culling, and either the plain windowed local BA or, with the scene graph
+on, plane detection (K12-K14) and association, the periodic plane
+maintenance, wall-based room detection, semantic map-point refinement and
+the scene-graph local BA; then, with loop closing on, the place query
+(K10, K11, ``place/loop_closer.py::_detect_program``), whose scalars join
+the keyframe board.  The reference traces the
 cadence flags as ``lax.cond``s so one compiled program serves every
 combination; the port runs eagerly, so they are plain Python ``if``s on
 host booleans.
@@ -21,6 +23,7 @@ from visual_sgraphs_tpu_torch.optim.fast_ba import (
     fast_local_ba,
     fast_scenegraph_ba,
 )
+from visual_sgraphs_tpu_torch.place.loop_closer import _detect_program
 from visual_sgraphs_tpu_torch.scenegraph import manager as sgm
 from visual_sgraphs_tpu_torch.slam import mapping
 
@@ -32,23 +35,24 @@ def make_kf_program(sg_cfg, loop_on: bool, n_window: int, lba_iters: int,
                     quarantine: int = 3):
     """Build the keyframe program.
 
-    ``program(m, sg, frame, pose, slot_pt, kf_slot, stats_slots,
-    stats_vis, depth_img, sem_img, conf_img, hyp_idx, cam_K, cam_bf,
-    do_lba, do_cull, do_maint)`` returns (map, scenegraph, kf_slot, board)
-    where ``board`` is the device (6,) float32 [slot, n_kf, n_pt, culled
-    slot or -1, evicted, n_obs] that the host checks against its slot
-    mirror one keyframe later.  With ``sg_cfg=None`` the scene-graph
-    operands are ignored (pass None) and n_obs reads 0."""
-    if loop_on:
-        raise NotImplementedError(
-            "kf_program: the place-recognition query is not ported yet")
+    ``program(m, sg, db, vocab, frame, pose, slot_pt, kf_slot,
+    stats_slots, stats_vis, depth_img, sem_img, conf_img, hyp_idx, cam_K,
+    cam_bf, do_lba, do_cull, do_maint)`` returns (map, scenegraph,
+    database, kf_slot, board) where ``board`` is the device float32 vector
+    [slot, n_kf, n_pt, culled slot or -1, evicted, n_obs] that the host
+    checks against its slot mirror one keyframe later, followed with
+    ``loop_on`` by the place query's packed scalars (2 top_n + 3: best
+    covisible score, candidate ids and scores, valid rows, n_obs).  With
+    ``sg_cfg=None`` the scene-graph operands are ignored (pass None) and
+    n_obs reads 0; without ``loop_on`` ``db`` / ``vocab`` are ignored."""
     if sg_cfg is not None and sg_cfg.room_method == "freespace":
         raise NotImplementedError(
             "kf_program: free-space rooms are not ported yet")
 
-    def program(m, sg, frame, pose, slot_pt, kf_slot: int, stats_slots,
-                stats_vis, depth_img, sem_img, conf_img, hyp_idx, cam_K,
-                cam_bf, do_lba: bool, do_cull: bool, do_maint: bool):
+    def program(m, sg, db, vocab, frame, pose, slot_pt, kf_slot: int,
+                stats_slots, stats_vis, depth_img, sem_img, conf_img,
+                hyp_idx, cam_K, cam_bf, do_lba: bool, do_cull: bool,
+                do_maint: bool):
         dev = pose.device
         m = mapping.apply_found_stats(m, stats_slots, stats_vis)
         m, kf, evicted = mapping.insert_keyframe(
@@ -79,7 +83,11 @@ def make_kf_program(sg_cfg, loop_on: bool, n_window: int, lba_iters: int,
             evicted.to(torch.float32),
             n_obs.to(torch.float32),
         ])
-        return m, sg, kf, board
+        if loop_on:
+            db, packed = _detect_program(m, db, vocab, kf, min_gap, top_n,
+                                         extra=n_obs.reshape(1))
+            board = torch.cat([board, packed])
+        return m, sg, db, kf, board
 
     return program
 
@@ -94,7 +102,22 @@ def _scenegraph_stages(cfg, m, sg, kf: int, evicted, culled, depth_img,
     retired = torch.where(evicted, kf, -1)
     dead = (sg.ob_kf == retired) | (sg.ob_kf == culled)
     sg = sg._replace(ob_valid=sg.ob_valid & ~dead)
+    m, sg = scenegraph_keyframe(cfg, m, sg, kf, depth_img, sem_img,
+                                conf_img, hyp_idx, cam_K, do_maint)
+    if do_lba:
+        m, sg, _ = fast_scenegraph_ba(m, sg, kf, cam_K, cam_bf,
+                                      n_window=n_window, iters=lba_iters,
+                                      config=cfg)
+    return m, sg
 
+
+def scenegraph_keyframe(cfg, m, sg, kf: int, depth_img, sem_img, conf_img,
+                        hyp_idx, cam_K, do_maint: bool):
+    """A keyframe's scene-graph update (SceneGraphManager.on_keyframe,
+    reference ``scenegraph/manager.py:730-779``): plane detection from its
+    depth (K12-K14) and association, the periodic maintenance, wall-based
+    rooms and the semantic map-point refinement.  Returns (map,
+    scenegraph)."""
     T_cw = m.kf_pose[kf]
     (coeffs_w, det_valid, centroid, npts, votes, local, quad,
      det_vox) = sgm.detect_planes_from_depth(
@@ -115,8 +138,4 @@ def _scenegraph_stages(cfg, m, sg, kf: int, evicted, culled, depth_img,
             m, sg, m.kf_pose[kf], min_votes=cfg.plane_min_votes,
             behind_thresh=cfg.refine_behind_thresh,
             lateral_radius=cfg.refine_lateral_radius)
-    if do_lba:
-        m, sg, _ = fast_scenegraph_ba(m, sg, kf, cam_K, cam_bf,
-                                      n_window=n_window, iters=lba_iters,
-                                      config=cfg)
     return m, sg

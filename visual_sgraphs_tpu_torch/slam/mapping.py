@@ -12,16 +12,27 @@ Scatters with repeated indices keep the reference's results: ``.max`` /
 ``.min`` / ``.add`` become ``scatter_reduce`` / ``scatter_add``, and a
 plain ``.at[].set`` whose index can repeat goes through
 ``map_state.index_set_last`` (XLA applies the updates in order, so the last
-one wins).  The local BA lives in ``optim/fast_ba.py``; the generic LM
-engine (``local_ba``) and monocular point creation are not ported yet.
+one wins).  The keyframe program's local BA lives in ``optim/fast_ba.py``;
+``local_ba`` is the generic LM windowed BA (``optim/solve.py``) that the
+recovery keyframe runs.  Monocular point creation is not ported yet.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from visual_sgraphs_tpu_torch.core import cameras, lie
 from visual_sgraphs_tpu_torch.features.match import match_window
+from visual_sgraphs_tpu_torch.optim import factors
+from visual_sgraphs_tpu_torch.optim.graph import (
+    FactorBatch,
+    GraphProblem,
+    point_family,
+    se3_family,
+)
+from visual_sgraphs_tpu_torch.optim.solve import optimize
 from visual_sgraphs_tpu_torch.slam.frame import FrameObs
 from visual_sgraphs_tpu_torch.slam.map_state import (
     MapState,
@@ -233,3 +244,104 @@ def cull_points(m: MapState, min_obs: int = 2,
         pt_freed_seq=torch.where(bad, m.n_kf, m.pt_freed_seq),
         kf_obs_pt=torch.where(linked_bad, -1, obs),
     )
+
+
+CHI2_MONO = 5.991
+CHI2_STEREO = 7.815
+
+
+def lba_window(m: MapState, kf_id: int, cam_K, cam_bf, n_window: int,
+               n_local_pts: int):
+    """The visual part of the generic windowed BA: ``kf_id`` and its top
+    ``n_window`` covisible keyframes (lax.top_k's tie order), the points
+    they observe (compacted, ascending), and the mono / stereo
+    reprojection batches over every (window keyframe, keypoint) pair.
+    Returns (kf_ids, kf_mask, safe_pt, pt_ok, batches)."""
+    dev = m.kf_pose.device
+    top_counts, top_kfs = topk_stable(covisibility_counts(m, kf_id),
+                                      n_window)
+    kf_ids = torch.cat([torch.full((1,), kf_id, device=dev), top_kfs])
+    kf_mask = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
+                         top_counts > 0]) & m.kf_valid[kf_ids]
+    L = kf_ids.shape[0]
+    obs = m.kf_obs_pt[kf_ids]
+    obs_safe = torch.clamp(obs, min=0).long()
+    obs_ok = (m.kf_kp_valid[kf_ids] & kf_mask[:, None] & (obs >= 0)
+              & m.pt_valid[obs_safe])
+    local_pt = compact_true(observed_mask(m, kf_ids, kf_mask) & m.pt_valid,
+                            n_local_pts)
+    pt_ok = local_pt >= 0
+    safe_pt = torch.clamp(local_pt, min=0)
+    inv = torch.full((m.N + 1,), -1, dtype=torch.int32, device=dev)
+    index_set_last(inv, safe_pt + 1, torch.where(
+        pt_ok, torch.arange(n_local_pts, dtype=torch.int32, device=dev), -1))
+    pt_local_idx = inv[obs_safe + 1]
+    use = (obs_ok & (pt_local_idx >= 0)).reshape(-1)
+    kf_rows = torch.arange(L, dtype=torch.int32, device=dev)[:, None].expand(
+        obs.shape)
+    var_idx = torch.stack([kf_rows.reshape(-1),
+                           torch.clamp(pt_local_idx, min=0).reshape(-1)],
+                          dim=1).to(torch.int32)
+    uv = m.kf_uv[kf_ids].reshape(-1, 2)
+    depth = m.kf_depth[kf_ids].reshape(-1)
+    mtot = var_idx.shape[0]
+    has_depth = depth > 0
+    ones = torch.ones((mtot,), dtype=torch.float32, device=dev)
+    cam = cam_K.expand(mtot, 4)
+    mono = FactorBatch(("kf", "pt"), factors.reproj_mono, 2, var_idx,
+                       {"uv": uv, "cam": cam}, ones,
+                       use if cam_bf is None else use & ~has_depth,
+                       huber=math.sqrt(CHI2_MONO))
+    batches = [mono]
+    if cam_bf is not None:
+        z = torch.clamp(depth, min=1e-3)
+        uv_ur = torch.cat([uv, uv[:, :1] - cam_bf / z[:, None]], dim=1)
+        batches.append(FactorBatch(
+            ("kf", "pt"), factors.reproj_stereo, 3, var_idx,
+            {"uv_ur": uv_ur, "cam": cam, "bf": cam_bf.expand(mtot)}, ones,
+            use & has_depth, huber=math.sqrt(CHI2_STEREO)))
+    return kf_ids, kf_mask, safe_pt, pt_ok, batches
+
+
+def lba_gauge(m: MapState, kf_ids, kf_mask, monocular: bool):
+    """Fixed window keyframes: invalid rows, the oldest valid one (lowest
+    slot) and keyframe 0; with no depth also the second oldest, whose
+    baseline pins the scale (Optimizer.cc:1741-1757)."""
+    min_id = torch.min(torch.where(kf_mask, kf_ids, m.K))
+    kf_fixed = (~kf_mask) | (kf_ids == min_id) | (kf_ids == 0)
+    if monocular:
+        min2_id = torch.min(torch.where(kf_mask & (kf_ids != min_id),
+                                        kf_ids, m.K))
+        kf_fixed = kf_fixed | (kf_ids == min2_id)
+    return kf_fixed
+
+
+def write_window(m: MapState, kf_ids, kf_mask, kf_pose, safe_pt, pt_ok,
+                 pt_pos) -> MapState:
+    """Write a window's solved poses and points back into the map."""
+    new_kf_pose = index_set_last(
+        m.kf_pose.clone(), kf_ids,
+        torch.where(kf_mask[:, None], kf_pose, m.kf_pose[kf_ids]))
+    new_pt_pos = index_set_last(
+        m.pt_pos.clone(), safe_pt,
+        torch.where(pt_ok[:, None], pt_pos, m.pt_pos[safe_pt]))
+    return m._replace(kf_pose=new_kf_pose, pt_pos=new_pt_pos)
+
+
+def local_ba(m: MapState, kf_id: int, cam_K, cam_bf=None,
+             n_window: int = 10, n_local_pts: int = 8192, iters: int = 10):
+    """Windowed BA over the covisibility neighbourhood of ``kf_id`` on the
+    generic LM engine (Optimizer::LocalBundleAdjustment, Optimizer.cc:1454):
+    stereo (u, v, u_r) rows for keypoints with depth, mono rows for the
+    rest, points eliminated by the Schur complement.  Returns (map, final
+    cost as a device scalar)."""
+    kf_ids, kf_mask, safe_pt, pt_ok, batches = lba_window(
+        m, kf_id, cam_K, cam_bf, n_window, n_local_pts)
+    kf_fixed = lba_gauge(m, kf_ids, kf_mask, cam_bf is None)
+    problem = GraphProblem(
+        families={"kf": se3_family(m.kf_pose[kf_ids], kf_fixed),
+                  "pt": point_family(m.pt_pos[safe_pt], ~pt_ok)},
+        factors=batches, eliminated="pt")
+    res = optimize(problem, iters=iters)
+    return write_window(m, kf_ids, kf_mask, res.values["kf"], safe_pt, pt_ok,
+                        res.values["pt"]), res.cost

@@ -10,7 +10,11 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
 2. build of the hand-written kernels (visual_sgraphs_tpu_torch/csrc) into
    build/kernels/libvsg_kernels.so, with the seconds it took;
 3. every kernel against its plain PyTorch twin on the card, at the main
-   path's shapes (K2 FAST+NMS, K4 ORB descriptor, K5 window matcher, K6
+   path's shapes (K1 pyramid resize and blur and K3 keypoint selection
+   over a batch of 8 frames, K7 compaction on 32768-entry masks, K9
+   observation grouping at the local and global BAs' shapes, with the
+   nearest single PyTorch call timed beside each as a yardstick; K2
+   FAST+NMS, K4 ORB descriptor, K5 window matcher, K6
    pose-only GN, K8 Schur reduction and back-substitution at the local
    BA's L = 11 and the global BA's L = 128, K10 BoW rows, K11 database
    query, K12 depth cloud + voxel downsample, K13 weighted RANSAC, K14
@@ -22,23 +26,34 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    operations each function needs, from which its bound is derived;
 4. the port's main paths at full size through its public entry point
    (``SlamSystem.track_rgbd``), 640x480 RGB-D, 1000 ORB features,
-   128 keyframes / 32768 points, serial path, 96 frames of the two-lap
-   ``orbit2`` sequence rendered on the card:
+   128 keyframes / 32768 points, 96 frames of the two-lap ``orbit2``
+   sequence rendered on the card, serial path unless stated:
    a. scene graph off, loops off (the tracking + local-mapping path);
    b. scene graph on (``SceneGraphManager`` attached, semantics provided
       per frame, plane covisibility and semantic point refinement on);
    c. path (b) again over frames 0-47 under ``torch.cuda.set_sync_debug_
       mode``: synchronising calls per frame against counted readbacks;
-   d. ``loop_slice``: path (b) with loop closing, a global BA after each
+   d. ``bench_slice``, the main path: the headline configuration of
+      ``bench.py:64-91`` (``main_path.bench_config``: path (b) with loop
+      closing, on the B-frame pipeline, ``pipeline_depth=8``) over the
+      192-frame ``orbit2`` sequence, fps and counted readbacks over
+      frames 64-191, the reference's bench-scale gates (ATE <= 0.1 m,
+      >= 90 % tracked, >= 20 keyframes, >= 1 loop), planes,
+      serial-relief windows and batch re-tracks;
+   e. path (d) again over frames 0-95, frames 64-95 under sync-debug
+      mode (four batches, across keyframe cycles): synchronising calls
+      must equal the counted readbacks;
+   f. ``loop_slice``: path (b) with loop closing, a global BA after each
       accepted loop and relocalisation of lost frames;
-   e. path (d) again over frames 0-79 under sync-debug mode, across a loop
+   g. path (f) again over frames 0-79 under sync-debug mode, across a loop
       closure;
-   f. path (d) over frames 0-29, two blank frames and frames 29-39: the
+   h. path (f) over frames 0-29, two blank frames and frames 29-39: the
       repeated frame 29 makes the recovery keyframe (the joint scene-graph
-      BA on the LM engine), which path (d) reaches when a relocalisation
+      BA on the LM engine), which path (f) reaches when a relocalisation
       fails;
-   the kernel launch counters are zeroed just before each of (a), (b) and
-   (d) and read just after;
+   the kernel launch counters are zeroed just before each of (a), (b),
+   (d), (f) and (h) and read just after; the JSON kernel table's
+   launches are (d)'s;
 5. the same 12 small frames through the port on the card (kernels) and on
    the CPU (twins), with the scene graph off and on, whose positions must
    agree; the loop correction chain (verification, pose graph, map
@@ -104,8 +119,8 @@ def _bound(r: dict) -> tuple[float, str]:
 def _drive(system, frames, warm: int = WARM, sync_window=None) -> dict:
     """Feed ``frames`` [(gray, depth, sem, T_wc, ts)]; returns timing and
     readback figures over frames ``warm``.. (and, with ``sync_window``
-    (lo, hi), the synchronising calls counted by sync-debug mode over
-    frames lo..hi-1)."""
+    (lo, hi), the synchronising calls counted by sync-debug mode and the
+    keyframes made over frames lo..hi-1)."""
     torch.cuda.synchronize()
     t_warm = readbacks_warm = None
     syncs = None
@@ -119,6 +134,7 @@ def _drive(system, frames, warm: int = WARM, sync_window=None) -> dict:
             system.timers.reset()
         if sync_window is not None and i == sync_window[0]:
             rb_lo = system.host_readbacks
+            kf_lo = system.events.count("keyframe")
             # switching the mode on warns once itself: record after it
             torch.cuda.set_sync_debug_mode(1)
             caught = warnings.catch_warnings(record=True)
@@ -135,6 +151,7 @@ def _drive(system, frames, warm: int = WARM, sync_window=None) -> dict:
             syncs = dict(
                 syncs_per_frame=sum(sites.values()) / n,
                 readbacks_per_frame=(system.host_readbacks - rb_lo) / n,
+                keyframes=system.events.count("keyframe") - kf_lo,
                 sync_sites=dict(sites.most_common(8)))
     system.flush()
     torch.cuda.synchronize()
@@ -296,7 +313,10 @@ def main() -> None:
 
     report(selfcheck.run_all(device) + [
         selfcheck.check_bow(device), selfcheck.check_place_query(device),
-        *selfcheck.check_schur_gba(device)])
+        *selfcheck.check_schur_gba(device),
+        *selfcheck.check_front_end_small(device)])
+    _check(checks["detect_level@240x320"]["padded_levels"] >= 1,
+           "K3 at 240x320: no level shorter than its budget")
     # K15's PnP half on seeded picks of six distinct matches, where every
     # hypothesis is well posed, so every output is compared (phase 5 checks
     # it again on the loop path's map, where repeated picks occur)
@@ -362,7 +382,69 @@ def main() -> None:
            f"hidden host syncs on the scene-graph path: {syncs}")
     del system
 
-    # 4d. the loop path
+    # 4d. bench_slice: the headline configuration of bench.py:64-91 on
+    # the B-frame pipeline, 192 frames, fps over frames 64-191
+    bench_frames = main_path.frames(device, main_path.BENCH_FRAMES)[1]
+    bench_cfg = main_path.bench_config(scene)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    system = main_path.make_system(bench_cfg, device, True)
+    bench_watch = _watch_loops(system)
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    perf = _drive(system, bench_frames, warm=main_path.BENCH_WARMUP)
+    total_s = time.perf_counter() - t0
+    counts["bench_slice"] = cuda.counts()
+    acc = _accuracy(system, bench_frames)
+    loops = _loop_summary(system, bench_frames, bench_watch["closed"])
+    sg_sum = _scenegraph_summary(system)
+    ev = system.events
+    _line("bench_slice", frames=len(bench_frames), **acc,
+          fps_64_191=perf["fps"], total_s=total_s,
+          host_readbacks_per_frame_64_191=perf["readbacks_per_frame"],
+          keyframes=ev.count("keyframe"), kf_culled=ev.count("kf_culled"),
+          serial_relief=ev.count("serial_relief"),
+          batch_retrack=ev.count("batch_retrack"),
+          peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20,
+          **sg_sum, **loops)
+    _line("bench_slice_stages", **system.timers.summary())
+    _line("bench_slice_launches", **{
+        k: {"launches": v[0], "twin_calls_on_cuda": v[1]}
+        for k, v in counts["bench_slice"].items()})
+    _check(acc["tracked"] >= 0.9 * len(bench_frames),
+           f"bench_slice: tracked {acc['tracked']}/{len(bench_frames)}")
+    _check(acc["n_kf"] >= 20, f"bench_slice: n_kf {acc['n_kf']}")
+    # the reference's bench-scale pipelined gate (tests/test_pipeline.py)
+    _check(acc["ate_m"] <= 0.1, f"bench_slice: ATE {acc['ate_m']:.4f} m")
+    _check(loops["n_loops_closed"] >= 1, "bench_slice: no loop closed")
+    _check(not sg_sum["sign_duplicates"] and sg_sum["n_planes"] >= 2,
+           f"bench_slice: planes {sg_sum['n_planes']}, sign duplicates "
+           f"{sg_sum['sign_duplicates']}")
+    _check(perf["readbacks_per_frame"] < 1.0,
+           f"bench_slice: {perf['readbacks_per_frame']} readbacks a frame")
+    _check(all(v[1] == 0 for v in counts["bench_slice"].values()),
+           f"bench_slice: a twin ran on CUDA tensors: "
+           f"{counts['bench_slice']}")
+    _check(all(v[0] > 0 for k, v in counts["bench_slice"].items()
+               if k != "pnp_hypotheses"),
+           f"bench_slice: a kernel was not launched: "
+           f"{counts['bench_slice']}")
+    del system
+
+    # 4e. hidden host syncs of the pipeline: frames 64-95 (four batches)
+    # under sync-debug mode, across keyframe cycles
+    system = main_path.make_system(bench_cfg, device, True)
+    syncs = _drive(system, bench_frames[:96], warm=64, sync_window=(64, 96))
+    _line("bench_sync_debug", frames="64-95", keyframes=syncs["keyframes"],
+          syncs_per_frame=syncs["syncs_per_frame"],
+          readbacks_per_frame=syncs["readbacks_per_frame"],
+          sync_sites=syncs["sync_sites"])
+    _check(syncs["keyframes"] >= 1, "bench_sync_debug: no keyframe inside")
+    _check(syncs["syncs_per_frame"] == syncs["readbacks_per_frame"],
+           f"bench_sync_debug: syncs differ from counted readbacks: {syncs}")
+    del system
+
+    # 4f. the loop path
     loop_cfg = main_path.loop_config(sg_cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -400,7 +482,7 @@ def main() -> None:
     _check(watch["saved"] is not None, "loop_slice: no map saved at a loop")
     loop_system = system
 
-    # 4e. hidden host syncs of the loop path, across a loop closure
+    # 4g. hidden host syncs of the loop path, across a loop closure
     system = main_path.make_system(loop_cfg, device, True)
     syncs = _drive(system, frames[:80], sync_window=(16, 80))
     _line("loop_sync_debug", frames="16-79",
@@ -415,7 +497,7 @@ def main() -> None:
            f"hidden host syncs on the loop path: {syncs}")
     del system
 
-    # 4f. the recovery keyframe (the loop path reaches it when a
+    # 4h. the recovery keyframe (the loop path reaches it when a
     # relocalisation fails): frames 0-29, two blank frames (lost, and no
     # relocalisation without features), frame 29 again (the camera held
     # still, so tracking resumes from the held pose: the recovery keyframe,
@@ -539,9 +621,10 @@ def main() -> None:
         r = checks[name]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=counts["loop_slice"][name][0],
+            launches=counts["bench_slice"][name][0],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r.get("library_ms")))
     for name, src in (("schur_reduce@L128", "schur_reduce"),
                       ("schur_backsub@L128", "schur_backsub")):
         r = checks[name]
@@ -549,7 +632,7 @@ def main() -> None:
             name=name, route="cuda", source=kernels[
                 [k["name"] for k in kernels].index(src)]["source"],
             replaces="visual_sgraphs_tpu/parallel/dist_ba.py:395",
-            launches=watch["gba_k8"], max_abs_err=r["max_abs_err"],
+            launches=bench_watch["gba_k8"], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None))
     print(_card(), flush=True)

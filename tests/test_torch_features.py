@@ -100,7 +100,7 @@ def test_detect_level_exact(ref_outputs):
     budgets = rorb.level_budgets(PARAMS)
     assert budgets == porb.level_budgets(PPARAMS)
     for out, budget in zip(ref_outputs, budgets):
-        p = porb._detect_level(torch.from_numpy(out[0]), budget, PPARAMS)
+        p = porb.detect_level(torch.from_numpy(out[0]), budget, PPARAMS)
         for port, ref in zip(p, out[1:4]):
             np.testing.assert_array_equal(port.numpy(), ref)
 
@@ -110,7 +110,7 @@ def test_detect_level_ties_lower_index_first():
     score[5, 5] = score[5, 9] = score[40, 3] = score[40, 40] = 30.0
     score[20, 20] = 12.0
     r = rorb._detect_level(jnp.asarray(score), 4, PARAMS)
-    p = porb._detect_level(torch.from_numpy(score), 4, PPARAMS)
+    p = porb.detect_level(torch.from_numpy(score), 4, PPARAMS)
     for a, b in zip(r, p):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
 
@@ -226,3 +226,27 @@ def test_extract_orb_chain(gray, ref_run):
     same = np.all(np.asarray(r.uv) == p.uv.numpy(), axis=1)
     np.testing.assert_array_equal(p.desc.numpy()[same],
                                   np.asarray(r.desc)[same])
+
+
+def test_batch_extraction_equals_per_frame():
+    # a (B, H, W) batch through the ORB front end (K1-K4 once per level for
+    # the batch) gives each frame exactly its own extraction
+    from visual_sgraphs_tpu_torch.slam.frame import make_frame_obs
+    from visual_sgraphs_tpu_torch import config as pcfg
+    scene = SyntheticScene(h=120, w=160)
+    frames = [(np.asarray(g, np.float32), np.asarray(d, np.float32), ts)
+              for g, d, _, ts in scene.frames(24, kind="arc")][::8]
+    cam = pcfg.CameraConfig(**{f: getattr(scene.cam, f) for f in (
+        "fx", "fy", "cx", "cy", "width", "height")})
+    orb = pcfg.OrbConfig(n_features=200)
+    grays = torch.from_numpy(np.stack([g for g, _, _ in frames]))
+    depths = torch.from_numpy(np.stack([d for _, d, _ in frames]))
+    batch = make_frame_obs(grays, depths, [ts for _, _, ts in frames], cam,
+                           orb)
+    for i, (g, d, ts) in enumerate(frames):
+        one = make_frame_obs(torch.from_numpy(g), torch.from_numpy(d), ts,
+                             cam, orb)
+        for f, a, b in zip(one._fields, batch, one):
+            np.testing.assert_array_equal(a[i].numpy(), b.numpy(),
+                                          err_msg=f)
+        assert one.valid.sum() > 50

@@ -158,3 +158,67 @@ def test_scenegraph_slice_on_card_uses_every_kernel(device):
     planes = system.scenegraph.planes()
     assert len(planes["coeffs"]) >= 2
     assert not sign_duplicates(planes["coeffs"])
+
+
+@pytest.fixture(scope="module")
+def front_end_checks(device):
+    grays = selfcheck.batch_frames(device)
+    out = selfcheck.check_pyramid(grays) + [selfcheck.check_detect(grays)]
+    out += selfcheck.check_front_end_small(device)
+    return {r["name"]: r for r in out}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    n + size for size in ("", "@240x320")
+    for n in ("pyramid_resize", "gaussian_blur", "detect_level")])
+def test_front_end_kernels(front_end_checks, name):
+    # K1 (resize, blur) within 1e-4 of the twins (expected bitwise) with no
+    # FAST keypoint flipped downstream; K3 exact; on a batch of 8 frames at
+    # 480x640 / 1000 features and at 240x320 / 600 features, where K3's
+    # deepest levels are shorter than their budget
+    r = front_end_checks[name]
+    assert r["ok"], r
+    if name.startswith("pyramid_resize"):
+        assert sum(r["fast_keypoints_differ_per_level"]) == 0, r
+    if name == "detect_level@240x320":
+        assert r["padded_levels"] >= 1, r
+
+
+@pytest.mark.gpu
+def test_compact_kernel(device):
+    r = selfcheck.check_compact(device)
+    assert r["ok"], r
+
+
+@pytest.mark.gpu
+def test_group_observations_kernel(device):
+    r = selfcheck.check_group(device)
+    assert r["ok"], r
+
+
+@pytest.mark.gpu
+def test_bench_path_on_card_uses_every_kernel(device):
+    # the headline configuration (bench.py:64-91: the B-frame pipeline,
+    # loops and scene graph on) over the first 96 of its 192 frames: every
+    # kernel but those only a relocalisation or a loop launches runs, no
+    # twin sees a CUDA tensor, and the batches read back less than once a
+    # frame
+    from visual_sgraphs_tpu_torch import main_path
+
+    scene, frames = main_path.frames(device, main_path.BENCH_FRAMES)
+    cfg = main_path.bench_config(scene)
+    cuda.reset_counts()
+    system = main_path.make_system(cfg, device, True)
+    for frame in frames[:96]:
+        main_path.feed(system, frame)
+    system.flush()
+    counts = cuda.counts()
+    assert all(twin == 0 for _, twin in counts.values()), counts
+    assert all(launches > 0 for name, (launches, _) in counts.items()
+               if name not in ("pnp_hypotheses", "verify_sim3",
+                               "match_nn_ratio", "guided_count",
+                               "pgo_assemble", "pgo_cost")), counts
+    assert system.tracked_mask().sum() >= 0.9 * 96
+    assert system.host_readbacks < 96
+    assert np.isfinite(system.positions()).all()

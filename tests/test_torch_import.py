@@ -39,13 +39,13 @@ def test_port_imports_without_jax():
     # every sub-package and module of the port imported, the scene graph
     # included
     names = set(out.stdout.split())
-    assert len(names) >= 44
+    assert len(names) >= 45
     for mod in ("core.plane", "scenegraph.state", "scenegraph.pointcloud",
                 "scenegraph.plane_fit", "scenegraph.epilogue",
                 "scenegraph.manager", "scenegraph.joint_ba", "optim.graph", "optim.factors",
                 "optim.solve", "place", "place.vocab", "place.database",
                 "place.sim3_ransac", "place.pnp", "place.pgo",
-                "place.loop_closer"):
+                "place.loop_closer", "slam.cycle_program"):
         assert "visual_sgraphs_tpu_torch." + mod in names, mod
 
 

@@ -170,3 +170,43 @@ def test_group_observations_exact(rng):
                                  n_pt, max_obs)
     for a, b in zip(r, p):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+def _nonzero_case(kind: str, n: int = 500):
+    rng = np.random.default_rng(7)
+    if kind == "empty":
+        return np.zeros(n, bool), 40
+    if kind == "full":
+        return np.ones(n, bool), 40
+    if kind == "more_than_size":
+        return rng.uniform(size=n) < 0.5, 100
+    return rng.uniform(size=n) < 0.1, 80
+
+
+@pytest.mark.parametrize("kind", ["empty", "full", "more_than_size",
+                                  "random"])
+def test_compact_true_matches_nonzero(kind):
+    # K7's twin against jnp.nonzero(mask, size=size, fill_value=-1): exact
+    from visual_sgraphs_tpu_torch.slam.map_state import compact_true
+    mask, size = _nonzero_case(kind)
+    (r,) = jnp.nonzero(jnp.asarray(mask), size=size, fill_value=-1)
+    p = compact_true(tp.t(mask), size)
+    np.testing.assert_array_equal(p.numpy(), np.asarray(r))
+
+
+def test_group_observations_overflow_exact(rng):
+    # exact with heavy overflow: 30 landmarks each seen ~13 times against
+    # max_obs = 4, so most entries are dropped and n_dropped counts them
+    n_obs, n_pt, max_obs = 500, 30, 4
+    kf = rng.integers(0, 11, n_obs).astype(np.int32)
+    pt = rng.integers(0, n_pt, n_obs).astype(np.int32)
+    uvr = rng.normal(size=(n_obs, 3)).astype(np.float32)
+    valid = rng.uniform(size=n_obs) > 0.2
+    r = rdist.group_observations(jnp.asarray(kf), jnp.asarray(pt),
+                                 jnp.asarray(uvr), jnp.asarray(valid),
+                                 n_pt, max_obs)
+    p = pdist.group_observations(tp.t(kf), tp.t(pt), tp.t(uvr), tp.t(valid),
+                                 n_pt, max_obs)
+    for a, b in zip(r, p):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    assert int(p[3]) > n_obs // 2

@@ -8,7 +8,6 @@ corrected pairing the port takes (``KeyframeDepthReference``)."""
 
 import dataclasses
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +15,6 @@ import torch
 
 from visual_sgraphs_tpu.core import geometry as rgeo
 from visual_sgraphs_tpu.scenegraph.manager import SceneGraphManager as RefMgr
-from visual_sgraphs_tpu.slam import SlamSystem as RefSystem
 from visual_sgraphs_tpu_torch.core import geometry as pgeo
 from visual_sgraphs_tpu_torch.scenegraph.manager import (
     SceneGraphManager as PortMgr,
@@ -25,44 +23,10 @@ from visual_sgraphs_tpu_torch.scenegraph.manager import sign_duplicates
 from visual_sgraphs_tpu_torch.slam.system import SlamSystem as PortSystem
 
 import torch_parity as tp
+from torch_parity import KeyframeDepthReference, ReferenceHypotheses
 from torch_parity import one_torch_thread  # noqa: F401
 
 N_FRAMES = 12
-
-
-class KeyframeDepthReference(RefSystem):
-    """The reference SlamSystem with each keyframe's scene-graph stages fed
-    that keyframe's own depth image.  Unmodified, the reference resolves a
-    keyframe one frame late and pairs its pose with the next frame's depth
-    (ROADMAP.md, known reference defects); the port pairs them correctly,
-    and a parity test against the defect would lock it in."""
-
-    def __init__(self, cfg):
-        super().__init__(cfg)
-        self._depth_at = {}
-
-    def track_rgbd(self, gray, depth, timestamp, imu=None):
-        self._depth_at[float(timestamp)] = jnp.asarray(depth)
-        return super().track_rgbd(gray, depth, timestamp, imu)
-
-    def _insert_keyframe_fused(self, frame, res, n_inl, ts=None):
-        if ts is not None:
-            self._last_depth_img = self._depth_at[float(ts)]
-        return super()._insert_keyframe_fused(frame, res, n_inl, ts=ts)
-
-
-class ReferenceHypotheses:
-    """The reference manager's sample stream: one key split per keyframe,
-    one randint draw per extraction round."""
-
-    def __init__(self, seed: int = 0):
-        self.key = jax.random.PRNGKey(seed)
-
-    def __call__(self, n_det, n_hyp, n_cloud):
-        self.key, sub = jax.random.split(self.key)
-        return np.stack([
-            np.asarray(jax.random.randint(k, (n_hyp, 3), 0, n_cloud))
-            for k in jax.random.split(sub, n_det)]).astype(np.int32)
 
 
 @pytest.fixture(scope="module")

@@ -28,6 +28,7 @@ from visual_sgraphs_tpu.io.synthetic import SyntheticScene
 from visual_sgraphs_tpu.slam.frame import make_frame_obs
 from visual_sgraphs_tpu.slam.map_state import empty_map
 from visual_sgraphs_tpu.slam.mapping import insert_keyframe
+from visual_sgraphs_tpu.slam import SlamSystem as RefSystem
 from visual_sgraphs_tpu.slam.tracking import track_frame_full
 from visual_sgraphs_tpu_torch import interop
 
@@ -129,19 +130,29 @@ def snapshot(n_frames: int = 10):
     return cached(f"snapshot{n_frames}", lambda: build_snapshot(n_frames))
 
 
-def build_snapshot(n_frames: int = 10):
+def scan_snapshot(n_map: int = 10, n_scan: int = 16):
+    """``build_snapshot(n_map)`` on an ``n_map + n_scan``-frame render,
+    with the ``n_scan`` frames after the map's as numpy (gray, depth,
+    T_wc, ts) under ``"later"``, built once per test run."""
+    return cached(f"scan_snapshot{n_map}_{n_scan}",
+                  lambda: build_snapshot(n_map, n_map + n_scan))
+
+
+def build_snapshot(n_frames: int = 10, n_render: int | None = None):
     """A mid-stream reference map, built with the reference's own
     functions: frame 0 is the origin keyframe, frames 1.. are tracked with
     ``track_frame_full`` (point stats folded in), and frame
     ``n_frames // 2`` becomes a second keyframe.  Returns the map, the
     configuration, frame ``n_frames``'s observation (reference FrameObs)
-    and the tracker's last pose / velocity / reference keyframe."""
-    scene, frames = reference_frames(n_frames + 1)
+    and the tracker's last pose / velocity / reference keyframe; with
+    ``n_render`` (frames rendered, default ``n_frames + 1``) also the
+    rendered frames from ``n_frames`` on (``"later"``)."""
+    scene, frames = reference_frames(n_render or n_frames + 1)
     cfg = slice_config(scene)
     K = jnp.asarray(cfg.camera.K)
     bf = jnp.asarray(np.float32(cfg.camera.bf))
     obs = [make_frame_obs(jnp.asarray(g), jnp.asarray(d), ts, cfg.camera,
-                          cfg.orb) for g, d, _, ts in frames]
+                          cfg.orb) for g, d, _, ts in frames[:n_frames + 1]]
     F = cfg.orb.n_features
     m = empty_map(cfg.capacity, cfg.orb)
     T_last = vel = rlie.se3_identity()
@@ -164,9 +175,12 @@ def build_snapshot(n_frames: int = 10):
             m, _, _ = insert_keyframe(m, obs[i], pose, res.slot_pt, K,
                                       slot=jnp.asarray(1, jnp.int32))
             ref_kf = 1
-    return dict(cfg=cfg, map=m, frame=obs[n_frames],
-                last_pose=np.asarray(T_last, np.float32),
-                velocity=np.asarray(vel, np.float32), ref_kf=ref_kf)
+    out = dict(cfg=cfg, map=m, frame=obs[n_frames],
+               last_pose=np.asarray(T_last, np.float32),
+               velocity=np.asarray(vel, np.float32), ref_kf=ref_kf)
+    if n_render is not None:
+        out["later"] = frames[n_frames:]
+    return out
 
 
 def port_map(ref_map):
@@ -179,3 +193,38 @@ def port_frame(ref_frame):
 
 def t(x):
     return torch.from_numpy(np.asarray(x))
+
+
+class KeyframeDepthReference(RefSystem):
+    """The reference SlamSystem with each keyframe's scene-graph stages fed
+    that keyframe's own depth image.  Unmodified, the reference resolves a
+    keyframe one frame late and pairs its pose with the next frame's depth
+    (ROADMAP.md, known reference defects); the port pairs them correctly,
+    and a parity test against the defect would lock it in."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self._depth_at = {}
+
+    def track_rgbd(self, gray, depth, timestamp, imu=None):
+        self._depth_at[float(timestamp)] = jnp.asarray(depth)
+        return super().track_rgbd(gray, depth, timestamp, imu)
+
+    def _insert_keyframe_fused(self, frame, res, n_inl, ts=None):
+        if ts is not None:
+            self._last_depth_img = self._depth_at[float(ts)]
+        return super()._insert_keyframe_fused(frame, res, n_inl, ts=ts)
+
+
+class ReferenceHypotheses:
+    """The reference manager's sample stream: one key split per keyframe,
+    one randint draw per extraction round."""
+
+    def __init__(self, seed: int = 0):
+        self.key = jax.random.PRNGKey(seed)
+
+    def __call__(self, n_det, n_hyp, n_cloud):
+        self.key, sub = jax.random.split(self.key)
+        return np.stack([
+            np.asarray(jax.random.randint(k, (n_hyp, 3), 0, n_cloud))
+            for k in jax.random.split(sub, n_det)]).astype(np.int32)

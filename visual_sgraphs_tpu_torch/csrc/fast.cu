@@ -31,6 +31,8 @@ __constant__ int kRingDc[16] = {0, 1, 2, 3, 3, 3, 2, 1,
 
 __global__ void fast_score_kernel(const float* __restrict__ img,
                                   float* __restrict__ score, int h, int w) {
+    img += (size_t)blockIdx.z * h * w;
+    score += (size_t)blockIdx.z * h * w;
     __shared__ float tile[TH + 2 * HALO][TW + 2 * HALO];
     const int r0 = blockIdx.y * TH - HALO;
     const int c0 = blockIdx.x * TW - HALO;
@@ -75,6 +77,8 @@ __global__ void fast_score_kernel(const float* __restrict__ img,
 
 __global__ void nms3x3_kernel(const float* __restrict__ score,
                               float* __restrict__ out, int h, int w) {
+    score += (size_t)blockIdx.z * h * w;
+    out += (size_t)blockIdx.z * h * w;
     const int r = blockIdx.y * blockDim.y + threadIdx.y;
     const int c = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= h || c >= w) return;
@@ -94,11 +98,13 @@ __global__ void nms3x3_kernel(const float* __restrict__ score,
 
 }  // namespace
 
-// img, score_tmp, out: (h, w) float32, contiguous, on the device.
+// img, score_tmp, out: (B, h, w) float32, contiguous, on the device (a
+// batch of frames' levels of one size).
 VSG_API int vsg_fast_nms(const float* img, float* score_tmp, float* out,
-                         int h, int w, cudaStream_t stream) {
+                         int B, int h, int w, cudaStream_t stream) {
+    if (B == 0) return 0;
     dim3 block(TW, TH);
-    dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
+    dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, B);
     fast_score_kernel<<<grid, block, 0, stream>>>(img, score_tmp, h, w);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;

@@ -37,9 +37,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # (name, module, wrapper, twin, source, TPU-path function it replaces)
 KERNELS = (
+    ("pyramid_resize", "visual_sgraphs_tpu_torch.features.pyramid",
+     "resize_bilinear", "resize_bilinear_torch",
+     "visual_sgraphs_tpu_torch/csrc/pyramid.cu",
+     "visual_sgraphs_tpu/features/pyramid.py:43"),
+    ("gaussian_blur", "visual_sgraphs_tpu_torch.features.pyramid",
+     "gaussian_blur", "gaussian_blur_torch",
+     "visual_sgraphs_tpu_torch/csrc/pyramid.cu",
+     "visual_sgraphs_tpu/features/pyramid.py:27"),
     ("fast_nms", "visual_sgraphs_tpu_torch.features.fast", "fast_nms",
      "fast_nms_torch", "visual_sgraphs_tpu_torch/csrc/fast.cu",
      "visual_sgraphs_tpu/features/fast.py:36"),
+    ("detect_level", "visual_sgraphs_tpu_torch.features.orb",
+     "detect_level", "detect_level_torch",
+     "visual_sgraphs_tpu_torch/csrc/detect.cu",
+     "visual_sgraphs_tpu/features/orb.py:90"),
     ("orb_desc", "visual_sgraphs_tpu_torch.features.orb", "orb_describe",
      "orb_describe_torch", "visual_sgraphs_tpu_torch/csrc/orb_desc.cu",
      "visual_sgraphs_tpu/features/orb.py:121"),
@@ -50,6 +62,14 @@ KERNELS = (
     ("pose_gn", "visual_sgraphs_tpu_torch.slam.tracking", "pose_only_gn",
      "pose_only_gn_torch", "visual_sgraphs_tpu_torch/csrc/pose_gn.cu",
      "visual_sgraphs_tpu/slam/tracking.py:73"),
+    ("compact_true", "visual_sgraphs_tpu_torch.slam.map_state",
+     "compact_true", "compact_true_torch",
+     "visual_sgraphs_tpu_torch/csrc/compact.cu",
+     "visual_sgraphs_tpu/slam/tracking.py:67"),
+    ("group_observations", "visual_sgraphs_tpu_torch.parallel.dist_ba",
+     "group_observations", "group_observations_torch",
+     "visual_sgraphs_tpu_torch/csrc/group_obs.cu",
+     "visual_sgraphs_tpu/parallel/dist_ba.py:60"),
     ("schur_reduce", "visual_sgraphs_tpu_torch.parallel.dist_ba",
      "local_reduced_system", "local_reduced_system_torch",
      "visual_sgraphs_tpu_torch/csrc/schur.cu",
@@ -103,8 +123,14 @@ KERNELS = (
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "vsg_fast_nms": [_VP, _VP, _VP, _I, _I, _VP],
-    "vsg_orb_desc": [_VP, _I, _I, _VP, _I, _VP, _VP, _VP, _VP, _VP],
+    "vsg_blur": [_VP, _VP, _VP, _I, _I, _I, _VP],
+    "vsg_resize": [_VP, _VP, _VP] + [_I] * 5 + [_VP, _VP, _I, _VP, _VP, _I,
+                                                _VP],
+    "vsg_fast_nms": [_VP, _VP, _VP, _I, _I, _I, _VP],
+    "vsg_detect_level": [_VP] + [_I] * 5 + [_F] + [_VP] * 6,
+    "vsg_orb_desc": [_VP, _I, _I, _I, _VP, _I, _VP, _VP, _VP, _VP, _VP],
+    "vsg_compact": [_VP, _I, _I, _VP, _VP],
+    "vsg_group_obs": [_VP] * 4 + [_I] * 4 + [_VP] * 7,
     "vsg_match_window": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                          _F, _I, _F, _I, _VP, _VP, _VP, _VP],
     "vsg_pose_gn": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F,

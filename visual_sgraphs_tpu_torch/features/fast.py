@@ -24,12 +24,14 @@ ARC_LEN = 9
 
 
 def fast_score_torch(img: torch.Tensor) -> torch.Tensor:
-    """Per-pixel FAST-9 corner score (plain PyTorch); 3-px border is 0."""
-    h, w = img.shape
-    pad = F.pad(img[None, None], (3, 3, 3, 3), mode="replicate")[0, 0]
-    ring = torch.stack([pad[3 + dr:3 + dr + h, 3 + dc:3 + dc + w]
+    """Per-pixel FAST-9 corner score (plain PyTorch) of (..., H, W)
+    images; 3-px border is 0."""
+    h, w = img.shape[-2:]
+    x = img.reshape(-1, 1, h, w)
+    pad = F.pad(x, (3, 3, 3, 3), mode="replicate")[:, 0]
+    ring = torch.stack([pad[:, 3 + dr:3 + dr + h, 3 + dc:3 + dc + w]
                         for dr, dc in RING_OFFSETS])
-    diff = ring - img[None]
+    diff = ring - x[None, :, 0]
 
     def arc_extreme(d):
         mins = []
@@ -43,12 +45,15 @@ def fast_score_torch(img: torch.Tensor) -> torch.Tensor:
     rows = torch.arange(h, device=img.device)[:, None]
     cols = torch.arange(w, device=img.device)[None, :]
     interior = (rows >= 3) & (rows < h - 3) & (cols >= 3) & (cols < w - 3)
-    return torch.where(interior, score, 0.0)
+    return torch.where(interior, score, 0.0).reshape(img.shape)
 
 
 def nms3x3_torch(score: torch.Tensor) -> torch.Tensor:
-    """3x3 non-maximum suppression (-inf outside the image)."""
-    neigh = F.max_pool2d(score[None, None], 3, stride=1, padding=1)[0, 0]
+    """3x3 non-maximum suppression (-inf outside the image) of (..., H, W)
+    score images."""
+    h, w = score.shape[-2:]
+    neigh = F.max_pool2d(score.reshape(-1, 1, h, w), 3, stride=1,
+                         padding=1).reshape(score.shape)
     return torch.where(score >= neigh, score, 0.0)
 
 
@@ -63,18 +68,19 @@ fast_nms_torch.cuda_calls = 0
 
 
 def fast_nms(img: torch.Tensor) -> torch.Tensor:
-    """FAST score + NMS of one (H, W) float32 level.  CUDA tensors go
-    through the K2 kernel, CPU tensors through the plain twin."""
+    """FAST score + NMS of one (H, W) float32 level, or of a (B, H, W)
+    batch of levels.  CUDA tensors go through the K2 kernel, CPU tensors
+    through the plain twin."""
     if img.device.type == "cpu":
         return fast_nms_torch(img)
     cuda.require_cuda("fast_nms", img)
-    if img.dtype != torch.float32 or img.dim() != 2:
-        raise ValueError("fast_nms: expected a 2D float32 image")
-    h, w = img.shape
+    if img.dtype != torch.float32 or img.dim() not in (2, 3):
+        raise ValueError("fast_nms: expected a 2D or 3D float32 image")
+    h, w = img.shape[-2:]
     tmp = torch.empty_like(img)
     out = torch.empty_like(img)
     cuda.call("vsg_fast_nms", cuda.ptr(img), cuda.ptr(tmp), cuda.ptr(out),
-              h, w, cuda.stream())
+              img.numel() // (h * w), h, w, cuda.stream())
     fast_nms.launches += 1
     return out
 

@@ -3,16 +3,18 @@
 Port of ``visual_sgraphs_tpu/features/orb.py``:
 
 - per-level FAST score + NMS is kernel K2 (``features/fast.py``);
-- ``_detect_level`` (K3: per-32x32-cell top-2, then per-level top-budget)
-  stays plain PyTorch; stable descending sorts reproduce ``lax.top_k``'s
-  lower-index-first tie order;
+- ``detect_level`` (K3: per-32x32-cell top-2, then per-level top-budget)
+  is the kernel in ``csrc/detect.cu``, with the plain twin
+  ``detect_level_torch``, whose stable descending sorts reproduce
+  ``lax.top_k``'s lower-index-first tie order;
 - ``orb_describe`` is kernel K4 (IC angle over the r=15 disc + steered
   BRIEF-256 from the blurred level, ``csrc/orb_desc.cu``) with the plain
   twin ``orb_describe_torch``.
 
 The BRIEF pattern is the reference's seeded numpy pattern, drawn with the
 same numpy call.  All keypoint tensors are fixed capacity with validity
-masks.
+masks.  ``extract_orb`` takes one frame or a (B, H, W) batch: every
+kernel of the front end (K1-K4) launches once per level for the batch.
 """
 
 from __future__ import annotations
@@ -100,38 +102,83 @@ def _topk_stable(x: torch.Tensor, k: int, dim: int = -1):
     return vals.narrow(dim, 0, k), idx.narrow(dim, 0, k)
 
 
-def _detect_level(score: torch.Tensor, budget: int, params: OrbParams):
-    """Per-cell top-2 then global top-``budget`` keypoints on one level (K3).
+def detect_level_torch(score: torch.Tensor, budget: int, params: OrbParams):
+    """Plain twin of K3: per-cell top-2, then the level's top-``budget``
+    keypoints of an (H, W) score image or a (B, H, W) batch.
 
-    Returns (rc (budget, 2) int32, resp (budget,), valid (budget,))."""
-    h, w = score.shape
+    Returns (rc (..., budget, 2) int32, resp (..., budget), valid
+    (..., budget))."""
+    if score.is_cuda:
+        detect_level_torch.cuda_calls += 1
+    h, w = score.shape[-2:]
+    x = score.reshape(-1, h, w)
+    B = x.shape[0]
     cs = params.cell_size
     ncy, ncx = -(-h // cs), -(-w // cs)
-    padded = torch.nn.functional.pad(score, (0, ncx * cs - w, 0, ncy * cs - h))
-    cells = padded.reshape(ncy, cs, ncx, cs).permute(0, 2, 1, 3)
-    cells = cells.reshape(ncy * ncx, cs * cs)
-    vals, idx = _topk_stable(cells, 2, dim=1)  # (C, 2)
+    padded = torch.nn.functional.pad(x, (0, ncx * cs - w, 0, ncy * cs - h))
+    cells = padded.reshape(B, ncy, cs, ncx, cs).permute(0, 1, 3, 2, 4)
+    cells = cells.reshape(B, ncy * ncx, cs * cs)
+    vals, idx = _topk_stable(cells, 2, dim=2)  # (B, C, 2)
     cell_ids = torch.arange(ncy * ncx, device=score.device)
     cy, cx = cell_ids // ncx, cell_ids % ncx
     rr = cy[:, None] * cs + idx // cs
     cc = cx[:, None] * cs + idx % cs
-    cand_r = rr.reshape(-1)
-    cand_c = cc.reshape(-1)
-    cand_v = vals.reshape(-1)
-    k = min(budget, cand_v.shape[0])
-    top_v, top_i = _topk_stable(cand_v, k)
-    rc = torch.stack([cand_r[top_i], cand_c[top_i]], dim=-1).to(torch.int32)
+    cand_r = rr.reshape(B, -1)
+    cand_c = cc.reshape(B, -1)
+    cand_v = vals.reshape(B, -1)
+    k = min(budget, cand_v.shape[1])
+    top_v, top_i = _topk_stable(cand_v, k, dim=1)
+    rc = torch.stack([torch.gather(cand_r, 1, top_i),
+                      torch.gather(cand_c, 1, top_i)], dim=-1).to(torch.int32)
     valid = top_v >= params.min_thresh
     if k < budget:  # tiny levels: pad to static budget
         pad = budget - k
         dev = score.device
-        rc = torch.cat([rc, torch.zeros((pad, 2), dtype=torch.int32,
-                                        device=dev)])
-        top_v = torch.cat([top_v, torch.zeros((pad,), dtype=top_v.dtype,
-                                              device=dev)])
-        valid = torch.cat([valid, torch.zeros((pad,), dtype=torch.bool,
-                                              device=dev)])
-    return rc, top_v, valid
+        rc = torch.cat([rc, torch.zeros((B, pad, 2), dtype=torch.int32,
+                                        device=dev)], dim=1)
+        top_v = torch.cat([top_v, torch.zeros((B, pad), dtype=top_v.dtype,
+                                              device=dev)], dim=1)
+        valid = torch.cat([valid, torch.zeros((B, pad), dtype=torch.bool,
+                                              device=dev)], dim=1)
+    lead = score.shape[:-2]
+    return (rc.reshape(*lead, budget, 2), top_v.reshape(*lead, budget),
+            valid.reshape(*lead, budget))
+
+
+detect_level_torch.cuda_calls = 0
+
+
+def detect_level(score: torch.Tensor, budget: int, params: OrbParams):
+    """Keypoint selection on one level (``lax.top_k``'s order: value
+    descending, lower index first) of an (H, W) score image or a
+    (B, H, W) batch: kernel K3 on CUDA tensors, the plain twin on CPU
+    tensors.  Returns (rc (..., budget, 2) int32, resp (..., budget),
+    valid (..., budget) bool)."""
+    if score.device.type == "cpu":
+        return detect_level_torch(score, budget, params)
+    cuda.require_cuda("detect_level", score)
+    if score.dtype != torch.float32 or score.dim() not in (2, 3):
+        raise ValueError("detect_level: expected 2D or 3D float32 scores")
+    h, w = score.shape[-2:]
+    B = score.numel() // (h * w)
+    cs = params.cell_size
+    n_cand = 2 * (-(-h // cs)) * (-(-w // cs))
+    dev = score.device
+    cand_v = torch.empty((B, n_cand), dtype=torch.float32, device=dev)
+    cand_rc = torch.empty((B, n_cand, 2), dtype=torch.int32, device=dev)
+    rc = torch.empty((B, budget, 2), dtype=torch.int32, device=dev)
+    resp = torch.empty((B, budget), dtype=torch.float32, device=dev)
+    valid = torch.empty((B, budget), dtype=torch.bool, device=dev)
+    cuda.call("vsg_detect_level", cuda.ptr(score), B, h, w, cs, budget,
+              float(params.min_thresh), cuda.ptr(cand_v), cuda.ptr(cand_rc),
+              cuda.ptr(rc), cuda.ptr(resp), cuda.ptr(valid), cuda.stream())
+    detect_level.launches += 1
+    lead = score.shape[:-2]
+    return (rc.reshape(*lead, budget, 2), resp.reshape(*lead, budget),
+            valid.reshape(*lead, budget))
+
+
+detect_level.launches = 0
 
 
 def _patch_index(img: torch.Tensor, rc: torch.Tensor):
@@ -210,10 +257,21 @@ def _steered_brief(patches: torch.Tensor, angles: torch.Tensor,
 def orb_describe_torch(blurred: torch.Tensor, rc: torch.Tensor,
                        pattern: torch.Tensor, angle: torch.Tensor | None = None):
     """Plain PyTorch twin of K4: (angle (K,), desc (K, 32) uint8) of the
-    keypoints ``rc`` (K, 2) int32 (row, col) on one blurred level.  Given
-    ``angle``, the IC angle is not recomputed."""
+    keypoints ``rc`` (K, 2) int32 (row, col) on one blurred level, or
+    (B, K) / (B, K, 32) for a (B, H, W) batch with ``rc`` (B, K, 2).
+    Given ``angle``, the IC angle is not recomputed."""
     if blurred.is_cuda:
         orb_describe_torch.cuda_calls += 1
+    if blurred.dim() == 3:
+        outs = [_describe(blurred[b], rc[b], pattern,
+                          None if angle is None else angle[b])
+                for b in range(blurred.shape[0])]
+        return (torch.stack([a for a, _ in outs]),
+                torch.stack([d for _, d in outs]))
+    return _describe(blurred, rc, pattern, angle)
+
+
+def _describe(blurred, rc, pattern, angle):
     patches = _gather_patches(blurred, rc)
     if angle is None:
         angle = _ic_angle(patches)
@@ -225,21 +283,26 @@ orb_describe_torch.cuda_calls = 0
 
 def orb_describe(blurred: torch.Tensor, rc: torch.Tensor,
                  pattern: torch.Tensor, angle: torch.Tensor | None = None):
-    """IC angle + steered BRIEF of one level's keypoints (kernel K4 on
-    CUDA tensors, the plain twin on CPU tensors)."""
+    """IC angle + steered BRIEF of one level's keypoints, of one frame
+    ((H, W) level, (K, 2) rc) or a batch ((B, H, W), (B, K, 2)): kernel K4
+    on CUDA tensors, the plain twin on CPU tensors."""
     if blurred.device.type == "cpu":
         return orb_describe_torch(blurred, rc, pattern, angle)
     tensors = [blurred, rc, pattern] + ([angle] if angle is not None else [])
     cuda.require_cuda("orb_describe", *tensors)
     if (blurred.dtype != torch.float32 or rc.dtype != torch.int32
             or pattern.dtype != torch.float32 or pattern.shape != (256, 4)
-            or (angle is not None and angle.dtype != torch.float32)):
+            or (angle is not None and angle.dtype != torch.float32)
+            or blurred.dim() not in (2, 3)
+            or rc.dim() != blurred.dim()):
         raise ValueError("orb_describe: bad dtype or shape")
-    h, w = blurred.shape
-    n = rc.shape[0]
-    angle_out = torch.empty((n,), dtype=torch.float32, device=blurred.device)
-    desc = torch.empty((n, 32), dtype=torch.uint8, device=blurred.device)
-    cuda.call("vsg_orb_desc", cuda.ptr(blurred), h, w, cuda.ptr(rc), n,
+    h, w = blurred.shape[-2:]
+    B = blurred.numel() // (h * w)
+    n = rc.shape[-2]
+    lead = rc.shape[:-1]
+    angle_out = torch.empty(lead, dtype=torch.float32, device=blurred.device)
+    desc = torch.empty((*lead, 32), dtype=torch.uint8, device=blurred.device)
+    cuda.call("vsg_orb_desc", cuda.ptr(blurred), B, h, w, cuda.ptr(rc), n,
               cuda.ptr(pattern), cuda.ptr(angle), cuda.ptr(angle_out),
               cuda.ptr(desc), cuda.stream())
     orb_describe.launches += 1
@@ -250,26 +313,31 @@ orb_describe.launches = 0
 
 
 def extract_orb(img: torch.Tensor, params: OrbParams = OrbParams()) -> Keypoints:
-    """Full ORB extraction on a grayscale image (H, W) float32 [0, 255]."""
+    """Full ORB extraction on a grayscale image (H, W) float32 [0, 255], or
+    on a (B, H, W) batch (every field then gains a leading B; each frame's
+    result equals its extraction alone): K1-K4 launch once per level for
+    the whole batch."""
     pattern = brief_pattern_tensor(params.pattern_seed, img.device)
     levels = build_pyramid(img, params.n_levels, params.scale)
     budgets = level_budgets(params)
+    lead = img.shape[:-2]
     out = {k: [] for k in Keypoints._fields}
     for lv, (level_img, budget) in enumerate(zip(levels, budgets)):
         if budget <= 0:
             continue
         score = fast_nms(level_img)
-        rc, resp, valid = _detect_level(score, budget, params)
+        rc, resp, valid = detect_level(score, budget, params)
         blurred = gaussian_blur(level_img)
         angle, desc = orb_describe(blurred, rc, pattern)
         scale_f = params.scale**lv
-        uv = torch.stack([rc[:, 1].to(torch.float32),
-                          rc[:, 0].to(torch.float32)], dim=-1) * scale_f
+        uv = torch.stack([rc[..., 1].to(torch.float32),
+                          rc[..., 0].to(torch.float32)], dim=-1) * scale_f
         out["uv"].append(uv)
         out["response"].append(resp)
-        out["level"].append(torch.full((budget,), lv, dtype=torch.int32,
-                                       device=img.device))
+        out["level"].append(torch.full((*lead, budget), lv,
+                                       dtype=torch.int32, device=img.device))
         out["angle"].append(angle)
         out["valid"].append(valid)
         out["desc"].append(desc)
-    return Keypoints(**{k: torch.cat(v) for k, v in out.items()})
+    dim = len(lead)
+    return Keypoints(**{k: torch.cat(v, dim=dim) for k, v in out.items()})

@@ -1,12 +1,20 @@
-"""Image pyramid: separable Gaussian blur + antialiased bilinear rescale.
+"""Image pyramid: separable Gaussian blur + antialiased bilinear rescale (K1).
 
-Port of ``visual_sgraphs_tpu/features/pyramid.py`` (K1, plain PyTorch).
-The reference resizes with ``jax.image.resize(..., "bilinear")``, which
-antialiases when it downsamples: each output sample is a normalised
-triangle-kernel average whose support widens by the inverse scale.  The
-port builds the same separable weights once per (input, output) size as
-two dense matrices and applies them as two matrix products, so each level
-agrees with the reference to float32 rounding.
+Port of ``visual_sgraphs_tpu/features/pyramid.py``.  The reference resizes
+with ``jax.image.resize(..., "bilinear")``, which antialiases when it
+downsamples: each output sample is a normalised triangle-kernel average
+whose support widens by the inverse scale.  The port computes the same
+separable weights once per (input, output) size, in float64 rounded once
+to float32, and keeps each output's band of them (first source index and
+``T`` taps; ``T`` = 3 at 1/1.2), accumulated with one fused multiply-add a
+tap, the rounding of the dense weight product.
+
+``gaussian_blur`` and ``resize_bilinear`` launch the hand kernels of
+``csrc/pyramid.cu`` on CUDA tensors and run the plain twins
+``gaussian_blur_torch`` / ``resize_bilinear_torch`` on CPU tensors.  Both
+take one image (H, W) or a batch (B, H, W); the twins round as the
+kernels do, so on the card the two agree to the last bit (but for a rare
+double rounding in the twin's float64 emulation of the fused step).
 """
 
 from __future__ import annotations
@@ -17,6 +25,8 @@ import math
 import numpy as np
 import torch
 
+from visual_sgraphs_tpu_torch import cuda
+
 
 @functools.lru_cache(maxsize=None)
 def _gauss_kernel(ksize: int, sigma: float) -> tuple[float, ...]:
@@ -26,26 +36,71 @@ def _gauss_kernel(ksize: int, sigma: float) -> tuple[float, ...]:
     return tuple(x / s for x in xs)
 
 
+def _blur_taps(ksize: int, sigma: float) -> list[float]:
+    # taps as float32-rounded Python scalars: multiplying by a scalar
+    # rounds like the reference's float32 tap array
+    return [float(np.float32(v)) for v in _gauss_kernel(ksize, sigma)]
+
+
+@functools.lru_cache(maxsize=None)
+def _blur_taps_on(ksize: int, sigma: float,
+                  device: torch.device) -> torch.Tensor:
+    return torch.tensor(_blur_taps(ksize, sigma), dtype=torch.float32,
+                        device=device)
+
+
+def _clamped(n: int, shift: int, device) -> torch.Tensor:
+    return torch.clamp(torch.arange(n, device=device) + shift, 0, n - 1)
+
+
+def gaussian_blur_torch(img: torch.Tensor, ksize: int = 7,
+                        sigma: float = 2.0) -> torch.Tensor:
+    """Plain twin of K1's blur: separable Gaussian of (..., H, W) images
+    (replicate padding), vertical taps then horizontal, added in order."""
+    if img.is_cuda:
+        gaussian_blur_torch.cuda_calls += 1
+    k = _blur_taps(ksize, sigma)
+    half = ksize // 2
+    h, w = img.shape[-2:]
+    out = k[0] * img[..., _clamped(h, -half, img.device), :]
+    for i in range(1, ksize):
+        out = out + k[i] * img[..., _clamped(h, i - half, img.device), :]
+    out2 = k[0] * out[..., _clamped(w, -half, img.device)]
+    for i in range(1, ksize):
+        out2 = out2 + k[i] * out[..., _clamped(w, i - half, img.device)]
+    return out2
+
+
+gaussian_blur_torch.cuda_calls = 0
+
+
+def _batched(img: torch.Tensor) -> torch.Tensor:
+    if img.dim() not in (2, 3):
+        raise ValueError("expected an (H, W) image or a (B, H, W) batch")
+    return img if img.dim() == 3 else img[None]
+
+
 def gaussian_blur(img: torch.Tensor, ksize: int = 7,
                   sigma: float = 2.0) -> torch.Tensor:
-    """Separable Gaussian blur of a 2D image (replicate padding)."""
-    # taps as float32-rounded Python scalars: multiplying by a scalar
-    # rounds like the reference's float32 tap array, without a copy to the
-    # device per call
-    k = [float(np.float32(v)) for v in _gauss_kernel(ksize, sigma)]
-    half = ksize // 2
-    h, w = img.shape
-    pad = torch.nn.functional.pad(img[None, None], (0, 0, half, half),
-                                  mode="replicate")[0, 0]
-    out = torch.zeros_like(img)
-    for i in range(ksize):
-        out = out + k[i] * pad[i:i + h]
-    pad = torch.nn.functional.pad(out[None, None], (half, half, 0, 0),
-                                  mode="replicate")[0, 0]
-    out2 = torch.zeros_like(img)
-    for i in range(ksize):
-        out2 = out2 + k[i] * pad[:, i:i + w]
-    return out2
+    """7-tap sigma-2 Gaussian blur of (H, W) or (B, H, W) float32 images:
+    kernel K1 on CUDA tensors, the plain twin on CPU tensors."""
+    if img.device.type == "cpu":
+        return gaussian_blur_torch(img, ksize, sigma)
+    if (ksize, sigma) != (7, 2.0):
+        raise ValueError("gaussian_blur: the K1 kernel has 7 taps, sigma 2")
+    cuda.require_cuda("gaussian_blur", img)
+    if img.dtype != torch.float32:
+        raise ValueError("gaussian_blur: expected float32 images")
+    x = _batched(img)
+    out = torch.empty_like(x)
+    cuda.call("vsg_blur", cuda.ptr(x), cuda.ptr(_blur_taps_on(
+        ksize, sigma, img.device)), cuda.ptr(out), x.shape[0], x.shape[1],
+        x.shape[2], cuda.stream())
+    gaussian_blur.launches += 1
+    return out if img.dim() == 3 else out[0]
+
+
+gaussian_blur.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,19 +123,94 @@ def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _resize_weights_on(n_in: int, n_out: int,
-                       device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_resize_weights(n_in, n_out)).to(device)
+def resize_band(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """(first (n_out,) int32, weights (n_out, T) float32): each output's
+    non-zero weights of ``_resize_weights`` from its first source index on
+    (zero where the band is shorter than ``T`` or runs past the input)."""
+    wts = _resize_weights(n_in, n_out)
+    nz = wts != 0
+    any_nz = nz.any(axis=0)
+    first = np.where(any_nz, nz.argmax(axis=0), 0)
+    last = np.where(any_nz, n_in - 1 - nz[::-1].argmax(axis=0), 0)
+    T = int(max(1, (last - first + 1).max()))
+    idx = first[:, None] + np.arange(T)[None, :]
+    band = np.where(idx < n_in, wts[np.minimum(idx, n_in - 1),
+                                    np.arange(n_out)[:, None]], 0)
+    return first.astype(np.int32), band.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_band_on(n_in: int, n_out: int, device: torch.device):
+    first, band = resize_band(n_in, n_out)
+    return (torch.from_numpy(first).to(device),
+            torch.from_numpy(band).to(device))
+
+
+def _band_apply(img: torch.Tensor, n_out: int, dim: int) -> torch.Tensor:
+    """Each output's taps accumulated in order, one fused multiply-add a
+    tap from 0 (a matrix product's rounding), emulated in float64: the
+    float32 product is exact there and the sum rounds once more to
+    float32."""
+    n_in = img.shape[dim]
+    first, band = _resize_band_on(n_in, n_out, img.device)
+    shape = [1] * img.dim()
+    shape[dim] = n_out
+    acc = None
+    for t in range(band.shape[1]):
+        src = img.index_select(dim, torch.clamp(first.long() + t,
+                                                max=n_in - 1)).double()
+        term = band[:, t].double().reshape(shape) * src
+        acc = (term if acc is None else term + acc.double()).float()
+    return acc
+
+
+def resize_bilinear_torch(img: torch.Tensor,
+                          shape: tuple[int, int]) -> torch.Tensor:
+    """Plain twin of K1's resize: the rows' band, then the columns', of
+    (..., H, W) images; the taps added in order."""
+    if img.is_cuda:
+        resize_bilinear_torch.cuda_calls += 1
+    h, w = img.shape[-2:]
+    out = img
+    if shape[0] != h:
+        out = _band_apply(out, shape[0], out.dim() - 2)
+    if shape[1] != w:
+        out = _band_apply(out, shape[1], out.dim() - 1)
+    return out
+
+
+resize_bilinear_torch.cuda_calls = 0
 
 
 def resize_bilinear(img: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
-    h, w = img.shape
-    out = img
-    if shape[0] != h:
-        out = _resize_weights_on(h, shape[0], img.device).T @ out
-    if shape[1] != w:
-        out = out @ _resize_weights_on(w, shape[1], img.device)
-    return out
+    """Antialiased bilinear resize of (H, W) or (B, H, W) float32 images
+    to ``shape``: kernel K1 on CUDA tensors, the plain twin on CPU
+    tensors."""
+    if img.device.type == "cpu":
+        return resize_bilinear_torch(img, shape)
+    cuda.require_cuda("resize_bilinear", img)
+    if img.dtype != torch.float32:
+        raise ValueError("resize_bilinear: expected float32 images")
+    x = _batched(img)
+    B, h, w = x.shape
+    ho, wo = shape
+    if (ho, wo) == (h, w):
+        return img
+    rows = _resize_band_on(h, ho, img.device) if ho != h else (None, None)
+    cols = _resize_band_on(w, wo, img.device) if wo != w else (None, None)
+    out = torch.empty((B, ho, wo), dtype=torch.float32, device=img.device)
+    tmp = (torch.empty((B, ho, w), dtype=torch.float32, device=img.device)
+           if ho != h and wo != w else None)
+    cuda.call("vsg_resize", cuda.ptr(x), cuda.ptr(tmp), cuda.ptr(out), B, h,
+              w, ho, wo, cuda.ptr(rows[0]), cuda.ptr(rows[1]),
+              0 if rows[1] is None else rows[1].shape[1], cuda.ptr(cols[0]),
+              cuda.ptr(cols[1]), 0 if cols[1] is None else cols[1].shape[1],
+              cuda.stream())
+    resize_bilinear.launches += 1
+    return out if img.dim() == 3 else out[0]
+
+
+resize_bilinear.launches = 0
 
 
 def pyramid_shapes(h: int, w: int, n_levels: int, scale: float):
@@ -92,12 +222,20 @@ def pyramid_shapes(h: int, w: int, n_levels: int, scale: float):
     return shapes
 
 
-def build_pyramid(img: torch.Tensor, n_levels: int = 8,
-                  scale: float = 1.2) -> list[torch.Tensor]:
-    """List of ``n_levels`` images; level 0 is the input (float32)."""
-    h, w = img.shape
+def build_pyramid(img: torch.Tensor, n_levels: int = 8, scale: float = 1.2,
+                  resize=resize_bilinear) -> list[torch.Tensor]:
+    """List of ``n_levels`` images (or (B, h, w) batches); level 0 is the
+    input (float32), each later one resized from the one before by
+    ``resize``."""
+    h, w = img.shape[-2:]
     shapes = pyramid_shapes(h, w, n_levels, scale)
     levels = [img.to(torch.float32)]
     for lv in range(1, n_levels):
-        levels.append(resize_bilinear(levels[-1], shapes[lv]))
+        levels.append(resize(levels[-1], shapes[lv]))
     return levels
+
+
+def build_pyramid_torch(img: torch.Tensor, n_levels: int = 8,
+                        scale: float = 1.2) -> list[torch.Tensor]:
+    """``build_pyramid`` on the plain twin of the resize."""
+    return build_pyramid(img, n_levels, scale, resize_bilinear_torch)

@@ -1,14 +1,16 @@
 """The port's main path as its scripts run it: configuration, frames, feed.
 
 ``chip_smoke.py`` and ``profile_slice`` both drive this path, so both take
-the configuration behind their numbers from here: the headline
-configuration of the reference's ``bench.py`` (640x480 RGB-D, 1000 ORB
-features, 128 keyframes / 32768 points, ``MappingConfig(lba_iters=6,
-lba_interval=2, cull_interval=2)``, plane covisibility and semantic point
-refinement on) less what is not ported yet (the serial path), over the
-96-frame two-lap ``orbit2`` sequence rendered with semantics; with
-``loop_config`` the headline's loop closing, global BA after each loop
-and relocalisation of lost frames.
+the configuration behind their numbers from here.  ``bench_config`` is the
+headline configuration of the reference's ``bench.py:64-91`` exactly:
+640x480 RGB-D, 1000 ORB features, 128 keyframes / 32768 points, the
+B-frame pipeline (``pipeline_depth=8``), ``MappingConfig(lba_iters=6,
+lba_interval=2, cull_interval=2)``, loop closing with a global BA after
+each loop, and the scene graph with plane covisibility and semantic point
+refinement, over the 192-frame two-lap ``orbit2`` sequence rendered with
+semantics (``BENCH_FRAMES``, the first ``BENCH_WARMUP`` of them warm-up).
+``configs`` and ``loop_config`` are the earlier slices' cuts of it to
+``pipeline_depth=1`` (scene graph off / on, then loops), over 96 frames.
 """
 
 from __future__ import annotations
@@ -21,9 +23,12 @@ from visual_sgraphs_tpu_torch.config import (
     OrbConfig,
     PlaceConfig,
     SystemConfig,
+    TrackingConfig,
 )
 
 N_FRAMES = 96
+BENCH_FRAMES = 192
+BENCH_WARMUP = 64
 HEADLINE_CAPACITY = CapacityConfig(max_keyframes=128, max_points=32768)
 
 
@@ -55,6 +60,15 @@ def loop_config(cfg):
     return dataclasses.replace(cfg, loop_closing=True, place=PlaceConfig(
         vocab_min_keyframes=4, consistency=1, min_gap=8,
         gba_after_loop=True))
+
+
+def bench_config(scene):
+    """The headline configuration of ``bench.py:64-91``: the scene-graph
+    configuration of ``configs`` with its loop closing (``loop_config``)
+    on the B-frame pipeline, ``pipeline_depth=8``."""
+    _, sg_cfg = configs(scene)
+    return dataclasses.replace(loop_config(sg_cfg),
+                               tracking=TrackingConfig(pipeline_depth=8))
 
 
 def make_system(cfg, device, with_sg: bool):

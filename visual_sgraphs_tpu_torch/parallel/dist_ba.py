@@ -34,13 +34,15 @@ from visual_sgraphs_tpu_torch import cuda
 from visual_sgraphs_tpu_torch.core import lie
 
 
-def group_observations(obs_kf, obs_pt, uvr, valid, n_pt: int,
-                       max_obs: int = 8):
-    """Flat observation lists -> per-landmark (N, O) tables: each
-    observation lands in its landmark's next free slot (rank = earlier list
-    entries of the same point: stable sort + run position).  Overflow
-    beyond ``max_obs`` is dropped.  Returns (kf (N, O) int32, uvr (N, O, 3),
-    valid (N, O) bool, n_dropped)."""
+def group_observations_torch(obs_kf, obs_pt, uvr, valid, n_pt: int,
+                             max_obs: int = 8):
+    """Plain twin of K9: flat observation lists -> per-landmark (N, O)
+    tables: each observation lands in its landmark's next free slot (rank
+    = earlier list entries of the same point: stable sort + run position).
+    Overflow beyond ``max_obs`` is dropped.  Returns (kf (N, O) int32,
+    uvr (N, O, 3), valid (N, O) bool, n_dropped)."""
+    if obs_kf.is_cuda:
+        group_observations_torch.cuda_calls += 1
     m = obs_kf.shape[0]
     dev = obs_kf.device
     pt = torch.where(valid, obs_pt, n_pt).long()
@@ -62,6 +64,51 @@ def group_observations(obs_kf, obs_pt, uvr, valid, n_pt: int,
     out_valid[row, col] = keep
     n_dropped = (valid & (rank >= max_obs)).sum(dtype=torch.int32)
     return out_kf[:n_pt], out_uvr[:n_pt], out_valid[:n_pt], n_dropped
+
+
+group_observations_torch.cuda_calls = 0
+
+# K9's counting sort: at most this many warp segments (each keeps a
+# counter row per landmark), of at least GROUP_MIN_SEGMENT entries
+GROUP_SEGMENTS = 64
+GROUP_MIN_SEGMENT = 256
+
+
+def group_observations(obs_kf, obs_pt, uvr, valid, n_pt: int,
+                       max_obs: int = 8):
+    """Per-landmark observation tables (see ``group_observations_torch``):
+    kernel K9 (``csrc/group_obs.cu``, a stable counting sort over the
+    landmark ids) on CUDA tensors, the plain twin on CPU tensors.  Valid
+    entries must name a landmark in [0, n_pt), as every caller's do."""
+    if obs_kf.device.type == "cpu":
+        return group_observations_torch(obs_kf, obs_pt, uvr, valid, n_pt,
+                                        max_obs)
+    cuda.require_cuda("group_observations", obs_kf, obs_pt, uvr, valid)
+    if (obs_kf.dtype != torch.int32 or obs_pt.dtype != torch.int32
+            or uvr.dtype != torch.float32 or valid.dtype != torch.bool):
+        raise ValueError("group_observations: expected int32 ids, float32 "
+                         "uvr and a bool mask")
+    m = obs_kf.shape[0]
+    dev = obs_kf.device
+    seg = max(GROUP_MIN_SEGMENT, -(-m // GROUP_SEGMENTS))
+    G = max(1, -(-m // seg))
+    counts = torch.zeros((G, n_pt + 2), dtype=torch.int32, device=dev)
+    local_rank = torch.empty((m,), dtype=torch.int32, device=dev)
+    out_kf = torch.full((n_pt, max_obs), -1, dtype=torch.int32, device=dev)
+    out_uvr = torch.zeros((n_pt, max_obs, 3), dtype=torch.float32,
+                          device=dev)
+    out_valid = torch.zeros((n_pt, max_obs), dtype=torch.bool, device=dev)
+    n_dropped = torch.zeros((), dtype=torch.int32, device=dev)
+    cuda.call("vsg_group_obs", cuda.ptr(obs_kf), cuda.ptr(obs_pt),
+              cuda.ptr(uvr), cuda.ptr(valid), m, n_pt, max_obs, seg,
+              cuda.ptr(counts), cuda.ptr(local_rank),
+              cuda.ptr(out_kf), cuda.ptr(out_uvr), cuda.ptr(out_valid),
+              cuda.ptr(n_dropped), cuda.stream())
+    group_observations.launches += 1
+    return out_kf, out_uvr, out_valid, n_dropped
+
+
+group_observations.launches = 0
 
 
 def _landmark_terms(kf_pose, X_w, kf_idx, uvr, ovalid, cam_K, bf, huber):
@@ -330,7 +377,7 @@ def global_ba_sharded(m, cam_K, cam_bf, iters: int = 10, max_obs: int = 8):
                      uv[:, 0] - cam_bf / torch.clamp(depth, min=1e-3), -1.0)
     uvr = torch.cat([uv, ur[:, None]], dim=1)
     fixed = (~m.kf_valid) | (torch.arange(K, device=dev) == 0)
-    # K9: observations grouped per landmark by ``torch.sort``
+    # K9: observations grouped per landmark
     kf_tab, uvr_tab, val_tab, _ = group_observations(
         kf_rows.reshape(-1), safe.reshape(-1), uvr, ok.reshape(-1),
         m.pt_pos.shape[0], max_obs)

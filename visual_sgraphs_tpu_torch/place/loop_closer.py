@@ -11,7 +11,7 @@ K5, Sim3 RANSAC + refinement K15, guided re-match count K16, loop drift),
 whose scalars it reads one keyframe later again.  An accepted loop mines
 the essential graph, solves the Sim3 pose graph (K19), corrects the map
 and the scene graph, fuses the welded observations and runs the global
-BA (K8).  A lost frame is relocalised against the database (K10, K11),
+BA (K8), or without it the welding-window local BA.  A lost frame is relocalised against the database (K10, K11),
 NN-ratio matches per candidate (K5), PnP RANSAC (K15) and the
 motion-only refinement (K6).
 
@@ -431,9 +431,12 @@ class LoopCloser:
         if self.cfg.gba_after_loop:
             system.run_global_ba(iters=self.cfg.gba_iters)
         elif self.cfg.loop_local_ba:
-            raise NotImplementedError(
-                "LoopCloser: the welding-window local BA without global BA is "
-                "not ported yet; use gba_after_loop")
+            # the welding-window refinement around the closed loop
+            # (LoopClosureLocalBundleAdjustment, Optimizer.cc:4634)
+            with system.timers.stage("loop_lba", sync_on=system.map.n_kf):
+                system.map, _ = mapping.local_ba(
+                    system.map, kf_host, system.cam_K, system.cam_bf,
+                    n_window=10, iters=6)
         self.n_loops_closed += 1
         self.last_loop = (kf_host, best)
         self._kf_since_loop = 0

@@ -1,19 +1,32 @@
 """Where the time goes on the card: one profiled window of the slice.
 
     python -m visual_sgraphs_tpu_torch.profile_slice [--scenegraph]
+    python -m visual_sgraphs_tpu_torch.profile_slice --bench
     python -m visual_sgraphs_tpu_torch.profile_slice --loop-runs N
+    python -m visual_sgraphs_tpu_torch.profile_slice --small-vs-cpu
 
 Runs the main path of ``main_path`` (640x480, 1000 features, 96
 ``orbit2`` frames) through ``SlamSystem.track_rgbd`` on the card (with
 ``--scenegraph`` the scene graph attached, as ``chip_smoke.py`` phase 4b
 runs it) and profiles frames 32-63 twice: under ``torch.profiler``
 (device time by kernel, device busy share of the window, launches a
-frame) and under ``cProfile`` (host time by Python function).  With ``--scenegraph`` it also times one plane-KF
+frame) and under ``cProfile`` (host time by Python function).  With
+``--bench`` the profiled path is the headline configuration on the B-frame
+pipeline (``main_path.bench_config``, 192 frames, ``chip_smoke.py``'s
+``bench_slice``) and the window frames 96-127.  With ``--scenegraph`` it also times one plane-KF
 factor linearisation (1024 items) with ``torch.func.jacfwd`` and, for
 comparison, ``jacrev``.  With ``--loop-runs N`` it instead runs the loop
 path (``chip_smoke.py``'s ``loop_slice``: scene graph and loop closing on)
 N times and prints each run's loops, relocalisations and ATE: the spread
 that the card's float summation order alone gives one configuration.
+With ``--small-vs-cpu`` it runs the headline configuration cut to
+240x320 and 600 features over the first 96 of its 192 frames on the card
+(twice, on frames rendered on the CPU; once on frames rendered on the
+card) and on the CPU twins (on the CPU's frames and on the card's), then
+both on the serial path (``pipeline_depth=1``), and prints how far the
+two renders differ and where each run first parts from its CPU
+counterpart: the front end (K1-K4) frame by frame, then positions,
+tracking and keyframes.
 Prints one JSON line per result; needs a card.
 """
 
@@ -29,14 +42,19 @@ import numpy as np
 import torch
 
 WINDOW = (32, 64)
+BENCH_WINDOW = (96, 128)
 
 
 def _line(tag: str, **kw) -> None:
     print(f"[{tag}] " + json.dumps(kw, default=str), flush=True)
 
 
-def _slice(with_sg: bool):
+def _slice(with_sg: bool, bench: bool = False):
     from visual_sgraphs_tpu_torch import main_path
+    if bench:
+        scene, frames = main_path.frames("cuda", main_path.BENCH_FRAMES)
+        return main_path.make_system(main_path.bench_config(scene), "cuda",
+                                     True), frames
     scene, frames = main_path.frames("cuda")
     cfg, sg_cfg = main_path.configs(scene)
     return main_path.make_system(sg_cfg if with_sg else cfg, "cuda",
@@ -49,14 +67,14 @@ def _feed(system, frames) -> None:
         main_path.feed(system, frame)
 
 
-def profile(with_sg: bool) -> None:
+def profile(with_sg: bool, bench: bool = False) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
-    lo, hi = WINDOW
+    lo, hi = BENCH_WINDOW if bench else WINDOW
     n = hi - lo
     # device view
-    system, frames = _slice(with_sg)
+    system, frames = _slice(with_sg, bench)
     _feed(system, frames[:lo])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -75,7 +93,7 @@ def profile(with_sg: bool) -> None:
           device_ops_per_frame=sum(e.count for e in events) / n,
           top={e.key[:60]: [e.device_time_total, e.count] for e in top})
     # host view, without the profiler
-    system, frames = _slice(with_sg)
+    system, frames = _slice(with_sg, bench)
     _feed(system, frames[:lo])
     torch.cuda.synchronize()
     system.timers.reset()
@@ -93,7 +111,7 @@ def profile(with_sg: bool) -> None:
     _line("host", frames=f"{lo}-{hi - 1}", wall_s=wall, fps=n / wall,
           cumulative_s=dict(sorted(port.items(), key=lambda kv: -kv[1])[:15]),
           stages=system.timers.summary())
-    if with_sg:
+    if with_sg and not bench:
         _line("linearize", **linearization_ms())
 
 
@@ -164,20 +182,124 @@ def loop_spread(n_runs: int) -> None:
           ate_m_median=float(np.median(ates)), ate_m_max=max(ates))
 
 
+def _run_record(system, frames) -> dict:
+    """Positions, tracked mask and keyframe / event record of one run."""
+    _feed(system, frames)
+    system.flush()
+    ev = system.events
+    return dict(
+        pos=system.positions(), tracked=system.tracked_mask(),
+        keyframes=[(e["kf"], e["n_inliers"]) for e in ev.of_kind("keyframe")],
+        events={k: ev.count(k) for k in (
+            "keyframe", "serial_relief", "batch_retrack", "reloc",
+            "recovery_keyframe", "loop_closed", "global_ba")})
+
+
+def _parting(a: dict, b: dict, tol_m: float = 1e-3) -> dict:
+    """Where run ``a`` first parts from run ``b``."""
+    d = np.abs(a["pos"] - b["pos"]).max(axis=1)
+    far = np.flatnonzero(d > tol_m)
+    kf = next((i for i, (x, y) in enumerate(zip(a["keyframes"],
+                                                b["keyframes"])) if x != y),
+              None)
+    lost = lambda r: np.flatnonzero(~r["tracked"]).tolist()  # noqa: E731
+    return dict(first_frame_over_1mm=int(far[0]) if len(far) else None,
+                max_pos_diff_m=float(d.max()),
+                first_keyframe_differing=kf,
+                keyframes=[a["keyframes"][:kf + 2 if kf is not None else 4],
+                           b["keyframes"][:kf + 2 if kf is not None else 4]],
+                lost=[lost(a), lost(b)], events=[a["events"], b["events"]])
+
+
+def small_vs_cpu(n: int = 96) -> None:
+    """The headline configuration at 240x320 / 600 features over the first
+    ``n`` of its 192 frames on the card against the CPU twins."""
+    import dataclasses
+
+    from visual_sgraphs_tpu_torch import main_path
+    from visual_sgraphs_tpu_torch.config import OrbConfig, TrackingConfig
+    from visual_sgraphs_tpu_torch.slam.frame import make_frame_obs
+
+    scene, frames = main_path.frames("cpu", main_path.BENCH_FRAMES, 240, 320)
+    frames = frames[:n]
+    cfg = dataclasses.replace(main_path.bench_config(scene),
+                              orb=OrbConfig(n_features=600))
+    _, card_frames = main_path.frames("cuda", main_path.BENCH_FRAMES, 240,
+                                      320)
+    card_frames = card_frames[:n]
+    gray_diff = torch.stack([(a[0].cpu() - b[0]).abs()
+                             for a, b in zip(card_frames, frames)])
+    depth_diff = max(float((a[1].cpu() - b[1]).abs().max())
+                     for a, b in zip(card_frames, frames))
+    # the front end: each frame's ORB on the card (K1-K4) and on the CPU
+    # twins, from the same CPU-rendered image
+    kp_frames, desc_bytes, first_kp = 0, 0, None
+    for i, (g, d, _, _, ts) in enumerate(frames):
+        c = make_frame_obs(g.cuda(), d.cuda(), ts, cfg.camera, cfg.orb)
+        p = make_frame_obs(g, d, ts, cfg.camera, cfg.orb)
+        same_kp = (torch.equal(c.uv.cpu(), p.uv)
+                   and torch.equal(c.valid.cpu(), p.valid))
+        if not same_kp:
+            kp_frames += 1
+            first_kp = i if first_kp is None else first_kp
+        else:
+            desc_bytes += int((c.desc.cpu() != p.desc).sum())
+    _line("small_front_end", frames=n,
+          render_gray_max_abs_diff=float(gray_diff.max()),
+          render_gray_share_differing=float((gray_diff > 0).float().mean()),
+          render_gray_share_over_1=float((gray_diff > 1).float().mean()),
+          render_depth_max_abs_diff_m=depth_diff,
+          frames_with_keypoints_differing=kp_frames,
+          first_frame_keypoints_differ=first_kp,
+          desc_bytes_differing_where_keypoints_equal=desc_bytes)
+    on_card = [tuple(x.cuda() if torch.is_tensor(x) else x for x in f)
+               for f in frames]
+    serial = dataclasses.replace(cfg, tracking=TrackingConfig())
+    runs = {}
+    for tag, dev, c, fr in (("cpu", "cpu", cfg, frames),
+                            ("card_a", "cuda", cfg, on_card),
+                            ("card_b", "cuda", cfg, on_card),
+                            ("card_rendered", "cuda", cfg, card_frames),
+                            ("cpu_card_rendered", "cpu", cfg, [tuple(
+                                x.cpu() if torch.is_tensor(x) else x
+                                for x in f) for f in card_frames]),
+                            ("cpu_serial", "cpu", serial, frames),
+                            ("card_serial", "cuda", serial, on_card)):
+        t0 = time.perf_counter()
+        runs[tag] = rec = _run_record(main_path.make_system(c, dev, True), fr)
+        _line("small_run", run=tag, seconds=time.perf_counter() - t0,
+              tracked=int(rec["tracked"].sum()), events=rec["events"])
+    for tag, against in (("card_a", "cpu"), ("card_b", "cpu"),
+                         ("card_rendered", "cpu"), ("card_b", "card_a"),
+                         ("card_rendered", "cpu_card_rendered"),
+                         ("card_serial", "cpu_serial"),
+                         ("cpu_serial", "cpu")):
+        _line("small_parting", run=tag, against=against,
+              **_parting(runs[tag], runs[against]))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenegraph", action="store_true",
                     help="attach the scene graph")
+    ap.add_argument("--bench", action="store_true",
+                    help="profile the headline configuration (B-frame "
+                    "pipeline, loops and scene graph on)")
     ap.add_argument("--loop-runs", type=int, default=0,
                     help="run the loop path this many times instead")
+    ap.add_argument("--small-vs-cpu", action="store_true",
+                    help="the headline configuration at 240x320 on the "
+                    "card against the CPU twins, frame by frame")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.loop_runs:
+    if args.small_vs_cpu:
+        small_vs_cpu()
+    elif args.loop_runs:
         loop_spread(args.loop_runs)
     else:
-        profile(args.scenegraph)
+        profile(args.scenegraph, args.bench)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,7 @@ import torch
 
 from visual_sgraphs_tpu_torch import cuda
 from visual_sgraphs_tpu_torch.scenegraph.state import UNDEFINED, reciprocal_f32
-from visual_sgraphs_tpu_torch.slam.map_state import compact_true
+from visual_sgraphs_tpu_torch.slam.map_state import compact_true_torch
 
 # the reference's spatial hash (Teschner et al. primes)
 HASH_PRIMES = (73856093, 19349663, 83492791)
@@ -72,7 +72,7 @@ def voxel_downsample(points, valid, voxel: float, n_out: int,
     occupied = counts[:table] >= min_points_per_voxel
     denom = torch.clamp(counts[:table], min=1).to(points.dtype)
     centroids = sums[:table] / denom[:, None]
-    idx = compact_true(occupied, n_out)
+    idx = compact_true_torch(occupied, n_out)
     ok = idx >= 0
     safe = torch.clamp(idx, min=0)
     out_pts = centroids[safe]

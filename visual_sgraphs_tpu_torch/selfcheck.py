@@ -1,7 +1,9 @@
 """Kernel-against-twin checks at the slice's shapes, on a CUDA device.
 
 Each check builds seeded inputs of the shapes the main path gives the
-kernel (a rendered 480x640 frame's 8 pyramid levels and 1000 keypoints;
+kernel (a batch of 8 rendered 480x640 frames' pyramids and level scores;
+the map's 32768-point masks; the local and global BAs' observation
+lists; a rendered 480x640 frame's 8 pyramid levels and 1000 keypoints;
 4096 local-map points against 1000 keypoints; 4096 matches with stereo
 rows; the 480x640 depth / class images of two keyframes, their
 2048-point clouds, 4 x 192 RANSAC samples and 4 detections; an 8192-landmark,
@@ -16,6 +18,7 @@ these; nothing here runs on import.
 
 from __future__ import annotations
 
+import math
 import statistics
 from typing import Callable
 
@@ -30,12 +33,9 @@ from visual_sgraphs_tpu_torch.place import database, pgo, pnp, sim3_ransac
 from visual_sgraphs_tpu_torch.place import vocab as vocab_mod
 from visual_sgraphs_tpu_torch.place.loop_closer import default_draw
 from visual_sgraphs_tpu_torch.scenegraph import epilogue, plane_fit, pointcloud
-from visual_sgraphs_tpu_torch.features.pyramid import (
-    build_pyramid,
-    gaussian_blur,
-)
+from visual_sgraphs_tpu_torch.features import pyramid
 from visual_sgraphs_tpu_torch.io.synthetic import SyntheticScene
-from visual_sgraphs_tpu_torch.slam import tracking
+from visual_sgraphs_tpu_torch.slam import map_state, tracking
 
 # tolerances (the reasons are in the kernels' sources and the CPU tests)
 ANGLE_TOL = 1e-5  # rad, IC angle
@@ -86,19 +86,233 @@ def time_cuda(fn: Callable[[], object], warmup: int = 3,
 def slice_levels(device, h: int = 480, w: int = 640, frame: int = 10,
                  n_features: int = 1000):
     """Pyramid levels, per-level keypoints (rc) and blurred levels of one
-    rendered ``orbit2`` frame at the slice's size."""
+    rendered ``orbit2`` frame at the slice's size (from the plain twins,
+    so the kernels downstream are checked alone)."""
     scene = SyntheticScene(h=h, w=w, device=device)
     T = scene.trajectory(96, "orbit2")[frame]
     gray, _, _ = scene.render(T)
     params = orb.OrbParams(n_features=n_features)
-    levels = build_pyramid(gray, params.n_levels, params.scale)
+    levels = pyramid.build_pyramid_torch(gray, params.n_levels, params.scale)
     budgets = orb.level_budgets(params)
     rcs, blurred = [], []
     for lv, b in zip(levels, budgets):
-        rc, _, _ = orb._detect_level(fast.fast_nms_torch(lv), b, params)
+        rc, _, _ = orb.detect_level_torch(fast.fast_nms_torch(lv), b, params)
         rcs.append(rc)
-        blurred.append(gaussian_blur(lv))
+        blurred.append(pyramid.gaussian_blur_torch(lv))
     return levels, rcs, blurred
+
+
+def batch_frames(device, B: int = 8, h: int = 480, w: int = 640,
+                 first: int = 10) -> torch.Tensor:
+    """(B, h, w) gray images of consecutive rendered ``orbit2`` frames: the
+    batch the pipelined path extracts at once."""
+    scene = SyntheticScene(h=h, w=w, device=device)
+    traj = scene.trajectory(96, "orbit2")
+    return torch.stack([scene.render(traj[first + i])[0] for i in range(B)])
+
+
+def check_pyramid(grays: torch.Tensor, n_levels: int = 8,
+                  scale: float = 1.2) -> list[dict]:
+    """K1 over a (B, H, W) batch: every resize of the pyramid (each level's
+    input from the twin's pyramid) and every level's blur, against the
+    twins (expected bitwise; the gate is 1e-4 abs on [0, 255], the twin's
+    tolerance against the reference); then the FAST keypoints per level of
+    the kernels' pyramid against the twins'.  Library yardsticks: one
+    ``F.interpolate(bilinear, antialias=True)`` per resize and a separable
+    ``F.conv2d`` pair per blur."""
+    F_ = torch.nn.functional
+    levels = pyramid.build_pyramid_torch(grays, n_levels, scale)
+    shapes = [tuple(lv.shape[-2:]) for lv in levels]
+    r_err = max(float((pyramid.resize_bilinear(levels[i], shapes[i + 1])
+                       - pyramid.resize_bilinear_torch(levels[i],
+                                                       shapes[i + 1])
+                       ).abs().max()) for i in range(n_levels - 1))
+    b_err = max(float((pyramid.gaussian_blur(lv)
+                       - pyramid.gaussian_blur_torch(lv)).abs().max())
+                for lv in levels)
+    k_levels = pyramid.build_pyramid(grays, n_levels, scale)
+    kp_diff = [int((fast.fast_nms(k) > 0).ne(fast.fast_nms(t) > 0).sum())
+               for k, t in zip(k_levels, levels)]
+    torch.cuda.synchronize()
+
+    def resizes(fn):
+        return [fn(levels[i], shapes[i + 1]) for i in range(n_levels - 1)]
+
+    taps = pyramid._blur_taps_on(7, 2.0, grays.device)
+
+    def conv_blur(lv):
+        x = F_.pad(lv[:, None], (3, 3, 3, 3), mode="replicate")
+        x = F_.conv2d(x, taps.reshape(1, 1, 7, 1))
+        return F_.conv2d(x, taps.reshape(1, 1, 1, 7))
+
+    B = grays.shape[0]
+    px_in = sum(B * a * b for a, b in shapes[:-1])
+    px_out = sum(B * a * b for a, b in shapes[1:])
+    # per output sample of each pass: T = 3 multiplies and adds
+    rows_px = sum(B * shapes[i + 1][0] * shapes[i][1]
+                  for i in range(n_levels - 1))
+    resize = dict(
+        name="pyramid_resize", max_abs_err=r_err, ok=r_err <= 1e-4,
+        fast_keypoints_differ_per_level=kp_diff,
+        ms=time_cuda(lambda: resizes(pyramid.resize_bilinear)),
+        plain_ms=time_cuda(lambda: resizes(pyramid.resize_bilinear_torch)),
+        library_ms=time_cuda(lambda: [F_.interpolate(
+            levels[i][:, None], size=shapes[i + 1], mode="bilinear",
+            antialias=True, align_corners=False)
+            for i in range(n_levels - 1)]),
+        shapes=[[B, *sh] for sh in shapes],
+        bytes=4 * (px_in + px_out), ops=6 * (rows_px + px_out))
+    px = sum(B * a * b for a, b in shapes)
+    blur = dict(
+        name="gaussian_blur", max_abs_err=b_err, ok=b_err <= 1e-4,
+        ms=time_cuda(lambda: [pyramid.gaussian_blur(lv) for lv in levels]),
+        plain_ms=time_cuda(lambda: [pyramid.gaussian_blur_torch(lv)
+                                    for lv in levels]),
+        library_ms=time_cuda(lambda: [conv_blur(lv) for lv in levels]),
+        bytes=8 * px, ops=28 * px)
+    return [resize, blur]
+
+
+def check_detect(grays: torch.Tensor, n_features: int = 1000) -> dict:
+    """K3 over a (B, H, W) batch's levels (scores from the twins):
+    rc, responses and flags exactly equal to the twin's.  Library
+    yardstick: ``torch.topk`` of each level's cells (k = 2)."""
+    params = orb.OrbParams(n_features=n_features)
+    levels = pyramid.build_pyramid_torch(grays, params.n_levels,
+                                         params.scale)
+    budgets = orb.level_budgets(params)
+    scores = [fast.fast_nms_torch(lv) for lv in levels]
+    err, n_valid = 0.0, 0
+    for sc, b in zip(scores, budgets):
+        k = orb.detect_level(sc, b, params)
+        t = orb.detect_level_torch(sc, b, params)
+        torch.cuda.synchronize()
+        err = max(err, float((k[0] - t[0]).abs().max()),
+                  float((k[1] - t[1]).abs().max()),
+                  float((k[2] != t[2]).sum()))
+        n_valid += int(k[2].sum())
+    cs = params.cell_size
+    cells = []
+    for sc in scores:
+        B, h, w = sc.shape
+        ncy, ncx = -(-h // cs), -(-w // cs)
+        p = torch.nn.functional.pad(sc, (0, ncx * cs - w, 0, ncy * cs - h))
+        cells.append(p.reshape(B, ncy, cs, ncx, cs).permute(
+            0, 1, 3, 2, 4).reshape(B, ncy * ncx, cs * cs).contiguous())
+    # the function reads each level's h * w scores once (the cells' padding
+    # is skipped) and writes rc, response and flag per budget slot; the
+    # selection needs per pixel two comparisons against its cell's best
+    # two, per candidate log2(budget) comparisons into a top-budget heap
+    px = sum(sc.numel() for sc in scores)
+    n_cand = [2 * c.shape[0] * c.shape[1] for c in cells]
+    B = grays.shape[0]
+    return dict(
+        name="detect_level", max_abs_err=err, ok=err == 0.0,
+        n_valid=n_valid,
+        # levels with fewer candidates than their budget (K3 pads them)
+        padded_levels=sum(2 * c.shape[1] < b
+                          for c, b in zip(cells, budgets)),
+        ms=time_cuda(lambda: [orb.detect_level(sc, b, params)
+                              for sc, b in zip(scores, budgets)]),
+        plain_ms=time_cuda(lambda: [orb.detect_level_torch(sc, b, params)
+                                    for sc, b in zip(scores, budgets)]),
+        library_ms=time_cuda(lambda: [torch.topk(c, 2, dim=-1)
+                                      for c in cells]),
+        bytes=4 * px + B * sum(budgets) * 13,
+        ops=2 * px + sum(n * math.ceil(math.log2(b))
+                         for n, b in zip(n_cand, budgets)))
+
+
+def check_front_end_small(device) -> list[dict]:
+    """K1 and K3 at the headline configuration cut to 240x320 and 600
+    features (a batch of 8 rendered frames), where K3's deepest levels
+    hold fewer candidates than their budget."""
+    out = check_pyramid(batch_frames(device, h=240, w=320))
+    out.append(check_detect(batch_frames(device, h=240, w=320),
+                            n_features=600))
+    for r in out:
+        r["name"] += "@240x320"
+    return out
+
+
+def check_compact(device, n: int = 32768, seed: int = 0) -> dict:
+    """K7 on bool masks of the map's point capacity: the tracking table's
+    (size 4096), the local BA's (8192) and the keyframe insertion's free
+    ids (1000, more True entries than size), and an empty one; exactly
+    equal to the twin.  Timed at the tracking table's shape; library
+    yardstick ``torch.nonzero`` (which synchronises)."""
+    rng = np.random.default_rng(seed)
+    cases = [(rng.uniform(size=n) < 0.08, 4096),
+             (rng.uniform(size=n) < 0.2, 8192),
+             (rng.uniform(size=n) < 0.9, 1000),
+             (np.zeros(n, bool), 64)]
+    err = 0.0
+    for mask, size in cases:
+        mk = torch.from_numpy(mask).to(device)
+        k = map_state.compact_true(mk, size)
+        t = map_state.compact_true_torch(mk, size)
+        torch.cuda.synchronize()
+        err = max(err, float((k - t).abs().max()))
+    mask = torch.from_numpy(cases[0][0]).to(device)
+    return dict(
+        name="compact_true", max_abs_err=err, ok=err == 0.0,
+        ms=time_cuda(lambda: map_state.compact_true(mask, 4096)),
+        plain_ms=time_cuda(lambda: map_state.compact_true_torch(mask, 4096)),
+        library_ms=time_cuda(lambda: torch.nonzero(mask)),
+        bytes=n + 8 * 4096, ops=2 * n)
+
+
+def group_inputs(device, L: int, F: int, n_pt: int, seed: int = 0,
+                 overflow: int = 0):
+    """Seeded observation lists of a BA over L keyframes x F keypoints:
+    ~85 % valid, landmark ids in [0, n_pt) with each landmark seen by a
+    few keyframes; ``overflow`` landmarks are seen by every keyframe
+    (more than ``max_obs``, so entries are dropped)."""
+    rng = np.random.default_rng(seed)
+    pt = rng.integers(0, n_pt, (L, F)).astype(np.int32)
+    if overflow:
+        pt[:, :overflow] = np.arange(overflow, dtype=np.int32)
+    valid = rng.uniform(size=(L, F)) < 0.85
+    kf = np.broadcast_to(np.arange(L, dtype=np.int32)[:, None], (L, F))
+    uvr = rng.uniform(0, 640, (L * F, 3)).astype(np.float32)
+    uvr[rng.uniform(size=L * F) < 0.2, 2] = -1.0
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa
+    return (t(kf.reshape(-1)), t(pt.reshape(-1)), t(uvr),
+            t(valid.reshape(-1)))
+
+
+def check_group(device) -> dict:
+    """K9 at the local BA's shape (11 x 1000 observations into
+    (8192, 12)) and the global BA's (128 x 1000 into (32768, 8)), both
+    with overflowing landmarks: kf / valid tables and n_dropped exactly
+    equal to the twin's, uvr bitwise.  Timed at the global BA's shape;
+    library yardstick ``torch.sort(stable=True)`` of the landmark ids
+    (the sort half only)."""
+    err = 0.0
+    dropped = []
+    for L, n_pt, O in ((11, 8192, 12), (128, 32768, 8)):
+        args = group_inputs(device, L, 1000, n_pt, overflow=20)
+        k = dist_ba.group_observations(*args, n_pt, O)
+        t = dist_ba.group_observations_torch(*args, n_pt, O)
+        torch.cuda.synchronize()
+        err = max(err, float((k[0] - t[0]).abs().max()),
+                  float((k[1].view(torch.int32)
+                         != t[1].view(torch.int32)).sum()),
+                  float((k[2] != t[2]).sum()), float((k[3] - t[3]).abs()))
+        dropped.append(int(k[3]))
+    args = group_inputs(device, 128, 1000, 32768, overflow=20)
+    pt = torch.where(args[3], args[1], 32768)
+    m = args[0].shape[0]
+    return dict(
+        name="group_observations", max_abs_err=err,
+        ok=err == 0.0 and min(dropped) > 0, n_dropped=dropped,
+        ms=time_cuda(lambda: dist_ba.group_observations(*args, 32768, 8)),
+        plain_ms=time_cuda(
+            lambda: dist_ba.group_observations_torch(*args, 32768, 8)),
+        library_ms=time_cuda(lambda: torch.sort(pt, stable=True)),
+        bytes=21 * m + 32768 * 8 * 17,
+        # per entry: bucket, match, rank, offset and the scatter (~8)
+        ops=8 * m)
 
 
 def check_fast_nms(levels) -> dict:
@@ -876,6 +1090,9 @@ def run_loop_seeded(device) -> list[dict]:
 def run_all(device) -> list[dict]:
     """Every kernel against its twin at the slice's shapes."""
     levels, rcs, blurred = slice_levels(device)
-    return [check_fast_nms(levels), check_orb_desc(rcs, blurred),
+    grays = batch_frames(device)
+    return [*check_pyramid(grays), check_detect(grays),
+            check_compact(device), check_group(device),
+            check_fast_nms(levels), check_orb_desc(rcs, blurred),
             check_match_window(device), check_pose_gn(device),
             *check_schur(device), *check_scenegraph(device)]

@@ -43,23 +43,37 @@ def make_frame_obs(gray: torch.Tensor, depth_img: torch.Tensor | None,
     """Extract ORB + look up depth at keypoints.
 
     ``gray``: (H, W) float32 [0, 255]; ``depth_img``: (H, W) metric depth,
-    or None (every keypoint depthless).  Everything runs on ``gray``'s
-    device."""
+    or None (every keypoint depthless).  A (B, H, W) batch of frames with
+    (B, H, W) depths and B timestamps gives a FrameObs whose fields carry
+    a leading B, each frame's equal to its extraction alone.  Everything
+    runs on ``gray``'s device."""
     if any(abs(d) > 0 for d in (cam.k1, cam.k2, cam.p1, cam.p2, cam.k3)) \
             or getattr(cam, "model", "pinhole") != "pinhole":
         raise NotImplementedError(
             "make_frame_obs: undistortion (rad-tan / kb8) is not ported yet")
     kp = extract_orb(gray, orb_params(orb))
     if depth_img is not None:
-        r = torch.clamp(torch.round(kp.uv[:, 1]).long(), 0,
-                        depth_img.shape[0] - 1)
-        c = torch.clamp(torch.round(kp.uv[:, 0]).long(), 0,
-                        depth_img.shape[1] - 1)
-        depth = depth_img[r, c]
+        r = torch.clamp(torch.round(kp.uv[..., 1]).long(), 0,
+                        depth_img.shape[-2] - 1)
+        c = torch.clamp(torch.round(kp.uv[..., 0]).long(), 0,
+                        depth_img.shape[-1] - 1)
+        if gray.dim() == 3:
+            b = torch.arange(gray.shape[0], device=gray.device)[:, None]
+            depth = depth_img[b, r, c]
+        else:
+            depth = depth_img[r, c]
         depth = torch.where(depth > 0, depth, -1.0)
     else:
-        depth = torch.full((kp.uv.shape[0],), -1.0, dtype=torch.float32,
+        depth = torch.full(kp.uv.shape[:-1], -1.0, dtype=torch.float32,
                            device=gray.device)
+    if gray.dim() == 3:
+        ts = torch.tensor([float(t) for t in timestamp],
+                          dtype=torch.float32)
+        if gray.is_cuda:  # pinned and non-blocking: no host sync
+            ts = ts.pin_memory().to(gray.device, non_blocking=True)
+    else:
+        ts = torch.full((), float(timestamp), dtype=torch.float32,
+                        device=gray.device)
     return FrameObs(
         uv=kp.uv,
         depth=depth,
@@ -67,6 +81,10 @@ def make_frame_obs(gray: torch.Tensor, depth_img: torch.Tensor | None,
         angle=kp.angle,
         desc=kp.desc,
         valid=kp.valid,
-        timestamp=torch.full((), float(timestamp), dtype=torch.float32,
-                             device=gray.device),
+        timestamp=ts,
     )
+
+
+def frame_at(frames: FrameObs, i: int) -> FrameObs:
+    """Frame ``i`` of a batched FrameObs."""
+    return FrameObs(*(x[i] for x in frames))

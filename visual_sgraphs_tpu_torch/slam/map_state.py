@@ -5,6 +5,7 @@ shapes and dtypes, so a reference map converts field for field
 (``interop.map_from_numpy``).  Keyframes own per-slot keypoint tables;
 ``kf_obs_pt`` is the primary keyframe -> point association, from which
 covisibility is derived on demand by batched reductions.
+``compact_true`` is kernel K7 (sync-free fixed-size compaction).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from visual_sgraphs_tpu_torch import cuda
 from visual_sgraphs_tpu_torch.config import CapacityConfig, OrbConfig
 
 
@@ -105,11 +107,12 @@ def empty_map(cap: CapacityConfig = CapacityConfig(),
     )
 
 
-def compact_true(mask: torch.Tensor, size: int) -> torch.Tensor:
-    """Indices of the first ``size`` True entries of 1-D ``mask`` in
-    ascending order, padded with -1 — ``jnp.nonzero(mask, size=size,
-    fill_value=-1)`` without a device-to-host sync (cumsum + scatter
-    instead of torch.nonzero)."""
+def compact_true_torch(mask: torch.Tensor, size: int) -> torch.Tensor:
+    """Plain twin of K7: indices of the first ``size`` True entries of 1-D
+    ``mask`` in ascending order, padded with -1 (cumsum + scatter; no
+    device-to-host sync)."""
+    if mask.is_cuda:
+        compact_true_torch.cuda_calls += 1
     n = mask.shape[0]
     pos = torch.cumsum(mask.to(torch.int64), 0) - 1
     keep = mask & (pos < size)
@@ -118,6 +121,30 @@ def compact_true(mask: torch.Tensor, size: int) -> torch.Tensor:
     out.scatter_(0, torch.where(keep, pos, size),
                  torch.arange(n, device=mask.device))
     return out[:size]
+
+
+compact_true_torch.cuda_calls = 0
+
+
+def compact_true(mask: torch.Tensor, size: int) -> torch.Tensor:
+    """``jnp.nonzero(mask, size=size, fill_value=-1)`` without a
+    device-to-host sync: (size,) int64 indices of the first ``size`` True
+    entries of 1-D bool ``mask``, ascending, -1 padded.  Kernel K7
+    (``csrc/compact.cu``, one launch) on CUDA tensors, the plain twin on
+    CPU tensors."""
+    if mask.device.type == "cpu":
+        return compact_true_torch(mask, size)
+    cuda.require_cuda("compact_true", mask)
+    if mask.dtype != torch.bool or mask.dim() != 1:
+        raise ValueError("compact_true: expected a 1-D bool mask")
+    out = torch.empty((size,), dtype=torch.int64, device=mask.device)
+    cuda.call("vsg_compact", cuda.ptr(mask), mask.shape[0], size,
+              cuda.ptr(out), cuda.stream())
+    compact_true.launches += 1
+    return out
+
+
+compact_true.launches = 0
 
 
 def index_set_last(dst: torch.Tensor, idx: torch.Tensor,

@@ -1,37 +1,46 @@
 """Host-side SLAM facade: the single-writer tracking + mapping loop.
 
-Port of the RGB-D, non-inertial, ``pipeline_depth=1`` path of
-``visual_sgraphs_tpu/slam/system.py`` (System::TrackRGBD, Tracking.cc
-state machine):
+Port of the RGB-D, non-inertial path of ``visual_sgraphs_tpu/slam/
+system.py`` (System::TrackRGBD, Tracking.cc state machine):
 
 1. the first frame initialises the map (``_initialize``: the origin
    keyframe, every depth-valid keypoint a map point) into a host-chosen
    keyframe slot;
-2. every later frame runs the tracking step (ORB, prediction, coarse /
-   retry / fine tracking) and, one frame later, its host decisions
-   (``_resolve_pending``): trajectory row, keyframe policy;
-3. a keyframe runs the keyframe program (insert, fuse, cull, local BA;
+2. with ``pipeline_depth=1`` every later frame runs the tracking step
+   (ORB, prediction, coarse / retry / fine tracking) and, one frame later,
+   its host decisions (``_resolve_pending``): trajectory row, keyframe
+   policy;
+3. with ``pipeline_depth=B > 1`` (the B-frame pipeline, once the map
+   holds 5 keyframes) frames are buffered B at a time; each full batch
+   resolves the previous batch's decisions from one readback of its
+   counters and board (``_resolve_batch_inner``), then dispatches one
+   cycle (``slam/cycle_program.py``): the keyframe chosen out of the
+   previous batch, then the tracking scan of the new batch.  A failed
+   frame is tracked again against the current map, and opens a window of
+   2B frames on the serial path;
+4. a keyframe runs the keyframe program (insert, fuse, cull, local BA;
    with a ``SceneGraphManager`` attached as ``system.scenegraph``, plane
    detection and association, rooms, semantic point refinement and the
    scene-graph local BA; with ``loop_closing``, the place query) and
-   leaves a slot board that the next keyframe checks;
-4. with ``loop_closing`` a ``LoopCloser`` (``system.loop_closer``)
+   leaves a slot board that the host checks later;
+5. with ``loop_closing`` a ``LoopCloser`` (``system.loop_closer``)
    resolves the previous keyframe's query from that board, verifies
    consistent candidates one keyframe later, corrects the map (pose graph,
-   scene graph, fusion, global BA) and relocalises lost frames in the map;
-5. ``frame_poses`` / ``positions`` recompose the trajectory against the
+   scene graph, fusion, then a global BA or the welding-window local BA)
+   and relocalises lost frames in the map;
+6. ``frame_poses`` / ``positions`` recompose the trajectory against the
    current keyframe poses, re-basing rows of retired keyframes through the
    retirement ledger.
 
-The step reads one packed vector back per frame (two when it retries);
-``host_readbacks`` counts every device-to-host read the loop makes.  Not
-ported yet, and raising ``NotImplementedError`` where the path would reach
-them: the B-frame pipeline, free-space rooms, mono / stereo / inertial
-input, the Atlas (stash / merge, relocalisation in stashed maps) and the
-loop weld's local BA without global BA.  A frame tracked again from a
-lost state makes a recovery keyframe outside the keyframe program, with
-the generic LM local BA (``mapping.local_ba``, or
-``scenegraph/joint_ba.py`` with the scene graph), as the reference does.
+The serial step reads one packed vector back per frame (two when it
+retries), the pipeline one per batch; ``host_readbacks`` counts every
+device-to-host read the loop makes.  Not ported yet, and raising
+``NotImplementedError`` where the path would reach them: free-space
+rooms, mono / stereo / inertial input and the Atlas (stash / merge,
+relocalisation in stashed maps).  A frame tracked again from a lost state
+makes a recovery keyframe outside the keyframe program, with the generic
+LM local BA (``mapping.local_ba``, or ``scenegraph/joint_ba.py`` with the
+scene graph), as the reference does.
 """
 
 from __future__ import annotations
@@ -50,7 +59,12 @@ from visual_sgraphs_tpu_torch.place.loop_closer import LoopCloser
 from visual_sgraphs_tpu_torch.scenegraph.joint_ba import scenegraph_local_ba
 from visual_sgraphs_tpu_torch.scenegraph.state import empty_scenegraph
 from visual_sgraphs_tpu_torch.slam import mapping, tracking
-from visual_sgraphs_tpu_torch.slam.frame import FrameObs, make_frame_obs
+from visual_sgraphs_tpu_torch.slam.cycle_program import make_cycle_program
+from visual_sgraphs_tpu_torch.slam.frame import (
+    FrameObs,
+    frame_at,
+    make_frame_obs,
+)
 from visual_sgraphs_tpu_torch.slam.kf_program import (
     make_kf_program,
     scenegraph_keyframe,
@@ -115,7 +129,6 @@ class SlamSystem:
             ))
         for unsupported, what in (
             (config.sensor != Sensor.RGBD, "non-RGB-D sensors"),
-            (config.tracking.pipeline_depth > 1, "the B-frame pipeline"),
             (not config.mapping.fast_ba, "the generic LM local BA"),
         ):
             if unsupported:
@@ -153,6 +166,17 @@ class SlamSystem:
         self._stats_buf: list = []
         self._kf_counter = 0
         self._serial_board = None
+        # B-frame pipeline (tracking.pipeline_depth > 1): frames buffered
+        # for the next batch, the dispatched batch awaiting its resolve,
+        # frames left to run serially after a failed frame in a batch
+        self._batch_buf: list = []
+        self._pending_batch = None
+        self._serial_relief = 0
+        self._batch_chain_broken = False
+        self._in_batch_resolve = False
+        # maps stashed in the Atlas: always empty, since stashing raises
+        # (``_new_map``); the Atlas merge probes are not ported
+        self.stashed_maps: list = []
         # attached by the caller (``system.scenegraph = SceneGraphManager(
         # ...)``); the keyframe program then runs the scene-graph stages
         self.scenegraph = None
@@ -174,6 +198,9 @@ class SlamSystem:
         depth = torch.as_tensor(depth, dtype=torch.float32,
                                 device=self.device)
         if self.state == TrackState.OK:
+            if self.cfg.tracking.pipeline_depth > 1:
+                # B-frame pipeline: one cycle and one readback per B frames
+                return self._track_batched(gray, depth, timestamp)
             # one tracking step now, the previous frame's host decisions
             # after it (the reference's one-frame-deferred resolution)
             return self._track_fused(gray, depth, timestamp)
@@ -212,6 +239,361 @@ class SlamSystem:
             self._resolve_pending(prev)
         return self.last_pose
 
+    # -------------------------------------------------- B-frame pipeline
+
+    def _track_batched(self, gray, depth, timestamp: float):
+        """Buffer frames; every ``pipeline_depth`` frames resolve the
+        previous batch's decisions from its one readback and dispatch the
+        cycle (``slam/cycle_program.py``): the chosen keyframe's program,
+        then the new batch's scan against the fresh map (reference
+        ``system.py:286-363``)."""
+        B = self.cfg.tracking.pipeline_depth
+        self._last_ts = float(timestamp)
+        if ((self._serial_relief > 0 or self.n_kf_host < 5)
+                and not self._batch_buf and self._pending_batch is None):
+            # a stress window after a failed frame, or the early map's
+            # ramp-in: the serial path, one keyframe chance per frame
+            self._serial_relief = max(self._serial_relief - 1, 0)
+            return self._track_fused(gray, depth, timestamp)
+        if self._pending is not None:
+            # serial -> batched: resolve the serial path's in-flight frame
+            # now, so trajectory rows stay in frame order
+            p, self._pending = self._pending, None
+            self._resolve_pending(p)
+        self._batch_buf.append((gray, depth, float(timestamp)))
+        if len(self._batch_buf) < B:
+            return self.last_pose
+        buf, self._batch_buf = self._batch_buf, []
+        prev, self._pending_batch = self._pending_batch, None
+        kf_choice = None
+        fused_cycle = self.cfg.mapping.fast_ba
+        self._batch_chain_broken = False
+        if prev is not None:
+            self._in_batch_resolve = True
+            try:
+                kf_choice = self._resolve_batch_inner(prev,
+                                                      defer_kf=fused_cycle)
+            finally:
+                self._in_batch_resolve = False
+        if self.state != TrackState.OK:
+            if kf_choice is not None:
+                # a keyframe chosen before the stream went lost anchors
+                # later relocalisation: insert it now
+                self._insert_kf_from_batch(prev, *kf_choice)
+            for g, d, ts in buf:
+                self.track_rgbd(g, d, ts)
+            return self.last_pose
+        relief = self._serial_relief > 0
+        if (fused_cycle and prev is not None and not self._batch_chain_broken
+                and not relief):
+            self._dispatch_cycle(buf, prev, kf_choice)
+        else:
+            # the first batch, a broken chain (a re-track or a
+            # relocalisation inside the batch) or a stress window
+            if kf_choice is not None:
+                self._insert_kf_from_batch(prev, *kf_choice)
+            if relief:
+                for g, d, ts in buf:
+                    self._serial_relief = max(self._serial_relief - 1, 0)
+                    if self.state == TrackState.OK:
+                        self._track_fused(g, d, ts)
+                    else:
+                        self.track_rgbd(g, d, ts)
+            else:
+                self._dispatch_scan(buf)
+        return self.last_pose
+
+    def _retrack_from_batch(self, pb, i: int):
+        """Track the batch's rejected frame ``i`` again against the current
+        map (keyframes may have landed since its scan), with a 2x window;
+        accepted only at twice the per-frame inlier floor.  Returns
+        (n_inliers, ref slot, ref seq, T_rel) or None."""
+        t = self.cfg.tracking
+        with self.timers.stage("track_retry"):
+            res, new_m, packed = tracking.track_frame_full(
+                self.map, frame_at(pb["frames"], i), self.last_pose,
+                self.last_pose, self.ref_kf_host, self.cam_K,
+                t.min_inliers_ok, n_window=self.cfg.mapping.local_window,
+                fx_radius=t.match_radius_coarse * 2.0,
+                fine_radius=t.match_radius_fine, cam_bf=self.cam_bf,
+                img_wh=(self.cfg.camera.width, self.cfg.camera.height))
+        self.host_readbacks += 1 + int(packed[3])
+        n_inl = int(packed[1])
+        if n_inl < 2 * t.min_inliers_ok:
+            return None
+        self.map = new_m
+        pose = lie.se3_normalize(res.pose)
+        # the chain pose before the re-track is the scan's end-of-batch
+        # pose: a velocity from it would be meaningless
+        self.velocity = lie.se3_identity(device=self.device)
+        self.last_pose = pose
+        self.events.emit("batch_retrack", frame=i, n_inliers=n_inl)
+        T_rel = _velocity_of(pose, self.map.kf_pose[self.ref_kf_host])
+        return (n_inl, self.ref_kf_host, self._ref_seq(self.ref_kf_host),
+                T_rel)
+
+    def _insert_kf_from_batch(self, pb, i: int, n_inl: int, ts: float):
+        """Insert the batch's frame ``i`` as a keyframe now, outside the
+        cycle: its pose recomposed from its scan-time T_rel onto the
+        current reference row, as the cycle program does."""
+        res_i = tracking.result_at(pb["results"], i)
+        res_i = res_i._replace(pose=lie.se3_normalize(lie.se3_multiply(
+            pb["T_rels"][i], self.map.kf_pose[pb["ref_host"]])))
+        with self.timers.stage("kf_insert"):
+            self._insert_keyframe_fused(frame_at(pb["frames"], i), res_i,
+                                        n_inl, ts=ts,
+                                        depth_img=pb["depths"][i])
+
+    def _batch_record(self, buf, frames, results, T_rels, packeds, depths,
+                      board=None, expected_kf=None, expected_n_kf=None):
+        """The dispatched batch, awaiting its resolve.  Its counters and
+        board are read back as one vector (``readout``)."""
+        readout = packeds.reshape(-1)
+        if board is not None:
+            readout = torch.cat([readout, board])
+        self._pending_batch = {
+            "frames": frames, "results": results, "T_rels": T_rels,
+            "packeds": packeds, "depths": depths, "readout": readout,
+            "has_board": board is not None,
+            "tss": [ts for _, _, ts in buf], "epoch": self.epoch,
+            "ref_host": self.ref_kf_host,
+            "ref_seq": self._ref_seq(self.ref_kf_host),
+            "expected_kf": expected_kf, "expected_n_kf": expected_n_kf,
+        }
+
+    def _dispatch_scan(self, buf) -> None:
+        """A plain tracking scan over ``buf`` (the first batch, or after a
+        broken chain)."""
+        t = self.cfg.tracking
+        scan = tracking.make_frame_scan(
+            self.cfg.camera, self.cfg.orb, self.cfg.mapping.local_window,
+            4096, t.match_radius_coarse, t.match_radius_fine, True, len(buf))
+        grays = torch.stack([g for g, _, _ in buf])
+        depths = torch.stack([d for _, d, _ in buf])
+        with self.timers.stage("track_dispatch"):
+            frames, results, T_rels, packeds, T_out, vel_out = scan(
+                self.map, grays, depths, [ts for _, _, ts in buf],
+                self.last_pose, self.velocity, self.ref_kf_host, self.cam_K,
+                t.min_inliers_ok, self.cam_bf, self.timers)
+        self.last_pose = T_out
+        self.velocity = vel_out
+        self._batch_record(buf, frames, results, T_rels, packeds, depths)
+
+    def _dispatch_cycle(self, buf, prev, kf_choice) -> None:
+        """Dispatch the cycle: the keyframe ``kf_choice`` = (frame index,
+        n_inliers, ts) chosen out of the resolved batch ``prev`` (or none),
+        then the scan of ``buf`` (reference ``system.py:448-589``)."""
+        t = self.cfg.tracking
+        mc = self.cfg.mapping
+        pc = self.cfg.place
+        lc = self.loop_closer
+        sg_on = self.scenegraph is not None
+        insert_kf = kf_choice is not None
+        do_lba = do_cull = do_maint = False
+        sem_img = conf_img = hyp = None
+        if lc is not None:
+            # a serial keyframe's place-query scalars ride its board
+            self._deliver_serial_board()
+        loop_on = lc is not None and lc._ensure_vocab(self)
+        kf_slot = 0
+        i_kf, n_inl = 0, 0
+        if insert_kf:
+            i_kf, n_inl, kf_ts = kf_choice
+            kf_slot = self._host_alloc_kf_slot()
+            self._kf_counter += 1
+            do_lba = (self._kf_counter % mc.lba_interval) == 0 and mc.fast_ba
+            do_cull = (self._kf_counter % mc.cull_interval) == 0
+            if lc is not None:
+                # the previous keyframe's place query first: a loop
+                # correction lands in the map before this cycle runs (the
+                # keyframe pose and the chain recompose inside it)
+                with self.timers.stage("loop_detect"):
+                    closed = lc.resolve_pending(self)
+                if closed:
+                    self.events.emit("loop_closed", cand=lc.last_loop)
+                loop_on = lc._ensure_vocab(self)
+            if sg_on:
+                do_maint, _, sem_img, conf_img, hyp = \
+                    self._scenegraph_operands(kf_ts, None)
+        program = make_cycle_program(
+            self.cfg.camera, self.cfg.orb, mc.local_window,
+            t.match_radius_coarse, t.match_radius_fine, len(buf),
+            self.cfg.scenegraph if sg_on else None, loop_on, mc.lba_iters,
+            mc.point_cull_min_obs, mc.point_cull_min_found_ratio,
+            mc.kf_cull_redundancy, pc.min_gap if lc else 10,
+            pc.top_n_candidates if lc else 3, self._pt_quarantine())
+        grays = torch.stack([g for g, _, _ in buf])
+        depths = torch.stack([d for _, d, _ in buf])
+        with self.timers.stage("track_dispatch"):
+            (new_map, new_sg, new_db, _, board, frames, results, T_rels,
+             packeds, T_out, vel_out) = program(
+                self.map, self.scenegraph.state if sg_on else None,
+                lc.db if loop_on else None, lc.vocab if loop_on else None,
+                prev["frames"], prev["results"], prev["packeds"],
+                prev["T_rels"], insert_kf, i_kf, kf_slot, prev["ref_host"],
+                prev["depths"], sem_img, conf_img, hyp, grays, depths,
+                [ts for _, _, ts in buf], self.velocity, self.cam_K,
+                self.cam_bf, t.min_inliers_ok, do_lba, do_cull, do_maint,
+                self.timers)
+        self.map = new_map
+        if sg_on and insert_kf:
+            self.scenegraph.state = new_sg
+        self.last_pose = T_out
+        self.velocity = vel_out
+        expected_kf = expected_n_kf = None
+        if insert_kf:
+            expected_kf, expected_n_kf = kf_slot, self.n_kf_host
+            self.events.emit("keyframe", kf=kf_slot, n_inliers=n_inl,
+                             lba=do_lba, cull=do_cull)
+            self.ref_kf_host = kf_slot
+            self.frames_since_kf = 0
+            self.last_kf_inliers = max(n_inl, 1)
+            self.peak_inliers = self.last_kf_inliers
+            if loop_on:
+                lc.db = new_db
+                # its scalars arrive on this cycle's board
+                lc.queue_detection(kf_slot, None)
+            if self.stashed_maps:
+                raise NotImplementedError(
+                    "SlamSystem: merging a stashed Atlas map is not ported")
+        self._batch_record(buf, frames, results, T_rels, packeds, depths,
+                           board, expected_kf, expected_n_kf)
+
+    def _resolve_batch(self) -> None:
+        pb, self._pending_batch = self._pending_batch, None
+        if pb is None:
+            return
+        self._in_batch_resolve = True
+        try:
+            self._resolve_batch_inner(pb)
+        finally:
+            self._in_batch_resolve = False
+
+    def _batch_stats(self, pb) -> None:
+        """Queue the batch's accepted frames' match and visibility tables
+        for the next keyframe program."""
+        acc = pb["packeds"][:, 1] >= self.cfg.tracking.min_inliers_ok
+        self._stats_buf.append((
+            torch.where(acc[:, None], pb["results"].slot_pt, -1),
+            torch.where(acc[:, None], pb["results"].vis_pt, -1)))
+
+    def _resolve_batch_inner(self, pb, defer_kf: bool = False):
+        """Apply batch ``pb``'s host decisions from its one readback
+        (reference ``system.py:625-845``).  With ``defer_kf`` (the cycle
+        pipeline) the last chosen keyframe is returned, not inserted: it
+        rides the next cycle, which also folds the batch's statistics;
+        earlier choices in the same batch insert now.  Returns (frame
+        index, n_inliers, ts) or None."""
+        t = self.cfg.tracking
+        with self.timers.stage("track_resolve"):
+            out = self._read(pb["readout"])
+        B = len(pb["tss"])
+        pk = out[:4 * B].reshape(B, 4)
+        if pb["has_board"]:
+            self._verify_slot_board(pb["expected_kf"], pb["expected_n_kf"],
+                                    out[4 * B:])
+        relocated_any = False
+        kf_choice = None
+        n_batch_kf = 0  # keyframes chosen out of this batch
+        acc_np = pk[:, 1] >= t.min_inliers_ok
+        if not bool(acc_np.all()):
+            # a frame failed: drop to the serial path for a window so
+            # keyframes land between frames again
+            if self._serial_relief == 0:
+                self.events.emit("serial_relief",
+                                 n_fail=int(B - acc_np.sum()))
+            self._serial_relief = 2 * B
+        if not defer_kf:
+            self._batch_stats(pb)
+        for i in range(B):
+            n_inl = int(pk[i, 1])
+            accepted = bool(acc_np[i])
+            traj_ref, traj_seq = pb["ref_host"], pb["ref_seq"]
+            traj_rel = pb["T_rels"][i]
+            if not accepted and not self.cfg.localization_only:
+                # the scan could only retry against the map as of its
+                # dispatch; keyframes inserted since may make the frame
+                # trackable now
+                if kf_choice is not None:
+                    self._insert_kf_from_batch(pb, *kf_choice)
+                    kf_choice = None
+                rec = self._retrack_from_batch(pb, i)
+                if rec is not None:
+                    n_inl, traj_ref, traj_seq, traj_rel = rec
+                    accepted = True
+                    self._batch_chain_broken = True
+            self.trajectory.append((pb["tss"][i], pb["epoch"], traj_ref,
+                                    traj_seq, traj_rel, accepted))
+            if accepted:
+                self.state = TrackState.OK
+                self.lost_frames = 0
+                self.peak_inliers = max(self.peak_inliers, n_inl)
+                if (not relocated_any and not self.cfg.localization_only
+                        and self._need_keyframe(
+                            n_inl, allow_ratio=(n_batch_kf == 0))):
+                    n_batch_kf += 1
+                    if defer_kf and not self._batch_chain_broken:
+                        if kf_choice is not None:
+                            # a second keyframe in one batch: the earlier
+                            # choice inserts now, the newer one rides
+                            self._insert_kf_from_batch(pb, *kf_choice)
+                        kf_choice = (i, n_inl, pb["tss"][i])
+                        # the spacing policy sees the deferred insertion
+                        self.frames_since_kf = 0
+                        self.last_kf_inliers = max(n_inl, 1)
+                        self.peak_inliers = self.last_kf_inliers
+                    else:
+                        self._insert_kf_from_batch(pb, i, n_inl,
+                                                   pb["tss"][i])
+            else:
+                self.state = TrackState.RECENTLY_LOST
+                self.velocity = lie.se3_identity(device=self.device)
+                self.lost_frames += 1
+                relocated = False
+                if self.loop_closer is not None:
+                    relocated = self.loop_closer.relocalize(
+                        self, frame_at(pb["frames"], i))
+                    if relocated:
+                        if kf_choice is not None:
+                            # the chosen keyframe lands before the
+                            # relocalisation takes over
+                            self._insert_kf_from_batch(pb, *kf_choice)
+                            kf_choice = None
+                        self.state = TrackState.OK
+                        self.lost_frames = 0
+                        relocated_any = True
+                        self._batch_chain_broken = True
+                if not relocated:
+                    budget = int(t.recently_lost_budget
+                                 * self.cfg.camera.fps)
+                    if self.lost_frames >= budget:
+                        # the rest of the batch is recorded untracked
+                        # before the map is replaced
+                        for j in range(i + 1, B):
+                            self.trajectory.append((
+                                pb["tss"][j], pb["epoch"], pb["ref_host"],
+                                pb["ref_seq"], pb["T_rels"][j], False))
+                        self._new_map()
+                        return None
+        if defer_kf and (self._batch_chain_broken
+                         or self.state != TrackState.OK):
+            # no cycle will fold this batch's statistics: queue them for
+            # the next keyframe program
+            self._batch_stats(pb)
+        if (self._batch_chain_broken and self.state == TrackState.OK
+                and not relocated_any and bool(acc_np[B - 1])):
+            # the chain broke inside the batch but the scan held its last
+            # frame: restart from its recomposed pose
+            self.last_pose = lie.se3_normalize(lie.se3_multiply(
+                pb["T_rels"][-1], self.map.kf_pose[pb["ref_host"]]))
+        if (self.state == TrackState.OK and not relocated_any
+                and not defer_kf):
+            # re-anchor the chain on the (BA / loop adjusted) reference
+            # row; in the cycle pipeline the cycle does it
+            self.last_pose = lie.se3_normalize(lie.se3_multiply(
+                pb["T_rels"][-1], self.map.kf_pose[pb["ref_host"]]))
+        return kf_choice
+
     def _pt_quarantine(self) -> int:
         return max(3, self.cfg.tracking.pipeline_depth)
 
@@ -243,20 +625,38 @@ class SlamSystem:
             return int(self._kf_seq_mirror[slot])
         return -1
 
-    def _verify_slot_board(self, expected_kf, expected_n_kf, board) -> None:
-        """Check the device's keyframe slot against the host's choice and
-        fold the device-side cull into the validity mirror."""
+    def _deliver_serial_board(self) -> None:
+        """Read the pending serial keyframe board now (counted) and hand
+        its place-query scalars to the loop closer; the rest of its check
+        stays where the reference makes it."""
+        if self._serial_board is None or not self._serial_board[3]:
+            return
+        kf, n_kf, board, _ = self._serial_board
         bd = self._read(board)
+        if bd.shape[0] > 6:
+            self.loop_closer.deliver(bd[6:])
+        self._serial_board = (kf, n_kf, bd, False)
+
+    def _verify_slot_board(self, expected_kf, expected_n_kf, board,
+                           deliver: bool = True) -> None:
+        """Check the device's keyframe slot against the host's choice
+        (``expected_kf`` None: no keyframe was inserted) and fold the
+        device-side cull into the validity mirror.  ``board`` is the
+        device board, read here, or its host copy; ``deliver``: hand its
+        place-query scalars to the loop closer (not yet done)."""
+        bd = board if isinstance(board, np.ndarray) else self._read(board)
         if self.scenegraph is not None:
             # the lagged n_obs mirror rides the board: no sync of its own
             self.scenegraph.n_obs_host = int(bd[5])
-        if self.loop_closer is not None and bd.shape[0] > 6:
+        if deliver and self.loop_closer is not None and bd.shape[0] > 6:
             # the keyframe's place-query scalars ride the same board
             self.loop_closer.deliver(bd[6:])
         culled = int(bd[3])
         if culled >= 0:
             self._kf_valid_mirror[culled] = False
             self.events.emit("kf_culled", slot=culled)
+        if expected_kf is None:
+            return
         dev_kf, dev_n_kf = int(bd[0]), int(bd[1])
         if dev_kf == expected_kf and dev_n_kf == expected_n_kf:
             return
@@ -316,8 +716,17 @@ class SlamSystem:
             self._new_map()
 
     def flush(self) -> None:
-        """Resolve the in-flight frame decision (call before reading
-        host-visible state such as the trajectory)."""
+        """Resolve the in-flight frame decisions and the queued loop
+        detection (call before reading host-visible state such as the
+        trajectory); a partial batch's frames run the serial path."""
+        self._resolve_batch()
+        buf, self._batch_buf = self._batch_buf, []
+        for g, d, ts in buf:
+            if self.state == TrackState.OK:
+                self._track_fused(g, d, ts)
+            else:
+                self._track(make_frame_obs(g, d, ts, self.cfg.camera,
+                                           self.cfg.orb), ts, d)
         p, self._pending = self._pending, None
         if p is not None:
             self._resolve_pending(p)
@@ -343,6 +752,18 @@ class SlamSystem:
         if p is not None:
             self.trajectory.append((p["ts"], p["epoch"], p["ref_host"],
                                     p["ref_seq"], p["T_rel"], False))
+        pb, self._pending_batch = self._pending_batch, None
+        if pb is not None:
+            for i, ts in enumerate(pb["tss"]):
+                self.trajectory.append((ts, pb["epoch"], pb["ref_host"],
+                                        pb["ref_seq"], pb["T_rels"][i],
+                                        False))
+        for _, _, ts in self._batch_buf:
+            self.trajectory.append((
+                ts, self.epoch, self.ref_kf_host,
+                self._ref_seq(self.ref_kf_host),
+                lie.se3_identity(device=self.device), False))
+        self._batch_buf = []
         self._stats_buf = []
         self._serial_board = None
 
@@ -355,8 +776,9 @@ class SlamSystem:
         if not buf:
             return torch.full((B, F), -1, dtype=torch.int32,
                               device=self.device), None
-        slots = torch.stack([s for s, _ in buf])[-B:]
-        vis = torch.stack([v for _, v in buf])[-B:]
+        # serial frames queue rows, batches (B, .) tables
+        slots = torch.cat([s.reshape(-1, F) for s, _ in buf])[-B:]
+        vis = torch.cat([v.reshape(-1, v.shape[-1]) for _, v in buf])[-B:]
         nrow = slots.shape[0]
         if nrow < B:
             slots = torch.cat([slots, torch.full(
@@ -451,14 +873,14 @@ class SlamSystem:
             lc.db = new_db
             # its scalars arrive on this keyframe's board
             lc.queue_detection(kf_slot, None)
-        self._serial_board = (kf_slot, self.n_kf_host, board)
+        self._serial_board = (kf_slot, self.n_kf_host, board, True)
         self.events.emit("keyframe", kf=kf_slot, n_inliers=n_inl,
                          lba=do_lba, cull=do_cull)
         self.ref_kf_host = kf_slot
         self.frames_since_kf = 0
         self.last_kf_inliers = max(n_inl, 1)
         self.peak_inliers = self.last_kf_inliers
-        if self._pending is None:
+        if self._pending is None and not self._in_batch_resolve:
             # no newer frame in flight: re-anchor on the BA-adjusted pose
             self.last_pose = self.map.kf_pose[kf_slot]
 
@@ -549,10 +971,12 @@ class SlamSystem:
             self.frames_since_kf = 0
             self.last_kf_inliers = n_pts
 
-    def _need_keyframe(self, n_inliers: int) -> bool:
+    def _need_keyframe(self, n_inliers: int, allow_ratio: bool = True) -> bool:
         """NeedNewKeyFrame (Tracking.cc:3133): minimum spacing, decay of
         tracked inliers relative to the peak since the last keyframe, an
-        absolute floor and a maximum interval."""
+        absolute floor and a maximum interval.  ``allow_ratio`` False (a
+        second keyframe out of one batch, whose frames were all tracked
+        against the pre-insert map) skips the decay test."""
         t = self.cfg.tracking
         self.frames_since_kf += 1
         if self.frames_since_kf < t.kf_min_interval:
@@ -561,6 +985,8 @@ class SlamSystem:
             return True
         if n_inliers < 3 * t.min_inliers_ok:
             return True
+        if not allow_ratio:
+            return False
         return n_inliers < t.kf_min_tracked_ratio * self.peak_inliers
 
     def _insert_keyframe(self, frame: FrameObs, res, n_inl: int, ts: float,

@@ -8,15 +8,20 @@ pose (kernel K6), then re-match tighter at the refined pose and solve
 again.  When too few inliers survive, the same two passes re-run from the
 last good pose with 4x / 2x windows.
 
-The reference decides that retry on the device (``lax.cond``).  The port
-runs eagerly, so it reads the first attempt's three counters back to the
-host (one readback per frame) and decides there; the same host copy then
-serves the keyframe policy, so no second readback is needed.
+The reference decides that retry on the device (``lax.cond``).  On the
+serial path (``make_frame_step``) the port runs eagerly, so it reads the
+first attempt's three counters back to the host (one readback per frame)
+and decides there; the same host copy then serves the keyframe policy, so
+no second readback is needed.  The B-frame scan (``make_frame_scan``) must
+not sync the host inside a batch: it runs the wide-window retry for every
+frame and keeps it with ``torch.where`` where the first attempt fell
+short, which gives the reference's results exactly.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -25,7 +30,11 @@ import torch
 from visual_sgraphs_tpu_torch import cuda
 from visual_sgraphs_tpu_torch.core import cameras, lie
 from visual_sgraphs_tpu_torch.features.match import match_window
-from visual_sgraphs_tpu_torch.slam.frame import FrameObs, make_frame_obs
+from visual_sgraphs_tpu_torch.slam.frame import (
+    FrameObs,
+    frame_at,
+    make_frame_obs,
+)
 from visual_sgraphs_tpu_torch.slam.map_state import (
     MapState,
     compact_true,
@@ -321,6 +330,85 @@ def make_frame_step(cam, orb, n_window: int, n_local: int, fx_radius: float,
         return frame, res, pose_sel, vel_sel, T_rel, packed, n_read
 
     return step
+
+
+def result_at(results: TrackResult, i: int) -> TrackResult:
+    """Frame ``i``'s result out of a scan's stacked results."""
+    return TrackResult(*(x[i] for x in results))
+
+
+def _select(cond, a: TrackResult, b: TrackResult) -> TrackResult:
+    """Field by field ``a`` where the device flag ``cond`` holds, else
+    ``b`` (no host sync)."""
+    return TrackResult(*(torch.where(cond, x, y) for x, y in zip(a, b)))
+
+
+@functools.lru_cache(maxsize=None)
+def make_frame_scan(cam, orb, n_window: int, n_local: int, fx_radius: float,
+                    fine_radius: float, has_depth: bool,
+                    batch: int) -> Callable:
+    """The B-frame pipelined tracking program (reference
+    ``tracking.py:445-514``): the local-point table is built once per batch
+    (the map and the reference keyframe are constant inside it), ORB is
+    extracted for all B frames at once (K1-K4 launch once per level for
+    the batch; tracking does not depend on it frame by frame), then the
+    per-frame step runs over the frames in order, carrying (T_prev, vel).
+    The retry is computed for every frame and chosen on the device, so the
+    scan makes no host sync.
+
+    ``scan(m, grays, depths, tss, T_last, velocity, ref_kf, cam_K,
+    min_inliers, cam_bf=None, timers=None)`` returns (frames, results,
+    T_rels (B, 7), packeds (B, 4) device float32 [n_matches, n_inliers,
+    n_local_pts, retried], T_out, vel_out), frames and results stacked
+    along a leading B."""
+    wh = (cam.width, cam.height)
+
+    def scan(m: MapState, grays, depths, tss, T_last, velocity, ref_kf: int,
+             cam_K, min_inliers: int, cam_bf=None, timers=None):
+        if grays.shape[0] != batch:
+            raise ValueError(f"make_frame_scan: expected {batch} frames")
+        kf_base = m.kf_pose[ref_kf]
+        table = _local_point_table(m, ref_kf, n_window, n_local)
+        with (timers.stage("orb_extract") if timers is not None
+              else contextlib.nullcontext()):
+            frames = make_frame_obs(grays, depths if has_depth else None,
+                                    tss, cam, orb)
+        T_prev, vel = T_last, velocity
+        results, T_rels, packeds = [], [], []
+        identity = lie.se3_identity(device=T_last.device)
+        for i in range(batch):
+            frame = frame_at(frames, i)
+            T_pred = lie.se3_normalize(lie.se3_multiply(vel, T_prev))
+            res1 = _track_frame_impl(m, frame, T_pred, ref_kf, cam_K,
+                                     n_window, n_local, fx_radius,
+                                     fine_radius, cam_bf, wh,
+                                     local_table=table)
+            need_retry = res1.n_inliers < min_inliers
+            res2 = _track_frame_impl(m, frame, T_prev, ref_kf, cam_K,
+                                     n_window, n_local, fx_radius * 4.0,
+                                     fine_radius * 2.0, cam_bf, wh,
+                                     local_table=table)
+            res = _select(need_retry, res2, res1)
+            accepted = res.n_inliers >= min_inliers
+            new_pose = lie.se3_normalize(res.pose)
+            pose_sel = torch.where(accepted, new_pose, T_prev)
+            vel_new = lie.se3_normalize(
+                lie.se3_multiply(new_pose, lie.se3_inverse(T_prev)))
+            vel_sel = torch.where(accepted, vel_new, identity)
+            T_rels.append(lie.se3_normalize(
+                lie.se3_multiply(pose_sel, lie.se3_inverse(kf_base))))
+            packeds.append(torch.stack([
+                res.n_matches.to(torch.float32),
+                res.n_inliers.to(torch.float32),
+                res.n_local_pts.to(torch.float32),
+                need_retry.to(torch.float32)]))
+            results.append(res)
+            T_prev, vel = pose_sel, vel_sel
+        stacked = TrackResult(*(torch.stack(f) for f in zip(*results)))
+        return (frames, stacked, torch.stack(T_rels), torch.stack(packeds),
+                T_prev, vel)
+
+    return scan
 
 
 def update_point_stats(m: MapState, track: TrackResult) -> MapState:

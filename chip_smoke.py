@@ -21,7 +21,12 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    plane statistics; K5's NN-ratio entry, K15's Sim3 half, K16 and K19 on
    the loop path's map saved at its first accepted loop, after phase 4;
    K15's PnP half on seeded picks, and again on phase 5's
-   relocalisation), with kernel and twin times
+   relocalisation; the inertial path's K18 IMU preintegration on a 64-row
+   sample window, K20 per-frame visual-inertial solve on a rendered
+   frame's 1000 keypoints and K6's pose-prior branch at 4096 matches,
+   at weights 10, 1e5 and 1e9, where the dominant prior must move the
+   pose by >= 0.01 as it moves the twin's),
+   with kernel and twin times
    (CUDA events, median of 20 after 3 warm-ups) and the bytes /
    operations each function needs, from which its bound is derived;
 4. the port's main paths at full size through its public entry point
@@ -51,15 +56,27 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
       repeated frame 29 makes the recovery keyframe (the joint scene-graph
       BA on the LM engine), which path (f) reaches when a relocalisation
       fails;
+   i. ``inertial_slice``: the inertial row of ``bench.py:178-219``
+      (``main_path.inertial_config``: ``Sensor.IMU_RGBD``, 64 keyframes /
+      16384 points) over the 128-frame ``orbit`` sequence with its 200 Hz
+      IMU samples, fps over frames 48-127, gated on the IMU initialising,
+      >= 90 % tracked, ATE <= 0.08 m (the reference's visual-inertial
+      gate), >= 8 keyframes and K18, K20 and K6's prior branch launched;
+   j. path (i) again over a 16-frame window after the IMU initialised
+      that holds a keyframe, under sync-debug mode: synchronising calls
+      must equal the counted readbacks;
    the kernel launch counters are zeroed just before each of (a), (b),
-   (d), (f) and (h) and read just after; the JSON kernel table's
-   launches are (d)'s;
+   (d), (f), (h) and (i) and read just after; the JSON kernel table's
+   launches are (d)'s, and (i)'s for the inertial path's K18, K20 and
+   K6's prior branch;
 5. the same 12 small frames through the port on the card (kernels) and on
    the CPU (twins), with the scene graph off and on, whose positions must
    agree; the loop correction chain (verification, pose graph, map
    correction, fusion, global BA) on the saved map, card against CPU; and
    relocalisation in the loop path's final map of a frame rendered 0.3 m
-   off the path, card against CPU;
+   off the path, card against CPU; and 72 small ``arc`` frames with their
+   IMU samples through the inertial path on the card and on the CPU,
+   whose positions, keyframe counts and initialisation frames must agree;
 6. the card's name and power limit, the JSON kernel table, and the
    result line.
 
@@ -88,6 +105,11 @@ WARM = 16
 SG_ONLY = {"depth_cloud", "extract_planes", "plane_epilogue"}
 LOOP_ONLY = {"bow_vectors", "place_query", "match_nn_ratio", "guided_count",
              "verify_sim3", "pnp_hypotheses", "pgo_assemble", "pgo_cost"}
+INERTIAL_ONLY = {"pose_gn_prior", "preint", "vi_pose"}
+# the kernels of the inertial path (its BAs run on the generic LM engine)
+INERTIAL_PATH = INERTIAL_ONLY | {"pyramid_resize", "gaussian_blur",
+                                 "fast_nms", "detect_level", "orb_desc",
+                                 "match_window", "pose_gn", "compact_true"}
 
 
 def _line(tag: str, **kw) -> None:
@@ -116,16 +138,19 @@ def _bound(r: dict) -> tuple[float, str]:
                                        else "operations")
 
 
-def _drive(system, frames, warm: int = WARM, sync_window=None) -> dict:
-    """Feed ``frames`` [(gray, depth, sem, T_wc, ts)]; returns timing and
-    readback figures over frames ``warm``.. (and, with ``sync_window``
-    (lo, hi), the synchronising calls counted by sync-debug mode and the
-    keyframes made over frames lo..hi-1)."""
+def _drive(system, frames, warm: int = WARM, sync_window=None,
+           feed=None, after=None) -> dict:
+    """Feed ``frames`` [(gray, depth, sem, T_wc, ts)] (or, with ``feed``,
+    whatever it takes; ``after(i)`` runs after frame i); returns timing
+    and readback figures over frames ``warm``.. (and, with
+    ``sync_window`` (lo, hi), the synchronising calls counted by
+    sync-debug mode and the keyframes made over frames lo..hi-1)."""
     torch.cuda.synchronize()
     t_warm = readbacks_warm = None
     syncs = None
     caught = None
     from visual_sgraphs_tpu_torch import main_path
+    feed = feed or main_path.feed
     for i, frame in enumerate(frames):
         if i == warm:
             torch.cuda.synchronize()
@@ -135,12 +160,15 @@ def _drive(system, frames, warm: int = WARM, sync_window=None) -> dict:
         if sync_window is not None and i == sync_window[0]:
             rb_lo = system.host_readbacks
             kf_lo = system.events.count("keyframe")
+            vi_lo = system.events.count("vi_solve")
             # switching the mode on warns once itself: record after it
             torch.cuda.set_sync_debug_mode(1)
             caught = warnings.catch_warnings(record=True)
             log = caught.__enter__()
             warnings.simplefilter("always")
-        main_path.feed(system, frame)
+        feed(system, frame)
+        if after is not None:
+            after(i)
         if sync_window is not None and i == sync_window[1] - 1:
             caught.__exit__(None, None, None)
             torch.cuda.set_sync_debug_mode(0)
@@ -152,6 +180,7 @@ def _drive(system, frames, warm: int = WARM, sync_window=None) -> dict:
                 syncs_per_frame=sum(sites.values()) / n,
                 readbacks_per_frame=(system.host_readbacks - rb_lo) / n,
                 keyframes=system.events.count("keyframe") - kf_lo,
+                vi_solves=system.events.count("vi_solve") - vi_lo,
                 sync_sites=dict(sites.most_common(8)))
     system.flush()
     torch.cuda.synchronize()
@@ -164,9 +193,13 @@ def _drive(system, frames, warm: int = WARM, sync_window=None) -> dict:
     return out
 
 
-def _accuracy(system, frames) -> dict:
+def _accuracy(system, frames, gt=None) -> dict:
+    """Tracked frames, keyframes, points and ATE against the frames'
+    ground truth (``gt``: (n, 3) camera centres, else from the frames'
+    T_wc)."""
     from visual_sgraphs_tpu_torch.core import geometry
-    gt = np.stack([T[4:7] for _, _, _, T, _ in frames])
+    if gt is None:
+        gt = np.stack([T[4:7] for _, _, _, T, _ in frames])
     pos = system.positions()
     tracked = system.tracked_mask()
     ate = float(geometry.ate_rmse(torch.from_numpy(pos[tracked]),
@@ -324,6 +357,8 @@ def main() -> None:
     _check(checks["pnp_hypotheses"]["n_well_posed"] == 192
            and checks["pnp_hypotheses"]["winner_well_posed"],
            "K15 PnP: a seeded hypothesis is not well posed")
+    # the inertial path's kernels: K18, K20 and K6's pose prior
+    report(selfcheck.run_inertial(device))
 
     # ---- 4. the main paths at full size
     scene, frames = main_path.frames(device)
@@ -365,7 +400,7 @@ def main() -> None:
                    f"{tag}: sign-duplicate planes {extra['sign_duplicates']}")
         # the loop kernels run on loop_slice only, the plane kernels with
         # the scene graph only
-        skip = LOOP_ONLY | (set() if with_sg else SG_ONLY)
+        skip = LOOP_ONLY | INERTIAL_ONLY | (set() if with_sg else SG_ONLY)
         _check(all(v[0] > 0 for k, v in counts[tag].items()
                    if k not in skip),
                f"{tag}: a kernel was not launched: {counts[tag]}")
@@ -426,7 +461,7 @@ def main() -> None:
            f"bench_slice: a twin ran on CUDA tensors: "
            f"{counts['bench_slice']}")
     _check(all(v[0] > 0 for k, v in counts["bench_slice"].items()
-               if k != "pnp_hypotheses"),
+               if k != "pnp_hypotheses" and k not in INERTIAL_ONLY),
            f"bench_slice: a kernel was not launched: "
            f"{counts['bench_slice']}")
     del system
@@ -477,7 +512,7 @@ def main() -> None:
     _check(all(v[1] == 0 for v in counts["loop_slice"].values()),
            f"loop_slice: a twin ran on CUDA tensors: {counts['loop_slice']}")
     _check(all(v[0] > 0 for k, v in counts["loop_slice"].items()
-               if k != "pnp_hypotheses"),
+               if k != "pnp_hypotheses" and k not in INERTIAL_ONLY),
            f"loop_slice: a kernel was not launched: {counts['loop_slice']}")
     _check(watch["saved"] is not None, "loop_slice: no map saved at a loop")
     loop_system = system
@@ -526,6 +561,78 @@ def main() -> None:
     _check(not twin_calls, "recovery keyframe: a twin ran on CUDA tensors")
     del system
 
+    # 4i. inertial_slice: the inertial row of bench.py:178-219, 128 orbit
+    # frames with their IMU samples, fps over frames 48-127
+    vi_scene, vi_frames = main_path.inertial_frames(device)
+    vi_cfg = main_path.inertial_config(vi_scene)
+    vi_gt = np.stack([f[2][4:7] for f in vi_frames])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    system = main_path.make_system(vi_cfg, device, False)
+    init = {}
+
+    def note_init(i):
+        if "frame" not in init and system.imu.initialized:
+            init.update(frame=i, n_kf=system.n_kf_host)
+
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    perf = _drive(system, vi_frames, warm=main_path.INERTIAL_WARMUP,
+                  feed=main_path.feed_inertial, after=note_init)
+    total_s = time.perf_counter() - t0
+    counts["inertial_slice"] = cuda.counts()
+    acc = _accuracy(system, vi_frames, vi_gt)
+    ev = system.events
+    vi = ev.of_kind("vi_solve")
+    kfs = ev.of_kind("keyframe") + ev.of_kind("recovery_keyframe")
+    _line("inertial_slice", frames=len(vi_frames), **acc,
+          fps_48_127=perf["fps"], total_s=total_s,
+          host_readbacks_per_frame_48_127=perf["readbacks_per_frame"],
+          imu_initialized=system.imu.initialized,
+          init_frame=init.get("frame"), init_n_kf=init.get("n_kf"),
+          scale=system.imu.scale, keyframes=len(kfs),
+          vi_local_ba=sum(bool(k["vi_ba"]) for k in kfs),
+          vi_solves=len(vi), vi_solves_accepted=sum(e["accepted"] for e in vi),
+          recovery_keyframes=ev.count("recovery_keyframe"),
+          peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
+    _line("inertial_slice_stages", **system.timers.summary())
+    _line("inertial_slice_launches", **{
+        k: {"launches": v[0], "twin_calls_on_cuda": v[1]}
+        for k, v in counts["inertial_slice"].items()})
+    _check(system.imu.initialized, "inertial_slice: the IMU never initialised")
+    _check(acc["tracked"] >= 0.9 * len(vi_frames),
+           f"inertial_slice: tracked {acc['tracked']}/{len(vi_frames)}")
+    # the reference's visual-inertial gate (tests/test_inertial.py:269)
+    _check(acc["ate_m"] <= 0.08,
+           f"inertial_slice: ATE {acc['ate_m']:.4f} m")
+    _check(acc["n_kf"] >= 8, f"inertial_slice: n_kf {acc['n_kf']}")
+    _check(all(counts["inertial_slice"][k][0] > 0 for k in INERTIAL_PATH),
+           f"inertial_slice: a kernel was not launched: "
+           f"{counts['inertial_slice']}")
+    _check(all(v[1] == 0 for v in counts["inertial_slice"].values()),
+           f"inertial_slice: a twin ran on CUDA tensors: "
+           f"{counts['inertial_slice']}")
+    del system
+
+    # 4j. hidden host syncs of the inertial path: 16 frames after the IMU
+    # initialised, across a keyframe
+    lo = max(32, init["frame"] + 1)
+    system = main_path.make_system(vi_cfg, device, False)
+    syncs = _drive(system, vi_frames[:lo + 16], warm=lo,
+                   sync_window=(lo, lo + 16), feed=main_path.feed_inertial)
+    _line("inertial_sync_debug", frames=f"{lo}-{lo + 15}",
+          imu_initialized=system.imu.initialized,
+          keyframes=syncs["keyframes"], vi_solves=syncs["vi_solves"],
+          syncs_per_frame=syncs["syncs_per_frame"],
+          readbacks_per_frame=syncs["readbacks_per_frame"],
+          sync_sites=syncs["sync_sites"])
+    _check(syncs["keyframes"] >= 1 and syncs["vi_solves"] >= 1,
+           "inertial_sync_debug: no keyframe or no inertial solve inside")
+    _check(syncs["syncs_per_frame"] == syncs["readbacks_per_frame"],
+           f"inertial_sync_debug: syncs differ from counted readbacks: "
+           f"{syncs}")
+    del system
+
     # ---- 3 (continued). the loop kernels on the saved map
     saved = watch["saved"]
     m_loop, kf, cand = saved["map"], saved["kf"], saved["cand"]
@@ -557,6 +664,32 @@ def main() -> None:
               n_planes=[runs["cuda"][2], runs["cpu"][2]])
         _check(diff < 0.01 and runs["cuda"][1:] == runs["cpu"][1:],
                f"{tag}: card path disagrees with the CPU twin path")
+
+    # 5 (inertial). 72 small arc frames with their IMU samples, rendered on
+    # the CPU, through the inertial path on the card and on the CPU
+    vi_small, vi_small_frames = main_path.inertial_frames("cpu", 72, 240,
+                                                          320, "arc")
+    vi_small_cfg = main_path.inertial_config(vi_small, 300,
+                                             CapacityConfig(32, 4096))
+    runs = {}
+    t0 = time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        s = main_path.make_system(vi_small_cfg, dev, False)
+        init_frame = None
+        for i, frame in enumerate(vi_small_frames):
+            main_path.feed_inertial(s, frame)
+            if init_frame is None and s.imu.initialized:
+                init_frame = i
+        runs[dev] = (s.positions(), int(s.map.n_kf), init_frame)
+    diff = float(np.abs(runs["cuda"][0] - runs["cpu"][0]).max())
+    _line("small_inertial_vs_cpu_twins", max_pos_diff_m=diff,
+          n_kf=[runs["cuda"][1], runs["cpu"][1]],
+          init_frame=[runs["cuda"][2], runs["cpu"][2]],
+          seconds=time.perf_counter() - t0)
+    _check(diff < 0.01 and runs["cuda"][1:] == runs["cpu"][1:]
+           and runs["cuda"][2] is not None,
+           "small_inertial_vs_cpu_twins: card path disagrees with the CPU "
+           "twin path")
 
     # 5b. the loop correction chain on the saved map, card against CPU
     bf = torch.full((), loop_cfg.camera.bf, dtype=torch.float32)
@@ -619,9 +752,10 @@ def main() -> None:
     kernels = []
     for name, _, _, src, replaces in cuda.kernel_functions():
         r = checks[name]
+        path = "inertial_slice" if name in INERTIAL_ONLY else "bench_slice"
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=counts["bench_slice"][name][0],
+            launches=counts[path][name][0],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r.get("library_ms")))

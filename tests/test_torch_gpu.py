@@ -15,6 +15,8 @@ from visual_sgraphs_tpu_torch import cuda, selfcheck
 # kernels that only the loop path (loop_closing=True) launches
 LOOP_ONLY = ("bow_vectors", "place_query", "match_nn_ratio", "guided_count",
              "verify_sim3", "pnp_hypotheses", "pgo_assemble", "pgo_cost")
+# kernels that only the inertial path (Sensor.IMU_RGBD) launches
+INERTIAL_ONLY = ("pose_gn_prior", "preint", "vi_pose")
 
 
 @pytest.fixture(scope="module")
@@ -118,7 +120,7 @@ def test_slice_on_card_uses_every_kernel(device):
     counts = cuda.counts()
     assert all(launches > 0 and twin == 0
                for name, (launches, twin) in counts.items()
-               if name not in sg_only + LOOP_ONLY), counts
+               if name not in sg_only + LOOP_ONLY + INERTIAL_ONLY), counts
     assert np.isfinite(pos).all() and system.tracked_mask().all()
     err = np.linalg.norm(pos - pos[0] - (np.stack(gt) - gt[0]), axis=1)
     assert err.max() < 0.1
@@ -153,7 +155,7 @@ def test_scenegraph_slice_on_card_uses_every_kernel(device):
     counts = cuda.counts()
     assert all(launches > 0 and twin == 0
                for name, (launches, twin) in counts.items()
-               if name not in LOOP_ONLY), counts
+               if name not in LOOP_ONLY + INERTIAL_ONLY), counts
     assert np.isfinite(pos).all() and system.tracked_mask().all()
     planes = system.scenegraph.planes()
     assert len(planes["coeffs"]) >= 2
@@ -218,7 +220,55 @@ def test_bench_path_on_card_uses_every_kernel(device):
     assert all(launches > 0 for name, (launches, _) in counts.items()
                if name not in ("pnp_hypotheses", "verify_sim3",
                                "match_nn_ratio", "guided_count",
-                               "pgo_assemble", "pgo_cost")), counts
+                               "pgo_assemble", "pgo_cost")
+               + INERTIAL_ONLY), counts
     assert system.tracked_mask().sum() >= 0.9 * 96
     assert system.host_readbacks < 96
     assert np.isfinite(system.positions()).all()
+
+
+@pytest.fixture(scope="module")
+def inertial_checks(device):
+    return {r["name"]: r for r in selfcheck.run_inertial(device)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["preint", "vi_pose", "pose_gn_prior"])
+def test_inertial_kernels(inertial_checks, name):
+    # K18 within 1e-5 of each field's largest entry (the covariance 1e-4),
+    # the integration time exactly; K20 with the inlier count exact, pose
+    # and biases within 1e-4, velocity within 1e-3 m/s; K6's prior branch
+    # within 1e-4 at the main path's weight 10, at 1e5 and at 1e9, where
+    # the prior must move the pose by >= 0.01 as it moves the twin's
+    r = inertial_checks[name]
+    assert r["ok"], r
+
+
+@pytest.mark.gpu
+def test_inertial_path_on_card_matches_cpu(device):
+    # 72 small arc frames with their IMU samples, rendered on the CPU:
+    # the card's run launches K18, K20 and K6's prior branch, no twin sees
+    # a CUDA tensor, and positions agree with the CPU twins' run within
+    # 0.01 m, with the same keyframe count and initialisation frame
+    from visual_sgraphs_tpu_torch import main_path
+    from visual_sgraphs_tpu_torch.config import CapacityConfig
+
+    scene, frames = main_path.inertial_frames("cpu", 72, 240, 320, "arc")
+    cfg = main_path.inertial_config(scene, 300, CapacityConfig(32, 4096))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        cuda.reset_counts()
+        system = main_path.make_system(cfg, dev, False)
+        init = None
+        for i, frame in enumerate(frames):
+            main_path.feed_inertial(system, frame)
+            if init is None and system.imu.initialized:
+                init = i
+        runs[dev] = (system.positions(), int(system.map.n_kf), init,
+                     cuda.counts())
+    counts = runs["cuda"][3]
+    assert all(counts[k][0] > 0 for k in INERTIAL_ONLY), counts
+    assert all(twin == 0 for _, twin in counts.values()), counts
+    assert runs["cuda"][2] is not None
+    assert runs["cuda"][1:3] == runs["cpu"][1:3]
+    assert np.abs(runs["cuda"][0] - runs["cpu"][0]).max() < 0.01

@@ -37,7 +37,7 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     # every sub-package and module of the port imported, the scene graph
-    # included
+    # and the inertial layer included
     names = set(out.stdout.split())
     assert len(names) >= 45
     for mod in ("core.plane", "scenegraph.state", "scenegraph.pointcloud",
@@ -45,7 +45,9 @@ def test_port_imports_without_jax():
                 "scenegraph.manager", "scenegraph.joint_ba", "optim.graph", "optim.factors",
                 "optim.solve", "place", "place.vocab", "place.database",
                 "place.sim3_ransac", "place.pnp", "place.pgo",
-                "place.loop_closer", "slam.cycle_program"):
+                "place.loop_closer", "slam.cycle_program", "inertial",
+                "inertial.preintegration", "inertial.factors",
+                "inertial.init", "inertial.vi_ba", "inertial.pipeline"):
         assert "visual_sgraphs_tpu_torch." + mod in names, mod
 
 

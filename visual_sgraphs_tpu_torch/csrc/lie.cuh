@@ -341,6 +341,142 @@ __device__ inline void matrix_to_quat(const float R[3][3], float* q) {
     }
 }
 
+// Row-major 3x3 rotation of a unit quaternion (core/lie.py::quat_to_matrix).
+template <typename T>
+__device__ void quat_to_mat(const T* q, T* R) {
+    const T w = q[0], x = q[1], y = q[2], z = q[3];
+    const T xx = x * x, yy = y * y, zz = z * z;
+    const T wx = w * x, wy = w * y, wz = w * z;
+    const T xy = x * y, xz = x * z, yz = y * z;
+    R[0] = 1.0f - 2.0f * (yy + zz);
+    R[1] = 2.0f * (xy - wz);
+    R[2] = 2.0f * (xz + wy);
+    R[3] = 2.0f * (xy + wz);
+    R[4] = 1.0f - 2.0f * (xx + zz);
+    R[5] = 2.0f * (yz - wx);
+    R[6] = 2.0f * (xz - wy);
+    R[7] = 2.0f * (yz + wx);
+    R[8] = 1.0f - 2.0f * (xx + yy);
+}
+
+// Row-major 3x3 product C = A B (C must not alias A or B).
+template <typename T>
+__device__ void mat3_mul(const T* A, const T* B, T* C) {
+    for (int i = 0; i < 3; ++i) {
+        for (int j = 0; j < 3; ++j) {
+            C[3 * i + j] = A[3 * i] * B[j] + A[3 * i + 1] * B[3 + j] +
+                           A[3 * i + 2] * B[6 + j];
+        }
+    }
+}
+
+// Left Jacobian V = I + a [w]x + b [w]x^2 of SO(3) with the reference's
+// branches, including its guard on theta^2 * theta (not theta^3 alone):
+// for 1e-4 <= theta < ~2.2e-3 the reference divides by 1, and so does
+// this (core/lie.py::_so3_left_jacobian_terms).
+template <typename T>
+__device__ void so3_left_jac(const T* w, T* J) {
+    const T th2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
+    const T th = s_sqrt(lie_safe(th2));
+    const bool small = val(th2) < LIE_EPS2;
+    const T a = small ? 0.5f - th2 / 24.0f : (1.0f - s_cos(th)) / lie_safe(th2);
+    const T b = small ? 1.0f / 6.0f - th2 / 120.0f
+                      : (th - s_sin(th)) / lie_safe(th2 * th);
+    const T W[9] = {cst<T>(0.0f), -w[2], w[1], w[2], cst<T>(0.0f), -w[0],
+                    -w[1], w[0], cst<T>(0.0f)};
+    T WW[9];
+    mat3_mul(W, W, WW);
+    for (int i = 0; i < 9; ++i) {
+        J[i] = (i % 4 == 0 ? cst<T>(1.0f) : cst<T>(0.0f)) + a * W[i] +
+               b * WW[i];
+    }
+}
+
+// Inverse left Jacobian I - W / 2 + c W^2 (core/lie.py).
+template <typename T>
+__device__ void so3_left_jac_inv(const T* w, T* J) {
+    const T th2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
+    const T th = s_sqrt(lie_safe(th2));
+    const bool small = val(th2) < LIE_EPS2;
+    const T half = 0.5f * th;
+    const T cot_term =
+        half * s_cos(half) / (small ? cst<T>(1.0f) : s_sin(half));
+    const T c = small ? 1.0f / 12.0f + th2 / 720.0f
+                      : (1.0f - cot_term) / lie_safe(th2);
+    const T W[9] = {cst<T>(0.0f), -w[2], w[1], w[2], cst<T>(0.0f), -w[0],
+                    -w[1], w[0], cst<T>(0.0f)};
+    T WW[9];
+    mat3_mul(W, W, WW);
+    for (int i = 0; i < 9; ++i) {
+        J[i] = (i % 4 == 0 ? cst<T>(1.0f) : cst<T>(0.0f)) - 0.5f * W[i] +
+               c * WW[i];
+    }
+}
+
+// SE(3) as [qw qx qy qz tx ty tz]; tangent [rho, omega].
+template <typename T>
+__device__ void se3_mul(const T* A, const T* B, T* out) {
+    T q[4], r[3];
+    quat_mul(A, B, q);
+    quat_rot(A, B + 4, r);
+    for (int i = 0; i < 4; ++i) out[i] = q[i];
+    for (int i = 0; i < 3; ++i) out[4 + i] = r[i] + A[4 + i];
+}
+
+template <typename T>
+__device__ void se3_inv(const T* Tin, T* out) {
+    const T qi[4] = {Tin[0], -Tin[1], -Tin[2], -Tin[3]};
+    T r[3];
+    quat_rot(qi, Tin + 4, r);
+    for (int i = 0; i < 4; ++i) out[i] = qi[i];
+    for (int i = 0; i < 3; ++i) out[4 + i] = -r[i];
+}
+
+template <typename T>
+__device__ void se3_exp(const T* xi, T* out) {
+    so3_exp(xi + 3, out);
+    T V[9];
+    so3_left_jac(xi + 3, V);
+    for (int i = 0; i < 3; ++i) {
+        out[4 + i] = V[3 * i] * xi[0] + V[3 * i + 1] * xi[1] +
+                     V[3 * i + 2] * xi[2];
+    }
+}
+
+template <typename T>
+__device__ void se3_log(const T* Tin, T* xi) {
+    so3_log(Tin, xi + 3);
+    T Vi[9];
+    so3_left_jac_inv(xi + 3, Vi);
+    for (int i = 0; i < 3; ++i) {
+        xi[i] = Vi[3 * i] * Tin[4] + Vi[3 * i + 1] * Tin[5] +
+                Vi[3 * i + 2] * Tin[6];
+    }
+}
+
+// Rotation matrix (row-major) -> unit quaternion, largest pivot on the
+// values, w >= 0 (core/lie.py::matrix_to_quat), for float and Dual.
+template <typename T>
+__device__ void mat_to_quat(const T* R, T* q) {
+    const T tr = R[0] + R[4] + R[8];
+    const T piv[4] = {1.0f + tr, 1.0f + R[0] - R[4] - R[8],
+                      1.0f - R[0] + R[4] - R[8], 1.0f - R[0] - R[4] + R[8]};
+    int b = 0;
+    for (int i = 1; i < 4; ++i) {
+        if (val(piv[i]) > val(piv[b])) b = i;
+    }
+    const T c[4][4] = {
+        {1.0f + tr, R[7] - R[5], R[2] - R[6], R[3] - R[1]},
+        {R[7] - R[5], 1.0f + R[0] - R[4] - R[8], R[1] + R[3], R[2] + R[6]},
+        {R[2] - R[6], R[1] + R[3], 1.0f - R[0] + R[4] - R[8], R[5] + R[7]},
+        {R[3] - R[1], R[2] + R[6], R[5] + R[7], 1.0f - R[0] - R[4] + R[8]}};
+    for (int i = 0; i < 4; ++i) q[i] = c[i][b];
+    quat_normalize(q);
+    if (val(q[0]) < 0.0f) {
+        for (int i = 0; i < 4; ++i) q[i] = -q[i];
+    }
+}
+
 // Symmetric N x N eigen-decomposition by cyclic Jacobi (double, in place
 // in one thread).  On return the diagonal of ``a`` holds the eigenvalues
 // and the columns of ``v`` the eigenvectors.

@@ -16,10 +16,13 @@
 // entries and 6 J^T W r entries in fp32 registers, a warp-shuffle + shared
 // memory reduction sums them, and one thread solves the damped 6x6
 // system by Cholesky in registers, guards non-finite steps, and applies
-// exp(dx) * T with renormalisation.  The final 2-dof inlier test runs at
+// exp(dx) * T with renormalisation.  With a pose prior (the inertial
+// path's dead-reckoned prediction, tracking.py:183-187) that thread adds
+// w I to H and w log(T T_prior^-1) to g first: the reference's J = I
+// approximation of the prior's Jacobian, mirrored exactly.  The final 2-dof inlier test runs at
 // the solution.  Sums are taken in another order than the plain PyTorch
 // version, so poses agree to a tolerance, not bitwise.
-#include "common.cuh"
+#include "lie.cuh"
 
 namespace {
 
@@ -142,7 +145,8 @@ pose_gn_kernel(const float* __restrict__ T_init, const float* __restrict__ xw,
                const float* __restrict__ cam, const float* __restrict__ depth,
                const float* __restrict__ bf_ptr, int n, int iters,
                int n_wide, float gate0, float final_gate, float huber,
-               float chi2_gate, float* __restrict__ T_out,
+               float chi2_gate, const float* __restrict__ T_prior,
+               float prior_weight, float* __restrict__ T_out,
                uint8_t* __restrict__ inliers) {
     __shared__ Pose sT;
     __shared__ float red[NWARP][NACC];
@@ -236,6 +240,22 @@ pose_gn_kernel(const float* __restrict__ T_init, const float* __restrict__ xw,
         }
         __syncthreads();
         if (tid == 0) {
+            if (T_prior != nullptr) {
+                // r_p = log(T T_prior^-1); H += w I, g += w r_p
+                float Tc[7], Pi[7], D[7], rp[6];
+                for (int i = 0; i < 4; ++i) Tc[i] = sT.q[i];
+                for (int i = 0; i < 3; ++i) Tc[4 + i] = sT.t[i];
+                float Tp[7];
+                for (int i = 0; i < 7; ++i) Tp[i] = T_prior[i];
+                se3_inv(Tp, Pi);
+                se3_mul(Tc, Pi, D);
+                se3_log(D, rp);
+                constexpr int DIAG[6] = {0, 6, 11, 15, 18, 20};
+                for (int i = 0; i < 6; ++i) {
+                    tot[DIAG[i]] += prior_weight;
+                    tot[21 + i] += prior_weight * rp[i];
+                }
+            }
             float dx[6];
             solve6(tot, dx);
             boxplus_normalize(sT, dx);
@@ -269,15 +289,18 @@ pose_gn_kernel(const float* __restrict__ T_init, const float* __restrict__ xw,
 
 // T_init: (7,) f32; xw: (n, 3); uv: (n, 2); valid: (n,) u8; cam: (4,)
 // [fx, fy, cx, cy]; depth: (n,) f32 or NULL (no stereo row); bf_ptr: ()
-// f32 (read only with depth).  Writes T_out (7,) and inliers (n,) u8.
+// f32 (read only with depth); T_prior: (7,) f32 or NULL (no prior),
+// weighted by prior_weight.  Writes T_out (7,) and inliers (n,) u8.
 VSG_API int vsg_pose_gn(const float* T_init, const float* xw, const float* uv,
                         const uint8_t* valid, const float* cam,
                         const float* depth, const float* bf_ptr, int n,
                         int iters, int n_wide, float gate0, float final_gate,
-                        float huber, float chi2_gate, float* T_out,
-                        uint8_t* inliers, cudaStream_t stream) {
+                        float huber, float chi2_gate, const float* T_prior,
+                        float prior_weight, float* T_out, uint8_t* inliers,
+                        cudaStream_t stream) {
     pose_gn_kernel<<<1, THREADS, 0, stream>>>(
         T_init, xw, uv, valid, cam, depth, bf_ptr, n, iters, n_wide, gate0,
-        final_gate, huber, chi2_gate, T_out, inliers);
+        final_gate, huber, chi2_gate, T_prior, prior_weight, T_out,
+        inliers);
     return (int)cudaGetLastError();
 }

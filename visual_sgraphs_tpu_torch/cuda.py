@@ -62,6 +62,10 @@ KERNELS = (
     ("pose_gn", "visual_sgraphs_tpu_torch.slam.tracking", "pose_only_gn",
      "pose_only_gn_torch", "visual_sgraphs_tpu_torch/csrc/pose_gn.cu",
      "visual_sgraphs_tpu/slam/tracking.py:73"),
+    ("pose_gn_prior", "visual_sgraphs_tpu_torch.slam.tracking",
+     "pose_only_gn_prior", "pose_only_gn_prior_torch",
+     "visual_sgraphs_tpu_torch/csrc/pose_gn.cu",
+     "visual_sgraphs_tpu/slam/tracking.py:183"),
     ("compact_true", "visual_sgraphs_tpu_torch.slam.map_state",
      "compact_true", "compact_true_torch",
      "visual_sgraphs_tpu_torch/csrc/compact.cu",
@@ -119,6 +123,14 @@ KERNELS = (
     ("pgo_cost", "visual_sgraphs_tpu_torch.place.pgo", "pgo_cost",
      "pgo_cost_torch", "visual_sgraphs_tpu_torch/csrc/pgo.cu",
      "visual_sgraphs_tpu/optim/solve.py:69"),
+    ("preint", "visual_sgraphs_tpu_torch.inertial.preintegration",
+     "preintegrate_merge", "preintegrate_merge_torch",
+     "visual_sgraphs_tpu_torch/csrc/preint.cu",
+     "visual_sgraphs_tpu/inertial/preintegration.py:62"),
+    ("vi_pose", "visual_sgraphs_tpu_torch.inertial.pipeline",
+     "pose_inertial_gn", "pose_inertial_gn_torch",
+     "visual_sgraphs_tpu_torch/csrc/vi_pose.cu",
+     "visual_sgraphs_tpu/inertial/pipeline.py:266"),
 )
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -134,7 +146,10 @@ _ARGTYPES = {
     "vsg_match_window": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                          _F, _I, _F, _I, _VP, _VP, _VP, _VP],
     "vsg_pose_gn": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F,
-                    _F, _F, _VP, _VP, _VP],
+                    _F, _F, _VP, _F, _VP, _VP, _VP],
+    "vsg_preint": [_VP, _VP, _I, _VP, _VP, _F, _F, _VP, _VP],
+    "vsg_vi_pose": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _I] + [_VP] * 8
+                   + [_F, _F, _I, _VP, _VP, _VP],
     "vsg_schur_reduce": [_VP] * 7 + [_I, _I, _I, _F, _F] + [_VP] * 8,
     "vsg_schur_backsub": [_VP] * 6 + [_I, _I, _I, _VP, _VP],
     "vsg_depth_cloud": [_VP] * 4 + [_I, _I, _I, _F, _I, _I] + [_VP] * 10,

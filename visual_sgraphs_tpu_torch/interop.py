@@ -8,8 +8,12 @@ canonical dtypes.  A vocabulary crosses as ``{"centers": [per-level
 (K**(l+1), 32) uint8], "idf": (W,) float32}`` (or through the reference's
 ``save_vocab`` file, ``place.vocab.load_vocab``): a tree the reference
 trained is the port's "weights", so both compute with the same words.  A
-reference ``SystemConfig`` crosses as ``dataclasses.asdict``.  This module
-imports neither package's JAX side.
+reference ``SystemConfig`` crosses as ``dataclasses.asdict``.  The
+inertial state crosses the same way: a ``Preintegrated`` field for field,
+an ``ImuKfState`` with its ``preint`` as a nested dict, and an
+``ImuPipeline``'s state as the reference's ``export_state`` dict with
+those nested (``imu_pipeline_state_from_numpy``).  This module imports
+neither package's JAX side.
 """
 
 from __future__ import annotations
@@ -21,6 +25,12 @@ import numpy as np
 import torch
 
 from visual_sgraphs_tpu_torch import config as cfg_mod
+from visual_sgraphs_tpu_torch.inertial.preintegration import (
+    Preintegrated,
+    pack,
+    unpack,
+)
+from visual_sgraphs_tpu_torch.inertial.vi_ba import ImuKfState
 from visual_sgraphs_tpu_torch.place.database import PlaceDB
 from visual_sgraphs_tpu_torch.place.vocab import VocabTree, tree_from_numpy
 from visual_sgraphs_tpu_torch.scenegraph.state import (
@@ -126,6 +136,65 @@ def vocab_from_numpy(d: dict, device=None) -> VocabTree:
 def vocab_to_numpy(tree: VocabTree) -> dict:
     return {"centers": [c.cpu().numpy() for c in tree.centers],
             "idf": tree.idf.cpu().numpy()}
+
+
+def preint_from_numpy(d: dict, device=None) -> Preintegrated:
+    """A reference ``Preintegrated`` (as numpy, any leading batch shape):
+    views of one packed float32 table, as the port keeps them."""
+    fields = _load(Preintegrated, {k: torch.float32
+                                   for k in Preintegrated._fields}, d,
+                   device)
+    return unpack(pack(fields).contiguous())
+
+
+def preint_to_numpy(p: Preintegrated) -> dict:
+    return to_numpy(p)
+
+
+def imu_state_from_numpy(d: dict, device=None) -> ImuKfState:
+    """A reference ``ImuKfState`` with ``preint`` as a nested dict."""
+    f = lambda k, dt: torch.from_numpy(np.array(d[k])).to(  # noqa: E731
+        device=device, dtype=dt)
+    return ImuKfState(vel=f("vel", torch.float32),
+                      bias_g=f("bias_g", torch.float32),
+                      bias_a=f("bias_a", torch.float32),
+                      preint=preint_from_numpy(d["preint"], device),
+                      preint_valid=f("preint_valid", torch.bool))
+
+
+def imu_state_to_numpy(s: ImuKfState) -> dict:
+    out = {k: v.detach().cpu().numpy() for k, v in s._asdict().items()
+           if k != "preint"}
+    out["preint"] = preint_to_numpy(s.preint)
+    return out
+
+
+def imu_pipeline_state_from_numpy(d: dict, device=None) -> dict:
+    """The reference ``ImuPipeline.export_state()`` dict (numpy leaves,
+    ``state`` / ``since_kf`` nested) -> the port's ``import_state``
+    argument."""
+    t = lambda k: torch.from_numpy(np.array(d[k], np.float32)).to(  # noqa
+        device)
+    return {"state": imu_state_from_numpy(d["state"], device),
+            "since_kf": preint_from_numpy(d["since_kf"], device),
+            "vel": t("vel"), "bias_g": t("bias_g"), "bias_a": t("bias_a"),
+            "initialized": bool(np.asarray(d["initialized"])),
+            "scale": float(np.asarray(d["scale"])),
+            "last_t": float(np.asarray(d["last_t"])), "q_wg": t("q_wg")}
+
+
+def imu_pipeline_state_to_numpy(tree: dict) -> dict:
+    """The port's ``ImuPipeline.export_state()`` as numpy (the inverse of
+    ``imu_pipeline_state_from_numpy``)."""
+    c = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    return {"state": imu_state_to_numpy(tree["state"]),
+            "since_kf": preint_to_numpy(tree["since_kf"]),
+            "vel": c(tree["vel"]), "bias_g": c(tree["bias_g"]),
+            "bias_a": c(tree["bias_a"]),
+            "initialized": np.asarray(tree["initialized"]),
+            "scale": np.asarray(tree["scale"], np.float32),
+            "last_t": np.asarray(tree["last_t"], np.float64),
+            "q_wg": c(tree["q_wg"])}
 
 
 _NESTED_TUPLES = {("EnvDatabase", "rooms"): cfg_mod.EnvRoom,

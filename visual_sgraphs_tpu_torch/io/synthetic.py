@@ -2,7 +2,8 @@
 
 Port of ``visual_sgraphs_tpu/io/synthetic.py`` (``room_planes``,
 ``cell_texture``, ``render`` and the ``arc`` / ``forward`` / ``orbit`` /
-``orbit2`` trajectories of the small room): every pixel is one ray/plane
+``orbit2`` trajectories of the small room, and the IMU samples of a
+trajectory): every pixel is one ray/plane
 intersection over a small room, the texture is a procedural multi-scale 3D
 cell pattern (piecewise constant, so FAST finds strong corners) and depth
 is exact.  Frames render on the scene's device.
@@ -189,6 +190,60 @@ class SyntheticScene:
         for i, T_wc in enumerate(traj):
             gray, depth, _ = self.render(T_wc)
             yield gray, depth, T_wc, i / fps
+
+    def imu_samples(self, n_frames: int, kind: str = "arc",
+                    fps: float = 30.0, imu_rate: float = 200.0,
+                    g_world=(0.0, 9.81, 0.0), seed: int = 0,
+                    noise_gyro: float = 0.0, noise_acc: float = 0.0):
+        """(frame poses (n, 7) T_wc, [(omega, acc, t) per frame]): ideal,
+        or with ``noise_*`` noisy, IMU samples between consecutive frames
+        from a densely sampled version of the same trajectory, as numpy
+        (the reference's ``frames_with_imu``).  Gyro is the body rate
+        log(R_iᵀ R_{i+1}) / δt; the accelerometer the specific force
+        R_wbᵀ (a_w - g_w), with ``g_world`` the true gravity (+y: the
+        camera convention is y-down)."""
+        sub = max(int(round(imu_rate / fps)), 1)
+        dense = self.trajectory((n_frames - 1) * sub + 1, kind)
+        dt = 1.0 / (fps * sub)
+        q = torch.from_numpy(dense[:, :4])
+        p = dense[:, 4:7]
+        rel = lie.so3_log(lie.quat_multiply(lie.quat_conjugate(q[:-1]),
+                                            q[1:])).numpy()
+        omega = rel / dt
+        a_w = np.zeros_like(p)
+        a_w[1:-1] = (p[2:] - 2 * p[1:-1] + p[:-2]) / (dt * dt)
+        a_w[0], a_w[-1] = a_w[1], a_w[-2]
+        g = np.asarray(g_world, np.float32)
+        R = lie.quat_to_matrix(q).numpy()
+        f_b = np.einsum("dij,dj->di", R.transpose(0, 2, 1), a_w - g[None])
+        rng = np.random.default_rng(seed)
+        if noise_gyro:
+            omega = omega + rng.normal(size=omega.shape) * noise_gyro
+        if noise_acc:
+            f_b = f_b + rng.normal(size=f_b.shape) * noise_acc
+        samples = []
+        for i in range(n_frames):
+            if i == 0:
+                samples.append((np.zeros((0, 3)), np.zeros((0, 3)),
+                                np.zeros((0,))))
+            else:
+                lo, hi = (i - 1) * sub, i * sub
+                samples.append((omega[lo:hi], f_b[lo:hi],
+                                (np.arange(lo, hi) + 1) * dt))
+        return dense[::sub], samples
+
+    def frames_with_imu(self, n_frames: int, kind: str = "arc",
+                        fps: float = 30.0, imu_rate: float = 200.0,
+                        g_world=(0.0, 9.81, 0.0), seed: int = 0,
+                        noise_gyro: float = 0.0, noise_acc: float = 0.0):
+        """Yield (gray, depth, T_wc, ts, (omega, acc, t)): each frame of
+        the dense trajectory's every ``imu_rate / fps``-th pose with the
+        IMU samples since the previous frame (``imu_samples``)."""
+        traj, samples = self.imu_samples(n_frames, kind, fps, imu_rate,
+                                         g_world, seed, noise_gyro, noise_acc)
+        for i, T_wc in enumerate(traj):
+            gray, depth, _ = self.render(T_wc)
+            yield gray, depth, T_wc, i / fps, samples[i]
 
     def frames_with_semantics(self, n_frames: int, kind: str = "arc",
                               fps: float = 30.0):

@@ -11,6 +11,11 @@ refinement, over the 192-frame two-lap ``orbit2`` sequence rendered with
 semantics (``BENCH_FRAMES``, the first ``BENCH_WARMUP`` of them warm-up).
 ``configs`` and ``loop_config`` are the earlier slices' cuts of it to
 ``pipeline_depth=1`` (scene graph off / on, then loops), over 96 frames.
+``inertial_config`` is the reference's second benchmarked row
+(``bench.py:184-193``): RGB-D with an IMU (``Sensor.IMU_RGBD``), 1000
+features, 64 keyframes / 16384 points, over the 128-frame ``orbit``
+sequence with its 200 Hz IMU samples (``INERTIAL_FRAMES``, the first
+``INERTIAL_WARMUP`` of them warm-up).
 """
 
 from __future__ import annotations
@@ -19,9 +24,11 @@ import dataclasses
 
 from visual_sgraphs_tpu_torch.config import (
     CapacityConfig,
+    ImuConfig,
     MappingConfig,
     OrbConfig,
     PlaceConfig,
+    Sensor,
     SystemConfig,
     TrackingConfig,
 )
@@ -30,6 +37,8 @@ N_FRAMES = 96
 BENCH_FRAMES = 192
 BENCH_WARMUP = 64
 HEADLINE_CAPACITY = CapacityConfig(max_keyframes=128, max_points=32768)
+INERTIAL_FRAMES = 128
+INERTIAL_WARMUP = 48
 
 
 def frames(device, n: int = N_FRAMES, h: int = 480, w: int = 640,
@@ -69,6 +78,34 @@ def bench_config(scene):
     _, sg_cfg = configs(scene)
     return dataclasses.replace(loop_config(sg_cfg),
                                tracking=TrackingConfig(pipeline_depth=8))
+
+
+def inertial_config(scene, n_features: int = 1000,
+                    capacity: CapacityConfig = CapacityConfig(
+                        max_keyframes=64, max_points=16384)):
+    """The inertial row of ``bench.py:184-193`` exactly (with the stage
+    timers on); ``n_features`` / ``capacity`` cut it to a test size."""
+    return SystemConfig(
+        sensor=Sensor.IMU_RGBD, camera=scene.cam,
+        orb=OrbConfig(n_features=n_features), capacity=capacity,
+        imu=ImuConfig(),
+        mapping=MappingConfig(lba_iters=6, lba_interval=2, cull_interval=2),
+        profile=True)
+
+
+def inertial_frames(device, n: int = INERTIAL_FRAMES, h: int = 480,
+                    w: int = 640, kind: str = "orbit"):
+    """(scene, [(gray, depth, T_wc, ts, (omega, acc, t))]): frames rendered
+    on ``device``, their IMU samples as numpy."""
+    from visual_sgraphs_tpu_torch.io.synthetic import SyntheticScene
+    scene = SyntheticScene(h=h, w=w, device=device)
+    return scene, list(scene.frames_with_imu(n, kind=kind))
+
+
+def feed_inertial(system, frame) -> None:
+    """One frame (gray, depth, T_wc, ts, samples) into ``system``."""
+    gray, depth, _, ts, samples = frame
+    system.track_rgbd(gray, depth, ts, imu=samples)
 
 
 def make_system(cfg, device, with_sg: bool):

@@ -1,8 +1,9 @@
 """Factor-graph problem representation: variable families + factor batches.
 
 Port of ``visual_sgraphs_tpu/optim/graph.py``.  A problem is a set of
-fixed-capacity variable families (all keyframe poses, all planes, ...)
-with validity / fixed masks, and factor batches (all factors of one type,
+fixed-capacity variable families (keyframe poses, planes, velocities and
+IMU biases as point families, gravity directions, scales ...) with
+validity / fixed masks, and factor batches (all factors of one type,
 a residual function evaluated per item on gathered variable rows plus
 per-item constants).  Jacobians are forward-mode autodiff through each
 family's retraction at delta = 0 (``torch.func.jacfwd`` under
@@ -64,6 +65,20 @@ def plane_family(values, fixed=None) -> VarFamily:
 def sim3_family(values, fixed=None) -> VarFamily:
     return VarFamily(values, _fixed_or_none(values, fixed), 7,
                      lie.sim3_boxplus)
+
+
+def gdir_family(values, fixed=None) -> VarFamily:
+    """Gravity directions (unit quaternions R_wg) with the 2-dof chart of
+    the inertial initialisation."""
+    from visual_sgraphs_tpu_torch.inertial.factors import gdir_retract
+    return VarFamily(values, _fixed_or_none(values, fixed), 2, gdir_retract)
+
+
+def scale_family(values, fixed=None) -> VarFamily:
+    """Scales (n, 1) with the multiplicative 1-dof chart s exp(d)."""
+    from visual_sgraphs_tpu_torch.inertial.factors import scale_retract
+    return VarFamily(values, _fixed_or_none(values, fixed), 1,
+                     scale_retract)
 
 
 @dataclasses.dataclass(frozen=True)

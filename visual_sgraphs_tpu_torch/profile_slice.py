@@ -2,6 +2,7 @@
 
     python -m visual_sgraphs_tpu_torch.profile_slice [--scenegraph]
     python -m visual_sgraphs_tpu_torch.profile_slice --bench
+    python -m visual_sgraphs_tpu_torch.profile_slice --inertial
     python -m visual_sgraphs_tpu_torch.profile_slice --loop-runs N
     python -m visual_sgraphs_tpu_torch.profile_slice --small-vs-cpu
 
@@ -13,9 +14,12 @@ runs it) and profiles frames 32-63 twice: under ``torch.profiler``
 frame) and under ``cProfile`` (host time by Python function).  With
 ``--bench`` the profiled path is the headline configuration on the B-frame
 pipeline (``main_path.bench_config``, 192 frames, ``chip_smoke.py``'s
-``bench_slice``) and the window frames 96-127.  With ``--scenegraph`` it also times one plane-KF
-factor linearisation (1024 items) with ``torch.func.jacfwd`` and, for
-comparison, ``jacrev``.  With ``--loop-runs N`` it instead runs the loop
+``bench_slice``) and the window frames 96-127.  With ``--inertial`` it is
+the inertial row (``main_path.inertial_config``, 128 ``orbit`` frames with
+their IMU samples, ``chip_smoke.py``'s ``inertial_slice``) and the window
+frames 64-95, after the IMU initialised.  With ``--scenegraph`` it also
+times one plane-KF factor linearisation (1024 items) with
+``torch.func.jacfwd`` and, for comparison, ``jacrev``.  With ``--loop-runs N`` it instead runs the loop
 path (``chip_smoke.py``'s ``loop_slice``: scene graph and loop closing on)
 N times and prints each run's loops, relocalisations and ATE: the spread
 that the card's float summation order alone gives one configuration.
@@ -43,14 +47,19 @@ import torch
 
 WINDOW = (32, 64)
 BENCH_WINDOW = (96, 128)
+INERTIAL_WINDOW = (64, 96)
 
 
 def _line(tag: str, **kw) -> None:
     print(f"[{tag}] " + json.dumps(kw, default=str), flush=True)
 
 
-def _slice(with_sg: bool, bench: bool = False):
+def _slice(with_sg: bool, bench: bool = False, inertial: bool = False):
     from visual_sgraphs_tpu_torch import main_path
+    if inertial:
+        scene, frames = main_path.inertial_frames("cuda")
+        return main_path.make_system(main_path.inertial_config(scene),
+                                     "cuda", False), frames
     if bench:
         scene, frames = main_path.frames("cuda", main_path.BENCH_FRAMES)
         return main_path.make_system(main_path.bench_config(scene), "cuda",
@@ -63,18 +72,21 @@ def _slice(with_sg: bool, bench: bool = False):
 
 def _feed(system, frames) -> None:
     from visual_sgraphs_tpu_torch import main_path
+    feed = main_path.feed if system.imu is None else main_path.feed_inertial
     for frame in frames:
-        main_path.feed(system, frame)
+        feed(system, frame)
 
 
-def profile(with_sg: bool, bench: bool = False) -> None:
+def profile(with_sg: bool, bench: bool = False,
+            inertial: bool = False) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
-    lo, hi = BENCH_WINDOW if bench else WINDOW
+    lo, hi = (INERTIAL_WINDOW if inertial else BENCH_WINDOW if bench
+              else WINDOW)
     n = hi - lo
     # device view
-    system, frames = _slice(with_sg, bench)
+    system, frames = _slice(with_sg, bench, inertial)
     _feed(system, frames[:lo])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -93,7 +105,7 @@ def profile(with_sg: bool, bench: bool = False) -> None:
           device_ops_per_frame=sum(e.count for e in events) / n,
           top={e.key[:60]: [e.device_time_total, e.count] for e in top})
     # host view, without the profiler
-    system, frames = _slice(with_sg, bench)
+    system, frames = _slice(with_sg, bench, inertial)
     _feed(system, frames[:lo])
     torch.cuda.synchronize()
     system.timers.reset()
@@ -285,6 +297,8 @@ def main() -> None:
     ap.add_argument("--bench", action="store_true",
                     help="profile the headline configuration (B-frame "
                     "pipeline, loops and scene graph on)")
+    ap.add_argument("--inertial", action="store_true",
+                    help="profile the inertial row (Sensor.IMU_RGBD)")
     ap.add_argument("--loop-runs", type=int, default=0,
                     help="run the loop path this many times instead")
     ap.add_argument("--small-vs-cpu", action="store_true",
@@ -299,7 +313,7 @@ def main() -> None:
     elif args.loop_runs:
         loop_spread(args.loop_runs)
     else:
-        profile(args.scenegraph, args.bench)
+        profile(args.scenegraph, args.bench, args.inertial)
 
 
 if __name__ == "__main__":

@@ -7,7 +7,9 @@ lists; a rendered 480x640 frame's 8 pyramid levels and 1000 keypoints;
 4096 local-map points against 1000 keypoints; 4096 matches with stereo
 rows; the 480x640 depth / class images of two keyframes, their
 2048-point clouds, 4 x 192 RANSAC samples and 4 detections; an 8192-landmark,
-12-observation, 11-keyframe local BA), runs the hand kernel and its plain
+12-observation, 11-keyframe local BA; the inertial row's 64-row IMU
+sample windows and a rendered 480x640 frame's 1000 keypoints against a
+16384-point map), runs the hand kernel and its plain
 PyTorch twin on the same device, compares them at the stated tolerance
 and times both with CUDA events.  Each result also carries the bytes the
 function must move (each input read once, each output written once) and
@@ -25,6 +27,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from visual_sgraphs_tpu_torch.config import ImuConfig, OrbConfig
 from visual_sgraphs_tpu_torch.core import cameras, lie
 from visual_sgraphs_tpu_torch.core import plane as plane_mod
 from visual_sgraphs_tpu_torch.features import fast, match, orb
@@ -34,8 +37,11 @@ from visual_sgraphs_tpu_torch.place import vocab as vocab_mod
 from visual_sgraphs_tpu_torch.place.loop_closer import default_draw
 from visual_sgraphs_tpu_torch.scenegraph import epilogue, plane_fit, pointcloud
 from visual_sgraphs_tpu_torch.features import pyramid
+from visual_sgraphs_tpu_torch.inertial import pipeline, preintegration
 from visual_sgraphs_tpu_torch.io.synthetic import SyntheticScene
 from visual_sgraphs_tpu_torch.slam import map_state, tracking
+from visual_sgraphs_tpu_torch.slam.frame import make_frame_obs
+from visual_sgraphs_tpu_torch.slam.map_state import MapState
 
 # tolerances (the reasons are in the kernels' sources and the CPU tests)
 ANGLE_TOL = 1e-5  # rad, IC angle
@@ -1077,6 +1083,230 @@ def reloc_inputs(m, frame, cand: int, cam_K, key: int = 0):
     ok = ok & m.pt_valid[pt]
     return (m.pt_pos[pt].contiguous(), frame.uv, ok, cam_K,
             default_draw("pnp", key, ok))
+
+
+# ---------------------------------------------------------------------------
+# the inertial path: K18, K20 and K6's pose prior
+# ---------------------------------------------------------------------------
+
+PREINT_TOL = 1e-5  # relative to each field's largest entry, K18
+PREINT_COV_TOL = 1e-4  # relative to the covariance's largest entry, K18
+VI_POSE_TOL = 1e-4  # pose components and biases, K20
+VI_VEL_TOL = 1e-3  # m/s, K20
+
+
+def _inertial_stream(device, h: int = 480, w: int = 640):
+    """The inertial row's scene and its ``orbit`` IMU samples (the
+    trajectory of ``main_path.inertial_frames``, 128 frames)."""
+    scene = SyntheticScene(h=h, w=w, device=device)
+    traj, samples = scene.imu_samples(128, "orbit")
+    return scene, traj, samples
+
+
+def _window_table(samples, t_prev: float, device):
+    """One frame's sample table on ``device`` and its integration time."""
+    tab, dt = pipeline.sample_window(list(zip(*samples)), t_prev)
+    return torch.from_numpy(tab).to(device), float(dt)
+
+
+def preint_inputs(device, frame: int = 30, n_kf_frames: int = 3):
+    """Frame ``frame``'s 64-row sample table of the inertial row (7 valid
+    samples at 200 Hz and 30 fps), non-zero biases, and a keyframe window
+    of the ``n_kf_frames`` frames before it to fold into."""
+    _, _, samples = _inertial_stream(device)
+    bg = torch.tensor([0.002, -0.001, 0.0015], device=device)
+    ba = torch.tensor([0.03, -0.02, 0.01], device=device)
+    since = preintegration.identity_preint(bg, ba)
+    for k in range(frame - n_kf_frames, frame):
+        tab, _ = _window_table(samples[k], float(samples[k - 1][2][-1]),
+                               device)
+        _, since = preintegration.preintegrate_merge_torch(since, tab, bg, ba)
+    tab, _ = _window_table(samples[frame],
+                           float(samples[frame - 1][2][-1]), device)
+    return since, tab, bg, ba
+
+
+def check_preint(device) -> dict:
+    """K18 on one frame window of the inertial row folded into a keyframe
+    window: ΔR, ΔV, ΔP and the bias Jacobians within PREINT_TOL of each
+    field's largest entry, the covariances within PREINT_COV_TOL of
+    theirs, the integration times exactly."""
+    since, tab, bg, ba = preint_inputs(device)
+    kw, km = preintegration.preintegrate_merge(since, tab, bg, ba)
+    tw, tm = preintegration.preintegrate_merge_torch(since, tab, bg, ba)
+    torch.cuda.synchronize()
+    errs, ok, abs_err = {}, True, 0.0
+    for tag, k_pre, t_pre in (("window", kw, tw), ("merged", km, tm)):
+        for f in ("dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa",
+                  "cov"):
+            a, b = getattr(k_pre, f), getattr(t_pre, f)
+            errs[f"{tag}.{f}"] = e = _rel(a, b)
+            abs_err = max(abs_err, float((a - b).abs().max()))
+            ok = ok and e <= (PREINT_COV_TOL if f == "cov" else PREINT_TOL)
+        ok = ok and bool(k_pre.dt == t_pre.dt)
+    ms = time_cuda(lambda: preintegration.preintegrate_merge(since, tab, bg,
+                                                             ba))
+    plain = time_cuda(lambda: preintegration.preintegrate_merge_torch(
+        since, tab, bg, ba), reps=5)
+    n_valid = int((tab[:, 7] != 0).sum())
+    since_vec = preintegration.pack(since)
+    # per valid sample: A Σ Aᵀ (2 x 729 multiply-adds), B Sn Bᵀ (486),
+    # the five Jacobians and the 3x3 algebra (~600); the merge ~2400
+    return dict(name="preint", max_abs_err=abs_err, ms=ms,
+                plain_ms=plain, ok=ok, rel_errs=errs, n_valid=n_valid,
+                bytes=nbytes(since_vec, tab, bg, ba) + 2 * since_vec.numel()
+                * 4, ops=2 * (1458 + 486 + 600) * n_valid + 2 * 2400,
+                library_ms=None)
+
+
+def vi_pose_inputs(device, frame: int = 30, n_pts: int = 16384,
+                   seed: int = 0):
+    """A per-frame visual-inertial solve at the inertial row's shapes:
+    frame ``frame`` of the 640x480 ``orbit`` sequence through ORB (1000
+    keypoints), map points at the depth-valid keypoints' true positions
+    plus 1 cm noise (16384-point table), 10% of them unmatched, the
+    frame's preintegration from its IMU samples, the previous frame's
+    true pose and velocity as (T_i, v_i), and the true pose perturbed as
+    the start."""
+    rng = np.random.default_rng(seed)
+    scene, traj, samples = _inertial_stream(device)
+    # the scene's world has gravity along +y; the solve's, after the
+    # initialisation, along -z: express the map, poses and velocities in
+    # the gravity-aligned world (x' = R_gw x)
+    q_gw = lie.so3_exp(torch.tensor([-math.pi / 2, 0.0, 0.0]))
+    G = lie.se3_from_rt(q_gw, torch.zeros(3)).to(device)
+    R_gw = lie.quat_to_matrix(q_gw).to(device)
+    T_wc = torch.from_numpy(traj[frame]).to(device)
+    gray, depth, _ = scene.render(traj[frame])
+    fr = make_frame_obs(gray, depth, 0.0, scene.cam, OrbConfig(
+        n_features=1000))
+    cam_K = torch.from_numpy(scene.cam.K).to(device)
+    F = fr.uv.shape[0]
+    rays = cameras.unproject_pinhole(cam_K, fr.uv, fr.depth)
+    X = lie.se3_apply(lie.se3_multiply(G, T_wc), rays) + torch.from_numpy(
+        rng.normal(size=(F, 3)) * 0.01).float().to(device)
+    pt_pos = torch.zeros((n_pts, 3), device=device)
+    pt_pos[:F] = X
+    pt_valid = torch.zeros((n_pts,), dtype=torch.bool, device=device)
+    pt_valid[:F] = True
+    keep = torch.from_numpy(rng.uniform(size=F) > 0.1).to(device)
+    slot_pt = torch.where(fr.valid & (fr.depth > 0) & keep,
+                          torch.arange(F, device=device), -1).to(torch.int32)
+    m = MapState(*([None] * len(MapState._fields)))._replace(
+        pt_pos=pt_pos, pt_valid=pt_valid)
+    tab, dt = _window_table(samples[frame],
+                            float(samples[frame - 1][2][-1]), device)
+    z3 = torch.zeros((3,), device=device)
+    pre, _ = preintegration.preintegrate_merge_torch(
+        preintegration.identity_preint(z3, z3), tab, z3, z3)
+    T_cw = lambda i: lie.se3_inverse(lie.se3_multiply(  # noqa: E731
+        G, torch.from_numpy(traj[i]).to(device)))
+    v_i = R_gw @ torch.from_numpy(
+        (traj[frame] - traj[frame - 1])[4:7] * 30.0).to(device)
+    T_j0 = lie.se3_boxplus(T_cw(frame), torch.tensor(
+        [0.01, -0.005, 0.01, 0.002, -0.003, 0.001], device=device))
+    bf = torch.full((), scene.cam.bf, dtype=torch.float32, device=device)
+    walk = pipeline.walk_info(ImuConfig(), dt)
+    return (m, fr, slot_pt, T_j0, v_i.clone(), T_cw(frame - 1), v_i, pre,
+            lie.se3_identity(device=device), cam_K, bf, walk)
+
+
+def check_vi_pose(device) -> dict:
+    """K20 at the inertial row's shapes (F = 1000, 6 iterations): inlier
+    count equal, pose and biases within VI_POSE_TOL, velocity within
+    VI_VEL_TOL of the twin."""
+    args = vi_pose_inputs(device)
+    k = pipeline.pose_inertial_gn(*args)
+    t = pipeline.pose_inertial_gn_torch(*args)
+    torch.cuda.synchronize()
+    e_pose = float((k[0] - t[0]).abs().max())
+    e_vel = float((k[1] - t[1]).abs().max())
+    e_bias = max(float((k[2] - t[2]).abs().max()),
+                 float((k[3] - t[3]).abs().max()))
+    ms = time_cuda(lambda: pipeline.pose_inertial_gn(*args))
+    plain = time_cuda(lambda: pipeline.pose_inertial_gn_torch(*args), reps=5)
+    m, fr, slot_pt = args[0], args[1], args[2]
+    F = slot_pt.shape[0]
+    n_obs = int((slot_pt >= 0).sum())
+    # per iteration: ~80 operations a matched feature's three rows (weight,
+    # projection, Jacobian) plus 3 x 27 normal-equation sums, 15 forward-
+    # mode passes of the preintegration residual (~1500 each), the 15x15
+    # assembly (~4000) and solve (~2300); the final inlier count
+    ops = 6 * (n_obs * (80 + 3 * 2 * 27) + 15 * 1500 + 4000 + 2300) \
+        + 20 * n_obs
+    return dict(name="vi_pose", max_abs_err=max(e_pose, e_vel, e_bias),
+                ms=ms,
+                plain_ms=plain,
+                ok=(int(k[4]) == int(t[4]) and e_pose <= VI_POSE_TOL
+                    and e_bias <= VI_POSE_TOL and e_vel <= VI_VEL_TOL),
+                n_inliers=[int(k[4]), int(t[4])], pose_err=e_pose,
+                vel_err=e_vel, bias_err=e_bias, n_obs=n_obs,
+                bytes=nbytes(fr.uv, fr.depth, fr.valid, slot_pt)
+                + n_obs * 13 + 4 * (7 + 3 + 7 + 3 + 143 + 7 + 4 + 1)
+                + 4 * 17, ops=ops, library_ms=None)
+
+
+PRIOR_WEIGHTS = (10.0, 1e5, 1e9)  # the main path's, a middling, dominant
+PRIOR_SHIFT_MIN = 100 * POSE_TOL  # the dominant prior's least pose shift
+
+
+def pose_prior_inputs(device):
+    """``pose_inputs`` and a prior pose offset from the start by ~0.02."""
+    T0, xw, uv, valid, K, depth, bf = pose_inputs(device)
+    T_prior = lie.se3_boxplus(T0, torch.tensor(
+        [0.01, -0.02, 0.01, 0.005, 0.0, -0.004], device=device))
+    return T0, xw, uv, valid, K, depth, bf, T_prior
+
+
+def check_pose_gn_prior(device) -> dict:
+    """K6's prior branch at 4096 matches with stereo rows, at the main
+    path's weight 10, at 1e5 and at 1e9: pose within POSE_TOL and inlier
+    flags equal on >= INLIER_AGREE of rows at each.  At weight 10 the
+    prior moves the pose by ~5e-8, far inside POSE_TOL, so a kernel that
+    dropped it would pass there; at 1e9 (above every eigenvalue of JᵀJ,
+    1e7 to 9e8 on these matches) the prior pulls the solve onto T_prior,
+    a shift of ~0.04 from the solve without it.  The kernel's shift (prior minus K6 without it) must
+    exceed PRIOR_SHIFT_MIN and match the twin's within 2 POSE_TOL (each
+    shift is the difference of two poses held to POSE_TOL)."""
+    T0, xw, uv, valid, K, depth, bf, T_prior = pose_prior_inputs(device)
+    kw = dict(iters=12, gate0=(2.0 * 15.0) ** 2, depth=depth, bf=bf)
+    kF, _ = tracking.pose_only_gn(T0, xw, uv, valid, K, **kw)
+    tF, _ = tracking.pose_only_gn_torch(T0, xw, uv, valid, K, **kw)
+    errs, agree, k_shift, t_shift, shift_err = [], [], [], [], []
+    for w in PRIOR_WEIGHTS:
+        kT, kin = tracking.pose_only_gn_prior(T0, xw, uv, valid, K, T_prior,
+                                              w, **kw)
+        tT, tin = tracking.pose_only_gn_prior_torch(T0, xw, uv, valid, K,
+                                                    T_prior, w, **kw)
+        torch.cuda.synchronize()
+        errs.append(float((kT - tT).abs().max()))
+        agree.append(float((kin == tin).float().mean()))
+        k_shift.append(float((kT - kF).abs().max()))
+        t_shift.append(float((tT - tF).abs().max()))
+        shift_err.append(float(((kT - kF) - (tT - tF)).abs().max()))
+    ms = time_cuda(lambda: tracking.pose_only_gn_prior(
+        T0, xw, uv, valid, K, T_prior, 10.0, **kw))
+    plain = time_cuda(lambda: tracking.pose_only_gn_prior_torch(
+        T0, xw, uv, valid, K, T_prior, 10.0, **kw))
+    # K6's ~135 a match and iteration, plus the prior's log (~300) a
+    # iteration
+    return dict(name="pose_gn_prior", max_abs_err=max(errs), ms=ms,
+                plain_ms=plain,
+                ok=(max(errs) <= POSE_TOL and min(agree) >= INLIER_AGREE
+                    and k_shift[-1] >= PRIOR_SHIFT_MIN
+                    and shift_err[-1] <= 2 * POSE_TOL),
+                weights=list(PRIOR_WEIGHTS), pose_errs=errs,
+                inlier_agreement=agree, prior_shift=k_shift,
+                twin_prior_shift=t_shift, prior_shift_err=shift_err,
+                bytes=nbytes(T0, xw, uv, valid, K, depth, T_prior)
+                + 7 * 4 + xw.shape[0],
+                ops=(135 * xw.shape[0] + 300) * kw["iters"], library_ms=None)
+
+
+def run_inertial(device) -> list[dict]:
+    """The inertial path's kernels against their twins."""
+    return [check_preint(device), check_vi_pose(device),
+            check_pose_gn_prior(device)]
 
 
 def run_loop_seeded(device) -> list[dict]:

@@ -263,6 +263,17 @@ def lba_window(m: MapState, kf_id: int, cam_K, cam_bf, n_window: int,
     kf_ids = torch.cat([torch.full((1,), kf_id, device=dev), top_kfs])
     kf_mask = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
                          top_counts > 0]) & m.kf_valid[kf_ids]
+    return (kf_ids, kf_mask,
+            *reproj_window(m, kf_ids, kf_mask, cam_K, cam_bf, n_local_pts))
+
+
+def reproj_window(m: MapState, kf_ids, kf_mask, cam_K, cam_bf,
+                  n_local_pts: int):
+    """The points the keyframes ``kf_ids`` (masked by ``kf_mask``) observe
+    (compacted, ascending: kernel K7) and the mono / stereo reprojection
+    batches over every (window keyframe, keypoint) pair.  Returns
+    (safe_pt, pt_ok, batches)."""
+    dev = m.kf_pose.device
     L = kf_ids.shape[0]
     obs = m.kf_obs_pt[kf_ids]
     obs_safe = torch.clamp(obs, min=0).long()
@@ -300,7 +311,7 @@ def lba_window(m: MapState, kf_id: int, cam_K, cam_bf, n_window: int,
             ("kf", "pt"), factors.reproj_stereo, 3, var_idx,
             {"uv_ur": uv_ur, "cam": cam, "bf": cam_bf.expand(mtot)}, ones,
             use & has_depth, huber=math.sqrt(CHI2_STEREO)))
-    return kf_ids, kf_mask, safe_pt, pt_ok, batches
+    return safe_pt, pt_ok, batches
 
 
 def lba_gauge(m: MapState, kf_ids, kf_mask, monocular: bool):

@@ -1,6 +1,6 @@
 """Host-side SLAM facade: the single-writer tracking + mapping loop.
 
-Port of the RGB-D, non-inertial path of ``visual_sgraphs_tpu/slam/
+Port of the RGB-D and RGB-D inertial paths of ``visual_sgraphs_tpu/slam/
 system.py`` (System::TrackRGBD, Tracking.cc state machine):
 
 1. the first frame initialises the map (``_initialize``: the origin
@@ -30,17 +30,29 @@ system.py`` (System::TrackRGBD, Tracking.cc state machine):
    and relocalises lost frames in the map;
 6. ``frame_poses`` / ``positions`` recompose the trajectory against the
    current keyframe poses, re-basing rows of retired keyframes through the
-   retirement ledger.
+   retirement ledger;
+7. with ``Sensor.IMU_RGBD`` an ``ImuPipeline`` (``system.imu``) takes every
+   frame's samples (``track_rgbd(..., imu=(omega, acc, t))``), and every
+   frame runs the serial step (``_track``, as the reference gates its
+   fused and pipelined paths on ``imu is None``): preintegration (kernel
+   K18), once the IMU is initialised the dead-reckoned prediction, K6
+   with its pose prior and the per-frame visual-inertial solve (kernel
+   K20), else the velocity re-anchored on the visual pose; every keyframe
+   goes through ``_insert_keyframe``, which binds the keyframe window,
+   attempts the gravity / velocity / bias initialisation and runs the VI
+   local BA once it succeeded (the generic LM local BA before).
 
 The serial step reads one packed vector back per frame (two when it
 retries), the pipeline one per batch; ``host_readbacks`` counts every
-device-to-host read the loop makes.  Not ported yet, and raising
+device-to-host read the loop makes (the inertial path adds one a frame
+for the visual-inertial solve's inlier count, and one a keyframe for each
+initialisation attempt).  Not ported yet, and raising
 ``NotImplementedError`` where the path would reach them: free-space
-rooms, mono / stereo / inertial input and the Atlas (stash / merge,
-relocalisation in stashed maps).  A frame tracked again from a lost state
-makes a recovery keyframe outside the keyframe program, with the generic
-LM local BA (``mapping.local_ba``, or ``scenegraph/joint_ba.py`` with the
-scene graph), as the reference does.
+rooms, mono / stereo input (with or without an IMU) and the Atlas
+(stash / merge, relocalisation in stashed maps).  A frame tracked again
+from a lost state makes a recovery keyframe outside the keyframe
+program, with the generic LM local BA (``mapping.local_ba``, or
+``scenegraph/joint_ba.py`` with the scene graph), as the reference does.
 """
 
 from __future__ import annotations
@@ -54,6 +66,11 @@ import torch
 from visual_sgraphs_tpu_torch.config import Sensor, SystemConfig
 from visual_sgraphs_tpu_torch.core import lie
 from visual_sgraphs_tpu_torch.cuda import resolve_device
+from visual_sgraphs_tpu_torch.inertial.pipeline import (
+    ImuPipeline,
+    pose_inertial_gn,
+    walk_info,
+)
 from visual_sgraphs_tpu_torch.parallel.dist_ba import global_ba_sharded
 from visual_sgraphs_tpu_torch.place.loop_closer import LoopCloser
 from visual_sgraphs_tpu_torch.scenegraph.joint_ba import scenegraph_local_ba
@@ -128,7 +145,8 @@ class SlamSystem:
                 match_radius_fine=t.match_radius_fine * fx_scale,
             ))
         for unsupported, what in (
-            (config.sensor != Sensor.RGBD, "non-RGB-D sensors"),
+            (config.sensor not in (Sensor.RGBD, Sensor.IMU_RGBD),
+             "mono and stereo sensors (with or without an IMU)"),
             (not config.mapping.fast_ba, "the generic LM local BA"),
         ):
             if unsupported:
@@ -183,21 +201,31 @@ class SlamSystem:
         # place recognition, loop correction, relocalisation
         self.loop_closer = (LoopCloser(config.place)
                             if config.loop_closing else None)
+        # the inertial pipeline (reference system.py:189-198)
+        self.imu = (self._make_imu() if config.sensor == Sensor.IMU_RGBD
+                    else None)
         self._step = tracking.make_frame_step(
             config.camera, config.orb, config.mapping.local_window, 4096,
             config.tracking.match_radius_coarse,
             config.tracking.match_radius_fine, True)
 
+    def _make_imu(self) -> ImuPipeline:
+        return ImuPipeline(self.cfg.imu, self.cfg.capacity.max_keyframes,
+                           fix_scale=not self.cfg.sensor_is_monocular(),
+                           device=self.device)
+
     # ------------------------------------------------------------------ api
 
-    def track_rgbd(self, gray, depth, timestamp: float) -> torch.Tensor:
+    def track_rgbd(self, gray, depth, timestamp: float,
+                   imu=None) -> torch.Tensor:
         """Process one RGB-D frame; returns T_cw (7,) (System::TrackRGBD).
         ``gray`` / ``depth``: (H, W) arrays or tensors, moved to the
-        system's device."""
+        system's device; ``imu``: (omega (T, 3), acc (T, 3), t (T,)) numpy
+        samples since the previous frame (inertial sensors)."""
         gray = torch.as_tensor(gray, dtype=torch.float32, device=self.device)
         depth = torch.as_tensor(depth, dtype=torch.float32,
                                 device=self.device)
-        if self.state == TrackState.OK:
+        if self.state == TrackState.OK and self.imu is None:
             if self.cfg.tracking.pipeline_depth > 1:
                 # B-frame pipeline: one cycle and one readback per B frames
                 return self._track_batched(gray, depth, timestamp)
@@ -205,9 +233,10 @@ class SlamSystem:
             # after it (the reference's one-frame-deferred resolution)
             return self._track_fused(gray, depth, timestamp)
         self.flush()
-        frame = make_frame_obs(gray, depth, timestamp, self.cfg.camera,
-                               self.cfg.orb)
-        return self._track(frame, timestamp, depth)
+        with self.timers.stage("orb_extract"):
+            frame = make_frame_obs(gray, depth, timestamp, self.cfg.camera,
+                                   self.cfg.orb)
+        return self._track(frame, timestamp, depth, imu)
 
     # ------------------------------------------------------------- internals
 
@@ -884,22 +913,41 @@ class SlamSystem:
             # no newer frame in flight: re-anchor on the BA-adjusted pose
             self.last_pose = self.map.kf_pose[kf_slot]
 
-    def _track(self, frame: FrameObs, timestamp, depth_img):
+    def _track(self, frame: FrameObs, timestamp, depth_img, imu=None):
+        """The serial step (reference ``system.py:1144-1260``): every frame
+        of the inertial path, and on the visual path the frames tracked
+        from a lost or uninitialised state."""
         ts = float(timestamp)
+        frame_pre = None
+        if self.imu is not None:
+            if imu is not None:
+                self.imu.add_samples(*imu)
+            with self.timers.stage("imu_preint"):
+                frame_pre = self.imu.preintegrate_frame(ts)
         if self.state == TrackState.NOT_INITIALIZED:
             self._initialize(frame)
             self._record(ts)
             return self.last_pose
         t = self.cfg.tracking
-        T_pred = lie.se3_normalize(lie.se3_multiply(self.velocity,
-                                                    self.last_pose))
-        res, map_stats, packed = tracking.track_frame_full(
-            self.map, frame, T_pred, self.last_pose, self.ref_kf_host,
-            self.cam_K, t.min_inliers_ok,
-            n_window=self.cfg.mapping.local_window,
-            fx_radius=t.match_radius_coarse, fine_radius=t.match_radius_fine,
-            cam_bf=self.cam_bf,
-            img_wh=(self.cfg.camera.width, self.cfg.camera.height))
+        T_pred = None
+        if self.imu is not None:
+            # the IMU's dead-reckoned prediction once initialised
+            T_pred = self.imu.predict(self.last_pose, frame_pre)
+        if T_pred is None:
+            T_pred = lie.se3_normalize(lie.se3_multiply(self.velocity,
+                                                        self.last_pose))
+        # the dead-reckoned pose prior once the IMU is initialised
+        prior_w = (t.imu_prior_weight
+                   if self.imu is not None and self.imu.initialized else 0.0)
+        with self.timers.stage("track_dispatch"):
+            res, map_stats, packed = tracking.track_frame_full(
+                self.map, frame, T_pred, self.last_pose, self.ref_kf_host,
+                self.cam_K, t.min_inliers_ok,
+                n_window=self.cfg.mapping.local_window,
+                fx_radius=t.match_radius_coarse,
+                fine_radius=t.match_radius_fine, cam_bf=self.cam_bf,
+                img_wh=(self.cfg.camera.width, self.cfg.camera.height),
+                prior_weight=prior_w)
         self.host_readbacks += 1 + int(packed[3])
         n_inl = int(packed[1])
         if n_inl >= t.min_inliers_ok:
@@ -907,13 +955,24 @@ class SlamSystem:
             self.state = TrackState.OK
             self.lost_frames = 0
             new_pose = lie.se3_normalize(res.pose)
+            vi_solved = False
+            if frame_pre is not None and prior_w > 0.0:
+                new_pose, vi_solved = self._vi_solve(frame, res, new_pose,
+                                                     frame_pre)
             self.velocity = _velocity_of(new_pose, self.last_pose)
+            if (self.imu is not None and self._last_ts is not None
+                    and not vi_solved):
+                # re-anchor the IMU velocity on the accepted visual pose
+                # delta (the joint solve's own velocity is kept)
+                self.imu.correct_velocity(self.last_pose, new_pose,
+                                          ts - self._last_ts)
             self._last_ts = ts
             self.last_pose = new_pose
             self.map = map_stats
             self.peak_inliers = max(self.peak_inliers, n_inl)
             if recovered or self._need_keyframe(n_inl):
-                self._insert_keyframe(frame, res, n_inl, ts, depth_img)
+                self._insert_keyframe(frame, res, n_inl, ts, depth_img,
+                                      recovered)
         else:
             self.state = (TrackState.RECENTLY_LOST
                           if self.state in (TrackState.OK,
@@ -925,6 +984,28 @@ class SlamSystem:
         self._record(ts)
         return self.last_pose
 
+    def _vi_solve(self, frame: FrameObs, res, new_pose, frame_pre):
+        """The exact per-frame visual-inertial solve on top of the visual
+        result (PoseInertialOptimizationLastFrame, kernel K20), accepted
+        at ``min_inliers_ok`` inliers.  Returns (pose, accepted)."""
+        imu = self.imu
+        with self.timers.stage("vi_solve"):
+            T_r, v_r, bg_r, ba_r, n_vi = pose_inertial_gn(
+                self.map, frame, res.slot_pt, new_pose, imu.vel,
+                self.last_pose,
+                imu.vel if imu.vel_prev is None else imu.vel_prev,
+                frame_pre, imu.T_bc, self.cam_K, self.cam_bf,
+                walk_info(imu.cfg, imu.frame_dt))
+            n_vi = int(self._read(n_vi))
+        self.events.emit("vi_solve", n_inliers=n_vi,
+                         accepted=n_vi >= self.cfg.tracking.min_inliers_ok)
+        if n_vi < self.cfg.tracking.min_inliers_ok:
+            return new_pose, False
+        imu.vel = v_r
+        imu._cur_bias_g = bg_r
+        imu._cur_bias_a = ba_r
+        return lie.se3_normalize(T_r), True
+
     def _new_map(self, stash: bool = True):
         """Restart tracking on a fresh map (CreateMapInAtlas)."""
         if stash and self.n_kf_host >= 5:
@@ -935,6 +1016,8 @@ class SlamSystem:
         if self.loop_closer is not None:
             self.loop_closer.reset()
         self.map = empty_map(self.cfg.capacity, self.cfg.orb, self.device)
+        if self.imu is not None:
+            self.imu = self._make_imu()
         if self.scenegraph is not None:
             self.scenegraph.state = empty_scenegraph(
                 self.cfg.capacity, self.scenegraph.state.ob_kf.shape[0],
@@ -990,13 +1073,16 @@ class SlamSystem:
         return n_inliers < t.kf_min_tracked_ratio * self.peak_inliers
 
     def _insert_keyframe(self, frame: FrameObs, res, n_inl: int, ts: float,
-                         depth_img):
-        """The recovery keyframe: a frame tracked again from a lost state
-        (reference ``slam/system.py:1555-1630``).  Outside the keyframe
-        program: insert and fuse, the scene-graph update, the generic LM
-        local BA on every call (the scene graph's joint BA once it holds
-        plane observations), both culls, then the loop closer's place
-        query for this keyframe."""
+                         depth_img, recovered: bool = True):
+        """The serial keyframe (reference ``slam/system.py:1555-1630``):
+        the recovery keyframe of a frame tracked again from a lost state,
+        and every keyframe of the inertial path.  Outside the keyframe
+        program: insert and fuse, the scene-graph update, the IMU hooks
+        (bind the keyframe window, attempt the initialisation), the local
+        BA on every call (the scene graph's joint BA once it holds plane
+        observations, else the VI local BA once the IMU is initialised,
+        else the generic LM local BA), both culls, then the loop closer's
+        place query for this keyframe."""
         mc = self.cfg.mapping
         kf = self._host_alloc_kf_slot()
         self.map, _, _ = mapping.insert_keyframe(
@@ -1011,12 +1097,26 @@ class SlamSystem:
                 hyp, self.cam_K, do_maint)
         joint = (sgm is not None and sg_cfg.plane_kf_factor
                  and sgm.n_obs_host > 0)
-        with self.timers.stage("recovery_lba", sync_on=self.map.n_kf):
+        imu = self.imu
+        if imu is not None:
+            # bind the keyframe window, then the initialisation schedule
+            # (LocalMapping.cc:142, 175-238)
+            imu.on_keyframe(kf)
+            if not imu.initialized:
+                with self.timers.stage("imu_init"):
+                    imu.try_initialize(self)
+        vi_ba = not joint and imu is not None and imu.initialized
+        stage = ("recovery_lba" if recovered
+                 else "vi_lba" if vi_ba else "local_ba")
+        with self.timers.stage(stage, sync_on=self.map.n_kf):
             if joint:
                 self.map, sgm.state, _ = scenegraph_local_ba(
                     self.map, sgm.state, kf, self.cam_K, self.cam_bf,
                     n_window=mc.local_window, iters=mc.lba_iters,
                     config=sg_cfg)
+            elif vi_ba:
+                imu.local_ba(self, kf, n_window=mc.local_window,
+                             iters=mc.lba_iters)
             else:
                 self.map, _ = mapping.local_ba(
                     self.map, kf, self.cam_K, self.cam_bf,
@@ -1028,8 +1128,9 @@ class SlamSystem:
         # its host mirror; so does the port
         self.map, _ = mapping.cull_keyframes(self.map, kf,
                                              mc.kf_cull_redundancy)
-        self.events.emit("recovery_keyframe", kf=kf, n_inliers=n_inl,
-                         joint_ba=joint)
+        self.events.emit("recovery_keyframe" if recovered else "keyframe",
+                         kf=kf, n_inliers=n_inl, joint_ba=joint,
+                         vi_ba=vi_ba, lba=True, cull=True)
         self.ref_kf_host = kf
         self.frames_since_kf = 0
         self.last_kf_inliers = max(n_inl, 1)

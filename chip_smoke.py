@@ -25,7 +25,14 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    sample window, K20 per-frame visual-inertial solve on a rendered
    frame's 1000 keypoints and K6's pose-prior branch at 4096 matches,
    at weights 10, 1e5 and 1e9, where the dominant prior must move the
-   pose by >= 0.01 as it moves the twin's),
+   pose by >= 0.01 as it moves the twin's; K17a free-space carving on a
+   rendered 640x480 frame at a non-identity pose, K17b's components on a
+   serpentine grid longer than its 48 sweeps reach and, after phase 4, on
+   ``freespace_slice``'s accumulated grid, both exact; K21, the
+   scene-graph BA's assembly, on seeded operands at D = 402 with live items
+   of all five factor types, against the float64 twin, and a whole
+   scene-graph BA on ``freespace_slice``'s final map with a seeded room,
+   corridor and door, K21 against the float64 twin),
    with kernel and twin times
    (CUDA events, median of 20 after 3 warm-ups) and the bytes /
    operations each function needs, from which its bound is derived;
@@ -65,10 +72,18 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    j. path (i) again over a 16-frame window after the IMU initialised
       that holds a keyframe, under sync-debug mode: synchronising calls
       must equal the counted readbacks;
+   k. ``freespace_slice``: path (b) with free-space rooms
+      (``main_path.freespace_config``), gated as (b), with K17a launched
+      once per keyframe, K17b once per maintenance pass and K21 once per
+      scene-graph BA iteration; the free-voxel count, rooms and corridors
+      printed;
+   l. path (k) again over a 16-frame window that holds a maintenance
+      pass, under sync-debug mode: synchronising calls must equal the
+      counted readbacks;
    the kernel launch counters are zeroed just before each of (a), (b),
-   (d), (f), (h) and (i) and read just after; the JSON kernel table's
-   launches are (d)'s, and (i)'s for the inertial path's K18, K20 and
-   K6's prior branch;
+   (d), (f), (h), (i) and (k) and read just after; the JSON kernel table's
+   launches are (d)'s, (i)'s for the inertial path's K18, K20 and
+   K6's prior branch, and (k)'s for K17a and K17b;
 5. the same 12 small frames through the port on the card (kernels) and on
    the CPU (twins), with the scene graph off and on, whose positions must
    agree; the loop correction chain (verification, pose graph, map
@@ -77,6 +92,10 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    off the path, card against CPU; and 72 small ``arc`` frames with their
    IMU samples through the inertial path on the card and on the CPU,
    whose positions, keyframe counts and initialisation frames must agree;
+   and 24 small ``arc`` frames through the free-space path (clustering
+   every second keyframe) on the card and on the CPU, whose free-voxel
+   counts must agree within 1 % and rooms in count and centre within
+   0.05 m;
 6. the card's name and power limit, the JSON kernel table, and the
    result line.
 
@@ -86,6 +105,7 @@ Needs torch, numpy and nvcc; no JAX and no network.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import subprocess
 import sys
@@ -102,7 +122,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
 WARM = 16
-SG_ONLY = {"depth_cloud", "extract_planes", "plane_epilogue"}
+SG_ONLY = {"depth_cloud", "extract_planes", "plane_epilogue", "sg_assemble"}
+# the free-space room method's kernels (room_method="freespace" only)
+FREESPACE_ONLY = {"freespace_carve", "freespace_components"}
 LOOP_ONLY = {"bow_vectors", "place_query", "match_nn_ratio", "guided_count",
              "verify_sim3", "pnp_hypotheses", "pgo_assemble", "pgo_cost"}
 INERTIAL_ONLY = {"pose_gn_prior", "preint", "vi_pose"}
@@ -359,6 +381,10 @@ def main() -> None:
            "K15 PnP: a seeded hypothesis is not well posed")
     # the inertial path's kernels: K18, K20 and K6's pose prior
     report(selfcheck.run_inertial(device))
+    # K17a, K17b on the snake grid, K21 on seeded operands
+    report(selfcheck.run_freespace(device))
+    _check(all(checks["sg_assemble"]["live_items"].values()),
+           "K21: a factor type has no live item")
 
     # ---- 4. the main paths at full size
     scene, frames = main_path.frames(device)
@@ -400,7 +426,8 @@ def main() -> None:
                    f"{tag}: sign-duplicate planes {extra['sign_duplicates']}")
         # the loop kernels run on loop_slice only, the plane kernels with
         # the scene graph only
-        skip = LOOP_ONLY | INERTIAL_ONLY | (set() if with_sg else SG_ONLY)
+        skip = (LOOP_ONLY | INERTIAL_ONLY | FREESPACE_ONLY
+                | (set() if with_sg else SG_ONLY))
         _check(all(v[0] > 0 for k, v in counts[tag].items()
                    if k not in skip),
                f"{tag}: a kernel was not launched: {counts[tag]}")
@@ -435,7 +462,8 @@ def main() -> None:
     sg_sum = _scenegraph_summary(system)
     ev = system.events
     _line("bench_slice", frames=len(bench_frames), **acc,
-          fps_64_191=perf["fps"], total_s=total_s,
+          fps_64_191=perf["fps"], fps_64_191_pr5=16.569106091514872,
+          total_s=total_s,
           host_readbacks_per_frame_64_191=perf["readbacks_per_frame"],
           keyframes=ev.count("keyframe"), kf_culled=ev.count("kf_culled"),
           serial_relief=ev.count("serial_relief"),
@@ -461,7 +489,8 @@ def main() -> None:
            f"bench_slice: a twin ran on CUDA tensors: "
            f"{counts['bench_slice']}")
     _check(all(v[0] > 0 for k, v in counts["bench_slice"].items()
-               if k != "pnp_hypotheses" and k not in INERTIAL_ONLY),
+               if k != "pnp_hypotheses"
+               and k not in INERTIAL_ONLY | FREESPACE_ONLY),
            f"bench_slice: a kernel was not launched: "
            f"{counts['bench_slice']}")
     del system
@@ -512,7 +541,8 @@ def main() -> None:
     _check(all(v[1] == 0 for v in counts["loop_slice"].values()),
            f"loop_slice: a twin ran on CUDA tensors: {counts['loop_slice']}")
     _check(all(v[0] > 0 for k, v in counts["loop_slice"].items()
-               if k != "pnp_hypotheses" and k not in INERTIAL_ONLY),
+               if k != "pnp_hypotheses"
+               and k not in INERTIAL_ONLY | FREESPACE_ONLY),
            f"loop_slice: a kernel was not launched: {counts['loop_slice']}")
     _check(watch["saved"] is not None, "loop_slice: no map saved at a loop")
     loop_system = system
@@ -633,6 +663,111 @@ def main() -> None:
            f"{syncs}")
     del system
 
+    # 4k. freespace_slice: the scene-graph cell with free-space rooms
+    fs_cfg = main_path.freespace_config(scene)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    system = main_path.make_system(fs_cfg, device, True)
+    from visual_sgraphs_tpu_torch.scenegraph import freespace as fs_mod
+    maint_frames, seen = [], {"launches": 0}
+
+    def note_maint(i):
+        # the frames whose keyframe ran a clustering pass (K17b)
+        n = fs_mod.freespace_components.launches
+        if n > seen["launches"]:
+            maint_frames.append(i)
+        seen["launches"] = n
+
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    perf = _drive(system, frames, after=note_maint)
+    total_s = time.perf_counter() - t0
+    counts["freespace_slice"] = cnt = cuda.counts()
+    acc = _accuracy(system, frames)
+    mgr = system.scenegraph
+    ev = system.events
+    fused = [e for e in ev.of_kind("keyframe") if "joint_ba" not in e]
+    n_lba = sum(bool(e["lba"]) for e in fused)
+    rooms = mgr.rooms()
+    fs_sum = dict(free_voxels=int(mgr._free_grid.sum()),
+                  rooms_4wall=int((~rooms["is_corridor"]).sum()),
+                  corridors=int(rooms["is_corridor"].sum()),
+                  room_centers=np.round(rooms["center"], 3).tolist(),
+                  maintenance_passes=mgr._kf_count
+                  // mgr.maintenance_interval, maint_frames=maint_frames)
+    sg_sum = _scenegraph_summary(system)
+    _line("freespace_slice", frames=n_frames, **acc, fps_16_95=perf["fps"],
+          total_s=total_s,
+          host_readbacks_per_frame=perf["readbacks_per_frame"],
+          keyframes=len(fused), lba_keyframes=n_lba,
+          recovery_keyframes=ev.count("recovery_keyframe"),
+          peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20, **fs_sum,
+          **sg_sum)
+    _line("freespace_slice_stages", **system.timers.summary())
+    _line("freespace_slice_launches", **{
+        k: {"launches": v[0], "twin_calls_on_cuda": v[1]}
+        for k, v in cnt.items()})
+    _check(acc["tracked"] >= 90, f"freespace_slice: tracked {acc['tracked']}")
+    _check(acc["n_kf"] >= 2, f"freespace_slice: n_kf {acc['n_kf']}")
+    _check(acc["ate_m"] < 0.05, f"freespace_slice: ATE {acc['ate_m']:.4f} m")
+    _check(sg_sum["n_planes"] >= 2 and not sg_sum["sign_duplicates"],
+           f"freespace_slice: planes {sg_sum['n_planes']}, sign duplicates "
+           f"{sg_sum['sign_duplicates']}")
+    _check(all(v[1] == 0 for v in cnt.values()),
+           f"freespace_slice: a twin ran on CUDA tensors: {cnt}")
+    _check(all(v[0] > 0 for k, v in cnt.items()
+               if k not in LOOP_ONLY | INERTIAL_ONLY),
+           f"freespace_slice: a kernel was not launched: {cnt}")
+    _check(cnt["freespace_carve"][0] == len(fused),
+           f"freespace_slice: K17a {cnt['freespace_carve'][0]} launches for "
+           f"{len(fused)} keyframes")
+    # a recovery keyframe advances the maintenance cadence without the
+    # free-space hook (the reference's too)
+    maint = fs_sum["maintenance_passes"]
+    _check(cnt["freespace_components"][0] == maint
+           or (ev.count("recovery_keyframe")
+               and 1 <= cnt["freespace_components"][0] <= maint),
+           f"freespace_slice: K17b {cnt['freespace_components'][0]} "
+           f"launches for {maint} maintenance passes")
+    _check(cnt["sg_assemble"][0] == fs_cfg.mapping.lba_iters * n_lba,
+           f"freespace_slice: K21 {cnt['sg_assemble'][0]} launches for "
+           f"{n_lba} scene-graph BAs")
+    # K17b on the cell's grid; K21 inside a whole scene-graph BA on the
+    # cell's final map, with a seeded room, corridor and door
+    report([selfcheck.check_freespace_components(
+        device, mgr._free_grid, mgr._free_origin, fs_cfg.scenegraph
+        .freespace_voxel)])
+    sg_ba = selfcheck.check_sg_ba(
+        system.map, selfcheck.seed_rooms_and_doors(mgr.state),
+        system.ref_kf_host, system.cam_K, system.cam_bf, fs_cfg.scenegraph)
+    _line("sg_ba", **sg_ba)
+    _check(sg_ba["ok"], f"K21 inside a whole scene-graph BA: {sg_ba}")
+    del system, mgr
+
+    # 4l. hidden host syncs of the free-space path: 16 frames that hold a
+    # maintenance pass (the clustering and room upsert)
+    later = [i for i in maint_frames if i >= 24]
+    _check(bool(later), f"freespace_slice: no maintenance pass after frame "
+           f"23: {maint_frames}")
+    lo = later[0] - 8
+    system = main_path.make_system(fs_cfg, device, True)
+    n_maint = []
+    syncs = _drive(system, frames[:lo + 16], warm=lo,
+                   sync_window=(lo, lo + 16),
+                   after=lambda i: n_maint.append(
+                       fs_mod.freespace_components.launches))
+    in_window = n_maint[lo + 15] - n_maint[lo - 1]
+    _line("freespace_sync_debug", frames=f"{lo}-{lo + 15}",
+          keyframes=syncs["keyframes"], maintenance_passes=in_window,
+          syncs_per_frame=syncs["syncs_per_frame"],
+          readbacks_per_frame=syncs["readbacks_per_frame"],
+          sync_sites=syncs["sync_sites"])
+    _check(in_window >= 1, "freespace_sync_debug: no maintenance pass inside")
+    _check(syncs["syncs_per_frame"] == syncs["readbacks_per_frame"],
+           f"freespace_sync_debug: syncs differ from counted readbacks: "
+           f"{syncs}")
+    del system
+
     # ---- 3 (continued). the loop kernels on the saved map
     saved = watch["saved"]
     m_loop, kf, cand = saved["map"], saved["kf"], saved["cand"]
@@ -689,6 +824,41 @@ def main() -> None:
     _check(diff < 0.01 and runs["cuda"][1:] == runs["cpu"][1:]
            and runs["cuda"][2] is not None,
            "small_inertial_vs_cpu_twins: card path disagrees with the CPU "
+           "twin path")
+
+    # 5 (free space). 24 small arc frames, rendered on the CPU, through
+    # the free-space path on the card and on the CPU, clustering every
+    # second keyframe.  The two devices' poses differ in the last bits, so
+    # a sample at a voxel boundary may land in the neighbouring voxel: the
+    # free-voxel counts agree within 1 %, the rooms in count and centre
+    # within 0.05 m.
+    fs_small, fs_frames = main_path.frames("cpu", 24, 240, 320, "arc")
+    _, fs_small_sg = main_path.configs(fs_small, 300,
+                                       CapacityConfig(32, 4096))
+    fs_small_cfg = dataclasses.replace(fs_small_sg, scenegraph=dataclasses
+                                       .replace(fs_small_sg.scenegraph,
+                                                room_method="freespace"))
+    runs = {}
+    t0 = time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        s = main_path.make_system(fs_small_cfg, dev, True)
+        s.scenegraph.maintenance_interval = 2
+        for frame in fs_frames:
+            main_path.feed(s, frame)
+        r = s.scenegraph.rooms()
+        runs[dev] = (int(s.scenegraph._free_grid.sum()), r["center"],
+                     s.positions(), s.scenegraph._kf_count)
+    (nk, ck, pk, mk), (nc, cc, pc, mc) = runs["cuda"], runs["cpu"]
+    room_err = (float(np.abs(ck - cc).max()) if len(ck) and len(ck) == len(cc)
+                else 0.0)
+    _line("small_freespace_vs_cpu_twins", free_voxels=[nk, nc],
+          n_rooms=[len(ck), len(cc)], room_center_max_diff_m=room_err,
+          max_pos_diff_m=float(np.abs(pk - pc).max()),
+          maintenance_passes=[mk // 2, mc // 2],
+          seconds=time.perf_counter() - t0)
+    _check(nc > 0 and abs(nk - nc) <= 0.01 * nc and len(ck) == len(cc)
+           and room_err <= 0.05 and mk // 2 >= 1,
+           "small_freespace_vs_cpu_twins: card path disagrees with the CPU "
            "twin path")
 
     # 5b. the loop correction chain on the saved map, card against CPU
@@ -752,7 +922,9 @@ def main() -> None:
     kernels = []
     for name, _, _, src, replaces in cuda.kernel_functions():
         r = checks[name]
-        path = "inertial_slice" if name in INERTIAL_ONLY else "bench_slice"
+        path = ("inertial_slice" if name in INERTIAL_ONLY
+                else "freespace_slice" if name in FREESPACE_ONLY
+                else "bench_slice")
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=counts[path][name][0],

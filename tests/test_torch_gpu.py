@@ -17,6 +17,8 @@ LOOP_ONLY = ("bow_vectors", "place_query", "match_nn_ratio", "guided_count",
              "verify_sim3", "pnp_hypotheses", "pgo_assemble", "pgo_cost")
 # kernels that only the inertial path (Sensor.IMU_RGBD) launches
 INERTIAL_ONLY = ("pose_gn_prior", "preint", "vi_pose")
+# kernels that only the free-space room method launches
+FREESPACE_ONLY = ("freespace_carve", "freespace_components")
 
 
 @pytest.fixture(scope="module")
@@ -109,7 +111,8 @@ def test_slice_on_card_uses_every_kernel(device):
                        capacity=CapacityConfig(32, 4096),
                        mapping=MappingConfig(lba_iters=6, lba_interval=2,
                                              cull_interval=2))
-    sg_only = ("depth_cloud", "extract_planes", "plane_epilogue")
+    sg_only = ("depth_cloud", "extract_planes", "plane_epilogue",
+               "sg_assemble")
     cuda.reset_counts()
     system = SlamSystem(cfg, device=device)
     gt = []
@@ -120,7 +123,8 @@ def test_slice_on_card_uses_every_kernel(device):
     counts = cuda.counts()
     assert all(launches > 0 and twin == 0
                for name, (launches, twin) in counts.items()
-               if name not in sg_only + LOOP_ONLY + INERTIAL_ONLY), counts
+               if name not in sg_only + LOOP_ONLY + INERTIAL_ONLY
+               + FREESPACE_ONLY), counts
     assert np.isfinite(pos).all() and system.tracked_mask().all()
     err = np.linalg.norm(pos - pos[0] - (np.stack(gt) - gt[0]), axis=1)
     assert err.max() < 0.1
@@ -155,7 +159,8 @@ def test_scenegraph_slice_on_card_uses_every_kernel(device):
     counts = cuda.counts()
     assert all(launches > 0 and twin == 0
                for name, (launches, twin) in counts.items()
-               if name not in LOOP_ONLY + INERTIAL_ONLY), counts
+               if name not in LOOP_ONLY + INERTIAL_ONLY + FREESPACE_ONLY), \
+        counts
     assert np.isfinite(pos).all() and system.tracked_mask().all()
     planes = system.scenegraph.planes()
     assert len(planes["coeffs"]) >= 2
@@ -221,7 +226,7 @@ def test_bench_path_on_card_uses_every_kernel(device):
                if name not in ("pnp_hypotheses", "verify_sim3",
                                "match_nn_ratio", "guided_count",
                                "pgo_assemble", "pgo_cost")
-               + INERTIAL_ONLY), counts
+               + INERTIAL_ONLY + FREESPACE_ONLY), counts
     assert system.tracked_mask().sum() >= 0.9 * 96
     assert system.host_readbacks < 96
     assert np.isfinite(system.positions()).all()
@@ -272,3 +277,72 @@ def test_inertial_path_on_card_matches_cpu(device):
     assert runs["cuda"][2] is not None
     assert runs["cuda"][1:3] == runs["cpu"][1:3]
     assert np.abs(runs["cuda"][0] - runs["cpu"][0]).max() < 0.01
+
+
+@pytest.fixture(scope="module")
+def freespace_checks(device):
+    return {r["name"]: r for r in selfcheck.run_freespace(device)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["freespace_carve",
+                                  "freespace_components@snake",
+                                  "sg_assemble"])
+def test_freespace_and_sg_assemble_kernels(freespace_checks, name):
+    # K17a on a rendered 480x640 frame at a non-identity pose and K17b on
+    # the serpentine grid, both exactly equal to their twins; K21 on seeded
+    # operands with live items of all five factor types, H and g within
+    # 1e-4 of the float64 twin's largest entries
+    r = freespace_checks[name]
+    assert r["ok"], r
+
+
+@pytest.mark.gpu
+def test_freespace_slice_on_card_uses_every_kernel(device):
+    # the free-space path at 240x320 on CPU-rendered frames, clustering
+    # every second keyframe: K17a launched once per keyframe, K17b once
+    # per clustering pass, K21 on every scene-graph BA iteration, no twin
+    # on a CUDA tensor; free voxels within 1 % of the CPU twins' run and
+    # the same rooms; K17b on the card's grid exact; a whole scene-graph
+    # BA with a seeded room, corridor and door within 1e-4 of the float64
+    # twin's
+    import dataclasses
+
+    from visual_sgraphs_tpu_torch import main_path
+    from visual_sgraphs_tpu_torch.config import CapacityConfig
+
+    scene, frames = main_path.frames("cpu", 24, 240, 320, "arc")
+    _, sg_cfg = main_path.configs(scene, 300, CapacityConfig(32, 4096))
+    cfg = dataclasses.replace(sg_cfg, scenegraph=dataclasses.replace(
+        sg_cfg.scenegraph, room_method="freespace"))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        cuda.reset_counts()
+        system = main_path.make_system(cfg, dev, True)
+        system.scenegraph.maintenance_interval = 2
+        for frame in frames:
+            main_path.feed(system, frame)
+        runs[dev] = (system, cuda.counts())
+    system, counts = runs["cuda"]
+    mgr = system.scenegraph
+    fused = [e for e in system.events.of_kind("keyframe")
+             if "joint_ba" not in e]
+    n_lba = sum(bool(e["lba"]) for e in fused)
+    assert all(twin == 0 for _, twin in counts.values()), counts
+    assert counts["freespace_carve"][0] == len(fused) >= 2, counts
+    assert counts["freespace_components"][0] == mgr._kf_count // 2 >= 1
+    assert counts["sg_assemble"][0] == cfg.mapping.lba_iters * n_lba > 0
+    n_card = int(mgr._free_grid.sum())
+    n_cpu = int(runs["cpu"][0].scenegraph._free_grid.sum())
+    assert n_cpu > 0 and abs(n_card - n_cpu) <= 0.01 * n_cpu
+    rk, rc = mgr.rooms(), runs["cpu"][0].scenegraph.rooms()
+    assert len(rk["center"]) == len(rc["center"])
+    if len(rc["center"]):
+        assert np.abs(rk["center"] - rc["center"]).max() <= 0.05
+    r = selfcheck.check_freespace_components(device, mgr._free_grid,
+                                             mgr._free_origin)
+    assert r["ok"], r
+    r = selfcheck.check_sg_ba(
+        system.map, selfcheck.seed_rooms_and_doors(mgr.state),
+        system.ref_kf_host, system.cam_K, system.cam_bf, cfg.scenegraph)
+    assert r["ok"], r

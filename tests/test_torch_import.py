@@ -42,7 +42,8 @@ def test_port_imports_without_jax():
     assert len(names) >= 45
     for mod in ("core.plane", "scenegraph.state", "scenegraph.pointcloud",
                 "scenegraph.plane_fit", "scenegraph.epilogue",
-                "scenegraph.manager", "scenegraph.joint_ba", "optim.graph", "optim.factors",
+                "scenegraph.manager", "scenegraph.joint_ba",
+                "scenegraph.freespace", "optim.graph", "optim.factors",
                 "optim.solve", "place", "place.vocab", "place.database",
                 "place.sim3_ransac", "place.pnp", "place.pgo",
                 "place.loop_closer", "slam.cycle_program", "inertial",

@@ -131,6 +131,17 @@ KERNELS = (
      "pose_inertial_gn", "pose_inertial_gn_torch",
      "visual_sgraphs_tpu_torch/csrc/vi_pose.cu",
      "visual_sgraphs_tpu/inertial/pipeline.py:266"),
+    ("freespace_carve", "visual_sgraphs_tpu_torch.scenegraph.freespace",
+     "accumulate_freespace", "accumulate_freespace_torch",
+     "visual_sgraphs_tpu_torch/csrc/freespace.cu",
+     "visual_sgraphs_tpu/scenegraph/freespace.py:41"),
+    ("freespace_components", "visual_sgraphs_tpu_torch.scenegraph.freespace",
+     "freespace_components", "freespace_components_torch",
+     "visual_sgraphs_tpu_torch/csrc/freespace.cu",
+     "visual_sgraphs_tpu/scenegraph/freespace.py:75"),
+    ("sg_assemble", "visual_sgraphs_tpu_torch.optim.fast_ba", "sg_assemble",
+     "sg_assemble_torch", "visual_sgraphs_tpu_torch/csrc/sg_assemble.cu",
+     "visual_sgraphs_tpu/optim/fast_ba.py:46"),
 )
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -163,6 +174,11 @@ _ARGTYPES = {
     "vsg_pnp_hypotheses": [_VP] * 5 + [_I, _I, _F] + [_VP] * 4,
     "vsg_pgo_assemble": [_VP] * 5 + [_I, _I, _I] + [_VP] * 3,
     "vsg_pgo_cost": [_VP] * 5 + [_I] + [_VP] * 2,
+    "vsg_freespace_carve": [_VP, _I, _I, _I] + [_VP] * 4 + [_F, _I, _VP,
+                                                            _VP],
+    "vsg_freespace_components": [_VP, _I, _VP, _F, _I, _I] + [_VP] * 6,
+    "vsg_sg_assemble": [_VP, _I, _VP, _I, _VP, _I, _VP, _I] + [_VP] * 7
+                       + [_I] + [_VP] * 8 + [_F] * 5 + [_VP] * 3,
 }
 
 _lib: ctypes.CDLL | None = None

@@ -100,6 +100,26 @@ def scenegraph_to_numpy(sg: SceneGraphState) -> dict:
     return to_numpy(sg)
 
 
+def freespace_from_numpy(manager, grid, origin) -> None:
+    """Give a ``SceneGraphManager`` a free-space grid ((G, G, G) bool) and
+    origin ((3,) float32) as numpy, e.g. the reference manager's
+    ``_free_grid`` / ``_free_origin`` for a mid-stream start."""
+    dev = manager.device
+    manager._free_grid = torch.from_numpy(
+        np.array(grid, dtype=bool)).to(dev)
+    manager._free_origin = torch.from_numpy(
+        np.array(origin, dtype=np.float32)).to(dev)
+
+
+def freespace_to_numpy(manager) -> tuple:
+    """(grid, origin) of a manager's free-space grid as numpy, or (None,
+    None) before its first keyframe."""
+    if manager._free_grid is None:
+        return None, None
+    return (manager._free_grid.cpu().numpy(),
+            manager._free_origin.cpu().numpy())
+
+
 def frame_from_numpy(d: dict, device=None) -> FrameObs:
     return _load(FrameObs, _FRAME_DTYPES, d, device)
 

@@ -10,7 +10,8 @@ each loop, and the scene graph with plane covisibility and semantic point
 refinement, over the 192-frame two-lap ``orbit2`` sequence rendered with
 semantics (``BENCH_FRAMES``, the first ``BENCH_WARMUP`` of them warm-up).
 ``configs`` and ``loop_config`` are the earlier slices' cuts of it to
-``pipeline_depth=1`` (scene graph off / on, then loops), over 96 frames.
+``pipeline_depth=1`` (scene graph off / on, then loops), over 96 frames;
+``freespace_config`` is the scene-graph cut with free-space rooms.
 ``inertial_config`` is the reference's second benchmarked row
 (``bench.py:184-193``): RGB-D with an IMU (``Sensor.IMU_RGBD``), 1000
 features, 64 keyframes / 16384 points, over the 128-frame ``orbit``
@@ -60,6 +61,15 @@ def configs(scene, n_features: int = 1000,
     # the headline configuration's scene-graph behaviours (bench.py:87-88)
     return cfg, dataclasses.replace(cfg, scenegraph=dataclasses.replace(
         cfg.scenegraph, plane_covis_enabled=True, refine_map_points=True))
+
+
+def freespace_config(scene):
+    """``freespace_slice``'s configuration: the serial scene-graph
+    configuration of ``configs`` with the reference's primary room method,
+    free-space rooms (``room_method="freespace"``)."""
+    _, sg_cfg = configs(scene)
+    return dataclasses.replace(sg_cfg, scenegraph=dataclasses.replace(
+        sg_cfg.scenegraph, room_method="freespace"))
 
 
 def loop_config(cfg):

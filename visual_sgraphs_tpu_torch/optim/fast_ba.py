@@ -8,8 +8,9 @@ covisible keyframes and every valid point they observe; the oldest local
 keyframe (and keyframe 0) is the gauge anchor.  Each Gauss-Newton
 iteration reduces the landmarks with the Schur kernel K8
 (``parallel/dist_ba.py``), adds the scene-graph factor blocks (linearised
-generically, ``optim/graph.py``) as dense rows of the same system, solves
-it by Cholesky and back-substitutes the points.
+and assembled by kernel K21, ``csrc/sg_assemble.cu``; its twin is the
+generic ``optim/graph.py`` linearisation) as dense rows of the same
+system, solves it by Cholesky and back-substitutes the points.
 
 Layout of the reduced tangent vector of the scene-graph variant:
     [ kf (L, 6) | plane (P, 3) | room (R, 3) | door (D, 6) ]
@@ -18,9 +19,11 @@ Layout of the reduced tangent vector of the scene-graph variant:
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
+from visual_sgraphs_tpu_torch import cuda
 from visual_sgraphs_tpu_torch.config import SceneGraphConfig
 from visual_sgraphs_tpu_torch.core import lie
 from visual_sgraphs_tpu_torch.core import plane as plane_mod
@@ -180,29 +183,46 @@ def _assemble_dense(problem: GraphProblem, values: dict):
     return H, g
 
 
-def _scenegraph_batches(sg, ob_local_kf, config: SceneGraphConfig):
-    """The plane-KF, Gij-quadric, room and door factor batches and the
-    fixed masks of the plane / room / door families."""
+# Huber widths (whitened units) of the five scene-graph factor types, in
+# K21's order: plane-KF, Gij quadric, 4-wall room, 2-wall room, door-room
+SG_HUBER = (2.79, 1.96, 1.0, 1.0, 1.0)
+
+
+class SgFactors(NamedTuple):
+    """The constant operands of one scene-graph BA call's five factor
+    batches (the reference's ``_scenegraph_batches``), built once before
+    the iterations: variable rows, per-item constants, information and
+    validity (False for every item of a type that the configuration turns
+    off).  Index rows are clamped to >= 0; an item that points at a -1
+    slot is invalid and carries weight 0."""
+
+    ob_idx: torch.Tensor  # (Q, 2) int32 [local keyframe, plane]
+    ob_coeffs: torch.Tensor  # (Q, 4) observed plane, camera frame
+    ob_info: torch.Tensor  # (Q,) plane-KF information
+    ob_valid: torch.Tensor  # (Q,) bool, plane-KF items
+    ob_quadric: torch.Tensor  # (Q, 4, 4) point quadric, camera frame
+    quad_info: torch.Tensor  # (Q,)
+    quad_valid: torch.Tensor  # (Q,) bool, Gij-quadric items
+    room_idx: torch.Tensor  # (R, 5) int32 [room, wall 0-3]
+    room_info: torch.Tensor  # (R,)
+    room4_valid: torch.Tensor  # (R,) bool, 4-wall rooms
+    room2_valid: torch.Tensor  # (R,) bool, 2-wall rooms (corridors)
+    door_idx: torch.Tensor  # (Dn, 2) int32 [door, room]
+    door_rel: torch.Tensor  # (Dn, 3) door-room offset
+    door_info: torch.Tensor  # (Dn,)
+    door_valid: torch.Tensor  # (Dn,) bool
+
+
+def _scenegraph_factors(sg, ob_local_kf, config: SceneGraphConfig):
+    """The factor operands (``SgFactors``) and the fixed masks of the
+    plane / room / door families."""
     P = sg.P
     dev = sg.pl_coeffs.device
     ob_use = sg.ob_valid & (sg.ob_plane >= 0) & (ob_local_kf >= 0)
-    plane_var_idx = torch.stack([torch.clamp(ob_local_kf, min=0),
-                                 torch.clamp(sg.ob_plane, min=0)],
-                                dim=1).to(torch.int32)
-    batches = []
-    if config.plane_kf_factor:
-        batches.append(FactorBatch(
-            ("kf", "plane"), factors_mod.plane_kf, 3, plane_var_idx,
-            {"pi_obs": sg.ob_coeffs}, torch.clamp(sg.ob_conf, min=0.1),
-            ob_use, huber=2.79))
-    if config.plane_point_factor:
-        trace = torch.diagonal(sg.ob_quadric, dim1=-2, dim2=-1).sum(-1)
-        batches.append(FactorBatch(
-            ("kf", "plane"), factors_mod.plane_quadric, 1, plane_var_idx,
-            {"G": sg.ob_quadric},
-            torch.full(sg.ob_kf.shape, config.plane_point_info,
-                       dtype=torch.float32, device=dev),
-            ob_use & (trace > 1e-6), huber=1.96))
+    ob_idx = torch.stack([torch.clamp(ob_local_kf, min=0),
+                          torch.clamp(sg.ob_plane, min=0)],
+                         dim=1).to(torch.int32)
+    trace = torch.diagonal(sg.ob_quadric, dim1=-2, dim2=-1).sum(-1)
     # a plane is free when its LAST observation is in the window (the
     # reference's scatter keeps the last write per plane)
     plane_seen = index_set_last(
@@ -216,48 +236,131 @@ def _scenegraph_batches(sg, ob_local_kf, config: SceneGraphConfig):
     is4 = sg.room_valid & torch.all(walls_ok, dim=1)
     is2 = sg.room_valid & walls_ok[:, 0] & walls_ok[:, 1] & ~is4
     room_idx = torch.arange(R, dtype=torch.int32, device=dev)
-    if config.room_factor:
-        info = torch.full((R,), config.room_info, dtype=torch.float32,
-                          device=dev)
-        batches.append(FactorBatch(
-            ("room", "plane", "plane", "plane", "plane"),
-            factors_mod.room_4wall, 3,
-            torch.cat([room_idx[:, None], rw], dim=1), {}, info, is4,
-            huber=1.0))
-        batches.append(FactorBatch(
-            ("room", "plane", "plane"), factors_mod.room_2wall, 3,
-            torch.cat([room_idx[:, None], rw[:, :2]], dim=1), {}, info, is2,
-            huber=1.0))
     room_fixed = ~(sg.room_valid & (is2 | is4))
 
     Dn = sg.door_valid.shape[0]
     door_fixed = ~sg.door_valid
-    if config.door_factor:
-        ddist = torch.linalg.norm(
-            sg.door_pose[:, None, 4:7] - sg.room_center[None, :, :], dim=-1)
-        ddist = torch.where(sg.room_valid[None, :], ddist, torch.inf)
-        door_room_idx = torch.argmin(ddist, dim=1).to(torch.int32)
-        has_room = torch.isfinite(torch.amin(ddist, dim=1))
-        rel = sg.door_pose[:, 4:7] - sg.room_center[door_room_idx.long()]
-        batches.append(FactorBatch(
-            ("door", "room"), factors_mod.door_room, 3,
-            torch.stack([torch.arange(Dn, dtype=torch.int32, device=dev),
-                         door_room_idx], dim=1),
-            {"rel": rel}, torch.ones((Dn,), dtype=torch.float32, device=dev),
-            sg.door_valid & has_room, huber=1.0))
-    return batches, plane_fixed, room_fixed, door_fixed
+    ddist = torch.linalg.norm(
+        sg.door_pose[:, None, 4:7] - sg.room_center[None, :, :], dim=-1)
+    ddist = torch.where(sg.room_valid[None, :], ddist, torch.inf)
+    door_room_idx = torch.argmin(ddist, dim=1).to(torch.int32)
+    has_room = torch.isfinite(torch.amin(ddist, dim=1))
+    fac = SgFactors(
+        ob_idx=ob_idx, ob_coeffs=sg.ob_coeffs,
+        ob_info=torch.clamp(sg.ob_conf, min=0.1),
+        ob_valid=ob_use & config.plane_kf_factor,
+        ob_quadric=sg.ob_quadric,
+        quad_info=torch.full(sg.ob_kf.shape, config.plane_point_info,
+                             dtype=torch.float32, device=dev),
+        quad_valid=ob_use & (trace > 1e-6) & config.plane_point_factor,
+        room_idx=torch.cat([room_idx[:, None], rw], dim=1).to(torch.int32),
+        room_info=torch.full((R,), config.room_info, dtype=torch.float32,
+                             device=dev),
+        room4_valid=is4 & config.room_factor,
+        room2_valid=is2 & config.room_factor,
+        door_idx=torch.stack([torch.arange(Dn, dtype=torch.int32,
+                                           device=dev), door_room_idx],
+                             dim=1),
+        door_rel=sg.door_pose[:, 4:7]
+        - sg.room_center[door_room_idx.long()],
+        door_info=torch.ones((Dn,), dtype=torch.float32, device=dev),
+        door_valid=sg.door_valid & has_room & config.door_factor)
+    return fac, plane_fixed, room_fixed, door_fixed
+
+
+def sg_factor_batches(fac: SgFactors) -> list:
+    """The five ``FactorBatch``es of ``fac`` for the generic
+    linearisation (K21's twin)."""
+    h = SG_HUBER
+    return [
+        FactorBatch(("kf", "plane"), factors_mod.plane_kf, 3, fac.ob_idx,
+                    {"pi_obs": fac.ob_coeffs}, fac.ob_info, fac.ob_valid,
+                    huber=h[0]),
+        FactorBatch(("kf", "plane"), factors_mod.plane_quadric, 1,
+                    fac.ob_idx, {"G": fac.ob_quadric}, fac.quad_info,
+                    fac.quad_valid, huber=h[1]),
+        FactorBatch(("room", "plane", "plane", "plane", "plane"),
+                    factors_mod.room_4wall, 3, fac.room_idx, {},
+                    fac.room_info, fac.room4_valid, huber=h[2]),
+        FactorBatch(("room", "plane", "plane"), factors_mod.room_2wall, 3,
+                    fac.room_idx[:, :3], {}, fac.room_info, fac.room2_valid,
+                    huber=h[3]),
+        FactorBatch(("door", "room"), factors_mod.door_room, 3, fac.door_idx,
+                    {"rel": fac.door_rel}, fac.door_info, fac.door_valid,
+                    huber=h[4]),
+    ]
+
+
+def sg_assemble_torch(poses, planes, rooms, doors, fac: SgFactors):
+    """Plain twin of K21: the five factor types linearised generically
+    (``graph.linearize_batch``, forward-mode AD through each family's
+    retraction) and scattered densely (``_assemble_dense``).  Returns
+    (H (D, D), g (D,)) over [kf (L, 6) | plane (P, 3) | room (R, 3) |
+    door (Dn, 6)], in the dtype of the values."""
+    if poses.is_cuda:
+        sg_assemble_torch.cuda_calls += 1
+    problem = GraphProblem(
+        families={"kf": se3_family(poses), "plane": plane_family(planes),
+                  "room": point_family(rooms), "door": se3_family(doors)},
+        factors=sg_factor_batches(fac))
+    return _assemble_dense(problem, {"kf": poses, "plane": planes,
+                                     "room": rooms, "door": doors})
+
+
+sg_assemble_torch.cuda_calls = 0
+
+
+def sg_assemble(poses, planes, rooms, doors, fac: SgFactors):
+    """The scene-graph factors' dense normal equations H, g (kernel K21
+    on CUDA tensors, the twin on CPU); as ``sg_assemble_torch``."""
+    if poses.device.type == "cpu":
+        return sg_assemble_torch(poses, planes, rooms, doors, fac)
+    values = (poses, planes, rooms, doors)
+    cuda.require_cuda("sg_assemble", *values, *fac)
+    floats = values + (fac.ob_coeffs, fac.ob_info, fac.ob_quadric,
+                       fac.quad_info, fac.room_info, fac.door_rel,
+                       fac.door_info)
+    masks = (fac.ob_valid, fac.quad_valid, fac.room4_valid,
+             fac.room2_valid, fac.door_valid)
+    if (any(t.dtype != torch.float32 for t in floats)
+            or any(t.dtype != torch.bool for t in masks)
+            or any(t.dtype != torch.int32
+                   for t in (fac.ob_idx, fac.room_idx, fac.door_idx))):
+        raise ValueError("sg_assemble: float32 values, bool masks, int32 "
+                         "indices")
+    L, P, R, Dn = (poses.shape[0], planes.shape[0], rooms.shape[0],
+                   doors.shape[0])
+    D = 6 * L + 3 * P + 3 * R + 6 * Dn
+    H = torch.zeros((D, D), dtype=torch.float32, device=poses.device)
+    g = torch.zeros((D,), dtype=torch.float32, device=poses.device)
+    ptr = cuda.ptr
+    cuda.call("vsg_sg_assemble", ptr(poses), L, ptr(planes), P, ptr(rooms),
+              R, ptr(doors), Dn, ptr(fac.ob_idx), ptr(fac.ob_coeffs),
+              ptr(fac.ob_info), ptr(fac.ob_valid), ptr(fac.ob_quadric),
+              ptr(fac.quad_info), ptr(fac.quad_valid), fac.ob_idx.shape[0],
+              ptr(fac.room_idx), ptr(fac.room_info), ptr(fac.room4_valid),
+              ptr(fac.room2_valid), ptr(fac.door_idx), ptr(fac.door_rel),
+              ptr(fac.door_info), ptr(fac.door_valid), *SG_HUBER, ptr(H),
+              ptr(g), cuda.stream())
+    sg_assemble.launches += 1
+    return H, g
+
+
+sg_assemble.launches = 0
 
 
 def fast_scenegraph_ba(m: MapState, sg, kf_id: int, cam_K: torch.Tensor,
                        cam_bf: torch.Tensor, n_window: int = 10,
                        n_local_pts: int = 8192, max_obs: int = 12,
                        iters: int = 8, lam: float = 1e-4,
-                       config: SceneGraphConfig | None = None):
+                       config: SceneGraphConfig | None = None,
+                       assemble=sg_assemble):
     """Analytic LBA with the scene-graph families in the same reduced
     solve: landmarks reduce per landmark (K8); plane-KF, Gij-quadric, room
-    and door factors are linearised generically and added as dense rows,
-    so planes still pull keyframe poses.  Returns (map, scenegraph, final
-    cost)."""
+    and door factors are linearised and assembled densely (K21,
+    ``assemble``: ``sg_assemble_torch`` forces the twin) and added to the
+    same system, so planes still pull keyframe poses.  Returns (map,
+    scenegraph, final cost)."""
     config = config or SceneGraphConfig()
     dev = m.kf_pose.device
     counts = covisibility_counts(m, kf_id).to(torch.float32)
@@ -280,7 +383,7 @@ def fast_scenegraph_ba(m: MapState, sg, kf_id: int, cam_K: torch.Tensor,
         torch.where(kf_mask, torch.arange(L, dtype=torch.int32, device=dev),
                     -1))
     ob_local_kf = kf_inv[torch.clamp(sg.ob_kf, 0, m.K - 1).long()]
-    batches, plane_fixed, room_fixed, door_fixed = _scenegraph_batches(
+    fac, plane_fixed, room_fixed, door_fixed = _scenegraph_factors(
         sg, ob_local_kf, config)
     P, R, Dn = sg.P, sg.room_valid.shape[0], sg.door_valid.shape[0]
     kf_dim = 6 * L
@@ -295,14 +398,8 @@ def fast_scenegraph_ba(m: MapState, sg, kf_id: int, cam_K: torch.Tensor,
     for _ in range(iters):
         S_kf, rhs_kf, Hinv, bx, W, cost = local_reduced_system(
             poses, pts, kf_tab, uvr_tab, val_tab, cam_K, bf, lam, 2.45)
-        problem = GraphProblem(
-            families={"kf": se3_family(poses, kf_fixed),
-                      "plane": plane_family(planes, plane_fixed),
-                      "room": point_family(rooms, room_fixed),
-                      "door": se3_family(doors, door_fixed)},
-            factors=batches)
-        S, g = _assemble_dense(problem, {"kf": poses, "plane": planes,
-                                         "room": rooms, "door": doors})
+        S, g = assemble(poses.contiguous(), planes.contiguous(),
+                        rooms.contiguous(), doors.contiguous(), fac)
         S[:kf_dim, :kf_dim] += S_kf
         rhs = -g
         rhs[:kf_dim] += rhs_kf

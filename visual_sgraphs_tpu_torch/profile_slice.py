@@ -3,6 +3,7 @@
     python -m visual_sgraphs_tpu_torch.profile_slice [--scenegraph]
     python -m visual_sgraphs_tpu_torch.profile_slice --bench
     python -m visual_sgraphs_tpu_torch.profile_slice --inertial
+    python -m visual_sgraphs_tpu_torch.profile_slice --freespace
     python -m visual_sgraphs_tpu_torch.profile_slice --loop-runs N
     python -m visual_sgraphs_tpu_torch.profile_slice --small-vs-cpu
 
@@ -17,7 +18,10 @@ pipeline (``main_path.bench_config``, 192 frames, ``chip_smoke.py``'s
 ``bench_slice``) and the window frames 96-127.  With ``--inertial`` it is
 the inertial row (``main_path.inertial_config``, 128 ``orbit`` frames with
 their IMU samples, ``chip_smoke.py``'s ``inertial_slice``) and the window
-frames 64-95, after the IMU initialised.  With ``--scenegraph`` it also
+frames 64-95, after the IMU initialised.  With ``--freespace`` it is
+``chip_smoke.py``'s ``freespace_slice`` (the scene graph with free-space
+rooms, ``main_path.freespace_config``) over frames 32-63, which hold
+clustering passes.  With ``--scenegraph`` it also
 times one plane-KF factor linearisation (1024 items) with
 ``torch.func.jacfwd`` and, for comparison, ``jacrev``.  With ``--loop-runs N`` it instead runs the loop
 path (``chip_smoke.py``'s ``loop_slice``: scene graph and loop closing on)
@@ -54,7 +58,8 @@ def _line(tag: str, **kw) -> None:
     print(f"[{tag}] " + json.dumps(kw, default=str), flush=True)
 
 
-def _slice(with_sg: bool, bench: bool = False, inertial: bool = False):
+def _slice(with_sg: bool, bench: bool = False, inertial: bool = False,
+           freespace: bool = False):
     from visual_sgraphs_tpu_torch import main_path
     if inertial:
         scene, frames = main_path.inertial_frames("cuda")
@@ -65,6 +70,9 @@ def _slice(with_sg: bool, bench: bool = False, inertial: bool = False):
         return main_path.make_system(main_path.bench_config(scene), "cuda",
                                      True), frames
     scene, frames = main_path.frames("cuda")
+    if freespace:
+        return main_path.make_system(main_path.freespace_config(scene),
+                                     "cuda", True), frames
     cfg, sg_cfg = main_path.configs(scene)
     return main_path.make_system(sg_cfg if with_sg else cfg, "cuda",
                                  with_sg), frames
@@ -77,8 +85,8 @@ def _feed(system, frames) -> None:
         feed(system, frame)
 
 
-def profile(with_sg: bool, bench: bool = False,
-            inertial: bool = False) -> None:
+def profile(with_sg: bool, bench: bool = False, inertial: bool = False,
+            freespace: bool = False) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
@@ -86,7 +94,7 @@ def profile(with_sg: bool, bench: bool = False,
               else WINDOW)
     n = hi - lo
     # device view
-    system, frames = _slice(with_sg, bench, inertial)
+    system, frames = _slice(with_sg, bench, inertial, freespace)
     _feed(system, frames[:lo])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -105,7 +113,7 @@ def profile(with_sg: bool, bench: bool = False,
           device_ops_per_frame=sum(e.count for e in events) / n,
           top={e.key[:60]: [e.device_time_total, e.count] for e in top})
     # host view, without the profiler
-    system, frames = _slice(with_sg, bench, inertial)
+    system, frames = _slice(with_sg, bench, inertial, freespace)
     _feed(system, frames[:lo])
     torch.cuda.synchronize()
     system.timers.reset()
@@ -123,7 +131,7 @@ def profile(with_sg: bool, bench: bool = False,
     _line("host", frames=f"{lo}-{hi - 1}", wall_s=wall, fps=n / wall,
           cumulative_s=dict(sorted(port.items(), key=lambda kv: -kv[1])[:15]),
           stages=system.timers.summary())
-    if with_sg and not bench:
+    if with_sg and not (bench or freespace):
         _line("linearize", **linearization_ms())
 
 
@@ -299,6 +307,8 @@ def main() -> None:
                     "pipeline, loops and scene graph on)")
     ap.add_argument("--inertial", action="store_true",
                     help="profile the inertial row (Sensor.IMU_RGBD)")
+    ap.add_argument("--freespace", action="store_true",
+                    help="profile the scene graph with free-space rooms")
     ap.add_argument("--loop-runs", type=int, default=0,
                     help="run the loop path this many times instead")
     ap.add_argument("--small-vs-cpu", action="store_true",
@@ -313,7 +323,7 @@ def main() -> None:
     elif args.loop_runs:
         loop_spread(args.loop_runs)
     else:
-        profile(args.scenegraph, args.bench, args.inertial)
+        profile(args.scenegraph, args.bench, args.inertial, args.freespace)
 
 
 if __name__ == "__main__":

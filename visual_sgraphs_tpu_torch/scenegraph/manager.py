@@ -11,12 +11,13 @@ Port of ``visual_sgraphs_tpu/scenegraph/manager.py`` (GeometricSegmentation
 - ``filter_semantic_planes`` / ``reassociate_planes``: the periodic
   maintenance; ``detect_rooms``: corridor / room candidates from facing
   walls; ``refine_points_semantic``: culls map points behind settled
-  planes; ``plane_covis_bonus``: plane-based covisibility weights.
+  planes; ``plane_covis_bonus``: plane-based covisibility weights;
+``SceneGraphManager.update_freespace`` / ``infer_rooms_freespace``: the
+free-space room method (``room_method="freespace"``, ``freespace.py``).
 
 Every function is sync-free on the device: scalar selections use one-
 element index tensors (indexing with a 0-d CUDA tensor reads it back to
-the host).  Not ported: ``observe_markers`` (no caller in the reference)
-and the free-space room methods (``room_method="freespace"``).
+the host).  Not ported: ``observe_markers`` (no caller in the reference).
 """
 
 from __future__ import annotations
@@ -200,6 +201,44 @@ def associate_and_update(sg: SceneGraphState, det_coeffs, det_valid,
 # ---------------------------------------------------------------------------
 
 
+def upsert_room(sg: SceneGraphState, found, center, walls, corridor_found,
+                is_ground, max_gap: float) -> SceneGraphState:
+    """Write a room / corridor candidate (``found``; its ``center``, 4
+    ``walls`` with -1 for a corridor's missing pair) into the room table:
+    the biggest ground plane within ``max_gap`` of its centre is its
+    ground, and it updates the existing room it shares two walls with or
+    lies within 1.5 m of (roomAssociation), else takes the next free slot.
+    """
+    R = sg.room_valid.shape[0]
+    g_lat = torch.linalg.norm(sg.pl_centroid - center[None, :], dim=-1)
+    g_ok = is_ground & (g_lat < max_gap)
+    g_best = torch.argmax(torch.where(g_ok, sg.pl_npts, -1.0))
+    ground_id = torch.where(found & torch.any(g_ok),
+                            g_best.to(torch.int32), -1)
+    shared = torch.sum((sg.room_walls[:, :, None] == walls[None, None, :])
+                       & (sg.room_walls[:, :, None] >= 0), dim=(1, 2))
+    cdist = torch.linalg.norm(sg.room_center - center[None, :], dim=-1)
+    cand = sg.room_valid & ((cdist < 1.5) | (shared >= 2))
+    match = torch.argmin(torch.where(cand, cdist, torch.inf))
+    matched = found & _take(cand, match)
+    slot = torch.where(matched, match,
+                       torch.clamp(sg.n_rooms, max=R - 1).long())
+    can = found & (matched | (sg.n_rooms < R))
+    return sg._replace(
+        room_center=_put(sg.room_center, slot, torch.where(
+            can, center, _take(sg.room_center, slot))),
+        room_walls=_put(sg.room_walls, slot, torch.where(
+            can, walls, _take(sg.room_walls, slot))),
+        room_is_corridor=_put(sg.room_is_corridor, slot, torch.where(
+            can, corridor_found, _take(sg.room_is_corridor, slot))),
+        room_ground=_put(sg.room_ground, slot, torch.where(
+            can, ground_id, _take(sg.room_ground, slot))),
+        room_valid=_put(sg.room_valid, slot,
+                        can | _take(sg.room_valid, slot)),
+        n_rooms=sg.n_rooms + (can & ~matched).to(torch.int32),
+    )
+
+
 def detect_rooms(sg: SceneGraphState, min_votes: float = 3.0,
                  min_gap: float = 0.8, max_gap: float = 12.0,
                  perp_tol: float = 0.2,
@@ -218,7 +257,6 @@ def detect_rooms(sg: SceneGraphState, min_votes: float = 3.0,
     pi = ar.repeat_interleave(P)
     pj = ar.repeat(P)
     wall_free = sg.pl_valid & (sem == WALL)
-    R = sg.room_valid.shape[0]
     for _ in range(max_candidates):
         is_wall = wall_free
         dot = n @ n.T
@@ -257,37 +295,8 @@ def detect_rooms(sg: SceneGraphState, min_votes: float = 3.0,
         center = torch.where(room_found, room_center, c1)
         walls = torch.where(room_found, room_walls, corr_walls)
 
-        # ground association: the biggest ground plane near the center
-        g_lat = torch.linalg.norm(sg.pl_centroid - center[None, :], dim=-1)
-        g_ok = is_ground & (g_lat < max_gap)
-        g_best = torch.argmax(torch.where(g_ok, sg.pl_npts, -1.0))
-        ground_id = torch.where(found & torch.any(g_ok),
-                                g_best.to(torch.int32), -1)
-
-        # associate with an existing room by shared walls or center
-        # distance (roomAssociation), else create
-        shared = torch.sum((sg.room_walls[:, :, None] == walls[None, None, :])
-                           & (sg.room_walls[:, :, None] >= 0), dim=(1, 2))
-        cdist = torch.linalg.norm(sg.room_center - center[None, :], dim=-1)
-        cand = sg.room_valid & ((cdist < 1.5) | (shared >= 2))
-        match = torch.argmin(torch.where(cand, cdist, torch.inf))
-        matched = found & _take(cand, match)
-        slot = torch.where(matched, match,
-                           torch.clamp(sg.n_rooms, max=R - 1).long())
-        can = found & (matched | (sg.n_rooms < R))
-        sg = sg._replace(
-            room_center=_put(sg.room_center, slot, torch.where(
-                can, center, _take(sg.room_center, slot))),
-            room_walls=_put(sg.room_walls, slot, torch.where(
-                can, walls, _take(sg.room_walls, slot))),
-            room_is_corridor=_put(sg.room_is_corridor, slot, torch.where(
-                can, corridor_found, _take(sg.room_is_corridor, slot))),
-            room_ground=_put(sg.room_ground, slot, torch.where(
-                can, ground_id, _take(sg.room_ground, slot))),
-            room_valid=_put(sg.room_valid, slot,
-                            can | _take(sg.room_valid, slot)),
-            n_rooms=sg.n_rooms + (can & ~matched).to(torch.int32),
-        )
+        sg = upsert_room(sg, found, center, walls, corridor_found,
+                         is_ground, max_gap)
         # consume this candidate's walls for the next round
         # duplicate rows (a corridor's -1 walls clip to row 0): the last
         # write wins, as in the reference's scatter
@@ -460,6 +469,42 @@ class SceneGraphManager:
         self.n_obs_host = 0
         self._kf_count = 0
         self.maintenance_interval = 4  # keyframes between maintenance runs
+        # room_method="freespace": the observed-free voxel grid, the
+        # voxblox skeleton's stand-in (transient, not checkpointed)
+        self._free_grid: torch.Tensor | None = None
+        self._free_origin: torch.Tensor | None = None
+
+    def update_freespace(self, depth_img, T_cw, cam_K) -> None:
+        """Carve this keyframe's observed free space into the grid (K17a;
+        reference ``manager.py:661``).  The first call makes the (G, G, G)
+        grid, centred on that camera (origin C - G voxel / 2, computed on
+        the device); later calls update it in place."""
+        from visual_sgraphs_tpu_torch.scenegraph import freespace as fs
+
+        G, vox = self.cfg.freespace_grid, self.cfg.freespace_voxel
+        T_cw = torch.as_tensor(T_cw, device=self.device)
+        if self._free_grid is None:
+            self._free_grid = torch.zeros((G, G, G), dtype=torch.bool,
+                                          device=self.device)
+            self._free_origin = lie.se3_inverse(T_cw)[4:7] - 0.5 * G * vox
+        fs.accumulate_freespace(
+            self._free_grid, self._free_origin, vox,
+            torch.as_tensor(depth_img, device=self.device), T_cw,
+            torch.as_tensor(cam_K, device=self.device))
+
+    def infer_rooms_freespace(self) -> None:
+        """Cluster the grid (K17b) and upsert the room candidates its
+        clusters seed (detectMapRoomCandidateVoxblox; reference
+        ``manager.py:685``)."""
+        from visual_sgraphs_tpu_torch.scenegraph import freespace as fs
+
+        if self._free_grid is None:
+            return
+        centers, valid = fs.freespace_cluster_centers(
+            self._free_grid, self._free_origin, self.cfg.freespace_voxel)
+        self.state = fs.detect_rooms_freespace(
+            self.state, centers, valid, min_votes=self.cfg.plane_min_votes,
+            wall_dist=self.cfg.room_wall_dist_thresh)
 
     def draw_hypotheses(self, n_det: int = 4, n_hyp: int = 192,
                         n_cloud: int = 2048) -> torch.Tensor:

@@ -9,7 +9,8 @@ rows; the 480x640 depth / class images of two keyframes, their
 2048-point clouds, 4 x 192 RANSAC samples and 4 detections; an 8192-landmark,
 12-observation, 11-keyframe local BA; the inertial row's 64-row IMU
 sample windows and a rendered 480x640 frame's 1000 keypoints against a
-16384-point map), runs the hand kernel and its plain
+16384-point map; a rendered 480x640 frame's depth and a 32^3 free-space
+grid; the scene-graph BA's five factor types at D = 402), runs the hand kernel and its plain
 PyTorch twin on the same device, compares them at the stated tolerance
 and times both with CUDA events.  Each result also carries the bytes the
 function must move (each input read once, each output written once) and
@@ -1301,6 +1302,320 @@ def check_pose_gn_prior(device) -> dict:
                 bytes=nbytes(T0, xw, uv, valid, K, depth, T_prior)
                 + 7 * 4 + xw.shape[0],
                 ops=(135 * xw.shape[0] + 300) * kw["iters"], library_ms=None)
+
+
+# ---------------------------------------------------------------------------
+# free-space rooms (K17a, K17b) and the scene-graph BA's assembly (K21)
+# ---------------------------------------------------------------------------
+
+FREESPACE_FRAME = 30  # a rendered orbit2 frame away from the start pose
+SG_BA_TOL = 1e-4  # per component: a whole scene-graph BA, kernel vs twin
+
+
+def freespace_inputs(device, frame: int = FREESPACE_FRAME, h: int = 480,
+                     w: int = 640, G: int = 32, voxel: float = 0.35):
+    """A rendered ``orbit2`` frame's depth, its T_cw (not the identity),
+    cam_K, and the origin of a (G, G, G) grid centred on frame 0's camera,
+    as the manager places it."""
+    scene = SyntheticScene(h=h, w=w, device=device)
+    traj = scene.trajectory(96, "orbit2")
+    _, depth, _ = scene.render(traj[frame])
+    T_cw = lie.se3_inverse(torch.from_numpy(traj[frame]).to(device))
+    C0 = torch.from_numpy(traj[0][4:7]).to(device)
+    return depth, T_cw, scene.cam_K, C0 - 0.5 * G * voxel
+
+
+def snake_grid(G: int = 32) -> np.ndarray:
+    """(G, G, G) bool: one 6-connected serpentine path (rows along x at
+    every other y, joined at alternating ends, in the plane z = G / 2),
+    ~500 voxel steps long.  48 synchronous sweeps cannot carry a label
+    along it, so its labels, sizes and centres differ from those of an
+    in-place (Gauss-Seidel) sweep."""
+    g = np.zeros((G, G, G), bool)
+    z = G // 2
+    for k, y in enumerate(range(0, G - 1, 2)):
+        g[1:G - 1, y, z] = True
+        if y + 2 < G - 1:
+            g[G - 2 if k % 2 == 0 else 1, y + 1, z] = True
+    return g
+
+
+def check_freespace_carve(device, frame: int = FREESPACE_FRAME,
+                          G: int = 32, voxel: float = 0.35) -> dict:
+    """K17a on a rendered 480x640 frame with a non-identity pose: the grid
+    exactly equal to the twin's, from an empty grid and carved again into
+    a grid the twin carved from another frame."""
+    depth, T_cw, cam_K, origin = freespace_inputs(device, frame, G=G,
+                                                  voxel=voxel)
+    from visual_sgraphs_tpu_torch.scenegraph import freespace as fs
+
+    def carve(fn, grid):
+        return fn(grid, origin, voxel, depth, T_cw, cam_K)
+
+    empty = torch.zeros((G, G, G), dtype=torch.bool, device=device)
+    k = carve(fs.accumulate_freespace, empty.clone())
+    t = carve(fs.accumulate_freespace_torch, empty.clone())
+    d0, T0, _, _ = freespace_inputs(device, 0, G=G, voxel=voxel)
+    prior = fs.accumulate_freespace_torch(empty.clone(), origin, voxel, d0,
+                                          T0, cam_K)
+    k2 = carve(fs.accumulate_freespace, prior.clone())
+    t2 = carve(fs.accumulate_freespace_torch, prior.clone())
+    torch.cuda.synchronize()
+    n_diff = int((k != t).sum()) + int((k2 != t2).sum())
+    hs, ws = -(-depth.shape[0] // 8), -(-depth.shape[1] // 8)
+    grid = empty.clone()
+    return dict(name="freespace_carve", max_abs_err=float(n_diff),
+                ok=n_diff == 0 and int(t.sum()) > 0, n_free=int(t.sum()),
+                n_free_two_frames=int(t2.sum()), voxels_differ=n_diff,
+                ms=time_cuda(lambda: carve(fs.accumulate_freespace, grid)),
+                plain_ms=time_cuda(lambda: carve(
+                    fs.accumulate_freespace_torch, grid)),
+                # the hs x ws strided depth samples read, the grid written;
+                # per sample and fraction ~20 flops
+                bytes=4 * hs * ws + G ** 3 + nbytes(T_cw, cam_K, origin),
+                ops=5 * hs * ws * 20, library_ms=None)
+
+
+def check_freespace_components(device, grid, origin, voxel: float = 0.35,
+                               name: str = "freespace_components") -> dict:
+    """K17b on ``grid``: labels, sizes, top labels, validity and centres
+    exactly equal to the twin's."""
+    from visual_sgraphs_tpu_torch.scenegraph import freespace as fs
+    grid = torch.as_tensor(grid).to(device)
+    k = fs.freespace_components(grid, origin, voxel)
+    t = fs.freespace_components_torch(grid, origin, voxel)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, b)) for a, b in zip(k, t)]
+    err = float((k[0] - t[0]).abs().max())
+    G = grid.shape[0]
+    return dict(name=name, max_abs_err=err, ok=all(same),
+                exact=dict(zip(("centers", "valid", "top_sizes",
+                                "top_labels", "labels"), same)),
+                n_free=int(grid.sum()), top_sizes=t[2].tolist(),
+                valid=t[1].tolist(),
+                ms=time_cuda(lambda: fs.freespace_components(
+                    grid, origin, voxel, with_labels=False)),
+                plain_ms=time_cuda(lambda: fs.freespace_components_torch(
+                    grid, origin, voxel), reps=5),
+                # the grid read, 4 centres / flags out; 48 sweeps of 7
+                # compares a voxel, the histogram and 4 top-k passes
+                bytes=G ** 3 + nbytes(origin) + 4 * (12 + 1 + 8),
+                ops=G ** 3 * (48 * 7 + 2 + 4 * 2 + 4 * 5), library_ms=None)
+
+
+def sg_assemble_inputs(seed: int = 0, L: int = 11, P: int = 64, R: int = 16,
+                       Dn: int = 16, Q: int = 1024) -> dict:
+    """Seeded numpy operands of K21 at the main path's shapes (D = 6L + 3P
+    + 3R + 6Dn = 402) with live items of every factor type: plane
+    observations near their planes (some invalid, some pointing at a -1
+    plane), point quadrics of noisy plane samples, 4-wall rooms (one with
+    two wall slots on one plane), 2-wall corridors (one on a single
+    plane), invalid rooms with -1 walls, and doors (some invalid)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def poses(n):
+        xi = np.concatenate([rng.normal(size=(n, 3)),
+                             rng.normal(size=(n, 3)) * 0.3], axis=1)
+        return lie.se3_exp(torch.tensor(xi, dtype=torch.float32)).numpy()
+
+    T = poses(L)
+    n = rng.normal(size=(P, 3))
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    planes = np.concatenate([n, rng.uniform(-4, 4, size=(P, 1))], 1)
+    planes = planes.astype(f32)
+    kf = rng.integers(0, L, Q)
+    pl = rng.integers(0, P, Q)
+    local = plane_mod.transform(torch.from_numpy(T[kf]),
+                                torch.from_numpy(planes[pl])).numpy()
+    obs = plane_mod.normalize(torch.from_numpy(
+        (local + rng.normal(size=(Q, 4)) * 0.01).astype(f32))).numpy()
+    ob_valid = rng.uniform(size=Q) > 0.1
+    ob_plane = np.where(rng.uniform(size=Q) < 0.03, -1, pl)
+    ob_valid &= ob_plane >= 0
+    # quadrics of 20 points scattered about each observed local plane
+    pts = rng.normal(size=(Q, 20, 3)) * 2.0
+    nl, cl = local[:, None, :3], local[:, None, 3:]
+    pts = pts - (np.sum(pts * nl, -1, keepdims=True) + cl) * nl
+    pts += rng.normal(size=pts.shape) * 0.02
+    hom = np.concatenate([pts, np.ones((Q, 20, 1))], -1)
+    quad = np.einsum("qni,qnj->qij", hom, hom) / 20.0
+    walls = np.full((R, 4), -1)
+    room4, room2 = np.zeros(R, bool), np.zeros(R, bool)
+    for r in range(R):
+        w = rng.choice(P, 4, replace=False)
+        if r < R // 2:
+            walls[r], room4[r] = w, True
+            if r == 0:
+                walls[r, 1] = walls[r, 0]  # two wall slots on one plane
+        elif r < R - max(1, R // 8):
+            walls[r, :2], room2[r] = w[:2], True
+            if r == R // 2:
+                walls[r, 1] = walls[r, 0]
+        else:
+            walls[r, :2] = w[:2]  # invalid rooms: weight 0
+    rooms = rng.normal(size=(R, 3)) * 2.0
+    doors = poses(Dn)
+    door_room = rng.integers(0, R, Dn)
+    door_rel = doors[:, 4:7] - rooms[door_room] + rng.normal(
+        size=(Dn, 3)) * 0.05
+    return dict(
+        poses=T, planes=planes, rooms=rooms.astype(f32), doors=doors,
+        ob_idx=np.stack([kf, np.maximum(ob_plane, 0)], 1).astype(np.int32),
+        ob_coeffs=obs.astype(f32),
+        ob_info=np.maximum(rng.uniform(0.02, 1.0, Q), 0.1).astype(f32),
+        ob_valid=ob_valid, ob_quadric=quad.astype(f32),
+        quad_info=np.full(Q, 5.0, f32), quad_valid=ob_valid.copy(),
+        room_idx=np.concatenate([np.arange(R)[:, None],
+                                 np.maximum(walls, 0)], 1).astype(np.int32),
+        room_info=np.ones(R, f32), room4_valid=room4, room2_valid=room2,
+        door_idx=np.stack([np.arange(Dn), door_room], 1).astype(np.int32),
+        door_rel=door_rel.astype(f32), door_info=np.ones(Dn, f32),
+        door_valid=rng.uniform(size=Dn) > 0.2)
+
+
+def sg_assemble_operands(d: dict, device, dtype=torch.float32):
+    """(poses, planes, rooms, doors, SgFactors) of ``sg_assemble_inputs``
+    on ``device``, floats in ``dtype``."""
+    from visual_sgraphs_tpu_torch.optim.fast_ba import SgFactors
+
+    def to(x):
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        return (t.to(dtype) if t.is_floating_point() else t).to(device)
+
+    return (to(d["poses"]), to(d["planes"]), to(d["rooms"]), to(d["doors"]),
+            SgFactors(**{k: to(d[k]) for k in SgFactors._fields}))
+
+
+def check_sg_assemble(device, inputs=None) -> dict:
+    """K21 on seeded operands where every factor type has live items: H
+    and g within REL_TOL of the float64 twin (relative to each one's
+    largest entry); the float32 twin's own error is reported beside."""
+    from visual_sgraphs_tpu_torch.optim import fast_ba
+    d = inputs or sg_assemble_inputs()
+    ops32 = sg_assemble_operands(d, device)
+    kH, kg = fast_ba.sg_assemble(*ops32)
+    tH, tg = fast_ba.sg_assemble_torch(*ops32)
+    dH, dg = fast_ba.sg_assemble_torch(*sg_assemble_operands(
+        d, device, torch.float64))
+    torch.cuda.synchronize()
+    errH, errg = _rel(kH.double(), dH), _rel(kg.double(), dg)
+    live = {k: int(np.sum(d[k])) for k in ("ob_valid", "quad_valid",
+                                           "room4_valid", "room2_valid",
+                                           "door_valid")}
+    # directions x flops a direction (the residual in dual numbers), then
+    # directions^2 x rows multiply-adds into H
+    per_item = {"ob_valid": 9 * 600 + 81 * 6, "quad_valid": 9 * 650 + 81 * 2,
+                "room4_valid": 15 * 450 + 225 * 6,
+                "room2_valid": 9 * 250 + 81 * 6,
+                "door_valid": 9 * 400 + 81 * 6}
+    D = kH.shape[0]
+    return dict(name="sg_assemble", max_abs_err=max(errH, errg),
+                ok=max(errH, errg) <= REL_TOL and min(live.values()) > 0,
+                rel_err_H=errH, rel_err_g=errg,
+                twin32_rel_err_H=_rel(tH.double(), dH),
+                twin32_rel_err_g=_rel(tg.double(), dg), live_items=live, D=D,
+                ms=time_cuda(lambda: fast_ba.sg_assemble(*ops32)),
+                plain_ms=time_cuda(lambda: fast_ba.sg_assemble_torch(*ops32),
+                                   warmup=1, reps=5),
+                bytes=4 * (D * D + D) + nbytes(*ops32[:4], *ops32[4]),
+                ops=sum(live[k] * per_item[k] for k in live),
+                library_ms=None)
+
+
+def seed_rooms_and_doors(sg):
+    """``sg`` with a 4-wall room, a 2-wall corridor and a door made from
+    its valid planes (repeating planes when it has fewer than four), so
+    that a whole scene-graph BA on a real map runs all five factor types.
+    Each room centre starts 0.05 m off its walls' anchor, as a detection
+    places it, and the door 0.5 m from the room: a door's rotation is a
+    null space of its factor, so a room far off its walls (metres) leaves
+    the damped float32 solve a ~1e-4 spread in the door's pose whatever
+    assembles H.  Reads the device (a check's set-up)."""
+    from visual_sgraphs_tpu_torch.optim.factors import _room_pair_vec
+    ids = torch.nonzero(sg.pl_valid).flatten().tolist()
+    if not ids:
+        raise ValueError("seed_rooms_and_doors: no valid plane")
+    pick = [ids[i % len(ids)] for i in range(4)]
+    pl = sg.pl_coeffs
+    anchor2 = _room_pair_vec(pl[pick[0]], pl[pick[1]])
+    anchor4 = anchor2 + _room_pair_vec(pl[pick[2]], pl[pick[3]])
+    rw = sg.room_walls.clone()
+    rw[0] = torch.tensor(pick, dtype=rw.dtype)
+    rw[1] = torch.tensor(pick[:2] + [-1, -1], dtype=rw.dtype)
+    rc = sg.room_center.clone()
+    rc[0], rc[1] = anchor4 + 0.05, anchor2 - 0.05
+    rv = sg.room_valid.clone()
+    rv[:2] = True
+    dp = sg.door_pose.clone()
+    dp[0, 4:7] = rc[0] + torch.tensor([0.5, 0.0, 0.2], device=dp.device)
+    dv = sg.door_valid.clone()
+    dv[0] = True
+    return sg._replace(room_walls=rw, room_center=rc, room_valid=rv,
+                       door_pose=dp, door_valid=dv,
+                       n_rooms=torch.full_like(sg.n_rooms, 2),
+                       n_doors=torch.full_like(sg.n_doors, 1))
+
+
+def _sg_assemble_f64(poses, planes, rooms, doors, fac):
+    """K21's twin evaluated in float64, its H and g rounded to float32."""
+    from visual_sgraphs_tpu_torch.optim import fast_ba
+
+    def f64(t):
+        return t.double() if t.is_floating_point() else t
+
+    H, g = fast_ba.sg_assemble_torch(*map(f64, (poses, planes, rooms, doors)),
+                                     type(fac)(*map(f64, fac)))
+    return H.float(), g.float()
+
+
+def check_sg_ba(m, sg, kf: int, cam_K, cam_bf, config,
+                name: str = "sg_ba") -> dict:
+    """A whole ``fast_scenegraph_ba`` call with K21 against the same call
+    with its twin (every other kernel the same): keyframe poses, planes,
+    room centres and door poses within SG_BA_TOL of the call whose twin
+    runs in float64.  The float32 twin's H is ~4e-4 off the float64 one
+    (the Gij quadric's cancellation, see ``sg_assemble.cu``), and a room
+    centre amplifies plane errors by the walls' distances, so its call is
+    reported beside, not gated."""
+    from visual_sgraphs_tpu_torch.optim import fast_ba
+    out = {}
+    for tag, fn in (("kernel", fast_ba.sg_assemble),
+                    ("plain64", _sg_assemble_f64),
+                    ("plain32", fast_ba.sg_assemble_torch)):
+        out[tag] = fast_ba.fast_scenegraph_ba(
+            m, sg, kf, cam_K, cam_bf, iters=6, config=config, assemble=fn)
+    torch.cuda.synchronize()
+
+    def errs(a, b):
+        (ma, sa, _), (mb, sb, _) = a, b
+        return dict(
+            kf_pose=float((ma.kf_pose - mb.kf_pose).abs().max()),
+            pl_coeffs=float((sa.pl_coeffs - sb.pl_coeffs).abs().max()),
+            room_center=float((sa.room_center - sb.room_center).abs().max()),
+            door_pose=float((sa.door_pose - sb.door_pose).abs().max()))
+
+    e64 = errs(out["kernel"], out["plain64"])
+    moved = float((out["kernel"][1].room_center
+                   - sg.room_center).abs().max())
+    return dict(name=name, max_abs_err=max(e64.values()),
+                ok=max(e64.values()) <= SG_BA_TOL, errs=e64,
+                errs_vs_twin32=errs(out["kernel"], out["plain32"]),
+                room_moved=moved,
+                cost=[float(out[k][2]) for k in ("kernel", "plain64",
+                                                 "plain32")],
+                n_rooms=int(sg.room_valid.sum()),
+                n_doors=int(sg.door_valid.sum()))
+
+
+def run_freespace(device) -> list[dict]:
+    """K17a on a rendered frame, K17b on the snake grid, K21 on seeded
+    operands (K17b on a slice's accumulated grid is ``chip_smoke.py``'s)."""
+    _, _, _, origin = freespace_inputs(device)
+    return [check_freespace_carve(device),
+            check_freespace_components(device, snake_grid(), origin,
+                                       name="freespace_components@snake"),
+            check_sg_assemble(device)]
 
 
 def run_inertial(device) -> list[dict]:

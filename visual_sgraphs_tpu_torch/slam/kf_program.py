@@ -4,10 +4,12 @@ Port of ``visual_sgraphs_tpu/slam/kf_program.py``: lazy found/visible
 stats, insertion + point seeding, observation fusion, point + keyframe
 culling, and either the plain windowed local BA or, with the scene graph
 on, plane detection (K12-K14) and association, the periodic plane
-maintenance, wall-based room detection, semantic map-point refinement and
-the scene-graph local BA; then, with loop closing on, the place query
-(K10, K11, ``place/loop_closer.py::_detect_program``), whose scalars join
-the keyframe board.  The reference traces the
+maintenance, wall-based room detection (skipped with
+``room_method="freespace"``, whose rooms the system infers before the
+program), semantic map-point refinement and the scene-graph local BA
+(its factors assembled by K21); then, with loop closing on, the place
+query (K10, K11, ``place/loop_closer.py::_detect_program``), whose
+scalars join the keyframe board.  The reference traces the
 cadence flags as ``lax.cond``s so one compiled program serves every
 combination; the port runs eagerly, so they are plain Python ``if``s on
 host booleans.
@@ -45,10 +47,6 @@ def make_kf_program(sg_cfg, loop_on: bool, n_window: int, lba_iters: int,
     covisible score, candidate ids and scores, valid rows, n_obs).  With
     ``sg_cfg=None`` the scene-graph operands are ignored (pass None) and
     n_obs reads 0; without ``loop_on`` ``db`` / ``vocab`` are ignored."""
-    if sg_cfg is not None and sg_cfg.room_method == "freespace":
-        raise NotImplementedError(
-            "kf_program: free-space rooms are not ported yet")
-
     def program(m, sg, db, vocab, frame, pose, slot_pt, kf_slot: int,
                 stats_slots, stats_vis, depth_img, sem_img, conf_img,
                 hyp_idx, cam_K, cam_bf, do_lba: bool, do_cull: bool,
@@ -116,8 +114,8 @@ def scenegraph_keyframe(cfg, m, sg, kf: int, depth_img, sem_img, conf_img,
     """A keyframe's scene-graph update (SceneGraphManager.on_keyframe,
     reference ``scenegraph/manager.py:730-779``): plane detection from its
     depth (K12-K14) and association, the periodic maintenance, wall-based
-    rooms and the semantic map-point refinement.  Returns (map,
-    scenegraph)."""
+    rooms (unless ``room_method="freespace"``) and the semantic map-point
+    refinement.  Returns (map, scenegraph)."""
     T_cw = m.kf_pose[kf]
     (coeffs_w, det_valid, centroid, npts, votes, local, quad,
      det_vox) = sgm.detect_planes_from_depth(
@@ -132,7 +130,10 @@ def scenegraph_keyframe(cfg, m, sg, kf: int, depth_img, sem_img, conf_img,
         sg = sgm.reassociate_planes(
             sgm.filter_semantic_planes(sg, min_votes=cfg.plane_min_votes),
             min_votes=cfg.plane_min_votes)
-    sg = sgm.detect_rooms(sg, min_votes=cfg.plane_min_votes)
+    if cfg.room_method != "freespace":
+        # free-space rooms come from the manager's clustering pass, run
+        # before the program at maintenance cadence
+        sg = sgm.detect_rooms(sg, min_votes=cfg.plane_min_votes)
     if cfg.refine_map_points:
         m = sgm.refine_points_semantic(
             m, sg, m.kf_pose[kf], min_votes=cfg.plane_min_votes,

@@ -881,6 +881,17 @@ class SlamSystem:
         do_maint, depth, sem_img, conf_img, hyp = (
             self._scenegraph_operands(ts, depth_img) if sg_on
             else (False, None, None, None, None))
+        if sg_on and self.scenegraph.cfg.room_method == "freespace":
+            # free-space rooms (reference system.py:1035-1043): the grid
+            # takes every keyframe of this path, here with the keyframe's
+            # own depth; the clustering runs at maintenance cadence.  The
+            # B-frame cycle never reaches this, as in the reference.
+            with self.timers.stage("freespace"):
+                if depth is not None:
+                    self.scenegraph.update_freespace(depth, res.pose,
+                                                     self.cam_K)
+                if do_maint:
+                    self.scenegraph.infer_rooms_freespace()
         pc = self.cfg.place
         program = make_kf_program(
             self.cfg.scenegraph if sg_on else None, loop_on, mc.local_window,

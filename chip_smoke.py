@@ -32,8 +32,13 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    scene-graph BA's assembly, on seeded operands at D = 402 with live items
    of all five factor types, against the float64 twin, and a whole
    scene-graph BA on ``freespace_slice``'s final map with a seeded room,
-   corridor and door, K21 against the float64 twin),
-   with kernel and twin times
+   corridor and door, K21 against the float64 twin; after phase 4i, K22a
+   (the LM engine's reprojection rows and landmark reduction, and its
+   back-substitution and cost), K22b (the inertial rows and their cost)
+   and K22c (the damped dense solve and retraction) on the inputs of
+   ``inertial_slice``'s fourth VI local BA, against the float64 twins,
+   with ``torch.linalg.cholesky_ex`` of the same system as K22c's
+   yardstick), with kernel and twin times
    (CUDA events, median of 20 after 3 warm-ups) and the bytes /
    operations each function needs, from which its bound is derived;
 4. the port's main paths at full size through its public entry point
@@ -68,7 +73,10 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
       16384 points) over the 128-frame ``orbit`` sequence with its 200 Hz
       IMU samples, fps over frames 48-127, gated on the IMU initialising,
       >= 90 % tracked, ATE <= 0.08 m (the reference's visual-inertial
-      gate), >= 8 keyframes and K18, K20 and K6's prior branch launched;
+      gate), >= 8 keyframes, K18, K20, K6's prior branch and K22a / K22b
+      / K22c launched and no generic LM linearisation on the card; the VI
+      local BA's ms a keyframe and the initialisation's ms an attempt
+      printed;
    j. path (i) again over a 16-frame window after the IMU initialised
       that holds a keyframe, under sync-debug mode: synchronising calls
       must equal the counted readbacks;
@@ -82,8 +90,8 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
       counted readbacks;
    the kernel launch counters are zeroed just before each of (a), (b),
    (d), (f), (h), (i) and (k) and read just after; the JSON kernel table's
-   launches are (d)'s, (i)'s for the inertial path's K18, K20 and
-   K6's prior branch, and (k)'s for K17a and K17b;
+   launches are (d)'s, (i)'s for the inertial path's K18, K20, K6's
+   prior branch and K22, and (k)'s for K17a and K17b;
 5. the same 12 small frames through the port on the card (kernels) and on
    the CPU (twins), with the scene graph off and on, whose positions must
    agree; the loop correction chain (verification, pose graph, map
@@ -127,8 +135,13 @@ SG_ONLY = {"depth_cloud", "extract_planes", "plane_epilogue", "sg_assemble"}
 FREESPACE_ONLY = {"freespace_carve", "freespace_components"}
 LOOP_ONLY = {"bow_vectors", "place_query", "match_nn_ratio", "guided_count",
              "verify_sim3", "pnp_hypotheses", "pgo_assemble", "pgo_cost"}
-INERTIAL_ONLY = {"pose_gn_prior", "preint", "vi_pose"}
-# the kernels of the inertial path (its BAs run on the generic LM engine)
+# the LM engine's kernel route (K22a / K22b / K22c): the inertial path's
+# local BAs and initialisation; elsewhere only a recovery keyframe's local
+# BA or a loop weld runs them
+LM_KERNELS = {"lm_reproj_reduce", "lm_reproj_cost", "lm_inertial_assemble",
+              "lm_inertial_cost", "lm_solve"}
+INERTIAL_ONLY = {"pose_gn_prior", "preint", "vi_pose"} | LM_KERNELS
+# the kernels of the inertial path
 INERTIAL_PATH = INERTIAL_ONLY | {"pyramid_resize", "gaussian_blur",
                                  "fast_nms", "detect_level", "orb_desc",
                                  "match_window", "pose_gn", "compact_true"}
@@ -169,6 +182,7 @@ def _drive(system, frames, warm: int = WARM, sync_window=None,
     sync-debug mode and the keyframes made over frames lo..hi-1)."""
     torch.cuda.synchronize()
     t_warm = readbacks_warm = None
+    warm_stages = {}
     syncs = None
     caught = None
     from visual_sgraphs_tpu_torch import main_path
@@ -178,6 +192,7 @@ def _drive(system, frames, warm: int = WARM, sync_window=None,
             torch.cuda.synchronize()
             t_warm = time.perf_counter()
             readbacks_warm = system.host_readbacks
+            warm_stages = system.timers.summary()
             system.timers.reset()
         if sync_window is not None and i == sync_window[0]:
             rb_lo = system.host_readbacks
@@ -209,7 +224,7 @@ def _drive(system, frames, warm: int = WARM, sync_window=None,
     t_end = time.perf_counter()
     out = dict(fps=(len(frames) - warm) / (t_end - t_warm),
                readbacks_per_frame=(system.host_readbacks - readbacks_warm)
-               / (len(frames) - warm))
+               / (len(frames) - warm), warm_stages=warm_stages)
     if syncs is not None:
         out.update(syncs)
     return out
@@ -600,17 +615,22 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     system = main_path.make_system(vi_cfg, device, False)
     init = {}
+    # the inputs of the fourth VI local BA, for K22's checks below
+    vi_seen = selfcheck.watch_vi_window(system, which=4)
 
     def note_init(i):
         if "frame" not in init and system.imu.initialized:
             init.update(frame=i, n_kf=system.n_kf_host)
 
+    from visual_sgraphs_tpu_torch.optim import graph
     cuda.reset_counts()
+    graph.linearize_batch.cuda_calls = 0
     t0 = time.perf_counter()
     perf = _drive(system, vi_frames, warm=main_path.INERTIAL_WARMUP,
                   feed=main_path.feed_inertial, after=note_init)
     total_s = time.perf_counter() - t0
     counts["inertial_slice"] = cuda.counts()
+    generic_lin = graph.linearize_batch.cuda_calls
     acc = _accuracy(system, vi_frames, vi_gt)
     ev = system.events
     vi = ev.of_kind("vi_solve")
@@ -624,8 +644,14 @@ def main() -> None:
           vi_local_ba=sum(bool(k["vi_ba"]) for k in kfs),
           vi_solves=len(vi), vi_solves_accepted=sum(e["accepted"] for e in vi),
           recovery_keyframes=ev.count("recovery_keyframe"),
-          peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
+          peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20,
+          vi_lba_ms_per_keyframe=system.timers.summary().get(
+              "vi_lba", {}).get("mean_ms"),
+          imu_init_ms_per_attempt=perf["warm_stages"].get(
+              "imu_init", {}).get("mean_ms"),
+          generic_linearizations_on_card=generic_lin)
     _line("inertial_slice_stages", **system.timers.summary())
+    _line("inertial_slice_warmup_stages", **perf["warm_stages"])
     _line("inertial_slice_launches", **{
         k: {"launches": v[0], "twin_calls_on_cuda": v[1]}
         for k, v in counts["inertial_slice"].items()})
@@ -642,7 +668,13 @@ def main() -> None:
     _check(all(v[1] == 0 for v in counts["inertial_slice"].values()),
            f"inertial_slice: a twin ran on CUDA tensors: "
            f"{counts['inertial_slice']}")
+    _check(generic_lin == 0, f"inertial_slice: {generic_lin} generic "
+           "linearisations on the card")
     del system
+    # K22a / K22b / K22c against their twins on the fourth VI local BA's
+    # window (10 slots x 1000 keypoints, <= 4096 points, D = 150) and the
+    # initialisation problem over that map's keyframes
+    report(selfcheck.run_lm(device, vi_seen["window"]))
 
     # 4j. hidden host syncs of the inertial path: 16 frames after the IMU
     # initialised, across a keyframe

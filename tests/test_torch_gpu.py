@@ -15,8 +15,13 @@ from visual_sgraphs_tpu_torch import cuda, selfcheck
 # kernels that only the loop path (loop_closing=True) launches
 LOOP_ONLY = ("bow_vectors", "place_query", "match_nn_ratio", "guided_count",
              "verify_sim3", "pnp_hypotheses", "pgo_assemble", "pgo_cost")
+# the LM engine's kernel route (K22a / K22b / K22c): the inertial path's
+# local BAs and initialisation (elsewhere only a recovery keyframe's local
+# BA or a loop weld)
+LM_KERNELS = ("lm_reproj_reduce", "lm_reproj_cost", "lm_inertial_assemble",
+              "lm_inertial_cost", "lm_solve")
 # kernels that only the inertial path (Sensor.IMU_RGBD) launches
-INERTIAL_ONLY = ("pose_gn_prior", "preint", "vi_pose")
+INERTIAL_ONLY = ("pose_gn_prior", "preint", "vi_pose") + LM_KERNELS
 # kernels that only the free-space room method launches
 FREESPACE_ONLY = ("freespace_carve", "freespace_components")
 
@@ -252,17 +257,21 @@ def test_inertial_kernels(inertial_checks, name):
 @pytest.mark.gpu
 def test_inertial_path_on_card_matches_cpu(device):
     # 72 small arc frames with their IMU samples, rendered on the CPU:
-    # the card's run launches K18, K20 and K6's prior branch, no twin sees
-    # a CUDA tensor, and positions agree with the CPU twins' run within
-    # 0.01 m, with the same keyframe count and initialisation frame
+    # the card's run launches K18, K20, K6's prior branch and K22a / K22b /
+    # K22c, no twin sees a CUDA tensor, nothing is linearised by the
+    # generic engine on the card, and positions agree with the CPU twins'
+    # run within 0.01 m, with the same keyframe count and initialisation
+    # frame
     from visual_sgraphs_tpu_torch import main_path
     from visual_sgraphs_tpu_torch.config import CapacityConfig
+    from visual_sgraphs_tpu_torch.optim import graph
 
     scene, frames = main_path.inertial_frames("cpu", 72, 240, 320, "arc")
     cfg = main_path.inertial_config(scene, 300, CapacityConfig(32, 4096))
     runs = {}
     for dev in ("cuda", "cpu"):
         cuda.reset_counts()
+        graph.linearize_batch.cuda_calls = 0
         system = main_path.make_system(cfg, dev, False)
         init = None
         for i, frame in enumerate(frames):
@@ -270,13 +279,32 @@ def test_inertial_path_on_card_matches_cpu(device):
             if init is None and system.imu.initialized:
                 init = i
         runs[dev] = (system.positions(), int(system.map.n_kf), init,
-                     cuda.counts())
+                     cuda.counts(), graph.linearize_batch.cuda_calls)
     counts = runs["cuda"][3]
+    assert runs["cuda"][4] == 0
     assert all(counts[k][0] > 0 for k in INERTIAL_ONLY), counts
     assert all(twin == 0 for _, twin in counts.values()), counts
     assert runs["cuda"][2] is not None
     assert runs["cuda"][1:3] == runs["cpu"][1:3]
     assert np.abs(runs["cuda"][0] - runs["cpu"][0]).max() < 0.01
+
+
+@pytest.fixture(scope="module")
+def lm_checks(device):
+    return {r["name"]: r for r in selfcheck.run_lm(device)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", LM_KERNELS)
+def test_lm_kernels(lm_checks, name):
+    # on the third VI local BA window of a small inertial run: K22a's
+    # reduced pose block and rhs within 1e-3 (diagonally scaled) of the
+    # float64 twin, its point steps within 1e-3 of the largest and its cost
+    # within 1e-5; K22b's H, g (the VI and initialisation problems) within
+    # 1e-3 scaled and its cost within 1e-5; K22c's step within 1e-6 of the
+    # twin's float64 solve, its candidates within 1e-5
+    r = lm_checks[name]
+    assert r["ok"], r
 
 
 @pytest.fixture(scope="module")

@@ -44,7 +44,7 @@ def test_port_imports_without_jax():
                 "scenegraph.plane_fit", "scenegraph.epilogue",
                 "scenegraph.manager", "scenegraph.joint_ba",
                 "scenegraph.freespace", "optim.graph", "optim.factors",
-                "optim.solve", "place", "place.vocab", "place.database",
+                "optim.solve", "optim.lm_kernels", "place", "place.vocab", "place.database",
                 "place.sim3_ransac", "place.pnp", "place.pgo",
                 "place.loop_closer", "slam.cycle_program", "inertial",
                 "inertial.preintegration", "inertial.factors",

@@ -3,8 +3,9 @@
 // symmetric eigensolver.
 //
 // The group functions are templates over the scalar: ``float`` for plain
-// evaluation (K15) and ``Dual`` (a value and one directional derivative)
-// for forward-mode Jacobians (K19).  They transcribe
+// evaluation (K15) and ``Dual`` / ``DualD`` (a value and one directional
+// derivative, in float32 / float64) for forward-mode Jacobians (K19, K20;
+// K21, K22b).  They transcribe
 // visual_sgraphs_tpu/core/lie.py branch for branch: every jnp.where there
 // is a choice on the VALUE here, taking the derivative of the chosen
 // branch, which is what jax.jacfwd computes through a where.
@@ -104,6 +105,86 @@ __device__ __forceinline__ Dual s_atan2(Dual y, Dual x) {
     const float r2 = x.v * x.v + y.v * y.v;
     return mkd(atan2f(y.v, x.v), (x.v * y.d - y.v * x.d) / r2);
 }
+// A float64 value and one directional derivative (K21, K22b: residuals
+// whose float32 Jacobians lose digits, see their headers).
+struct DualD {
+    double v, d;
+};
+
+__device__ __forceinline__ DualD mkdd(double v, double d = 0.0) {
+    DualD r;
+    r.v = v;
+    r.d = d;
+    return r;
+}
+__device__ __forceinline__ DualD operator+(DualD a, DualD b) {
+    return mkdd(a.v + b.v, a.d + b.d);
+}
+__device__ __forceinline__ DualD operator-(DualD a, DualD b) {
+    return mkdd(a.v - b.v, a.d - b.d);
+}
+__device__ __forceinline__ DualD operator-(DualD a) {
+    return mkdd(-a.v, -a.d);
+}
+__device__ __forceinline__ DualD operator*(DualD a, DualD b) {
+    return mkdd(a.v * b.v, a.d * b.v + a.v * b.d);
+}
+__device__ __forceinline__ DualD operator/(DualD a, DualD b) {
+    const double q = a.v / b.v;
+    return mkdd(q, (a.d - q * b.d) / b.v);
+}
+__device__ __forceinline__ DualD operator+(DualD a, double b) {
+    return mkdd(a.v + b, a.d);
+}
+__device__ __forceinline__ DualD operator+(double a, DualD b) {
+    return mkdd(a + b.v, b.d);
+}
+__device__ __forceinline__ DualD operator-(DualD a, double b) {
+    return mkdd(a.v - b, a.d);
+}
+__device__ __forceinline__ DualD operator-(double a, DualD b) {
+    return mkdd(a - b.v, -b.d);
+}
+__device__ __forceinline__ DualD operator*(DualD a, double b) {
+    return mkdd(a.v * b, a.d * b);
+}
+__device__ __forceinline__ DualD operator*(double a, DualD b) {
+    return mkdd(a * b.v, a * b.d);
+}
+__device__ __forceinline__ DualD operator/(DualD a, double b) {
+    return mkdd(a.v / b, a.d / b);
+}
+__device__ __forceinline__ DualD operator/(double a, DualD b) {
+    const double q = a / b.v;
+    return mkdd(q, -q * b.d / b.v);
+}
+__device__ __forceinline__ double val(DualD x) { return x.v; }
+template <>
+__device__ __forceinline__ DualD cst<DualD>(float x) {
+    return mkdd(x);
+}
+__device__ __forceinline__ DualD s_sqrt(DualD x) {
+    const double r = sqrt(x.v);
+    return mkdd(r, x.d * 0.5 / r);
+}
+__device__ __forceinline__ DualD s_sin(DualD x) {
+    return mkdd(sin(x.v), x.d * cos(x.v));
+}
+__device__ __forceinline__ DualD s_cos(DualD x) {
+    return mkdd(cos(x.v), -x.d * sin(x.v));
+}
+__device__ __forceinline__ DualD s_exp(DualD x) {
+    const double e = exp(x.v);
+    return mkdd(e, x.d * e);
+}
+__device__ __forceinline__ DualD s_log(DualD x) {
+    return mkdd(log(x.v), x.d / x.v);
+}
+__device__ __forceinline__ DualD s_atan2(DualD y, DualD x) {
+    const double r2 = x.v * x.v + y.v * y.v;
+    return mkdd(atan2(y.v, x.v), (x.v * y.d - y.v * x.d) / r2);
+}
+
 // where(cond, a, b) with cond on values
 template <typename T>
 __device__ __forceinline__ T sel(bool c, T a, T b) {

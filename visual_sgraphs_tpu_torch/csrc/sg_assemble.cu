@@ -33,91 +33,18 @@
 // what forward-mode AD computes.  Lane a then holds column a of the
 // whitened Jacobian, gathers the others by shuffles and adds row a of
 // w J^T J and entry a of w J^T r with float32 atomics.  All of it is
-// float64 (see DualD below) up to those float32 adds.  Over all direction
+// float64 (lie.cuh's DualD) up to those float32 adds.  Over all direction
 // pairs this adds the block of slots (i, j) at (c_i, c_j) and its
 // transpose at (c_j, c_i) for i != j, so two slots on one variable (two
 // walls of a room on one plane) add twice, as the twin's scatter does.
 // Invalid items (weight 0, including those whose -1 indices were clamped)
 // are skipped: they add zeros to the twin's system.  Atomics sum in a
 // changing order: H and g are held against the float64 twin at 1e-4 of
-// their largest entries.
+// their largest entries.  Why float64: the Gij-quadric residual
+// sqrt(pi^T G pi) cancels (G's entries are ~|p|^2, tens, while pi^T G pi
+// is a mean squared distance, ~1e-4), so float32 loses ~3 digits there
+// (the float32 twin's H is ~1e-3 off the float64 one).
 #include "lie.cuh"
-
-// A float64 value and one directional derivative.  The Gij-quadric
-// residual sqrt(pi^T G pi) cancels: G's entries are ~|p|^2 (tens) while
-// pi^T G pi is a mean squared distance (~1e-4), so float32 loses ~3 digits
-// there (the float32 twin's H is ~1e-3 off the float64 one); K21 evaluates
-// every residual and Jacobian in float64 and adds float32 results.
-struct DualD {
-    double v, d;
-};
-
-__device__ __forceinline__ DualD mkdd(double v, double d = 0.0) {
-    DualD r;
-    r.v = v;
-    r.d = d;
-    return r;
-}
-__device__ __forceinline__ DualD operator+(DualD a, DualD b) {
-    return mkdd(a.v + b.v, a.d + b.d);
-}
-__device__ __forceinline__ DualD operator-(DualD a, DualD b) {
-    return mkdd(a.v - b.v, a.d - b.d);
-}
-__device__ __forceinline__ DualD operator-(DualD a) {
-    return mkdd(-a.v, -a.d);
-}
-__device__ __forceinline__ DualD operator*(DualD a, DualD b) {
-    return mkdd(a.v * b.v, a.d * b.v + a.v * b.d);
-}
-__device__ __forceinline__ DualD operator/(DualD a, DualD b) {
-    const double q = a.v / b.v;
-    return mkdd(q, (a.d - q * b.d) / b.v);
-}
-__device__ __forceinline__ DualD operator+(DualD a, double b) {
-    return mkdd(a.v + b, a.d);
-}
-__device__ __forceinline__ DualD operator+(double a, DualD b) {
-    return mkdd(a + b.v, b.d);
-}
-__device__ __forceinline__ DualD operator-(DualD a, double b) {
-    return mkdd(a.v - b, a.d);
-}
-__device__ __forceinline__ DualD operator-(double a, DualD b) {
-    return mkdd(a - b.v, -b.d);
-}
-__device__ __forceinline__ DualD operator*(DualD a, double b) {
-    return mkdd(a.v * b, a.d * b);
-}
-__device__ __forceinline__ DualD operator*(double a, DualD b) {
-    return mkdd(a * b.v, a * b.d);
-}
-__device__ __forceinline__ DualD operator/(DualD a, double b) {
-    return mkdd(a.v / b, a.d / b);
-}
-__device__ __forceinline__ DualD operator/(double a, DualD b) {
-    const double q = a / b.v;
-    return mkdd(q, -q * b.d / b.v);
-}
-__device__ __forceinline__ double val(DualD x) { return x.v; }
-template <>
-__device__ __forceinline__ DualD cst<DualD>(float x) {
-    return mkdd(x);
-}
-__device__ __forceinline__ DualD s_sqrt(DualD x) {
-    const double r = sqrt(x.v);
-    return mkdd(r, x.d * 0.5 / r);
-}
-__device__ __forceinline__ DualD s_sin(DualD x) {
-    return mkdd(sin(x.v), x.d * cos(x.v));
-}
-__device__ __forceinline__ DualD s_cos(DualD x) {
-    return mkdd(cos(x.v), -x.d * sin(x.v));
-}
-__device__ __forceinline__ DualD s_atan2(DualD y, DualD x) {
-    const double r2 = x.v * x.v + y.v * y.v;
-    return mkdd(atan2(y.v, x.v), (x.v * y.d - y.v * x.d) / r2);
-}
 
 namespace {
 

@@ -16,8 +16,9 @@
 //
 // Design: one block per solve keeps the state (T_j, v_j, bg, ba) in shared
 // memory and loops over the iterations inside the kernel.  Each iteration:
-// - lanes 0-14 of warp 0 evaluate the preintegration residual in forward
-//   mode, one dual-number direction per lane (lie.cuh's templates
+// - lanes 0-14 of warp 0 evaluate the preintegration residual
+//   (imu.cuh, shared with K22b) in forward mode, one dual-number
+//   direction per lane (lie.cuh's templates
 //   transcribe core/lie.py branch for branch, so each lane computes the
 //   column jax.jacfwd computes), into a 9x15 Jacobian in shared memory;
 // - every thread walks its features: IRLS weight (Huber, 4 χ² gate) from
@@ -36,19 +37,20 @@
 // reference's runs in float32 (its 15x15 system spans ~17 orders of
 // magnitude): the plain twin does the same, so the two agree to float32
 // summation order.
-#include "lie.cuh"
+#include "imu.cuh"
 
 namespace {
+
+using imu::GRAVITY;
+using imu::O_BA;
+using imu::O_BG;
+using imu::O_COV;
+using imu::P;
 
 constexpr int THREADS = 256;
 constexpr int NWARP = THREADS / 32;
 constexpr int NACC = 27;  // 21 upper-triangular pose block + 6 gradient
-constexpr int P = 143;    // packed Preintegrated (preintegration.py::pack)
-constexpr int O_DR = 0, O_DV = 4, O_DP = 7, O_J = 10, O_COV = 55,
-              O_DT = 136, O_BG = 137, O_BA = 140;
-constexpr int J_RG = 0, J_VG = 1, J_VA = 2, J_PG = 3, J_PA = 4;
 constexpr float CHI2 = 7.815f;
-constexpr float GRAVITY = 9.81f;
 
 struct Shared {
     float pre[P];
@@ -65,114 +67,30 @@ struct Shared {
     int cnt[NWARP];
 };
 
-// (R_wb, p_wb) of a camera pose T_cw through the extrinsic T_bc
-template <typename T>
-__device__ void body_state(const T* T_cw, const T* T_bc, T* R, T* p) {
-    T T_bw[7], T_wb[7];
-    se3_mul(T_bc, T_cw, T_bw);
-    se3_inv(T_bw, T_wb);
-    quat_to_mat(T_wb, R);
-    for (int i = 0; i < 3; ++i) p[i] = T_wb[4 + i];
-}
-
-template <typename T>
-__device__ void mat3_vec(const float* M, const T* v, T* out) {
-    for (int i = 0; i < 3; ++i) {
-        out[i] = M[3 * i] * v[0] + M[3 * i + 1] * v[1] + M[3 * i + 2] * v[2];
-    }
-}
-
-// inertial/factors.py::_imu_residual with scale 1 and g = (0, 0, -9.81),
-// whitened: W [r_R, r_V, r_P]
+// inertial/factors.py::_imu_residual with T_i, v_i fixed, scale 1 and
+// g = (0, 0, -9.81), whitened: W [r_R, r_V, r_P] (imu.cuh)
 template <typename T>
 __device__ void imu_residual(const Shared& S, const T* Tj, const T* vj,
                              const T* bg, const T* ba, T* r) {
-    T Ti[7], Tbc[7];
+    T Ti[7], Tbc[7], vi[3], g[3];
     for (int i = 0; i < 7; ++i) {
         Ti[i] = cst<T>(S.Ti[i]);
         Tbc[i] = cst<T>(S.Tbc[i]);
     }
-    T Ri[9], pi[3], Rj[9], pj[3];
-    body_state(Ti, Tbc, Ri, pi);
-    body_state(Tj, Tbc, Rj, pj);
-    const float* pre = S.pre;
-    const float dt = pre[O_DT];
-    T dbg[3], dba[3];
     for (int i = 0; i < 3; ++i) {
-        dbg[i] = bg[i] - pre[O_BG + i];
-        dba[i] = ba[i] - pre[O_BA + i];
+        vi[i] = cst<T>(S.vi[i]);
+        g[i] = cst<T>(i == 2 ? -GRAVITY : 0.0f);
     }
-    T w[3], e[4], dRc[4], dR[4];
-    mat3_vec(pre + O_J + 9 * J_RG, dbg, w);
-    so3_exp(w, e);
-    for (int i = 0; i < 4; ++i) dRc[i] = cst<T>(pre[O_DR + i]);
-    quat_mul(dRc, e, dR);
-    T jvg[3], jva[3], jpg[3], jpa[3], dV[3], dP[3];
-    mat3_vec(pre + O_J + 9 * J_VG, dbg, jvg);
-    mat3_vec(pre + O_J + 9 * J_VA, dba, jva);
-    mat3_vec(pre + O_J + 9 * J_PG, dbg, jpg);
-    mat3_vec(pre + O_J + 9 * J_PA, dba, jpa);
-    for (int i = 0; i < 3; ++i) {
-        dV[i] = pre[O_DV + i] + jvg[i] + jva[i];
-        dP[i] = pre[O_DP + i] + jpg[i] + jpa[i];
-    }
-    T RiT[9], M[9], qm[4], dRi[4], qe[4];
-    for (int i = 0; i < 3; ++i) {
-        for (int j = 0; j < 3; ++j) RiT[3 * i + j] = Ri[3 * j + i];
-    }
-    mat3_mul(RiT, Rj, M);
-    mat_to_quat(M, qm);
-    dRi[0] = dR[0];
-    for (int i = 1; i < 4; ++i) dRi[i] = -dR[i];
-    quat_mul(dRi, qm, qe);
-    T r9[9];
-    so3_log(qe, r9);
-    const float g[3] = {0.0f, 0.0f, -GRAVITY};
-    T a[3], b[3];
-    for (int i = 0; i < 3; ++i) {
-        a[i] = 1.0f * (vj[i] - S.vi[i]) - g[i] * dt;
-        b[i] = 1.0f * (pj[i] - pi[i] - S.vi[i] * dt) - 0.5f * g[i] * dt * dt;
-    }
-    for (int i = 0; i < 3; ++i) {
-        r9[3 + i] = RiT[3 * i] * a[0] + RiT[3 * i + 1] * a[1] +
-                    RiT[3 * i + 2] * a[2] - dV[i];
-        r9[6 + i] = RiT[3 * i] * b[0] + RiT[3 * i + 1] * b[1] +
-                    RiT[3 * i + 2] * b[2] - dP[i];
-    }
-    for (int i = 0; i < 9; ++i) {
-        T s = cst<T>(0.0f);
-        for (int k = 0; k < 9; ++k) s = s + S.W[9 * i + k] * r9[k];
-        r[i] = s;
-    }
+    imu::residual(S.pre, S.W, Ti, Tj, vi, vj, bg, ba, g, cst<T>(1.0f), Tbc,
+                  r);
 }
 
 // S.W = L^-1 for L L^T = cov + 1e-8 I, the identity if not finite
 __device__ void sqrt_info(Shared& S) {
-    double L[9][9] = {};
-    const float* cov = S.pre + O_COV;
-    bool ok = true;
-    for (int j = 0; j < 9; ++j) {
-        double s = (double)(cov[9 * j + j] + 1e-8f);
-        for (int k = 0; k < j; ++k) s -= L[j][k] * L[j][k];
-        const double d = sqrt(s);
-        L[j][j] = d;
-        for (int i = j + 1; i < 9; ++i) {
-            double t = (double)(cov[9 * i + j]);
-            for (int k = 0; k < j; ++k) t -= L[i][k] * L[j][k];
-            L[i][j] = t / d;
-        }
-    }
-    double Wd[9][9];
-    for (int c = 0; c < 9; ++c) {
-        for (int i = 0; i < 9; ++i) {
-            double s = i == c ? 1.0 : 0.0;
-            for (int k = 0; k < i; ++k) s -= L[i][k] * Wd[k][c];
-            Wd[i][c] = s / L[i][i];
-            ok = ok && isfinite(Wd[i][c]);
-        }
-    }
+    double Wd[81];
+    const bool ok = imu::sqrt_info(S.pre + O_COV, Wd);
     for (int i = 0; i < 81; ++i) {
-        S.W[i] = ok ? (float)Wd[i / 9][i % 9] : (i % 10 == 0 ? 1.0f : 0.0f);
+        S.W[i] = ok ? (float)Wd[i] : (i % 10 == 0 ? 1.0f : 0.0f);
     }
 }
 

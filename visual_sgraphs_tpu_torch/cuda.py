@@ -142,9 +142,32 @@ KERNELS = (
     ("sg_assemble", "visual_sgraphs_tpu_torch.optim.fast_ba", "sg_assemble",
      "sg_assemble_torch", "visual_sgraphs_tpu_torch/csrc/sg_assemble.cu",
      "visual_sgraphs_tpu/optim/fast_ba.py:46"),
+    ("lm_reproj_reduce", "visual_sgraphs_tpu_torch.optim.lm_kernels",
+     "lm_reproj_reduce", "lm_reproj_reduce_torch",
+     "visual_sgraphs_tpu_torch/csrc/lm_reproj.cu",
+     "visual_sgraphs_tpu/optim/solve.py:85"),
+    ("lm_reproj_cost", "visual_sgraphs_tpu_torch.optim.lm_kernels",
+     "lm_reproj_cost", "lm_reproj_cost_torch",
+     "visual_sgraphs_tpu_torch/csrc/lm_reproj.cu",
+     "visual_sgraphs_tpu/optim/solve.py:69"),
+    ("lm_inertial_assemble", "visual_sgraphs_tpu_torch.optim.lm_kernels",
+     "lm_inertial_assemble", "lm_inertial_assemble_torch",
+     "visual_sgraphs_tpu_torch/csrc/lm_inertial.cu",
+     "visual_sgraphs_tpu/inertial/factors.py:58"),
+    ("lm_inertial_cost", "visual_sgraphs_tpu_torch.optim.lm_kernels",
+     "lm_inertial_cost", "lm_inertial_cost_torch",
+     "visual_sgraphs_tpu_torch/csrc/lm_inertial.cu",
+     "visual_sgraphs_tpu/inertial/factors.py:84"),
+    ("lm_solve", "visual_sgraphs_tpu_torch.optim.lm_kernels", "lm_solve",
+     "lm_solve_torch", "visual_sgraphs_tpu_torch/csrc/lm_solve.cu",
+     "visual_sgraphs_tpu/optim/solve.py:158"),
 )
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# host arrays of device pointers / ints (the LM kernels' family tables)
+_PP, _PI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+_ROWS = [_VP, _I, _VP, _I] + [_VP] * 5 + [_I, _VP, _VP, _F, _F]
+_IMU = [_VP, _VP, _VP, _I, _VP, _I, _VP, _VP, _VP, _F, _PP, _PI]
 _ARGTYPES = {
     "vsg_blur": [_VP, _VP, _VP, _I, _I, _I, _VP],
     "vsg_resize": [_VP, _VP, _VP] + [_I] * 5 + [_VP, _VP, _I, _VP, _VP, _I,
@@ -179,6 +202,12 @@ _ARGTYPES = {
     "vsg_freespace_components": [_VP, _I, _VP, _F, _I, _I] + [_VP] * 6,
     "vsg_sg_assemble": [_VP, _I, _VP, _I, _VP, _I, _VP, _I] + [_VP] * 7
                        + [_I] + [_VP] * 8 + [_F] * 5 + [_VP] * 3,
+    "vsg_lm_reproj_reduce": _ROWS + [_VP, _F, _I] + [_VP] * 10,
+    "vsg_lm_reproj_cost": _ROWS + [_VP] * 8 + [_I, _VP],
+    "vsg_lm_inertial_assemble": _IMU + [_I, _VP, _VP, _I, _VP],
+    "vsg_lm_inertial_cost": _IMU + [_VP, _I, _VP],
+    "vsg_lm_solve": [_VP] * 4 + [_I, _VP, _I, _VP, _F, _VP, _PP, _PP, _PI,
+                                 _PI, _VP, _VP],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -5,8 +5,10 @@ Port of ``visual_sgraphs_tpu/inertial/init.py`` (the reference's
 ``Optimizer::InertialOptimization`` and the map-rescaling half of
 ``LocalMapping::InitializeIMU``): the visual keyframe poses are held
 fixed, and a small graph over {gravity direction (2-dof), scale (1-dof),
-per-keyframe velocity, shared gyro / accel bias} is solved on the generic
-LM engine (``optim/solve.py``) with the EdgeInertialGS-equivalent factor.
+per-keyframe velocity, shared gyro / accel bias} is solved with the
+EdgeInertialGS-equivalent factor on the LM engine's kernel route
+(``optim/lm_kernels.py``: K22b, K22c on the card), the fixed poses
+compacted out of the reduced system.
 """
 
 from __future__ import annotations
@@ -16,17 +18,11 @@ from typing import NamedTuple
 import torch
 
 from visual_sgraphs_tpu_torch.core import lie
-from visual_sgraphs_tpu_torch.inertial import factors as ifac
-from visual_sgraphs_tpu_torch.inertial.preintegration import Preintegrated
-from visual_sgraphs_tpu_torch.optim.graph import (
-    FactorBatch,
-    GraphProblem,
-    gdir_family,
-    point_family,
-    scale_family,
-    se3_family,
+from visual_sgraphs_tpu_torch.inertial.preintegration import (
+    Preintegrated,
+    pack,
 )
-from visual_sgraphs_tpu_torch.optim.solve import optimize
+from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
 from visual_sgraphs_tpu_torch.slam.map_state import MapState
 
 
@@ -59,12 +55,11 @@ def preint_const(pre: Preintegrated) -> dict:
             "sqrt_info": sqrt_info(pre.cov)}
 
 
-def inertial_init(kf_pose, kf_valid, preint: Preintegrated, preint_valid,
-                  T_bc, prior_bias_info: float = 1e4, iters: int = 30,
-                  fix_scale: bool = False) -> InertialInitResult:
-    """Solve gravity / scale / velocity / bias with the poses fixed.
-    ``preint`` row i preintegrates keyframe i-1 -> i (row 0 unused);
-    ``fix_scale`` for stereo / RGB-D (a metric visual map)."""
+def init_problem(kf_pose, kf_valid, preint: Preintegrated, preint_valid,
+                 T_bc, prior_bias_info: float = 1e4,
+                 fix_scale: bool = False) -> dict:
+    """The initialisation's problem: the keyword arguments of
+    ``lm_kernels.optimize_reproj_inertial`` but ``iters``."""
     n = kf_pose.shape[0]
     dtype, dev = kf_pose.dtype, kf_pose.device
     T_bc = T_bc.to(dtype)
@@ -76,45 +71,37 @@ def inertial_init(kf_pose, kf_valid, preint: Preintegrated, preint_valid,
     v0[0] = v0[1]
     q1 = torch.zeros((1, 4), dtype=dtype, device=dev)
     q1[:, 0] = 1.0
-    families = {
-        "pose": se3_family(kf_pose, torch.ones((n,), dtype=torch.bool,
-                                               device=dev)),
-        "vel": point_family(v0),
-        "bg": point_family(torch.zeros((1, 3), dtype=dtype, device=dev)),
-        "ba": point_family(torch.zeros((1, 3), dtype=dtype, device=dev)),
-        "gdir": gdir_family(q1),
-        "scale": scale_family(torch.ones((1, 1), dtype=dtype, device=dev),
-                              torch.full((1,), fix_scale, dtype=torch.bool,
-                                         device=dev)),
-    }
-    m = n - 1
-    idx_i = torch.arange(m, dtype=torch.int32, device=dev)
-    idx_j = idx_i + 1
-    zeros = torch.zeros((m,), dtype=torch.int32, device=dev)
-    var_idx = torch.stack([idx_i, idx_j, idx_i, idx_j, zeros, zeros, zeros,
-                           zeros], dim=1)
+    # the poses are fixed: they stay out of the reduced system
+    red = lmk.Reduced(
+        vel=v0, bg=torch.zeros((1, 3), dtype=dtype, device=dev),
+        ba=torch.zeros((1, 3), dtype=dtype, device=dev), gdir=q1,
+        scale=torch.ones((1, 1), dtype=dtype, device=dev))
+    free = lmk.free_mask(red, {"scale": torch.full(
+        (1,), fix_scale, dtype=torch.bool, device=dev)})
+    idx_i = torch.arange(n - 1, dtype=torch.int32, device=dev)
     pre_j = Preintegrated(*(f[1:] for f in preint))
-    const = preint_const(pre_j)
-    const["T_bc"] = T_bc.expand(m, 7)
     valid = (preint_valid[1:] & kf_valid[:-1] & kf_valid[1:]
              & (pre_j.dt > 1e-4))
-    ones = torch.ones((m,), dtype=dtype, device=dev)
-    imu_batch = FactorBatch(
-        ("pose", "pose", "vel", "vel", "bg", "ba", "gdir", "scale"),
-        ifac.imu_factor_gs, 9, var_idx, const, ones, valid)
-    one_idx = torch.zeros((1, 1), dtype=torch.int32, device=dev)
-    priors = [FactorBatch(
-        (fam,), ifac.prior_3, 3, one_idx,
-        {"mean": torch.zeros((1, 3), dtype=dtype, device=dev)},
-        torch.full((1,), prior_bias_info, dtype=dtype, device=dev),
-        torch.ones((1,), dtype=torch.bool, device=dev)) for fam in ("bg",
-                                                                   "ba")]
-    res = optimize(GraphProblem(families=families,
-                                factors=[imu_batch, *priors]), iters=iters)
+    imu = lmk.ImuRows(pre=pack(pre_j).to(dtype),
+                      edge=torch.stack([idx_i, idx_i + 1], dim=1),
+                      valid=valid, T_bc=T_bc, gs=True,
+                      poses=kf_pose.contiguous(), prior=prior_bias_info)
+    return dict(red=red, free=free, imu=imu)
+
+
+def inertial_init(kf_pose, kf_valid, preint: Preintegrated, preint_valid,
+                  T_bc, prior_bias_info: float = 1e4, iters: int = 30,
+                  fix_scale: bool = False) -> InertialInitResult:
+    """Solve gravity / scale / velocity / bias with the poses fixed.
+    ``preint`` row i preintegrates keyframe i-1 -> i (row 0 unused);
+    ``fix_scale`` for stereo / RGB-D (a metric visual map)."""
+    res = lmk.optimize_reproj_inertial(iters=iters, **init_problem(
+        kf_pose, kf_valid, preint, preint_valid, T_bc, prior_bias_info,
+        fix_scale))
     return InertialInitResult(
-        q_wg=lie.quat_normalize(res.values["gdir"][0]),
-        scale=res.values["scale"][0, 0], vel=res.values["vel"],
-        bias_g=res.values["bg"][0], bias_a=res.values["ba"][0],
+        q_wg=lie.quat_normalize(res.red.gdir[0]),
+        scale=res.red.scale[0, 0], vel=res.red.vel,
+        bias_g=res.red.bg[0], bias_a=res.red.ba[0],
         cost0=res.initial_cost, cost=res.cost)
 
 

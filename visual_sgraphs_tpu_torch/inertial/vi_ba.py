@@ -5,8 +5,8 @@ Port of ``visual_sgraphs_tpu/inertial/vi_ba.py`` (the reference's
 velocities and biases, reprojection factors to the points they observe
 (Schur-eliminated; the point set is compacted by kernel K7),
 preintegration factors chaining consecutive slots and bias random-walk
-factors, on the generic LM engine.  The oldest valid slot is the gauge
-anchor.
+factors, on the LM engine's kernel route (``optim/lm_kernels.py``: K22a,
+K22b, K22c on the card).  The oldest valid slot is the gauge anchor.
 
 Tables are updated functionally (a new ``ImuKfState`` per call), as in
 the reference; they are a few kilobytes.
@@ -18,8 +18,6 @@ from typing import NamedTuple
 
 import torch
 
-from visual_sgraphs_tpu_torch.inertial import factors as ifac
-from visual_sgraphs_tpu_torch.inertial.init import preint_const
 from visual_sgraphs_tpu_torch.inertial.preintegration import (
     PACKED,
     Preintegrated,
@@ -27,15 +25,9 @@ from visual_sgraphs_tpu_torch.inertial.preintegration import (
     pack,
     unpack,
 )
-from visual_sgraphs_tpu_torch.optim.graph import (
-    FactorBatch,
-    GraphProblem,
-    point_family,
-    se3_family,
-)
-from visual_sgraphs_tpu_torch.optim.solve import optimize
+from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
 from visual_sgraphs_tpu_torch.slam.map_state import MapState, index_set_last
-from visual_sgraphs_tpu_torch.slam.mapping import reproj_window, write_window
+from visual_sgraphs_tpu_torch.slam.mapping import window_rows, write_window
 
 
 class ImuKfState(NamedTuple):
@@ -76,6 +68,47 @@ def set_kf_imu(s: ImuKfState, kf: int, vel, bias_g, bias_a,
     return ImuKfState(*rows, preint=unpack(table), preint_valid=valid)
 
 
+def vi_problem(m: MapState, imu: ImuKfState, kf_id: int, cam_K, cam_bf,
+               T_bc, walk_gyro: float, walk_acc: float, n_window: int,
+               n_local_pts: int):
+    """The VI local BA's window: (kf_ids, kf_mask, safe_pt, pt_ok, the
+    keyword arguments of ``lm_kernels.optimize_reproj_inertial`` but
+    ``iters``)."""
+    W = n_window
+    dev = m.kf_pose.device
+    kf_ids = kf_id - W + 1 + torch.arange(W, device=dev)
+    in_range = kf_ids >= 0
+    kf_ids = torch.clamp(kf_ids, min=0)
+    kf_mask = in_range & m.kf_valid[kf_ids]
+    safe_pt, pt_ok, rows = window_rows(m, kf_ids, kf_mask, cam_bf,
+                                       n_local_pts)
+
+    # the IMU chain: the preintegration row of slot j joins (j - 1, j)
+    E = W - 1
+    e_i = torch.arange(E, dtype=torch.int32, device=dev)
+    e_j = e_i + 1
+    rows_j = kf_ids[e_j.long()]
+    pre = Preintegrated(*(f[rows_j] for f in imu.preint))
+    imu_valid = (imu.preint_valid[rows_j] & kf_mask[:-1] & kf_mask[1:]
+                 & (pre.dt > 1e-4))
+    dtv = torch.clamp(pre.dt, min=1e-3)
+    imu_rows = lmk.ImuRows(
+        pre=pack(pre), edge=torch.stack([e_i, e_j], dim=1), valid=imu_valid,
+        T_bc=T_bc, gs=False, info_g=1.0 / (walk_gyro * walk_gyro * dtv),
+        info_a=1.0 / (walk_acc * walk_acc * dtv))
+
+    # the oldest valid window slot is the gauge anchor
+    first = torch.argmax(kf_mask.to(torch.int32))
+    slot_fixed = (~kf_mask) | (torch.arange(W, device=dev) == first)
+    red = lmk.Reduced(pose=m.kf_pose[kf_ids], vel=imu.vel[kf_ids],
+                      bg=imu.bias_g[kf_ids], ba=imu.bias_a[kf_ids])
+    free = lmk.free_mask(red, {k: slot_fixed for k in ("pose", "vel", "bg",
+                                                       "ba")})
+    return kf_ids, kf_mask, safe_pt, pt_ok, dict(
+        red=red, free=free, pts=m.pt_pos[safe_pt], pt_fixed=~pt_ok,
+        rows=rows, cam=cam_K, bf=cam_bf, imu=imu_rows)
+
+
 def vi_local_ba(m: MapState, imu: ImuKfState, kf_id: int, cam_K, cam_bf,
                 T_bc, walk_gyro: float = 1.9e-5, walk_acc: float = 3.0e-3,
                 n_window: int = 10, n_local_pts: int = 4096,
@@ -83,59 +116,18 @@ def vi_local_ba(m: MapState, imu: ImuKfState, kf_id: int, cam_K, cam_bf,
     """Joint solve of the last ``n_window`` keyframe slots' poses,
     velocities and biases with their local points.  Returns (map,
     imu_state, final cost as a device scalar)."""
-    W = n_window
-    dev = m.kf_pose.device
-    kf_ids = kf_id - W + 1 + torch.arange(W, device=dev)
-    in_range = kf_ids >= 0
-    kf_ids = torch.clamp(kf_ids, min=0)
-    kf_mask = in_range & m.kf_valid[kf_ids]
-    safe_pt, pt_ok, batches = reproj_window(m, kf_ids, kf_mask, cam_K,
-                                            cam_bf, n_local_pts)
+    kf_ids, kf_mask, safe_pt, pt_ok, problem = vi_problem(
+        m, imu, kf_id, cam_K, cam_bf, T_bc, walk_gyro, walk_acc, n_window,
+        n_local_pts)
+    res = lmk.optimize_reproj_inertial(iters=iters, **problem)
 
-    # the IMU chain: the preintegration row of slot j joins (j - 1, j)
-    E = W - 1
-    e_i = torch.arange(E, dtype=torch.int32, device=dev)
-    e_j = e_i + 1
-    rows = kf_ids[e_j.long()]
-    pre = Preintegrated(*(f[rows] for f in imu.preint))
-    imu_valid = (imu.preint_valid[rows] & kf_mask[:-1] & kf_mask[1:]
-                 & (pre.dt > 1e-4))
-    g_w = torch.zeros((E, 3), dtype=torch.float32, device=dev)
-    g_w[:, 2:].fill_(-ifac.GRAVITY)
-    const = preint_const(pre)
-    const["T_bc"] = T_bc.expand(E, 7)
-    const["g_w"] = g_w
-    ones = torch.ones((E,), dtype=torch.float32, device=dev)
-    batches.append(FactorBatch(
-        ("kf", "kf", "vel", "vel", "bg", "ba"), ifac.imu_factor, 9,
-        torch.stack([e_i, e_j, e_i, e_j, e_j, e_j], dim=1), const, ones,
-        imu_valid, huber=9.0))
-    dtv = torch.clamp(pre.dt, min=1e-3)
-    for fam, walk in (("bg", walk_gyro), ("ba", walk_acc)):
-        batches.append(FactorBatch(
-            (fam, fam), ifac.bias_walk, 3, torch.stack([e_i, e_j], dim=1),
-            {}, 1.0 / (walk * walk * dtv), imu_valid))
-
-    # the oldest valid window slot is the gauge anchor
-    first = torch.argmax(kf_mask.to(torch.int32))
-    slot_fixed = (~kf_mask) | (torch.arange(W, device=dev) == first)
-    problem = GraphProblem(
-        families={
-            "kf": se3_family(m.kf_pose[kf_ids], slot_fixed),
-            "vel": point_family(imu.vel[kf_ids], slot_fixed),
-            "bg": point_family(imu.bias_g[kf_ids], slot_fixed),
-            "ba": point_family(imu.bias_a[kf_ids], slot_fixed),
-            "pt": point_family(m.pt_pos[safe_pt], ~pt_ok),
-        },
-        factors=batches, eliminated="pt")
-    res = optimize(problem, iters=iters)
-
-    new_m = write_window(m, kf_ids, kf_mask, res.values["kf"], safe_pt,
-                         pt_ok, res.values["pt"])
+    new_m = write_window(m, kf_ids, kf_mask, res.red.pose, safe_pt, pt_ok,
+                         res.pts)
     upd = kf_mask[:, None]
     tables = [index_set_last(tab.clone(), kf_ids,
-                             torch.where(upd, res.values[k], tab[kf_ids]))
-              for k, tab in (("vel", imu.vel), ("bg", imu.bias_g),
-                             ("ba", imu.bias_a))]
+                             torch.where(upd, val, tab[kf_ids]))
+              for val, tab in ((res.red.vel, imu.vel),
+                               (res.red.bg, imu.bias_g),
+                               (res.red.ba, imu.bias_a))]
     return new_m, imu._replace(vel=tables[0], bias_g=tables[1],
                                bias_a=tables[2]), res.cost

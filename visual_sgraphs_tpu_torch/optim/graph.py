@@ -129,7 +129,11 @@ def linearize_batch(batch: FactorBatch, families: Mapping[str, VarFamily]):
     """Whitened residuals and per-family Jacobians of every item.
 
     Returns ``(r (m, res_dim), jacs tuple of (m, res_dim, t_k), w (m,))``
-    where ``w`` folds validity and the Huber weight."""
+    where ``w`` folds validity and the Huber weight.  Calls on CUDA
+    tensors are counted in ``linearize_batch.cuda_calls``: the card's
+    paths linearise in kernels (K21, K22)."""
+    if batch.var_idx.is_cuda:
+        linearize_batch.cuda_calls += 1
     fams = [families[name] for name in batch.families]
     gathered = tuple(f.values[batch.var_idx[:, i].long()]
                      for i, f in enumerate(fams))
@@ -164,6 +168,9 @@ def linearize_batch(batch: FactorBatch, families: Mapping[str, VarFamily]):
         s = torch.sqrt(torch.clamp(chi2, min=1e-12))
         w = w * torch.clamp(batch.huber / s, max=1.0)
     return r, jacs, w
+
+
+linearize_batch.cuda_calls = 0
 
 
 def batch_chi2(batch: FactorBatch, families: Mapping[str, VarFamily]):

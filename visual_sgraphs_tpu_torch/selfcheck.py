@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import math
 import statistics
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -1622,6 +1622,342 @@ def run_inertial(device) -> list[dict]:
     """The inertial path's kernels against their twins."""
     return [check_preint(device), check_vi_pose(device),
             check_pose_gn_prior(device)]
+
+
+# ---------------------------------------------------------------------------
+# K22: the LM engine's kernel route (optim/lm_kernels.py)
+# ---------------------------------------------------------------------------
+
+# K22a's reduced pose block S and rhs, K22b's H and g, against the float64
+# twin, each entry scaled by sqrt(H_ii H_jj) (g_i by sqrt(H_ii) and the
+# largest scaled |g|): the system spans ~17 orders of magnitude, so an
+# error relative to its largest entry would not see the small blocks;
+# float32 rows summed in another order are ~1e-5 off
+LM_REL_TOL = 1e-3
+LM_STEP_TOL = 1e-3  # K22a's point steps, relative to the largest step
+LM_COST_TOL = 1e-5  # relative, the float64-summed costs
+# K22c against the twin's float64 solve of the same float64 system: the
+# factorisations differ only in their summation order
+LM_SOLVE_TOL = 1e-6  # relative to the largest |dx|
+LM_CAND_TOL = 1e-5  # candidate values (float32 retractions)
+LM_LAM = 1e-4  # the first iteration's damping
+
+
+class VIWindow(NamedTuple):
+    """A VI local BA's inputs, as ``SlamSystem`` passes them."""
+
+    m: MapState
+    imu: object  # vi_ba.ImuKfState
+    kf: int
+    cam_K: torch.Tensor
+    cam_bf: torch.Tensor
+    T_bc: torch.Tensor
+    walk_g: float
+    walk_a: float
+
+
+def watch_vi_window(system, which: int = 3) -> dict:
+    """Record the inputs of ``system``'s ``which``-th VI local BA (the last
+    one if fewer ran) under "window"; the solve itself is unchanged."""
+    out = {"calls": 0}
+    pipe = system.imu
+    orig = pipe.local_ba
+
+    def spy(sys_, kf, **kw):
+        out["calls"] += 1
+        if out["calls"] <= which:
+            out["window"] = VIWindow(
+                MapState(*(t.clone() for t in sys_.map)), pipe.state, kf,
+                sys_.cam_K, sys_.cam_bf, pipe.T_bc, pipe.cfg.walk_gyro,
+                pipe.cfg.walk_acc)
+        return orig(sys_, kf, **kw)
+
+    pipe.local_ba = spy
+    return out
+
+
+def lm_window(device, n_frames: int = 72) -> VIWindow:
+    """The third VI local BA window of a small inertial run on ``device``
+    (72 ``arc`` frames at 240x320 rendered on the CPU, 300 features, 32
+    keyframes / 4096 points)."""
+    from visual_sgraphs_tpu_torch import main_path
+    from visual_sgraphs_tpu_torch.config import CapacityConfig
+    scene, frames = main_path.inertial_frames("cpu", n_frames, 240, 320,
+                                              "arc")
+    cfg = main_path.inertial_config(scene, 300, CapacityConfig(32, 4096))
+    system = main_path.make_system(cfg, device, False)
+    seen = watch_vi_window(system)
+    for frame in frames:
+        main_path.feed_inertial(system, frame)
+    if "window" not in seen:
+        raise RuntimeError("lm_window: no VI local BA ran")
+    return seen["window"]
+
+
+def _f64(x):
+    """Floating tensors (and those inside tuples / dicts) in float64."""
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, dict):
+        return {k: _f64(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_replace"):
+        return type(x)(*(_f64(v) for v in x))
+    return x
+
+
+def lm_problems(win: VIWindow) -> dict:
+    """The VI local BA problem of the window and the initialisation
+    problem over its map's keyframes (as ``ImuPipeline.try_initialize``
+    poses it), float32 and float64."""
+    from visual_sgraphs_tpu_torch.inertial import init as iinit
+    from visual_sgraphs_tpu_torch.inertial import vi_ba
+    from visual_sgraphs_tpu_torch.inertial.preintegration import (
+        Preintegrated)
+    *_, vi = vi_ba.vi_problem(win.m, win.imu, win.kf, win.cam_K, win.cam_bf,
+                              win.T_bc, win.walk_g, win.walk_a, 10, 4096)
+    m = win.m
+    n = min(int(m.n_kf), m.K)
+    init = iinit.init_problem(
+        m.kf_pose[:n], m.kf_valid[:n],
+        Preintegrated(*(f[:n] for f in win.imu.preint)),
+        win.imu.preint_valid[:n], win.T_bc, fix_scale=True)
+    return {"vi": vi, "vi64": _f64(vi), "init": init, "init64": _f64(init)}
+
+
+def _lam(like, dtype=torch.float32):
+    return torch.full((), LM_LAM, dtype=dtype, device=like.device)
+
+
+def _rel_scaled(A, B, d) -> float:
+    """max |A - B| / sqrt(d_i d_j) (matrices) or max |a - b| / sqrt(d_i)
+    over the largest |b| / sqrt(d_i) (vectors), d = |diag| floored."""
+    d = d.abs().clamp(min=1e-30).sqrt()
+    if A.dim() == 2:
+        return float(((A - B).abs() / (d[:, None] * d[None, :])).max())
+    return float(((A - B).abs() / d).max()
+                 / (B.abs() / d).max().clamp(min=1e-30))
+
+
+def _reduced_pose(H, g, pairs, rhs, lam: float, eps: float):
+    """(S, rhs) of the pose block: H damped as _solve_step damps it, minus
+    the pair sums; -g plus the pair sums' rhs."""
+    P6 = pairs.shape[0]
+    Hp = H[:P6, :P6]
+    damp = lam * torch.clamp(torch.diagonal(Hp), min=1e-6) + eps
+    return (Hp + torch.diag(damp) - pairs, -g[:P6] + rhs)
+
+
+def _present_slots(rows, L: int, N: int) -> torch.Tensor:
+    """(N,) the number of window slots observing each landmark (a check's
+    host read)."""
+    use = rows.use.cpu()
+    key = (rows.pt.cpu().long() * L + rows.slot.cpu().long())[use]
+    return torch.bincount(torch.unique(key) // L, minlength=N)
+
+
+def check_lm_reproj(problems: dict) -> list[dict]:
+    """K22a on a real window: the reduced pose block S = Hpp + damping -
+    pairs and its rhs within LM_REL_TOL (scaled) of the float64 twin's
+    (the float32 twin's error beside), then the back-substitution of the
+    float64 twin's full step: the points' steps within LM_STEP_TOL of the
+    largest, the candidate cost within LM_COST_TOL."""
+    from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
+    p32, p64 = problems["vi"], problems["vi64"]
+    D = lmk.offsets(p32["red"])["D"]
+
+    def reduce(p, fn, dtype):
+        return fn(p["red"].pose, p["pts"], p["rows"], p["cam"], p["bf"],
+                  _lam(p["pts"], dtype), D)
+
+    k = reduce(p32, lmk.lm_reproj_reduce, torch.float32)
+    t64 = reduce(p64, lmk.lm_reproj_reduce_torch, torch.float64)
+    t32 = reduce(p32, lmk.lm_reproj_reduce_torch, torch.float32)
+    torch.cuda.synchronize()
+    Sk, rk = _reduced_pose(*(x.double() for x in k[:4]), LM_LAM, 1e-5)
+    S64, r64 = _reduced_pose(*t64[:4], LM_LAM, 1e-5)
+    S32, r32 = _reduced_pose(*(x.double() for x in t32[:4]), LM_LAM, 1e-5)
+    dS = torch.diagonal(S64)
+    eS, er = _rel_scaled(Sk, S64, dS), _rel_scaled(rk, r64, dS)
+    # a step: the float64 twin's solve of the whole system
+    H64, g64 = lmk.lm_inertial_assemble_torch(p64["imu"], p64["red"],
+                                              t64[0].clone(), t64[1].clone())
+    dx64, cand64 = lmk.lm_solve_torch(H64, g64, t64[2], t64[3], p64["free"],
+                                      _lam(H64, torch.float64), p64["red"])
+    cand32 = lmk.Reduced(*(None if v is None else v.float() for v in cand64))
+    pk, ck = lmk.lm_reproj_cost(cand32.pose, p32["pts"], p32["pt_fixed"],
+                                p32["rows"], p32["cam"], p32["bf"], k[4],
+                                dx64.float())
+    pt, ct = lmk.lm_reproj_cost_torch(cand64.pose, p64["pts"],
+                                      p64["pt_fixed"], p64["rows"],
+                                      p64["cam"], p64["bf"], t64[4], dx64)
+    torch.cuda.synchronize()
+    step = pt - p64["pts"]
+    e_step = float(((pk.double() - p64["pts"]) - step).abs().max()
+                   / step.abs().max().clamp(min=1e-30))
+    e_cost = abs(float(ck) - float(ct)) / max(abs(float(ct)), 1e-30)
+    rows = p32["rows"]
+    M, L, N = rows.slot.shape[0], p32["red"].pose.shape[0], p32["pts"].shape[0]
+    n_use = int(rows.use.sum())
+    npres = _present_slots(rows, L, N)
+    pairs_work = int((npres * npres).sum())
+    row_bytes = nbytes(*rows) + nbytes(p32["red"].pose, p32["pts"],
+                                       p32["cam"], p32["bf"])
+    reduce_ms = time_cuda(lambda: reduce(p32, lmk.lm_reproj_reduce,
+                                         torch.float32))
+    reduce_plain = time_cuda(lambda: reduce(
+        p32, lmk.lm_reproj_reduce_torch, torch.float32), reps=5)
+    cost_args = (cand32.pose, p32["pts"], p32["pt_fixed"], rows, p32["cam"],
+                 p32["bf"])
+    t32_state = t32[4]
+    cost_ms = time_cuda(lambda: lmk.lm_reproj_cost(
+        *cost_args, k[4], dx64.float()))
+    cost_plain = time_cuda(lambda: lmk.lm_reproj_cost_torch(
+        *cost_args, t32_state, dx64.float()), reps=5)
+    n_obs_slot = int(npres.sum())
+    return [
+        dict(name="lm_reproj_reduce", max_abs_err=max(eS, er),
+             ok=max(eS, er) <= LM_REL_TOL, rel_err_S=eS, rel_err_rhs=er,
+             twin32_rel_err_S=_rel_scaled(S32, S64, dS),
+             twin32_rel_err_rhs=_rel_scaled(r32, r64, dS), M=M, L=L, N=N,
+             rows_used=n_use, ms=reduce_ms, plain_ms=reduce_plain,
+             # rows read; H, g, pairs, rhs, per-landmark factors, c, P and
+             # masks written once
+             bytes=row_bytes + 8 * (D * D + D + 36 * L * L + 6 * L)
+             + N * (24 + 12 + 4) + 72 * n_obs_slot,
+             # ~420 flops a used row (projection, Jacobians, Hxx, bx, P_s,
+             # the slot block); ~60 a landmark's factor; 2 x 3 x 18 an
+             # observing slot's B_s; 36 x 6 a slot pair, 36 an rhs entry
+             ops=420 * n_use + 60 * N + 108 * n_obs_slot + 216 * pairs_work
+             + 36 * n_obs_slot, library_ms=None),
+        dict(name="lm_reproj_cost", max_abs_err=max(e_step, e_cost),
+             ok=e_step <= LM_STEP_TOL and e_cost <= LM_COST_TOL,
+             rel_err_step=e_step, rel_err_cost=e_cost,
+             cost=[float(ck), float(ct)], ms=cost_ms, plain_ms=cost_plain,
+             bytes=row_bytes + N * (12 + 24 + 12 + 4 + 1) + 72 * n_obs_slot
+             + 4 * D + 8,
+             # 36 + 30 a landmark's step, ~60 a used row's robust cost
+             ops=(36 * n_obs_slot + 30 * N) + 60 * n_use, library_ms=None)]
+
+
+def check_lm_inertial(problems: dict) -> list[dict]:
+    """K22b on a real window's VI problem and the initialisation problem
+    over its keyframes: H and g within LM_REL_TOL (scaled) of the float64
+    twin (the generic linearisation), the cost within LM_COST_TOL; the
+    float32 twin's errors beside."""
+    from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
+    out, errs, twin32 = {}, {}, {}
+    for tag in ("vi", "init"):
+        p32, p64 = problems[tag], problems[tag + "64"]
+        kH, kg = lmk.lm_inertial_assemble(p32["imu"], p32["red"])
+        tH, tg = lmk.lm_inertial_assemble_torch(p64["imu"], p64["red"])
+        sH, sg = lmk.lm_inertial_assemble_torch(p32["imu"], p32["red"])
+        kc = lmk.lm_inertial_cost(p32["imu"], p32["red"])
+        tc = lmk.lm_inertial_cost_torch(p64["imu"], p64["red"])
+        torch.cuda.synchronize()
+        d = torch.diagonal(tH)
+        errs[tag] = dict(H=_rel_scaled(kH, tH, d), g=_rel_scaled(kg, tg, d),
+                         cost=abs(float(kc) - float(tc))
+                         / max(abs(float(tc)), 1e-30))
+        twin32[tag] = dict(H=_rel_scaled(sH.double(), tH, d),
+                           g=_rel_scaled(sg.double(), tg, d))
+        out[tag] = p32
+    vi = out["vi"]
+    E_valid = int(vi["imu"].valid.sum())
+    E = vi["imu"].edge.shape[0]
+    D = lmk.offsets(vi["red"])["D"]
+    in_bytes = (nbytes(vi["imu"].pre, vi["imu"].edge, vi["imu"].valid,
+                       vi["imu"].T_bc, vi["imu"].info_g, vi["imu"].info_a)
+                + nbytes(*(v for v in vi["red"] if v is not None)))
+    a_ms = time_cuda(lambda: lmk.lm_inertial_assemble(vi["imu"], vi["red"]))
+    a_plain = time_cuda(lambda: lmk.lm_inertial_assemble_torch(
+        vi["imu"], vi["red"]), warmup=1, reps=5)
+    c_ms = time_cuda(lambda: lmk.lm_inertial_cost(vi["imu"], vi["red"]))
+    c_plain = time_cuda(lambda: lmk.lm_inertial_cost_torch(
+        vi["imu"], vi["red"]), warmup=1, reps=5)
+    e_a = max(max(e["H"], e["g"]) for e in errs.values())
+    e_c = max(e["cost"] for e in errs.values())
+    # a residual in float64 duals is ~2000 flops a direction (24 a VI
+    # edge), the 9x9 sqrt information ~1500, 24^2 x 9 x 2 for w J^T J;
+    # the cost one value-only residual an edge; the walks 12 an entry
+    return [
+        dict(name="lm_inertial_assemble", max_abs_err=e_a, ok=e_a
+             <= LM_REL_TOL, rel_errs=errs, twin32_rel_errs=twin32,
+             edges=[E_valid, E], D=D, ms=a_ms, plain_ms=a_plain,
+             bytes=in_bytes + 8 * (D * D + D),
+             ops=E_valid * (24 * 2000 + 1500 + 24 * 24 * 18) + 36 * E_valid,
+             library_ms=None),
+        dict(name="lm_inertial_cost", max_abs_err=e_c, ok=e_c <= LM_COST_TOL,
+             rel_err_cost=e_c, ms=c_ms, plain_ms=c_plain,
+             bytes=in_bytes + 8, ops=E_valid * (2000 + 1500) + 12 * E_valid,
+             library_ms=None)]
+
+
+def check_lm_solve(problems: dict) -> dict:
+    """K22c on a real window's full VI system (the float64 twins' H, g,
+    pairs, rhs at lambda = 1e-4): the step within LM_SOLVE_TOL of the
+    twin's float64 solve of the same system, the candidates within
+    LM_CAND_TOL; the float32 twin's step error beside (the reference's
+    precision); the initialisation's compacted system the same way."""
+    from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
+    errs, errs32, systems = {}, {}, {}
+    for tag in ("vi", "init"):
+        p32, p64 = problems[tag], problems[tag + "64"]
+        D = lmk.offsets(p64["red"])["D"]
+        pairs = rhs = None
+        if tag == "vi":
+            H, g, pairs, rhs, _ = lmk.lm_reproj_reduce_torch(
+                p64["red"].pose, p64["pts"], p64["rows"], p64["cam"],
+                p64["bf"], _lam(p64["pts"], torch.float64), D)
+            H, g = lmk.lm_inertial_assemble_torch(p64["imu"], p64["red"], H,
+                                                  g)
+        else:
+            H, g = lmk.lm_inertial_assemble_torch(p64["imu"], p64["red"])
+        H, g = H.contiguous(), g.contiguous()
+        if pairs is not None:
+            pairs, rhs = pairs.contiguous(), rhs.contiguous()
+        lam = _lam(H)
+        free = p32["free"]
+        kd, kc = lmk.lm_solve(H, g, pairs, rhs, free, lam, p32["red"])
+        td, tc = lmk.lm_solve_torch(H, g, pairs, rhs, free, lam, p32["red"])
+        sd, _ = lmk.lm_solve_torch(
+            H.float(), g.float(), None if pairs is None else pairs.float(),
+            None if rhs is None else rhs.float(), free, lam, p32["red"])
+        torch.cuda.synchronize()
+        scale = td.abs().max().clamp(min=1e-30)
+        errs[tag] = dict(
+            dx=float((kd - td).abs().max() / scale),
+            cand=max(float((a - b).abs().max()) for a, b in zip(kc, tc)
+                     if a is not None))
+        errs32[tag] = float((sd - td).abs().max() / scale)
+        systems[tag] = (H, g, pairs, rhs, free, lam, p32["red"], D)
+    H, g, pairs, rhs, free, lam, red, D = systems["vi"]
+    ms = time_cuda(lambda: lmk.lm_solve(H, g, pairs, rhs, free, lam, red))
+    plain = time_cuda(lambda: lmk.lm_solve_torch(H, g, pairs, rhs, free, lam,
+                                                 red), reps=5)
+    S = H + torch.eye(D, dtype=H.dtype, device=H.device)
+    library = time_cuda(lambda: torch.linalg.cholesky_ex(S))
+    e = max(max(v["dx"] for v in errs.values()),
+            max(v["cand"] for v in errs.values()))
+    return dict(name="lm_solve", max_abs_err=e,
+                ok=all(v["dx"] <= LM_SOLVE_TOL and v["cand"] <= LM_CAND_TOL
+                       for v in errs.values()), errs=errs,
+                twin32_rel_err_dx=errs32, D=D,
+                D_init=systems["init"][7], ms=ms, plain_ms=plain,
+                library_ms=library,
+                bytes=8 * (D * D + D) + 8 * (pairs.numel() + rhs.numel())
+                + D + 4 + 4 * D + 2 * nbytes(*(v for v in red
+                                              if v is not None)),
+                # the Cholesky (D^3 / 3 flops), two triangular solves (2 D^2
+                # each), the damping and masking (~4 D^2), the retraction
+                ops=D ** 3 // 3 + 8 * D * D + 300 * red.pose.shape[0])
+
+
+def run_lm(device, win: VIWindow | None = None) -> list[dict]:
+    """K22a / K22b / K22c against their twins on a VI local BA window
+    (``lm_window``'s small run when none is given)."""
+    problems = lm_problems(win if win is not None else lm_window(device))
+    return [*check_lm_reproj(problems), *check_lm_inertial(problems),
+            check_lm_solve(problems)]
 
 
 def run_loop_seeded(device) -> list[dict]:

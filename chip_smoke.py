@@ -32,11 +32,13 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    scene-graph BA's assembly, on seeded operands at D = 402 with live items
    of all five factor types, against the float64 twin, and a whole
    scene-graph BA on ``freespace_slice``'s final map with a seeded room,
-   corridor and door, K21 against the float64 twin; after phase 4i, K22a
-   (the LM engine's reprojection rows and landmark reduction, and its
-   back-substitution and cost), K22b (the inertial rows and their cost)
-   and K22c (the damped dense solve and retraction) on the inputs of
-   ``inertial_slice``'s fourth VI local BA, against the float64 twins,
+   corridor and door, K21 against the float64 twin; after phase 4j, K22a
+   (the LM engine's reprojection rows and landmark reduction at two
+   dampings, and its back-substitution and cost), K22b (the inertial rows
+   and their cost) and K22c (the damped dense solve and retraction) on
+   the inputs of the inertial path's fourth VI local BA (D = 150) and its
+   last generic local BA (11 slots, 8192 points, D = 66; also tiled to 22
+   and 44 slots), recorded in phase 4j's run, against the float64 twins,
    with ``torch.linalg.cholesky_ex`` of the same system as K22c's
    yardstick), with kernel and twin times
    (CUDA events, median of 20 after 3 warm-ups) and the bytes /
@@ -615,8 +617,6 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     system = main_path.make_system(vi_cfg, device, False)
     init = {}
-    # the inputs of the fourth VI local BA, for K22's checks below
-    vi_seen = selfcheck.watch_vi_window(system, which=4)
 
     def note_init(i):
         if "frame" not in init and system.imu.initialized:
@@ -671,17 +671,17 @@ def main() -> None:
     _check(generic_lin == 0, f"inertial_slice: {generic_lin} generic "
            "linearisations on the card")
     del system
-    # K22a / K22b / K22c against their twins on the fourth VI local BA's
-    # window (10 slots x 1000 keypoints, <= 4096 points, D = 150) and the
-    # initialisation problem over that map's keyframes
-    report(selfcheck.run_lm(device, vi_seen["window"]))
 
     # 4j. hidden host syncs of the inertial path: 16 frames after the IMU
-    # initialised, across a keyframe
+    # initialised, across a keyframe (this run, not timed, also records the
+    # inputs of its fourth VI local BA and last generic local BA for K22's
+    # checks below; the copies sync nothing)
     lo = max(32, init["frame"] + 1)
     system = main_path.make_system(vi_cfg, device, False)
-    syncs = _drive(system, vi_frames[:lo + 16], warm=lo,
-                   sync_window=(lo, lo + 16), feed=main_path.feed_inertial)
+    with selfcheck.watch_lm_windows(system, which=4) as lm_seen:
+        syncs = _drive(system, vi_frames[:lo + 16], warm=lo,
+                       sync_window=(lo, lo + 16),
+                       feed=main_path.feed_inertial)
     _line("inertial_sync_debug", frames=f"{lo}-{lo + 15}",
           imu_initialized=system.imu.initialized,
           keyframes=syncs["keyframes"], vi_solves=syncs["vi_solves"],
@@ -694,6 +694,12 @@ def main() -> None:
            f"inertial_sync_debug: syncs differ from counted readbacks: "
            f"{syncs}")
     del system
+    # K22a / K22b / K22c against their twins on the fourth VI local BA's
+    # window (10 slots x 1000 keypoints, <= 4096 points, D = 150), the
+    # initialisation problem over that map's keyframes and the last generic
+    # local BA's window (11 slots, <= 8192 points, D = 66; tiled to 22
+    # slots, and to 44, past K22a's shared pair-sum accumulator)
+    report(selfcheck.run_lm(device, selfcheck.lm_windows(lm_seen)))
 
     # 4k. freespace_slice: the scene-graph cell with free-space rooms
     fs_cfg = main_path.freespace_config(scene)

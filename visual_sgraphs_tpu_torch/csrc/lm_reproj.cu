@@ -34,24 +34,34 @@
 // kernel takes a row a thread, adds the landmark's Hxx, bx and P_s with
 // float32 atomics (a few rows each) and the slot's 6x6 block and gradient
 // (summed over the warp by shuffles: rows are slot-major) into the block's
-// shared memory, flushed once a block into the float64 H, g; the reduce kernel takes a landmark a warp: its 3x3 factor in every
-// lane, B_s of each observing slot into shared memory, then the lanes
-// split the (slot a, slot b, 6 x 6) products and add them to a block-wide
-// shared accumulator of (6L)^2 pair sums, flushed once a block with
-// float64 atomics.  Float32 like the engine's rows (the landmark blocks
-// span ~8 orders of magnitude, as K8's: no TF32); the sums the atomics
-// make are in another order than the twin's, so S and rhs are held
-// against the float64 twin at a tolerance relative to their largest
-// entries.  The back-substitution takes a landmark a thread, the cost a
-// row a thread with a float64 block sum.
+// shared memory, flushed once a block into the float64 H, g; the reduce
+// kernel takes a landmark a warp: its 3x3 factor in every lane, B_s of
+// each observing slot (a bit a slot in the landmark's mask words) into
+// shared memory, then the lanes split the (slot a, slot b, 6 x 6) products
+// and add them to a block-wide shared accumulator of (6L)^2 pair sums,
+// flushed once a block with float64 atomics.  Any window size runs: past
+// SHARED_ACC_LIMIT (L > 33) the products go straight to the float64 pair
+// sums in global memory with an atomic each, as K8's global-BA path does.
+// Float32 like the engine's rows (the landmark blocks span ~8 orders of
+// magnitude, as K8's: no TF32); the sums the atomics make are in another
+// order than the twin's, so S and rhs are held against the float64 twin at
+// a tolerance relative to their largest entries.  The back-substitution
+// takes a landmark a thread, the cost a row a thread with a float64 block
+// sum.
 #include "lie.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_L = 16;
 constexpr int NACC = 27;  // 21 upper-triangular 6x6 entries + 6 gradient
+// the reduce kernel's shared pair-sum accumulator up to this many bytes,
+// else float64 atomics into the global pair sums
+constexpr size_t SHARED_ACC_LIMIT = 160 * 1024;
+
+__host__ __device__ __forceinline__ int mask_words(int L) {
+    return (L + 31) / 32;
+}
 
 struct Rows {
     const float* pose;  // (L, 7) T_cw
@@ -107,9 +117,9 @@ __device__ __forceinline__ float huber_cost(float chi2, float d) {
 
 __global__ void __launch_bounds__(THREADS)
 linearize_kernel(Rows a, int D, float* __restrict__ Hxx,
-                 float* __restrict__ P, int* __restrict__ mask,
+                 float* __restrict__ P, unsigned* __restrict__ mask,
                  double* __restrict__ H, double* __restrict__ g) {
-    __shared__ float acc[MAX_L * NACC];
+    extern __shared__ float acc[];  // (L, NACC)
     for (int t = threadIdx.x; t < a.L * NACC; t += THREADS) acc[t] = 0.0f;
     __syncthreads();
     const int lane = threadIdx.x & 31;
@@ -166,7 +176,8 @@ linearize_kernel(Rows a, int D, float* __restrict__ Hxx,
                     atomicAdd(&Ps[6 * i + j], w * v);
                 }
             }
-            atomicOr(&mask[n], 1 << s);
+            atomicOr(&mask[(size_t)n * mask_words(a.L) + s / 32],
+                     1u << (s % 32));
         }
         // the slot's pose block and gradient: a warp sum when the warp's
         // rows share one slot, else an atomic a row
@@ -217,21 +228,23 @@ linearize_kernel(Rows a, int D, float* __restrict__ Hxx,
 __global__ void __launch_bounds__(THREADS)
 reduce_kernel(int N, int L, const float* __restrict__ Hxx,
               const float* __restrict__ P,
-              const int* __restrict__ mask, const float* __restrict__ lam_ptr,
-              float eps, float* __restrict__ Linv_out,
-              float* __restrict__ c_out, double* __restrict__ pairs,
-              double* __restrict__ rhs) {
+              const unsigned* __restrict__ mask,
+              const float* __restrict__ lam_ptr, float eps,
+              float* __restrict__ Linv_out, float* __restrict__ c_out,
+              double* __restrict__ pairs, double* __restrict__ rhs,
+              int shared_acc) {
     extern __shared__ float sh[];
-    const int P6 = 6 * L;
-    float* sp = sh;                   // (P6, P6) pair sums
-    float* sr = sp + P6 * P6;         // (P6,) their rhs
-    float* sB = sr + P6;              // (WARPS, MAX_L, 18) B_s
-    int* sl = reinterpret_cast<int*>(sB + WARPS * MAX_L * 18);
-    for (int t = threadIdx.x; t < P6 * P6 + P6; t += THREADS) sp[t] = 0.0f;
+    const int P6 = 6 * L, MW = mask_words(L);
+    const int nacc = shared_acc ? P6 * P6 + P6 : 0;
+    float* sp = sh;                   // (P6, P6) pair sums (shared_acc)
+    float* sr = sp + P6 * P6;         // (P6,) their rhs (shared_acc)
+    float* sB = sh + nacc;            // (WARPS, L, 18) B_s
+    int* sl = reinterpret_cast<int*>(sB + WARPS * L * 18);
+    for (int t = threadIdx.x; t < nacc; t += THREADS) sp[t] = 0.0f;
     __syncthreads();
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    float* B = sB + warp * MAX_L * 18;
-    int* slots = sl + warp * MAX_L;
+    float* B = sB + warp * L * 18;
+    int* slots = sl + warp * L;
     const float lam = lam_ptr[0];
     for (int n = blockIdx.x * WARPS + warp; n < N; n += gridDim.x * WARPS) {
         const float* h = Hxx + 9 * n;
@@ -261,10 +274,10 @@ reduce_kernel(int N, int L, const float* __restrict__ Hxx,
             li[5] = i22;
             for (int k = 0; k < 3; ++k) c_out[3 * n + k] = c[k];
         }
-        const int mk = mask[n];
+        const unsigned* mk = mask + (size_t)n * MW;
         int np = 0;
-        for (int s = 0; s < L; ++s) {
-            if (mk & (1 << s)) slots[np++] = s;  // every lane, same value
+        for (int s = 0; s < L; ++s) {  // every lane, same value
+            if ((mk[s / 32] >> (s % 32)) & 1u) slots[np++] = s;
         }
         __syncwarp();
         // B_s = L^-1 P_s
@@ -290,18 +303,28 @@ reduce_kernel(int N, int L, const float* __restrict__ Hxx,
             const float v = Ba[i] * Bb[j] + Ba[6 + i] * Bb[6 + j] +
                             Ba[12 + i] * Bb[12 + j];
             if (v != 0.0f) {
-                atomicAdd(&sp[(6 * slots[qa] + i) * P6 + 6 * slots[qb] + j],
-                          v);
+                const int e = (6 * slots[qa] + i) * P6 + 6 * slots[qb] + j;
+                if (shared_acc) {
+                    atomicAdd(&sp[e], v);
+                } else {
+                    atomicAdd(&pairs[e], (double)v);
+                }
             }
         }
         for (int t = lane; t < np * 6; t += 32) {
             const float* Ba = B + 18 * (t / 6);
             const int i = t % 6;
             const float v = Ba[i] * c[0] + Ba[6 + i] * c[1] + Ba[12 + i] * c[2];
-            if (v != 0.0f) atomicAdd(&sr[6 * slots[t / 6] + i], v);
+            if (v == 0.0f) continue;
+            if (shared_acc) {
+                atomicAdd(&sr[6 * slots[t / 6] + i], v);
+            } else {
+                atomicAdd(&rhs[6 * slots[t / 6] + i], (double)v);
+            }
         }
         __syncwarp();
     }
+    if (!shared_acc) return;
     __syncthreads();
     for (int t = threadIdx.x; t < P6 * P6; t += THREADS) {
         if (sp[t] != 0.0f) atomicAdd(&pairs[t], (double)sp[t]);
@@ -315,15 +338,16 @@ __global__ void __launch_bounds__(THREADS)
 backsub_kernel(int N, int L, const float* __restrict__ pts,
                const uint8_t* __restrict__ fixed,
                const float* __restrict__ Linv, const float* __restrict__ c,
-               const float* __restrict__ P, const int* __restrict__ mask,
+               const float* __restrict__ P,
+               const unsigned* __restrict__ mask,
                const float* __restrict__ dx, float* __restrict__ out) {
     const int n = blockIdx.x * THREADS + threadIdx.x;
     if (n >= N) return;
     // y = c + L^-1 sum_s P_s dx_s, dx_pt = -L^-T y
     float t[3] = {0.0f, 0.0f, 0.0f};
-    const int mk = mask[n];
+    const unsigned* mk = mask + (size_t)n * mask_words(L);
     for (int s = 0; s < L; ++s) {
-        if (!(mk & (1 << s))) continue;
+        if (!((mk[s / 32] >> (s % 32)) & 1u)) continue;
         const float* Ps = P + 18 * ((size_t)n * L + s);
         const float* d = dx + 6 * s;
         for (int i = 0; i < 3; ++i) {
@@ -402,12 +426,13 @@ int sm_count() {
 
 }  // namespace
 
-// pose (L <= 16, 7) f32 T_cw, pts (N, 3) f32, rows slot / pt (M,) i32,
+// pose (L, 7) f32 T_cw, pts (N, 3) f32, rows slot / pt (M,) i32,
 // uvr (M, 3) f32, use / stereo (M,) u8, cam (4,), bf () f32, the Huber
 // widths; lam () f32 on the device, eps.  Outputs: H (D, D) and g (D,)
 // f64 (zeroed here, then the undamped pose-diagonal blocks), pairs (6L,
 // 6L) and rhs (6L,) f64; per landmark Linv (N, 6) (packed lower inverse
-// factor of the damped Hxx), c (N, 3), P (N, L, 3, 6), mask (N,) i32, and
+// factor of the damped Hxx), c (N, 3), P (N, L, 3, 6), mask (N, (L + 31) /
+// 32) u32 (a bit an observing slot), and
 // scratch Hxx (N, 9) f32: Hxx's upper 6 entries and bx (zeroed here where
 // accumulated).
 VSG_API int vsg_lm_reproj_reduce(
@@ -416,8 +441,8 @@ VSG_API int vsg_lm_reproj_reduce(
     const uint8_t* stereo, int M, const float* cam, const float* bf,
     float huber_mono, float huber_stereo, const float* lam, float eps, int D,
     double* H, double* g, double* pairs, double* rhs, float* Hxx, float* P,
-    int* mask, float* Linv, float* c, cudaStream_t stream) {
-    if (L > MAX_L || L < 1) return (int)cudaErrorInvalidValue;
+    unsigned* mask, float* Linv, float* c, cudaStream_t stream) {
+    if (L < 1) return (int)cudaErrorInvalidValue;
     const int P6 = 6 * L;
     struct {
         void* p;
@@ -428,7 +453,7 @@ VSG_API int vsg_lm_reproj_reduce(
                 {rhs, sizeof(double) * P6},
                 {Hxx, sizeof(float) * 9 * (size_t)N},
                 {P, sizeof(float) * 18 * (size_t)N * L},
-                {mask, sizeof(int) * (size_t)N}};
+                {mask, sizeof(unsigned) * (size_t)N * mask_words(L)}};
     for (const auto& z : zero) {
         const cudaError_t err = cudaMemsetAsync(z.p, 0, z.n, stream);
         if (err != cudaSuccess) return (int)err;
@@ -437,19 +462,29 @@ VSG_API int vsg_lm_reproj_reduce(
                              cam, bf, huber_mono, huber_stereo);
     const int sms = sm_count();
     if (M > 0) {
+        const size_t shmem = sizeof(float) * L * NACC;
+        cudaError_t err = cudaFuncSetAttribute(
+            linearize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)shmem);
+        if (err != cudaSuccess) return (int)err;
         const int blocks = min((M + THREADS - 1) / THREADS, 2 * sms);
-        linearize_kernel<<<blocks, THREADS, 0, stream>>>(a, D, Hxx, P, mask,
-                                                         H, g);
-        const cudaError_t err = cudaGetLastError();
+        linearize_kernel<<<blocks, THREADS, shmem, stream>>>(a, D, Hxx, P,
+                                                             mask, H, g);
+        err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }
     if (N > 0) {
-        const size_t shmem = sizeof(float) * (P6 * P6 + P6 +
-                                              WARPS * MAX_L * 18) +
-                             sizeof(int) * WARPS * MAX_L;
+        const size_t acc = sizeof(float) * ((size_t)P6 * P6 + P6);
+        const int shared_acc = acc <= SHARED_ACC_LIMIT;
+        const size_t shmem = (shared_acc ? acc : 0) +
+                             (sizeof(float) * 18 + sizeof(int)) * WARPS * L;
+        const cudaError_t err = cudaFuncSetAttribute(
+            reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)shmem);
+        if (err != cudaSuccess) return (int)err;
         const int blocks = min((N + 8 * WARPS - 1) / (8 * WARPS), sms);
         reduce_kernel<<<blocks, THREADS, shmem, stream>>>(
-            N, L, Hxx, P, mask, lam, eps, Linv, c, pairs, rhs);
+            N, L, Hxx, P, mask, lam, eps, Linv, c, pairs, rhs, shared_acc);
     }
     return (int)cudaGetLastError();
 }
@@ -464,7 +499,8 @@ VSG_API int vsg_lm_reproj_cost(
     const int* pt, const float* uvr, const uint8_t* use,
     const uint8_t* stereo, int M, const float* cam, const float* bf,
     float huber_mono, float huber_stereo, const uint8_t* fixed,
-    const float* Linv, const float* c, const float* P, const int* mask,
+    const float* Linv, const float* c, const float* P,
+    const unsigned* mask,
     const float* dx, float* out, double* cost, int zero,
     cudaStream_t stream) {
     if (zero) {

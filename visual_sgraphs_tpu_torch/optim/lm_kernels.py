@@ -31,10 +31,11 @@ Each wrapper launches its kernel on CUDA tensors (counted in
 tensors: analytic rows, the per-landmark reduction and the dense solve in
 the values' dtype (K22b's twin is the generic ``graph.linearize_batch``
 on the inertial factor batches, as K21's is).  ``optimize_reproj_inertial``
-runs the engine's schedule (lambda0 = 1e-4, x0.5 on accept, x10 on reject,
-clamped to [1e-10, 1e6], accept when the candidate cost is lower and
-finite), every decision on the device.  The kernels solve and sum the
-cost in float64 (see their headers); the twins in the values' dtype.
+runs these steps on the generic engine's own schedule (``solve.lm_loop``:
+lambda0 = 1e-4, x0.5 on accept, x10 on reject, clamped to [1e-10, 1e6],
+accept when the candidate cost is lower and finite), every decision on the
+device.  The kernels solve and sum the cost in float64 (see their
+headers); the twins in the values' dtype.
 """
 
 from __future__ import annotations
@@ -56,7 +57,11 @@ from visual_sgraphs_tpu_torch.optim.graph import (
     scale_family,
     se3_family,
 )
-from visual_sgraphs_tpu_torch.optim.solve import _assemble, _huber_cost
+from visual_sgraphs_tpu_torch.optim.solve import (
+    _assemble,
+    _huber_cost,
+    lm_loop,
+)
 
 HUBER_MONO = math.sqrt(5.991)
 HUBER_STEREO = math.sqrt(7.815)
@@ -295,9 +300,9 @@ def _reproj_args(poses, pts, rows: ReprojRows, cam, bf):
                                                bf))
             or rows.slot.dtype != torch.int32 or rows.pt.dtype != torch.int32
             or rows.use.dtype != torch.bool
-            or rows.stereo.dtype != torch.bool or poses.shape[0] > 16):
+            or rows.stereo.dtype != torch.bool):
         raise ValueError("lm_reproj: float32 values, int32 indices, bool "
-                         "masks, at most 16 window slots")
+                         "masks")
     ptr = cuda.ptr
     return (ptr(poses), poses.shape[0], ptr(pts), pts.shape[0],
             ptr(rows.slot), ptr(rows.pt), ptr(rows.uvr), ptr(rows.use),
@@ -311,7 +316,7 @@ class ReprojKernelState(NamedTuple):
     Linv: torch.Tensor  # (N, 6) packed lower inverse Cholesky factor
     c: torch.Tensor  # (N, 3)
     P: torch.Tensor  # (N, L, 3, 6)
-    mask: torch.Tensor  # (N,) int32 bit per observing slot
+    mask: torch.Tensor  # (N, (L + 31) // 32) int32: a bit an observing slot
 
 
 def lm_reproj_reduce(poses, pts, rows: ReprojRows, cam, bf, lam, D: int):
@@ -333,7 +338,8 @@ def lm_reproj_reduce(poses, pts, rows: ReprojRows, cam, bf, lam, D: int):
     st = ReprojKernelState(torch.empty((N, 6), **f32),
                            torch.empty((N, 3), **f32),
                            torch.empty((N, L, 3, 6), **f32),
-                           torch.empty((N,), dtype=torch.int32, device=dev))
+                           torch.empty((N, (L + 31) // 32), dtype=torch.int32,
+                                       device=dev))
     ptr = cuda.ptr
     cuda.call("vsg_lm_reproj_reduce", *args, ptr(lam),
               _eps(torch.float32), D, ptr(H), ptr(g), ptr(pairs), ptr(rhs),
@@ -672,21 +678,18 @@ lm_solve.launches = 0
 
 def optimize_reproj_inertial(red: Reduced, free, iters: int, pts=None,
                              pt_fixed=None, rows: ReprojRows | None = None,
-                             cam=None, bf=None, imu: ImuRows | None = None,
-                             lam0: float = 1e-4, lam_up: float = 10.0,
-                             lam_down: float = 0.5) -> LmResult:
-    """``iters`` LM iterations of the engine (``optim/solve.py::optimize``)
+                             cam=None, bf=None,
+                             imu: ImuRows | None = None) -> LmResult:
+    """``iters`` LM iterations of the engine's schedule (``solve.lm_loop``)
     over the reduced families ``red`` (gauge mask ``free``), the points
     ``pts`` eliminated through the reprojection ``rows`` and the inertial
-    factors ``imu``: each iteration is K22a's reduction, K22b's assembly,
-    K22c's solve and retraction, K22a's back-substitution and cost and
-    K22b's cost (twins on CPU tensors), then the accept / reject and the
-    damping update as device selections (nothing is read back)."""
+    factors ``imu``: each step is K22a's reduction, K22b's assembly, K22c's
+    solve and retraction, K22a's back-substitution and cost and K22b's cost
+    (twins on CPU tensors); nothing is read back."""
     dtype = red_dtype(red)
-    dev = free.device
     D = offsets(red)["D"]
     if bf is None and rows is not None:
-        bf = torch.zeros((), dtype=dtype, device=dev)
+        bf = torch.zeros((), dtype=dtype, device=free.device)
 
     def cost_at(r: Reduced, p, state=None, dx=None):
         acc = None
@@ -697,29 +700,30 @@ def optimize_reproj_inertial(red: Reduced, free, iters: int, pts=None,
             acc = lm_inertial_cost(imu, r, acc)
         return p, acc
 
-    _, cost0 = cost_at(red, pts)
-    lam = torch.full((), lam0, dtype=dtype, device=dev)
-    cur = cost0
-    history = []
-    for _ in range(iters):
+    def as_dict(r: Reduced, p) -> dict:
+        out = {k: v for k, v in r._asdict().items() if v is not None}
+        if p is not None:
+            out["pts"] = p
+        return out
+
+    def step(values, lam):
+        r = Reduced(**{k: v for k, v in values.items() if k != "pts"})
+        p = values.get("pts")
         H = g = pairs = rhs_p = state = None
         if rows is not None:
             H, g, pairs, rhs_p, state = lm_reproj_reduce(
-                red.pose, pts, rows, cam, bf, lam, D)
+                r.pose, p, rows, cam, bf, lam, D)
         if imu is not None:
-            H, g = lm_inertial_assemble(imu, red, H, g)
-        dx, cand = lm_solve(H, g, pairs, rhs_p, free, lam, red)
-        cand_pts, cand_cost = cost_at(cand, pts, state, dx)
-        accept = (cand_cost < cur) & torch.isfinite(cand_cost)
-        red = Reduced(*(None if v is None else torch.where(accept, c, v)
-                        for v, c in zip(red, cand)))
-        if pts is not None:
-            pts = torch.where(accept, cand_pts, pts)
-        lam = torch.clamp(torch.where(accept, lam * lam_down, lam * lam_up),
-                          1e-10, 1e6)
-        cur = torch.where(accept, cand_cost, cur)
-        history.append(accept)
-    return LmResult(red=red, pts=pts, cost=cur.to(dtype),
-                    initial_cost=cost0.to(dtype), lam=lam,
-                    accepted=torch.stack(history) if history
-                    else torch.zeros((0,), dtype=torch.bool))
+            H, g = lm_inertial_assemble(imu, r, H, g)
+        dx, cand = lm_solve(H, g, pairs, rhs_p, free, lam, r)
+        cand_pts, cand_cost = cost_at(cand, p, state, dx)
+        return as_dict(cand, cand_pts), cand_cost
+
+    res = lm_loop(as_dict(red, pts), cost_at(red, pts)[1], iters, step,
+                  lam_dtype=dtype)
+    out = dict(res.values)
+    return LmResult(red=Reduced(**{k: v for k, v in out.items()
+                                   if k != "pts"}),
+                    pts=out.get("pts"), cost=res.cost.to(dtype),
+                    initial_cost=res.initial_cost.to(dtype), lam=res.lam,
+                    accepted=res.accepted)

@@ -16,7 +16,8 @@ BlockSolver + LM for the reference's ``Optimizer.cc`` solves):
 
 ``optimize`` takes optional ``assemble`` / ``cost`` callables that replace
 the generic linearisation and cost of the problem's factors (the pose
-graph passes its kernel K19 there, ``place/pgo.py``).
+graph passes its kernel K19 there, ``place/pgo.py``); its schedule,
+``lm_loop``, also runs the kernel route's steps (``optim/lm_kernels.py``).
 """
 
 from __future__ import annotations
@@ -209,32 +210,47 @@ def _retract_all(problem: GraphProblem, values, deltas):
             for k, fam in problem.families.items()}
 
 
-def optimize(problem: GraphProblem, iters: int = 10, lam0: float = 1e-4,
-             lam_up: float = 10.0, lam_down: float = 0.5,
-             assemble: Callable | None = None,
-             cost: Callable | None = None) -> OptimizeResult:
-    """``iters`` LM iterations on a fixed schedule (the reference's
-    budgets), each accepted or rejected on the device.  ``assemble(values)
-    -> (H, g)`` / ``cost(values) -> ()`` replace the generic linearisation
-    and cost (no eliminated family then)."""
-    cost_fn = cost or (lambda v: problem_cost(problem, v))
-    values = {k: f.values for k, f in problem.families.items()}
-    free_mask = _reduced_fixed_mask(problem).to(
-        next(iter(values.values())).device)
-    cost0 = cost_fn(values)
-    lam = torch.full((), lam0, dtype=cost0.dtype, device=cost0.device)
+def lm_loop(values: dict, cost0, iters: int, step: Callable,
+            lam_dtype=None) -> OptimizeResult:
+    """The engine's LM schedule: ``iters`` iterations from ``values`` (a
+    dict of tables) at cost ``cost0``, each ``step(values, lam) ->
+    (candidate values, candidate cost)`` accepted when the candidate's cost
+    is lower and finite; lambda starts at 1e-4, halves on accept and grows
+    x10 on reject, clamped to [1e-10, 1e6]; every decision on the device.
+    lambda is a device scalar of ``lam_dtype`` (the cost's dtype when
+    None)."""
+    lam = torch.full((), 1e-4, dtype=lam_dtype or cost0.dtype,
+                     device=cost0.device)
     cur = cost0
     history = []
     for _ in range(iters):
-        deltas = _solve_step(problem, values, lam, free_mask, assemble)
-        cand = _retract_all(problem, values, deltas)
-        cand_cost = cost_fn(cand)
+        cand, cand_cost = step(values, lam)
         accept = (cand_cost < cur) & torch.isfinite(cand_cost)
         values = {k: torch.where(accept, cand[k], values[k]) for k in values}
-        lam = torch.clamp(torch.where(accept, lam * lam_down, lam * lam_up),
+        lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 10.0),
                           1e-10, 1e6)
         cur = torch.where(accept, cand_cost, cur)
         history.append(accept)
     return OptimizeResult(values=values, cost=cur, initial_cost=cost0,
                           lam=lam, accepted=torch.stack(history) if history
                           else torch.zeros((0,), dtype=torch.bool))
+
+
+def optimize(problem: GraphProblem, iters: int = 10,
+             assemble: Callable | None = None,
+             cost: Callable | None = None) -> OptimizeResult:
+    """``iters`` LM iterations on a fixed schedule (the reference's
+    budgets, ``lm_loop``), each accepted or rejected on the device.
+    ``assemble(values) -> (H, g)`` / ``cost(values) -> ()`` replace the
+    generic linearisation and cost (no eliminated family then)."""
+    cost_fn = cost or (lambda v: problem_cost(problem, v))
+    values = {k: f.values for k, f in problem.families.items()}
+    free_mask = _reduced_fixed_mask(problem).to(
+        next(iter(values.values())).device)
+
+    def step(values, lam):
+        deltas = _solve_step(problem, values, lam, free_mask, assemble)
+        cand = _retract_all(problem, values, deltas)
+        return cand, cost_fn(cand)
+
+    return lm_loop(values, cost_fn(values), iters, step)

@@ -32,7 +32,16 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    scene-graph BA's assembly, on seeded operands at D = 402 with live items
    of all five factor types, against the float64 twin, and a whole
    scene-graph BA on ``freespace_slice``'s final map with a seeded room,
-   corridor and door, K21 against the float64 twin; after phase 4j, K22a
+   corridor and door, K21 against the float64 twin; K23's two entries (the
+   room pair analysis, walls and free space) and K24 (plane association)
+   on the seeded cases the CPU parity tests use, and again on real inputs:
+   K23's wall entry on ``bench_slice``'s final scene graph, K24 on one
+   keyframe's detections recorded in phase 4e's untimed run, K23's
+   free-space entry on ``freespace_slice``'s final scene graph and its
+   grid's cluster centres (integer and bool fields exact, room centres
+   within 1e-6 m, plane and observation floats within 1e-5; the eager
+   operations of one twin call counted with ``torch.profiler``); after
+   phase 4j, K22a
    (the LM engine's reprojection rows and landmark reduction at two
    dampings, and its back-substitution and cost), K22b (the inertial rows
    and their cost) and K22c (the damped dense solve and retraction) on
@@ -49,7 +58,9 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    sequence rendered on the card, serial path unless stated:
    a. scene graph off, loops off (the tracking + local-mapping path);
    b. scene graph on (``SceneGraphManager`` attached, semantics provided
-      per frame, plane covisibility and semantic point refinement on);
+      per frame, plane covisibility and semantic point refinement on),
+      K23's wall entry and K24 launched once per scene-graph keyframe
+      (as often as K14);
    c. path (b) again over frames 0-47 under ``torch.cuda.set_sync_debug_
       mode``: synchronising calls per frame against counted readbacks;
    d. ``bench_slice``, the main path: the headline configuration of
@@ -58,10 +69,12 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
       192-frame ``orbit2`` sequence, fps and counted readbacks over
       frames 64-191, the reference's bench-scale gates (ATE <= 0.1 m,
       >= 90 % tracked, >= 20 keyframes, >= 1 loop), planes,
-      serial-relief windows and batch re-tracks;
+      serial-relief windows and batch re-tracks, K23's wall entry and K24
+      launched once per scene-graph keyframe (as often as K14);
    e. path (d) again over frames 0-95, frames 64-95 under sync-debug
       mode (four batches, across keyframe cycles): synchronising calls
-      must equal the counted readbacks;
+      must equal the counted readbacks (this run, not timed, also records
+      the operands of its eighth plane association for K24's check);
    f. ``loop_slice``: path (b) with loop closing, a global BA after each
       accepted loop and relocalisation of lost frames;
    g. path (f) again over frames 0-79 under sync-debug mode, across a loop
@@ -84,9 +97,10 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
       must equal the counted readbacks;
    k. ``freespace_slice``: path (b) with free-space rooms
       (``main_path.freespace_config``), gated as (b), with K17a launched
-      once per keyframe, K17b once per maintenance pass and K21 once per
-      scene-graph BA iteration; the free-voxel count, rooms and corridors
-      printed;
+      once per keyframe, K17b once per maintenance pass, K23's free-space
+      entry as often as K17b, its wall entry never, K24 as often as K14
+      and K21 once per scene-graph BA iteration; the free-voxel count,
+      rooms and corridors printed;
    l. path (k) again over a 16-frame window that holds a maintenance
       pass, under sync-debug mode: synchronising calls must equal the
       counted readbacks;
@@ -132,9 +146,13 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
 WARM = 16
-SG_ONLY = {"depth_cloud", "extract_planes", "plane_epilogue", "sg_assemble"}
+SG_ONLY = {"depth_cloud", "extract_planes", "plane_epilogue", "sg_assemble",
+           "plane_assoc", "rooms_walls"}
 # the free-space room method's kernels (room_method="freespace" only)
-FREESPACE_ONLY = {"freespace_carve", "freespace_components"}
+FREESPACE_ONLY = {"freespace_carve", "freespace_components",
+                  "rooms_freespace"}
+# the wall-based room method's kernel (every other scene-graph cell)
+WALLS_ONLY = {"rooms_walls"}
 LOOP_ONLY = {"bow_vectors", "place_query", "match_nn_ratio", "guided_count",
              "verify_sim3", "pnp_hypotheses", "pgo_assemble", "pgo_cost"}
 # the LM engine's kernel route (K22a / K22b / K22c): the inertial path's
@@ -164,6 +182,23 @@ def _card() -> str:
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def _check_sg_launches(tag: str, cnt: dict, freespace: bool = False) -> None:
+    """K24 and the cell's room entry of K23 launch once per scene-graph
+    keyframe (as often as K14, which the plane detection of each runs);
+    with free-space rooms K23's free-space entry launches once per
+    clustering pass (as often as K17b) and its wall entry never."""
+    n = cnt["plane_epilogue"][0]
+    rooms = (cnt["rooms_freespace"][0] == cnt["freespace_components"][0]
+             and cnt["rooms_walls"][0] == 0 if freespace
+             else cnt["rooms_walls"][0] == n)
+    _check(n > 0 and cnt["plane_assoc"][0] == n and rooms,
+           f"{tag}: K24 {cnt['plane_assoc'][0]}, K23 walls "
+           f"{cnt['rooms_walls'][0]} / free space "
+           f"{cnt['rooms_freespace'][0]} launches for {n} scene-graph "
+           f"keyframes and {cnt['freespace_components'][0]} clustering "
+           "passes")
 
 
 def _bound(r: dict) -> tuple[float, str]:
@@ -402,6 +437,8 @@ def main() -> None:
     report(selfcheck.run_freespace(device))
     _check(all(checks["sg_assemble"]["live_items"].values()),
            "K21: a factor type has no live item")
+    # K23 (walls, free space) and K24 on the CPU parity tests' cases
+    report(selfcheck.run_rooms(device))
 
     # ---- 4. the main paths at full size
     scene, frames = main_path.frames(device)
@@ -441,6 +478,7 @@ def main() -> None:
                    f"{tag}: n_planes {extra['n_planes']}")
             _check(not extra["sign_duplicates"],
                    f"{tag}: sign-duplicate planes {extra['sign_duplicates']}")
+            _check_sg_launches(tag, counts[tag])
         # the loop kernels run on loop_slice only, the plane kernels with
         # the scene graph only
         skip = (LOOP_ONLY | INERTIAL_ONLY | FREESPACE_ONLY
@@ -510,12 +548,19 @@ def main() -> None:
                and k not in INERTIAL_ONLY | FREESPACE_ONLY),
            f"bench_slice: a kernel was not launched: "
            f"{counts['bench_slice']}")
+    _check_sg_launches("bench_slice", counts["bench_slice"])
+    # K23's wall entry on the cell's final scene graph
+    report([selfcheck.check_rooms(device, system.scenegraph.state, "walls",
+                                  min_votes=bench_cfg.scenegraph
+                                  .plane_min_votes)])
     del system
 
     # 4e. hidden host syncs of the pipeline: frames 64-95 (four batches)
     # under sync-debug mode, across keyframe cycles
     system = main_path.make_system(bench_cfg, device, True)
-    syncs = _drive(system, bench_frames[:96], warm=64, sync_window=(64, 96))
+    with selfcheck.watch_assoc(which=8) as assoc_seen:
+        syncs = _drive(system, bench_frames[:96], warm=64,
+                       sync_window=(64, 96))
     _line("bench_sync_debug", frames="64-95", keyframes=syncs["keyframes"],
           syncs_per_frame=syncs["syncs_per_frame"],
           readbacks_per_frame=syncs["readbacks_per_frame"],
@@ -524,6 +569,13 @@ def main() -> None:
     _check(syncs["syncs_per_frame"] == syncs["readbacks_per_frame"],
            f"bench_sync_debug: syncs differ from counted readbacks: {syncs}")
     del system
+    # K24 on the recorded keyframe's detections and scene graph
+    _check("operands" in assoc_seen, "bench_sync_debug: no plane association")
+    sg_cfg_b = bench_cfg.scenegraph
+    report([selfcheck.check_plane_assoc(
+        device, *assoc_seen["operands"],
+        ominus_thresh=sg_cfg_b.plane_assoc_ominus_thresh,
+        dist_thresh=sg_cfg_b.plane_assoc_dist_thresh)])
 
     # 4f. the loop path
     loop_cfg = main_path.loop_config(sg_cfg)
@@ -754,8 +806,9 @@ def main() -> None:
     _check(all(v[1] == 0 for v in cnt.values()),
            f"freespace_slice: a twin ran on CUDA tensors: {cnt}")
     _check(all(v[0] > 0 for k, v in cnt.items()
-               if k not in LOOP_ONLY | INERTIAL_ONLY),
+               if k not in LOOP_ONLY | INERTIAL_ONLY | WALLS_ONLY),
            f"freespace_slice: a kernel was not launched: {cnt}")
+    _check_sg_launches("freespace_slice", cnt, freespace=True)
     _check(cnt["freespace_carve"][0] == len(fused),
            f"freespace_slice: K17a {cnt['freespace_carve'][0]} launches for "
            f"{len(fused)} keyframes")
@@ -775,6 +828,14 @@ def main() -> None:
     report([selfcheck.check_freespace_components(
         device, mgr._free_grid, mgr._free_origin, fs_cfg.scenegraph
         .freespace_voxel)])
+    # K23's free-space entry on the cell's final scene graph and the
+    # cluster centres of its final grid
+    fs_centers, fs_valid = fs_mod.freespace_cluster_centers(
+        mgr._free_grid, mgr._free_origin, fs_cfg.scenegraph.freespace_voxel)
+    report([selfcheck.check_rooms(
+        device, mgr.state, "freespace", fs_centers, fs_valid,
+        fs_cfg.scenegraph.room_wall_dist_thresh,
+        min_votes=fs_cfg.scenegraph.plane_min_votes)])
     sg_ba = selfcheck.check_sg_ba(
         system.map, selfcheck.seed_rooms_and_doors(mgr.state),
         system.ref_kf_host, system.cam_K, system.cam_bf, fs_cfg.scenegraph)

@@ -23,7 +23,8 @@ LM_KERNELS = ("lm_reproj_reduce", "lm_reproj_cost", "lm_inertial_assemble",
 # kernels that only the inertial path (Sensor.IMU_RGBD) launches
 INERTIAL_ONLY = ("pose_gn_prior", "preint", "vi_pose") + LM_KERNELS
 # kernels that only the free-space room method launches
-FREESPACE_ONLY = ("freespace_carve", "freespace_components")
+FREESPACE_ONLY = ("freespace_carve", "freespace_components",
+                  "rooms_freespace")
 
 
 @pytest.fixture(scope="module")
@@ -117,7 +118,7 @@ def test_slice_on_card_uses_every_kernel(device):
                        mapping=MappingConfig(lba_iters=6, lba_interval=2,
                                              cull_interval=2))
     sg_only = ("depth_cloud", "extract_planes", "plane_epilogue",
-               "sg_assemble")
+               "sg_assemble", "plane_assoc", "rooms_walls")
     cuda.reset_counts()
     system = SlamSystem(cfg, device=device)
     gt = []
@@ -364,6 +365,10 @@ def test_freespace_slice_on_card_uses_every_kernel(device):
     assert counts["freespace_carve"][0] == len(fused) >= 2, counts
     assert counts["freespace_components"][0] == mgr._kf_count // 2 >= 1
     assert counts["sg_assemble"][0] == cfg.mapping.lba_iters * n_lba > 0
+    assert (counts["rooms_freespace"][0]
+            == counts["freespace_components"][0]), counts
+    assert counts["rooms_walls"][0] == 0, counts
+    assert counts["plane_assoc"][0] == counts["plane_epilogue"][0] >= 2
     n_card = int(mgr._free_grid.sum())
     n_cpu = int(runs["cpu"][0].scenegraph._free_grid.sum())
     assert n_cpu > 0 and abs(n_card - n_cpu) <= 0.01 * n_cpu
@@ -377,4 +382,22 @@ def test_freespace_slice_on_card_uses_every_kernel(device):
     r = selfcheck.check_sg_ba(
         system.map, selfcheck.seed_rooms_and_doors(mgr.state),
         system.ref_kf_host, system.cam_K, system.cam_bf, cfg.scenegraph)
+    assert r["ok"], r
+
+
+@pytest.fixture(scope="module")
+def rooms_checks(device):
+    return {r["name"]: r for r in selfcheck.run_rooms(device)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["rooms_walls@cases",
+                                  "rooms_freespace@cases",
+                                  "plane_assoc@cases"])
+def test_rooms_and_plane_assoc_kernels(rooms_checks, name):
+    # K23's two entries and K24 on the seeded cases the CPU parity tests
+    # (tests/test_torch_rooms.py) hold the twins to: integer and bool
+    # fields exact, room centres within 1e-6 m, plane and observation
+    # floats within 1e-5
+    r = rooms_checks[name]
     assert r["ok"], r

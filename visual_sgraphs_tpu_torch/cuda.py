@@ -161,6 +161,18 @@ KERNELS = (
     ("lm_solve", "visual_sgraphs_tpu_torch.optim.lm_kernels", "lm_solve",
      "lm_solve_torch", "visual_sgraphs_tpu_torch/csrc/lm_solve.cu",
      "visual_sgraphs_tpu/optim/solve.py:158"),
+    ("rooms_walls", "visual_sgraphs_tpu_torch.scenegraph.manager",
+     "detect_rooms", "detect_rooms_torch",
+     "visual_sgraphs_tpu_torch/csrc/rooms.cu",
+     "visual_sgraphs_tpu/scenegraph/manager.py:310"),
+    ("rooms_freespace", "visual_sgraphs_tpu_torch.scenegraph.freespace",
+     "detect_rooms_freespace", "detect_rooms_freespace_torch",
+     "visual_sgraphs_tpu_torch/csrc/rooms.cu",
+     "visual_sgraphs_tpu/scenegraph/freespace.py:122"),
+    ("plane_assoc", "visual_sgraphs_tpu_torch.scenegraph.manager",
+     "associate_and_update", "associate_and_update_torch",
+     "visual_sgraphs_tpu_torch/csrc/plane_assoc.cu",
+     "visual_sgraphs_tpu/scenegraph/manager.py:51"),
 )
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -168,6 +180,8 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PP, _PI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 _ROWS = [_VP, _I, _VP, _I] + [_VP] * 5 + [_I, _VP, _VP, _F, _F]
 _IMU = [_VP, _VP, _VP, _I, _VP, _I, _VP, _VP, _VP, _F, _PP, _PI]
+# the plane table (5 pointers, P) and the room table (6 pointers, R)
+_ROOMS = [_VP] * 5 + [_I] + [_VP] * 6 + [_I]
 _ARGTYPES = {
     "vsg_blur": [_VP, _VP, _VP, _I, _I, _I, _VP],
     "vsg_resize": [_VP, _VP, _VP] + [_I] * 5 + [_VP, _VP, _I, _VP, _VP, _I,
@@ -208,6 +222,9 @@ _ARGTYPES = {
     "vsg_lm_inertial_cost": _IMU + [_VP, _I, _VP],
     "vsg_lm_solve": [_VP] * 4 + [_I, _VP, _I, _VP, _F, _VP, _PP, _PP, _PI,
                                  _PI, _VP, _VP],
+    "vsg_rooms_walls": _ROOMS + [_F] * 4 + [_I] + [_VP] * 7,
+    "vsg_rooms_freespace": _ROOMS + [_VP, _VP, _I] + [_F] * 5 + [_VP] * 7,
+    "vsg_plane_assoc": [_PP, _PP, _PP] + [_I] * 5 + [_F] * 3 + [_VP],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -316,6 +333,11 @@ def stream() -> int:
 
 def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def ptr_array(tensors) -> ctypes.Array:
+    """A host array of the tensors' device pointers (None -> null)."""
+    return (ctypes.c_void_p * len(tensors))(*map(ptr, tensors))
 
 
 def resolve_device(device: torch.device | str) -> torch.device:

@@ -6,13 +6,16 @@
     python -m visual_sgraphs_tpu_torch.profile_slice --freespace
     python -m visual_sgraphs_tpu_torch.profile_slice --loop-runs N
     python -m visual_sgraphs_tpu_torch.profile_slice --small-vs-cpu
+    python -m visual_sgraphs_tpu_torch.profile_slice --cells
 
 Runs the main path of ``main_path`` (640x480, 1000 features, 96
 ``orbit2`` frames) through ``SlamSystem.track_rgbd`` on the card (with
 ``--scenegraph`` the scene graph attached, as ``chip_smoke.py`` phase 4b
 runs it) and profiles frames 32-63 twice: under ``torch.profiler``
 (device time by kernel, device busy share of the window, launches a
-frame) and under ``cProfile`` (host time by Python function).  With
+frame) and under ``cProfile`` (host time by Python function); on the
+scene-graph paths it then counts the device operations of one call of
+each scene-graph function still in plain torch (``plain_scenegraph``).  With
 ``--bench`` the profiled path is the headline configuration on the B-frame
 pipeline (``main_path.bench_config``, 192 frames, ``chip_smoke.py``'s
 ``bench_slice``) and the window frames 96-127.  With ``--inertial`` it is
@@ -34,7 +37,12 @@ card) and on the CPU twins (on the CPU's frames and on the card's), then
 both on the serial path (``pipeline_depth=1``), and prints how far the
 two renders differ and where each run first parts from its CPU
 counterpart: the front end (K1-K4) frame by frame, then positions,
-tracking and keyframes.
+tracking and keyframes.  With ``--cells`` it runs ``slice``,
+``scenegraph_slice``, ``bench_slice`` and ``freespace_slice`` once each
+and prints their fps as ``chip_smoke.py`` times them, and the keyframe
+program's mean host ms (a cycle's on ``bench_slice``).  To compare two
+trees on one card, run this file by path with ``PYTHONPATH`` set to the
+other tree's root: the package and kernels are then that tree's.
 Prints one JSON line per result; needs a card.
 """
 
@@ -97,6 +105,7 @@ def profile(with_sg: bool, bench: bool = False, inertial: bool = False,
     system, frames = _slice(with_sg, bench, inertial, freespace)
     _feed(system, frames[:lo])
     torch.cuda.synchronize()
+    kf0 = system.events.count("keyframe")
     t0 = time.perf_counter()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
@@ -111,6 +120,7 @@ def profile(with_sg: bool, bench: bool = False, inertial: bool = False,
     _line("device", frames=f"{lo}-{hi - 1}", window_us=window_us,
           device_us=device_us, busy_share=device_us / window_us,
           device_ops_per_frame=sum(e.count for e in events) / n,
+          keyframes=system.events.count("keyframe") - kf0,
           top={e.key[:60]: [e.device_time_total, e.count] for e in top})
     # host view, without the profiler
     system, frames = _slice(with_sg, bench, inertial, freespace)
@@ -131,8 +141,69 @@ def profile(with_sg: bool, bench: bool = False, inertial: bool = False,
     _line("host", frames=f"{lo}-{hi - 1}", wall_s=wall, fps=n / wall,
           cumulative_s=dict(sorted(port.items(), key=lambda kv: -kv[1])[:15]),
           stages=system.timers.summary())
+    if system.scenegraph is not None:
+        _line("plain_scenegraph", **plain_scenegraph_ops(system))
     if with_sg and not (bench or freespace):
         _line("linearize", **linearization_ms())
+
+
+def cells_fps(warm: int = 16) -> None:
+    """fps of the serial cells and ``bench_slice``, one run each, over the
+    frames after the warm-up (``main_path.BENCH_WARMUP`` on
+    ``bench_slice``), ending in a synchronize, as ``chip_smoke.py``."""
+    from visual_sgraphs_tpu_torch import cuda, main_path
+    cuda.build()
+    scene, frames = main_path.frames("cuda")
+    cfg, sg_cfg = main_path.configs(scene)
+    bench_frames = main_path.frames("cuda", main_path.BENCH_FRAMES)[1]
+    out = {}
+    for tag, c, with_sg, fr, lo in (
+            ("slice", cfg, False, frames, warm),
+            ("scenegraph_slice", sg_cfg, True, frames, warm),
+            ("bench_slice", main_path.bench_config(scene), True,
+             bench_frames, main_path.BENCH_WARMUP),
+            ("freespace_slice", main_path.freespace_config(scene), True,
+             frames, warm)):
+        system = main_path.make_system(c, "cuda", with_sg)
+        for i, frame in enumerate(fr):
+            if i == lo:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                system.timers.reset()
+            main_path.feed(system, frame)
+        system.flush()
+        torch.cuda.synchronize()
+        out[tag] = (len(fr) - lo) / (time.perf_counter() - t0)
+        st = system.timers.summary()
+        out[tag + "_kf_ms"] = st.get(
+            "track_dispatch" if tag == "bench_slice" else "kf_program",
+            {}).get("mean_ms")
+    _line("cells_fps", **out)
+
+
+def plain_scenegraph_ops(system) -> dict:
+    """Device operations and device ms of one call of each function of
+    the scene-graph keyframe that still runs as plain torch ops, on the
+    system's final state (``selfcheck.device_ops``): the semantic point
+    refinement and the plane covisibility bonus run every keyframe (with
+    their settings on), the two maintenance passes every
+    ``maintenance_interval``-th."""
+    from visual_sgraphs_tpu_torch import selfcheck
+    from visual_sgraphs_tpu_torch.scenegraph import manager as sgm
+    sg, m, kf = system.scenegraph.state, system.map, system.ref_kf_host
+    cfg = system.cfg.scenegraph
+    v = cfg.plane_min_votes
+    fns = dict(
+        refine_points_semantic=lambda: sgm.refine_points_semantic(
+            m, sg, m.kf_pose[kf], min_votes=v,
+            behind_thresh=cfg.refine_behind_thresh),
+        plane_covis_bonus=lambda: sgm.plane_covis_bonus(
+            sg, kf, m.K, min_votes=v, score=cfg.plane_covis_score,
+            undefined_factor=cfg.plane_covis_undefined_factor),
+        filter_semantic_planes=lambda: sgm.filter_semantic_planes(
+            sg, min_votes=v),
+        reassociate_planes=lambda: sgm.reassociate_planes(sg, min_votes=v))
+    return {k: selfcheck.device_ops(f) for k, f in fns.items()}
 
 
 def linearization_ms(n_items: int = 1024, reps: int = 10) -> dict:
@@ -314,12 +385,16 @@ def main() -> None:
     ap.add_argument("--small-vs-cpu", action="store_true",
                     help="the headline configuration at 240x320 on the "
                     "card against the CPU twins, frame by frame")
+    ap.add_argument("--cells", action="store_true",
+                    help="fps of the serial cells and bench_slice")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.small_vs_cpu:
         small_vs_cpu()
+    elif args.cells:
+        cells_fps()
     elif args.loop_runs:
         loop_spread(args.loop_runs)
     else:

@@ -12,9 +12,10 @@ Port of ``visual_sgraphs_tpu/scenegraph/freespace.py``
    6-connected components by 48 synchronous (Jacobi) sweeps of min-label
    propagation, their sizes, the 4 largest (lower label first on ties) and
    their centroids.
-3. ``detect_rooms_freespace`` (plain torch ops, as ``manager.
-   detect_rooms``): per cluster, the walls near its centre compete in the
-   facing-pair analysis; room / corridor candidates are upserted.
+3. ``detect_rooms_freespace`` (kernel K23's free-space entry,
+   ``csrc/rooms.cu``, which it shares with ``manager.detect_rooms``): per
+   cluster, the walls near its centre compete in the facing-pair
+   analysis; room / corridor candidates are upserted.
 
 Each kernel's wrapper launches it on CUDA tensors (counting the launch in
 ``wrapper.launches``) and takes its plain twin only for CPU tensors (the
@@ -28,7 +29,11 @@ import torch
 
 from visual_sgraphs_tpu_torch import cuda
 from visual_sgraphs_tpu_torch.core import lie
-from visual_sgraphs_tpu_torch.scenegraph.manager import _take, upsert_room
+from visual_sgraphs_tpu_torch.scenegraph.manager import (
+    _take,
+    launch_rooms,
+    upsert_room,
+)
 from visual_sgraphs_tpu_torch.scenegraph.state import (
     GROUND,
     WALL,
@@ -216,16 +221,16 @@ def freespace_cluster_centers(grid, origin, voxel: float,
     return centers, valid
 
 
-def detect_rooms_freespace(sg: SceneGraphState, centers, centers_valid,
-                           min_votes: float = 3.0, wall_dist: float = 4.0,
-                           min_gap: float = 0.8, max_gap: float = 12.0,
-                           perp_tol: float = 0.2) -> SceneGraphState:
-    """Room / corridor candidates seeded by free-space cluster centres
-    (reference ``freespace.py:122``): per cluster, only the walls within
-    ``wall_dist`` of its centre compete in the facing-pair analysis, so
-    adjacent rooms with parallel walls cannot cross-pair.  The reference's
-    ``lax.scan`` over the clusters is a Python loop; every selection stays
-    on the device."""
+def detect_rooms_freespace_torch(sg: SceneGraphState, centers,
+                                 centers_valid, min_votes: float = 3.0,
+                                 wall_dist: float = 4.0,
+                                 min_gap: float = 0.8, max_gap: float = 12.0,
+                                 perp_tol: float = 0.2) -> SceneGraphState:
+    """Plain twin of K23's free-space entry (reference
+    ``freespace.py:122``).  The reference's ``lax.scan`` over the clusters
+    is a Python loop; every selection stays on the device."""
+    if sg.pl_coeffs.is_cuda:
+        detect_rooms_freespace_torch.cuda_calls += 1
     sem = plane_semantics(sg, min_votes)
     P = sg.P
     dev = sg.pl_coeffs.device
@@ -281,3 +286,35 @@ def detect_rooms_freespace(sg: SceneGraphState, centers, centers_valid,
         sg = upsert_room(sg, found, center, walls, corridor_found,
                          is_ground, max_gap)
     return sg
+
+
+detect_rooms_freespace_torch.cuda_calls = 0
+
+
+def detect_rooms_freespace(sg: SceneGraphState, centers, centers_valid,
+                           min_votes: float = 3.0, wall_dist: float = 4.0,
+                           min_gap: float = 0.8, max_gap: float = 12.0,
+                           perp_tol: float = 0.2) -> SceneGraphState:
+    """Room / corridor candidates seeded by free-space cluster centres
+    ((C, 3), validity (C,)): per cluster, only the walls within
+    ``wall_dist`` of its centre compete in the facing-pair analysis, so
+    adjacent rooms with parallel walls cannot cross-pair.  Kernel K23
+    (``rooms_freespace``) on CUDA tensors, the twin on CPU."""
+    if sg.pl_coeffs.device.type == "cpu":
+        return detect_rooms_freespace_torch(sg, centers, centers_valid,
+                                            min_votes, wall_dist, min_gap,
+                                            max_gap, perp_tol)
+    C = centers.shape[0]
+    if (centers.shape != (C, 3) or centers.dtype != torch.float32
+            or centers_valid.shape != (C,)
+            or centers_valid.dtype != torch.bool):
+        raise ValueError("detect_rooms_freespace: (C, 3) float32 centres, "
+                         "(C,) bool validity")
+    out = launch_rooms("vsg_rooms_freespace", sg, centers, centers_valid, C,
+                       float(min_votes), float(wall_dist), float(min_gap),
+                       float(max_gap), float(perp_tol))
+    detect_rooms_freespace.launches += 1
+    return out
+
+
+detect_rooms_freespace.launches = 0

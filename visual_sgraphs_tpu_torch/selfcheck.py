@@ -10,7 +10,8 @@ rows; the 480x640 depth / class images of two keyframes, their
 12-observation, 11-keyframe local BA; the inertial row's 64-row IMU
 sample windows and a rendered 480x640 frame's 1000 keypoints against a
 16384-point map; a rendered 480x640 frame's depth and a 32^3 free-space
-grid; the scene-graph BA's five factor types at D = 402), runs the hand kernel and its plain
+grid; the scene-graph BA's five factor types at D = 402; seeded 64-plane,
+16-room scene graphs with four detections), runs the hand kernel and its plain
 PyTorch twin on the same device, compares them at the stated tolerance
 and times both with CUDA events.  Each result also carries the bytes the
 function must move (each input read once, each output written once) and
@@ -2054,6 +2055,440 @@ def run_lm(device, win: LmWindows | None = None) -> list[dict]:
             *check_lm_inertial(problems),
             check_lm_solve(problems),
             check_lm_solve(problems, ("lba", "lba_x4"))]
+
+
+# ---------------------------------------------------------------------------
+# K23: the room pair analysis; K24: plane association
+# ---------------------------------------------------------------------------
+
+ROOM_CENTER_TOL = 1e-6  # m, room centres: the same rounded operations
+# plane coefficients, centroids, support, votes and observation confidences:
+# the chart's atan2f / sinf / cosf differ from the CPU's libm in the last
+# ulps, and the blends round in another order
+ASSOC_TOL = 1e-5
+ROOM_INT_FIELDS = ("room_walls", "room_is_corridor", "room_valid",
+                   "room_ground", "n_rooms")
+ASSOC_INT_FIELDS = ("pl_valid", "pl_nobs", "n_planes", "pl_vox", "ob_kf",
+                    "ob_plane", "ob_valid", "n_obs")
+ASSOC_FLOAT_FIELDS = ("pl_coeffs", "pl_centroid", "pl_npts", "pl_votes",
+                      "ob_coeffs", "ob_conf", "ob_quadric")
+GROUND, WALL, CEILING = 0, 1, 2
+
+
+def _sg_numpy(P: int = 64, R: int = 16, Q: int = 1024, V: int = 512) -> dict:
+    """An empty scene-graph state as numpy (the main path's capacities)."""
+    from visual_sgraphs_tpu_torch.config import CapacityConfig
+    from visual_sgraphs_tpu_torch.scenegraph.state import empty_scenegraph
+    sg = empty_scenegraph(CapacityConfig(max_planes=P, plane_vox_slots=V,
+                                         max_rooms=R), max_obs=Q,
+                          device="cpu")
+    return {k: v.numpy().copy() for k, v in sg._asdict().items()}
+
+
+def _plane(d: dict, p: int, normal, point, cls: int, npts: float,
+           votes: float = 5.0) -> None:
+    """Plane ``p`` through ``point`` with ``normal``, of class ``cls``."""
+    n = np.asarray(normal, np.float64)
+    n = n / np.linalg.norm(n)
+    d["pl_coeffs"][p] = [*n, -n @ np.asarray(point, np.float64)]
+    d["pl_centroid"][p] = point
+    d["pl_valid"][p] = True
+    d["pl_npts"][p] = npts
+    d["pl_votes"][p] = 0.0
+    d["pl_votes"][p, cls] = votes
+    d["n_planes"] = np.asarray(max(int(d["n_planes"]), p + 1), np.int32)
+
+
+def _room(d: dict, r: int, center, walls, corridor: bool = False,
+          valid: bool = True, ground: int = -1) -> None:
+    d["room_center"][r] = center
+    d["room_walls"][r] = walls
+    d["room_is_corridor"][r] = corridor
+    d["room_valid"][r] = valid
+    d["room_ground"][r] = ground
+    d["n_rooms"] = np.asarray(max(int(d["n_rooms"]), r + 1), np.int32)
+
+
+def _box_room(d: dict) -> None:
+    """Walls of a 4 x 5 m room, each side in two segments of equal
+    support along x (four facing x pairs of one support, the lowest flat
+    index (0, 1) first), a y pair, two grounds of equal support, an
+    undecided wall and ceiling planes filling the table."""
+    rng = np.random.default_rng(3)
+    for p, (n, pt, npts) in enumerate((
+            ((1, 0, 0), (0, 1, 1.2), 100), ((-1, 0, 0), (4, 1, 1.2), 100),
+            ((1, 0, 0), (0, 3.5, 1.2), 100),
+            ((-1, 0, 0), (4, 3.5, 1.2), 100),
+            ((0, 1, 0), (2, 0, 1.2), 80), ((0, -1, 0), (2, 5, 1.2), 80))):
+        _plane(d, p, n, pt, WALL, npts)
+    _plane(d, 6, (0, 0, 1), (2, 2.5, 0), GROUND, 50)
+    _plane(d, 7, (0, 0, 1), (1, 1, 0), GROUND, 50)
+    _plane(d, 8, (0, 1, 0), (2, 2, 1.2), WALL, 500, votes=2.0)
+    for p in range(9, 24):
+        _plane(d, p, rng.normal(size=3), rng.uniform(-6, 6, 3), CEILING,
+               float(rng.integers(10, 300)))
+
+
+def room_cases() -> list[dict]:
+    """Seeded scene graphs for K23 and its twin (the CPU test holds the twin
+    against the reference on the same cases): name, kind ("walls" or
+    "freespace"), the state as numpy and, for "freespace", the cluster
+    centres, their validity and ``wall_dist``.
+
+    walls: equal supports (the lowest flat pair index wins) with a room, a
+    corridor and tied grounds; a corridor on wall 0, which its -1 walls'
+    scatter leaves free for the next round; a full room table (16 rooms),
+    where a match updates its room and a new candidate takes no slot; a
+    match by distance (1.5 m) against one by two shared walls, and an
+    invalid room that would match both.  freespace: an invalid cluster
+    beside a valid one; two clusters that compete for one wall pair, a
+    third room and a candidate equidistant from two rooms."""
+    cases = []
+    d = _sg_numpy()
+    _box_room(d)
+    cases.append(dict(name="support_ties", kind="walls", sg=d))
+
+    d = _sg_numpy()
+    _plane(d, 0, (1, 0, 0), (0, 0, 1), WALL, 300)
+    _plane(d, 1, (-1, 0, 0), (3, 0, 1), WALL, 300)
+    _plane(d, 2, (-1, 0, 0), (9, 0, 1), WALL, 100)
+    cases.append(dict(name="corridor_wall0", kind="walls", sg=d))
+
+    d = _sg_numpy()
+    _box_room(d)
+    for r in range(16):
+        _room(d, r, (50.0 + 10 * r, 0, 0), (40 + r, 41 + r, -1, -1), True)
+    _room(d, 5, (2.5, 1.75, 1.2), (30, 31, -1, -1), True)
+    cases.append(dict(name="full_table", kind="walls", sg=d))
+
+    d = _sg_numpy()
+    _box_room(d)
+    _room(d, 0, (10.0, 10.0, 1.2), (0, 1, 9, 10))  # two shared walls
+    _room(d, 1, (2.5, 2.0, 1.2), (20, 21, -1, -1), True)  # within 1.5 m
+    _room(d, 2, (2.0, 1.75, 1.2), (0, 1, 4, 5), valid=False)
+    _room(d, 3, (-10.0, 0.0, 0.0), (2, 3, 7, 8))  # the corridor's walls
+    cases.append(dict(name="match_distance_vs_walls", kind="walls", sg=d))
+
+    def two_rooms():
+        d = _sg_numpy()
+        for p, (n, pt, npts) in enumerate((
+                ((1, 0, 0), (0, 2, 1.2), 100), ((-1, 0, 0), (4, 2, 1.2), 100),
+                ((0, 1, 0), (2, 0, 1.2), 90), ((0, -1, 0), (2, 4, 1.2), 90),
+                ((1, 0, 0), (5, 2, 1.2), 120), ((-1, 0, 0), (9, 2, 1.2), 120),
+                ((0, 1, 0), (7, 0, 1.2), 70), ((0, -1, 0), (7, 4, 1.2), 70))):
+            _plane(d, p, n, pt, WALL, npts)
+        _plane(d, 8, (0, 0, 1), (2, 2, 0), GROUND, 200)
+        _plane(d, 9, (0, 0, 1), (7, 2, 0), GROUND, 150)
+        return d
+
+    f32 = np.float32
+    cases.append(dict(
+        name="fs_invalid_cluster", kind="freespace", sg=two_rooms(),
+        centers=np.asarray([[2, 2, 1.2], [7, 2, 1.2], [0, 0, 0], [0, 0, 0]],
+                           f32),
+        valid=np.asarray([True, False, False, False]), wall_dist=2.5))
+    cases.append(dict(
+        name="fs_compete", kind="freespace", sg=two_rooms(),
+        centers=np.asarray([[2, 2, 1.2], [2.3, 2.1, 1.2], [7, 2, 1.2],
+                            [4.5, 2, 1.2]], f32),
+        valid=np.asarray([True, True, True, True]), wall_dist=2.5))
+    return cases
+
+
+def _unit(v):
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def _random_planes(rng, d: dict, lo: int, hi: int) -> None:
+    for p in range(lo, hi):
+        _plane(d, p, rng.normal(size=3), rng.uniform(-5, 5, 3),
+               int(rng.integers(0, 3)), float(rng.integers(50, 300)),
+               votes=float(rng.uniform(0, 8)))
+        d["pl_nobs"][p] = rng.integers(1, 9)
+
+
+def _near(rng, coeffs, centroid):
+    """A detection of the plane (coeffs, centroid): its normal turned by
+    ~0.02 rad, its distance moved by 0.03 m, its centroid by ~0.2 m."""
+    n = _unit(coeffs[:3] + 0.02 * rng.normal(size=3))
+    c = centroid + 0.2 * rng.normal(size=3)
+    return np.asarray([*n, coeffs[3] - 0.03], np.float32), c
+
+
+def _far(rng, d: dict):
+    """A detection no valid table plane is near (normals > 0.5 rad apart
+    or centroids > 2 m apart)."""
+    ok = d["pl_valid"]
+    while True:
+        n, c = _unit(rng.normal(size=3)), rng.uniform(-5, 5, 3)
+        cos = np.abs(d["pl_coeffs"][ok, :3] @ n)
+        dist = np.linalg.norm(d["pl_centroid"][ok] - c, axis=1)
+        if not np.any((cos > np.cos(0.5)) & (dist < 2.0)):
+            return np.asarray([*n, -n @ c], np.float32), c
+
+
+def assoc_cases() -> list[dict]:
+    """Seeded plane tables and four detections each for K24 and its twin
+    (the CPU test holds the twin against the reference on the same
+    cases): name, the state as numpy, the detections (coeffs, valid,
+    centroid, npts, votes, local, quadric, vox) and the keyframe id.
+
+    same_plane_twice: a new plane detected twice (the second detection
+    matches what the first created), a match and an invalid detection;
+    full_planes: 64 planes, so unmatched detections get no slot and no
+    observation; full_obs: 1024 observations, so nothing is recorded while
+    planes still update and allocate; argmin_tie: two identical planes, the
+    lower slot wins."""
+    cases = []
+    for k, name in enumerate(("same_plane_twice", "full_planes", "full_obs",
+                              "argmin_tie")):
+        rng = np.random.default_rng(100 + k)
+        d = _sg_numpy()
+        P, V = d["pl_vox"].shape
+        Q = d["ob_kf"].shape[0]
+        _random_planes(rng, d, 0, P if name == "full_planes" else 10)
+        d["pl_vox"] = np.where(rng.random((P, V)) < 0.5, -1, rng.integers(
+            0, 2 ** 30, (P, V))).astype(np.int32)
+        n_obs = Q if name == "full_obs" else 20
+        d["ob_kf"][:n_obs] = rng.integers(0, 128, n_obs)
+        d["ob_plane"][:n_obs] = rng.integers(0, 10, n_obs)
+        d["ob_coeffs"][:n_obs] = _unit(rng.normal(size=(n_obs, 4)))
+        d["ob_conf"][:n_obs] = rng.random(n_obs)
+        d["ob_quadric"][:n_obs] = rng.normal(size=(n_obs, 4, 4))
+        d["ob_valid"][:n_obs] = True
+        d["n_obs"] = np.asarray(n_obs, np.int32)
+        if name == "argmin_tie":
+            for f in ("pl_coeffs", "pl_centroid"):
+                d[f][7] = d[f][3]
+        coeffs = np.zeros((4, 4), np.float32)
+        cen = np.zeros((4, 3), np.float32)
+        valid = np.ones(4, bool)
+        if name == "same_plane_twice":
+            coeffs[0], cen[0] = _far(rng, d)
+            coeffs[1], cen[1] = _near(rng, coeffs[0], cen[0])
+            coeffs[2], cen[2] = _near(rng, d["pl_coeffs"][3],
+                                      d["pl_centroid"][3])
+            coeffs[3], cen[3] = _near(rng, d["pl_coeffs"][5],
+                                      d["pl_centroid"][5])
+            valid[3] = False
+        else:
+            coeffs[0], cen[0] = _near(rng, d["pl_coeffs"][3],
+                                      d["pl_centroid"][3])
+            coeffs[1], cen[1] = _far(rng, d)
+            coeffs[2], cen[2] = _far(rng, d)
+            coeffs[3], cen[3] = _near(rng, d["pl_coeffs"][7],
+                                      d["pl_centroid"][7])
+        det = dict(
+            coeffs=coeffs, valid=valid, centroid=cen,
+            npts=rng.integers(20, 400, 4).astype(np.float32),
+            votes=rng.uniform(0, 50, (4, 3)).astype(np.float32),
+            local=_unit(rng.normal(size=(4, 4))).astype(np.float32),
+            quadric=rng.normal(size=(4, 4, 4)).astype(np.float32),
+            vox=np.where(rng.random((4, V)) < 0.7, -1, rng.integers(
+                0, 2 ** 30, (4, V))).astype(np.int32))
+        cases.append(dict(name=name, sg=d, det=det, kf=int(rng.integers(
+            0, 128))))
+    return cases
+
+
+def _state(d: dict, device):
+    from visual_sgraphs_tpu_torch import interop
+    return interop.scenegraph_from_numpy(d, device)
+
+
+def _state_errs(a, b, ints, floats) -> tuple[list, float]:
+    """(int / bool fields of ``a`` and ``b`` that differ, the largest
+    absolute difference of the float fields)."""
+    bad = [k for k in ints
+           if not torch.equal(getattr(a, k), getattr(b, k))]
+    err = max(float((getattr(a, k) - getattr(b, k)).abs().max())
+              for k in floats)
+    return bad, err
+
+
+def _rooms_call(kind: str, fn_kernel: bool):
+    from visual_sgraphs_tpu_torch.scenegraph import freespace as fs
+    from visual_sgraphs_tpu_torch.scenegraph import manager as sgm
+    if kind == "walls":
+        return sgm.detect_rooms if fn_kernel else sgm.detect_rooms_torch
+    return (fs.detect_rooms_freespace if fn_kernel
+            else fs.detect_rooms_freespace_torch)
+
+
+def check_rooms(device, sg, kind: str = "walls", centers=None, valid=None,
+                wall_dist: float = 4.0, name: str | None = None,
+                cases: list | None = None, min_votes: float = 3.0) -> dict:
+    """K23's ``kind`` entry ("walls": ``detect_rooms``, 3 rounds;
+    "freespace": ``detect_rooms_freespace`` on ``centers`` / ``valid``)
+    against its twin on ``sg``: room walls, flags, ground ids and count
+    exactly equal, centres within ROOM_CENTER_TOL; also on each of
+    ``cases`` (``room_cases()`` entries of this kind), if given.  Times are
+    those on ``sg``; the eager operations of one twin call (what a call of
+    the kernel replaces) are counted with ``torch.profiler``."""
+    kern, twin = _rooms_call(kind, True), _rooms_call(kind, False)
+    args = () if kind == "walls" else (centers, valid)
+    kw = dict(min_votes=min_votes)
+    if kind != "walls":
+        kw.update(wall_dist=wall_dist)
+    runs = [("main", sg, args, kw)] + [
+        (c["name"], _state(c["sg"], device),
+         () if kind == "walls" else (
+             torch.from_numpy(c["centers"]).to(device),
+             torch.from_numpy(c["valid"]).to(device)),
+         {} if kind == "walls" else dict(wall_dist=c["wall_dist"]))
+        for c in cases or ()]
+    per_case, ok, err = {}, True, 0.0
+    for tag, s, a, k in runs:
+        out_k, out_t = kern(s, *a, **k), twin(s, *a, **k)
+        torch.cuda.synchronize()
+        bad, e = _state_errs(out_k, out_t, ROOM_INT_FIELDS, ("room_center",))
+        per_case[tag] = dict(bad=bad, err=e, n_rooms=int(out_t.n_rooms),
+                             walls=out_t.room_walls[out_t.room_valid]
+                             .tolist())
+        ok = ok and not bad and e <= ROOM_CENTER_TOL
+        err = max(err, e)
+    P, R = sg.P, sg.room_valid.shape[0]
+    rounds = 3 if kind == "walls" else centers.shape[0]
+    planes = (sg.pl_coeffs, sg.pl_valid, sg.pl_centroid, sg.pl_npts,
+              sg.pl_votes)
+    rooms = (sg.room_center, sg.room_walls, sg.room_is_corridor,
+             sg.room_valid, sg.room_ground, sg.n_rooms)
+    return dict(name=name or f"rooms_{kind}", max_abs_err=err, ok=ok,
+                cases=per_case,
+                ms=time_cuda(lambda: kern(sg, *args, **kw)),
+                plain_ms=time_cuda(lambda: twin(sg, *args, **kw)),
+                twin_profile=device_ops(lambda: twin(sg, *args, **kw)),
+                kernel_profile=device_ops(lambda: kern(sg, *args, **kw)),
+                # the plane and room tables read, the room table written
+                bytes=nbytes(*planes, *args) + 2 * nbytes(*rooms),
+                # per ordered pair: geometry (~40, once), two scores a
+                # round (~14); per round: P ground and R room tests (~20)
+                ops=P * P * (40 + 14 * rounds) + rounds * 20 * (P + R),
+                library_ms=None)
+
+
+def assoc_operands(case: dict, device):
+    """(state, detections, kf_id) of an ``assoc_cases()`` entry."""
+    det = case["det"]
+    dets = tuple(torch.from_numpy(det[k]).to(device)
+                 for k in ("coeffs", "valid", "centroid", "npts", "votes",
+                           "local", "quadric", "vox"))
+    return _state(case["sg"], device), dets, case["kf"]
+
+
+def check_plane_assoc(device, sg, dets, kf: int, name: str = "plane_assoc",
+                      cases: list | None = None, ominus_thresh: float = 0.3,
+                      dist_thresh: float = 0.35) -> dict:
+    """K24 (``associate_and_update``) against its twin on ``sg`` with the
+    detections ``dets`` (coeffs, valid, centroid, npts, votes, local,
+    quadric, vox) of keyframe ``kf``: the integer and bool fields exactly
+    equal, the float fields within ASSOC_TOL; also on each of ``cases``
+    (``assoc_cases()`` entries), if given.  Times are those on ``sg``."""
+    from visual_sgraphs_tpu_torch.scenegraph import manager as sgm
+
+    def call(fn, s, d, k):
+        return fn(s, *d[:6], k, det_quadric=d[6], det_vox=d[7],
+                  ominus_thresh=ominus_thresh, dist_thresh=dist_thresh)
+
+    runs = [("main", sg, dets, kf)] + [
+        (c["name"], *assoc_operands(c, device)) for c in cases or ()]
+    per_case, ok, err = {}, True, 0.0
+    for tag, s, d, k in runs:
+        out_k = call(sgm.associate_and_update, s, d, k)
+        out_t = call(sgm.associate_and_update_torch, s, d, k)
+        torch.cuda.synchronize()
+        bad, e = _state_errs(out_k, out_t, ASSOC_INT_FIELDS,
+                             ASSOC_FLOAT_FIELDS)
+        per_case[tag] = dict(bad=bad, err=e, n_planes=int(out_t.n_planes),
+                             n_obs=int(out_t.n_obs),
+                             new_obs=int(out_t.n_obs - s.n_obs))
+        ok = ok and not bad and e <= ASSOC_TOL
+        err = max(err, e)
+    n_det = dets[0].shape[0]
+    P, V = sg.pl_vox.shape
+    tables = [getattr(sg, k) for k in sgm._ASSOC_TABLES]
+    return dict(name=name, max_abs_err=err, ok=ok, cases=per_case,
+                ms=time_cuda(lambda: call(sgm.associate_and_update, sg,
+                                          dets, kf)),
+                plain_ms=time_cuda(lambda: call(
+                    sgm.associate_and_update_torch, sg, dets, kf)),
+                twin_profile=device_ops(lambda: call(
+                    sgm.associate_and_update_torch, sg, dets, kf)),
+                kernel_profile=device_ops(lambda: call(
+                    sgm.associate_and_update, sg, dets, kf)),
+                # the tables read and written anew, the detections read
+                bytes=2 * nbytes(*tables) + nbytes(*dets),
+                # per detection and plane: the chart distance (~150 with
+                # two atan2 and four sin / cos); per detection: the blend
+                # (~300) and the voxel row (V compares)
+                ops=n_det * (150 * P + 300 + V), library_ms=None)
+
+
+def device_ops(fn) -> dict:
+    """The device operations (kernels, copies, fills) one call of ``fn``
+    runs and their device time in ms, from ``torch.profiler``: the CUDA
+    events of ``time_cuda`` also hold the host's time to launch them when
+    the device idles."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(ops=sum(e.count for e in events),
+                device_ms=sum(e.device_time_total for e in events) / 1e3)
+
+
+@contextlib.contextmanager
+def watch_assoc(which: int = 8):
+    """Inside the block, record the operands of the ``which``-th call of
+    ``associate_and_update`` (the last one if fewer ran): a copy of the
+    state, the detections and the keyframe id.  The copies cost device
+    time: watch a run that is not timed."""
+    from visual_sgraphs_tpu_torch.scenegraph import manager as sgm
+    out = {"calls": 0}
+    orig = sgm.associate_and_update
+
+    def spy(sg, *args, **kw):
+        # args: the six detection tensors and the keyframe id
+        out["calls"] += 1
+        if out["calls"] <= which:
+            dets = [t.clone() for t in args[:6]] + [
+                None if kw.get(k) is None else kw[k].clone()
+                for k in ("det_quadric", "det_vox")]
+            out["operands"] = (type(sg)(*(t.clone() for t in sg)),
+                               tuple(dets), int(args[6]))
+        return orig(sg, *args, **kw)
+
+    spy.launches = orig.launches
+    sgm.associate_and_update = spy
+    try:
+        yield out
+    finally:
+        orig.launches = spy.launches
+        sgm.associate_and_update = orig
+
+
+def run_rooms(device) -> list[dict]:
+    """K23's two entries and K24 on their seeded cases (the first case of
+    each timed)."""
+    walls = [c for c in room_cases() if c["kind"] == "walls"]
+    free = [c for c in room_cases() if c["kind"] == "freespace"]
+    assoc = assoc_cases()
+    fs0 = free[0]
+    return [
+        check_rooms(device, _state(walls[0]["sg"], device), "walls",
+                    name="rooms_walls@cases", cases=walls[1:]),
+        check_rooms(device, _state(fs0["sg"], device), "freespace",
+                    torch.from_numpy(fs0["centers"]).to(device),
+                    torch.from_numpy(fs0["valid"]).to(device),
+                    fs0["wall_dist"], name="rooms_freespace@cases",
+                    cases=free[1:]),
+        check_plane_assoc(device, *assoc_operands(assoc[0], device),
+                          name="plane_assoc@cases", cases=assoc[1:])]
 
 
 def run_loop_seeded(device) -> list[dict]:

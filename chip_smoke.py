@@ -10,8 +10,10 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
 2. build of the hand-written kernels (visual_sgraphs_tpu_torch/csrc) into
    build/kernels/libvsg_kernels.so, with the seconds it took;
 3. every kernel against its plain PyTorch twin on the card, at the main
-   path's shapes (K1 pyramid resize and blur and K3 keypoint selection
-   over a batch of 8 frames, K7 compaction on 32768-entry masks, K9
+   path's shapes (K1's resize chain, one launch a pyramid, over a batch
+   of 8 frames and over one frame as the serial path extracts it, and
+   K1's blur and K3 keypoint selection over the batch, K7 compaction on
+   32768-entry masks, K9
    observation grouping at the local and global BAs' shapes, with the
    nearest single PyTorch call timed beside each as a yardstick; K2
    FAST+NMS, K4 ORB descriptor, K5 window matcher, K6
@@ -48,10 +50,14 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    the inputs of the inertial path's fourth VI local BA (D = 150) and its
    last generic local BA (11 slots, 8192 points, D = 66; also tiled to 22
    and 44 slots), recorded in phase 4j's run, against the float64 twins,
-   with ``torch.linalg.cholesky_ex`` of the same system as K22c's
-   yardstick), with kernel and twin times
-   (CUDA events, median of 20 after 3 warm-ups) and the bytes /
-   operations each function needs, from which its bound is derived;
+   K22c also on seeded systems of D = 1 to 264 (across its shared-memory
+   tiles' limit) and a system that is not positive definite, with
+   ``torch.linalg.cholesky_ex`` of the same size as K22c's yardstick),
+   with kernel and twin times (CUDA events, median of 20 after 3
+   warm-ups; for K1's chain and K22c also the device time of one call
+   from ``torch.profiler``, for the kernel and for its library call) and
+   the bytes / operations each function needs, from which its bound is
+   derived;
 4. the port's main paths at full size through its public entry point
    (``SlamSystem.track_rgbd``), 640x480 RGB-D, 1000 ORB features,
    128 keyframes / 32768 points, 96 frames of the two-lap ``orbit2``
@@ -105,7 +111,8 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
       pass, under sync-debug mode: synchronising calls must equal the
       counted readbacks;
    the kernel launch counters are zeroed just before each of (a), (b),
-   (d), (f), (h), (i) and (k) and read just after; the JSON kernel table's
+   (d), (f), (h), (i) and (k) and read just after (K1's resize chain
+   must launch once an ORB extraction on each); the JSON kernel table's
    launches are (d)'s, (i)'s for the inertial path's K18, K20, K6's
    prior branch and K22, and (k)'s for K17a and K17b;
 5. the same 12 small frames through the port on the card (kernels) and on
@@ -199,6 +206,19 @@ def _check_sg_launches(tag: str, cnt: dict, freespace: bool = False) -> None:
            f"{cnt['rooms_freespace'][0]} launches for {n} scene-graph "
            f"keyframes and {cnt['freespace_components'][0]} clustering "
            "passes")
+
+
+def _check_pyramid_launches(tag: str, cnt: dict, orb_cfg) -> None:
+    """K1's resize chain launches once an ORB extraction (a frame on the
+    serial path, a batch on the pipeline) and K3 once a budgeted level of
+    each."""
+    from visual_sgraphs_tpu_torch.features.orb import level_budgets
+    from visual_sgraphs_tpu_torch.slam.frame import orb_params
+    levels = sum(b > 0 for b in level_budgets(orb_params(orb_cfg)))
+    n = cnt["pyramid_resize"][0]
+    _check(n > 0 and cnt["detect_level"][0] == levels * n,
+           f"{tag}: K1's chain launched {n} times for "
+           f"{cnt['detect_level'][0]} K3 launches ({levels} levels)")
 
 
 def _bound(r: dict) -> tuple[float, str]:
@@ -473,6 +493,7 @@ def main() -> None:
         _check(acc["ate_m"] < 0.05, f"{tag}: ATE {acc['ate_m']:.4f} m")
         _check(all(v[1] == 0 for v in counts[tag].values()),
                f"{tag}: a twin ran on CUDA tensors: {counts[tag]}")
+        _check_pyramid_launches(tag, counts[tag], c.orb)
         if with_sg:
             _check(extra["n_planes"] >= 2,
                    f"{tag}: n_planes {extra['n_planes']}")
@@ -540,6 +561,8 @@ def main() -> None:
            f"{sg_sum['sign_duplicates']}")
     _check(perf["readbacks_per_frame"] < 1.0,
            f"bench_slice: {perf['readbacks_per_frame']} readbacks a frame")
+    _check_pyramid_launches("bench_slice", counts["bench_slice"],
+                            bench_cfg.orb)
     _check(all(v[1] == 0 for v in counts["bench_slice"].values()),
            f"bench_slice: a twin ran on CUDA tensors: "
            f"{counts['bench_slice']}")
@@ -607,6 +630,7 @@ def main() -> None:
     # the reference itself reads 0.285 m here (PERF.md): a guard against
     # a gross fault, not a fidelity gate
     _check(acc["ate_m"] <= 0.35, f"loop_slice: ATE {acc['ate_m']:.4f} m")
+    _check_pyramid_launches("loop_slice", counts["loop_slice"], loop_cfg.orb)
     _check(all(v[1] == 0 for v in counts["loop_slice"].values()),
            f"loop_slice: a twin ran on CUDA tensors: {counts['loop_slice']}")
     _check(all(v[0] > 0 for k, v in counts["loop_slice"].items()
@@ -717,6 +741,8 @@ def main() -> None:
     _check(all(counts["inertial_slice"][k][0] > 0 for k in INERTIAL_PATH),
            f"inertial_slice: a kernel was not launched: "
            f"{counts['inertial_slice']}")
+    _check_pyramid_launches("inertial_slice", counts["inertial_slice"],
+                            vi_cfg.orb)
     _check(all(v[1] == 0 for v in counts["inertial_slice"].values()),
            f"inertial_slice: a twin ran on CUDA tensors: "
            f"{counts['inertial_slice']}")
@@ -803,6 +829,7 @@ def main() -> None:
     _check(sg_sum["n_planes"] >= 2 and not sg_sum["sign_duplicates"],
            f"freespace_slice: planes {sg_sum['n_planes']}, sign duplicates "
            f"{sg_sum['sign_duplicates']}")
+    _check_pyramid_launches("freespace_slice", cnt, fs_cfg.orb)
     _check(all(v[1] == 0 for v in cnt.values()),
            f"freespace_slice: a twin ran on CUDA tensors: {cnt}")
     _check(all(v[0] > 0 for k, v in cnt.items()

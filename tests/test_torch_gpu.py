@@ -198,6 +198,25 @@ def test_front_end_kernels(front_end_checks, name):
         assert r["padded_levels"] >= 1, r
 
 
+@pytest.fixture(scope="module", params=[(480, 640), (240, 320)],
+                ids=lambda s: f"{s[0]}x{s[1]}")
+def chain_frames(device, request):
+    return selfcheck.batch_frames(device, h=request.param[0],
+                                  w=request.param[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 8])
+def test_pyramid_chain_bitwise(chain_frames, B):
+    # K1's resize chain, one launch a build_pyramid call (on the batch and
+    # on its first frame as an (H, W) image), bitwise equal to the twin's
+    # chain at every level, with every level's FAST keypoints identical
+    r = selfcheck.check_pyramid(chain_frames[:B])[0]
+    assert r["max_abs_err"] == 0, r
+    assert r["launches_per_call"] == 1, r
+    assert sum(r["fast_keypoints_differ_per_level"]) == 0, r
+
+
 @pytest.mark.gpu
 def test_compact_kernel(device):
     r = selfcheck.check_compact(device)
@@ -310,6 +329,30 @@ def test_lm_kernels(lm_checks, name):
     # within 1e-5
     r = lm_checks[name]
     assert r["ok"], r
+
+
+@pytest.fixture(scope="module")
+def lm_seeded(device):
+    return selfcheck.check_lm_solve_seeded(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", list(selfcheck.LM_SEEDED_LAYOUTS))
+def test_lm_solve_seeded(lm_seeded, D):
+    # K22c on the seeded systems (H's diagonal spanning ~1e-10 to 1e7, the
+    # gauge fixed) from one tile to past the shared-memory tiles (D = 225,
+    # 264 run on global scratch): the step within 1e-6 of the twin's
+    # float64 solve, the candidates within 1e-5
+    e = lm_seeded["errs"][D]
+    assert e["dx"] <= selfcheck.LM_SOLVE_TOL, e
+    assert e["cand"] <= selfcheck.LM_CAND_TOL, e
+
+
+@pytest.mark.gpu
+def test_lm_solve_not_positive_definite(lm_seeded):
+    # a system whose Cholesky fails gives a zero step (kernel and twin)
+    # and candidates equal to the inputs
+    assert all(lm_seeded["non_pd"].values()), lm_seeded["non_pd"]
 
 
 @pytest.fixture(scope="module")

@@ -24,7 +24,7 @@ from visual_sgraphs_tpu.inertial import preintegration as rpre
 from visual_sgraphs_tpu.optim import factors as rfactors
 from visual_sgraphs_tpu.optim import graph as rgraph
 from visual_sgraphs_tpu.optim import solve as rsolve
-from visual_sgraphs_tpu_torch import interop
+from visual_sgraphs_tpu_torch import interop, selfcheck
 from visual_sgraphs_tpu_torch.inertial import preintegration as ppre
 from visual_sgraphs_tpu_torch.inertial import vi_ba as pvba
 from visual_sgraphs_tpu_torch.optim import graph as pgraph
@@ -433,6 +433,47 @@ def test_solve_twin_gauge_and_failure():
     H[0, 0] = float("nan")
     dx, _ = lmk.lm_solve_torch(H, g, None, None, free, lam, red)
     assert (dx == 0).all()
+
+
+def _linear(values, const):
+    """r = J x + c: the seeded system as one factor over a D-vector."""
+    return const["J"] @ values[0] + const["c"]
+
+
+@pytest.mark.parametrize("D", [16, 17, 150])
+def test_solve_twin_seeded_systems(D):
+    # K22c's twin on the seeded systems the card holds the kernel to
+    # (selfcheck.lm_solve_system: SPD, H's diagonal spanning ~1e-10 to 1e7,
+    # the gauge fixed; one tile, a tile and a row, the VI BA's size)
+    # against the reference's _solve_step in float64 on the same system,
+    # posed as one linear factor r = J x + c over a D-vector (H = J^T J,
+    # g = J^T c): 1e-7 of the largest delta, as test_solve_step_twin (the
+    # Cholesky of a system spanning ~17 orders of magnitude, factorised by
+    # LAPACK in one package and XLA in the other); fixed columns exactly 0
+    s = selfcheck.lm_solve_system(D)
+    f64 = jnp.float64
+    fam = rgraph.VarFamily(values=jnp.zeros((1, D), f64),
+                           fixed=jnp.zeros((1,), bool), tangent_dim=D,
+                           retract=lambda v, d: v + d)
+    batch = rgraph.FactorBatch(
+        ("x",), _linear, D, jnp.zeros((1, 1), jnp.int32),
+        {"J": jnp.asarray(s["J"])[None], "c": jnp.asarray(s["c"])[None]},
+        jnp.ones((1,), f64), jnp.ones((1,), bool))
+    problem = rgraph.GraphProblem(families={"x": fam}, factors=[batch])
+    lam = selfcheck.LM_LAM
+    want = np.asarray(_jit(lambda: rsolve._solve_step(
+        problem, {"x": fam.values}, jnp.asarray(lam, f64),
+        jnp.asarray(s["free"])))["x"])[0]
+    H, g, free, _, red = selfcheck.lm_solve_operands(s, "cpu")
+    red = lmk.Reduced(*(None if v is None else v.double() for v in red))
+    dx, cand = lmk.lm_solve_torch(H, g, None, None, free,
+                                  torch.tensor(lam, dtype=torch.float64), red)
+    assert np.abs(dx.numpy() - want).max() <= 1e-7 * np.abs(want).max()
+    assert (dx.numpy()[~s["free"]] == 0).all()
+    assert (dx.numpy()[s["free"]] != 0).all()
+    np.testing.assert_array_equal(
+        torch.cat([c.reshape(-1) for c in cand if c is not None]).isfinite(),
+        True)
 
 
 def test_route_matches_generic_engine_on_vi_local_ba():

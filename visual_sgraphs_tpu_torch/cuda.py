@@ -38,9 +38,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (name, module, wrapper, twin, source, TPU-path function it replaces)
 KERNELS = (
     ("pyramid_resize", "visual_sgraphs_tpu_torch.features.pyramid",
-     "resize_bilinear", "resize_bilinear_torch",
+     "build_pyramid", "build_pyramid_torch",
      "visual_sgraphs_tpu_torch/csrc/pyramid.cu",
-     "visual_sgraphs_tpu/features/pyramid.py:43"),
+     "visual_sgraphs_tpu/features/pyramid.py:56"),
     ("gaussian_blur", "visual_sgraphs_tpu_torch.features.pyramid",
      "gaussian_blur", "gaussian_blur_torch",
      "visual_sgraphs_tpu_torch/csrc/pyramid.cu",
@@ -184,8 +184,7 @@ _IMU = [_VP, _VP, _VP, _I, _VP, _I, _VP, _VP, _VP, _F, _PP, _PI]
 _ROOMS = [_VP] * 5 + [_I] + [_VP] * 6 + [_I]
 _ARGTYPES = {
     "vsg_blur": [_VP, _VP, _VP, _I, _I, _I, _VP],
-    "vsg_resize": [_VP, _VP, _VP] + [_I] * 5 + [_VP, _VP, _I, _VP, _VP, _I,
-                                                _VP],
+    "vsg_pyramid": [_VP, _VP, _I, _VP, _PI] + [_I] * 4 + [_VP],
     "vsg_fast_nms": [_VP, _VP, _VP, _I, _I, _I, _VP],
     "vsg_detect_level": [_VP] + [_I] * 5 + [_F] + [_VP] * 6,
     "vsg_orb_desc": [_VP, _I, _I, _I, _VP, _I, _VP, _VP, _VP, _VP, _VP],
@@ -220,8 +219,8 @@ _ARGTYPES = {
     "vsg_lm_reproj_cost": _ROWS + [_VP] * 8 + [_I, _VP],
     "vsg_lm_inertial_assemble": _IMU + [_I, _VP, _VP, _I, _VP],
     "vsg_lm_inertial_cost": _IMU + [_VP, _I, _VP],
-    "vsg_lm_solve": [_VP] * 4 + [_I, _VP, _I, _VP, _F, _VP, _PP, _PP, _PI,
-                                 _PI, _VP, _VP],
+    "vsg_lm_solve": [_VP] * 4 + [_I, _VP, _I, _VP, _F] + [_VP] * 7
+                    + [_PI, _VP, _VP],
     "vsg_rooms_walls": _ROOMS + [_F] * 4 + [_I] + [_VP] * 7,
     "vsg_rooms_freespace": _ROOMS + [_VP, _VP, _I] + [_F] * 5 + [_VP] * 7,
     "vsg_plane_assoc": [_PP, _PP, _PP] + [_I] * 5 + [_F] * 3 + [_VP],
@@ -328,7 +327,9 @@ def call(name: str, *args) -> None:
 
 
 def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current CUDA stream of the current device, as an int (without
+    building a ``torch.cuda.Stream``: a wrapper's host time counts)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def ptr(t: torch.Tensor | None) -> int | None:
@@ -353,10 +354,11 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous CUDA tensor on one device."""
-    dev = tensors[0].device
+    """Raise unless every tensor is a contiguous CUDA tensor on one device
+    (by device index: a wrapper's host time counts)."""
+    dev = tensors[0].get_device()
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
+        if t.get_device() != dev or dev < 0:
             raise ValueError(f"{name}: expected CUDA tensors on one device, "
                              f"got {t.device}")
         if not t.is_contiguous():

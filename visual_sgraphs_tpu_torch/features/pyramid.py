@@ -9,9 +9,10 @@ to float32, and keeps each output's band of them (first source index and
 ``T`` taps; ``T`` = 3 at 1/1.2), accumulated with one fused multiply-add a
 tap, the rounding of the dense weight product.
 
-``gaussian_blur`` and ``resize_bilinear`` launch the hand kernels of
-``csrc/pyramid.cu`` on CUDA tensors and run the plain twins
-``gaussian_blur_torch`` / ``resize_bilinear_torch`` on CPU tensors.  Both
+``gaussian_blur`` and ``build_pyramid`` launch the hand kernels of
+``csrc/pyramid.cu`` on CUDA tensors (the whole resize chain in one launch,
+from ``pyramid_table``'s packed bands) and run the plain twins
+``gaussian_blur_torch`` / ``build_pyramid_torch`` on CPU tensors.  Both
 take one image (H, W) or a batch (B, H, W); the twins round as the
 kernels do, so on the card the two agree to the last bit (but for a rare
 double rounding in the twin's float64 emulation of the fused step).
@@ -19,6 +20,7 @@ double rounding in the twin's float64 emulation of the fused step).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -166,10 +168,8 @@ def _band_apply(img: torch.Tensor, n_out: int, dim: int) -> torch.Tensor:
 
 def resize_bilinear_torch(img: torch.Tensor,
                           shape: tuple[int, int]) -> torch.Tensor:
-    """Plain twin of K1's resize: the rows' band, then the columns', of
-    (..., H, W) images; the taps added in order."""
-    if img.is_cuda:
-        resize_bilinear_torch.cuda_calls += 1
+    """One level of the twin's resize: the rows' band, then the columns',
+    of (..., H, W) images; the taps added in order."""
     h, w = img.shape[-2:]
     out = img
     if shape[0] != h:
@@ -177,40 +177,6 @@ def resize_bilinear_torch(img: torch.Tensor,
     if shape[1] != w:
         out = _band_apply(out, shape[1], out.dim() - 1)
     return out
-
-
-resize_bilinear_torch.cuda_calls = 0
-
-
-def resize_bilinear(img: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
-    """Antialiased bilinear resize of (H, W) or (B, H, W) float32 images
-    to ``shape``: kernel K1 on CUDA tensors, the plain twin on CPU
-    tensors."""
-    if img.device.type == "cpu":
-        return resize_bilinear_torch(img, shape)
-    cuda.require_cuda("resize_bilinear", img)
-    if img.dtype != torch.float32:
-        raise ValueError("resize_bilinear: expected float32 images")
-    x = _batched(img)
-    B, h, w = x.shape
-    ho, wo = shape
-    if (ho, wo) == (h, w):
-        return img
-    rows = _resize_band_on(h, ho, img.device) if ho != h else (None, None)
-    cols = _resize_band_on(w, wo, img.device) if wo != w else (None, None)
-    out = torch.empty((B, ho, wo), dtype=torch.float32, device=img.device)
-    tmp = (torch.empty((B, ho, w), dtype=torch.float32, device=img.device)
-           if ho != h and wo != w else None)
-    cuda.call("vsg_resize", cuda.ptr(x), cuda.ptr(tmp), cuda.ptr(out), B, h,
-              w, ho, wo, cuda.ptr(rows[0]), cuda.ptr(rows[1]),
-              0 if rows[1] is None else rows[1].shape[1], cuda.ptr(cols[0]),
-              cuda.ptr(cols[1]), 0 if cols[1] is None else cols[1].shape[1],
-              cuda.stream())
-    resize_bilinear.launches += 1
-    return out if img.dim() == 3 else out[0]
-
-
-resize_bilinear.launches = 0
 
 
 def pyramid_shapes(h: int, w: int, n_levels: int, scale: float):
@@ -222,20 +188,111 @@ def pyramid_shapes(h: int, w: int, n_levels: int, scale: float):
     return shapes
 
 
-def build_pyramid(img: torch.Tensor, n_levels: int = 8, scale: float = 1.2,
-                  resize=resize_bilinear) -> list[torch.Tensor]:
-    """List of ``n_levels`` images (or (B, h, w) batches); level 0 is the
-    input (float32), each later one resized from the one before by
-    ``resize``."""
-    h, w = img.shape[-2:]
+# output rows x columns of the chain kernel's tile (csrc/pyramid.cu TO_R,
+# TO_C); ints a level in the metadata
+CHAIN_TILE = (32, 64)
+CHAIN_META = 10
+
+
+def _window(first: np.ndarray, T: int, n_in: int, tile: int) -> int:
+    """The most input rows (or columns) one output tile's band covers."""
+    if (np.diff(first) < 0).any():
+        raise ValueError("pyramid_table: a band's first index decreases")
+    starts = np.arange(0, len(first), tile)
+    last = np.minimum(starts + tile - 1, len(first) - 1)
+    hi = np.minimum(first[last] + T - 1, n_in - 1)
+    return int((hi - first[starts] + 1).max())
+
+
+@functools.lru_cache(maxsize=None)
+def pyramid_table(h: int, w: int, n_levels: int, scale: float):
+    """The resize chain's packed bands, as ``csrc/pyramid.cu`` reads them:
+    (words (N,) int32: for each level 1.., the rows' first indices and
+    their (ho, T) float32 weights as bits, then the columns'; meta
+    (n_levels - 1, CHAIN_META) int32: hi, wi, ho, wo, the rows' first and
+    weight offsets into ``words`` and taps, the columns' the same; the
+    largest input window of a tile, (rows, columns)).  The bands are
+    ``resize_band``'s (the identity, one tap of 1, where a size does not
+    change)."""
     shapes = pyramid_shapes(h, w, n_levels, scale)
-    levels = [img.to(torch.float32)]
-    for lv in range(1, n_levels):
-        levels.append(resize(levels[-1], shapes[lv]))
-    return levels
+    words, meta, n = [np.zeros((0,), np.int32)], [], 0
+    win = [0, 0]  # rows, columns
+    for (hi, wi), (ho, wo) in zip(shapes[:-1], shapes[1:]):
+        row = [hi, wi, ho, wo]
+        for axis, n_in, n_out in ((0, hi, ho), (1, wi, wo)):
+            first, band = resize_band(n_in, n_out)
+            row += [n, n + n_out, band.shape[1]]
+            words += [first, band.reshape(-1).view(np.int32)]
+            n += n_out * (1 + band.shape[1])
+            win[axis] = max(win[axis], _window(first, band.shape[1], n_in,
+                                               CHAIN_TILE[axis]))
+        meta.append(row)
+    return (np.concatenate(words).astype(np.int32),
+            np.asarray(meta, np.int32).reshape(-1, CHAIN_META), tuple(win))
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_on(h: int, w: int, n_levels: int, scale: float,
+              device: torch.device):
+    words, meta, (win_r, win_c) = pyramid_table(h, w, n_levels, scale)
+    return (torch.from_numpy(words).to(device),
+            (ctypes.c_int * meta.size)(*meta.reshape(-1).tolist()),
+            win_r, win_c, pyramid_shapes(h, w, n_levels, scale))
+
+
+def _pyramid_chain(x: torch.Tensor, n_levels: int, scale: float,
+                   cluster: int = 0) -> list[torch.Tensor]:
+    """Levels 1.. of a contiguous float32 CUDA image (h, w) or batch
+    (B, h, w) in one launch, as views of one level-major buffer;
+    ``cluster`` CTAs a frame (0: 16 when every frame's cluster of 16 fits
+    on the card at once, else 8, as ``build_pyramid`` runs it; 8 or 16 to
+    compare)."""
+    h, w = x.shape[-2:]
+    B = x.numel() // (h * w)
+    tab, meta, win_r, win_c, shapes = _chain_on(h, w, n_levels, scale,
+                                                x.device)
+    sizes = [B * a * b for a, b in shapes[1:]]
+    out = torch.empty((sum(sizes),), dtype=torch.float32, device=x.device)
+    if B and sizes:
+        cuda.call("vsg_pyramid", cuda.ptr(x), cuda.ptr(out), B,
+                  cuda.ptr(tab), meta, n_levels - 1, win_r, win_c, cluster,
+                  cuda.stream())
+        build_pyramid.launches += 1
+    lead = x.shape[:-2]
+    return [v.view(*lead, *sh) for v, sh in zip(out.split(sizes),
+                                                shapes[1:])]
+
+
+def build_pyramid(img: torch.Tensor, n_levels: int = 8,
+                  scale: float = 1.2) -> list[torch.Tensor]:
+    """List of ``n_levels`` images (or (B, h, w) batches); level 0 is the
+    input (float32), each later one resized from the one before: the
+    whole chain in one launch of kernel K1 on a CUDA tensor (the levels
+    are views of one buffer), the plain twin on a CPU tensor."""
+    if img.device.type == "cpu":
+        return build_pyramid_torch(img, n_levels, scale)
+    x = img.to(torch.float32)
+    cuda.require_cuda("build_pyramid", x)
+    if x.dim() not in (2, 3):
+        raise ValueError("expected an (H, W) image or a (B, H, W) batch")
+    return [x] + _pyramid_chain(x, n_levels, scale)
+
+
+build_pyramid.launches = 0
 
 
 def build_pyramid_torch(img: torch.Tensor, n_levels: int = 8,
                         scale: float = 1.2) -> list[torch.Tensor]:
-    """``build_pyramid`` on the plain twin of the resize."""
-    return build_pyramid(img, n_levels, scale, resize_bilinear_torch)
+    """Plain twin of K1's resize chain: ``resize_bilinear_torch`` level
+    after level."""
+    if img.is_cuda:
+        build_pyramid_torch.cuda_calls += 1
+    h, w = img.shape[-2:]
+    shapes = pyramid_shapes(h, w, n_levels, scale)
+    levels = [img.to(torch.float32)]
+    for lv in range(1, n_levels):
+        levels.append(resize_bilinear_torch(levels[-1], shapes[lv]))
+    return levels
+
+
+build_pyramid_torch.cuda_calls = 0

@@ -41,6 +41,7 @@ headers); the twins in the values' dtype.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -481,18 +482,16 @@ lm_inertial_cost_torch.cuda_calls = 0
 
 
 def _value_ptrs(red: Reduced):
-    """Host arrays of the six families' pointers, rows and offsets (-1
-    where absent)."""
+    """Host arrays of the six families' pointers and offsets (-1 where
+    absent), and D."""
     offs = offsets(red)
     ptrs = (ctypes.c_void_p * 6)()
-    rows = (ctypes.c_int * 6)()
     offa = (ctypes.c_int * 6)()
     for i, k in enumerate(FAMILIES):
         v = getattr(red, k)
         ptrs[i] = None if v is None else v.data_ptr()
-        rows[i] = 0 if v is None else v.shape[0]
         offa[i] = offs.get(k, -1)
-    return ptrs, rows, offa, offs["D"]
+    return ptrs, offa, offs["D"]
 
 
 def _check_lam(name, lam):
@@ -521,7 +520,7 @@ def _inertial_args(imu: ImuRows, red: Reduced):
             or any(t.dtype != torch.float32 for t in extra)):
         raise ValueError("lm_inertial: float32 packed preintegrations and "
                          "weights, int32 edges, bool validity")
-    ptrs, _, offa, D = _value_ptrs(red)
+    ptrs, offa, D = _value_ptrs(red)
     ptr = cuda.ptr
     return D, (ptr(imu.pre), ptr(imu.edge), ptr(imu.valid),
                imu.edge.shape[0], ptr(imu.T_bc), int(gs),
@@ -635,37 +634,62 @@ def red_dtype(red: Reduced):
     return next(v for v in red if v is not None).dtype
 
 
+# the stored width of each reduced family's rows
+STORE = {"pose": 7, "vel": 3, "bg": 3, "ba": 3, "gdir": 4, "scale": 1}
+# the shared memory one block may use on the H100: csrc/lm_solve.cu keeps
+# its tiles there when they fit beside its vectors, else in global scratch
+_SOLVE_SHARED_MAX = 232448
+
+
+@functools.lru_cache(maxsize=None)
+def _solve_layout(rows: tuple) -> tuple:
+    """K22c's layout for the families' row counts (None where absent): the
+    host array of the counts, D, the sizes of the flat output's parts (dx,
+    then each present family's candidates), each family's candidate shape
+    (None where absent), and the float64 scratch entries the tiles need
+    past shared memory (0 when they fit)."""
+    D = sum(TANGENT[k] * (n or 0) for k, n in zip(FAMILIES, rows))
+    shapes = tuple(None if n is None else (n, STORE[k])
+                   for k, n in zip(FAMILIES, rows))
+    sizes = [D] + [a * b for a, b in filter(None, shapes)]
+    nt = -(-D // 16)
+    tiles = nt * (nt + 1) // 2 * 256
+    shared = 8 * tiles + 20 * 16 * nt <= _SOLVE_SHARED_MAX
+    return ((ctypes.c_int * 6)(*(n or 0 for n in rows)), D, sizes, shapes,
+            0 if shared else tiles)
+
+
 def lm_solve(H, g, pairs, rhs_pairs, free, lam, red: Reduced):
     """K22c on CUDA tensors (float64 H, g, pairs, rhs; the step in the
-    values' float32), the twin on CPU tensors; as ``lm_solve_torch``."""
+    values' float32), the twin on CPU tensors; as ``lm_solve_torch``.  The
+    step and the candidates are views of one output buffer."""
     if H.device.type == "cpu":
         return lm_solve_torch(H, g, pairs, rhs_pairs, free, lam, red)
-    _check_values("lm_solve", red)
-    ptrs, rows, offa, D = _value_ptrs(red)
-    P6 = 0 if pairs is None else pairs.shape[0]
-    cuda.require_cuda("lm_solve", H, g, free, lam,
+    vals = [v for v in red if v is not None]
+    cuda.require_cuda("lm_solve", H, g, free, lam, *vals,
                       *(() if pairs is None else (pairs, rhs_pairs)))
+    rows, D, sizes, shapes, n_scratch = _solve_layout(
+        tuple(None if v is None else v.shape[0] for v in red))
     if (H.dtype != torch.float64 or H.shape != (D, D)
             or free.dtype != torch.bool or free.shape != (D,)
+            or lam.dtype != torch.float32 or lam.numel() != 1
+            or any(v.dtype != torch.float32 for v in vals)
             or (pairs is not None and pairs.dtype != torch.float64)):
-        raise ValueError("lm_solve: float64 (D, D) system, (D,) bool mask")
-    dx = torch.empty((D,), dtype=torch.float32, device=H.device)
-    cand = Reduced(*(None if v is None else torch.empty_like(v)
-                     for v in red))
-    optr = (ctypes.c_void_p * 6)(*(None if v is None else v.data_ptr()
-                                   for v in cand))
+        raise ValueError("lm_solve: float64 (D, D) system, (D,) bool mask, "
+                         "float32 lambda and values")
+    out = torch.empty((sum(sizes),), dtype=torch.float32, device=H.device)
+    scratch = (torch.empty((n_scratch,), dtype=torch.float64,
+                           device=H.device) if n_scratch else None)
     ptr = cuda.ptr
-    _check_lam("lm_solve", lam)
-    # the packed system, its rhs and the step past one block's shared
-    # memory go to global scratch (lm_solve.cu)
-    need = 8 * (D * (D + 1) // 2 + 2 * D) + 4 * D
-    scratch = (torch.empty((need // 8 + 1,), dtype=torch.float64,
-                           device=H.device) if need > 220 * 1024 else None)
-    cuda.call("vsg_lm_solve", ptr(H), ptr(g), ptr(pairs), ptr(rhs_pairs), P6,
-              ptr(free), D, ptr(lam), _eps(torch.float32), ptr(dx), ptrs,
-              optr, rows, offa, ptr(scratch), cuda.stream())
+    cuda.call("vsg_lm_solve", ptr(H), ptr(g), ptr(pairs), ptr(rhs_pairs),
+              0 if pairs is None else pairs.shape[0], ptr(free), D, ptr(lam),
+              _eps(torch.float32), ptr(out), *map(ptr, red), rows,
+              ptr(scratch), cuda.stream())
     lm_solve.launches += 1
-    return dx, cand
+    dx, *parts = out.split(sizes)
+    parts = iter(parts)
+    return dx, Reduced(*(None if sh is None else next(parts).view(sh)
+                         for sh in shapes))
 
 
 lm_solve.launches = 0

@@ -38,9 +38,10 @@ both on the serial path (``pipeline_depth=1``), and prints how far the
 two renders differ and where each run first parts from its CPU
 counterpart: the front end (K1-K4) frame by frame, then positions,
 tracking and keyframes.  With ``--cells`` it runs ``slice``,
-``scenegraph_slice``, ``bench_slice`` and ``freespace_slice`` once each
-and prints their fps as ``chip_smoke.py`` times them, and the keyframe
-program's mean host ms (a cycle's on ``bench_slice``).  To compare two
+``scenegraph_slice``, ``bench_slice``, ``freespace_slice`` and
+``inertial_slice`` once each and prints their fps as ``chip_smoke.py``
+times them, and the keyframe program's mean host ms (a cycle's on
+``bench_slice``, the VI local BA's on ``inertial_slice``).  To compare two
 trees on one card, run this file by path with ``PYTHONPATH`` set to the
 other tree's root: the package and kernels are then that tree's.
 Prints one JSON line per result; needs a card.
@@ -148,36 +149,43 @@ def profile(with_sg: bool, bench: bool = False, inertial: bool = False,
 
 
 def cells_fps(warm: int = 16) -> None:
-    """fps of the serial cells and ``bench_slice``, one run each, over the
-    frames after the warm-up (``main_path.BENCH_WARMUP`` on
-    ``bench_slice``), ending in a synchronize, as ``chip_smoke.py``."""
+    """fps of the serial cells, ``bench_slice`` and ``inertial_slice``, one
+    run each, over the frames after the warm-up (``main_path.BENCH_WARMUP``
+    on ``bench_slice``, ``INERTIAL_WARMUP`` on ``inertial_slice``), ending
+    in a synchronize, as ``chip_smoke.py``; beside each the keyframe
+    stage's mean ms (on ``inertial_slice`` the VI local BA's, ``vi_lba``)."""
     from visual_sgraphs_tpu_torch import cuda, main_path
     cuda.build()
     scene, frames = main_path.frames("cuda")
     cfg, sg_cfg = main_path.configs(scene)
     bench_frames = main_path.frames("cuda", main_path.BENCH_FRAMES)[1]
+    vi_scene, vi_frames = main_path.inertial_frames("cuda")
     out = {}
-    for tag, c, with_sg, fr, lo in (
-            ("slice", cfg, False, frames, warm),
-            ("scenegraph_slice", sg_cfg, True, frames, warm),
+    for tag, c, with_sg, fr, lo, feed, stage in (
+            ("slice", cfg, False, frames, warm, main_path.feed,
+             "kf_program"),
+            ("scenegraph_slice", sg_cfg, True, frames, warm, main_path.feed,
+             "kf_program"),
             ("bench_slice", main_path.bench_config(scene), True,
-             bench_frames, main_path.BENCH_WARMUP),
+             bench_frames, main_path.BENCH_WARMUP, main_path.feed,
+             "track_dispatch"),
             ("freespace_slice", main_path.freespace_config(scene), True,
-             frames, warm)):
+             frames, warm, main_path.feed, "kf_program"),
+            ("inertial_slice", main_path.inertial_config(vi_scene), False,
+             vi_frames, main_path.INERTIAL_WARMUP, main_path.feed_inertial,
+             "vi_lba")):
         system = main_path.make_system(c, "cuda", with_sg)
         for i, frame in enumerate(fr):
             if i == lo:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 system.timers.reset()
-            main_path.feed(system, frame)
+            feed(system, frame)
         system.flush()
         torch.cuda.synchronize()
         out[tag] = (len(fr) - lo) / (time.perf_counter() - t0)
-        st = system.timers.summary()
-        out[tag + "_kf_ms"] = st.get(
-            "track_dispatch" if tag == "bench_slice" else "kf_program",
-            {}).get("mean_ms")
+        out[tag + "_kf_ms"] = system.timers.summary().get(stage, {}).get(
+            "mean_ms")
     _line("cells_fps", **out)
 
 
@@ -386,7 +394,8 @@ def main() -> None:
                     help="the headline configuration at 240x320 on the "
                     "card against the CPU twins, frame by frame")
     ap.add_argument("--cells", action="store_true",
-                    help="fps of the serial cells and bench_slice")
+                    help="fps of the serial cells, bench_slice and "
+                    "inertial_slice")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false")

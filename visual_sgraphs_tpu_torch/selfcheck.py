@@ -73,6 +73,27 @@ def _rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
+def device_time(fn: Callable[[], object], reps: int = 20) -> float:
+    """Median device milliseconds of one call of ``fn``: CUDA events around
+    it while a ~1 ms sleep kernel ahead of it keeps the stream busy, so
+    that every launch of ``fn`` is queued before the start event runs and
+    the host's time to launch them is not counted (``time_cuda`` counts
+    it whenever the device would idle)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def time_cuda(fn: Callable[[], object], warmup: int = 3,
               reps: int = 20) -> float:
     """Median milliseconds of ``fn`` over ``reps`` runs (CUDA events,
@@ -122,30 +143,45 @@ def batch_frames(device, B: int = 8, h: int = 480, w: int = 640,
 
 def check_pyramid(grays: torch.Tensor, n_levels: int = 8,
                   scale: float = 1.2) -> list[dict]:
-    """K1 over a (B, H, W) batch: every resize of the pyramid (each level's
-    input from the twin's pyramid) and every level's blur, against the
-    twins (expected bitwise; the gate is 1e-4 abs on [0, 255], the twin's
-    tolerance against the reference); then the FAST keypoints per level of
-    the kernels' pyramid against the twins'.  Library yardsticks: one
-    ``F.interpolate(bilinear, antialias=True)`` per resize and a separable
-    ``F.conv2d`` pair per blur."""
+    """K1 over a (B, H, W) batch: the resize chain (one launch a call) and
+    every level's blur against the twins (expected bitwise; the gate is
+    1e-4 abs on [0, 255], the twin's tolerance against the reference), the
+    chain also on the first frame alone as an (H, W) image; the FAST
+    keypoints per level of the kernel's pyramid against the twin's.
+    Library yardsticks: the chain's 7 ``F.interpolate(bilinear,
+    antialias=True)`` calls (each from the twin's level before) and a
+    separable ``F.conv2d`` pair per blur.  Beside the chain's and the
+    interpolations' CUDA-event times their device time (``device_time``);
+    the chain also timed with clusters of 8 and of 16 CTAs a frame
+    forced."""
     F_ = torch.nn.functional
     levels = pyramid.build_pyramid_torch(grays, n_levels, scale)
     shapes = [tuple(lv.shape[-2:]) for lv in levels]
-    r_err = max(float((pyramid.resize_bilinear(levels[i], shapes[i + 1])
-                       - pyramid.resize_bilinear_torch(levels[i],
-                                                       shapes[i + 1])
-                       ).abs().max()) for i in range(n_levels - 1))
+    n0 = pyramid.build_pyramid.launches
+    k_levels = pyramid.build_pyramid(grays, n_levels, scale)
+    one = pyramid.build_pyramid(grays[0], n_levels, scale)
+    per_call = (pyramid.build_pyramid.launches - n0) / 2
+    r_err = max(max(float((k - t).abs().max()), float((o - t[0]).abs().max()))
+                for k, o, t in zip(k_levels[1:], one[1:], levels[1:]))
     b_err = max(float((pyramid.gaussian_blur(lv)
                        - pyramid.gaussian_blur_torch(lv)).abs().max())
                 for lv in levels)
-    k_levels = pyramid.build_pyramid(grays, n_levels, scale)
     kp_diff = [int((fast.fast_nms(k) > 0).ne(fast.fast_nms(t) > 0).sum())
                for k, t in zip(k_levels, levels)]
     torch.cuda.synchronize()
 
-    def resizes(fn):
-        return [fn(levels[i], shapes[i + 1]) for i in range(n_levels - 1)]
+    def chain():
+        return pyramid.build_pyramid(grays, n_levels, scale)
+
+    def chain_with(cluster):
+        return lambda: pyramid._pyramid_chain(grays, n_levels, scale,
+                                              cluster)
+
+    def interpolate():
+        return [F_.interpolate(levels[i][:, None], size=shapes[i + 1],
+                               mode="bilinear", antialias=True,
+                               align_corners=False)
+                for i in range(n_levels - 1)]
 
     taps = pyramid._blur_taps_on(7, 2.0, grays.device)
 
@@ -161,14 +197,17 @@ def check_pyramid(grays: torch.Tensor, n_levels: int = 8,
     rows_px = sum(B * shapes[i + 1][0] * shapes[i][1]
                   for i in range(n_levels - 1))
     resize = dict(
-        name="pyramid_resize", max_abs_err=r_err, ok=r_err <= 1e-4,
+        name="pyramid_resize", max_abs_err=r_err,
+        ok=r_err <= 1e-4 and per_call == 1, launches_per_call=per_call,
         fast_keypoints_differ_per_level=kp_diff,
-        ms=time_cuda(lambda: resizes(pyramid.resize_bilinear)),
-        plain_ms=time_cuda(lambda: resizes(pyramid.resize_bilinear_torch)),
-        library_ms=time_cuda(lambda: [F_.interpolate(
-            levels[i][:, None], size=shapes[i + 1], mode="bilinear",
-            antialias=True, align_corners=False)
-            for i in range(n_levels - 1)]),
+        ms=time_cuda(chain), device_ms=device_time(chain),
+        **{f"{k}_cluster{c}": v for c in (8, 16) for k, v in (
+            ("ms", time_cuda(chain_with(c))),
+            ("device_ms", device_time(chain_with(c))))},
+        plain_ms=time_cuda(lambda: pyramid.build_pyramid_torch(
+            grays, n_levels, scale)),
+        library_ms=time_cuda(interpolate),
+        library_device_ms=device_time(interpolate),
         shapes=[[B, *sh] for sh in shapes],
         bytes=4 * (px_in + px_out), ops=6 * (rows_px + px_out))
     px = sum(B * a * b for a, b in shapes)
@@ -1651,6 +1690,54 @@ LM_LAM = 1e-4  # the first iteration's damping
 LM_LAMS = (LM_LAM, 1.0)  # and one after four rejections
 
 
+# the seeded K22c systems' sizes (chip_smoke.py, the GPU tests) and the
+# family layout of each: the main path's D = 150 (VI BA), 66 (local BA),
+# 201 (an initialisation of 64 keyframes); single tiles and their edges
+# (1, 15, 16, 17); the last size whose tiles fit in shared memory (224)
+# and the first two past it (225, 264, the local BA tiled to 44 slots)
+LM_SEEDED_LAYOUTS = {
+    1: dict(scale=1), 15: dict(pose=1, vel=3),
+    16: dict(pose=1, vel=1, bg=1, ba=1, scale=1),
+    17: dict(pose=1, vel=1, bg=1, ba=1, gdir=1), 66: dict(pose=11),
+    150: dict(pose=10, vel=10, bg=10, ba=10),
+    201: dict(vel=64, bg=1, ba=1, gdir=1, scale=1),
+    224: dict(pose=37, gdir=1),
+    225: dict(vel=72, bg=1, ba=1, gdir=1, scale=1), 264: dict(pose=44)}
+
+
+def lm_solve_system(D: int, seed: int = 0) -> dict:
+    """A seeded K22c system of size D (a key of LM_SEEDED_LAYOUTS), as
+    numpy: H = J^T J and g = J^T c for J = R diag(s), R = I + N(0, 0.25 /
+    D) (well conditioned) and s^2 spanning 1e-10 to ~3e6, so that H's
+    diagonal spans ~1e-10 to 1e7 as the inertial systems' does while the
+    solve stays well posed in float64; c = -J x with x ~ N(0, 0.05^2) (0
+    on the gauge), so that the step is of an LM step's size (the
+    candidates are float32, their tolerance absolute); ``free`` (D,) bool
+    with the gauge fixed (the first pose's 6 columns, else column 0 when
+    D > 1); float32 values of the layout's families (unit quaternions for
+    pose and gdir)."""
+    layout = LM_SEEDED_LAYOUTS[D]
+    rng = np.random.default_rng(1000 + D + seed)
+    s = 10.0 ** rng.uniform(-5.0, 3.25, D)
+    J = (np.eye(D) + rng.normal(size=(D, D)) * (0.5 / np.sqrt(D))) * s
+    free = np.ones(D, bool)
+    free[:6 if "pose" in layout else int(D > 1)] = False
+    c = -J @ (rng.normal(0.0, 0.05, D) * free)
+    values = {}
+    for k, n in layout.items():
+        if k in ("pose", "gdir"):
+            q = rng.normal(size=(n, 4))
+            q /= np.linalg.norm(q, axis=1, keepdims=True)
+            v = q if k == "gdir" else np.concatenate(
+                [q, rng.normal(size=(n, 3))], axis=1)
+        elif k == "scale":
+            v = np.full((1, 1), 1.0 + 0.1 * rng.normal())
+        else:
+            v = rng.normal(size=(n, 3))
+        values[k] = v.astype(np.float32)
+    return dict(J=J, c=c, H=J.T @ J, g=J.T @ c, free=free, values=values)
+
+
 class VIWindow(NamedTuple):
     """A VI local BA's inputs, as ``SlamSystem`` passes them."""
 
@@ -2026,18 +2113,14 @@ def check_lm_solve(problems: dict, tags=("vi", "init")) -> dict:
         errs32[tag] = float((sd - td).abs().max() / scale)
         systems[tag] = (H, g, pairs, rhs, free, lam, p32["red"], D)
     H, g, pairs, rhs, free, lam, red, D = systems[tags[0]]
-    ms = time_cuda(lambda: lmk.lm_solve(H, g, pairs, rhs, free, lam, red))
-    plain = time_cuda(lambda: lmk.lm_solve_torch(H, g, pairs, rhs, free, lam,
-                                                 red), reps=5)
     S = H + torch.eye(D, dtype=H.dtype, device=H.device)
-    library = time_cuda(lambda: torch.linalg.cholesky_ex(S))
     e = max(max(v["dx"] for v in errs.values()),
             max(v["cand"] for v in errs.values()))
     return dict(name=_tagged("lm_solve", tags[0], "vi"), max_abs_err=e,
                 ok=all(v["dx"] <= LM_SOLVE_TOL and v["cand"] <= LM_CAND_TOL
                        for v in errs.values()), errs=errs,
-                twin32_rel_err_dx=errs32, D=D, ms=ms, plain_ms=plain,
-                library_ms=library,
+                twin32_rel_err_dx=errs32, D=D,
+                **_solve_times(H, g, pairs, rhs, free, lam, red, S),
                 bytes=8 * (D * D + D) + nbytes(pairs, rhs) + D + 4 + 4 * D
                 + 2 * nbytes(*(v for v in red if v is not None)),
                 # the Cholesky (D^3 / 3 flops), two triangular solves (2 D^2
@@ -2045,16 +2128,93 @@ def check_lm_solve(problems: dict, tags=("vi", "init")) -> dict:
                 ops=D ** 3 // 3 + 8 * D * D + 300 * red.pose.shape[0])
 
 
+def _solve_times(H, g, pairs, rhs, free, lam, red, S) -> dict:
+    """K22c's and its twin's CUDA-event ms, and ``cholesky_ex`` of ``S``
+    (the same size) as the library yardstick; the kernel's and the
+    library call's device time (``device_time``)."""
+    from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
+
+    def kernel():
+        return lmk.lm_solve(H, g, pairs, rhs, free, lam, red)
+
+    def library():
+        return torch.linalg.cholesky_ex(S)
+
+    return dict(ms=time_cuda(kernel), device_ms=device_time(kernel),
+                plain_ms=time_cuda(lambda: lmk.lm_solve_torch(
+                    H, g, pairs, rhs, free, lam, red), reps=5),
+                library_ms=time_cuda(library),
+                library_device_ms=device_time(library))
+
+
+def lm_solve_operands(system: dict, device) -> tuple:
+    """(H, g, free, lam, red) of a ``lm_solve_system`` on ``device``:
+    float64 H, g, lambda LM_LAM in float32, the float32 values."""
+    from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
+    H = torch.from_numpy(system["H"]).to(device)
+    return (H, torch.from_numpy(system["g"]).to(device),
+            torch.from_numpy(system["free"]).to(device), _lam(H),
+            lmk.Reduced(**{k: torch.from_numpy(v).to(device)
+                           for k, v in system["values"].items()}))
+
+
+def check_lm_solve_seeded(device) -> dict:
+    """K22c on the seeded systems of every size of LM_SEEDED_LAYOUTS (no
+    landmark terms) against the twin's float64 solve: the step within
+    LM_SOLVE_TOL of the largest |dx|, the candidates within LM_CAND_TOL;
+    and on the D = 150 system with its free block negated (not positive
+    definite), where kernel and twin must give a zero step and candidates
+    equal to the inputs.  Timed at D = 150 against ``cholesky_ex``."""
+    from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
+    errs = {}
+    for D in LM_SEEDED_LAYOUTS:
+        H, g, free, lam, red = lm_solve_operands(lm_solve_system(D), device)
+        kd, kc = lmk.lm_solve(H, g, None, None, free, lam, red)
+        td, tc = lmk.lm_solve_torch(H, g, None, None, free, lam, red)
+        torch.cuda.synchronize()
+        errs[D] = dict(
+            dx=float((kd - td).abs().max() / td.abs().max().clamp(
+                min=1e-30)),
+            cand=max(float((a - b).abs().max())
+                     for a, b in zip(kc, tc) if a is not None))
+    sys150 = lm_solve_system(150)
+    f = sys150["free"]
+    sys150["H"][np.ix_(f, f)] *= -1.0
+    H, g, free, lam, red = lm_solve_operands(sys150, device)
+    kd, kc = lmk.lm_solve(H, g, None, None, free, lam, red)
+    td, tc = lmk.lm_solve_torch(H, g, None, None, free, lam, red)
+    torch.cuda.synchronize()
+    non_pd = dict(
+        kernel_step_zero=bool((kd == 0).all()),
+        twin_step_zero=bool((td == 0).all()),
+        kernel_cand_equal=all(bool((a == b).all()) for a, b in zip(kc, red)
+                              if a is not None))
+    H, g, free, lam, red = lm_solve_operands(lm_solve_system(150), device)
+    S = H + torch.eye(150, dtype=H.dtype, device=H.device)
+    e = max(max(v["dx"] for v in errs.values()),
+            max(v["cand"] for v in errs.values()))
+    return dict(name="lm_solve@seeded", max_abs_err=e,
+                ok=all(v["dx"] <= LM_SOLVE_TOL and v["cand"] <= LM_CAND_TOL
+                       for v in errs.values()) and all(non_pd.values()),
+                errs=errs, non_pd=non_pd, D=150,
+                **_solve_times(H, g, None, None, free, lam, red, S),
+                bytes=8 * (150 * 150 + 150) + 150 + 4 + 4 * 150
+                + 2 * nbytes(*(v for v in red if v is not None)),
+                ops=150 ** 3 // 3 + 8 * 150 * 150 + 300 * red.pose.shape[0])
+
+
 def run_lm(device, win: LmWindows | None = None) -> list[dict]:
     """K22a / K22b / K22c against their twins on a VI local BA window, a
     generic local BA window and that window tiled past 16 and 33 slots
-    (``lm_window``'s small run when none is given)."""
+    (``lm_window``'s small run when none is given); K22c also on the
+    seeded systems (``check_lm_solve_seeded``)."""
     problems = lm_problems(win if win is not None else lm_window(device))
     return [*(r for tag in ("vi", "lba", "lba_x2", "lba_x4")
               for r in check_lm_reproj(problems, tag)),
             *check_lm_inertial(problems),
             check_lm_solve(problems),
-            check_lm_solve(problems, ("lba", "lba_x4"))]
+            check_lm_solve(problems, ("lba", "lba_x4")),
+            check_lm_solve_seeded(device)]
 
 
 # ---------------------------------------------------------------------------
@@ -2500,10 +2660,13 @@ def run_loop_seeded(device) -> list[dict]:
 
 
 def run_all(device) -> list[dict]:
-    """Every kernel against its twin at the slice's shapes."""
+    """Every kernel against its twin at the slice's shapes (K1's resize
+    chain also on one frame, as the serial path extracts it)."""
     levels, rcs, blurred = slice_levels(device)
     grays = batch_frames(device)
-    return [*check_pyramid(grays), check_detect(grays),
+    one = check_pyramid(grays[:1])[0]
+    one["name"] += "@B1"
+    return [*check_pyramid(grays), one, check_detect(grays),
             check_compact(device), check_group(device),
             check_fast_nms(levels), check_orb_desc(rcs, blurred),
             check_match_window(device), check_pose_gn(device),

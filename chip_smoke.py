@@ -14,10 +14,14 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    of 8 frames and over one frame as the serial path extracts it, and
    K1's blur and K3 keypoint selection over the batch, K7 compaction on
    32768-entry masks, K9
-   observation grouping at the local and global BAs' shapes, with the
+   observation grouping at the local and global BAs' shapes and on an
+   empty list, an all-invalid one, heavy overflow and valid out-of-range
+   ids (-1, n_pt, n_pt + 1, 10^6), one launch a call, with the
    nearest single PyTorch call timed beside each as a yardstick; K2
    FAST+NMS, K4 ORB descriptor, K5 window matcher, K6
-   pose-only GN, K8 Schur reduction and back-substitution at the local
+   pose-only GN (also at 1 to 4096 matches, mono and stereo, with and
+   without its prior: bitwise equal from launch to launch, one launch a
+   call), K8 Schur reduction and back-substitution at the local
    BA's L = 11 and the global BA's L = 128, K10 BoW rows, K11 database
    query, K12 depth cloud + voxel downsample, K13 weighted RANSAC, K14
    plane statistics; K5's NN-ratio entry, K15's Sim3 half, K16 and K19 on
@@ -54,8 +58,9 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    tiles' limit) and a system that is not positive definite, with
    ``torch.linalg.cholesky_ex`` of the same size as K22c's yardstick),
    with kernel and twin times (CUDA events, median of 20 after 3
-   warm-ups; for K1's chain and K22c also the device time of one call
-   from ``torch.profiler``, for the kernel and for its library call) and
+   warm-ups; for K1's chain, K22c, K9, K6, K6's prior branch, K5's
+   window matcher and K20 also the device time of one call
+   (``selfcheck.device_time``), for the kernel and for its library call) and
    the bytes / operations each function needs, from which its bound is
    derived;
 4. the port's main paths at full size through its public entry point
@@ -1056,7 +1061,9 @@ def main() -> None:
             launches=counts[path][name][0],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r.get("library_ms")))
+            library_ms=r.get("library_ms"),
+            **{k: r[k] for k in ("device_ms", "library_device_ms")
+               if k in r}))
     for name, src in (("schur_reduce@L128", "schur_reduce"),
                       ("schur_backsub@L128", "schur_backsub")):
         r = checks[name]

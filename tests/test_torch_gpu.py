@@ -66,6 +66,29 @@ def test_pose_gn_kernel(device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("prior", [False, True], ids=["plain", "prior"])
+@pytest.mark.parametrize("stereo", [False, True], ids=["mono", "stereo"])
+@pytest.mark.parametrize("M", selfcheck.POSE_GN_SIZES)
+def test_pose_gn_cases(device, M, stereo, prior):
+    # K6 (one CTA up to 512 matches, a cluster above) within POSE_TOL of
+    # the twin, inlier flags on >= INLIER_AGREE of rows, two launches
+    # bitwise equal, one launch a call
+    r = selfcheck.check_pose_gn_case(device, M, stereo, prior)
+    assert r["ok"], r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prior", [False, True], ids=["plain", "prior"])
+def test_pose_gn_bitwise_reproducible(device, prior):
+    # the cluster's sums are taken in a fixed order, with no float atomics
+    kernel, _ = selfcheck.pose_gn_case(device, 4096, True, prior)
+    first = kernel()
+    for _ in range(4):
+        again = kernel()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("L", [11, 32])
 def test_schur_kernels(device, L):
     # L = 11: the local BA's window (shared-memory accumulator); L = 32:
@@ -226,6 +249,15 @@ def test_compact_kernel(device):
 @pytest.mark.gpu
 def test_group_observations_kernel(device):
     r = selfcheck.check_group(device)
+    assert r["ok"], r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(selfcheck.GROUP_CASES))
+def test_group_observations_cases(device, name):
+    # K9 exactly equal to the twin (kf, valid and n_dropped; uvr bitwise) in
+    # one launch, valid out-of-range ids included
+    r = selfcheck.check_group_case(device, name)
     assert r["ok"], r
 
 

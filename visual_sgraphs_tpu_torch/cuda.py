@@ -34,6 +34,8 @@ BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 LIB_NAME = "libvsg_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+# shared memory a CTA may use on the H100 (227 KB), for the launch plans
+SMEM_LIMIT = 232448
 
 # (name, module, wrapper, twin, source, TPU-path function it replaces)
 KERNELS = (
@@ -189,11 +191,11 @@ _ARGTYPES = {
     "vsg_detect_level": [_VP] + [_I] * 5 + [_F] + [_VP] * 6,
     "vsg_orb_desc": [_VP, _I, _I, _I, _VP, _I, _VP, _VP, _VP, _VP, _VP],
     "vsg_compact": [_VP, _I, _I, _VP, _VP],
-    "vsg_group_obs": [_VP] * 4 + [_I] * 4 + [_VP] * 7,
+    "vsg_group_obs": [_VP] * 4 + [_I] * 8 + [_VP] * 7,
     "vsg_match_window": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                          _F, _I, _F, _I, _VP, _VP, _VP, _VP],
-    "vsg_pose_gn": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F,
-                    _F, _F, _VP, _F, _VP, _VP, _VP],
+    "vsg_pose_gn": [_VP] * 7 + [_I] * 6 + [_F] * 4 + [_VP, _F, _VP, _VP,
+                                                        _VP],
     "vsg_preint": [_VP, _VP, _I, _VP, _VP, _F, _F, _VP, _VP],
     "vsg_vi_pose": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _I] + [_VP] * 8
                    + [_F, _F, _I, _VP, _VP, _VP],

@@ -27,6 +27,8 @@ the reduced system per iteration) is not ported yet.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -68,18 +70,56 @@ def group_observations_torch(obs_kf, obs_pt, uvr, valid, n_pt: int,
 
 group_observations_torch.cuda_calls = 0
 
-# K9's counting sort: at most this many warp segments (each keeps a
-# counter row per landmark), of at least GROUP_MIN_SEGMENT entries
-GROUP_SEGMENTS = 64
-GROUP_MIN_SEGMENT = 256
+# K9's launch plan (csrc/group_obs.cu): clusters of GROUP_CLUSTER CTAs
+# (the portable cluster size) of GROUP_WARPS warps; a cluster a slice of
+# the buckets [0, n_pt], at least GROUP_MIN_WIDTH buckets wide, up to
+# GROUP_SLICES slices (more only when a slice's counters would not fit a
+# CTA's shared memory, cuda.SMEM_LIMIT)
+GROUP_CLUSTER = 8
+GROUP_WARPS = 16
+GROUP_SLICES = 16
+GROUP_MIN_WIDTH = 64
+GROUP_HEADER = 16
+
+
+class GroupPlan(NamedTuple):
+    slices: int  # clusters
+    width: int  # buckets a slice (a multiple of 4)
+    cluster: int  # CTAs a cluster
+    seg: int  # list entries a warp segment
+    smem: int  # shared-memory bytes a CTA
+    side: int  # entries of the out-of-range scratch list
+
+
+def group_plan(m: int, n_pt: int) -> GroupPlan:
+    """K9's launch plan for m list entries and n_pt landmarks.  A CTA's
+    shared memory holds a 16-byte header, GROUP_WARPS counter rows, its
+    totals, the totals before it and the cluster's totals (a byte a
+    bucket each), and a code (2 bytes) and a rank (1 byte) for each entry
+    of its segment; raises when no slice width fits."""
+    buckets = n_pt + 1
+    seg = -(-m // (GROUP_CLUSTER * GROUP_WARPS))
+    fixed = GROUP_HEADER + 3 * GROUP_WARPS * seg
+    max_width = (cuda.SMEM_LIMIT - fixed) // (GROUP_WARPS + 3) // 4 * 4
+    if max_width < 4:
+        raise ValueError(f"group_observations: {m} entries exceed the "
+                         "kernel's shared memory")
+    slices = max(1, min(GROUP_SLICES, -(-buckets // GROUP_MIN_WIDTH)),
+                 -(-buckets // max_width))
+    width = -(-buckets // slices)
+    width = -(-width // 4) * 4
+    return GroupPlan(slices=slices, width=width, cluster=GROUP_CLUSTER,
+                     seg=seg, smem=fixed + (GROUP_WARPS + 3) * width,
+                     side=GROUP_CLUSTER * GROUP_WARPS * seg)
 
 
 def group_observations(obs_kf, obs_pt, uvr, valid, n_pt: int,
                        max_obs: int = 8):
     """Per-landmark observation tables (see ``group_observations_torch``):
-    kernel K9 (``csrc/group_obs.cu``, a stable counting sort over the
-    landmark ids) on CUDA tensors, the plain twin on CPU tensors.  Valid
-    entries must name a landmark in [0, n_pt), as every caller's do."""
+    kernel K9 (``csrc/group_obs.cu``, one launch: stable per-bucket ranks
+    over slices of the bucket range, one cluster a slice) on CUDA
+    tensors, the plain twin on CPU tensors.  Every output is written by
+    the kernel; the scratch is not initialised."""
     if obs_kf.device.type == "cpu":
         return group_observations_torch(obs_kf, obs_pt, uvr, valid, n_pt,
                                         max_obs)
@@ -88,20 +128,24 @@ def group_observations(obs_kf, obs_pt, uvr, valid, n_pt: int,
             or uvr.dtype != torch.float32 or valid.dtype != torch.bool):
         raise ValueError("group_observations: expected int32 ids, float32 "
                          "uvr and a bool mask")
+    if not 1 <= max_obs <= 255:
+        raise ValueError("group_observations: max_obs must lie in [1, 255]")
     m = obs_kf.shape[0]
     dev = obs_kf.device
-    seg = max(GROUP_MIN_SEGMENT, -(-m // GROUP_SEGMENTS))
-    G = max(1, -(-m // seg))
-    counts = torch.zeros((G, n_pt + 2), dtype=torch.int32, device=dev)
-    local_rank = torch.empty((m,), dtype=torch.int32, device=dev)
-    out_kf = torch.full((n_pt, max_obs), -1, dtype=torch.int32, device=dev)
-    out_uvr = torch.zeros((n_pt, max_obs, 3), dtype=torch.float32,
+    plan = group_plan(m, n_pt)
+    # one scratch buffer: the out-of-range list, the clusters' drops
+    scratch = torch.empty((plan.side + plan.slices,), dtype=torch.int32,
                           device=dev)
-    out_valid = torch.zeros((n_pt, max_obs), dtype=torch.bool, device=dev)
-    n_dropped = torch.zeros((), dtype=torch.int32, device=dev)
+    side = scratch.data_ptr()
+    out_kf = torch.empty((n_pt, max_obs), dtype=torch.int32, device=dev)
+    out_uvr = torch.empty((n_pt, max_obs, 3), dtype=torch.float32,
+                          device=dev)
+    out_valid = torch.empty((n_pt, max_obs), dtype=torch.bool, device=dev)
+    n_dropped = torch.empty((), dtype=torch.int32, device=dev)
     cuda.call("vsg_group_obs", cuda.ptr(obs_kf), cuda.ptr(obs_pt),
-              cuda.ptr(uvr), cuda.ptr(valid), m, n_pt, max_obs, seg,
-              cuda.ptr(counts), cuda.ptr(local_rank),
+              cuda.ptr(uvr), cuda.ptr(valid), m, n_pt, max_obs,
+              plan.slices, plan.width, plan.cluster, plan.seg, plan.smem,
+              side, side + 4 * plan.side,
               cuda.ptr(out_kf), cuda.ptr(out_uvr), cuda.ptr(out_valid),
               cuda.ptr(n_dropped), cuda.stream())
     group_observations.launches += 1

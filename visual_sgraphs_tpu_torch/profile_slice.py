@@ -7,6 +7,7 @@
     python -m visual_sgraphs_tpu_torch.profile_slice --loop-runs N
     python -m visual_sgraphs_tpu_torch.profile_slice --small-vs-cpu
     python -m visual_sgraphs_tpu_torch.profile_slice --cells
+    python -m visual_sgraphs_tpu_torch.profile_slice --kernel-times
 
 Runs the main path of ``main_path`` (640x480, 1000 features, 96
 ``orbit2`` frames) through ``SlamSystem.track_rgbd`` on the card (with
@@ -43,7 +44,11 @@ tracking and keyframes.  With ``--cells`` it runs ``slice``,
 times them, and the keyframe program's mean host ms (a cycle's on
 ``bench_slice``, the VI local BA's on ``inertial_slice``).  To compare two
 trees on one card, run this file by path with ``PYTHONPATH`` set to the
-other tree's root: the package and kernels are then that tree's.
+other tree's root: the package and kernels are then that tree's.  With
+``--kernel-times`` it runs ``selfcheck``'s checks of K9, K6, K6's prior
+branch, K5's window matcher and K20 at the main path's shapes and prints
+each one's CUDA-event and device times (``selfcheck.device_time``) beside
+its library call's, and the card's name and power limit.
 Prints one JSON line per result; needs a card.
 """
 
@@ -377,6 +382,73 @@ def small_vs_cpu(n: int = 96) -> None:
               **_parting(runs[tag], runs[against]))
 
 
+def kernel_times() -> None:
+    """The kernels' checks that carry a device time, one line each."""
+    import subprocess
+    from visual_sgraphs_tpu_torch import cuda, selfcheck
+    cuda.build()
+    dev = torch.device("cuda")
+    for check in (selfcheck.check_group, selfcheck.check_pose_gn,
+                  selfcheck.check_pose_gn_prior,
+                  selfcheck.check_match_window, selfcheck.check_vi_pose):
+        r = check(dev)
+        _line("kernel_times", **{k: r.get(k) for k in (
+            "name", "ok", "max_abs_err", "ms", "device_ms", "library_ms",
+            "library_device_ms", "plain_ms", "launches_per_call",
+            "failed")})
+    kernel_breakdown(dev)
+    _line("card", nvidia_smi=subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip())
+
+
+def kernel_breakdown(dev) -> None:
+    """Device ms of one tiny kernel (the floor of ``device_time``), of K6
+    at 4096 stereo matches against its iterations and its cluster's size,
+    and of K9 at the global BA's shape against its slices, and on an
+    empty list (the fills and the launch alone)."""
+    from visual_sgraphs_tpu_torch.parallel import dist_ba
+    from visual_sgraphs_tpu_torch.selfcheck import (
+        GROUP_CASES, device_time, group_inputs, pose_inputs)
+    from visual_sgraphs_tpu_torch.slam import tracking
+    T0, xw, uv, valid, K, depth, bf = pose_inputs(dev)
+    one = torch.zeros(1, device=dev)
+    _line("device_time_floor", one_tiny_kernel_ms=device_time(
+        lambda: one.add_(1.0)))
+    plan = tracking.pose_gn_plan
+    rows = {}
+    try:
+        for cluster in (1, 2, 4, 8):
+            chunk = -(-xw.shape[0] // cluster)
+            tracking.pose_gn_plan = lambda M, c=cluster, k=chunk: \
+                tracking.PoseGnPlan(
+                    c, k, -(-tracking.POSE_GN_BYTES * k // 16) * 16)
+            for iters in (1, 2, 12):
+                rows[f"cluster{cluster}_iters{iters}"] = device_time(
+                    lambda: tracking.pose_only_gn(
+                        T0, xw, uv, valid, K, iters=iters, gate0=900.0,
+                        depth=depth, bf=bf))
+    finally:
+        tracking.pose_gn_plan = plan
+    _line("pose_gn_breakdown", device_ms=rows)
+    kw, n_pt, O = GROUP_CASES["global"]
+    args = group_inputs(dev, **kw)
+    empty = group_inputs(dev, **GROUP_CASES["empty"][0])
+    slices = dist_ba.GROUP_SLICES
+    rows = {}
+    try:
+        for s in (4, 8, 16, 32):
+            dist_ba.GROUP_SLICES = s
+            rows[f"slices{s}"] = device_time(
+                lambda: dist_ba.group_observations(*args, n_pt, O))
+            rows[f"slices{s}_empty"] = device_time(
+                lambda: dist_ba.group_observations(*empty, n_pt, O))
+    finally:
+        dist_ba.GROUP_SLICES = slices
+    _line("group_breakdown", device_ms=rows)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenegraph", action="store_true",
@@ -396,6 +468,9 @@ def main() -> None:
     ap.add_argument("--cells", action="store_true",
                     help="fps of the serial cells, bench_slice and "
                     "inertial_slice")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="K9, K6, K6's prior, K5's window matcher and K20: "
+                    "CUDA-event and device times")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false")
@@ -404,6 +479,8 @@ def main() -> None:
         small_vs_cpu()
     elif args.cells:
         cells_fps()
+    elif args.kernel_times:
+        kernel_times()
     elif args.loop_runs:
         loop_spread(args.loop_runs)
     else:

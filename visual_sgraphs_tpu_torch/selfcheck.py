@@ -311,54 +311,99 @@ def check_compact(device, n: int = 32768, seed: int = 0) -> dict:
 
 
 def group_inputs(device, L: int, F: int, n_pt: int, seed: int = 0,
-                 overflow: int = 0):
+                 overflow: int = 0, p_valid: float = 0.85,
+                 out_of_range: tuple = ()):
     """Seeded observation lists of a BA over L keyframes x F keypoints:
-    ~85 % valid, landmark ids in [0, n_pt) with each landmark seen by a
-    few keyframes; ``overflow`` landmarks are seen by every keyframe
-    (more than ``max_obs``, so entries are dropped)."""
+    ``p_valid`` of them valid, landmark ids in [0, n_pt) with each
+    landmark seen by a few keyframes; ``overflow`` landmarks are seen by
+    every keyframe (more than ``max_obs``, so entries are dropped); each id
+    of ``out_of_range`` replaces ~2 % of the ids (valid or not)."""
     rng = np.random.default_rng(seed)
     pt = rng.integers(0, n_pt, (L, F)).astype(np.int32)
     if overflow:
         pt[:, :overflow] = np.arange(overflow, dtype=np.int32)
-    valid = rng.uniform(size=(L, F)) < 0.85
+    for bad in out_of_range:
+        pt[rng.uniform(size=(L, F)) < 0.02] = bad
+    valid = rng.uniform(size=(L, F)) < p_valid
     kf = np.broadcast_to(np.arange(L, dtype=np.int32)[:, None], (L, F))
     uvr = rng.uniform(0, 640, (L * F, 3)).astype(np.float32)
     uvr[rng.uniform(size=L * F) < 0.2, 2] = -1.0
-    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa
+    t = lambda x: torch.from_numpy(np.array(x)).to(device)  # noqa: E731
     return (t(kf.reshape(-1)), t(pt.reshape(-1)), t(uvr),
             t(valid.reshape(-1)))
 
 
+# K9's cases: name -> (group_inputs arguments, n_pt, max_obs).  "local" and
+# "global" are the local / scene-graph BA's and the global BA's shapes
+# (optim/fast_ba.py:99, parallel/dist_ba.py::global_ba_sharded);
+# "out_of_range" mixes valid ids -1, n_pt, n_pt + 1 and 10^6 into the
+# global shape: each is ranked among the entries of its own bucket (n_pt's
+# shared with the invalid entries), so n_dropped counts them as the twin
+# does; "many_slots" takes max_obs = 20, past the kernel's byte sums that
+# cannot overflow (max_obs <= 15), onto its saturating path.
+GROUP_CASES = {
+    "local": (dict(L=11, F=1000, n_pt=8192, overflow=20), 8192, 12),
+    "global": (dict(L=128, F=1000, n_pt=32768, overflow=20), 32768, 8),
+    "empty": (dict(L=0, F=1000, n_pt=8192), 8192, 12),
+    "all_invalid": (dict(L=11, F=1000, n_pt=8192, p_valid=0.0), 8192, 12),
+    "heavy_overflow": (dict(L=128, F=1000, n_pt=512), 32768, 8),
+    "out_of_range": (dict(L=128, F=1000, n_pt=32768, overflow=20,
+                          out_of_range=(-1, 32768, 32769, 10**6)),
+                     32768, 8),
+    "many_slots": (dict(L=128, F=1000, n_pt=4096), 8192, 20),
+}
+
+
+def check_group_case(device, name: str) -> dict:
+    """K9 on one of ``GROUP_CASES``: kf / valid tables and n_dropped
+    exactly equal to the twin's, uvr bitwise, one launch a call."""
+    kw, n_pt, O = GROUP_CASES[name]
+    args = group_inputs(device, **kw)
+    before = dist_ba.group_observations.launches
+    k = dist_ba.group_observations(*args, n_pt, O)
+    launches = dist_ba.group_observations.launches - before
+    t = dist_ba.group_observations_torch(*args, n_pt, O)
+    torch.cuda.synchronize()
+    err = max(float((k[0] != t[0]).sum()),
+              float((k[1].view(torch.int32)
+                     != t[1].view(torch.int32)).sum()),
+              float((k[2] != t[2]).sum()), float((k[3] - t[3]).abs()))
+    return dict(name=f"group_observations@{name}", max_abs_err=err,
+                ok=err == 0.0 and launches == 1, launches_per_call=launches,
+                n_dropped=[int(k[3]), int(t[3])], m=int(args[0].shape[0]))
+
+
 def check_group(device) -> dict:
-    """K9 at the local BA's shape (11 x 1000 observations into
-    (8192, 12)) and the global BA's (128 x 1000 into (32768, 8)), both
-    with overflowing landmarks: kf / valid tables and n_dropped exactly
-    equal to the twin's, uvr bitwise.  Timed at the global BA's shape;
-    library yardstick ``torch.sort(stable=True)`` of the landmark ids
-    (the sort half only)."""
-    err = 0.0
-    dropped = []
-    for L, n_pt, O in ((11, 8192, 12), (128, 32768, 8)):
-        args = group_inputs(device, L, 1000, n_pt, overflow=20)
-        k = dist_ba.group_observations(*args, n_pt, O)
-        t = dist_ba.group_observations_torch(*args, n_pt, O)
-        torch.cuda.synchronize()
-        err = max(err, float((k[0] - t[0]).abs().max()),
-                  float((k[1].view(torch.int32)
-                         != t[1].view(torch.int32)).sum()),
-                  float((k[2] != t[2]).sum()), float((k[3] - t[3]).abs()))
-        dropped.append(int(k[3]))
-    args = group_inputs(device, 128, 1000, 32768, overflow=20)
-    pt = torch.where(args[3], args[1], 32768)
+    """K9 on every case of ``GROUP_CASES`` (see ``check_group_case``).
+    Timed at the global BA's shape, with its device time (``device_time``);
+    library yardstick ``torch.sort(stable=True)`` of the landmark ids (the
+    sort half only), also with its device time."""
+    cases = [check_group_case(device, name) for name in GROUP_CASES]
+    dropped = {r["name"].split("@")[1]: r["n_dropped"] for r in cases}
+    kw, n_pt, O = GROUP_CASES["global"]
+    args = group_inputs(device, **kw)
+    pt = torch.where(args[3], args[1], n_pt)
     m = args[0].shape[0]
+
+    def kernel():
+        return dist_ba.group_observations(*args, n_pt, O)
+
+    def library():
+        return torch.sort(pt, stable=True)
+
     return dict(
-        name="group_observations", max_abs_err=err,
-        ok=err == 0.0 and min(dropped) > 0, n_dropped=dropped,
-        ms=time_cuda(lambda: dist_ba.group_observations(*args, 32768, 8)),
+        name="group_observations",
+        max_abs_err=max(r["max_abs_err"] for r in cases),
+        ok=(all(r["ok"] for r in cases) and min(dropped["local"]) > 0
+            and min(dropped["global"]) > 0),
+        n_dropped=dropped,
+        launches_per_call=max(r["launches_per_call"] for r in cases),
+        failed=[r["name"] for r in cases if not r["ok"]],
+        ms=time_cuda(kernel), device_ms=device_time(kernel),
         plain_ms=time_cuda(
-            lambda: dist_ba.group_observations_torch(*args, 32768, 8)),
-        library_ms=time_cuda(lambda: torch.sort(pt, stable=True)),
-        bytes=21 * m + 32768 * 8 * 17,
+            lambda: dist_ba.group_observations_torch(*args, n_pt, O)),
+        library_ms=time_cuda(library), library_device_ms=device_time(library),
+        bytes=21 * m + n_pt * O * 17,
         # per entry: bucket, match, rank, offset and the scatter (~8)
         ops=8 * m)
 
@@ -437,10 +482,14 @@ def check_match_window(device, radius: float = 15.0) -> dict:
     tm, td = match.match_window_torch(*args, radius=radius)
     torch.cuda.synchronize()
     err = float(max((km - tm).abs().max(), (kd - td).abs().max()))
-    ms = time_cuda(lambda: match.match_window(*args, radius=radius))
+
+    def kernel():
+        return match.match_window(*args, radius=radius)
+
     plain = time_cuda(lambda: match.match_window_torch(*args, radius=radius))
     # per pair: window test (6), 8 XOR + 8 popcount + 7 adds, best-2 (4)
-    return dict(name="match_window", max_abs_err=err, ms=ms, plain_ms=plain,
+    return dict(name="match_window", max_abs_err=err, ms=time_cuda(kernel),
+                device_ms=device_time(kernel), plain_ms=plain,
                 ok=err == 0.0, n_matched=int((km >= 0).sum()),
                 bytes=nbytes(*args, km, kd),
                 ops=35 * args[0].shape[0] * args[3].shape[0])
@@ -472,9 +521,65 @@ def pose_inputs(device, n: int = 4096, seed: int = 0):
             f(K), f(depth), torch.full((), 20.8, device=device))
 
 
+# K6's card cases: matches (a few hundred take one CTA, 4096 a cluster)
+POSE_GN_SIZES = (1, 31, 257, 1000, 4096)
+PRIOR_WEIGHT = 10.0  # the main path's (inertial_slice)
+
+
+def pose_gn_case(device, M: int, stereo: bool, prior: bool) -> tuple:
+    """(call of the kernel, call of the twin) on ``pose_prior_inputs(M)``:
+    12 iterations with the wide first gate, the stereo row if ``stereo``,
+    the prior branch at PRIOR_WEIGHT if ``prior``."""
+    T0, xw, uv, valid, K, depth, bf, T_prior = pose_prior_inputs(device, M)
+    kw = dict(iters=12, gate0=(2.0 * 15.0) ** 2)
+    if stereo:
+        kw.update(depth=depth, bf=bf)
+    if prior:
+        return (lambda: tracking.pose_only_gn_prior(
+                    T0, xw, uv, valid, K, T_prior, PRIOR_WEIGHT, **kw),
+                lambda: tracking.pose_only_gn_prior_torch(
+                    T0, xw, uv, valid, K, T_prior, PRIOR_WEIGHT, **kw))
+    return (lambda: tracking.pose_only_gn(T0, xw, uv, valid, K, **kw),
+            lambda: tracking.pose_only_gn_torch(T0, xw, uv, valid, K, **kw))
+
+
+def check_pose_gn_case(device, M: int, stereo: bool = True,
+                       prior: bool = False) -> dict:
+    """K6 (or its prior branch) on M seeded matches: pose within
+    POSE_TOL of the twin, inlier flags equal on >= INLIER_AGREE of rows,
+    two launches bitwise equal (fixed-order sums), one launch a call."""
+    kernel, twin = pose_gn_case(device, M, stereo, prior)
+    wrapper = tracking.pose_only_gn_prior if prior else tracking.pose_only_gn
+    before = wrapper.launches
+    kT, kin = kernel()
+    launches = wrapper.launches - before
+    kT2, kin2 = kernel()
+    tT, tin = twin()
+    torch.cuda.synchronize()
+    err = float((kT - tT).abs().max())
+    agree = float((kin == tin).float().mean()) if M else 1.0
+    repro = bool(torch.equal(kT, kT2) and torch.equal(kin, kin2))
+    tag = ("stereo" if stereo else "mono") + ("_prior" if prior else "")
+    return dict(name=f"pose_gn@{M}_{tag}", max_abs_err=err,
+                inlier_agreement=agree, bitwise_repro=repro,
+                launches_per_call=launches,
+                ok=(err <= POSE_TOL and agree >= INLIER_AGREE and repro
+                    and launches == 1))
+
+
+def pose_gn_sweep(device) -> list[dict]:
+    """``check_pose_gn_case`` over POSE_GN_SIZES, mono and stereo, with and
+    without the prior."""
+    return [check_pose_gn_case(device, M, stereo, prior)
+            for M in POSE_GN_SIZES for stereo in (False, True)
+            for prior in (False, True)]
+
+
 def check_pose_gn(device) -> dict:
     """K6 at 4096 matches with stereo rows and the wide first gate: pose
-    within POSE_TOL, inlier flags equal on >= INLIER_AGREE of rows."""
+    within POSE_TOL, inlier flags equal on >= INLIER_AGREE of rows; and
+    every case of ``pose_gn_sweep``.  Timed with CUDA events and by its
+    device time (``device_time``)."""
     T0, xw, uv, valid, K, depth, bf = pose_inputs(device)
     kw = dict(iters=12, gate0=(2.0 * 15.0) ** 2, depth=depth, bf=bf)
     kT, kin = tracking.pose_only_gn(T0, xw, uv, valid, K, **kw)
@@ -482,14 +587,25 @@ def check_pose_gn(device) -> dict:
     torch.cuda.synchronize()
     err = float((kT - tT).abs().max())
     agree = float((kin == tin).float().mean())
-    ms = time_cuda(lambda: tracking.pose_only_gn(T0, xw, uv, valid, K, **kw))
+    sweep = pose_gn_sweep(device)
+
+    def kernel():
+        return tracking.pose_only_gn(T0, xw, uv, valid, K, **kw)
+
     plain = time_cuda(
         lambda: tracking.pose_only_gn_torch(T0, xw, uv, valid, K, **kw))
     # per match and iteration: transform, projection, stereo row,
     # Jacobian, robust weight and the 27 normal-equation sums (~135)
-    return dict(name="pose_gn", max_abs_err=err, ms=ms, plain_ms=plain,
-                ok=err <= POSE_TOL and agree >= INLIER_AGREE,
+    return dict(name="pose_gn", max_abs_err=err, ms=time_cuda(kernel),
+                device_ms=device_time(kernel), plain_ms=plain,
+                library_ms=None,
+                ok=(err <= POSE_TOL and agree >= INLIER_AGREE
+                    and all(r["ok"] for r in sweep)),
                 inlier_agreement=agree, n_inliers=int(kin.sum()),
+                sweep_max_abs_err=max(r["max_abs_err"] for r in sweep),
+                sweep_min_agreement=min(r["inlier_agreement"]
+                                        for r in sweep),
+                failed=[r["name"] for r in sweep if not r["ok"]],
                 bytes=nbytes(T0, xw, uv, valid, K, depth, kT, kin),
                 ops=135 * xw.shape[0] * kw["iters"])
 
@@ -1266,6 +1382,7 @@ def check_vi_pose(device) -> dict:
     e_bias = max(float((k[2] - t[2]).abs().max()),
                  float((k[3] - t[3]).abs().max()))
     ms = time_cuda(lambda: pipeline.pose_inertial_gn(*args))
+    device_ms = device_time(lambda: pipeline.pose_inertial_gn(*args))
     plain = time_cuda(lambda: pipeline.pose_inertial_gn_torch(*args), reps=5)
     m, fr, slot_pt = args[0], args[1], args[2]
     F = slot_pt.shape[0]
@@ -1277,8 +1394,7 @@ def check_vi_pose(device) -> dict:
     ops = 6 * (n_obs * (80 + 3 * 2 * 27) + 15 * 1500 + 4000 + 2300) \
         + 20 * n_obs
     return dict(name="vi_pose", max_abs_err=max(e_pose, e_vel, e_bias),
-                ms=ms,
-                plain_ms=plain,
+                ms=ms, device_ms=device_ms, plain_ms=plain,
                 ok=(int(k[4]) == int(t[4]) and e_pose <= VI_POSE_TOL
                     and e_bias <= VI_POSE_TOL and e_vel <= VI_VEL_TOL),
                 n_inliers=[int(k[4]), int(t[4])], pose_err=e_pose,
@@ -1292,9 +1408,9 @@ PRIOR_WEIGHTS = (10.0, 1e5, 1e9)  # the main path's, a middling, dominant
 PRIOR_SHIFT_MIN = 100 * POSE_TOL  # the dominant prior's least pose shift
 
 
-def pose_prior_inputs(device):
+def pose_prior_inputs(device, n: int = 4096):
     """``pose_inputs`` and a prior pose offset from the start by ~0.02."""
-    T0, xw, uv, valid, K, depth, bf = pose_inputs(device)
+    T0, xw, uv, valid, K, depth, bf = pose_inputs(device, n)
     T_prior = lie.se3_boxplus(T0, torch.tensor(
         [0.01, -0.02, 0.01, 0.005, 0.0, -0.004], device=device))
     return T0, xw, uv, valid, K, depth, bf, T_prior
@@ -1326,17 +1442,28 @@ def check_pose_gn_prior(device) -> dict:
         k_shift.append(float((kT - kF).abs().max()))
         t_shift.append(float((tT - tF).abs().max()))
         shift_err.append(float(((kT - kF) - (tT - tF)).abs().max()))
-    ms = time_cuda(lambda: tracking.pose_only_gn_prior(
-        T0, xw, uv, valid, K, T_prior, 10.0, **kw))
+
+    def kernel():
+        return tracking.pose_only_gn_prior(T0, xw, uv, valid, K, T_prior,
+                                           PRIOR_WEIGHT, **kw)
+
+    before = tracking.pose_only_gn_prior.launches
+    kT, kin = kernel()
+    launches = tracking.pose_only_gn_prior.launches - before
+    kT2, kin2 = kernel()
+    repro = bool(torch.equal(kT, kT2) and torch.equal(kin, kin2))
     plain = time_cuda(lambda: tracking.pose_only_gn_prior_torch(
-        T0, xw, uv, valid, K, T_prior, 10.0, **kw))
+        T0, xw, uv, valid, K, T_prior, PRIOR_WEIGHT, **kw))
     # K6's ~135 a match and iteration, plus the prior's log (~300) a
     # iteration
-    return dict(name="pose_gn_prior", max_abs_err=max(errs), ms=ms,
+    return dict(name="pose_gn_prior", max_abs_err=max(errs),
+                ms=time_cuda(kernel), device_ms=device_time(kernel),
                 plain_ms=plain,
                 ok=(max(errs) <= POSE_TOL and min(agree) >= INLIER_AGREE
                     and k_shift[-1] >= PRIOR_SHIFT_MIN
-                    and shift_err[-1] <= 2 * POSE_TOL),
+                    and shift_err[-1] <= 2 * POSE_TOL and repro
+                    and launches == 1),
+                bitwise_repro=repro, launches_per_call=launches,
                 weights=list(PRIOR_WEIGHTS), pose_errs=errs,
                 inlier_agreement=agree, prior_shift=k_shift,
                 twin_prior_shift=t_shift, prior_shift_err=shift_err,

@@ -180,6 +180,36 @@ def pose_only_gn_prior_torch(T_init, xw, uv, valid, cam_K, T_prior,
 pose_only_gn_prior_torch.cuda_calls = 0
 
 
+# K6's launch plan (csrc/pose_gn.cu): POSE_GN_MATCHES matches a CTA of 256
+# threads before a solve takes another CTA, up to POSE_GN_CLUSTER (the
+# portable cluster size); a CTA holds its share of the matches in shared
+# memory (POSE_GN_BYTES a match), within cuda.SMEM_LIMIT less the
+# kernel's static POSE_GN_STATIC bytes
+POSE_GN_MATCHES = 512
+POSE_GN_CLUSTER = 8
+POSE_GN_BYTES = 29  # xw (12), uv (8), stereo row (8), flags (1)
+POSE_GN_STATIC = 4096
+
+
+class PoseGnPlan(NamedTuple):
+    cluster: int  # CTAs
+    chunk: int  # matches a CTA
+    smem: int  # dynamic shared-memory bytes a CTA
+
+
+def pose_gn_plan(M: int) -> PoseGnPlan:
+    """K6's cluster for M matches: one CTA up to POSE_GN_MATCHES, one more
+    for each further POSE_GN_MATCHES up to POSE_GN_CLUSTER; raises when a
+    CTA's share would not fit its shared memory."""
+    cluster = min(POSE_GN_CLUSTER, max(1, -(-M // POSE_GN_MATCHES)))
+    chunk = -(-M // cluster)
+    smem = -(-POSE_GN_BYTES * chunk // 16) * 16
+    if smem > cuda.SMEM_LIMIT - POSE_GN_STATIC:
+        raise ValueError(f"pose_only_gn: {M} matches exceed the kernel's "
+                         "shared memory")
+    return PoseGnPlan(cluster=cluster, chunk=chunk, smem=smem)
+
+
 def _launch_pose_gn(T_init, xw, uv, valid, cam_K, iters, chi2_gate, huber,
                     gate0, depth, bf, T_prior, prior_weight):
     use_stereo = depth is not None and bf is not None
@@ -192,12 +222,14 @@ def _launch_pose_gn(T_init, xw, uv, valid, cam_K, iters, chi2_gate, huber,
         raise ValueError("pose_only_gn: expected float32 tensors + bool mask")
     n_wide, g0, gf = _gate_schedule(iters, chi2_gate, gate0)
     M = xw.shape[0]
+    plan = pose_gn_plan(M)
     T_out = torch.empty((7,), dtype=torch.float32, device=xw.device)
     inliers = torch.empty((M,), dtype=torch.bool, device=xw.device)
     cuda.call("vsg_pose_gn", cuda.ptr(T_init), cuda.ptr(xw), cuda.ptr(uv),
               cuda.ptr(valid), cuda.ptr(cam_K),
               cuda.ptr(depth) if use_stereo else None,
-              cuda.ptr(bf) if use_stereo else None, M, iters, n_wide, g0, gf,
+              cuda.ptr(bf) if use_stereo else None, M, plan.cluster,
+              plan.chunk, plan.smem, iters, n_wide, g0, gf,
               float(np.float32(huber)), float(np.float32(chi2_gate)),
               cuda.ptr(T_prior), float(np.float32(prior_weight)),
               cuda.ptr(T_out), cuda.ptr(inliers), cuda.stream())

@@ -18,7 +18,12 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    empty list, an all-invalid one, heavy overflow and valid out-of-range
    ids (-1, n_pt, n_pt + 1, 10^6), one launch a call, with the
    nearest single PyTorch call timed beside each as a yardstick; K2
-   FAST+NMS, K4 ORB descriptor, K5 window matcher, K6
+   FAST+NMS, K4 ORB descriptor, K5 window matcher, the tracking pass
+   (K5's redesign: projection, gates, binned window match, gathers, one
+   launch) on seeded operands at the main path's four radii (15, 7, 60,
+   14 px), every integer output exact and the predicted and gathered
+   pixels bitwise, and again after phase 4d on ``bench_slice``'s map and
+   last frame, K6
    pose-only GN (also at 1 to 4096 matches, mono and stereo, with and
    without its prior: bitwise equal from launch to launch, one launch a
    call), K8 Schur reduction and back-substitution at the local
@@ -117,7 +122,9 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
       counted readbacks;
    the kernel launch counters are zeroed just before each of (a), (b),
    (d), (f), (h), (i) and (k) and read just after (K1's resize chain
-   must launch once an ORB extraction on each); the JSON kernel table's
+   must launch once an ORB extraction on each; on (a), (b), (d) and (i)
+   the tracking pass once a tracking pose solve, K6 or its prior branch,
+   and tracking no standalone window matcher); the JSON kernel table's
    launches are (d)'s, (i)'s for the inertial path's K18, K20, K6's
    prior branch and K22, and (k)'s for K17a and K17b;
 5. the same 12 small frames through the port on the card (kernels) and on
@@ -141,6 +148,7 @@ Needs torch, numpy and nvcc; no JAX and no network.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -176,7 +184,8 @@ INERTIAL_ONLY = {"pose_gn_prior", "preint", "vi_pose"} | LM_KERNELS
 # the kernels of the inertial path
 INERTIAL_PATH = INERTIAL_ONLY | {"pyramid_resize", "gaussian_blur",
                                  "fast_nms", "detect_level", "orb_desc",
-                                 "match_window", "pose_gn", "compact_true"}
+                                 "match_window", "track_pass", "pose_gn",
+                                 "compact_true"}
 
 
 def _line(tag: str, **kw) -> None:
@@ -224,6 +233,44 @@ def _check_pyramid_launches(tag: str, cnt: dict, orb_cfg) -> None:
     _check(n > 0 and cnt["detect_level"][0] == levels * n,
            f"{tag}: K1's chain launched {n} times for "
            f"{cnt['detect_level'][0]} K3 launches ({levels} levels)")
+
+
+@contextlib.contextmanager
+def _match_window_callers():
+    """Inside the block, count K5's standalone window matcher's calls by
+    the calling file: every module's binding of ``match_window`` (not the
+    wrapper itself, whose launch count ``cuda.counts`` reads) goes through
+    a spy."""
+    from visual_sgraphs_tpu_torch.features import match
+    orig = match.match_window
+    seen = collections.Counter()
+
+    def spy(*args, **kw):
+        seen[sys._getframe(1).f_code.co_filename.rsplit("/", 1)[-1]] += 1
+        return orig(*args, **kw)
+
+    bound = [m for m in list(sys.modules.values())
+             if m is not None and m is not match
+             and getattr(m, "match_window", None) is orig]
+    for m in bound:
+        m.match_window = spy
+    try:
+        yield seen
+    finally:
+        for m in bound:
+            m.match_window = orig
+
+
+def _check_track_launches(tag: str, cnt: dict, callers) -> None:
+    """The tracking pass launches once a pose solve of tracking (K6 and
+    its prior branch, less the PnP refinement of each relocalisation), and
+    tracking launches no standalone window matcher."""
+    k6 = (cnt["pose_gn"][0] + cnt["pose_gn_prior"][0]
+          - cnt["pnp_hypotheses"][0])
+    n = cnt["track_pass"][0]
+    _check(n > 0 and n == k6 and not callers.get("tracking.py"),
+           f"{tag}: {n} tracking passes for {k6} tracking pose solves; "
+           f"window matcher callers {dict(callers)}")
 
 
 def _bound(r: dict) -> tuple[float, str]:
@@ -477,7 +524,8 @@ def main() -> None:
         cuda.reset_counts()
         system = main_path.make_system(c, device, with_sg)
         t0 = time.perf_counter()
-        perf = _drive(system, frames)
+        with _match_window_callers() as callers:
+            perf = _drive(system, frames)
         total_s = time.perf_counter() - t0
         counts[tag] = cuda.counts()
         acc = _accuracy(system, frames)
@@ -499,6 +547,7 @@ def main() -> None:
         _check(all(v[1] == 0 for v in counts[tag].values()),
                f"{tag}: a twin ran on CUDA tensors: {counts[tag]}")
         _check_pyramid_launches(tag, counts[tag], c.orb)
+        _check_track_launches(tag, counts[tag], callers)
         if with_sg:
             _check(extra["n_planes"] >= 2,
                    f"{tag}: n_planes {extra['n_planes']}")
@@ -535,7 +584,8 @@ def main() -> None:
     bench_watch = _watch_loops(system)
     cuda.reset_counts()
     t0 = time.perf_counter()
-    perf = _drive(system, bench_frames, warm=main_path.BENCH_WARMUP)
+    with _match_window_callers() as callers:
+        perf = _drive(system, bench_frames, warm=main_path.BENCH_WARMUP)
     total_s = time.perf_counter() - t0
     counts["bench_slice"] = cuda.counts()
     acc = _accuracy(system, bench_frames)
@@ -577,6 +627,11 @@ def main() -> None:
            f"bench_slice: a kernel was not launched: "
            f"{counts['bench_slice']}")
     _check_sg_launches("bench_slice", counts["bench_slice"])
+    _check_track_launches("bench_slice", counts["bench_slice"], callers)
+    # the tracking pass at the four radii on the cell's map and last frame
+    gray, depth, _, _, ts = bench_frames[-1]
+    report(selfcheck.check_track_pass_radii(
+        device, selfcheck.track_pass_map_inputs(system, gray, depth, ts)))
     # K23's wall entry on the cell's final scene graph
     report([selfcheck.check_rooms(device, system.scenegraph.state, "walls",
                                   min_votes=bench_cfg.scenegraph
@@ -707,8 +762,9 @@ def main() -> None:
     cuda.reset_counts()
     graph.linearize_batch.cuda_calls = 0
     t0 = time.perf_counter()
-    perf = _drive(system, vi_frames, warm=main_path.INERTIAL_WARMUP,
-                  feed=main_path.feed_inertial, after=note_init)
+    with _match_window_callers() as callers:
+        perf = _drive(system, vi_frames, warm=main_path.INERTIAL_WARMUP,
+                      feed=main_path.feed_inertial, after=note_init)
     total_s = time.perf_counter() - t0
     counts["inertial_slice"] = cuda.counts()
     generic_lin = graph.linearize_batch.cuda_calls
@@ -753,6 +809,8 @@ def main() -> None:
            f"{counts['inertial_slice']}")
     _check(generic_lin == 0, f"inertial_slice: {generic_lin} generic "
            "linearisations on the card")
+    _check_track_launches("inertial_slice", counts["inertial_slice"],
+                          callers)
     del system
 
     # 4j. hidden host syncs of the inertial path: 16 frames after the IMU

@@ -59,6 +59,43 @@ def test_match_window_kernel(device):
     assert r["ok"] and r["n_matched"] > 500, r
 
 
+@pytest.fixture(scope="module")
+def track_pass_args(device):
+    return selfcheck.track_pass_inputs(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius", selfcheck.TRACK_RADII)
+def test_track_pass_kernel(device, track_pass_args, radius):
+    # the tracking pass (K5's redesign) at the main path's four radii:
+    # every integer and bool output equal to the twin's, the predicted
+    # and gathered pixels and depths bitwise
+    r = selfcheck.check_track_pass(device, track_pass_args, radius)
+    assert r["ok"] and r["n_matched"] > 100, r
+
+
+@pytest.mark.gpu
+def test_track_pass_bitwise_reproducible(device, track_pass_args):
+    # the claims resolve by atomicMin on integers, the best two by
+    # (distance, index): launch order does not reach the outputs
+    from visual_sgraphs_tpu_torch.features import match
+
+    args = track_pass_args
+    first = match.track_pass(*args[:6], 60.0, args[6], full=True)
+    for _ in range(4):
+        again = match.track_pass(*args[:6], 60.0, args[6], full=True)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+def test_vi_pose_sections(device):
+    # K20's clock stamps: every section non-negative, the iterations'
+    # sections within the whole launch
+    r = selfcheck.vi_pose_sections(device)
+    assert all(v >= 0 for v in r["per_iteration_cycles"].values()), r
+    assert 0 < 6 * r["iteration_cycles"] <= r["total_cycles"], r
+
+
 @pytest.mark.gpu
 def test_pose_gn_kernel(device):
     r = selfcheck.check_pose_gn(device)

@@ -119,8 +119,9 @@ def test_local_point_table_on_snapshot(snap):
     # exact: the same compact ascending id table (sync-free compaction)
     r_ids, _, r_ok = rtrack._local_point_table(
         snap["map"], jnp.asarray(snap["ref_kf"], jnp.int32), 10, 4096)
-    p_ids, _, p_ok = ptrack._local_point_table(
+    p = ptrack._local_point_table(
         tp.port_map(snap["map"]), snap["ref_kf"], 10, 4096)
-    np.testing.assert_array_equal(p_ids.numpy(), np.asarray(r_ids))
-    np.testing.assert_array_equal(p_ok.numpy(), np.asarray(r_ok))
-    assert p_ok.numpy().sum() > 100
+    np.testing.assert_array_equal(p.ids.numpy(), np.asarray(r_ids))
+    np.testing.assert_array_equal(p.valid.numpy(), np.asarray(r_ok))
+    assert p.valid.numpy().sum() > 100
+    assert int(p.n_pts) == int(np.asarray(r_ok).sum())

@@ -38,13 +38,12 @@ __device__ void mat3_vec(const float* M, const T* v, T* out) {
 
 // r = W [r_R, r_V, r_P] at (Ti, Tj, vi, vj, bg, ba, g_w, s); ``pre`` the
 // packed preintegration, ``W`` (81, row-major) its sqrt information
+// the residual from the bodies' states (R_wb, p_wb) of frames i and j
 template <typename T, typename WT>
-__device__ void residual(const float* pre, const WT* W, const T* Ti,
-                         const T* Tj, const T* vi, const T* vj, const T* bg,
-                         const T* ba, const T* g, T s, const T* Tbc, T* r) {
-    T Ri[9], pi[3], Rj[9], pj[3];
-    body_state(Ti, Tbc, Ri, pi);
-    body_state(Tj, Tbc, Rj, pj);
+__device__ void residual_body(const float* pre, const WT* W, const T* Ri,
+                              const T* pi, const T* Rj, const T* pj,
+                              const T* vi, const T* vj, const T* bg,
+                              const T* ba, const T* g, T s, T* r) {
     const float dt = pre[O_DT];
     T dbg[3], dba[3];
     for (int i = 0; i < 3; ++i) {
@@ -92,6 +91,16 @@ __device__ void residual(const float* pre, const WT* W, const T* Ti,
         for (int k = 0; k < 9; ++k) acc = acc + W[9 * i + k] * r9[k];
         r[i] = acc;
     }
+}
+
+template <typename T, typename WT>
+__device__ void residual(const float* pre, const WT* W, const T* Ti,
+                         const T* Tj, const T* vi, const T* vj, const T* bg,
+                         const T* ba, const T* g, T s, const T* Tbc, T* r) {
+    T Ri[9], pi[3], Rj[9], pj[3];
+    body_state(Ti, Tbc, Ri, pi);
+    body_state(Tj, Tbc, Rj, pj);
+    residual_body(pre, W, Ri, pi, Rj, pj, vi, vj, bg, ba, g, s, r);
 }
 
 // W = L^-1 for L L^T = cov + 1e-8 I (inertial/init.py::sqrt_info), in

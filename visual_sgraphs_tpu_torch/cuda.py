@@ -61,6 +61,9 @@ KERNELS = (
      "match_window", "match_window_torch",
      "visual_sgraphs_tpu_torch/csrc/match.cu",
      "visual_sgraphs_tpu/features/match.py:104"),
+    ("track_pass", "visual_sgraphs_tpu_torch.features.match", "track_pass",
+     "track_pass_torch", "visual_sgraphs_tpu_torch/csrc/track_pass.cu",
+     "visual_sgraphs_tpu/slam/tracking.py:271"),
     ("pose_gn", "visual_sgraphs_tpu_torch.slam.tracking", "pose_only_gn",
      "pose_only_gn_torch", "visual_sgraphs_tpu_torch/csrc/pose_gn.cu",
      "visual_sgraphs_tpu/slam/tracking.py:73"),
@@ -194,11 +197,17 @@ _ARGTYPES = {
     "vsg_group_obs": [_VP] * 4 + [_I] * 8 + [_VP] * 7,
     "vsg_match_window": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                          _F, _I, _F, _I, _VP, _VP, _VP, _VP],
+    "vsg_track_pass": [_VP, _VP, _I, _VP, _I] + [_VP] * 6
+                      + [_I, _I] + [_F] * 5 + [_I, _I, _F] + [_I] * 4
+                      + [_VP] * 11,
     "vsg_pose_gn": [_VP] * 7 + [_I] * 6 + [_F] * 4 + [_VP, _F, _VP, _VP,
                                                         _VP],
     "vsg_preint": [_VP, _VP, _I, _VP, _VP, _F, _F, _VP, _VP],
     "vsg_vi_pose": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _I] + [_VP] * 8
                    + [_F, _F, _I, _VP, _VP, _VP],
+    "vsg_vi_pose_sections": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _I]
+                            + [_VP] * 8 + [_F, _F, _I, _VP, _VP, _VP, _I,
+                                           _VP],
     "vsg_schur_reduce": [_VP] * 7 + [_I, _I, _I, _F, _F] + [_VP] * 8,
     "vsg_schur_backsub": [_VP] * 6 + [_I, _I, _I, _VP, _VP],
     "vsg_depth_cloud": [_VP] * 4 + [_I, _I, _I, _F, _I, _I] + [_VP] * 10,

@@ -1,5 +1,5 @@
-"""Binary-descriptor matching (kernel K5) and the guided re-match count of
-loop verification (kernel K16).
+"""Binary-descriptor matching (kernel K5), the tracking pass built on it,
+and the guided re-match count of loop verification (kernel K16).
 
 Port of ``visual_sgraphs_tpu/features/match.py``:
 
@@ -14,7 +14,11 @@ Port of ``visual_sgraphs_tpu/features/match.py``:
   30-bin rotation histogram;
 - ``guided_count`` (``place/loop_closer.py::_loop_geometry``'s
   SearchByProjection verification): rows whose projection lands within
-  8 px of a descriptor-compatible keypoint.
+  8 px of a descriptor-compatible keypoint;
+- ``track_pass`` (one pass of ``slam/tracking.py::_track_frame_impl``):
+  the local map projected at a pose, its visibility gates, the window
+  match against the frame's keypoints and the gathers that feed the pose
+  solve, K5's redesign as one launch (``csrc/track_pass.cu``).
 
 Each wrapper launches its hand kernel in ``csrc/match.cu`` on CUDA tensors
 and runs its plain twin (``*_torch``) on CPU tensors.
@@ -22,10 +26,14 @@ and runs its plain twin (``*_torch``) on CPU tensors.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from visual_sgraphs_tpu_torch import cuda
+from visual_sgraphs_tpu_torch.core import cameras, lie
 
 TH_LOW = 50
 TH_HIGH = 100
@@ -276,3 +284,183 @@ def guided_count(uv_proj, valid_a, desc_a, uv_b, valid_b, desc_b,
 
 
 guided_count.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the tracking pass: projection, visibility, window match, gathers (K5)
+# ---------------------------------------------------------------------------
+
+
+class TrackPass(NamedTuple):
+    # uv_pred, vis, match and dist: None from the kernel without ``full``
+    uv_pred: torch.Tensor | None  # (N, 2) float32 predicted pixels
+    vis: torch.Tensor | None  # (N,) bool in front of the camera, in image
+    vis_pt: torch.Tensor  # (N,) int32 the visible points' ids, else -1
+    match: torch.Tensor | None  # (N,) int32 keypoint matched, -1 for none
+    dist: torch.Tensor | None  # (N,) int32 its distance, 10000 for none
+    ok: torch.Tensor  # (N,) bool match >= 0
+    slot: torch.Tensor  # (N,) int64 max(match, 0), the gathers' index
+    uv_m: torch.Tensor  # (N, 2) float32 the matched keypoint's pixel
+    depth_m: torch.Tensor | None  # (N,) float32 its depth (want_depth)
+    n_match: torch.Tensor  # () int32 matches
+
+
+def track_pass_torch(pt_pos, pt_desc, ids, T, cam_K, img_wh, radius: float,
+                     frame, want_depth: bool = True) -> TrackPass:
+    """Plain twin of the tracking pass (reference ``slam/tracking.py``
+    ``_track_frame_impl``'s ``predict_uv`` + ``match_window`` + gathers):
+    the local points ``ids`` (-1 padded) of the map's ``pt_pos`` /
+    ``pt_desc`` projected at pose ``T``, gated on depth > 0.05 and, with
+    ``img_wh``, the image bounds, window-matched against ``frame``'s
+    keypoints within ``radius`` px (``match_window_torch`` with its
+    ratio 0.9 and distance gate TH_HIGH, as tracking calls it), and the
+    matched keypoints' pixels (and depths) gathered, keypoint 0's where
+    unmatched."""
+    if ids.is_cuda:
+        track_pass_torch.cuda_calls += 1
+    valid = ids >= 0
+    safe = torch.clamp(ids, min=0)
+    p_cam = lie.se3_apply(T, pt_pos[safe])
+    uv_pred = cameras.project_pinhole(cam_K, p_cam)
+    vis = (p_cam[:, 2] > 0.05) & valid
+    if img_wh is not None:
+        w, h = img_wh
+        vis = vis & (uv_pred[:, 0] >= 0) & (uv_pred[:, 0] < w) & \
+            (uv_pred[:, 1] >= 0) & (uv_pred[:, 1] < h)
+    match, dist = match_window_torch(pt_desc[safe], uv_pred, vis, frame.desc,
+                                     frame.uv, frame.valid, radius)
+    ok = match >= 0
+    slot = torch.clamp(match, min=0).long()
+    return TrackPass(uv_pred=uv_pred, vis=vis,
+                     vis_pt=torch.where(vis, ids, -1), match=match,
+                     dist=dist, ok=ok, slot=slot, uv_m=frame.uv[slot],
+                     depth_m=frame.depth[slot] if want_depth else None,
+                     n_match=ok.sum(dtype=torch.int32))
+
+
+track_pass_torch.cuda_calls = 0
+
+# The tracking pass's launch plan (csrc/track_pass.cu): TRACK_THREADS
+# queries a CTA before another CTA joins the cluster, up to TRACK_CLUSTER;
+# the keypoints binned in cells at least the radius wide, at most
+# TRACK_MAX_CELLS of them over the image (640 x 480 without img_wh: any
+# extent is exact, the cells only prune); a query scans the cells its
+# window's bounding box, radius + TRACK_MARGIN px, touches.  A CTA's
+# shared memory holds TRACK_KP_BYTES a keypoint (descriptor, pixel,
+# index, cell, claim), two ints a cell and the scan's warp sums.
+TRACK_THREADS = 512
+TRACK_CLUSTER = 8
+TRACK_MAX_CELLS = 4096
+TRACK_MARGIN = 1.0
+TRACK_KP_BYTES = 52
+TRACK_EXTENT = (640, 480)
+TRACK_RATIO = float(np.float32(0.9))  # match_window's ratio, float32
+
+
+class TrackPassPlan(NamedTuple):
+    cluster: int  # CTAs
+    chunk: int  # queries a CTA
+    cell: float  # px, float32
+    gx: int  # cells across
+    gy: int  # cells down
+    smem: int  # dynamic shared-memory bytes a CTA
+    scalars: tuple  # the launch's float32 scalars: r2, rr, 1 / cell, w, h
+
+
+@functools.lru_cache(maxsize=256)
+def track_pass_plan(n: int, F: int, radius: float,
+                    img_wh: tuple | None) -> TrackPassPlan:
+    """The tracking pass's cluster, cell grid and shared memory for n
+    queries, F keypoints and ``radius``; raises when F keypoints and the
+    grid do not fit a CTA's shared memory."""
+    w, h = img_wh if img_wh is not None else TRACK_EXTENT
+    cell = float(np.float32(max(radius, 1.0)))
+    while -(-w // cell) * -(-h // cell) > TRACK_MAX_CELLS:
+        cell = float(np.float32(cell * 1.25))
+    gx, gy = max(1, int(-(-w // cell))), max(1, int(-(-h // cell)))
+    cluster = min(TRACK_CLUSTER, max(1, -(-n // TRACK_THREADS)))
+    smem = TRACK_KP_BYTES * F + 8 * gx * gy + 4 + 4 * (TRACK_THREADS // 32)
+    smem = -(-smem // 16) * 16
+    if smem > cuda.SMEM_LIMIT:
+        raise ValueError(f"track_pass: {F} keypoints exceed the kernel's "
+                         "shared memory")
+    f32 = lambda x: float(np.float32(x))  # noqa: E731
+    return TrackPassPlan(cluster=cluster, chunk=-(-n // cluster), cell=cell,
+                         gx=gx, gy=gy, smem=smem, scalars=(
+                             f32(radius * radius), f32(radius + TRACK_MARGIN),
+                             f32(1.0 / np.float32(cell)), f32(w), f32(h)))
+
+
+def track_pass(pt_pos, pt_desc, ids, T, cam_K, img_wh, radius: float, frame,
+               want_depth: bool = True, full: bool = False) -> TrackPass:
+    """One tracking pass (see ``track_pass_torch``): K5's redesign as one
+    launch on CUDA tensors (``csrc/track_pass.cu``: projection, gates,
+    binned window match, claims and gathers; no host read, no fill), the
+    plain twin on CPU tensors.  ``T`` and ``cam_K`` stay on the device;
+    ``radius``, ``img_wh`` and the flags are launch arguments.  On CUDA
+    tensors without ``full`` the fields the pose solve does not read
+    (``uv_pred``, ``vis``, ``match``, ``dist``) are None: the kernel keeps
+    match and dist in scratch and skips the prediction's writes."""
+    if ids.device.type == "cpu":
+        return track_pass_torch(pt_pos, pt_desc, ids, T, cam_K, img_wh,
+                                radius, frame, want_depth)
+    cuda.require_cuda("track_pass", pt_pos, pt_desc, ids, T, cam_K, frame.uv,
+                      frame.desc, frame.valid,
+                      *((frame.depth,) if want_depth else ()))
+    if (pt_desc.data_ptr() % 16 or frame.desc.data_ptr() % 16
+            or pt_desc.dtype != torch.uint8 or pt_desc.shape[1:] != (32,)
+            or frame.desc.dtype != torch.uint8):
+        raise ValueError("track_pass: descriptors must be (N, 32) uint8 on "
+                         "a 16-byte boundary")
+    f32 = torch.float32
+    if (ids.dtype != torch.int32 or frame.valid.dtype != torch.bool
+            or pt_pos.dtype != f32 or T.dtype != f32 or cam_K.dtype != f32
+            or frame.uv.dtype != f32
+            or (want_depth and frame.depth.dtype != f32)):
+        raise ValueError("track_pass: expected int32 ids, float32 pixels, "
+                         "poses and depths, a bool mask")
+    n, F = ids.shape[0], frame.uv.shape[0]
+    if F < 1:
+        raise ValueError("track_pass: the frame has no keypoint slot")
+    plan = track_pass_plan(n, F, float(radius), img_wh)
+    r2, rr, inv_cell, w, h = plan.scalars
+    # one buffer a dtype, split into the outputs (a wrapper's host time
+    # counts: an allocation or a view costs microseconds); match and dist
+    # are passed by address where they are not returned
+    dev = ids.device
+    uv_m, depth_m, uv_pred = torch.empty((5 * n,), dtype=f32, device=dev
+                                         ).split((2 * n, n, 2 * n))
+    it = torch.empty((3 * n + 1,), dtype=torch.int32, device=dev)
+    vis_pt, md, n_match = it.split((n, 2 * n, 1))
+    flags = torch.empty(((2 if full else 1) * n,), dtype=torch.bool,
+                        device=dev)
+    slot = torch.empty((n,), dtype=torch.int64, device=dev)
+    p_md = md.data_ptr()
+    cuda.call("vsg_track_pass", pt_pos.data_ptr(), pt_desc.data_ptr(),
+              pt_pos.shape[0], ids.data_ptr(), n, T.data_ptr(),
+              cam_K.data_ptr(), frame.uv.data_ptr(), frame.desc.data_ptr(),
+              frame.valid.data_ptr(),
+              frame.depth.data_ptr() if want_depth else None, F,
+              int(img_wh is not None), w, h, r2, rr, inv_cell, plan.gx,
+              plan.gy, TRACK_RATIO, TH_HIGH, plan.cluster, plan.chunk,
+              plan.smem, uv_pred.data_ptr() if full else None,
+              flags.data_ptr() + n if full else None, vis_pt.data_ptr(),
+              p_md, p_md + 4 * n, flags.data_ptr(), slot.data_ptr(),
+              uv_m.data_ptr(), depth_m.data_ptr() if want_depth else None,
+              n_match.data_ptr(), cuda.stream())
+    track_pass.launches += 1
+    if not full:
+        return TrackPass(uv_pred=None, vis=None, vis_pt=vis_pt, match=None,
+                         dist=None, ok=flags, slot=slot, uv_m=uv_m.view(n, 2),
+                         depth_m=depth_m if want_depth else None,
+                         n_match=n_match[0])
+    ok, vis = flags.split(n)
+    match, dist = md.split(n)
+    return TrackPass(uv_pred=uv_pred.view(n, 2), vis=vis, vis_pt=vis_pt,
+                     match=match, dist=dist, ok=ok, slot=slot,
+                     uv_m=uv_m.view(n, 2),
+                     depth_m=depth_m if want_depth else None,
+                     n_match=n_match[0])
+
+
+track_pass.launches = 0

@@ -208,6 +208,30 @@ def pose_inertial_gn_torch(m, frame, slot_pt, T_j0, v_j0, T_i, v_i,
 pose_inertial_gn_torch.cuda_calls = 0
 
 
+def _vi_pose_args(m, frame, slot_pt, T_j0, v_j0, T_i, v_i,
+                  pre: Preintegrated, T_bc, cam_K, cam_bf, walk: tuple,
+                  iters: int):
+    """K20's outputs (out (16,), n_inl) and its C arguments up to them."""
+    pre_vec = pack(pre).contiguous()
+    tensors = [m.pt_pos, m.pt_valid, frame.uv, frame.depth, frame.valid,
+               slot_pt, T_j0, v_j0, T_i, v_i, pre_vec, T_bc, cam_K, cam_bf]
+    cuda.require_cuda("pose_inertial_gn", *tensors)
+    F = slot_pt.shape[0]
+    if (slot_pt.dtype != torch.int32 or frame.uv.shape != (F, 2)
+            or pre_vec.shape != (PACKED,) or m.pt_valid.dtype != torch.bool
+            or frame.valid.dtype != torch.bool):
+        raise ValueError("pose_inertial_gn: unexpected shapes or dtypes")
+    out = torch.empty((16,), dtype=torch.float32, device=T_j0.device)
+    n_inl = torch.empty((), dtype=torch.int32, device=T_j0.device)
+    return out, n_inl, (
+        cuda.ptr(m.pt_pos), cuda.ptr(m.pt_valid), m.pt_pos.shape[0],
+        cuda.ptr(frame.uv), cuda.ptr(frame.depth), cuda.ptr(frame.valid),
+        cuda.ptr(slot_pt), F, cuda.ptr(T_j0), cuda.ptr(v_j0), cuda.ptr(T_i),
+        cuda.ptr(v_i), cuda.ptr(pre_vec), cuda.ptr(T_bc), cuda.ptr(cam_K),
+        cuda.ptr(cam_bf), float(walk[0]), float(walk[1]), iters,
+        cuda.ptr(out), cuda.ptr(n_inl))
+
+
 def pose_inertial_gn(m, frame, slot_pt, T_j0, v_j0, T_i, v_i,
                      pre: Preintegrated, T_bc, cam_K, cam_bf, walk: tuple,
                      iters: int = 6):
@@ -220,26 +244,24 @@ def pose_inertial_gn(m, frame, slot_pt, T_j0, v_j0, T_i, v_i,
         return pose_inertial_gn_torch(m, frame, slot_pt, T_j0, v_j0, T_i,
                                       v_i, pre, T_bc, cam_K, cam_bf, walk,
                                       iters)
-    pre_vec = pack(pre).contiguous()
-    tensors = [m.pt_pos, m.pt_valid, frame.uv, frame.depth, frame.valid,
-               slot_pt, T_j0, v_j0, T_i, v_i, pre_vec, T_bc, cam_K, cam_bf]
-    cuda.require_cuda("pose_inertial_gn", *tensors)
-    F = slot_pt.shape[0]
-    if (slot_pt.dtype != torch.int32 or frame.uv.shape != (F, 2)
-            or pre_vec.shape != (PACKED,) or m.pt_valid.dtype != torch.bool
-            or frame.valid.dtype != torch.bool):
-        raise ValueError("pose_inertial_gn: unexpected shapes or dtypes")
-    out = torch.empty((16,), dtype=torch.float32, device=T_j0.device)
-    n_inl = torch.empty((), dtype=torch.int32, device=T_j0.device)
-    cuda.call("vsg_vi_pose", cuda.ptr(m.pt_pos), cuda.ptr(m.pt_valid),
-              m.pt_pos.shape[0], cuda.ptr(frame.uv), cuda.ptr(frame.depth),
-              cuda.ptr(frame.valid), cuda.ptr(slot_pt), F, cuda.ptr(T_j0),
-              cuda.ptr(v_j0), cuda.ptr(T_i), cuda.ptr(v_i), cuda.ptr(pre_vec),
-              cuda.ptr(T_bc), cuda.ptr(cam_K), cuda.ptr(cam_bf),
-              float(walk[0]), float(walk[1]), iters, cuda.ptr(out),
-              cuda.ptr(n_inl), cuda.stream())
+    out, n_inl, args = _vi_pose_args(m, frame, slot_pt, T_j0, v_j0, T_i, v_i,
+                                     pre, T_bc, cam_K, cam_bf, walk, iters)
+    cuda.call("vsg_vi_pose", *args, cuda.stream())
     pose_inertial_gn.launches += 1
     return out[0:7], out[7:10], out[10:13], out[13:16], n_inl
+
+
+def pose_inertial_gn_sections(*args, iters: int = 6) -> torch.Tensor:
+    """K20 instrumented (``pose_inertial_gn``'s CUDA arguments): the
+    (4 + 5 iters,) int64 clock of its thread 0 at the kernel's section
+    boundaries (``selfcheck.vi_pose_sections``).  Not the main path's
+    launch: it is not counted."""
+    out, n_inl, cargs = _vi_pose_args(*args, iters)
+    prof = torch.zeros((4 + 5 * iters,), dtype=torch.int64,
+                       device=out.device)
+    cuda.call("vsg_vi_pose_sections", *cargs, cuda.ptr(prof), prof.numel(),
+              cuda.stream())
+    return prof
 
 
 pose_inertial_gn.launches = 0

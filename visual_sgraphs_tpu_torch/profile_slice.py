@@ -8,6 +8,8 @@
     python -m visual_sgraphs_tpu_torch.profile_slice --small-vs-cpu
     python -m visual_sgraphs_tpu_torch.profile_slice --cells
     python -m visual_sgraphs_tpu_torch.profile_slice --kernel-times
+    python -m visual_sgraphs_tpu_torch.profile_slice --track-ops
+    python -m visual_sgraphs_tpu_torch.profile_slice --k20-sections
 
 Runs the main path of ``main_path`` (640x480, 1000 features, 96
 ``orbit2`` frames) through ``SlamSystem.track_rgbd`` on the card (with
@@ -46,9 +48,15 @@ times them, and the keyframe program's mean host ms (a cycle's on
 trees on one card, run this file by path with ``PYTHONPATH`` set to the
 other tree's root: the package and kernels are then that tree's.  With
 ``--kernel-times`` it runs ``selfcheck``'s checks of K9, K6, K6's prior
-branch, K5's window matcher and K20 at the main path's shapes and prints
+branch, K5's window matcher, the tracking pass (seeded operands, the
+coarse radius) and K20 at the main path's shapes and prints
 each one's CUDA-event and device times (``selfcheck.device_time``) beside
-its library call's, and the card's name and power limit.
+its library call's, the host ms of the tracking pass's and K6's wrappers
+(``wrapper_host``), and the card's name and power limit.  With
+``--track-ops`` it counts the device operations of one tracking call
+(both passes) and of one pipeline scan batch on ``bench_slice``'s map
+(``track_ops``); with ``--k20-sections`` it reads K20's clock at its
+section boundaries (``selfcheck.vi_pose_sections``).
 Prints one JSON line per result; needs a card.
 """
 
@@ -390,17 +398,62 @@ def kernel_times() -> None:
     dev = torch.device("cuda")
     for check in (selfcheck.check_group, selfcheck.check_pose_gn,
                   selfcheck.check_pose_gn_prior,
-                  selfcheck.check_match_window, selfcheck.check_vi_pose):
+                  selfcheck.check_match_window,
+                  selfcheck.check_track_pass_seeded, selfcheck.check_vi_pose):
         r = check(dev)
         _line("kernel_times", **{k: r.get(k) for k in (
             "name", "ok", "max_abs_err", "ms", "device_ms", "library_ms",
             "library_device_ms", "plain_ms", "launches_per_call",
             "failed")})
     kernel_breakdown(dev)
+    wrapper_host(dev)
     _line("card", nvidia_smi=subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip())
+
+
+def wrapper_host(dev, reps: int = 200) -> None:
+    """Host ms of one wrapper call (median, the host clock around the call
+    alone, the device synchronised between calls) of the tracking pass and
+    of K6, with their C call and with it replaced by a no-op: the CUDA-event
+    ms of a latency-bound kernel is mostly this."""
+    import statistics
+
+    from visual_sgraphs_tpu_torch import cuda
+    from visual_sgraphs_tpu_torch.features import match
+    from visual_sgraphs_tpu_torch.selfcheck import (pose_inputs,
+                                                    track_pass_inputs)
+    from visual_sgraphs_tpu_torch.slam import tracking
+    args = track_pass_inputs(dev)
+    T0, xw, uv, valid, K, depth, bf = pose_inputs(dev)
+    calls = dict(
+        track_pass=lambda: match.track_pass(*args[:6], 15.0, args[6]),
+        pose_gn=lambda: tracking.pose_only_gn(T0, xw, uv, valid, K, iters=12,
+                                              gate0=900.0, depth=depth,
+                                              bf=bf))
+
+    def host_ms(fn):
+        for _ in range(10):
+            fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return 1e3 * statistics.median(times)
+
+    out = {name: host_ms(fn) for name, fn in calls.items()}
+    real = cuda.call
+    cuda.call = lambda *a: None
+    try:
+        out.update({name + "_without_c_call": host_ms(fn)
+                    for name, fn in calls.items()})
+    finally:
+        cuda.call = real
+    _line("wrapper_host_ms", **out)
 
 
 def kernel_breakdown(dev) -> None:
@@ -449,6 +502,103 @@ def kernel_breakdown(dev) -> None:
     _line("group_breakdown", device_ms=rows)
 
 
+def _ops_by_name(fn) -> dict:
+    """{device operation: count} of one call of ``fn``, and {aten
+    operation: count} of the operations that launched device work
+    (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    return dict(
+        by_name={e.key[:70]: e.count for e in avg
+                 if getattr(e, "device_time_total", 0) > 0
+                 and e.device_type == torch.autograd.DeviceType.CUDA},
+        by_op={e.key: e.count for e in avg
+               if e.key.startswith("aten::")
+               and getattr(e, "self_device_time_total", 0) > 0})
+
+
+def track_ops(n_frames: int = 96) -> None:
+    """Device operations, device ms (``selfcheck.device_ops``) and
+    CUDA-event ms of one tracking call on ``bench_slice``'s map after
+    ``n_frames`` frames, at the next frame from the system's last pose
+    with the batch's local table (``tracking._track_frame_impl``: both
+    passes, no retry; as the tree's scan calls it), and of one
+    ``make_frame_scan`` batch over the next 8 frames (ORB for the batch,
+    both attempts a frame)."""
+    from visual_sgraphs_tpu_torch import cuda, main_path, selfcheck
+    from visual_sgraphs_tpu_torch.slam import tracking
+    from visual_sgraphs_tpu_torch.slam.frame import make_frame_obs
+    cuda.build()
+    scene, frames = main_path.frames("cuda", main_path.BENCH_FRAMES)
+    cfg = main_path.bench_config(scene)
+    system = main_path.make_system(cfg, "cuda", True)
+    for frame in frames[:n_frames]:
+        main_path.feed(system, frame)
+    system.flush()
+    torch.cuda.synchronize()
+    t, n_window = cfg.tracking, cfg.mapping.local_window
+    m, ref, K, bf = system.map, system.ref_kf_host, system.cam_K, \
+        system.cam_bf
+    wh = (cfg.camera.width, cfg.camera.height)
+    table = tracking._local_point_table(m, ref, n_window, 4096)
+    gray, depth, _, _, ts = frames[n_frames]
+    obs = make_frame_obs(gray, depth, ts, cfg.camera, cfg.orb)
+    T_pred = system.last_pose
+
+    def one():
+        return tracking._track_frame_impl(
+            m, obs, T_pred, ref, K, n_window, 4096, t.match_radius_coarse,
+            t.match_radius_fine, bf, wh, local_table=table)
+
+    B = t.pipeline_depth
+    batch = frames[n_frames:n_frames + B]
+    grays = torch.stack([f[0] for f in batch])
+    depths = torch.stack([f[1] for f in batch])
+    scan = tracking.make_frame_scan(cfg.camera, cfg.orb, n_window, 4096,
+                                    t.match_radius_coarse,
+                                    t.match_radius_fine, True, B)
+
+    def one_batch():
+        return scan(m, grays, depths, [f[4] for f in batch], system.last_pose,
+                    system.velocity, ref, K, t.min_inliers_ok, bf)
+
+    res = one()
+    _line("track_ops", call="_track_frame_impl", frame=n_frames,
+          n_local=int(res.n_local_pts), n_matches=int(res.n_matches),
+          n_inliers=int(res.n_inliers), **selfcheck.device_ops(one),
+          ms=selfcheck.time_cuda(one),
+          device_span_ms=selfcheck.device_time(one), **_ops_by_name(one))
+    one_batch()
+    _line("track_ops", call="make_frame_scan", frames=f"{n_frames}-"
+          f"{n_frames + B - 1}", **selfcheck.device_ops(one_batch),
+          ms=selfcheck.time_cuda(one_batch, reps=5),
+          **_ops_by_name(one_batch))
+
+
+def k20_sections() -> None:
+    """K20's clock at its section boundaries (``selfcheck.vi_pose_sections``)
+    and its device time, with the card's SM clock."""
+    import subprocess
+    from visual_sgraphs_tpu_torch import cuda, selfcheck
+    from visual_sgraphs_tpu_torch.inertial import pipeline
+    cuda.build()
+    dev = torch.device("cuda")
+    r = selfcheck.vi_pose_sections(dev)
+    args = selfcheck.vi_pose_inputs(dev)
+    r["device_ms"] = selfcheck.device_time(
+        lambda: pipeline.pose_inertial_gn(*args))
+    r["clocks"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    _line("k20_sections", **r)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenegraph", action="store_true",
@@ -468,9 +618,14 @@ def main() -> None:
     ap.add_argument("--cells", action="store_true",
                     help="fps of the serial cells, bench_slice and "
                     "inertial_slice")
+    ap.add_argument("--track-ops", action="store_true",
+                    help="device operations of one tracking call and one "
+                    "scan batch on bench_slice's map")
+    ap.add_argument("--k20-sections", action="store_true",
+                    help="K20's time by section (clock64)")
     ap.add_argument("--kernel-times", action="store_true",
-                    help="K9, K6, K6's prior, K5's window matcher and K20: "
-                    "CUDA-event and device times")
+                    help="K9, K6, K6's prior, K5's window matcher, the "
+                    "tracking pass and K20: CUDA-event and device times")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false")
@@ -481,6 +636,10 @@ def main() -> None:
         cells_fps()
     elif args.kernel_times:
         kernel_times()
+    elif args.track_ops:
+        track_ops()
+    elif args.k20_sections:
+        k20_sections()
     elif args.loop_runs:
         loop_spread(args.loop_runs)
     else:

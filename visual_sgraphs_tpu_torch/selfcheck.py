@@ -43,7 +43,7 @@ from visual_sgraphs_tpu_torch.features import pyramid
 from visual_sgraphs_tpu_torch.inertial import pipeline, preintegration
 from visual_sgraphs_tpu_torch.io.synthetic import SyntheticScene
 from visual_sgraphs_tpu_torch.slam import map_state, tracking
-from visual_sgraphs_tpu_torch.slam.frame import make_frame_obs
+from visual_sgraphs_tpu_torch.slam.frame import FrameObs, make_frame_obs
 from visual_sgraphs_tpu_torch.slam.map_state import MapState
 
 # tolerances (the reasons are in the kernels' sources and the CPU tests)
@@ -493,6 +493,161 @@ def check_match_window(device, radius: float = 15.0) -> dict:
                 ok=err == 0.0, n_matched=int((km >= 0).sum()),
                 bytes=nbytes(*args, km, kd),
                 ops=35 * args[0].shape[0] * args[3].shape[0])
+
+
+# the tracking pass's radii on the main path: the first attempt's coarse
+# and fine windows, the retry's 4x and 2x (TrackingConfig)
+TRACK_RADII = (15.0, 7.0, 60.0, 14.0)
+
+
+def track_pass_inputs(device, n: int = 4096, F: int = 1000,
+                      n_pts: int = 32768, seed: int = 0) -> tuple:
+    """Seeded tracking-pass operands at the main path's shapes: an
+    ``n_pts`` map whose first ~0.9 n points fill the local table (-1
+    padded), in front of a 640x480 camera (fx = fy = 260) at a seeded
+    pose; F keypoints, a third the projections of visible points
+    (jittered up to 3 px, a few bits flipped), the rest random, with a
+    keypoint duplicated (a tie) and three points on one keypoint
+    (duplicate claimants), 5 % invalid, depths for most.  Returns
+    (pt_pos, pt_desc, ids, T, cam_K, img_wh, frame)."""
+    rng = np.random.default_rng(seed)
+    cam = np.array([260.0, 260.0, 320.0, 240.0], np.float32)
+    q = rng.normal(size=4) * [1.0, 0.05, 0.05, 0.05] + [4.0, 0, 0, 0]
+    T = np.concatenate([q / np.linalg.norm(q), rng.normal(size=3) * 0.2]
+                       ).astype(np.float32)
+    # points in the camera frame, then into the world
+    z = rng.uniform(0.5, 8.0, n_pts)
+    pc = np.stack([(rng.uniform(-40, 680, n_pts) - 320) * z / 260,
+                   (rng.uniform(-40, 520, n_pts) - 240) * z / 260, z], 1)
+    Tt = torch.from_numpy(T).double()
+    pt_pos = lie.se3_apply(lie.se3_inverse(Tt), torch.from_numpy(pc)
+                           ).float().numpy()
+    pt_desc = rng.integers(0, 256, (n_pts, 32), dtype=np.uint8)
+    n_valid = int(0.9 * n)
+    ids = np.full(n, -1, np.int32)
+    ids[:n_valid] = np.sort(rng.choice(n_pts, n_valid, replace=False))
+    uv = rng.uniform((0, 0), (640, 480), (F, 2)).astype(np.float32)
+    desc = rng.integers(0, 256, (F, 32), dtype=np.uint8)
+    proj = pc[:, :2] / pc[:, 2:] * 260 + [320, 240]
+    seen = ids[:n_valid][(proj[ids[:n_valid], 0] >= 0)
+                         & (proj[ids[:n_valid], 0] < 640)
+                         & (proj[ids[:n_valid], 1] >= 0)
+                         & (proj[ids[:n_valid], 1] < 480)]
+    src = rng.choice(seen, F // 3, replace=False)
+    uv[:F // 3] = proj[src] + rng.uniform(-3, 3, (F // 3, 2))
+    flips = (rng.uniform(size=(F // 3, 32)) < 0.1) * \
+        rng.integers(1, 256, (F // 3, 32))
+    desc[:F // 3] = pt_desc[src] ^ flips.astype(np.uint8)
+    desc[F // 3], uv[F // 3] = desc[0], uv[0] + 0.5  # a tie
+    pt_desc[seen[-3:]] = desc[1]  # three claimants of keypoint 1
+    pt_pos[seen[-3:]] = pt_pos[src[1]]
+    valid = rng.uniform(size=F) > 0.05
+    depth = np.where(rng.uniform(size=F) > 0.1,
+                     rng.uniform(0.5, 8.0, F), 0.0).astype(np.float32)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa
+    frame = FrameObs(*([None] * len(FrameObs._fields)))._replace(
+        uv=t(uv), depth=t(depth), desc=t(desc), valid=t(valid))
+    return (t(pt_pos), t(pt_desc), t(ids), t(T), t(cam), (640, 480), frame)
+
+
+def track_pass_map_inputs(system, gray, depth, ts) -> tuple:
+    """The tracking pass's operands on a system's map: its local table at
+    the reference keyframe, the frame (gray, depth, ts) through ORB, at
+    the system's last pose."""
+    cfg = system.cfg
+    frame = make_frame_obs(gray, depth, ts, cfg.camera, cfg.orb)
+    ids = tracking._local_point_table(
+        system.map, system.ref_kf_host, cfg.mapping.local_window, 4096).ids
+    return (system.map.pt_pos, system.map.pt_desc, ids, system.last_pose,
+            system.cam_K, (cfg.camera.width, cfg.camera.height), frame)
+
+
+def _bits_equal(a, b) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
+    return a.shape == b.shape and bool(
+        (a.contiguous().view(torch.int32) == b.contiguous().view(torch.int32)
+         ).all())
+
+
+TRACK_PASS_FIELDS = ("uv_pred", "vis", "vis_pt", "match", "dist", "ok",
+                     "slot", "uv_m", "depth_m", "n_match")
+
+
+def check_track_pass(device, args: tuple, radius: float,
+                     name: str = "track_pass") -> dict:
+    """The tracking pass (``match.track_pass``) against its twin on
+    ``args`` (``track_pass_inputs`` / ``track_pass_map_inputs``) at
+    ``radius``: every integer and bool output equal, ``uv_pred`` and the
+    gathered pixels and depths bitwise; the main path's call (without
+    ``full``) bitwise the full call's in the fields it returns."""
+    k = match.track_pass(*args[:6], radius, args[6], full=True)
+    hot = match.track_pass(*args[:6], radius, args[6])
+    t = match.track_pass_torch(*args[:6], radius, args[6])
+    torch.cuda.synchronize()
+    same = {f: bool(torch.equal(getattr(k, f), getattr(t, f)))
+            for f in ("vis", "vis_pt", "match", "dist", "ok", "slot",
+                      "n_match")}
+    same.update({f: _bits_equal(getattr(k, f), getattr(t, f))
+                 for f in ("uv_pred", "uv_m", "depth_m")})
+    same["main_path_call"] = all(
+        _bits_equal(a, b) if a.is_floating_point() else torch.equal(a, b)
+        for a, b in zip(hot, k) if a is not None)
+    err = max(float((getattr(k, f).double() - getattr(t, f).double()
+                     ).abs().nan_to_num(nan=float("inf")).max())
+              if getattr(k, f).numel() else 0.0
+              for f in TRACK_PASS_FIELDS)
+    ids, frame = args[2], args[6]
+    n, F = ids.shape[0], frame.uv.shape[0]
+    # the pairs the window admits: the work this run's data needs (their
+    # Hamming distances and best two)
+    du = t.uv_pred[:, None, 0] - frame.uv[None, :, 0]
+    dv = t.uv_pred[:, None, 1] - frame.uv[None, :, 1]
+    pairs = int((((du * du + dv * dv) <= float(np.float32(radius * radius)))
+                 & t.vis[:, None] & frame.valid[None, :]).sum())
+    # the bytes this run's data needs: a point's row only for a real id,
+    # its descriptor only where it is visible, a keypoint's pixel and
+    # descriptor only where it is valid, its depth only where matched
+    n_ids, n_vis = int((ids >= 0).sum()), int(t.vis.sum())
+    n_kp = int(frame.valid.sum())
+
+    def kernel():
+        return match.track_pass(*args[:6], radius, args[6])
+
+    return dict(
+        name=name, radius=radius, max_abs_err=err, ok=all(same.values()),
+        equal=same, n_visible=int(t.vis.sum()), n_matched=int(t.n_match),
+        window_pairs=pairs, ms=time_cuda(kernel),
+        device_ms=device_time(kernel),
+        plain_ms=time_cuda(lambda: match.track_pass_torch(
+            *args[:6], radius, args[6]), reps=5),
+        launches_per_call=1,
+        # ids, the points' positions and descriptors, pose and camera, the
+        # keypoints' flags, pixels, descriptors and matched depths; the
+        # timed (main-path) call's outputs vis_pt, ok, slot, uv_m, depth_m,
+        # n_match
+        bytes=4 * n + 12 * n_ids + 32 * n_vis + 4 * 11 + F + 40 * n_kp
+        + 4 * int(t.n_match) + n * (4 + 1 + 8 + 8 + 4) + 4,
+        # a real id's projection and gates (~40); a pair in the window:
+        # its test (6), 8 XOR + 8 popcount + 7 adds, best-2 (4)
+        ops=40 * n_ids + 33 * pairs, library_ms=None)
+
+
+def check_track_pass_radii(device, args: tuple | None = None,
+                           tag: str = "") -> list[dict]:
+    """``check_track_pass`` at the main path's four radii (the first on
+    its own name, the others suffixed by radius), on ``args`` or the
+    seeded operands."""
+    args = track_pass_inputs(device) if args is None else args
+    return [check_track_pass(device, args, r, "track_pass" + tag + (
+        "" if i == 0 else f"@r{r:g}")) for i, r in enumerate(TRACK_RADII)]
+
+
+def check_track_pass_seeded(device) -> dict:
+    """``check_track_pass`` on the seeded operands at the coarse radius
+    (``profile_slice --kernel-times``)."""
+    return check_track_pass(device, track_pass_inputs(device), TRACK_RADII[0],
+                            "track_pass@seeded")
 
 
 def pose_inputs(device, n: int = 4096, seed: int = 0):
@@ -1402,6 +1557,36 @@ def check_vi_pose(device) -> dict:
                 bytes=nbytes(fr.uv, fr.depth, fr.valid, slot_pt)
                 + n_obs * 13 + 4 * (7 + 3 + 7 + 3 + 143 + 7 + 4 + 1)
                 + 4 * 17, ops=ops, library_ms=None)
+
+
+# K20's sections between thread 0's clock stamps (csrc/vi_pose.cu): once
+# a solve, then each iteration's, then the inlier count
+VI_POSE_ONCE = ("sqrt_info",)
+VI_POSE_SECTIONS = ("imu_columns", "walk_wait", "assembly", "elimination",
+                    "retraction")
+
+
+def vi_pose_sections(device, iters: int = 6) -> dict:
+    """Where K20's time goes: thread 0's SM clock (``clock64``) at the
+    kernel's section boundaries on ``vi_pose_inputs``, in cycles (each
+    iteration's section a mean over the iterations) and the share of the
+    whole launch."""
+    args = vi_pose_inputs(device)
+    pipeline.pose_inertial_gn_sections(*args, iters=iters)
+    c = pipeline.pose_inertial_gn_sections(*args, iters=iters).cpu().numpy()
+    k = len(VI_POSE_ONCE)
+    once = dict(zip(VI_POSE_ONCE, np.diff(c[:k + 1]).tolist()))
+    per_it = np.diff(c[k + 1:k + 1 + len(VI_POSE_SECTIONS) * iters + 1]
+                     ).reshape(iters, len(VI_POSE_SECTIONS))
+    total = int(c[-1] - c[0])
+    sections = {name: float(per_it[:, i].mean())
+                for i, name in enumerate(VI_POSE_SECTIONS)}
+    return dict(name="vi_pose_sections", total_cycles=total, **once,
+                iteration_cycles=float(per_it.sum(1).mean()),
+                per_iteration_cycles=sections,
+                share={name: iters * v / total
+                       for name, v in sections.items()},
+                inlier_count=int(c[-1] - c[-2]))
 
 
 PRIOR_WEIGHTS = (10.0, 1e5, 1e9)  # the main path's, a middling, dominant
@@ -2796,5 +2981,7 @@ def run_all(device) -> list[dict]:
     return [*check_pyramid(grays), one, check_detect(grays),
             check_compact(device), check_group(device),
             check_fast_nms(levels), check_orb_desc(rcs, blurred),
-            check_match_window(device), check_pose_gn(device),
+            check_match_window(device),
+            *check_track_pass_radii(device, tag="@seeded"),
+            check_pose_gn(device),
             *check_schur(device), *check_scenegraph(device)]

@@ -47,9 +47,9 @@ retries), the pipeline one per batch; ``host_readbacks`` counts every
 device-to-host read the loop makes (the inertial path adds one a frame
 for the visual-inertial solve's inlier count, and one a keyframe for each
 initialisation attempt).  Not ported yet, and raising
-``NotImplementedError`` where the path would reach them: free-space
-rooms, mono / stereo input (with or without an IMU) and the Atlas
-(stash / merge, relocalisation in stashed maps).  A frame tracked again
+``NotImplementedError`` where the path would reach them: mono / stereo
+input (with or without an IMU) and the Atlas (stash / merge,
+relocalisation in stashed maps).  A frame tracked again
 from a lost state makes a recovery keyframe outside the keyframe
 program, with the generic LM local BA (``mapping.local_ba``, or
 ``scenegraph/joint_ba.py`` with the scene graph), as the reference does.

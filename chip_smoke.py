@@ -27,7 +27,10 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    pose-only GN (also at 1 to 4096 matches, mono and stereo, with and
    without its prior: bitwise equal from launch to launch, one launch a
    call), K8 Schur reduction and back-substitution at the local
-   BA's L = 11 and the global BA's L = 128, K10 BoW rows, K11 database
+   BA's L = 11 and the global BA's L = 128 (the reduction one launch a
+   call, S and rhs bitwise equal from launch to launch, S exactly
+   symmetric), and after phase 4e on the tables of one of
+   ``bench_slice``'s scene-graph BAs, K10 BoW rows, K11 database
    query, K12 depth cloud + voxel downsample, K13 weighted RANSAC, K14
    plane statistics; K5's NN-ratio entry, K15's Sim3 half, K16 and K19 on
    the loop path's map saved at its first accepted loop, after phase 4;
@@ -53,8 +56,10 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    within 1e-6 m, plane and observation floats within 1e-5; the eager
    operations of one twin call counted with ``torch.profiler``); after
    phase 4j, K22a
-   (the LM engine's reprojection rows and landmark reduction at two
-   dampings, and its back-substitution and cost), K22b (the inertial rows
+   (the row plan, exact; the LM engine's reprojection rows and landmark
+   reduction at two dampings, one launch a call given the plan and
+   bitwise equal from launch to launch, and its back-substitution and
+   cost), K22b (the inertial rows
    and their cost) and K22c (the damped dense solve and retraction) on
    the inputs of the inertial path's fourth VI local BA (D = 150) and its
    last generic local BA (11 slots, 8192 points, D = 66; also tiled to 22
@@ -178,8 +183,8 @@ LOOP_ONLY = {"bow_vectors", "place_query", "match_nn_ratio", "guided_count",
 # the LM engine's kernel route (K22a / K22b / K22c): the inertial path's
 # local BAs and initialisation; elsewhere only a recovery keyframe's local
 # BA or a loop weld runs them
-LM_KERNELS = {"lm_reproj_reduce", "lm_reproj_cost", "lm_inertial_assemble",
-              "lm_inertial_cost", "lm_solve"}
+LM_KERNELS = {"lm_reproj_plan", "lm_reproj_reduce", "lm_reproj_cost",
+              "lm_inertial_assemble", "lm_inertial_cost", "lm_solve"}
 INERTIAL_ONLY = {"pose_gn_prior", "preint", "vi_pose"} | LM_KERNELS
 # the kernels of the inertial path
 INERTIAL_PATH = INERTIAL_ONLY | {"pyramid_resize", "gaussian_blur",
@@ -641,7 +646,8 @@ def main() -> None:
     # 4e. hidden host syncs of the pipeline: frames 64-95 (four batches)
     # under sync-debug mode, across keyframe cycles
     system = main_path.make_system(bench_cfg, device, True)
-    with selfcheck.watch_assoc(which=8) as assoc_seen:
+    with selfcheck.watch_assoc(which=8) as assoc_seen, \
+            selfcheck.watch_schur(which=17) as schur_seen:
         syncs = _drive(system, bench_frames[:96], warm=64,
                        sync_window=(64, 96))
     _line("bench_sync_debug", frames="64-95", keyframes=syncs["keyframes"],
@@ -654,6 +660,11 @@ def main() -> None:
     del system
     # K24 on the recorded keyframe's detections and scene graph
     _check("operands" in assoc_seen, "bench_sync_debug: no plane association")
+    # K8 on the tables of a scene-graph BA of the same run (8192 rows,
+    # most of them empty)
+    _check("operands" in schur_seen, "bench_sync_debug: no K8 call")
+    report(selfcheck.check_schur(device, args=schur_seen["operands"],
+                                 name="schur_reduce@window", back=False))
     sg_cfg_b = bench_cfg.scenegraph
     report([selfcheck.check_plane_assoc(
         device, *assoc_seen["operands"],
@@ -1122,16 +1133,23 @@ def main() -> None:
             library_ms=r.get("library_ms"),
             **{k: r[k] for k in ("device_ms", "library_device_ms")
                if k in r}))
-    for name, src in (("schur_reduce@L128", "schur_reduce"),
-                      ("schur_backsub@L128", "schur_backsub")):
+    local_k8 = counts["bench_slice"]["schur_reduce"][0] - bench_watch["gba_k8"]
+    for name, src, replaces, launches in (
+            ("schur_reduce@L128", "schur_reduce", "dist_ba.py:395",
+             bench_watch["gba_k8"]),
+            ("schur_backsub@L128", "schur_backsub", "dist_ba.py:395",
+             bench_watch["gba_k8"]),
+            ("schur_reduce@window", "schur_reduce", "dist_ba.py:148",
+             local_k8)):
         r = checks[name]
         kernels.append(dict(
             name=name, route="cuda", source=kernels[
                 [k["name"] for k in kernels].index(src)]["source"],
-            replaces="visual_sgraphs_tpu/parallel/dist_ba.py:395",
-            launches=bench_watch["gba_k8"], max_abs_err=r["max_abs_err"],
+            replaces="visual_sgraphs_tpu/parallel/" + replaces,
+            launches=launches, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=None))
+            bound_by=r["bound_by"], library_ms=None,
+            **{k: r[k] for k in ("device_ms",) if k in r}))
     print(_card(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

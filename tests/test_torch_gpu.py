@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from visual_sgraphs_tpu_torch import cuda, selfcheck
+from visual_sgraphs_tpu_torch.parallel import dist_ba
 
 
 # kernels that only the loop path (loop_closing=True) launches
@@ -18,8 +19,8 @@ LOOP_ONLY = ("bow_vectors", "place_query", "match_nn_ratio", "guided_count",
 # the LM engine's kernel route (K22a / K22b / K22c): the inertial path's
 # local BAs and initialisation (elsewhere only a recovery keyframe's local
 # BA or a loop weld)
-LM_KERNELS = ("lm_reproj_reduce", "lm_reproj_cost", "lm_inertial_assemble",
-              "lm_inertial_cost", "lm_solve")
+LM_KERNELS = ("lm_reproj_plan", "lm_reproj_reduce", "lm_reproj_cost",
+              "lm_inertial_assemble", "lm_inertial_cost", "lm_solve")
 # kernels that only the inertial path (Sensor.IMU_RGBD) launches
 INERTIAL_ONLY = ("pose_gn_prior", "preint", "vi_pose") + LM_KERNELS
 # kernels that only the free-space room method launches
@@ -128,11 +129,33 @@ def test_pose_gn_bitwise_reproducible(device, prior):
 @pytest.mark.gpu
 @pytest.mark.parametrize("L", [11, 32])
 def test_schur_kernels(device, L):
-    # L = 11: the local BA's window (shared-memory accumulator); L = 32:
-    # the global-atomics branch a global BA takes
+    # L = 11: the local BA's window; L = 32: a wider window on the same
+    # shared-memory accumulator (the global BA's L = 128 is in
+    # test_loop_kernels); within SCHUR_TOL of the float64 twin, S and rhs
+    # bitwise equal over repeated launches, S symmetric, one launch a call
     for r in selfcheck.check_schur(device, n=8192 if L <= 16 else 2048,
                                    L=L):
         assert r["ok"], r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [11, 128])
+def test_schur_bitwise_one_launch(device, L):
+    # K8's sums are taken in an order fixed by the data (no float atomics):
+    # every output equal over repeated launches, S exactly symmetric, one
+    # device operation a call (the local BA's and the global BA's shapes)
+    n, O = (8192, 12) if L == 11 else (32768, 8)
+    args = selfcheck.schur_inputs(device, n, O, L)
+
+    def kernel():
+        return dist_ba.local_reduced_system(*args, lam=1e-4, huber=2.45)
+
+    first = kernel()
+    for _ in range(4):
+        again = kernel()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert torch.equal(first[0], first[0].T)
+    assert selfcheck.device_ops(kernel)["ops"] == 1
 
 
 @pytest.fixture(scope="module")
@@ -381,6 +404,15 @@ def test_inertial_path_on_card_matches_cpu(device):
 @pytest.fixture(scope="module")
 def lm_checks(device):
     return {r["name"]: r for r in selfcheck.run_lm(device)}
+
+
+@pytest.mark.gpu
+def test_lm_reduce_bitwise_few_ops(lm_checks):
+    # K22a's reduction on the VI window, given the solve's row plan: its
+    # outputs equal over repeated launches, <= 2 device operations a call
+    r = lm_checks["lm_reproj_reduce"]
+    assert r["bitwise_repro"], r
+    assert r["device_ops"] <= 2, r
 
 
 @pytest.mark.gpu

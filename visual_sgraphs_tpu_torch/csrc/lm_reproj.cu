@@ -27,37 +27,54 @@
 // scatter does; padding landmarks have no row and stay inert (Hxx = 0,
 // damped to eps).
 //
-// What bounds it here: latency and atomics.  A call reads ~0.6 MB of rows
-// and points and does ~30 MFLOP, mostly the pair sums.
+// What bounds it here: latency.  A call reads ~0.6 MB of rows and points,
+// writes ~0.5 MB and does ~30 MFLOP, mostly the pair sums: microseconds of
+// the card.  The previous design took nine device operations (seven
+// memsets, P's alone ~3 MB, then a row-major linearisation scattering into
+// the landmarks with float atomics and a reduction flushing float64
+// atomics), and its sums changed from run to run.
 //
-// Design (K8's warp-per-landmark reduction is the model): the linearise
-// kernel takes a row a thread, adds the landmark's Hxx, bx and P_s with
-// float32 atomics (a few rows each) and the slot's 6x6 block and gradient
-// (summed over the warp by shuffles: rows are slot-major) into the block's
-// shared memory, flushed once a block into the float64 H, g; the reduce
-// kernel takes a landmark a warp: its 3x3 factor in every lane, B_s of
-// each observing slot (a bit a slot in the landmark's mask words) into
-// shared memory, then the lanes split the (slot a, slot b, 6 x 6) products
-// and add them to a block-wide shared accumulator of (6L)^2 pair sums,
-// flushed once a block with float64 atomics.  Any window size runs: past
-// SHARED_ACC_LIMIT (L > 33) the products go straight to the float64 pair
-// sums in global memory with an atomic each, as K8's global-BA path does.
-// Float32 like the engine's rows (the landmark blocks span ~8 orders of
-// magnitude, as K8's: no TF32); the sums the atomics make are in another
-// order than the twin's, so S and rhs are held against the float64 twin at
-// a tolerance relative to their largest entries.  The back-substitution
-// takes a landmark a thread, the cost a row a thread with a float64 block
-// sum.
+// Design: a per-landmark row index (``vsg_lm_reproj_plan``: the used rows
+// of each landmark in row order, CSR, one launch of one CTA, built once a
+// solve: the rows do not change across its iterations), then one launch a
+// call, no memset and no atomics, sums in an order fixed by the data
+// (gram.cuh): landmarks without a row get their outputs from one thread;
+// a segment of 16 lanes (32 past 16 slots) linearises one landmark's
+// rows, a row a lane, sums Hxx and bx by shuffles, collapses the rows of
+// one slot into P_s, the slot's undamped 6 x 6 block and gradient,
+// factors the damped Hxx and stages B_s = L^-1 P_s and B_s^T c; the CTA's
+// 576 threads own the entries of the upper-triangle slot-pair blocks, the
+// pair sums' rhs and the pose-diagonal blocks and gradient, and add the
+// staged landmarks in landmark order (so H's blocks are summed
+// landmark-major, not row by row); clusters of 8 CTAs reduce the partials
+// through distributed shared memory and the last cluster to finish a
+// slice writes it in float64.
+// Every output element is written (H and g zero outside the pose-diagonal
+// blocks; P only at the slots set in a landmark's mask, which is all the
+// back-substitution reads).  Float32 like the engine's rows (the landmark
+// blocks span ~8 orders of magnitude, as K8's: no TF32); the cross-CTA
+// sums in float64.  The CTA's accumulator holds (6L)^2 / 2 + 96 L floats
+// in shared memory: windows up to L = 47 (K22a raises past it).  The
+// back-substitution takes a landmark a thread, the cost a row a thread
+// with a float64 block sum.
+#include "gram.cuh"
 #include "lie.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+using gram::FULL;
+using gram::Q_B;
+using gram::Q_G;
+using gram::Q_H;
+using gram::Q_P;
+using gram::Q_R;
+using gram::QS;
+
+constexpr int THREADS = 256;  // back-substitution and cost kernels
 constexpr int WARPS = THREADS / 32;
-constexpr int NACC = 27;  // 21 upper-triangular 6x6 entries + 6 gradient
-// the reduce kernel's shared pair-sum accumulator up to this many bytes,
-// else float64 atomics into the global pair sums
-constexpr size_t SHARED_ACC_LIMIT = 160 * 1024;
+constexpr int PLAN_THREADS = 1024;
+
+__device__ unsigned g_lm_tickets[gram::CLUSTER];
 
 __host__ __device__ __forceinline__ int mask_words(int L) {
     return (L + 31) / 32;
@@ -115,25 +132,130 @@ __device__ __forceinline__ float huber_cost(float chi2, float d) {
     return chi2 <= d * d ? chi2 : 2.0f * d * sqrtf(fmaxf(chi2, 1e-12f)) - d * d;
 }
 
-__global__ void __launch_bounds__(THREADS)
-linearize_kernel(Rows a, int D, float* __restrict__ Hxx,
-                 float* __restrict__ P, unsigned* __restrict__ mask,
-                 double* __restrict__ H, double* __restrict__ g) {
-    extern __shared__ float acc[];  // (L, NACC)
-    for (int t = threadIdx.x; t < a.L * NACC; t += THREADS) acc[t] = 0.0f;
+// The used rows of each landmark, in row order: counts, an exclusive scan
+// into ptr, a fill at per-landmark cursors (shared atomics), then each
+// landmark's segment sorted ascending (a thread a landmark), so the result
+// does not depend on the fill's order.  One CTA; cnt: (N + 1) ints of
+// shared memory.
+__global__ void __launch_bounds__(PLAN_THREADS)
+plan_kernel(const int* __restrict__ pt, const uint8_t* __restrict__ use,
+            int M, int N, int* __restrict__ ptr, int* __restrict__ idx) {
+    extern __shared__ int cnt[];
+    __shared__ int wsum[PLAN_THREADS / 32];
+    __shared__ int total;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    for (int n = tid; n <= N; n += PLAN_THREADS) cnt[n] = 0;
     __syncthreads();
-    const int lane = threadIdx.x & 31;
-    // whole warps step together (rows are slot-major: a warp's rows
-    // nearly always share a slot, so its pose block is summed by shuffles)
-    for (int m0 = blockIdx.x * THREADS + (threadIdx.x & ~31); m0 < a.M;
-         m0 += gridDim.x * THREADS) {
-        const int m = m0 + lane;
-        const bool on = m < a.M && a.use[m] != 0;
-        const int s = on ? a.slot[m] : -1;
-        float Jp[3][6] = {}, r[3] = {0.0f, 0.0f, 0.0f};
+    for (int m = tid; m < M; m += PLAN_THREADS) {
+        const int p = pt[m];
+        if (use[m] && p >= 0 && p < N) atomicAdd(&cnt[p], 1);
+    }
+    __syncthreads();
+    const int seg = (N + PLAN_THREADS - 1) / PLAN_THREADS;
+    const int b = min(N, tid * seg), e = min(N, b + seg);
+    int sum = 0;
+    for (int n = b; n < e; ++n) sum += cnt[n];
+    int x = sum;
+    for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(FULL, x, off);
+        if (lane >= off) x += y;
+    }
+    if (lane == 31) wsum[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+        int v = wsum[lane];
+        for (int off = 1; off < 32; off <<= 1) {
+            const int y = __shfl_up_sync(FULL, v, off);
+            if (lane >= off) v += y;
+        }
+        wsum[lane] = v;
+    }
+    __syncthreads();
+    int run = x - sum + (warp ? wsum[warp - 1] : 0);
+    for (int n = b; n < e; ++n) {
+        const int v = cnt[n];
+        cnt[n] = run;
+        ptr[n] = run;
+        run += v;
+    }
+    if (tid == PLAN_THREADS - 1) {
+        total = run;
+        ptr[N] = run;
+    }
+    __syncthreads();
+    for (int m = tid; m < M; m += PLAN_THREADS) {
+        const int p = pt[m];
+        if (use[m] && p >= 0 && p < N) idx[atomicAdd(&cnt[p], 1)] = m;
+    }
+    for (int t = total + tid; t < M; t += PLAN_THREADS) idx[t] = -1;
+    __syncthreads();
+    // cnt[n] is now the end of landmark n's segment
+    for (int n = tid; n < N; n += PLAN_THREADS) {
+        const int lo = n ? cnt[n - 1] : 0, hi = cnt[n];
+        for (int i = lo + 1; i < hi; ++i) {
+            const int v = idx[i];
+            int j = i - 1;
+            while (j >= lo && idx[j] > v) {
+                idx[j + 1] = idx[j];
+                --j;
+            }
+            idx[j + 1] = v;
+        }
+    }
+}
+
+struct ReduceOut {
+    const float* lam;  // () the damping
+    float eps;
+    int D;
+    double* H;      // (D, D)
+    double* g;      // (D,)
+    double* pairs;  // (6L, 6L)
+    double* rhs;    // (6L,)
+    float* Linv;    // (N, 6)
+    float* c;       // (N, 3)
+    float* P;       // (N, L, 3, 6), at the observed slots
+    unsigned* mask;  // (N, mask_words(L))
+};
+
+// The outputs of a landmark without a row: Hxx = 0 damped, c = 0, no
+// observing slot.
+__device__ void lm_idle(const ReduceOut& o, int n, int L, float lam) {
+    const float hs[6] = {};
+    const float d = lam * 1e-6f + o.eps;
+    float li[6];
+    gram::chol_inv3(hs, d, d, d, li);
+    for (int k = 0; k < 6; ++k) o.Linv[6 * n + k] = li[k];
+    for (int k = 0; k < 3; ++k) o.c[3 * n + k] = 0.0f;
+    for (int w = 0; w < mask_words(L); ++w) {
+        o.mask[(size_t)n * mask_words(L) + w] = 0u;
+    }
+}
+
+// One listed landmark's rows (rows[ptr[n] .. ptr[n + 1]) of the plan; n <
+// 0: none) by one segment of SEG lanes (every lane of the warp calls):
+// writes its Linv, c, mask and P and stages its per-slot terms (header:
+// entries).
+template <int SEG>
+__device__ void lm_landmark(const Rows& a, const int* __restrict__ ptr,
+                            const int* __restrict__ idx, int n,
+                            const ReduceOut& o, float lam, gram::Stage st,
+                            int lane) {
+    const int L = a.L, sl = lane % SEG;
+    gram::stage_reset<SEG>(st, L, lane);
+    const int beg = n >= 0 ? ptr[n] : 0, end = n >= 0 ? ptr[n + 1] : 0;
+    // chunks of SEG rows, as many as the warp's longest landmark needs
+    const int chunks = __reduce_max_sync(FULL, (end - beg + SEG - 1) / SEG);
+    float hs[9] = {};  // Hxx (upper 6), bx
+    int nq = 0;
+    for (int ch = 0; ch < chunks; ++ch) {
+        const int r0 = beg + ch * SEG;
+        const int m = r0 + sl < end ? idx[r0 + sl] : -1;
+        const int s = m >= 0 ? a.slot[m] : -1;
+        const bool on = m >= 0 && s >= 0 && s < L;
+        float Jp[3][6] = {}, Jx[3][3] = {}, r[3] = {0.0f, 0.0f, 0.0f};
         float w = 0.0f;
         if (on) {
-            const int n = a.pt[m];
             const float* T = a.pose + 7 * s;
             float p[3], Jr[3][3], R[9];
             row_residual(a, m, T, a.pts + 3 * n, p, r, Jr);
@@ -145,8 +267,9 @@ linearize_kernel(Rows a, int D, float* __restrict__ Hxx,
             const float mh[3][3] = {{0.0f, p[2], -p[1]},
                                     {-p[2], 0.0f, p[0]},
                                     {p[1], -p[0], 0.0f}};
-            float Jx[3][3];
+#pragma unroll
             for (int k = 0; k < 3; ++k) {
+#pragma unroll
                 for (int j = 0; j < 3; ++j) {
                     Jp[k][j] = Jr[k][j];
                     Jp[k][3 + j] = Jr[k][0] * mh[0][j] + Jr[k][1] * mh[1][j] +
@@ -155,183 +278,197 @@ linearize_kernel(Rows a, int D, float* __restrict__ Hxx,
                                Jr[k][2] * R[6 + j];
                 }
             }
-            // the landmark's Hxx (upper 6) and bx, its block P_s
-            float* h = Hxx + 9 * n;
-            int t = 0;
+        }
+        {
+            float part[9];
+#pragma unroll
             for (int i = 0; i < 3; ++i) {
+#pragma unroll
                 for (int j = i; j < 3; ++j) {
-                    const float v = Jx[0][i] * Jx[0][j] + Jx[1][i] * Jx[1][j] +
-                                    Jx[2][i] * Jx[2][j];
-                    atomicAdd(&h[t++], w * v);
+                    part[3 * i - i * (i - 1) / 2 + (j - i)] =
+                        w * (Jx[0][i] * Jx[0][j] + Jx[1][i] * Jx[1][j]
+                             + Jx[2][i] * Jx[2][j]);
                 }
-                const float v =
-                    Jx[0][i] * r[0] + Jx[1][i] * r[1] + Jx[2][i] * r[2];
-                atomicAdd(&h[6 + i], w * v);
+                part[6 + i] = w * (Jx[0][i] * r[0] + Jx[1][i] * r[1]
+                                   + Jx[2][i] * r[2]);
             }
-            float* Ps = P + 18 * ((size_t)n * a.L + s);
-            for (int i = 0; i < 3; ++i) {
-                for (int j = 0; j < 6; ++j) {
-                    const float v = Jx[0][i] * Jp[0][j] +
-                                    Jx[1][i] * Jp[1][j] + Jx[2][i] * Jp[2][j];
-                    atomicAdd(&Ps[6 * i + j], w * v);
-                }
-            }
-            atomicOr(&mask[(size_t)n * mask_words(a.L) + s / 32],
-                     1u << (s % 32));
+#pragma unroll
+            for (int u = 0; u < 9; ++u) hs[u] += gram::seg_sum<SEG>(part[u]);
         }
-        // the slot's pose block and gradient: a warp sum when the warp's
-        // rows share one slot, else an atomic a row
-        const int s0 = __shfl_sync(0xffffffffu, s, 0);
-        const bool one = __all_sync(0xffffffffu, !on || s == s0) && s0 >= 0;
-        float* as = acc + NACC * (one ? s0 : max(s, 0));
-        int t = 0;
+        // the row's P (w Jx^T Jp), pose block (w Jp^T Jp) and gradient
+        float v[gram::NV];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+#pragma unroll
+            for (int j = 0; j < 6; ++j) {
+                v[6 * i + j] = w * (Jx[0][i] * Jp[0][j] + Jx[1][i] * Jp[1][j]
+                                    + Jx[2][i] * Jp[2][j]);
+            }
+        }
+#pragma unroll
         for (int i = 0; i < 6; ++i) {
-            for (int j = i; j < 6; ++j, ++t) {
-                float v = w * (Jp[0][i] * Jp[0][j] + Jp[1][i] * Jp[1][j] +
-                               Jp[2][i] * Jp[2][j]);
-                if (one) {
-                    v = vsg_warp_sum(v);
-                    if (lane == 0 && v != 0.0f) atomicAdd(&as[t], v);
-                } else if (on && v != 0.0f) {
-                    atomicAdd(&as[t], v);
-                }
+#pragma unroll
+            for (int j = i; j < 6; ++j) {
+                v[18 + gram::tri6(i, j)] =
+                    w * (Jp[0][i] * Jp[0][j] + Jp[1][i] * Jp[1][j]
+                         + Jp[2][i] * Jp[2][j]);
             }
-            float v = w * (Jp[0][i] * r[0] + Jp[1][i] * r[1] + Jp[2][i] * r[2]);
-            if (one) {
-                v = vsg_warp_sum(v);
-                if (lane == 0) atomicAdd(&as[21 + i], v);
-            } else if (on) {
-                atomicAdd(&as[21 + i], v);
+            v[39 + i] = w * (Jp[0][i] * r[0] + Jp[1][i] * r[1]
+                             + Jp[2][i] * r[2]);
+        }
+        gram::stage_chunk<SEG>(st, on, s, v, lane, nq);
+    }
+    // damped Hxx (the engine's lam clamp(diag, 1e-6) + eps), Cholesky
+    float li[6];
+    gram::chol_inv3(hs, lam * fmaxf(hs[0], 1e-6f) + o.eps,
+                    lam * fmaxf(hs[3], 1e-6f) + o.eps,
+                    lam * fmaxf(hs[5], 1e-6f) + o.eps, li);
+    const float c[3] = {li[0] * hs[6], li[1] * hs[6] + li[2] * hs[7],
+                        li[3] * hs[6] + li[4] * hs[7] + li[5] * hs[8]};
+    if (sl == 0) {
+        if (n >= 0) {
+            for (int k = 0; k < 6; ++k) o.Linv[6 * n + k] = li[k];
+            for (int k = 0; k < 3; ++k) o.c[3 * n + k] = c[k];
+        }
+        st.hdr[0] = nq;
+    }
+    if (n >= 0) {
+        const int MW = mask_words(L);
+        for (int wd = 0; wd < MW; ++wd) {
+            unsigned b = 0u;
+            for (int q = 0; q < nq; ++q) {
+                const int sq = st.qslot[q];
+                if (sq / 32 == wd) b |= 1u << (sq % 32);
             }
+            if (sl == 0) o.mask[(size_t)n * MW + wd] = b;
+        }
+        for (int t = sl; t < nq * 18; t += SEG) {
+            const int q = t / 18;
+            o.P[((size_t)n * L + st.qslot[q]) * 18 + t % 18] =
+                st.q[q * QS + Q_P + t % 18];
         }
     }
-    __syncthreads();
-    for (int t = threadIdx.x; t < a.L * NACC; t += THREADS) {
-        const float v = acc[t];
-        if (v == 0.0f) continue;
-        const int s = t / NACC, e = t % NACC;
-        if (e >= 21) {
-            atomicAdd(&g[6 * s + e - 21], (double)v);
-            continue;
-        }
-        int i = 0, rem = e;
-        while (rem >= 6 - i) {
-            rem -= 6 - i;
-            ++i;
-        }
-        const int j = i + rem;
-        atomicAdd(&H[(size_t)(6 * s + i) * D + 6 * s + j], (double)v);
-        if (i != j) atomicAdd(&H[(size_t)(6 * s + j) * D + 6 * s + i], (double)v);
+    gram::stage_b<SEG>(st, nq, li, lane);
+    for (int t = sl; t < nq * 6; t += SEG) {
+        float* q = st.q + (t / 6) * QS;
+        const int j = t % 6;
+        q[Q_R + j] = q[Q_B + j] * c[0] + q[Q_B + 6 + j] * c[1]
+                     + q[Q_B + 12 + j] * c[2];
     }
+    __syncwarp();
 }
 
-__global__ void __launch_bounds__(THREADS)
-reduce_kernel(int N, int L, const float* __restrict__ Hxx,
-              const float* __restrict__ P,
-              const unsigned* __restrict__ mask,
-              const float* __restrict__ lam_ptr, float eps,
-              float* __restrict__ Linv_out, float* __restrict__ c_out,
-              double* __restrict__ pairs, double* __restrict__ rhs,
-              int shared_acc) {
-    extern __shared__ float sh[];
-    const int P6 = 6 * L, MW = mask_words(L);
-    const int nacc = shared_acc ? P6 * P6 + P6 : 0;
-    float* sp = sh;                   // (P6, P6) pair sums (shared_acc)
-    float* sr = sp + P6 * P6;         // (P6,) their rhs (shared_acc)
-    float* sB = sh + nacc;            // (WARPS, L, 18) B_s
-    int* sl = reinterpret_cast<int*>(sB + WARPS * L * 18);
-    for (int t = threadIdx.x; t < nacc; t += THREADS) sp[t] = 0.0f;
-    __syncthreads();
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    float* B = sB + warp * L * 18;
-    int* slots = sl + warp * L;
-    const float lam = lam_ptr[0];
-    for (int n = blockIdx.x * WARPS + warp; n < N; n += gridDim.x * WARPS) {
-        const float* h = Hxx + 9 * n;
-        // damped Hxx (the engine's lam clamp(diag, 1e-6) + eps), Cholesky
-        const float a00 = h[0] + (lam * fmaxf(h[0], 1e-6f) + eps);
-        const float a11 = h[3] + (lam * fmaxf(h[3], 1e-6f) + eps);
-        const float a22 = h[5] + (lam * fmaxf(h[5], 1e-6f) + eps);
-        const float l00 = sqrtf(a00);
-        const float l10 = h[1] / l00, l20 = h[2] / l00;
-        const float l11 = sqrtf(a11 - l10 * l10);
-        const float l21 = (h[4] - l20 * l10) / l11;
-        const float l22 = sqrtf(a22 - l20 * l20 - l21 * l21);
-        const float i00 = 1.0f / l00, i11 = 1.0f / l11, i22 = 1.0f / l22;
-        const float i10 = -l10 * i00 * i11;
-        const float i21 = -l21 * i11 * i22;
-        const float i20 = -(l20 * i00 + l21 * i10) * i22;
-        const float b0 = h[6], b1 = h[7], b2 = h[8];
-        const float c[3] = {i00 * b0, i10 * b0 + i11 * b1,
-                            i20 * b0 + i21 * b1 + i22 * b2};
-        if (lane == 0) {
-            float* li = Linv_out + 6 * n;
-            li[0] = i00;
-            li[1] = i10;
-            li[2] = i11;
-            li[3] = i20;
-            li[4] = i21;
-            li[5] = i22;
-            for (int k = 0; k < 3; ++k) c_out[3 * n + k] = c[k];
+// acc: [pairs (Lp, 36) | rhs (6L) | pose blocks (L, 36) | g (6L)]; shared
+// memory after it: the pair table (Lp), the listed landmarks (room for a
+// CTA of one cluster: ceil(N / 8)), the warps' counts, the stages
+// (stage_warps x 32 / SEG)
+template <int SEG>
+__global__ void __launch_bounds__(gram::THREADS, 1)
+reduce_kernel(Rows a, const int* __restrict__ ptr,
+              const int* __restrict__ idx, ReduceOut o, int stage_warps,
+              double* part) {
+    extern __shared__ __align__(16) float sm[];
+    constexpr int SPW = 32 / SEG;
+    const int L = a.L, N = a.N, Lp = gram::n_pairs(L), P6 = 6 * L;
+    const int oR = 36 * Lp, oH = oR + P6, oG = oH + 36 * L, E = oG + P6;
+    const int G = gridDim.x, mine = (N - (int)blockIdx.x + G - 1) / G;
+    float* acc = sm;
+    int* ptab = reinterpret_cast<int*>(acc + E);
+    int* list = ptab + Lp;
+    int* wtot = list + (N + gram::CLUSTER - 1) / gram::CLUSTER;
+    int* stage0 = wtot + gram::WARPS;
+    const int sw = gram::stage_words(L, L);
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = tid / 36, e = tid % 36, i = e / 6, j = e % 6;
+    const int tri = gram::tri6(i, j);
+    for (int t = tid; t < E; t += gram::THREADS) acc[t] = 0.0f;
+    gram::pair_table(ptab, L);
+    // H and g are zero outside the pose-diagonal blocks: a slice a CTA
+    const int D = o.D;
+    for (size_t t = (size_t)blockIdx.x * gram::THREADS + tid;
+         t < (size_t)D * D; t += (size_t)gridDim.x * gram::THREADS) {
+        const int r = (int)(t / D), col = (int)(t % D);
+        if (r < P6 && col < P6 && r / 6 == col / 6) continue;
+        o.H[t] = 0.0;
+    }
+    for (int t = blockIdx.x * gram::THREADS + tid; t < D - P6;
+         t += gridDim.x * gram::THREADS) {
+        o.g[P6 + t] = 0.0;
+    }
+    const float lam = o.lam[0];
+    const int nlist = gram::own(
+        mine, [&](int jj) { return (int)blockIdx.x + jj * G; },
+        [&](int n) { return ptr[n + 1] > ptr[n]; },
+        [&](int n) { lm_idle(o, n, L, lam); }, list, wtot);
+    const int slots = stage_warps * SPW;
+    for (int base = 0; base < nlist; base += slots) {
+        if (warp < stage_warps && base + warp * SPW < nlist) {
+            const int s = warp * SPW + lane / SEG;
+            lm_landmark<SEG>(a, ptr, idx,
+                             base + s < nlist ? list[base + s] : -1, o, lam,
+                             gram::stage_at(stage0 + s * sw, L, L), lane);
         }
-        const unsigned* mk = mask + (size_t)n * MW;
-        int np = 0;
-        for (int s = 0; s < L; ++s) {  // every lane, same value
-            if ((mk[s / 32] >> (s % 32)) & 1u) slots[np++] = s;
+        __syncthreads();
+        // the staged landmarks in list order, an entry's sum in a register
+        const int nst = min(slots, nlist - base);
+        const auto term = [&](const float* ds, const float* dt, bool) {
+            const float* bs = ds + Q_B;
+            const float* bt = dt + Q_B;
+            return bs[i] * bt[j] + bs[6 + i] * bt[6 + j]
+                   + bs[12 + i] * bt[12 + j];
+        };
+        // four or five pairs a thread (L = 10, 11) in registers
+        const int np = (Lp + gram::GROUPS - 1) / gram::GROUPS;
+        if (np == 4) {
+            gram::add_pairs<4>(acc, ptab, Lp, g, e, stage0, sw, L, L, nst,
+                               term);
+        } else if (np == 5) {
+            gram::add_pairs<5>(acc, ptab, Lp, g, e, stage0, sw, L, L, nst,
+                               term);
+        } else {
+            gram::add_pairs<0>(acc, ptab, Lp, g, e, stage0, sw, L, L, nst,
+                               term);
         }
-        __syncwarp();
-        // B_s = L^-1 P_s
-        for (int t = lane; t < np * 18; t += 32) {
-            const int q = t / 18, e = t % 18, rr = e / 6, j = e % 6;
-            const float* Ps = P + 18 * ((size_t)n * L + slots[q]);
-            float v;
-            if (rr == 0) {
-                v = i00 * Ps[j];
-            } else if (rr == 1) {
-                v = i10 * Ps[j] + i11 * Ps[6 + j];
-            } else {
-                v = i20 * Ps[j] + i21 * Ps[6 + j] + i22 * Ps[12 + j];
-            }
-            B[18 * q + e] = v;
-        }
-        __syncwarp();
-        for (int t = lane; t < np * np * 36; t += 32) {
-            const int qa = t / (np * 36), rem = t % (np * 36);
-            const int qb = rem / 36, i = (rem % 36) / 6, j = rem % 6;
-            const float* Ba = B + 18 * qa;
-            const float* Bb = B + 18 * qb;
-            const float v = Ba[i] * Bb[j] + Ba[6 + i] * Bb[6 + j] +
-                            Ba[12 + i] * Bb[12 + j];
-            if (v != 0.0f) {
-                const int e = (6 * slots[qa] + i) * P6 + 6 * slots[qb] + j;
-                if (shared_acc) {
-                    atomicAdd(&sp[e], v);
-                } else {
-                    atomicAdd(&pairs[e], (double)v);
+        for (int s = g; s < L; s += gram::GROUPS) {
+            float h = acc[oH + 36 * s + e];
+            float rr = e < 6 ? acc[oR + 6 * s + e] : 0.0f;
+            float gg = e < 6 ? acc[oG + 6 * s + e] : 0.0f;
+            for (int w = 0; w < nst; ++w) {
+                const gram::Stage st = gram::stage_at(stage0 + w * sw, L, L);
+                const int q = st.map[s];
+                if (q < 0) continue;
+                const float* d = st.q + q * QS;
+                h += d[Q_H + tri];
+                if (e < 6) {
+                    rr += d[Q_R + e];
+                    gg += d[Q_G + e];
                 }
             }
-        }
-        for (int t = lane; t < np * 6; t += 32) {
-            const float* Ba = B + 18 * (t / 6);
-            const int i = t % 6;
-            const float v = Ba[i] * c[0] + Ba[6 + i] * c[1] + Ba[12 + i] * c[2];
-            if (v == 0.0f) continue;
-            if (shared_acc) {
-                atomicAdd(&sr[6 * slots[t / 6] + i], v);
-            } else {
-                atomicAdd(&rhs[6 * slots[t / 6] + i], (double)v);
+            acc[oH + 36 * s + e] = h;
+            if (e < 6) {
+                acc[oR + 6 * s + e] = rr;
+                acc[oG + 6 * s + e] = gg;
             }
         }
-        __syncwarp();
+        __syncthreads();
     }
-    if (!shared_acc) return;
-    __syncthreads();
-    for (int t = threadIdx.x; t < P6 * P6; t += THREADS) {
-        if (sp[t] != 0.0f) atomicAdd(&pairs[t], (double)sp[t]);
-    }
-    for (int t = threadIdx.x; t < P6; t += THREADS) {
-        if (sr[t] != 0.0f) atomicAdd(&rhs[t], (double)sr[t]);
-    }
+    gram::reduce(acc, E, part, g_lm_tickets, [&](int t, double v) {
+        if (t < oR) {
+            const int p = t / 36, ii = (t % 36) / 6, jj = t % 6;
+            const int s = ptab[p] >> 16, u = ptab[p] & 0xffff;
+            if (s == u && ii > jj) return;
+            const int r = 6 * s + ii, col = 6 * u + jj;
+            o.pairs[(size_t)r * P6 + col] = v;
+            o.pairs[(size_t)col * P6 + r] = v;
+        } else if (t < oH) {
+            o.rhs[t - oR] = v;
+        } else if (t < oG) {
+            const int s = (t - oH) / 36, ee = (t - oH) % 36;
+            o.H[(size_t)(6 * s + ee / 6) * D + 6 * s + ee % 6] = v;
+        } else {
+            o.g[t - oG] = v;
+        }
+    });
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -424,69 +561,114 @@ int sm_count() {
     return sms;
 }
 
+int smem_limit() {
+    int dev = 0, lim = 232448;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&lim, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    return lim;
+}
+
+template <int SEG>
+int resident_clusters(size_t smem) {
+    static size_t cached_smem = 0;
+    static int cached = 0;
+    if (cached_smem != smem) {
+        cached = gram::max_clusters(reduce_kernel<SEG>, smem);
+        cached_smem = smem;
+    }
+    return cached;
+}
+
+// The reduction's launch plan: segment width, staging warps (<= 18, 0 when
+// even 4 do not fit beside the accumulator), clusters (no more than are
+// resident at once), shared bytes, scratch entries.
+struct Plan {
+    int seg, stage_warps, clusters, E;
+    size_t smem;
+};
+
+Plan make_plan(int N, int L) {
+    Plan p = {};
+    const int Lp = gram::n_pairs(L);
+    p.seg = L <= 16 ? 16 : 32;
+    const int spw = 32 / p.seg;
+    p.E = 36 * Lp + 12 * L + 36 * L;
+    const long long fixed =
+        4LL * (p.E + Lp + (N + gram::CLUSTER - 1) / gram::CLUSTER
+               + gram::WARPS);
+    const long long stage = 4LL * spw * gram::stage_words(L, L);
+    const long long room = (long long)smem_limit() - fixed;
+    const long long w = room <= 0 ? 0 : room / stage;
+    p.stage_warps = w >= gram::WARPS ? gram::WARPS : w >= 4 ? (int)w : 0;
+    if (p.stage_warps == 0) return p;
+    p.smem = (size_t)(fixed + stage * p.stage_warps);
+    const int per = gram::CLUSTER * 2 * spw * p.stage_warps;
+    const int need = max(1, min(gram::MAX_CLUSTERS, (N + per - 1) / per));
+    p.clusters = min(need, p.seg == 16 ? resident_clusters<16>(p.smem)
+                                       : resident_clusters<32>(p.smem));
+    return p;
+}
+
 }  // namespace
+
+// Bytes of the float64 scratch vsg_lm_reproj_reduce needs for N landmarks
+// and L slots, or -1 when the window is too wide for the kernel.
+VSG_API long long vsg_lm_reproj_scratch_bytes(int N, int L) {
+    if (L < 1) return -1;
+    const Plan p = make_plan(N, L);
+    if (p.stage_warps == 0) return -1;
+    return (long long)sizeof(double) * p.clusters * p.E;
+}
+
+// The plan of rows pt / use (M,) over N landmarks: ptr (N + 1,) i32 and
+// idx (M,) i32, the used rows with a landmark id in [0, N) grouped by
+// landmark in row order, -1 past ptr[N].
+VSG_API int vsg_lm_reproj_plan(const int* pt, const uint8_t* use, int M,
+                               int N, int* ptr, int* idx,
+                               cudaStream_t stream) {
+    const size_t smem = sizeof(int) * ((size_t)N + 1);
+    if (N < 0 || (long long)smem > smem_limit()) {
+        return (int)cudaErrorInvalidValue;
+    }
+    cudaError_t err = cudaFuncSetAttribute(
+        plan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    plan_kernel<<<1, PLAN_THREADS, smem, stream>>>(pt, use, M, N, ptr, idx);
+    return (int)cudaGetLastError();
+}
 
 // pose (L, 7) f32 T_cw, pts (N, 3) f32, rows slot / pt (M,) i32,
 // uvr (M, 3) f32, use / stereo (M,) u8, cam (4,), bf () f32, the Huber
-// widths; lam () f32 on the device, eps.  Outputs: H (D, D) and g (D,)
-// f64 (zeroed here, then the undamped pose-diagonal blocks), pairs (6L,
+// widths; lam () f32 on the device, eps; the plan ptr (N + 1,), idx (M,)
+// of vsg_lm_reproj_plan.  Outputs, every element written: H (D, D) and g
+// (D,) f64 (the undamped pose-diagonal blocks, zero elsewhere), pairs (6L,
 // 6L) and rhs (6L,) f64; per landmark Linv (N, 6) (packed lower inverse
-// factor of the damped Hxx), c (N, 3), P (N, L, 3, 6), mask (N, (L + 31) /
-// 32) u32 (a bit an observing slot), and
-// scratch Hxx (N, 9) f32: Hxx's upper 6 entries and bx (zeroed here where
-// accumulated).
+// factor of the damped Hxx), c (N, 3), mask (N, (L + 31) / 32) u32 (a bit
+// an observing slot) and P (N, L, 3, 6) at the slots of its mask.
+// Scratch: vsg_lm_reproj_scratch_bytes bytes at ``part``, not
+// initialised.
 VSG_API int vsg_lm_reproj_reduce(
     const float* pose, int L, const float* pts, int N, const int* slot,
     const int* pt, const float* uvr, const uint8_t* use,
     const uint8_t* stereo, int M, const float* cam, const float* bf,
     float huber_mono, float huber_stereo, const float* lam, float eps, int D,
-    double* H, double* g, double* pairs, double* rhs, float* Hxx, float* P,
-    unsigned* mask, float* Linv, float* c, cudaStream_t stream) {
-    if (L < 1) return (int)cudaErrorInvalidValue;
-    const int P6 = 6 * L;
-    struct {
-        void* p;
-        size_t n;
-    } zero[] = {{H, sizeof(double) * (size_t)D * D},
-                {g, sizeof(double) * D},
-                {pairs, sizeof(double) * P6 * P6},
-                {rhs, sizeof(double) * P6},
-                {Hxx, sizeof(float) * 9 * (size_t)N},
-                {P, sizeof(float) * 18 * (size_t)N * L},
-                {mask, sizeof(unsigned) * (size_t)N * mask_words(L)}};
-    for (const auto& z : zero) {
-        const cudaError_t err = cudaMemsetAsync(z.p, 0, z.n, stream);
-        if (err != cudaSuccess) return (int)err;
-    }
+    const int* ptr, const int* idx, double* H, double* g, double* pairs,
+    double* rhs, float* P, unsigned* mask, float* Linv, float* c,
+    double* part, cudaStream_t stream) {
+    if (L < 1 || D < 6 * L) return (int)cudaErrorInvalidValue;
+    const Plan p = make_plan(N, L);
+    if (p.stage_warps == 0) return (int)cudaErrorInvalidValue;
     const Rows a = make_rows(pose, L, pts, N, slot, pt, uvr, use, stereo, M,
                              cam, bf, huber_mono, huber_stereo);
-    const int sms = sm_count();
-    if (M > 0) {
-        const size_t shmem = sizeof(float) * L * NACC;
-        cudaError_t err = cudaFuncSetAttribute(
-            linearize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)shmem);
-        if (err != cudaSuccess) return (int)err;
-        const int blocks = min((M + THREADS - 1) / THREADS, 2 * sms);
-        linearize_kernel<<<blocks, THREADS, shmem, stream>>>(a, D, Hxx, P,
-                                                             mask, H, g);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-    }
-    if (N > 0) {
-        const size_t acc = sizeof(float) * ((size_t)P6 * P6 + P6);
-        const int shared_acc = acc <= SHARED_ACC_LIMIT;
-        const size_t shmem = (shared_acc ? acc : 0) +
-                             (sizeof(float) * 18 + sizeof(int)) * WARPS * L;
-        const cudaError_t err = cudaFuncSetAttribute(
-            reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)shmem);
-        if (err != cudaSuccess) return (int)err;
-        const int blocks = min((N + 8 * WARPS - 1) / (8 * WARPS), sms);
-        reduce_kernel<<<blocks, THREADS, shmem, stream>>>(
-            N, L, Hxx, P, mask, lam, eps, Linv, c, pairs, rhs, shared_acc);
-    }
-    return (int)cudaGetLastError();
+    ReduceOut o = {lam, eps, D, H, g, pairs, rhs, Linv, c, P, mask};
+    return (int)(p.seg == 16
+                     ? gram::launch(reduce_kernel<16>, p.clusters, p.smem,
+                                    stream, a, ptr, idx, o, p.stage_warps,
+                                    part)
+                     : gram::launch(reduce_kernel<32>, p.clusters, p.smem,
+                                    stream, a, ptr, idx, o, p.stage_warps,
+                                    part));
 }
 
 // As vsg_lm_reproj_reduce's rows, with fixed (N,) u8.  With a step dx

@@ -151,6 +151,10 @@ KERNELS = (
      "lm_reproj_reduce", "lm_reproj_reduce_torch",
      "visual_sgraphs_tpu_torch/csrc/lm_reproj.cu",
      "visual_sgraphs_tpu/optim/solve.py:85"),
+    ("lm_reproj_plan", "visual_sgraphs_tpu_torch.optim.lm_kernels",
+     "lm_reproj_plan", "lm_reproj_plan_torch",
+     "visual_sgraphs_tpu_torch/csrc/lm_reproj.cu",
+     "visual_sgraphs_tpu/optim/solve.py:85"),
     ("lm_reproj_cost", "visual_sgraphs_tpu_torch.optim.lm_kernels",
      "lm_reproj_cost", "lm_reproj_cost_torch",
      "visual_sgraphs_tpu_torch/csrc/lm_reproj.cu",
@@ -226,7 +230,8 @@ _ARGTYPES = {
     "vsg_freespace_components": [_VP, _I, _VP, _F, _I, _I] + [_VP] * 6,
     "vsg_sg_assemble": [_VP, _I, _VP, _I, _VP, _I, _VP, _I] + [_VP] * 7
                        + [_I] + [_VP] * 8 + [_F] * 5 + [_VP] * 3,
-    "vsg_lm_reproj_reduce": _ROWS + [_VP, _F, _I] + [_VP] * 10,
+    "vsg_lm_reproj_plan": [_VP, _VP, _I, _I, _VP, _VP, _VP],
+    "vsg_lm_reproj_reduce": _ROWS + [_VP, _F, _I] + [_VP] * 12,
     "vsg_lm_reproj_cost": _ROWS + [_VP] * 8 + [_I, _VP],
     "vsg_lm_inertial_assemble": _IMU + [_I, _VP, _VP, _I, _VP],
     "vsg_lm_inertial_cost": _IMU + [_VP, _I, _VP],
@@ -235,6 +240,12 @@ _ARGTYPES = {
     "vsg_rooms_walls": _ROOMS + [_F] * 4 + [_I] + [_VP] * 7,
     "vsg_rooms_freespace": _ROOMS + [_VP, _VP, _I] + [_F] * 5 + [_VP] * 7,
     "vsg_plane_assoc": [_PP, _PP, _PP] + [_I] * 5 + [_F] * 3 + [_VP],
+}
+
+# host-side plan queries: (argument types, return type)
+_QUERIES = {
+    "vsg_schur_scratch_bytes": ([_I, _I, _I], ctypes.c_longlong),
+    "vsg_lm_reproj_scratch_bytes": ([_I, _I], ctypes.c_longlong),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -322,6 +333,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, (argtypes, restype) in _QUERIES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
         lib.vsg_error_string.argtypes = [ctypes.c_int]
         lib.vsg_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -335,6 +350,11 @@ def call(name: str, *args) -> None:
     if rc != 0:
         msg = lib.vsg_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def query(name: str, *args) -> int:
+    """The value host-side plan query ``name`` returns (no launch)."""
+    return getattr(library(), name)(*args)
 
 
 def stream() -> int:

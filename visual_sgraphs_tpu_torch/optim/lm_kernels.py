@@ -10,12 +10,14 @@ preintegration, bias-walk and bias-prior factors, and a dense reduced
 system over at most the families [pose (6) | vel (3) | bg (3) | ba (3) |
 gdir (2) | scale (1)].  Three hand-written kernels carry an iteration:
 
-- K22a (``csrc/lm_reproj.cu``): ``lm_reproj_reduce`` linearises the
+- K22a (``csrc/lm_reproj.cu``): ``lm_reproj_plan`` groups the used rows
+  by landmark once a solve; ``lm_reproj_reduce`` then linearises the
   reprojection rows analytically (the left perturbation exp(xi) T of
-  ``se3_boxplus``), accumulates each landmark's Hxx, bx and its 3 x 6
-  blocks P per window slot, damps Hxx by lambda as ``_solve_step`` does and
-  reduces it into the pair sums sum B_a^T B_b (B = L^-1 P, Hxx = L L^T) and
-  their rhs, beside the undamped pose-diagonal blocks of H and g;
+  ``se3_boxplus``), landmark by landmark, accumulates each landmark's Hxx,
+  bx and its 3 x 6 blocks P per window slot, damps Hxx by lambda as
+  ``_solve_step`` does and reduces it into the pair sums sum B_a^T B_b (B =
+  L^-1 P, Hxx = L L^T) and their rhs, beside the undamped pose-diagonal
+  blocks of H and g, in one launch summed in an order fixed by the data;
   ``lm_reproj_cost`` back-substitutes the points at a step and sums the
   robust cost of the rows at the candidate;
 - K22b (``csrc/lm_inertial.cu``): ``lm_inertial_assemble`` adds the
@@ -199,8 +201,9 @@ class ReprojState(NamedTuple):
 
 
 def lm_reproj_reduce_torch(poses, pts, rows: ReprojRows, cam, bf, lam,
-                           D: int):
-    """Plain twin of K22a's linearise-and-reduce entry.  Returns (H (D, D)
+                           D: int, plan: ReprojPlan | None = None):
+    """Plain twin of K22a's linearise-and-reduce entry (``plan``, the
+    kernel's row grouping, is not needed here).  Returns (H (D, D)
     with the undamped pose-diagonal blocks sum w Jp^T Jp in its top-left
     6L x 6L corner, g (D,) with sum w Jp^T r, pairs (6L, 6L) = sum_n
     B_n^T B_n, rhs (6L,) = sum_n B_n^T c_n, state), where Hxx_n = sum w
@@ -254,6 +257,51 @@ def lm_reproj_reduce_torch(poses, pts, rows: ReprojRows, cam, bf, lam,
 
 
 lm_reproj_reduce_torch.cuda_calls = 0
+
+
+class ReprojPlan(NamedTuple):
+    """The used rows of a solve grouped by landmark, in row order (CSR)."""
+
+    ptr: torch.Tensor  # (N + 1,) int32 landmark n's rows: idx[ptr[n]:ptr[n+1]]
+    idx: torch.Tensor  # (M,) int32 row indices, -1 past ptr[N]
+
+
+def lm_reproj_plan_torch(rows: ReprojRows, N: int) -> ReprojPlan:
+    """Plain twin of K22a's plan: the rows with ``use`` and a landmark id
+    in [0, N), stably sorted by landmark."""
+    if rows.pt.is_cuda:
+        lm_reproj_plan_torch.cuda_calls += 1
+    M, dev = rows.pt.shape[0], rows.pt.device
+    pt = rows.pt.long()
+    key = torch.where(rows.use & (pt >= 0) & (pt < N), pt, N)
+    order = torch.sort(key, stable=True).indices
+    ptr = torch.zeros((N + 1,), dtype=torch.int64, device=dev)
+    ptr[1:] = torch.cumsum(torch.bincount(key, minlength=N + 1)[:N], 0)
+    idx = torch.where(torch.arange(M, device=dev) < ptr[N], order, -1)
+    return ReprojPlan(ptr.to(torch.int32), idx.to(torch.int32))
+
+
+lm_reproj_plan_torch.cuda_calls = 0
+
+
+def lm_reproj_plan(rows: ReprojRows, N: int) -> ReprojPlan:
+    """K22a's row plan (one launch of one CTA on CUDA tensors, the twin on
+    CPU tensors); built once a solve, as ``lm_reproj_plan_torch``."""
+    if rows.pt.device.type == "cpu":
+        return lm_reproj_plan_torch(rows, N)
+    cuda.require_cuda("lm_reproj_plan", rows.pt, rows.use)
+    if rows.pt.dtype != torch.int32 or rows.use.dtype != torch.bool:
+        raise ValueError("lm_reproj_plan: int32 ids, a bool mask")
+    M, dev = rows.pt.shape[0], rows.pt.device
+    ptr = torch.empty((N + 1,), dtype=torch.int32, device=dev)
+    idx = torch.empty((M,), dtype=torch.int32, device=dev)
+    cuda.call("vsg_lm_reproj_plan", cuda.ptr(rows.pt), cuda.ptr(rows.use), M,
+              N, cuda.ptr(ptr), cuda.ptr(idx), cuda.stream())
+    lm_reproj_plan.launches += 1
+    return ReprojPlan(ptr, idx)
+
+
+lm_reproj_plan.launches = 0
 
 
 def _reproj_cost(poses, pts, rows: ReprojRows, cam, bf):
@@ -316,26 +364,40 @@ class ReprojKernelState(NamedTuple):
 
     Linv: torch.Tensor  # (N, 6) packed lower inverse Cholesky factor
     c: torch.Tensor  # (N, 3)
-    P: torch.Tensor  # (N, L, 3, 6)
+    P: torch.Tensor  # (N, L, 3, 6), defined at the slots of ``mask``
     mask: torch.Tensor  # (N, (L + 31) // 32) int32: a bit an observing slot
 
 
-def lm_reproj_reduce(poses, pts, rows: ReprojRows, cam, bf, lam, D: int):
+@functools.lru_cache(maxsize=64)
+def _reduce_scratch_bytes(N: int, L: int) -> int:
+    return cuda.query("vsg_lm_reproj_scratch_bytes", N, L)
+
+
+def lm_reproj_reduce(poses, pts, rows: ReprojRows, cam, bf, lam, D: int,
+                     plan: ReprojPlan | None = None):
     """K22a's linearise-and-reduce entry on CUDA tensors (H, g, pairs,
-    rhs in float64), the twin on CPU tensors; as
-    ``lm_reproj_reduce_torch``."""
+    rhs in float64; one launch, bitwise equal from launch to launch), the
+    twin on CPU tensors; as ``lm_reproj_reduce_torch``.  ``plan`` is
+    ``lm_reproj_plan(rows, N)``, built here when not given."""
     if poses.device.type == "cpu":
         return lm_reproj_reduce_torch(poses, pts, rows, cam, bf, lam, D)
     args = _reproj_args(poses, pts, rows, cam, bf)
     _check_lam("lm_reproj_reduce", lam)
     L, N, dev = poses.shape[0], pts.shape[0], poses.device
+    part_bytes = _reduce_scratch_bytes(N, L)
+    if part_bytes < 0:
+        raise ValueError(f"lm_reproj_reduce: a window of {L} slots does "
+                         "not fit the kernel's shared accumulator")
+    if plan is None:
+        plan = lm_reproj_plan(rows, N)
+    cuda.require_cuda("lm_reproj_reduce", *plan)
     f64 = dict(dtype=torch.float64, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     H = torch.empty((D, D), **f64)
     g = torch.empty((D,), **f64)
     pairs = torch.empty((6 * L, 6 * L), **f64)
     rhs = torch.empty((6 * L,), **f64)
-    Hxx = torch.empty((N, 9), **f32)
+    part = torch.empty((part_bytes // 8,), **f64)
     st = ReprojKernelState(torch.empty((N, 6), **f32),
                            torch.empty((N, 3), **f32),
                            torch.empty((N, L, 3, 6), **f32),
@@ -343,9 +405,9 @@ def lm_reproj_reduce(poses, pts, rows: ReprojRows, cam, bf, lam, D: int):
                                        device=dev))
     ptr = cuda.ptr
     cuda.call("vsg_lm_reproj_reduce", *args, ptr(lam),
-              _eps(torch.float32), D, ptr(H), ptr(g), ptr(pairs), ptr(rhs),
-              ptr(Hxx), ptr(st.P), ptr(st.mask), ptr(st.Linv), ptr(st.c),
-              cuda.stream())
+              _eps(torch.float32), D, ptr(plan.ptr), ptr(plan.idx), ptr(H),
+              ptr(g), ptr(pairs), ptr(rhs), ptr(st.P), ptr(st.mask),
+              ptr(st.Linv), ptr(st.c), ptr(part), cuda.stream())
     lm_reproj_reduce.launches += 1
     return H, g, pairs, rhs, st
 
@@ -714,6 +776,8 @@ def optimize_reproj_inertial(red: Reduced, free, iters: int, pts=None,
     D = offsets(red)["D"]
     if bf is None and rows is not None:
         bf = torch.zeros((), dtype=dtype, device=free.device)
+    # the rows do not change across the solve: grouped once
+    plan = None if rows is None else lm_reproj_plan(rows, pts.shape[0])
 
     def cost_at(r: Reduced, p, state=None, dx=None):
         acc = None
@@ -736,7 +800,7 @@ def optimize_reproj_inertial(red: Reduced, free, iters: int, pts=None,
         H = g = pairs = rhs_p = state = None
         if rows is not None:
             H, g, pairs, rhs_p, state = lm_reproj_reduce(
-                r.pose, p, rows, cam, bf, lam, D)
+                r.pose, p, rows, cam, bf, lam, D, plan)
         if imu is not None:
             H, g = lm_inertial_assemble(imu, r, H, g)
         dx, cand = lm_solve(H, g, pairs, rhs_p, free, lam, r)

@@ -16,7 +16,9 @@ in ``csrc/schur.cu`` on CUDA tensors and run the plain twins
 tensors.  The twins scatter per observation and per ordered observation
 pair with ``index_add_`` (the reference's one-hot contractions, a layout
 chosen for the TPU's matrix unit, cost O(n L^2) and are too slow at the
-global BA's L = 128 on a CPU); the kernels reduce per landmark.
+global BA's L = 128 on a CPU); the kernel reduces per landmark in one
+launch, as a Gram sum: each landmark's observations of one slot collapse
+into P_s, B_s = chol(Hxx)^-1 P_s^T and the pair blocks are B_s^T B_t.
 
 ``global_ba_sharded`` is the one-device global BA of loop closing
 (LoopClosing::RunGlobalBundleAdjustment): every keyframe and point of the
@@ -27,6 +29,7 @@ the reduced system per iteration) is not ported yet.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -309,18 +312,21 @@ def solve_damped(S, rhs, free, lam: float):
 def _check_tables(name, kf_tab, uvr_tab, val_tab):
     if kf_tab.dtype != torch.int32 or val_tab.dtype != torch.bool:
         raise ValueError(f"{name}: kf_tab must be int32 and val_tab bool")
-    if kf_tab.shape[1] > 32:
-        raise ValueError(f"{name}: at most 32 observations per landmark "
-                         f"(one warp lane each), got {kf_tab.shape[1]}")
     if uvr_tab is not None and uvr_tab.dtype != torch.float32:
         raise ValueError(f"{name}: uvr_tab must be float32")
+
+
+@functools.lru_cache(maxsize=64)
+def _schur_scratch_bytes(n: int, O: int, L: int) -> int:
+    return cuda.query("vsg_schur_scratch_bytes", n, O, L)
 
 
 def local_reduced_system(kf_pose, pts, kf_tab, uvr_tab, val_tab, cam_K, bf,
                          lam: float, huber: float):
     """Reduced camera system (kernel K8 on CUDA tensors, the twin on CPU).
     ``bf`` is a 0-d tensor on the tables' device.  Same results as
-    ``local_reduced_system_torch``."""
+    ``local_reduced_system_torch``; on the card one launch, summed in an
+    order fixed by the data (bitwise equal from launch to launch)."""
     if kf_pose.device.type == "cpu":
         return local_reduced_system_torch(kf_pose, pts, kf_tab, uvr_tab,
                                           val_tab, cam_K, bf, lam, huber)
@@ -339,15 +345,16 @@ def local_reduced_system(kf_pose, pts, kf_tab, uvr_tab, val_tab, cam_K, bf,
     bx = torch.empty((n, 3), dtype=torch.float32, device=dev)
     W = torch.empty((n, O, 6, 3), dtype=torch.float32, device=dev)
     cost = torch.empty((), dtype=torch.float32, device=dev)
-    # pair blocks (6L)^2 | Hpp blocks L*36 | rhs 6L | cost
-    acc = torch.empty((36 * L * L + 36 * L + 6 * L + 1,),
-                      dtype=torch.float32, device=dev)
+    # the kernel's partial sums (or, at large L, its staged landmarks and
+    # per-slot lists); every output is written by the kernel
+    scratch = torch.empty((_schur_scratch_bytes(n, O, L),),
+                          dtype=torch.uint8, device=dev)
     cuda.call(
         "vsg_schur_reduce", cuda.ptr(kf_pose), cuda.ptr(pts),
         cuda.ptr(kf_tab), cuda.ptr(uvr_tab), cuda.ptr(val_tab),
         cuda.ptr(cam_K), cuda.ptr(bf), n, O, L, float(np.float32(lam)),
         float(np.float32(huber)), cuda.ptr(S), cuda.ptr(rhs), cuda.ptr(Hinv),
-        cuda.ptr(bx), cuda.ptr(W), cuda.ptr(cost), cuda.ptr(acc),
+        cuda.ptr(bx), cuda.ptr(W), cuda.ptr(cost), cuda.ptr(scratch),
         cuda.stream())
     local_reduced_system.launches += 1
     return S, rhs, Hinv, bx, W, cost

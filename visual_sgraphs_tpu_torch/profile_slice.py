@@ -10,6 +10,7 @@
     python -m visual_sgraphs_tpu_torch.profile_slice --kernel-times
     python -m visual_sgraphs_tpu_torch.profile_slice --track-ops
     python -m visual_sgraphs_tpu_torch.profile_slice --k20-sections
+    python -m visual_sgraphs_tpu_torch.profile_slice --schur-times PATH
 
 Runs the main path of ``main_path`` (640x480, 1000 features, 96
 ``orbit2`` frames) through ``SlamSystem.track_rgbd`` on the card (with
@@ -56,7 +57,16 @@ its library call's, the host ms of the tracking pass's and K6's wrappers
 ``--track-ops`` it counts the device operations of one tracking call
 (both passes) and of one pipeline scan batch on ``bench_slice``'s map
 (``track_ops``); with ``--k20-sections`` it reads K20's clock at its
-section boundaries (``selfcheck.vi_pose_sections``).
+section boundaries (``selfcheck.vi_pose_sections``).  With
+``--schur-times PATH`` it times the two landmark Schur reductions, K8
+(``dist_ba.local_reduced_system``: seeded at L = 11 and 128, and on the
+tables of ``bench_slice``'s 17th scene-graph BA call) and K22a's
+reduction (``lm_kernels.lm_reproj_reduce`` on ``inertial_slice``'s fourth
+VI local BA, and its last generic local BA), each with its CUDA-event
+and device ms, its device operations a call and whether three launches
+agree bitwise; the two windows are recorded into PATH (a ``torch.save``
+of plain tensors) when it does not exist, so that two trees are timed on
+the same operands.
 Prints one JSON line per result; needs a card.
 """
 
@@ -599,6 +609,105 @@ def k20_sections() -> None:
     _line("k20_sections", **r)
 
 
+def _record_schur_windows(path: str) -> None:
+    """The operands of ``bench_slice``'s 17th K8 call from a scene-graph BA
+    (96 frames) and of the K22a reductions of ``inertial_slice``'s fourth
+    VI local BA and last generic local BA (96 frames), saved as plain
+    tensors."""
+    from visual_sgraphs_tpu_torch import main_path, selfcheck
+    from visual_sgraphs_tpu_torch.optim import fast_ba
+    from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
+    out, seen = {}, {"calls": 0}
+    orig = fast_ba.local_reduced_system
+
+    def spy(*a, **kw):
+        seen["calls"] += 1
+        if seen["calls"] <= 17:
+            out["k8"] = [t.clone() for t in a[:7]]
+        return orig(*a, **kw)
+
+    scene, frames = main_path.frames("cuda", main_path.BENCH_FRAMES)
+    system = main_path.make_system(main_path.bench_config(scene), "cuda",
+                                   True)
+    fast_ba.local_reduced_system = spy
+    try:
+        for frame in frames[:96]:
+            main_path.feed(system, frame)
+        system.flush()
+    finally:
+        fast_ba.local_reduced_system = orig
+    del system
+    vi_scene, vi_frames = main_path.inertial_frames("cuda")
+    system = main_path.make_system(main_path.inertial_config(vi_scene),
+                                   "cuda", False)
+    with selfcheck.watch_lm_windows(system, which=4) as lm_seen:
+        for frame in vi_frames[:96]:
+            main_path.feed_inertial(system, frame)
+    problems = selfcheck.lm_problems(selfcheck.lm_windows(lm_seen))
+    for tag in ("vi", "lba"):
+        p = problems[tag]
+        out[tag] = dict(pose=p["red"].pose, pts=p["pts"], cam=p["cam"],
+                        bf=p["bf"], D=lmk.offsets(p["red"])["D"],
+                        **p["rows"]._asdict())
+    torch.save(out, path)
+
+
+def schur_times(path: str) -> None:
+    """K8 and K22a's reduction: CUDA-event and device ms, device
+    operations a call and launch-to-launch bitwise equality, on seeded
+    operands and on the windows recorded in ``path``."""
+    import inspect
+    import os
+    import subprocess
+    from visual_sgraphs_tpu_torch import cuda, selfcheck
+    from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
+    from visual_sgraphs_tpu_torch.parallel import dist_ba
+    cuda.build()
+    dev = torch.device("cuda")
+    if not os.path.exists(path):
+        _record_schur_windows(path)
+    rec = torch.load(path)
+
+    def measure(name, fn, **info):
+        first = fn()
+        again = [fn() for _ in range(3)]
+        flat = lambda o: [t for t in o if isinstance(t, torch.Tensor)]  # noqa
+        repro = all(torch.equal(a, b) for o in again
+                    for a, b in zip(flat(first), flat(o)))
+        prof = selfcheck.device_ops(fn)
+        _line("schur_times", name=name, ms=selfcheck.time_cuda(fn),
+              device_ms=selfcheck.device_time(fn), device_ops=prof["ops"],
+              profiled_device_ms=prof["device_ms"], bitwise_repro=repro,
+              **info)
+
+    kw = dict(lam=1e-4, huber=2.45)
+    for n, O, L in ((8192, 12, 11), (32768, 8, 128)):
+        args = selfcheck.schur_inputs(dev, n, O, L)
+        measure(f"K8@L{L}", lambda: dist_ba.local_reduced_system(*args, **kw),
+                n=n, O=O, L=L)
+    args = rec["k8"]
+    measure("K8@window", lambda: dist_ba.local_reduced_system(*args, **kw),
+            n=args[2].shape[0], O=args[2].shape[1], L=args[0].shape[0],
+            observed=int(args[4].any(dim=1).sum()))
+    with_plan = "plan" in inspect.signature(lmk.lm_reproj_reduce).parameters
+    for tag in ("vi", "lba"):
+        w = rec[tag]
+        rows = lmk.ReprojRows(*(w[k] for k in lmk.ReprojRows._fields))
+        N = w["pts"].shape[0]
+        lam = torch.full((), 1e-4, dtype=torch.float32, device=dev)
+        extra = (lmk.lm_reproj_plan(rows, N),) if with_plan else ()
+        measure(f"K22a@{tag}", lambda: lmk.lm_reproj_reduce(
+            w["pose"], w["pts"], rows, w["cam"], w["bf"], lam, w["D"],
+            *extra), L=w["pose"].shape[0], N=N, M=rows.slot.shape[0],
+            rows_used=int(rows.use.sum()), plan_given=with_plan)
+        if with_plan:
+            measure(f"K22a_plan@{tag}", lambda: lmk.lm_reproj_plan(rows, N))
+    _line("card", nvidia_smi=subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip())
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenegraph", action="store_true",
@@ -626,6 +735,9 @@ def main() -> None:
     ap.add_argument("--kernel-times", action="store_true",
                     help="K9, K6, K6's prior, K5's window matcher, the "
                     "tracking pass and K20: CUDA-event and device times")
+    ap.add_argument("--schur-times", metavar="PATH", default=None,
+                    help="K8 and K22a's reduction: times, device operations "
+                    "and bitwise repeats (windows recorded into PATH)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false")
@@ -640,6 +752,8 @@ def main() -> None:
         track_ops()
     elif args.k20_sections:
         k20_sections()
+    elif args.schur_times:
+        schur_times(args.schur_times)
     elif args.loop_runs:
         loop_spread(args.loop_runs)
     else:

@@ -795,14 +795,39 @@ def schur_inputs(device, n: int = 8192, O: int = 12, L: int = 11,
             torch.full((), bf, dtype=torch.float32, device=device))
 
 
-def check_schur(device, n: int = 8192, O: int = 12,
-                L: int = 11) -> list[dict]:
-    """K8 at n x O x L (the local BA's 8192 x 12 x 11 by default; L > 16
-    takes the kernel's global-atomics branch).  Reduction: every output
-    within SCHUR_TOL of the float64 twin's, relative to the output's
-    largest entry.  Back-substitution (given the same factors): within
+def _schur_work(args) -> tuple[int, int]:
+    """(bytes, operations) K8's reduction needs on ``args``, counted from
+    the data: the observed landmarks' table rows, points and outputs
+    (Hinv, bx, W), the poses and S, rhs; per valid observation its terms
+    (~620 flops), per ordered pair of a landmark's valid observations a 6x6
+    block (216), per observed landmark the 3x3 inverse and factor (~60)."""
+    T, X, kf_tab, uvr, val = args[:5]
+    n, O = kf_tab.shape
+    L = T.shape[0]
+    n_obs = val.sum(dim=1).to(torch.float64)
+    seen = int((n_obs > 0).sum())
+    row = 12 + O * (4 + 12 + 1) + 36 + 12 + O * 72
+    nbytes_ = (seen * row + nbytes(T, *args[5:])
+               + 4 * (36 * L * L + 6 * L + 1))
+    ops = int(620 * float(n_obs.sum()) + 216 * float((n_obs * n_obs).sum())
+              + 60 * seen)
+    return nbytes_, ops
+
+
+def check_schur(device, n: int = 8192, O: int = 12, L: int = 11,
+                args=None, name: str = "schur_reduce",
+                back: bool = True) -> list[dict]:
+    """K8 at n x O x L (the local BA's 8192 x 12 x 11 by default; L > ~52
+    takes the kernel's cooperative branch) on ``schur_inputs`` or the
+    given operands ``args`` (a real window's tables, with empty rows).
+    Reduction: every output within SCHUR_TOL of the float64 twin's,
+    relative to the output's largest entry; S and rhs bitwise equal over
+    repeated launches, S exactly symmetric; the device operations of a
+    call reported (``device_ops``).
+    Back-substitution (given the same factors; with ``back``): within
     REL_TOL of the float32 twin."""
-    args = schur_inputs(device, n, O, L)
+    if args is None:
+        args = schur_inputs(device, n, O, L)
     kw = dict(lam=1e-4, huber=2.45)
     kout = dist_ba.local_reduced_system(*args, **kw)
     tout = dist_ba.local_reduced_system_torch(*args, **kw)
@@ -813,21 +838,30 @@ def check_schur(device, n: int = 8192, O: int = 12,
     errs = {nm: _rel(k.double(), t) for nm, k, t in zip(names, kout, t64)}
     twin_errs = {nm: _rel(k.double(), t)
                  for nm, k, t in zip(names, tout, t64)}
+    again = [dist_ba.local_reduced_system(*args, **kw) for _ in range(3)]
+    repro = all(torch.equal(x, y) for o in again for x, y in zip(kout, o))
+    symmetric = bool(torch.equal(kout[0], kout[0].T))
+    prof = device_ops(lambda: dist_ba.local_reduced_system(*args, **kw))
     ms = time_cuda(lambda: dist_ba.local_reduced_system(*args, **kw))
+    dev_ms = device_time(lambda: dist_ba.local_reduced_system(*args, **kw))
     plain = time_cuda(lambda: dist_ba.local_reduced_system_torch(*args, **kw))
     T, X, kf_tab, uvr, val = args[:5]
     n, O = kf_tab.shape
     L = T.shape[0]
-    n_obs = val.sum(dim=1).to(torch.float64)
-    # per observation: projection, Jacobians, Hxx / bx, W, Hinv W^T, Hpp,
-    # gp (~620 flops); per ordered pair of valid observations a 6x6 block
-    # W_a (Hinv W_b^T) (216); per landmark the 3x3 inverse (~60)
-    ops = int(620 * n * O + 216 * float((n_obs * n_obs).sum()) + 60 * n)
-    reduce = dict(name="schur_reduce", max_abs_err=max(errs.values()),
+    work_bytes, ops = _schur_work(args)
+    reduce = dict(name=name, max_abs_err=max(errs.values()),
                   rel_errs_vs_f64=errs, twin_rel_errs_vs_f64=twin_errs,
+                  n=n, O=O, L=L,
+                  observed_landmarks=int(val.any(dim=1).sum()),
+                  bitwise_repro=repro, symmetric=symmetric,
+                  device_ops=prof["ops"], device_ms=dev_ms,
                   ms=ms, plain_ms=plain,
-                  ok=max(errs.values()) <= SCHUR_TOL,
-                  bytes=nbytes(*args, *kout), ops=ops)
+                  # the profiler's count is reported, not gated: in a long
+                  # process it can lose the launches of ctypes kernels
+                  ok=max(errs.values()) <= SCHUR_TOL and repro and symmetric,
+                  bytes=work_bytes, ops=ops)
+    if not back:
+        return [reduce]
 
     Hinv, bx, W = tout[2], tout[3], tout[4]
     dx6 = torch.from_numpy(np.random.default_rng(1).normal(
@@ -840,11 +874,36 @@ def check_schur(device, n: int = 8192, O: int = 12,
                                                     dx6))
     plain = time_cuda(lambda: dist_ba.back_substitute_torch(
         Hinv, bx, W, kf_tab, val, dx6))
-    back = dict(name="schur_backsub", max_abs_err=err, ms=ms, plain_ms=plain,
+    back = dict(name=name.replace("schur_reduce", "schur_backsub"),
+                max_abs_err=err, ms=ms, plain_ms=plain,
                 ok=err <= REL_TOL,
                 bytes=nbytes(Hinv, bx, W, kf_tab, val, dx6, kd),
                 ops=36 * n * O + 18 * n)
     return [reduce, back]
+
+
+@contextlib.contextmanager
+def watch_schur(which: int = 17):
+    """Inside the block, record the operands of the ``which``-th call of
+    K8's reduction from the windowed BAs (``optim/fast_ba.py``; the last
+    one if fewer ran) as copies: (poses, points, kf_tab, uvr_tab, val_tab,
+    cam_K, bf).  The copies cost device time: watch a run that is not
+    timed."""
+    from visual_sgraphs_tpu_torch.optim import fast_ba
+    out = {"calls": 0}
+    orig = fast_ba.local_reduced_system
+
+    def spy(*args, **kw):
+        out["calls"] += 1
+        if out["calls"] <= which:
+            out["operands"] = tuple(t.clone() for t in args[:7])
+        return orig(*args, **kw)
+
+    fast_ba.local_reduced_system = spy
+    try:
+        yield out
+    finally:
+        fast_ba.local_reduced_system = orig
 
 
 def keyframe_inputs(device, frame: int, h: int = 480, w: int = 640,
@@ -1339,7 +1398,8 @@ def check_pgo(device, inputs=None, iters: int = 20) -> list[dict]:
 
 def check_schur_gba(device) -> list[dict]:
     """K8 at the global BA's shape (L = 128 keyframes, n = 32768 points,
-    O = 8: the global-atomics branch), reported under its own names."""
+    O = 8: the kernel's cooperative branch), reported under its own
+    names."""
     out = check_schur(device, n=32768, O=8, L=128)
     for r in out:
         r["name"] += "@L128"
@@ -2239,10 +2299,12 @@ def check_lm_reproj(problems: dict, tag: str = "vi") -> list[dict]:
     p32, p64 = problems[tag], problems[tag + "64"]
     D = lmk.offsets(p32["red"])["D"]
     eps = lmk._eps(torch.float32)
+    N32 = p32["pts"].shape[0]
+    plan = lmk.lm_reproj_plan(p32["rows"], N32)
 
     def reduce(p, fn, dtype, lam=LM_LAM):
         return fn(p["red"].pose, p["pts"], p["rows"], p["cam"], p["bf"],
-                  _lam(p["pts"], dtype, lam), D)
+                  _lam(p["pts"], dtype, lam), D, plan)
 
     errs, twin32, undamped, first = {}, {}, {}, None
     for lam in LM_LAMS:
@@ -2285,6 +2347,24 @@ def check_lm_reproj(problems: dict, tag: str = "vi") -> list[dict]:
     e_cost = abs(float(ck) - float(ct)) / max(abs(float(ct)), 1e-30)
     rows = p32["rows"]
     M, L, N = rows.slot.shape[0], p32["red"].pose.shape[0], p32["pts"].shape[0]
+    # bitwise from launch to launch, one device operation a call given
+    # the solve's plan
+    again = [reduce(p32, lmk.lm_reproj_reduce, torch.float32)
+             for _ in range(3)]
+    repro = all(torch.equal(x, y) for o in again for x, y in
+                zip(k[:4] + (k[4].Linv, k[4].c, k[4].mask),
+                    o[:4] + (o[4].Linv, o[4].c, o[4].mask)))
+    prof = device_ops(lambda: reduce(p32, lmk.lm_reproj_reduce,
+                                     torch.float32))
+    reduce_dev = device_time(lambda: reduce(p32, lmk.lm_reproj_reduce,
+                                            torch.float32))
+    plan_t = lmk.lm_reproj_plan_torch(rows, N)
+    plan_ok = all(torch.equal(x, y) for x, y in zip(plan, plan_t))
+    plan_prof = device_ops(lambda: lmk.lm_reproj_plan(rows, N))
+    plan_ms = time_cuda(lambda: lmk.lm_reproj_plan(rows, N))
+    plan_dev = device_time(lambda: lmk.lm_reproj_plan(rows, N))
+    plan_plain = time_cuda(lambda: lmk.lm_reproj_plan_torch(rows, N))
+    plan_lib = time_cuda(lambda: torch.sort(rows.pt, stable=True))
     n_use = int(rows.use.sum())
     npres = _present_slots(rows, L, N)
     pairs_work = int((npres * npres).sum())
@@ -2304,10 +2384,20 @@ def check_lm_reproj(problems: dict, tag: str = "vi") -> list[dict]:
     n_obs_slot = int(npres.sum())
     e_red = max(errs.values())
     return [
+        dict(name=_tagged("lm_reproj_plan", tag, "vi"),
+             max_abs_err=0.0 if plan_ok else float("inf"), ok=plan_ok,
+             M=M, N=N, rows_used=int(plan_t.ptr[-1]),
+             device_ops=plan_prof["ops"], device_ms=plan_dev, ms=plan_ms,
+             plain_ms=plan_plain, library_ms=plan_lib,
+             # ids and flags read, ptr and idx written; a count, a fill
+             # and a sort step a used row (~10 operations)
+             bytes=5 * M + 4 * (N + 1) + 4 * M, ops=10 * M),
         dict(name=_tagged("lm_reproj_reduce", tag, "vi"), max_abs_err=e_red,
              # leaving out the damping would fail the check at lambda = 1
              ok=e_red <= LM_REDUCE_TOL
-             and undamped[LM_LAMS[-1]] > 10 * LM_REDUCE_TOL,
+             and undamped[LM_LAMS[-1]] > 10 * LM_REDUCE_TOL and repro,
+             bitwise_repro=repro, device_ops=prof["ops"],
+             device_ms=reduce_dev,
              rel_err_S_rhs={str(k_): v for k_, v in errs.items()},
              twin32_rel_err={str(k_): v for k_, v in twin32.items()},
              undamped_rel_err={str(k_): v for k_, v in undamped.items()},

@@ -11,8 +11,11 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    build/kernels/libvsg_kernels.so, with the seconds it took;
 3. every kernel against its plain PyTorch twin on the card, at the main
    path's shapes (K1's resize chain, one launch a pyramid, over a batch
-   of 8 frames and over one frame as the serial path extracts it, and
-   K1's blur and K3 keypoint selection over the batch, K7 compaction on
+   of 8 frames and over one frame as the serial path extracts it, K1's
+   blur over the batch, K3 keypoint selection over every level of the
+   batch in one launch (all five fields bitwise, also on one frame, on
+   tie-heavy quantised scores and at 240x320 / 600 features), K7
+   compaction on
    32768-entry masks, K9
    observation grouping at the local and global BAs' shapes and on an
    empty list, an all-invalid one, heavy overflow and valid out-of-range
@@ -30,13 +33,16 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    BA's L = 11 and the global BA's L = 128 (the reduction one launch a
    call, S and rhs bitwise equal from launch to launch, S exactly
    symmetric), and after phase 4e on the tables of one of
-   ``bench_slice``'s scene-graph BAs, K10 BoW rows, K11 database
+   ``bench_slice``'s scene-graph BAs (the back-substitution there against
+   the float64 twin within the reduction's tolerance), K10 BoW rows, K11
+   database
    query, K12 depth cloud + voxel downsample, K13 weighted RANSAC, K14
    plane statistics; K5's NN-ratio entry, K15's Sim3 half, K16 and K19 on
    the loop path's map saved at its first accepted loop, after phase 4;
    K15's PnP half on seeded picks, and again on phase 5's
-   relocalisation; the inertial path's K18 IMU preintegration on a 64-row
-   sample window, K20 per-frame visual-inertial solve on a rendered
+   relocalisation; the inertial path's K18 (preintegration, merge and
+   the dead-reckoned pose prediction in one launch) on a 64-row sample
+   window, K20 per-frame visual-inertial solve on a rendered
    frame's 1000 keypoints and K6's pose-prior branch at 4096 matches,
    at weights 10, 1e5 and 1e9, where the dominant prior must move the
    pose by >= 0.01 as it moves the twin's; K17a free-space carving on a
@@ -110,7 +116,9 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
       IMU samples, fps over frames 48-127, gated on the IMU initialising,
       >= 90 % tracked, ATE <= 0.08 m (the reference's visual-inertial
       gate), >= 8 keyframes, K18, K20, K6's prior branch and K22a / K22b
-      / K22c launched and no generic LM linearisation on the card; the VI
+      / K22c launched and no generic LM linearisation on the card, K18
+      once a frame with samples, no ``predict_state`` on the card and no
+      pack a frame (only a keyframe's two); the VI
       local BA's ms a keyframe and the initialisation's ms an attempt
       printed;
    j. path (i) again over a 16-frame window after the IMU initialised
@@ -127,7 +135,8 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
       counted readbacks;
    the kernel launch counters are zeroed just before each of (a), (b),
    (d), (f), (h), (i) and (k) and read just after (K1's resize chain
-   must launch once an ORB extraction on each; on (a), (b), (d) and (i)
+   and K3 must launch once an ORB extraction on each, and K3's plain
+   level selection never on the card; on (a), (b), (d) and (i)
    the tracking pass once a tracking pose solve, K6 or its prior branch,
    and tracking no standalone window matcher); the JSON kernel table's
    launches are (d)'s, (i)'s for the inertial path's K18, K20, K6's
@@ -227,17 +236,28 @@ def _check_sg_launches(tag: str, cnt: dict, freespace: bool = False) -> None:
            "passes")
 
 
-def _check_pyramid_launches(tag: str, cnt: dict, orb_cfg) -> None:
-    """K1's resize chain launches once an ORB extraction (a frame on the
-    serial path, a batch on the pipeline) and K3 once a budgeted level of
-    each."""
-    from visual_sgraphs_tpu_torch.features.orb import level_budgets
-    from visual_sgraphs_tpu_torch.slam.frame import orb_params
-    levels = sum(b > 0 for b in level_budgets(orb_params(orb_cfg)))
+def _check_pyramid_launches(tag: str, cnt: dict) -> None:
+    """K1's resize chain and K3 launch once an ORB extraction (a frame on
+    the serial path, a batch on the pipeline; K3 for every budgeted level
+    of it), and no plain K3 level selection runs on CUDA tensors."""
+    from visual_sgraphs_tpu_torch.features import orb
     n = cnt["pyramid_resize"][0]
-    _check(n > 0 and cnt["detect_level"][0] == levels * n,
+    plain = orb.detect_level_torch.cuda_calls
+    _check(n > 0 and cnt["detect_level"][0] == n and not plain,
            f"{tag}: K1's chain launched {n} times for "
-           f"{cnt['detect_level'][0]} K3 launches ({levels} levels)")
+           f"{cnt['detect_level'][0]} K3 launches; {plain} plain level "
+           "selections on the card")
+
+
+def _reset_plain_counts() -> None:
+    """Zero the kernel counts and the plain functions' counts of calls on
+    CUDA tensors that ``cuda.counts`` does not hold."""
+    from visual_sgraphs_tpu_torch import cuda
+    from visual_sgraphs_tpu_torch.features import orb
+    from visual_sgraphs_tpu_torch.inertial import preintegration
+    cuda.reset_counts()
+    orb.detect_level_torch.cuda_calls = 0
+    preintegration.predict_state.cuda_calls = 0
 
 
 @contextlib.contextmanager
@@ -264,6 +284,31 @@ def _match_window_callers():
     finally:
         for m in bound:
             m.match_window = orig
+
+
+@contextlib.contextmanager
+def _card_packs():
+    """Inside the block, count the calls of ``preintegration.pack`` on one
+    (unbatched) preintegration on the card by the calling function: every
+    module's binding of ``pack`` goes through a spy."""
+    from visual_sgraphs_tpu_torch.inertial import preintegration
+    orig = preintegration.pack
+    seen = collections.Counter()
+
+    def spy(pre):
+        if pre.dV.is_cuda and pre.dV.dim() == 1:
+            seen[sys._getframe(1).f_code.co_name] += 1
+        return orig(pre)
+
+    bound = [m for m in list(sys.modules.values())
+             if m is not None and getattr(m, "pack", None) is orig]
+    for m in bound:
+        m.pack = spy
+    try:
+        yield seen
+    finally:
+        for m in bound:
+            m.pack = orig
 
 
 def _check_track_launches(tag: str, cnt: dict, callers) -> None:
@@ -501,6 +546,8 @@ def main() -> None:
         *selfcheck.check_front_end_small(device)])
     _check(checks["detect_level@240x320"]["padded_levels"] >= 1,
            "K3 at 240x320: no level shorter than its budget")
+    _check(checks["detect_level@720x1280"]["max_candidates"] > 1024,
+           "K3 at 720x1280: no level past 1024 candidates")
     # K15's PnP half on seeded picks of six distinct matches, where every
     # hypothesis is well posed, so every output is compared (phase 5 checks
     # it again on the loop path's map, where repeated picks occur)
@@ -526,8 +573,8 @@ def main() -> None:
                             ("scenegraph_slice", sg_cfg, True)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        cuda.reset_counts()
         system = main_path.make_system(c, device, with_sg)
+        _reset_plain_counts()
         t0 = time.perf_counter()
         with _match_window_callers() as callers:
             perf = _drive(system, frames)
@@ -551,7 +598,7 @@ def main() -> None:
         _check(acc["ate_m"] < 0.05, f"{tag}: ATE {acc['ate_m']:.4f} m")
         _check(all(v[1] == 0 for v in counts[tag].values()),
                f"{tag}: a twin ran on CUDA tensors: {counts[tag]}")
-        _check_pyramid_launches(tag, counts[tag], c.orb)
+        _check_pyramid_launches(tag, counts[tag])
         _check_track_launches(tag, counts[tag], callers)
         if with_sg:
             _check(extra["n_planes"] >= 2,
@@ -587,7 +634,7 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     system = main_path.make_system(bench_cfg, device, True)
     bench_watch = _watch_loops(system)
-    cuda.reset_counts()
+    _reset_plain_counts()
     t0 = time.perf_counter()
     with _match_window_callers() as callers:
         perf = _drive(system, bench_frames, warm=main_path.BENCH_WARMUP)
@@ -621,8 +668,7 @@ def main() -> None:
            f"{sg_sum['sign_duplicates']}")
     _check(perf["readbacks_per_frame"] < 1.0,
            f"bench_slice: {perf['readbacks_per_frame']} readbacks a frame")
-    _check_pyramid_launches("bench_slice", counts["bench_slice"],
-                            bench_cfg.orb)
+    _check_pyramid_launches("bench_slice", counts["bench_slice"])
     _check(all(v[1] == 0 for v in counts["bench_slice"].values()),
            f"bench_slice: a twin ran on CUDA tensors: "
            f"{counts['bench_slice']}")
@@ -664,7 +710,7 @@ def main() -> None:
     # most of them empty)
     _check("operands" in schur_seen, "bench_sync_debug: no K8 call")
     report(selfcheck.check_schur(device, args=schur_seen["operands"],
-                                 name="schur_reduce@window", back=False))
+                                 name="schur_reduce@window", back="f64"))
     sg_cfg_b = bench_cfg.scenegraph
     report([selfcheck.check_plane_assoc(
         device, *assoc_seen["operands"],
@@ -677,7 +723,7 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     system = main_path.make_system(loop_cfg, device, True)
     watch = _watch_loops(system)
-    cuda.reset_counts()
+    _reset_plain_counts()
     t0 = time.perf_counter()
     perf = _drive(system, frames)
     total_s = time.perf_counter() - t0
@@ -701,7 +747,7 @@ def main() -> None:
     # the reference itself reads 0.285 m here (PERF.md): a guard against
     # a gross fault, not a fidelity gate
     _check(acc["ate_m"] <= 0.35, f"loop_slice: ATE {acc['ate_m']:.4f} m")
-    _check_pyramid_launches("loop_slice", counts["loop_slice"], loop_cfg.orb)
+    _check_pyramid_launches("loop_slice", counts["loop_slice"])
     _check(all(v[1] == 0 for v in counts["loop_slice"].values()),
            f"loop_slice: a twin ran on CUDA tensors: {counts['loop_slice']}")
     _check(all(v[0] > 0 for k, v in counts["loop_slice"].items()
@@ -769,11 +815,12 @@ def main() -> None:
         if "frame" not in init and system.imu.initialized:
             init.update(frame=i, n_kf=system.n_kf_host)
 
+    from visual_sgraphs_tpu_torch.inertial import preintegration
     from visual_sgraphs_tpu_torch.optim import graph
-    cuda.reset_counts()
+    _reset_plain_counts()
     graph.linearize_batch.cuda_calls = 0
     t0 = time.perf_counter()
-    with _match_window_callers() as callers:
+    with _match_window_callers() as callers, _card_packs() as packs:
         perf = _drive(system, vi_frames, warm=main_path.INERTIAL_WARMUP,
                       feed=main_path.feed_inertial, after=note_init)
     total_s = time.perf_counter() - t0
@@ -813,13 +860,29 @@ def main() -> None:
     _check(all(counts["inertial_slice"][k][0] > 0 for k in INERTIAL_PATH),
            f"inertial_slice: a kernel was not launched: "
            f"{counts['inertial_slice']}")
-    _check_pyramid_launches("inertial_slice", counts["inertial_slice"],
-                            vi_cfg.orb)
+    _check_pyramid_launches("inertial_slice", counts["inertial_slice"])
     _check(all(v[1] == 0 for v in counts["inertial_slice"].values()),
            f"inertial_slice: a twin ran on CUDA tensors: "
            f"{counts['inertial_slice']}")
     _check(generic_lin == 0, f"inertial_slice: {generic_lin} generic "
            "linearisations on the card")
+    # K18 once a frame with samples, the prediction made in that launch
+    # (no predict_state on the card), no pack a frame: K20 takes the
+    # frame window K18 wrote; a keyframe packs its fresh window
+    # (``on_keyframe``) and binds the last one (``set_kf_imu``)
+    n_pred = preintegration.predict_state.cuda_calls
+    _line("inertial_slice_k18", launches=counts["inertial_slice"]["preint"][0],
+          frames_with_samples=system.imu.windows,
+          predict_state_on_card=n_pred, packs_on_card=dict(packs),
+          keyframes=len(kfs))
+    _check(counts["inertial_slice"]["preint"][0] == system.imu.windows > 0
+           and n_pred == 0
+           and set(packs) <= {"on_keyframe", "set_kf_imu"}
+           and max(packs.values(), default=0) <= len(kfs) + 1,
+           f"inertial_slice: K18 {counts['inertial_slice']['preint'][0]} "
+           f"launches for {system.imu.windows} frames with samples, "
+           f"{n_pred} predict_state calls and packs {dict(packs)} on the "
+           f"card for {len(kfs)} keyframes")
     _check_track_launches("inertial_slice", counts["inertial_slice"],
                           callers)
     del system
@@ -868,7 +931,7 @@ def main() -> None:
             maint_frames.append(i)
         seen["launches"] = n
 
-    cuda.reset_counts()
+    _reset_plain_counts()
     t0 = time.perf_counter()
     perf = _drive(system, frames, after=note_maint)
     total_s = time.perf_counter() - t0
@@ -903,7 +966,7 @@ def main() -> None:
     _check(sg_sum["n_planes"] >= 2 and not sg_sum["sign_duplicates"],
            f"freespace_slice: planes {sg_sum['n_planes']}, sign duplicates "
            f"{sg_sum['sign_duplicates']}")
-    _check_pyramid_launches("freespace_slice", cnt, fs_cfg.orb)
+    _check_pyramid_launches("freespace_slice", cnt)
     _check(all(v[1] == 0 for v in cnt.values()),
            f"freespace_slice: a twin ran on CUDA tensors: {cnt}")
     _check(all(v[0] > 0 for k, v in cnt.items()
@@ -1140,6 +1203,8 @@ def main() -> None:
             ("schur_backsub@L128", "schur_backsub", "dist_ba.py:395",
              bench_watch["gba_k8"]),
             ("schur_reduce@window", "schur_reduce", "dist_ba.py:148",
+             local_k8),
+            ("schur_backsub@window", "schur_backsub", "dist_ba.py:257",
              local_k8)):
         r = checks[name]
         kernels.append(dict(

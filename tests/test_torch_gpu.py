@@ -261,24 +261,69 @@ def front_end_checks(device):
     grays = selfcheck.batch_frames(device)
     out = selfcheck.check_pyramid(grays) + [selfcheck.check_detect(grays)]
     out += selfcheck.check_front_end_small(device)
+    out += selfcheck.check_detect_cases(device)
     return {r["name"]: r for r in out}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", [
     n + size for size in ("", "@240x320")
-    for n in ("pyramid_resize", "gaussian_blur", "detect_level")])
+    for n in ("pyramid_resize", "gaussian_blur", "detect_level")]
+    + ["detect_level@B1", "detect_level@ties", "detect_level@720x1280",
+       "detect_level@cell48"])
 def test_front_end_kernels(front_end_checks, name):
     # K1 (resize, blur) within 1e-4 of the twins (expected bitwise) with no
-    # FAST keypoint flipped downstream; K3 exact; on a batch of 8 frames at
-    # 480x640 / 1000 features and at 240x320 / 600 features, where K3's
-    # deepest levels are shorter than their budget
+    # FAST keypoint flipped downstream; K3 bitwise on all five fields (rc,
+    # response, valid, uv, level) in one launch a call, bitwise from launch
+    # to launch; on a batch of 8 frames at 480x640 / 1000 features, on one
+    # frame, on the batch's tie-heavy quantised scores, at 240x320 / 600
+    # features, where K3's deepest levels are shorter than their budget, on
+    # a 720x1280 frame (1840 candidates on level 0) and with 48-pixel cells
     r = front_end_checks[name]
     assert r["ok"], r
     if name.startswith("pyramid_resize"):
         assert sum(r["fast_keypoints_differ_per_level"]) == 0, r
+    if name.startswith("detect_level"):
+        assert r["launches_per_call"] == 1 and r["bitwise_repro"], r
     if name == "detect_level@240x320":
         assert r["padded_levels"] >= 1, r
+    if name == "detect_level@720x1280":
+        assert r["max_candidates"] > 1024, r
+
+
+def _extract_orb_one_k3_launch(img):
+    from visual_sgraphs_tpu_torch.features import orb
+    cuda.reset_counts()
+    k = orb.extract_orb(img)
+    counts = cuda.counts()
+    t = orb.extract_orb(img.cpu())
+    assert counts["detect_level"] == (1, 0)
+    assert counts["pyramid_resize"] == (1, 0)
+    assert counts["orb_desc"] == (8, 0) and counts["fast_nms"] == (8, 0)
+    for f in ("uv", "response", "level", "valid"):
+        assert torch.equal(getattr(k, f).cpu(), getattr(t, f)), f
+    assert float((k.angle.cpu() - t.angle).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 8])
+def test_extract_orb_one_k3_launch(device, B):
+    # extract_orb on the card: K3 launches once, K1's chain once, K2, K1's
+    # blur and K4 once a level; the selected keypoints (uv, response,
+    # level, valid) equal to the extraction on the CPU twins of the same
+    # frames, the angles within 1e-5 rad (atan2 on two devices; the
+    # descriptors, which follow the angles, are held bitwise given the
+    # same angles by test_orb_desc_kernel)
+    grays = selfcheck.batch_frames(device, B=B)
+    _extract_orb_one_k3_launch(grays if B > 1 else grays[0])
+
+
+@pytest.mark.gpu
+def test_extract_orb_720x1280(device):
+    # the same at 720x1280 (1840 candidates on level 0, past a fixed
+    # 1024-candidate table)
+    _extract_orb_one_k3_launch(
+        selfcheck.batch_frames(device, B=1, h=720, w=1280)[0])
 
 
 @pytest.fixture(scope="module", params=[(480, 640), (240, 320)],
@@ -357,8 +402,10 @@ def inertial_checks(device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["preint", "vi_pose", "pose_gn_prior"])
 def test_inertial_kernels(inertial_checks, name):
-    # K18 within 1e-5 of each field's largest entry (the covariance 1e-4),
-    # the integration time exactly; K20 with the inlier count exact, pose
+    # K18 (one launch, with and without the pose prediction) within 1e-5
+    # of each field's largest entry (the covariance 1e-4), the integration
+    # time exactly, the predicted pose and velocity within 1e-5, bitwise
+    # from launch to launch; K20 with the inlier count exact, pose
     # and biases within 1e-4, velocity within 1e-3 m/s; K6's prior branch
     # within 1e-4 at the main path's weight 10, at 1e5 and at 1e9, where
     # the prior must move the pose by >= 0.01 as it moves the twin's
@@ -376,6 +423,7 @@ def test_inertial_path_on_card_matches_cpu(device):
     # frame
     from visual_sgraphs_tpu_torch import main_path
     from visual_sgraphs_tpu_torch.config import CapacityConfig
+    from visual_sgraphs_tpu_torch.inertial import preintegration
     from visual_sgraphs_tpu_torch.optim import graph
 
     scene, frames = main_path.inertial_frames("cpu", 72, 240, 320, "arc")
@@ -384,6 +432,7 @@ def test_inertial_path_on_card_matches_cpu(device):
     for dev in ("cuda", "cpu"):
         cuda.reset_counts()
         graph.linearize_batch.cuda_calls = 0
+        preintegration.predict_state.cuda_calls = 0
         system = main_path.make_system(cfg, dev, False)
         init = None
         for i, frame in enumerate(frames):
@@ -391,11 +440,14 @@ def test_inertial_path_on_card_matches_cpu(device):
             if init is None and system.imu.initialized:
                 init = i
         runs[dev] = (system.positions(), int(system.map.n_kf), init,
-                     cuda.counts(), graph.linearize_batch.cuda_calls)
+                     cuda.counts(), graph.linearize_batch.cuda_calls,
+                     preintegration.predict_state.cuda_calls)
     counts = runs["cuda"][3]
     assert runs["cuda"][4] == 0
     assert all(counts[k][0] > 0 for k in INERTIAL_ONLY), counts
     assert all(twin == 0 for _, twin in counts.values()), counts
+    # the prediction comes from K18's launch: no predict_state on the card
+    assert runs["cuda"][5] == 0
     assert runs["cuda"][2] is not None
     assert runs["cuda"][1:3] == runs["cpu"][1:3]
     assert np.abs(runs["cuda"][0] - runs["cpu"][0]).max() < 0.01

@@ -39,17 +39,17 @@ __device__ __forceinline__ int sample_index(float v) {
 
 __global__ void __launch_bounds__(32 * WARPS)
 orb_desc_kernel(const float* __restrict__ img, int h, int w,
-                const int* __restrict__ rc, int n_kp,
+                const int* __restrict__ rc, int n_kp, int stride,
                 const float* __restrict__ pattern,
                 const float* __restrict__ angle_in,
                 float* __restrict__ angle_out, uint8_t* __restrict__ desc) {
     __shared__ float patch[WARPS][SIZE * SIZE];
     // blockIdx.y: the frame of a batch (one level of each frame)
     img += (size_t)blockIdx.y * h * w;
-    rc += (size_t)blockIdx.y * n_kp * 2;
-    if (angle_in != nullptr) angle_in += (size_t)blockIdx.y * n_kp;
-    angle_out += (size_t)blockIdx.y * n_kp;
-    desc += (size_t)blockIdx.y * n_kp * 32;
+    rc += (size_t)blockIdx.y * stride * 2;
+    if (angle_in != nullptr) angle_in += (size_t)blockIdx.y * stride;
+    angle_out += (size_t)blockIdx.y * stride;
+    desc += (size_t)blockIdx.y * stride * 32;
     const int wib = threadIdx.x >> 5;
     const int kp = blockIdx.x * WARPS + wib;
     const int lane = threadIdx.x & 31;
@@ -115,14 +115,16 @@ orb_desc_kernel(const float* __restrict__ img, int h, int w,
 // img: (B, h, w) f32 blurred level of B frames; rc: (B, n_kp, 2) i32
 // (row, col); pattern: (256, 4) f32 (x1, y1, x2, y2); angle_in: (B, n_kp)
 // f32 or NULL (then the IC angle is computed); angle_out: (B, n_kp) f32;
-// desc: (B, n_kp, 32) u8.
+// desc: (B, n_kp, 32) u8; the frames of rc, angle_in, angle_out and desc
+// are `stride` keypoints apart (a level's rows of an extraction's arrays).
 VSG_API int vsg_orb_desc(const float* img, int B, int h, int w,
-                         const int* rc, int n_kp, const float* pattern,
+                         const int* rc, int n_kp, int stride,
+                         const float* pattern,
                          const float* angle_in, float* angle_out,
                          uint8_t* desc, cudaStream_t stream) {
     if (n_kp == 0 || B == 0) return 0;
     const int blocks = (n_kp + WARPS - 1) / WARPS;
     orb_desc_kernel<<<dim3(blocks, B), 32 * WARPS, 0, stream>>>(
-        img, h, w, rc, n_kp, pattern, angle_in, angle_out, desc);
+        img, h, w, rc, n_kp, stride, pattern, angle_in, angle_out, desc);
     return (int)cudaGetLastError();
 }

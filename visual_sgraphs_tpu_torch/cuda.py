@@ -51,7 +51,7 @@ KERNELS = (
      "fast_nms_torch", "visual_sgraphs_tpu_torch/csrc/fast.cu",
      "visual_sgraphs_tpu/features/fast.py:36"),
     ("detect_level", "visual_sgraphs_tpu_torch.features.orb",
-     "detect_level", "detect_level_torch",
+     "detect_levels", "detect_levels_torch",
      "visual_sgraphs_tpu_torch/csrc/detect.cu",
      "visual_sgraphs_tpu/features/orb.py:90"),
     ("orb_desc", "visual_sgraphs_tpu_torch.features.orb", "orb_describe",
@@ -129,7 +129,7 @@ KERNELS = (
      "pgo_cost_torch", "visual_sgraphs_tpu_torch/csrc/pgo.cu",
      "visual_sgraphs_tpu/optim/solve.py:69"),
     ("preint", "visual_sgraphs_tpu_torch.inertial.preintegration",
-     "preintegrate_merge", "preintegrate_merge_torch",
+     "preint_frame", "preint_frame_torch",
      "visual_sgraphs_tpu_torch/csrc/preint.cu",
      "visual_sgraphs_tpu/inertial/preintegration.py:62"),
     ("vi_pose", "visual_sgraphs_tpu_torch.inertial.pipeline",
@@ -195,8 +195,9 @@ _ARGTYPES = {
     "vsg_blur": [_VP, _VP, _VP, _I, _I, _I, _VP],
     "vsg_pyramid": [_VP, _VP, _I, _VP, _PI] + [_I] * 4 + [_VP],
     "vsg_fast_nms": [_VP, _VP, _VP, _I, _I, _I, _VP],
-    "vsg_detect_level": [_VP] + [_I] * 5 + [_F] + [_VP] * 6,
-    "vsg_orb_desc": [_VP, _I, _I, _I, _VP, _I, _VP, _VP, _VP, _VP, _VP],
+    "vsg_detect_levels": [_PP, _PI, ctypes.POINTER(ctypes.c_float)]
+                         + [_I] * 4 + [_F] + [_VP] * 6,
+    "vsg_orb_desc": [_VP, _I, _I, _I, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP],
     "vsg_compact": [_VP, _I, _I, _VP, _VP],
     "vsg_group_obs": [_VP] * 4 + [_I] * 8 + [_VP] * 7,
     "vsg_match_window": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
@@ -206,7 +207,7 @@ _ARGTYPES = {
                       + [_VP] * 11,
     "vsg_pose_gn": [_VP] * 7 + [_I] * 6 + [_F] * 4 + [_VP, _F, _VP, _VP,
                                                         _VP],
-    "vsg_preint": [_VP, _VP, _I, _VP, _VP, _F, _F, _VP, _VP],
+    "vsg_preint": [_VP, _VP, _I, _VP, _VP, _F, _F] + [_VP] * 5,
     "vsg_vi_pose": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _I] + [_VP] * 8
                    + [_F, _F, _I, _VP, _VP, _VP],
     "vsg_vi_pose_sections": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _I]

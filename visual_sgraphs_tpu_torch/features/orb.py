@@ -3,22 +3,29 @@
 Port of ``visual_sgraphs_tpu/features/orb.py``:
 
 - per-level FAST score + NMS is kernel K2 (``features/fast.py``);
-- ``detect_level`` (K3: per-32x32-cell top-2, then per-level top-budget)
-  is the kernel in ``csrc/detect.cu``, with the plain twin
+- keypoint selection (K3: per-32x32-cell top-2, then per-level
+  top-budget) is the kernel in ``csrc/detect.cu``: ``detect_levels``
+  selects every budgeted level of an extraction in one launch, straight
+  into the extraction's concatenated arrays (``detect_level`` is the same
+  kernel on one level), with the plain twin ``detect_levels_torch`` over
   ``detect_level_torch``, whose stable descending sorts reproduce
   ``lax.top_k``'s lower-index-first tie order;
 - ``orb_describe`` is kernel K4 (IC angle over the r=15 disc + steered
   BRIEF-256 from the blurred level, ``csrc/orb_desc.cu``) with the plain
-  twin ``orb_describe_torch``.
+  twin ``orb_describe_torch``; it reads a level's rows of the
+  concatenated keypoints and writes its rows of the angles and
+  descriptors in place.
 
 The BRIEF pattern is the reference's seeded numpy pattern, drawn with the
 same numpy call.  All keypoint tensors are fixed capacity with validity
-masks.  ``extract_orb`` takes one frame or a (B, H, W) batch: every
-kernel of the front end (K1-K4) launches once per level for the batch.
+masks.  ``extract_orb`` takes one frame or a (B, H, W) batch: K1's resize
+chain and K3 launch once an extraction, K2, K1's blur and K4 once a level,
+each for the whole batch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import NamedTuple
@@ -148,37 +155,126 @@ def detect_level_torch(score: torch.Tensor, budget: int, params: OrbParams):
 detect_level_torch.cuda_calls = 0
 
 
+class LevelKeypoints(NamedTuple):
+    """Every budgeted level's selected keypoints, concatenated in level
+    order (N = the budgets' sum; leading batch dimensions as the
+    scores')."""
+
+    rc: torch.Tensor  # (..., N, 2) int32 (row, col) on the keypoint's level
+    response: torch.Tensor  # (..., N) FAST score
+    valid: torch.Tensor  # (..., N) bool
+    uv: torch.Tensor  # (..., N, 2) float32 level-0 pixel (x, y)
+    level: torch.Tensor  # (..., N) int32
+
+
+def detect_levels_torch(scores, budgets, params: OrbParams) -> LevelKeypoints:
+    """Plain twin of K3 over an extraction: ``detect_level_torch`` on each
+    level with a positive budget (``scores[lv]``, (H_lv, W_lv) or
+    (B, H_lv, W_lv)), the level-0 pixels float32(c) * float32(scale ** lv)
+    and the level indices, concatenated in level order."""
+    if any(s is not None and s.is_cuda for s in scores):
+        detect_levels_torch.cuda_calls += 1
+    out = {k: [] for k in LevelKeypoints._fields}
+    for lv, (score, budget) in enumerate(zip(scores, budgets)):
+        if budget <= 0:
+            continue
+        rc, resp, valid = detect_level_torch(score, budget, params)
+        out["rc"].append(rc)
+        out["response"].append(resp)
+        out["valid"].append(valid)
+        out["uv"].append(torch.stack([rc[..., 1].to(torch.float32),
+                                      rc[..., 0].to(torch.float32)],
+                                     dim=-1) * (params.scale**lv))
+        out["level"].append(torch.full(resp.shape, lv, dtype=torch.int32,
+                                       device=resp.device))
+    dim = out["response"][0].dim() - 1
+    return LevelKeypoints(**{k: torch.cat(v, dim=dim)
+                             for k, v in out.items()})
+
+
+detect_levels_torch.cuda_calls = 0
+
+
+def detect_levels(scores, budgets, params: OrbParams) -> LevelKeypoints:
+    """Keypoint selection on every level with a positive budget of one
+    extraction (``scores[lv]``: (H_lv, W_lv) or (B, H_lv, W_lv) float32
+    FAST scores; levels without a budget may be None), in
+    ``lax.top_k``'s order, into the concatenated arrays of
+    ``LevelKeypoints``: kernel K3 (one launch; the levels' descriptors a
+    by-value kernel parameter) on CUDA tensors, the plain twin on CPU
+    tensors."""
+    live = [(lv, s, b) for lv, (s, b) in enumerate(zip(scores, budgets))
+            if b > 0]
+    if live[0][1].device.type == "cpu":
+        return detect_levels_torch(scores, budgets, params)
+    lead = live[0][1].shape[:-2]
+    cuda.require_cuda("detect_levels", *(s for _, s, _ in live))
+    if any(s.dtype != torch.float32 or s.dim() not in (2, 3)
+           or s.shape[:-2] != lead for _, s, _ in live):
+        raise ValueError("detect_levels: expected float32 (H, W) or "
+                         "(B, H, W) scores of one batch")
+    B = int(np.prod(lead, dtype=np.int64))
+    n_out = sum(b for _, _, b in live)
+    dev = live[0][1].device
+    rc = torch.empty((*lead, n_out, 2), dtype=torch.int32, device=dev)
+    resp = torch.empty((*lead, n_out), dtype=torch.float32, device=dev)
+    valid = torch.empty((*lead, n_out), dtype=torch.bool, device=dev)
+    uv = torch.empty((*lead, n_out, 2), dtype=torch.float32, device=dev)
+    level = torch.empty((*lead, n_out), dtype=torch.int32, device=dev)
+    _detect_launch(live, B, n_out, params, rc, resp, valid, uv, level)
+    return LevelKeypoints(rc, resp, valid, uv, level)
+
+
+detect_levels.launches = 0
+
+
+# K3's candidates a level at most, two a cell (their keys and pixels fill
+# a CTA's 227 KB of shared memory; 3840x2160 at 32-pixel cells has 16320)
+K3_MAX_CANDIDATES = 232448 // 12
+
+
+def _detect_launch(live, B, n_out, params, rc, resp, valid, uv, level):
+    """One launch of K3 over ``live`` [(level, scores, budget)]."""
+    cs = params.cell_size
+    dims, off = [], 0
+    for lv, s, b in live:
+        h, w = s.shape[-2:]
+        if 2 * (-(-h // cs)) * (-(-w // cs)) > K3_MAX_CANDIDATES:
+            raise ValueError(f"detect_levels: more than {K3_MAX_CANDIDATES} "
+                             "candidates on a level")
+        dims += [h, w, b, off, lv]
+        off += b
+    cuda.call("vsg_detect_levels", cuda.ptr_array([s for _, s, _ in live]),
+              (ctypes.c_int * len(dims))(*dims),
+              (ctypes.c_float * len(live))(
+                  *(params.scale**lv for lv, _, _ in live)),
+              len(live), B, n_out, cs, float(params.min_thresh),
+              cuda.ptr(rc), cuda.ptr(resp), cuda.ptr(valid), cuda.ptr(uv),
+              cuda.ptr(level), cuda.stream())
+    detect_levels.launches += 1
+
+
 def detect_level(score: torch.Tensor, budget: int, params: OrbParams):
     """Keypoint selection on one level (``lax.top_k``'s order: value
     descending, lower index first) of an (H, W) score image or a
-    (B, H, W) batch: kernel K3 on CUDA tensors, the plain twin on CPU
-    tensors.  Returns (rc (..., budget, 2) int32, resp (..., budget),
-    valid (..., budget) bool)."""
+    (B, H, W) batch: kernel K3 with one level's descriptor on CUDA
+    tensors, the plain twin on CPU tensors.  Returns (rc (..., budget, 2)
+    int32, resp (..., budget), valid (..., budget) bool)."""
     if score.device.type == "cpu":
         return detect_level_torch(score, budget, params)
     cuda.require_cuda("detect_level", score)
     if score.dtype != torch.float32 or score.dim() not in (2, 3):
         raise ValueError("detect_level: expected 2D or 3D float32 scores")
-    h, w = score.shape[-2:]
-    B = score.numel() // (h * w)
-    cs = params.cell_size
-    n_cand = 2 * (-(-h // cs)) * (-(-w // cs))
-    dev = score.device
-    cand_v = torch.empty((B, n_cand), dtype=torch.float32, device=dev)
-    cand_rc = torch.empty((B, n_cand, 2), dtype=torch.int32, device=dev)
-    rc = torch.empty((B, budget, 2), dtype=torch.int32, device=dev)
-    resp = torch.empty((B, budget), dtype=torch.float32, device=dev)
-    valid = torch.empty((B, budget), dtype=torch.bool, device=dev)
-    cuda.call("vsg_detect_level", cuda.ptr(score), B, h, w, cs, budget,
-              float(params.min_thresh), cuda.ptr(cand_v), cuda.ptr(cand_rc),
-              cuda.ptr(rc), cuda.ptr(resp), cuda.ptr(valid), cuda.stream())
-    detect_level.launches += 1
     lead = score.shape[:-2]
-    return (rc.reshape(*lead, budget, 2), resp.reshape(*lead, budget),
-            valid.reshape(*lead, budget))
-
-
-detect_level.launches = 0
+    dev = score.device
+    rc = torch.empty((*lead, budget, 2), dtype=torch.int32, device=dev)
+    resp = torch.empty((*lead, budget), dtype=torch.float32, device=dev)
+    valid = torch.empty((*lead, budget), dtype=torch.bool, device=dev)
+    if budget > 0:
+        _detect_launch([(0, score, budget)], score.numel() // (
+            score.shape[-2] * score.shape[-1]), budget, params, rc, resp,
+            valid, None, None)
+    return rc, resp, valid
 
 
 def _patch_index(img: torch.Tensor, rc: torch.Tensor):
@@ -282,28 +378,53 @@ orb_describe_torch.cuda_calls = 0
 
 
 def orb_describe(blurred: torch.Tensor, rc: torch.Tensor,
-                 pattern: torch.Tensor, angle: torch.Tensor | None = None):
+                 pattern: torch.Tensor, angle: torch.Tensor | None = None,
+                 out: tuple[torch.Tensor, torch.Tensor] | None = None):
     """IC angle + steered BRIEF of one level's keypoints, of one frame
     ((H, W) level, (K, 2) rc) or a batch ((B, H, W), (B, K, 2)): kernel K4
-    on CUDA tensors, the plain twin on CPU tensors."""
+    on CUDA tensors, the plain twin on CPU tensors.  ``rc`` may be a
+    level's rows of the extraction's keypoints (a view whose frames are
+    ``S`` keypoints apart); with ``out`` = (angle (..., K), desc (..., K,
+    32)), views with the same frame stride, the results are written there
+    and returned."""
     if blurred.device.type == "cpu":
-        return orb_describe_torch(blurred, rc, pattern, angle)
-    tensors = [blurred, rc, pattern] + ([angle] if angle is not None else [])
-    cuda.require_cuda("orb_describe", *tensors)
+        a, d = orb_describe_torch(blurred, rc, pattern, angle)
+        if out is None:
+            return a, d
+        out[0].copy_(a)
+        out[1].copy_(d)
+        return out
+    lead = rc.shape[:-1]
+    n = rc.shape[-2]
+    if out is None:
+        out = (torch.empty(lead, dtype=torch.float32, device=blurred.device),
+               torch.empty((*lead, 32), dtype=torch.uint8,
+                           device=blurred.device))
+    angle_out, desc = out
+    cuda.require_cuda("orb_describe", blurred, pattern)
+    batched = blurred.dim() == 3
+    S = rc.stride(0) // 2 if batched else n
+    views = [(rc, 2), (angle_out, 1), (desc, 32)] + (
+        [(angle, 1)] if angle is not None else [])
     if (blurred.dtype != torch.float32 or rc.dtype != torch.int32
             or pattern.dtype != torch.float32 or pattern.shape != (256, 4)
+            or angle_out.dtype != torch.float32 or desc.dtype != torch.uint8
             or (angle is not None and angle.dtype != torch.float32)
-            or blurred.dim() not in (2, 3)
-            or rc.dim() != blurred.dim()):
-        raise ValueError("orb_describe: bad dtype or shape")
+            or blurred.dim() not in (2, 3) or rc.dim() != blurred.dim()
+            or rc.shape[-1] != 2 or angle_out.shape != lead
+            or desc.shape != (*lead, 32)
+            or (angle is not None and angle.shape != lead)
+            or any(t.get_device() != blurred.get_device()
+                   # a keypoint's row contiguous, keypoints adjacent, the
+                   # frames S keypoints apart
+                   or t.stride(-1) != 1 or (w > 1 and t.stride(-2) != w)
+                   or (batched and t.stride(0) != S * w)
+                   for t, w in views)):
+        raise ValueError("orb_describe: bad dtype, shape, device or strides")
     h, w = blurred.shape[-2:]
     B = blurred.numel() // (h * w)
-    n = rc.shape[-2]
-    lead = rc.shape[:-1]
-    angle_out = torch.empty(lead, dtype=torch.float32, device=blurred.device)
-    desc = torch.empty((*lead, 32), dtype=torch.uint8, device=blurred.device)
     cuda.call("vsg_orb_desc", cuda.ptr(blurred), B, h, w, cuda.ptr(rc), n,
-              cuda.ptr(pattern), cuda.ptr(angle), cuda.ptr(angle_out),
+              S, cuda.ptr(pattern), cuda.ptr(angle), cuda.ptr(angle_out),
               cuda.ptr(desc), cuda.stream())
     orb_describe.launches += 1
     return angle_out, desc
@@ -315,29 +436,27 @@ orb_describe.launches = 0
 def extract_orb(img: torch.Tensor, params: OrbParams = OrbParams()) -> Keypoints:
     """Full ORB extraction on a grayscale image (H, W) float32 [0, 255], or
     on a (B, H, W) batch (every field then gains a leading B; each frame's
-    result equals its extraction alone): K1-K4 launch once per level for
-    the whole batch."""
+    result equals its extraction alone): K1's resize chain, K2 on each
+    level, one K3 over every level into the concatenated keypoints, then
+    K1's blur and K4 on each level, writing the level's rows of the angles
+    and descriptors; every launch for the whole batch."""
     pattern = brief_pattern_tensor(params.pattern_seed, img.device)
     levels = build_pyramid(img, params.n_levels, params.scale)
     budgets = level_budgets(params)
-    lead = img.shape[:-2]
-    out = {k: [] for k in Keypoints._fields}
-    for lv, (level_img, budget) in enumerate(zip(levels, budgets)):
+    scores = [fast_nms(lv) if b > 0 else None
+              for lv, b in zip(levels, budgets)]
+    kp = detect_levels(scores, budgets, params)
+    angle = torch.empty(kp.response.shape, dtype=torch.float32,
+                        device=img.device)
+    desc = torch.empty((*kp.response.shape, 32), dtype=torch.uint8,
+                       device=img.device)
+    off = 0
+    for level_img, budget in zip(levels, budgets):
         if budget <= 0:
             continue
-        score = fast_nms(level_img)
-        rc, resp, valid = detect_level(score, budget, params)
-        blurred = gaussian_blur(level_img)
-        angle, desc = orb_describe(blurred, rc, pattern)
-        scale_f = params.scale**lv
-        uv = torch.stack([rc[..., 1].to(torch.float32),
-                          rc[..., 0].to(torch.float32)], dim=-1) * scale_f
-        out["uv"].append(uv)
-        out["response"].append(resp)
-        out["level"].append(torch.full((*lead, budget), lv,
-                                       dtype=torch.int32, device=img.device))
-        out["angle"].append(angle)
-        out["valid"].append(valid)
-        out["desc"].append(desc)
-    dim = len(lead)
-    return Keypoints(**{k: torch.cat(v, dim=dim) for k, v in out.items()})
+        rows = slice(off, off + budget)
+        orb_describe(gaussian_blur(level_img), kp.rc[..., rows, :], pattern,
+                     out=(angle[..., rows], desc[..., rows, :]))
+        off += budget
+    return Keypoints(uv=kp.uv, response=kp.response, level=kp.level,
+                     angle=angle, valid=kp.valid, desc=desc)

@@ -11,6 +11,12 @@ random walks.  ``pose_inertial_gn`` is kernel K20 (``csrc/vi_pose.cu``,
 one launch for the whole solve) on CUDA tensors and the plain twin
 ``pose_inertial_gn_torch`` on CPU tensors.
 
+Each frame with samples is one launch of K18 (``preint_frame``): the
+frame window, which the pipeline keeps packed for K20 (``frame_vec``),
+its merge into the keyframe window, kept packed too, and, once
+initialised, the dead-reckoned prediction (``predict_state``'s), which
+``predict`` returns; ``predict_state`` itself is the CPU twin's.
+
 The host keeps float32 mirrors of the frame's and the keyframe window's
 integration times, summed in sample order as the preintegration sums them
 on the device, so neither the bias-walk weights nor the keyframe window's
@@ -35,7 +41,9 @@ from visual_sgraphs_tpu_torch.inertial.preintegration import (
     Preintegrated,
     identity_preint,
     pack,
-    preintegrate_merge,
+    predict_state,  # noqa: F401  (the reference's pipeline holds it)
+    preint_frame,
+    unpack,
 )
 
 # static capacity of one inter-frame preintegration window (~7 samples a
@@ -50,22 +58,6 @@ def _gravity(dtype, device):
     return torch.cat([torch.zeros((2,), dtype=dtype, device=device),
                       torch.full((1,), -GRAVITY, dtype=dtype,
                                  device=device)])
-
-
-def predict_state(T_cw_i, v_i, pre: Preintegrated, T_bc):
-    """IMU dead-reckoned next pose and velocity: p_j = p_i + v Δt + ½ g Δt²
-    + R_wb ΔP, v_j = v_i + g Δt + R_wb ΔV.  Returns (T_cw_j, v_j)."""
-    T_wb_i = lie.se3_inverse(lie.se3_multiply(T_bc, T_cw_i))
-    q_wb_i, p_i = T_wb_i[:4], T_wb_i[4:7]
-    R_wb_i = lie.quat_to_matrix(q_wb_i)
-    g = _gravity(T_cw_i.dtype, T_cw_i.device)
-    dt = pre.dt
-    p_j = p_i + v_i * dt + 0.5 * g * dt * dt + R_wb_i @ pre.dP
-    v_j = v_i + g * dt + R_wb_i @ pre.dV
-    q_wb_j = lie.quat_normalize(lie.quat_multiply(q_wb_i, pre.dR))
-    T_cw_j = lie.se3_multiply(lie.se3_inverse(T_bc), lie.se3_inverse(
-        lie.se3_from_rt(q_wb_j, p_j)))
-    return lie.se3_normalize(T_cw_j), v_j
 
 
 def _visual_velocity(T_cw_prev, T_cw_curr, T_bc, dt: float):
@@ -158,15 +150,18 @@ def _imu_rows(x, T_j, v_j, bg, ba, T_i, v_i, g_w, const):
 
 
 def pose_inertial_gn_torch(m, frame, slot_pt, T_j0, v_j0, T_i, v_i,
-                           pre: Preintegrated, T_bc, cam_K, cam_bf,
-                           walk: tuple, iters: int = 6):
+                           pre: Preintegrated | torch.Tensor, T_bc, cam_K,
+                           cam_bf, walk: tuple, iters: int = 6):
     """Plain twin of K20, the kernel's arithmetic step for step: the
     analytic reprojection rows, the 9 preintegration rows by forward-mode
     AD (``torch.func.jacfwd``), the 6 bias-walk rows; the normal equations
-    JᵀJ + 1e-6 I and Jᵀr assembled and solved in float64.  Returns
-    (T_j, v_j, bg, ba, n_inliers)."""
+    JᵀJ + 1e-6 I and Jᵀr assembled and solved in float64.  ``pre`` as
+    ``pose_inertial_gn`` takes it.  Returns (T_j, v_j, bg, ba,
+    n_inliers)."""
     if T_j0.is_cuda:
         pose_inertial_gn_torch.cuda_calls += 1
+    if isinstance(pre, torch.Tensor):
+        pre = unpack(pre)
     xw, uv_obs, ur_obs, obs_ok, has_d = _vi_observations(m, frame, slot_pt,
                                                          cam_bf)
     const = iinit.preint_const(pre)
@@ -209,10 +204,11 @@ pose_inertial_gn_torch.cuda_calls = 0
 
 
 def _vi_pose_args(m, frame, slot_pt, T_j0, v_j0, T_i, v_i,
-                  pre: Preintegrated, T_bc, cam_K, cam_bf, walk: tuple,
-                  iters: int):
+                  pre: Preintegrated | torch.Tensor, T_bc, cam_K, cam_bf,
+                  walk: tuple, iters: int):
     """K20's outputs (out (16,), n_inl) and its C arguments up to them."""
-    pre_vec = pack(pre).contiguous()
+    pre_vec = (pre if isinstance(pre, torch.Tensor)
+               else pack(pre)).contiguous()
     tensors = [m.pt_pos, m.pt_valid, frame.uv, frame.depth, frame.valid,
                slot_pt, T_j0, v_j0, T_i, v_i, pre_vec, T_bc, cam_K, cam_bf]
     cuda.require_cuda("pose_inertial_gn", *tensors)
@@ -233,10 +229,12 @@ def _vi_pose_args(m, frame, slot_pt, T_j0, v_j0, T_i, v_i,
 
 
 def pose_inertial_gn(m, frame, slot_pt, T_j0, v_j0, T_i, v_i,
-                     pre: Preintegrated, T_bc, cam_K, cam_bf, walk: tuple,
-                     iters: int = 6):
+                     pre: Preintegrated | torch.Tensor, T_bc, cam_K, cam_bf,
+                     walk: tuple, iters: int = 6):
     """The per-frame visual-inertial solve from (T_j0, v_j0) and the
     preintegration's biases, with the last frame's (T_i, v_i) held fixed;
+    ``pre`` the frame window, a ``Preintegrated`` or packed (PACKED,) as
+    K18 writes it (``ImuPipeline.frame_vec``: then nothing is packed);
     ``walk`` = (gyro, accel) bias-walk weights (``walk_info``).  Kernel
     K20 on CUDA tensors, the twin on CPU tensors.  Returns (T_j, v_j, bg,
     ba, n_inliers)."""
@@ -294,12 +292,25 @@ class ImuPipeline:
         zero3 = torch.zeros((3,), dtype=torch.float32, device=self.device)
         self._cur_bias_g = zero3
         self._cur_bias_a = zero3.clone()
-        self._since_kf = identity_preint(self._cur_bias_g, self._cur_bias_a)
+        # the keyframe window, packed as K18 writes it
+        self._since_kf_vec = pack(identity_preint(self._cur_bias_g,
+                                                  self._cur_bias_a))
         self._since_kf_dt = np.float32(0.0)  # host mirror of its dt
         self.frame_dt = np.float32(0.0)  # host mirror of the last frame's
         self.vel = zero3.clone()  # the current frame's velocity
         # the last frame's velocity: v_i of the per-frame solve
         self.vel_prev = None
+        # the last frame window, packed as K18 wrote it (K20 takes it)
+        self.frame_vec = None
+        # K18's prediction of the last preintegrated frame, with the pose
+        # it started from
+        self._pred = None
+        self.windows = 0  # frames preintegrated (K18 launches on the card)
+
+    @property
+    def _since_kf(self) -> Preintegrated:
+        """The keyframe window (views of the packed vector)."""
+        return unpack(self._since_kf_vec)
 
     def add_samples(self, omega, acc, t) -> None:
         """Queue raw samples (rad/s, m/s², s) arriving before the next
@@ -308,10 +319,21 @@ class ImuPipeline:
                             np.atleast_1d(t)):
             self._frame_samples.append((w, a, float(ti)))
 
-    def preintegrate_frame(self, t_frame: float) -> Preintegrated | None:
+    def preintegrate_frame(self, t_frame: float,
+                           T_cw_last=None) -> Preintegrated | None:
         """Integrate everything queued up to ``t_frame`` into one frame
-        window (K18), folded into the running keyframe window in the same
-        launch (Tracking::PreintegrateIMU).  None without samples."""
+        window, folded into the running keyframe window in the same launch
+        of K18 (Tracking::PreintegrateIMU); once initialised, the same
+        launch predicts the frame's pose and velocity from the window and
+        the last frame's pose ``T_cw_last``, which an initialised pipeline
+        needs (``predict`` returns the prediction).  None without
+        samples."""
+        if self.initialized and T_cw_last is None:
+            raise ValueError("ImuPipeline.preintegrate_frame: an "
+                             "initialised pipeline predicts from the last "
+                             "frame's pose: pass T_cw_last")
+        self._pred = None
+        self.frame_vec = None
         take = [s for s in self._frame_samples if s[2] <= t_frame]
         self._frame_samples = [s for s in self._frame_samples
                                if s[2] > t_frame]
@@ -325,12 +347,16 @@ class ImuPipeline:
         if self.device.type == "cuda":
             # pinned and asynchronous: no host synchronisation
             samples = samples.pin_memory().to(self.device, non_blocking=True)
-        pre, self._since_kf = preintegrate_merge(
-            self._since_kf, samples, self._cur_bias_g, self._cur_bias_a,
-            self.cfg.noise_gyro, self.cfg.noise_acc)
+        pose = (T_cw_last, self.vel, self.T_bc) if self.initialized else None
+        self.frame_vec, self._since_kf_vec, pred = preint_frame(
+            self._since_kf_vec, samples, self._cur_bias_g, self._cur_bias_a,
+            self.cfg.noise_gyro, self.cfg.noise_acc, pose)
+        if pred is not None:
+            self._pred = (T_cw_last, pred)
+        self.windows += 1
         self.frame_dt = dt_sum
         self._since_kf_dt = np.float32(self._since_kf_dt + dt_sum)
-        return pre
+        return unpack(self.frame_vec)
 
     def on_keyframe(self, kf: int) -> None:
         """Bind the accumulated keyframe window to slot ``kf`` and restart
@@ -338,7 +364,8 @@ class ImuPipeline:
         self.state = vi_ba.set_kf_imu(
             self.state, kf, self.vel, self._cur_bias_g, self._cur_bias_a,
             self._since_kf, float(self._since_kf_dt) > 1e-4)
-        self._since_kf = identity_preint(self._cur_bias_g, self._cur_bias_a)
+        self._since_kf_vec = pack(identity_preint(self._cur_bias_g,
+                                                  self._cur_bias_a))
         self._since_kf_dt = np.float32(0.0)
 
     def try_initialize(self, system) -> bool:
@@ -394,11 +421,18 @@ class ImuPipeline:
 
     def predict(self, T_cw_last, pre: Preintegrated | None):
         """The incoming frame's predicted pose; None before
-        initialisation or without samples."""
+        initialisation or without samples.  The prediction K18 made in
+        ``preintegrate_frame`` from ``T_cw_last``; raises when there is
+        none from that pose."""
         if not self.initialized or pre is None:
             return None
+        if self._pred is None or self._pred[0] is not T_cw_last:
+            raise ValueError("ImuPipeline.predict: no prediction from this "
+                             "pose; preintegrate_frame(t, T_cw_last) makes "
+                             "it")
         self.vel_prev = self.vel
-        T_pred, self.vel = predict_state(T_cw_last, self.vel, pre, self.T_bc)
+        T_pred, self.vel = self._pred[1]
+        self._pred = None
         return T_pred
 
     def correct_velocity(self, T_cw_prev, T_cw_curr, dt: float) -> None:
@@ -422,8 +456,10 @@ class ImuPipeline:
 
     def import_state(self, tree: dict) -> None:
         self.state = tree["state"]
-        self._since_kf = tree["since_kf"]
-        self._since_kf_dt = np.float32(self._since_kf.dt.cpu())
+        self._since_kf_vec = pack(tree["since_kf"]).contiguous()
+        self._since_kf_dt = np.float32(tree["since_kf"].dt.cpu())
+        self._pred = None
+        self.frame_vec = None
         self.vel = tree["vel"]
         self._cur_bias_g = tree["bias_g"]
         self._cur_bias_a = tree["bias_a"]

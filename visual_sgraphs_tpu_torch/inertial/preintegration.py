@@ -5,16 +5,21 @@ reference's ``IMU::Preintegrated``, ImuTypes.cc): the per-sample update of
 (ΔR, ΔV, ΔP), the 9x9 covariance propagation A Σ Aᵀ + B Ση Bᵀ / dt and
 the five bias Jacobians, in float32 as the reference integrates.
 
-``preintegrate_merge`` integrates one frame window of up to
-``FRAME_IMU_CAP`` samples and folds it into a running keyframe-to-keyframe
-window in the same call: kernel K18 (``csrc/preint.cu``, one launch) on
-CUDA tensors, the plain twin ``preintegrate_merge_torch`` (the
-reference's scan, then ``merge``) on CPU tensors.
+``preint_frame`` integrates one frame window of up to ``FRAME_IMU_CAP``
+samples, folds it into a running keyframe-to-keyframe window and, given
+the last frame's pose and velocity, makes the dead-reckoned prediction
+(``predict_state``) from the frame window, all in one call: kernel K18
+(``csrc/preint.cu``, one launch) on CUDA tensors, the plain twin
+``preint_frame_torch`` (the reference's scan, ``merge`` and
+``predict_state``) on CPU tensors.  ``preintegrate_merge`` is the same
+kernel for ``Preintegrated`` operands.
 
 A ``Preintegrated`` crosses the kernel boundary packed as one float32
 vector of ``PACKED`` entries (``pack`` / ``unpack``; ``unpack`` returns
-views).  Samples cross as one (T, 8) float32 table
-[ωx ωy ωz ax ay az dt valid].
+views): the keyframe window goes in packed and the kernel writes the
+frame window and the merged window packed, so a caller that keeps the
+keyframe window packed packs nothing per frame.  Samples cross as one
+(T, 8) float32 table [ωx ωy ωz ax ay az dt valid].
 """
 
 from __future__ import annotations
@@ -191,36 +196,117 @@ def preintegrate_merge_torch(since: Preintegrated, samples, bias_g, bias_a,
 preintegrate_merge_torch.cuda_calls = 0
 
 
+def predict_state(T_cw_i, v_i, pre: Preintegrated, T_bc):
+    """IMU dead-reckoned next pose and velocity: p_j = p_i + v Δt + ½ g Δt²
+    + R_wb ΔP, v_j = v_i + g Δt + R_wb ΔV.  Returns (T_cw_j, v_j).  Plain
+    torch: on the card K18 makes it (``preint_frame`` with ``pose``)."""
+    if T_cw_i.is_cuda:
+        predict_state.cuda_calls += 1
+    T_wb_i = lie.se3_inverse(lie.se3_multiply(T_bc, T_cw_i))
+    q_wb_i, p_i = T_wb_i[:4], T_wb_i[4:7]
+    R_wb_i = lie.quat_to_matrix(q_wb_i)
+    # (0, 0, -g) made on the device: a Python number written into one
+    # element of a CUDA tensor is a synchronising host copy
+    g = torch.cat([torch.zeros((2,), dtype=T_cw_i.dtype,
+                               device=T_cw_i.device),
+                   torch.full((1,), -GRAVITY, dtype=T_cw_i.dtype,
+                              device=T_cw_i.device)])
+    dt = pre.dt
+    p_j = p_i + v_i * dt + 0.5 * g * dt * dt + R_wb_i @ pre.dP
+    v_j = v_i + g * dt + R_wb_i @ pre.dV
+    q_wb_j = lie.quat_normalize(lie.quat_multiply(q_wb_i, pre.dR))
+    T_cw_j = lie.se3_multiply(lie.se3_inverse(T_bc), lie.se3_inverse(
+        lie.se3_from_rt(q_wb_j, p_j)))
+    return lie.se3_normalize(T_cw_j), v_j
+
+
+predict_state.cuda_calls = 0
+
+# K18's output: the frame window, the merged window, the predicted pose
+# (7) and velocity (3)
+FRAME_OUT = 2 * PACKED + 10
+
+
+def _frame_views(out: torch.Tensor, predicted: bool):
+    pred = (out[2 * PACKED:2 * PACKED + 7], out[2 * PACKED + 7:])
+    return out[:PACKED], out[PACKED:2 * PACKED], pred if predicted else None
+
+
+def preint_frame_torch(since_vec, samples, bias_g, bias_a,
+                       noise_gyro: float = 1.7e-4,
+                       noise_acc: float = 2.0e-3, pose=None):
+    """Plain twin of K18: ``preintegrate_merge_torch`` on the packed
+    keyframe window, then, given ``pose`` = (T_cw, v, T_bc),
+    ``predict_state`` from the frame window.  Returns (window, merged)
+    packed and the prediction (T_cw_j, v_j) or None."""
+    if samples.is_cuda:
+        preint_frame_torch.cuda_calls += 1
+    win, merged = preintegrate_merge_torch(unpack(since_vec), samples,
+                                           bias_g, bias_a, noise_gyro,
+                                           noise_acc)
+    parts = [pack(win), pack(merged)]
+    if pose is not None:
+        parts += list(predict_state(pose[0], pose[1], win, pose[2]))
+    return _frame_views(torch.cat(parts), pose is not None)
+
+
+preint_frame_torch.cuda_calls = 0
+
+
+def preint_frame(since_vec, samples, bias_g, bias_a,
+                 noise_gyro: float = 1.7e-4, noise_acc: float = 2.0e-3,
+                 pose=None):
+    """One inertial frame: integrate a window of samples (a (T, 8) float32
+    table, T <= 64) at the biases ``bias_g`` / ``bias_a``, fold it into
+    the packed keyframe window ``since_vec`` (PACKED,) and, given ``pose``
+    = (T_cw, v, T_bc) (the last frame's pose and velocity, the body-camera
+    transform), predict the frame's pose and velocity from the window.
+    Returns (window, merged) packed and (T_cw_j, v_j) or None, views of
+    one output.  Kernel K18 (one launch) on CUDA tensors, the twin on CPU
+    tensors."""
+    if samples.device.type == "cpu":
+        return preint_frame_torch(since_vec, samples, bias_g, bias_a,
+                                  noise_gyro, noise_acc, pose)
+    poses = list(pose) if pose is not None else []
+    cuda.require_cuda("preint_frame", samples, bias_g, bias_a, since_vec,
+                      *poses)
+    if (samples.dtype != torch.float32 or samples.dim() != 2
+            or samples.shape[1] != 8 or samples.shape[0] > 64
+            or samples.data_ptr() % 16 or since_vec.shape != (PACKED,)
+            or since_vec.dtype != torch.float32
+            or any(t.dtype != torch.float32 for t in poses)
+            or [t.numel() for t in poses] not in ([], [7, 3, 7])):
+        raise ValueError("preint_frame: expected a 16-byte aligned (T <= 64, "
+                         "8) float32 sample table, a packed window and "
+                         "float32 (T_cw, v, T_bc)")
+    out = torch.empty((FRAME_OUT,), dtype=torch.float32,
+                      device=samples.device)
+    T_cw, vel, T_bc = poses if poses else (None, None, None)
+    cuda.call("vsg_preint", cuda.ptr(since_vec), cuda.ptr(samples),
+              samples.shape[0], cuda.ptr(bias_g), cuda.ptr(bias_a),
+              float(np.float32(noise_gyro * noise_gyro)),
+              float(np.float32(noise_acc * noise_acc)), cuda.ptr(T_cw),
+              cuda.ptr(vel), cuda.ptr(T_bc), cuda.ptr(out), cuda.stream())
+    preint_frame.launches += 1
+    return _frame_views(out, pose is not None)
+
+
+preint_frame.launches = 0
+
+
 def preintegrate_merge(since: Preintegrated, samples, bias_g, bias_a,
                        noise_gyro: float = 1.7e-4,
                        noise_acc: float = 2.0e-3):
     """Integrate one window of samples (a (T, 8) float32 table, T <= 64)
     at the biases ``bias_g`` / ``bias_a`` and fold it into ``since``.
-    Returns (window, merged) preintegrations.  Kernel K18 on CUDA tensors,
-    the twin on CPU tensors."""
+    Returns (window, merged) preintegrations.  Kernel K18 on CUDA tensors
+    (``preint_frame``), the twin on CPU tensors."""
     if samples.device.type == "cpu":
         return preintegrate_merge_torch(since, samples, bias_g, bias_a,
                                         noise_gyro, noise_acc)
-    since_vec = pack(since).contiguous()
-    cuda.require_cuda("preintegrate_merge", samples, bias_g, bias_a,
-                      since_vec)
-    if (samples.dtype != torch.float32 or samples.dim() != 2
-            or samples.shape[1] != 8 or samples.shape[0] > 64
-            or since_vec.shape != (PACKED,)):
-        raise ValueError("preintegrate_merge: expected a (T <= 64, 8) "
-                         "float32 sample table and one preintegration")
-    out = torch.empty((2, PACKED), dtype=torch.float32,
-                      device=samples.device)
-    cuda.call("vsg_preint", cuda.ptr(since_vec), cuda.ptr(samples),
-              samples.shape[0], cuda.ptr(bias_g), cuda.ptr(bias_a),
-              float(np.float32(noise_gyro * noise_gyro)),
-              float(np.float32(noise_acc * noise_acc)), cuda.ptr(out),
-              cuda.stream())
-    preintegrate_merge.launches += 1
-    return unpack(out[0]), unpack(out[1])
-
-
-preintegrate_merge.launches = 0
+    win, merged, _ = preint_frame(pack(since).contiguous(), samples, bias_g,
+                                  bias_a, noise_gyro, noise_acc)
+    return unpack(win), unpack(merged)
 
 
 def preintegrate(omega, acc, dt, valid, bias_g, bias_a,

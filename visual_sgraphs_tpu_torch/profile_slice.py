@@ -53,7 +53,11 @@ branch, K5's window matcher, the tracking pass (seeded operands, the
 coarse radius) and K20 at the main path's shapes and prints
 each one's CUDA-event and device times (``selfcheck.device_time``) beside
 its library call's, the host ms of the tracking pass's and K6's wrappers
-(``wrapper_host``), and the card's name and power limit.  With
+(``wrapper_host``), the device ms and device operations of K18 without
+and with the pose prediction, of the prediction alone, of K3 over a
+batch's 8 levels and one frame's (beside ``torch.topk`` of the cells)
+and of K22b's rows and cost (``inertial_front_times``), and the card's
+name and power limit.  With
 ``--track-ops`` it counts the device operations of one tracking call
 (both passes) and of one pipeline scan batch on ``bench_slice``'s map
 (``track_ops``); with ``--k20-sections`` it reads K20's clock at its
@@ -64,7 +68,9 @@ tables of ``bench_slice``'s 17th scene-graph BA call) and K22a's
 reduction (``lm_kernels.lm_reproj_reduce`` on ``inertial_slice``'s fourth
 VI local BA, and its last generic local BA), each with its CUDA-event
 and device ms, its device operations a call and whether three launches
-agree bitwise; the two windows are recorded into PATH (a ``torch.save``
+agree bitwise, and K8's back-substitution on the ``bench_slice`` window
+against the float64 twin (``_backsub_errors``); the two windows are
+recorded into PATH (a ``torch.save``
 of plain tensors) when it does not exist, so that two trees are timed on
 the same operands.
 Prints one JSON line per result; needs a card.
@@ -417,10 +423,95 @@ def kernel_times() -> None:
             "failed")})
     kernel_breakdown(dev)
     wrapper_host(dev)
+    inertial_front_times(dev)
     _line("card", nvidia_smi=subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip())
+
+
+def _times(name: str, fn, **info) -> None:
+    """One ``kernel_times`` line: CUDA-event ms, device ms and the device
+    operations of one call of ``fn``."""
+    from visual_sgraphs_tpu_torch import selfcheck
+    fn()
+    prof = selfcheck.device_ops(fn)
+    _line("kernel_times", name=name, ms=selfcheck.time_cuda(fn),
+          device_ms=selfcheck.device_time(fn), device_ops=prof["ops"],
+          profiled_device_ms=prof["device_ms"], **info)
+
+
+def inertial_front_times(dev) -> None:
+    """K18 on ``selfcheck.preint_inputs`` (frame 30 of the inertial row, 7
+    valid samples of 64) without and with the pose prediction, and the
+    prediction alone (``pipeline.predict_state``); K3 over the 8 levels of
+    a batch of 8 rendered 480x640 frames and of one frame (1000
+    features), beside ``torch.topk`` of the levels' cells; K22b's rows
+    and cost on the VI local BA problem of ``selfcheck.lm_window`` (9
+    edges, D = 150).  A tree without the fused entries (K18 with the
+    prediction, K3 over all levels) is timed through the calls its main
+    path makes instead: K18 then ``predict_state``, K3 once a level."""
+    from visual_sgraphs_tpu_torch import selfcheck
+    from visual_sgraphs_tpu_torch.config import ImuConfig
+    from visual_sgraphs_tpu_torch.core import lie
+    from visual_sgraphs_tpu_torch.features import fast, orb, pyramid
+    from visual_sgraphs_tpu_torch.inertial import pipeline
+    from visual_sgraphs_tpu_torch.inertial import preintegration as pre
+    from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
+    since, tab, bg, ba = selfcheck.preint_inputs(dev)
+    T_bc = torch.tensor(ImuConfig().T_bc, dtype=torch.float32, device=dev)
+    T_cw = lie.se3_exp(torch.tensor([0.3, -0.2, 1.1, 0.05, -0.4, 0.2],
+                                    device=dev))
+    v = torch.tensor([0.4, -0.1, 0.05], device=dev)
+    window = pre.preintegrate_merge(since, tab, bg, ba)[0]
+    n_valid = int((tab[:, 7] != 0).sum())
+    if hasattr(pre, "preint_frame"):
+        vec = pre.pack(since).contiguous()
+        k18 = lambda: pre.preint_frame(vec, tab, bg, ba)  # noqa: E731
+        k18_pred = lambda: pre.preint_frame(  # noqa: E731
+            vec, tab, bg, ba, pose=(T_cw, v, T_bc))
+    else:
+        k18 = lambda: pre.preintegrate_merge(since, tab, bg, ba)  # noqa
+        k18_pred = lambda: pipeline.predict_state(  # noqa: E731
+            T_cw, v, k18()[0], T_bc)
+    _times("K18", k18, valid_samples=n_valid)
+    _times("K18+prediction", k18_pred, valid_samples=n_valid)
+    _times("predict_state", lambda: pipeline.predict_state(
+        T_cw, v, window, T_bc))
+
+    params = orb.OrbParams()
+    budgets = orb.level_budgets(params)
+    cs = params.cell_size
+    grays = selfcheck.batch_frames(dev)
+    for tag, g in (("B8", grays), ("B1", grays[0])):
+        levels = pyramid.build_pyramid_torch(g, params.n_levels,
+                                             params.scale)
+        scores = [fast.fast_nms_torch(lv) for lv in levels]
+        if hasattr(orb, "detect_levels"):
+            k3 = lambda s=scores: orb.detect_levels(  # noqa: E731
+                s, budgets, params)
+        else:
+            k3 = lambda s=scores: [  # noqa: E731
+                orb.detect_level(x, b, params) for x, b in zip(s, budgets)]
+        cells = []
+        for sc in scores:
+            x = sc.reshape(-1, *sc.shape[-2:])
+            B, h, w = x.shape
+            ncy, ncx = -(-h // cs), -(-w // cs)
+            p = torch.nn.functional.pad(x, (0, ncx * cs - w, 0, ncy * cs - h))
+            cells.append(p.reshape(B, ncy, cs, ncx, cs).permute(
+                0, 1, 3, 2, 4).reshape(B, ncy * ncx, cs * cs).contiguous())
+        _times(f"K3@{tag}", k3)
+        _times(f"K3_library@{tag}", lambda c=cells: [
+            torch.topk(x, 2, dim=-1) for x in c])
+
+    vi = selfcheck.lm_problems(selfcheck.lm_window(dev))["vi"]
+    edges = int(vi["imu"].valid.sum())
+    _times("K22b_rows", lambda: lmk.lm_inertial_assemble(vi["imu"],
+                                                          vi["red"]),
+           edges=edges, D=lmk.offsets(vi["red"])["D"])
+    _times("K22b_cost", lambda: lmk.lm_inertial_cost(vi["imu"], vi["red"]),
+           edges=edges)
 
 
 def wrapper_host(dev, reps: int = 200) -> None:
@@ -652,6 +743,41 @@ def _record_schur_windows(path: str) -> None:
     torch.save(out, path)
 
 
+def _backsub_errors(args, seed: int = 1) -> dict:
+    """K8's back-substitution on a window's tables, given the factors of
+    K8's reduction there and seeded pose steps (1e-3): its error relative
+    to the largest point step against the float64 twin on the same
+    (float32) operands, and against the float32 twin; the error of the
+    whole chain (K8's reduction and back-substitution) against the float64
+    twin's; CUDA-event and device ms."""
+    from visual_sgraphs_tpu_torch import selfcheck
+    from visual_sgraphs_tpu_torch.parallel import dist_ba
+    kw = dict(lam=1e-4, huber=2.45)
+    kf_tab, val = args[2], args[4]
+    L = args[0].shape[0]
+    _, _, Hinv, bx, W, _ = dist_ba.local_reduced_system(*args, **kw)
+    f64 = [a.double() if a.is_floating_point() else a for a in args]
+    _, _, H64, b64, W64, _ = dist_ba.local_reduced_system_torch(*f64, **kw)
+    dx6 = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(L, 6)).astype(np.float32) * 1e-3).to(args[0].device)
+    fn = lambda: dist_ba.back_substitute(Hinv, bx, W, kf_tab, val, dx6)  # noqa
+    kd = fn().double()
+    same = dist_ba.back_substitute_torch(Hinv.double(), bx.double(),
+                                         W.double(), kf_tab, val,
+                                         dx6.double())
+    twin32 = dist_ba.back_substitute_torch(Hinv, bx, W, kf_tab, val, dx6)
+    chain = dist_ba.back_substitute_torch(H64, b64, W64, kf_tab, val,
+                                          dx6.double())
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    return dict(rel_err_vs_f64=rel(kd, same),
+                rel_err_vs_f32_twin=rel(kd, twin32.double()),
+                chain_rel_err_vs_f64=rel(kd, chain),
+                ms=selfcheck.time_cuda(fn), device_ms=selfcheck.device_time(fn))
+
+
 def schur_times(path: str) -> None:
     """K8 and K22a's reduction: CUDA-event and device ms, device
     operations a call and launch-to-launch bitwise equality, on seeded
@@ -689,6 +815,7 @@ def schur_times(path: str) -> None:
     measure("K8@window", lambda: dist_ba.local_reduced_system(*args, **kw),
             n=args[2].shape[0], O=args[2].shape[1], L=args[0].shape[0],
             observed=int(args[4].any(dim=1).sum()))
+    _line("schur_times", name="K8_backsub@window", **_backsub_errors(args))
     with_plan = "plan" in inspect.signature(lmk.lm_reproj_reduce).parameters
     for tag in ("vi", "lba"):
         w = rec[tag]

@@ -78,7 +78,10 @@ def device_time(fn: Callable[[], object], reps: int = 20) -> float:
     it while a ~1 ms sleep kernel ahead of it keeps the stream busy, so
     that every launch of ``fn`` is queued before the start event runs and
     the host's time to launch them is not counted (``time_cuda`` counts
-    it whenever the device would idle)."""
+    it whenever the device would idle).  Only while the host queues all
+    of ``fn`` inside the sleep: a sequence of ~200 small torch ops
+    outruns it, and the gaps between its launches are counted; for such
+    a sequence ``device_ops``' kernel sum is the device time."""
     fn()
     times = []
     for _ in range(reps):
@@ -221,54 +224,111 @@ def check_pyramid(grays: torch.Tensor, n_levels: int = 8,
     return [resize, blur]
 
 
-def check_detect(grays: torch.Tensor, n_features: int = 1000) -> dict:
-    """K3 over a (B, H, W) batch's levels (scores from the twins):
-    rc, responses and flags exactly equal to the twin's.  Library
+def tie_scores(scores, step: float = 8.0):
+    """A tie-heavy score pyramid: each level's scores rounded down to a
+    multiple of ``step``, so that many cells and candidates tie."""
+    return [torch.floor(s / step) * step for s in scores]
+
+
+def check_detect(grays: torch.Tensor, n_features: int = 1000,
+                 ties: bool = False, cell_size: int = 32) -> dict:
+    """K3 over an extraction's levels (scores from the twins) of a
+    (B, H, W) batch or an (H, W) frame (``ties``: the scores quantised by
+    ``tie_scores``): all five fields (rc, response, valid, uv, level)
+    bitwise equal to the twin's, in one launch (one device operation) a
+    call, bitwise from launch to launch; ``detect_level`` (the kernel with
+    one level's descriptor) equal to its twin on each level.  Library
     yardstick: ``torch.topk`` of each level's cells (k = 2)."""
-    params = orb.OrbParams(n_features=n_features)
+    params = orb.OrbParams(n_features=n_features, cell_size=cell_size)
     levels = pyramid.build_pyramid_torch(grays, params.n_levels,
                                          params.scale)
     budgets = orb.level_budgets(params)
     scores = [fast.fast_nms_torch(lv) for lv in levels]
-    err, n_valid = 0.0, 0
-    for sc, b in zip(scores, budgets):
-        k = orb.detect_level(sc, b, params)
-        t = orb.detect_level_torch(sc, b, params)
-        torch.cuda.synchronize()
-        err = max(err, float((k[0] - t[0]).abs().max()),
-                  float((k[1] - t[1]).abs().max()),
-                  float((k[2] != t[2]).sum()))
-        n_valid += int(k[2].sum())
+    if ties:
+        scores = tie_scores(scores)
+    n0 = orb.detect_levels.launches
+    k = orb.detect_levels(scores, budgets, params)
+    per_call = orb.detect_levels.launches - n0
+    t = orb.detect_levels_torch(scores, budgets, params)
+    torch.cuda.synchronize()
+    fields = {f: _bits_equal(a, b)
+              for f, a, b in zip(orb.LevelKeypoints._fields, k, t)}
+    err = max(float((k.rc - t.rc).abs().max()),
+              float((k.response - t.response).abs().max()),
+              float((k.uv - t.uv).abs().max()),
+              float((k.level - t.level).abs().max()),
+              float((k.valid != t.valid).sum()))
+    again = [orb.detect_levels(scores, budgets, params) for _ in range(3)]
+    repro = all(_bits_equal(x, y) for o in again for x, y in zip(k, o))
+    one_level = all(
+        all(_bits_equal(x, y) for x, y in zip(
+            orb.detect_level(sc, b, params),
+            orb.detect_level_torch(sc, b, params)))
+        for sc, b in zip(scores, budgets) if b > 0)
     cs = params.cell_size
     cells = []
     for sc in scores:
-        B, h, w = sc.shape
+        x = sc.reshape(-1, *sc.shape[-2:])
+        B, h, w = x.shape
         ncy, ncx = -(-h // cs), -(-w // cs)
-        p = torch.nn.functional.pad(sc, (0, ncx * cs - w, 0, ncy * cs - h))
+        p = torch.nn.functional.pad(x, (0, ncx * cs - w, 0, ncy * cs - h))
         cells.append(p.reshape(B, ncy, cs, ncx, cs).permute(
             0, 1, 3, 2, 4).reshape(B, ncy * ncx, cs * cs).contiguous())
+    prof = device_ops(lambda: orb.detect_levels(scores, budgets, params))
+
+    def kernel():
+        return orb.detect_levels(scores, budgets, params)
+
+    def library():
+        return [torch.topk(c, 2, dim=-1) for c in cells]
+
     # the function reads each level's h * w scores once (the cells' padding
-    # is skipped) and writes rc, response and flag per budget slot; the
-    # selection needs per pixel two comparisons against its cell's best
-    # two, per candidate log2(budget) comparisons into a top-budget heap
+    # is skipped) and writes rc, response, flag, uv and level per budget
+    # slot; the selection needs per pixel two comparisons against its
+    # cell's best two, per candidate log2(budget) comparisons into a
+    # top-budget heap
     px = sum(sc.numel() for sc in scores)
     n_cand = [2 * c.shape[0] * c.shape[1] for c in cells]
-    B = grays.shape[0]
+    B = cells[0].shape[0]
     return dict(
-        name="detect_level", max_abs_err=err, ok=err == 0.0,
-        n_valid=n_valid,
+        name="detect_level", max_abs_err=err,
+        # the profiler's count gates at most one operation: in a long
+        # process it can lose the launches of ctypes kernels (it then
+        # reads 0), never add any
+        ok=(all(fields.values()) and repro and one_level and per_call == 1
+            and prof["ops"] <= 1),
+        fields_bitwise=fields, bitwise_repro=repro,
+        one_level_equal=one_level, launches_per_call=per_call,
+        device_ops=prof["ops"], n_valid=int(k.valid.sum()),
         # levels with fewer candidates than their budget (K3 pads them)
         padded_levels=sum(2 * c.shape[1] < b
                           for c, b in zip(cells, budgets)),
-        ms=time_cuda(lambda: [orb.detect_level(sc, b, params)
-                              for sc, b in zip(scores, budgets)]),
-        plain_ms=time_cuda(lambda: [orb.detect_level_torch(sc, b, params)
-                                    for sc, b in zip(scores, budgets)]),
-        library_ms=time_cuda(lambda: [torch.topk(c, 2, dim=-1)
-                                      for c in cells]),
-        bytes=4 * px + B * sum(budgets) * 13,
+        max_candidates=max(n_cand) // B,
+        ms=time_cuda(kernel), device_ms=device_time(kernel),
+        plain_ms=time_cuda(lambda: orb.detect_levels_torch(
+            scores, budgets, params)),
+        library_ms=time_cuda(library), library_device_ms=device_time(
+            library),
+        bytes=4 * px + B * sum(budgets) * 25,
         ops=2 * px + sum(n * math.ceil(math.log2(b))
                          for n, b in zip(n_cand, budgets)))
+
+
+def check_detect_cases(device) -> list[dict]:
+    """K3 on one frame of the headline configuration (480x640, 1000
+    features, as the serial path extracts it), on the batch's tie-heavy
+    scores, on one 720x1280 frame (1840 candidates on level 0) and on one
+    480x640 frame with 48-pixel cells (wider than a warp)."""
+    grays = batch_frames(device)
+    one = check_detect(grays[0])
+    one["name"] += "@B1"
+    tie = check_detect(grays, ties=True)
+    tie["name"] += "@ties"
+    hd = check_detect(batch_frames(device, B=1, h=720, w=1280)[0])
+    hd["name"] += "@720x1280"
+    wide = check_detect(grays[0], cell_size=48)
+    wide["name"] += "@cell48"
+    return [one, tie, hd, wide]
 
 
 def check_front_end_small(device) -> list[dict]:
@@ -563,11 +623,16 @@ def track_pass_map_inputs(system, gray, depth, ts) -> tuple:
 
 
 def _bits_equal(a, b) -> bool:
+    """Equal shapes and every element's bits equal (float32 compared as
+    its bits, so -0.0 != 0.0 and NaNs of one payload agree)."""
     if a is None or b is None:
         return a is None and b is None
-    return a.shape == b.shape and bool(
-        (a.contiguous().view(torch.int32) == b.contiguous().view(torch.int32)
-         ).all())
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype != torch.float32:
+        return torch.equal(a, b)
+    return bool((a.contiguous().view(torch.int32)
+                 == b.contiguous().view(torch.int32)).all())
 
 
 TRACK_PASS_FIELDS = ("uv_pred", "vis", "vis_pt", "match", "dist", "ok",
@@ -814,9 +879,23 @@ def _schur_work(args) -> tuple[int, int]:
     return nbytes_, ops
 
 
+def _backsub_work(kf_tab, val, L: int) -> tuple[int, int]:
+    """(bytes, operations) K8's back-substitution needs, counted from the
+    data as ``_schur_work`` counts the reduction's: the observed
+    landmarks' Hinv, bx, W and kf_tab rows, every row's val (to find
+    them), the pose steps and the (n, 3) output; per valid observation
+    W^T dxi (36 flops), per observed landmark the 3x3 product (18)."""
+    n, O = kf_tab.shape
+    n_obs = val.sum(dim=1)
+    seen = int((n_obs > 0).sum())
+    row = 4 * (9 + 3 + O * 18) + 4 * O
+    return (seen * row + n * O + 4 * 6 * L + 4 * 3 * n,
+            36 * int(n_obs.sum()) + 18 * seen)
+
+
 def check_schur(device, n: int = 8192, O: int = 12, L: int = 11,
                 args=None, name: str = "schur_reduce",
-                back: bool = True) -> list[dict]:
+                back: str | None = "f32") -> list[dict]:
     """K8 at n x O x L (the local BA's 8192 x 12 x 11 by default; L > ~52
     takes the kernel's cooperative branch) on ``schur_inputs`` or the
     given operands ``args`` (a real window's tables, with empty rows).
@@ -824,8 +903,12 @@ def check_schur(device, n: int = 8192, O: int = 12, L: int = 11,
     relative to the output's largest entry; S and rhs bitwise equal over
     repeated launches, S exactly symmetric; the device operations of a
     call reported (``device_ops``).
-    Back-substitution (given the same factors; with ``back``): within
-    REL_TOL of the float32 twin."""
+    Back-substitution (given the reduction's factors and seeded pose
+    steps), with ``back`` "f32": within REL_TOL of the float32 twin; with
+    "f64" (a real window, where single-observation landmarks' Hinv
+    amplify the summation order): within SCHUR_TOL, relative to the
+    largest point step, of the float64 twin on the same operands, as the
+    reduction is held."""
     if args is None:
         args = schur_inputs(device, n, O, L)
     kw = dict(lam=1e-4, huber=2.45)
@@ -863,22 +946,28 @@ def check_schur(device, n: int = 8192, O: int = 12, L: int = 11,
     if not back:
         return [reduce]
 
-    Hinv, bx, W = tout[2], tout[3], tout[4]
+    Hinv, bx, W = (kout if back == "f64" else tout)[2:5]
     dx6 = torch.from_numpy(np.random.default_rng(1).normal(
         size=(L, 6)).astype(np.float32) * 1e-3).to(device)
     kd = dist_ba.back_substitute(Hinv, bx, W, kf_tab, val, dx6)
     td = dist_ba.back_substitute_torch(Hinv, bx, W, kf_tab, val, dx6)
+    t64 = dist_ba.back_substitute_torch(Hinv.double(), bx.double(),
+                                        W.double(), kf_tab, val,
+                                        dx6.double())
     torch.cuda.synchronize()
-    err = _rel(kd, td)
+    err_f32, err_f64 = _rel(kd, td), _rel(kd.double(), t64)
+    err = err_f64 if back == "f64" else err_f32
     ms = time_cuda(lambda: dist_ba.back_substitute(Hinv, bx, W, kf_tab, val,
                                                     dx6))
     plain = time_cuda(lambda: dist_ba.back_substitute_torch(
         Hinv, bx, W, kf_tab, val, dx6))
     back = dict(name=name.replace("schur_reduce", "schur_backsub"),
-                max_abs_err=err, ms=ms, plain_ms=plain,
-                ok=err <= REL_TOL,
-                bytes=nbytes(Hinv, bx, W, kf_tab, val, dx6, kd),
-                ops=36 * n * O + 18 * n)
+                max_abs_err=err, rel_err_vs_f64=err_f64,
+                rel_err_vs_f32_twin=err_f32, ms=ms, plain_ms=plain,
+                device_ms=device_time(lambda: dist_ba.back_substitute(
+                    Hinv, bx, W, kf_tab, val, dx6)),
+                ok=err <= (SCHUR_TOL if back == "f64" else REL_TOL))
+    back["bytes"], back["ops"] = _backsub_work(kf_tab, val, L)
     return [reduce, back]
 
 
@@ -1499,17 +1588,43 @@ def preint_inputs(device, frame: int = 30, n_kf_frames: int = 3):
     return since, tab, bg, ba
 
 
+PRED_TOL = 1e-5  # predicted pose components and velocity, K18
+
+
+def preint_pose(device, frame: int = 30):
+    """The inertial row's pose and velocity at the frame before ``frame``
+    (T_cw, v: the true trajectory's) and the body-camera transform: K18's
+    prediction operands."""
+    _, traj, _ = _inertial_stream(device)
+    T_wc = torch.from_numpy(np.asarray(traj, np.float32)).to(device)
+    T_cw = lie.se3_inverse(T_wc[frame - 1])
+    v = (T_wc[frame, 4:7] - T_wc[frame - 2, 4:7]) * 15.0  # 30 fps
+    T_bc = torch.tensor(ImuConfig().T_bc, dtype=torch.float32, device=device)
+    return T_cw.contiguous(), v.contiguous(), T_bc
+
+
 def check_preint(device) -> dict:
     """K18 on one frame window of the inertial row folded into a keyframe
-    window: ΔR, ΔV, ΔP and the bias Jacobians within PREINT_TOL of each
-    field's largest entry, the covariances within PREINT_COV_TOL of
-    theirs, the integration times exactly."""
+    window, without and with the pose prediction: ΔR, ΔV, ΔP and the bias
+    Jacobians within PREINT_TOL of each field's largest entry, the
+    covariances within PREINT_COV_TOL of theirs, the integration times
+    exactly, the predicted pose components and velocity within PRED_TOL
+    of the twin's (``predict_state``); one launch (one device operation)
+    a call, bitwise from launch to launch."""
     since, tab, bg, ba = preint_inputs(device)
-    kw, km = preintegration.preintegrate_merge(since, tab, bg, ba)
-    tw, tm = preintegration.preintegrate_merge_torch(since, tab, bg, ba)
+    vec = preintegration.pack(since).contiguous()
+    pose = preint_pose(device)
+    n0 = preintegration.preint_frame.launches
+    kw, km, kp = preintegration.preint_frame(vec, tab, bg, ba, pose=pose)
+    kw0, km0, none = preintegration.preint_frame(vec, tab, bg, ba)
+    per_call = (preintegration.preint_frame.launches - n0) / 2
+    tw, tm, tp_ = preintegration.preint_frame_torch(vec, tab, bg, ba,
+                                                    pose=pose)
     torch.cuda.synchronize()
     errs, ok, abs_err = {}, True, 0.0
-    for tag, k_pre, t_pre in (("window", kw, tw), ("merged", km, tm)):
+    for tag, k_vec, t_vec in (("window", kw, tw), ("merged", km, tm)):
+        k_pre = preintegration.unpack(k_vec)
+        t_pre = preintegration.unpack(t_vec)
         for f in ("dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa",
                   "cov"):
             a, b = getattr(k_pre, f), getattr(t_pre, f)
@@ -1517,18 +1632,39 @@ def check_preint(device) -> dict:
             abs_err = max(abs_err, float((a - b).abs().max()))
             ok = ok and e <= (PREINT_COV_TOL if f == "cov" else PREINT_TOL)
         ok = ok and bool(k_pre.dt == t_pre.dt)
-    ms = time_cuda(lambda: preintegration.preintegrate_merge(since, tab, bg,
-                                                             ba))
-    plain = time_cuda(lambda: preintegration.preintegrate_merge_torch(
-        since, tab, bg, ba), reps=5)
+    pred_err = max(float((kp[0] - tp_[0]).abs().max()),
+                   float((kp[1] - tp_[1]).abs().max()))
+    same = (none is None and _bits_equal(kw0, kw) and _bits_equal(km0, km))
+    again = [preintegration.preint_frame(vec, tab, bg, ba, pose=pose)
+             for _ in range(3)]
+    repro = all(_bits_equal(x, y) for o in again
+                for x, y in zip((kw, km, *kp), (o[0], o[1], *o[2])))
+
+    def kernel(p=pose):
+        return preintegration.preint_frame(vec, tab, bg, ba, pose=p)
+
+    prof = device_ops(kernel)
     n_valid = int((tab[:, 7] != 0).sum())
-    since_vec = preintegration.pack(since)
-    # per valid sample: A Σ Aᵀ (2 x 729 multiply-adds), B Sn Bᵀ (486),
-    # the five Jacobians and the 3x3 algebra (~600); the merge ~2400
-    return dict(name="preint", max_abs_err=abs_err, ms=ms,
-                plain_ms=plain, ok=ok, rel_errs=errs, n_valid=n_valid,
-                bytes=nbytes(since_vec, tab, bg, ba) + 2 * since_vec.numel()
-                * 4, ops=2 * (1458 + 486 + 600) * n_valid + 2 * 2400,
+    # per valid sample: the step's 3x3 algebra (~400), Σ's block update
+    # (27 lanes x ~120) and the Jacobians (45 x ~8); the merge ~1500; the
+    # prediction ~200
+    return dict(name="preint", max_abs_err=max(abs_err, pred_err),
+                # at most one device operation (``check_detect``)
+                ok=ok and pred_err <= PRED_TOL and same and repro
+                and per_call == 1 and prof["ops"] <= 1,
+                rel_errs=errs, pred_max_abs_err=pred_err,
+                window_without_prediction_equal=same, bitwise_repro=repro,
+                launches_per_call=per_call, device_ops=prof["ops"],
+                n_valid=n_valid,
+                ms=time_cuda(kernel), device_ms=device_time(kernel),
+                ms_without_prediction=time_cuda(lambda: kernel(None)),
+                device_ms_without_prediction=device_time(
+                    lambda: kernel(None)),
+                plain_ms=time_cuda(lambda: preintegration.preint_frame_torch(
+                    vec, tab, bg, ba, pose=pose), reps=5),
+                bytes=nbytes(vec, tab, bg, ba, *pose)
+                + 4 * preintegration.FRAME_OUT,
+                ops=(400 + 27 * 120 + 45 * 8) * n_valid + 1500 + 200,
                 library_ms=None)
 
 
@@ -3069,6 +3205,7 @@ def run_all(device) -> list[dict]:
     one = check_pyramid(grays[:1])[0]
     one["name"] += "@B1"
     return [*check_pyramid(grays), one, check_detect(grays),
+            *check_detect_cases(device),
             check_compact(device), check_group(device),
             check_fast_nms(levels), check_orb_desc(rcs, blurred),
             check_match_window(device),

@@ -34,8 +34,9 @@ system.py`` (System::TrackRGBD, Tracking.cc state machine):
 7. with ``Sensor.IMU_RGBD`` an ``ImuPipeline`` (``system.imu``) takes every
    frame's samples (``track_rgbd(..., imu=(omega, acc, t))``), and every
    frame runs the serial step (``_track``, as the reference gates its
-   fused and pipelined paths on ``imu is None``): preintegration (kernel
-   K18), once the IMU is initialised the dead-reckoned prediction, K6
+   fused and pipelined paths on ``imu is None``): preintegration and,
+   once the IMU is initialised, the dead-reckoned prediction (one launch
+   of kernel K18), K6
    with its pose prior and the per-frame visual-inertial solve (kernel
    K20), else the velocity re-anchored on the visual pose; every keyframe
    goes through ``_insert_keyframe``, which binds the keyframe window,
@@ -934,7 +935,9 @@ class SlamSystem:
             if imu is not None:
                 self.imu.add_samples(*imu)
             with self.timers.stage("imu_preint"):
-                frame_pre = self.imu.preintegrate_frame(ts)
+                # K18, with the prediction from the last pose once the
+                # IMU is initialised
+                frame_pre = self.imu.preintegrate_frame(ts, self.last_pose)
         if self.state == TrackState.NOT_INITIALIZED:
             self._initialize(frame)
             self._record(ts)
@@ -968,8 +971,7 @@ class SlamSystem:
             new_pose = lie.se3_normalize(res.pose)
             vi_solved = False
             if frame_pre is not None and prior_w > 0.0:
-                new_pose, vi_solved = self._vi_solve(frame, res, new_pose,
-                                                     frame_pre)
+                new_pose, vi_solved = self._vi_solve(frame, res, new_pose)
             self.velocity = _velocity_of(new_pose, self.last_pose)
             if (self.imu is not None and self._last_ts is not None
                     and not vi_solved):
@@ -995,17 +997,18 @@ class SlamSystem:
         self._record(ts)
         return self.last_pose
 
-    def _vi_solve(self, frame: FrameObs, res, new_pose, frame_pre):
+    def _vi_solve(self, frame: FrameObs, res, new_pose):
         """The exact per-frame visual-inertial solve on top of the visual
-        result (PoseInertialOptimizationLastFrame, kernel K20), accepted
-        at ``min_inliers_ok`` inliers.  Returns (pose, accepted)."""
+        result (PoseInertialOptimizationLastFrame, kernel K20) with the
+        frame window K18 wrote (``imu.frame_vec``), accepted at
+        ``min_inliers_ok`` inliers.  Returns (pose, accepted)."""
         imu = self.imu
         with self.timers.stage("vi_solve"):
             T_r, v_r, bg_r, ba_r, n_vi = pose_inertial_gn(
                 self.map, frame, res.slot_pt, new_pose, imu.vel,
                 self.last_pose,
                 imu.vel if imu.vel_prev is None else imu.vel_prev,
-                frame_pre, imu.T_bc, self.cam_K, self.cam_bf,
+                imu.frame_vec, imu.T_bc, self.cam_K, self.cam_bf,
                 walk_info(imu.cfg, imu.frame_dt))
             n_vi = int(self._read(n_vi))
         self.events.emit("vi_solve", n_inliers=n_vi,

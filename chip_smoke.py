@@ -65,8 +65,13 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    (the row plan, exact; the LM engine's reprojection rows and landmark
    reduction at two dampings, one launch a call given the plan and
    bitwise equal from launch to launch, and its back-substitution and
-   cost), K22b (the inertial rows
-   and their cost) and K22c (the damped dense solve and retraction) on
+   cost), K22b (the plan: each edge's whitening and the valid-edge
+   index, once a solve; the inertial rows and their cost; each entry one
+   device operation a call, counted as the nodes of a CUDA graph
+   captured from the call; H, g and the cost bitwise equal from launch
+   to launch, also on the initialisation problem over that map's
+   keyframes and that problem tiled to 100 and 1500 edges) and K22c (the
+   damped dense solve and retraction) on
    the inputs of the inertial path's fourth VI local BA (D = 150) and its
    last generic local BA (11 slots, 8192 points, D = 66; also tiled to 22
    and 44 slots), recorded in phase 4j's run, against the float64 twins,
@@ -116,7 +121,8 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
       IMU samples, fps over frames 48-127, gated on the IMU initialising,
       >= 90 % tracked, ATE <= 0.08 m (the reference's visual-inertial
       gate), >= 8 keyframes, K18, K20, K6's prior branch and K22a / K22b
-      / K22c launched and no generic LM linearisation on the card, K18
+      / K22c launched and no generic LM linearisation on the card, K22b's
+      plan once a solve with inertial rows, K18
       once a frame with samples, no ``predict_state`` on the card and no
       pack a frame (only a keyframe's two); the VI
       local BA's ms a keyframe and the initialisation's ms an attempt
@@ -193,7 +199,8 @@ LOOP_ONLY = {"bow_vectors", "place_query", "match_nn_ratio", "guided_count",
 # local BAs and initialisation; elsewhere only a recovery keyframe's local
 # BA or a loop weld runs them
 LM_KERNELS = {"lm_reproj_plan", "lm_reproj_reduce", "lm_reproj_cost",
-              "lm_inertial_assemble", "lm_inertial_cost", "lm_solve"}
+              "lm_inertial_plan", "lm_inertial_assemble", "lm_inertial_cost",
+              "lm_solve"}
 INERTIAL_ONLY = {"pose_gn_prior", "preint", "vi_pose"} | LM_KERNELS
 # the kernels of the inertial path
 INERTIAL_PATH = INERTIAL_ONLY | {"pyramid_resize", "gaussian_blur",
@@ -309,6 +316,27 @@ def _card_packs():
     finally:
         for m in bound:
             m.pack = orig
+
+
+@contextlib.contextmanager
+def _inertial_solves():
+    """Inside the block, count the LM solves that hold inertial rows (the
+    VI local BAs and the initialisation attempts), each of which builds
+    K22b's plan once."""
+    from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
+    orig = lmk.optimize_reproj_inertial
+    seen = {"solves": 0}
+
+    def spy(*args, **kw):
+        if kw.get("imu") is not None:
+            seen["solves"] += 1
+        return orig(*args, **kw)
+
+    lmk.optimize_reproj_inertial = spy
+    try:
+        yield seen
+    finally:
+        lmk.optimize_reproj_inertial = orig
 
 
 def _check_track_launches(tag: str, cnt: dict, callers) -> None:
@@ -820,7 +848,8 @@ def main() -> None:
     _reset_plain_counts()
     graph.linearize_batch.cuda_calls = 0
     t0 = time.perf_counter()
-    with _match_window_callers() as callers, _card_packs() as packs:
+    with _match_window_callers() as callers, _card_packs() as packs, \
+            _inertial_solves() as solves:
         perf = _drive(system, vi_frames, warm=main_path.INERTIAL_WARMUP,
                       feed=main_path.feed_inertial, after=note_init)
     total_s = time.perf_counter() - t0
@@ -885,6 +914,15 @@ def main() -> None:
            f"card for {len(kfs)} keyframes")
     _check_track_launches("inertial_slice", counts["inertial_slice"],
                           callers)
+    # K22b's plan once a solve with inertial rows (its whitening and edge
+    # index), the rows once an iteration and the cost once a candidate
+    k22b = {k: counts["inertial_slice"][k][0] for k in (
+        "lm_inertial_plan", "lm_inertial_assemble", "lm_inertial_cost")}
+    _line("inertial_slice_k22b", solves_with_inertial_rows=solves["solves"],
+          **k22b)
+    _check(k22b["lm_inertial_plan"] == solves["solves"] > 0,
+           f"inertial_slice: K22b's plan {k22b['lm_inertial_plan']} "
+           f"launches for {solves['solves']} solves with inertial rows")
     del system
 
     # 4j. hidden host syncs of the inertial path: 16 frames after the IMU

@@ -20,7 +20,15 @@ LOOP_ONLY = ("bow_vectors", "place_query", "match_nn_ratio", "guided_count",
 # local BAs and initialisation (elsewhere only a recovery keyframe's local
 # BA or a loop weld)
 LM_KERNELS = ("lm_reproj_plan", "lm_reproj_reduce", "lm_reproj_cost",
-              "lm_inertial_assemble", "lm_inertial_cost", "lm_solve")
+              "lm_inertial_plan", "lm_inertial_assemble", "lm_inertial_cost",
+              "lm_solve")
+# K22b's entries on the initialisation problem and on it tiled to 100
+# edges and to 1500 (the rows launch reads its edge index from global
+# memory there, from shared memory below ~1400 edges)
+K22B_TAGGED = tuple(f"{k}@{tag}" for tag in ("init", "init_x100",
+                                              "init_x1500")
+                    for k in ("lm_inertial_plan", "lm_inertial_assemble",
+                              "lm_inertial_cost"))
 # kernels that only the inertial path (Sensor.IMU_RGBD) launches
 INERTIAL_ONLY = ("pose_gn_prior", "preint", "vi_pose") + LM_KERNELS
 # kernels that only the free-space room method launches
@@ -470,18 +478,34 @@ def test_lm_reduce_bitwise_few_ops(lm_checks):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", LM_KERNELS + tuple(
     f"{k}@{tag}" for tag in ("lba", "lba_x2", "lba_x4")
-    for k in ("lm_reproj_reduce", "lm_reproj_cost")) + ("lm_solve@lba",))
+    for k in ("lm_reproj_reduce", "lm_reproj_cost")) + ("lm_solve@lba",)
+    + K22B_TAGGED)
 def test_lm_kernels(lm_checks, name):
     # on the third VI local BA window and the last generic local BA window
     # of a small inertial run (the latter also tiled to 22 and 44 slots):
     # K22a's reduced pose block and rhs within 2e-4 (diagonally scaled) of
     # the float64 twin at lambda 1e-4 and 1, its point steps within 1e-3 of
-    # the largest and its cost within 1e-5; K22b's H, g (the VI and
-    # initialisation problems) within 1e-3 scaled and its cost within 1e-5;
-    # K22c's step within 1e-6 of the twin's float64 solve, its candidates
-    # within 1e-5
+    # the largest and its cost within 1e-5; K22b's plan (W within 1e-10 of
+    # the float64 twin's, the edge index equal), H, g within 1e-3 scaled
+    # and its cost within 1e-5 on the VI problem, the initialisation
+    # problem and that problem tiled to 100 and 1500 edges; K22c's step
+    # within 1e-6
+    # of the twin's float64 solve, its candidates within 1e-5
     r = lm_checks[name]
     assert r["ok"], r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", (
+    "lm_inertial_plan", "lm_inertial_assemble", "lm_inertial_cost")
+    + K22B_TAGGED)
+def test_lm_inertial_bitwise_one_op(lm_checks, name):
+    # K22b: one device operation a call (no memset; the nodes of a CUDA
+    # graph captured from the call), and the rows and the cost bitwise
+    # equal over repeated launches (no float atomics)
+    r = lm_checks[name]
+    assert r["device_ops"] == 1, r
+    assert r.get("bitwise_repro", True), r
 
 
 @pytest.fixture(scope="module")

@@ -103,32 +103,51 @@ __device__ void residual(const float* pre, const WT* W, const T* Ti,
     residual_body(pre, W, Ri, pi, Rj, pj, vi, vj, bg, ba, g, s, r);
 }
 
-// W = L^-1 for L L^T = cov + 1e-8 I (inertial/init.py::sqrt_info), in
-// float64; false (and W undefined) where it is not finite, where the
-// caller takes the identity
-__device__ inline bool sqrt_info(const float* cov, double* W) {
-    double L[9][9] = {};
+// W = L^-1 for L L^T = cov + 1e-8 I, its lower triangle read as torch's
+// Cholesky reads it (inertial/init.py::sqrt_info), in float64, on one
+// warp (every lane calls): lane i < 9 holds row i of L, built column by
+// column, then column i of W by forward substitution, returned in ``Wc``
+// (lanes past 8 repeat lane 8).  Returns, on every lane, whether all of W
+// is finite (where not, the caller takes the identity).  The 1e-8 is
+// added in float64, as the float64 twin adds it.
+__device__ inline bool sqrt_info_warp(const float* cov, int lane,
+                                      double (&Wc)[9]) {
+    const int i = lane < 9 ? lane : 8;
+    double L[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) L[k] = 0.0;
+#pragma unroll
     for (int j = 0; j < 9; ++j) {
-        double s = (double)(cov[9 * j + j] + 1e-8f);
-        for (int k = 0; k < j; ++k) s -= L[j][k] * L[j][k];
+        // row j's entries left of the diagonal, from lane j
+        double Lj[9];
+#pragma unroll
+        for (int k = 0; k < j; ++k) Lj[k] = __shfl_sync(0xffffffffu, L[k], j);
+        double s = (double)cov[9 * j + j] + 1e-8;
+#pragma unroll
+        for (int k = 0; k < j; ++k) s -= Lj[k] * Lj[k];
         const double d = sqrt(s);
-        L[j][j] = d;
-        for (int i = j + 1; i < 9; ++i) {
+        if (i == j) L[j] = d;
+        if (i > j) {
             double t = (double)(cov[9 * i + j]);
-            for (int k = 0; k < j; ++k) t -= L[i][k] * L[j][k];
-            L[i][j] = t / d;
+#pragma unroll
+            for (int k = 0; k < j; ++k) t -= L[k] * Lj[k];
+            L[j] = t / d;
         }
     }
+    // row r of L from lane r
     bool ok = true;
-    for (int c = 0; c < 9; ++c) {
-        for (int i = 0; i < 9; ++i) {
-            double s = i == c ? 1.0 : 0.0;
-            for (int k = 0; k < i; ++k) s -= L[i][k] * W[9 * k + c];
-            W[9 * i + c] = s / L[i][i];
-            ok = ok && isfinite(W[9 * i + c]);
-        }
+#pragma unroll
+    for (int r = 0; r < 9; ++r) {
+        double Lr[9];
+#pragma unroll
+        for (int k = 0; k <= r; ++k) Lr[k] = __shfl_sync(0xffffffffu, L[k], r);
+        double s = r == i ? 1.0 : 0.0;
+#pragma unroll
+        for (int k = 0; k < r; ++k) s -= Lr[k] * Wc[k];
+        Wc[r] = s / Lr[r];
+        ok = ok && isfinite(Wc[r]);
     }
-    return ok;
+    return __all_sync(0xffffffffu, ok || lane >= 9);
 }
 
 }  // namespace imu

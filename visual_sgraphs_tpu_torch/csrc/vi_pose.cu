@@ -95,48 +95,11 @@ __device__ void imu_residual(const Shared& S, const T* Tj, const T* vj,
                        cst<T>(1.0f), r);
 }
 
-// S.W = L^-1 for L L^T = cov + 1e-8 I, the identity if not finite
-// (imu.cuh::sqrt_info's float64 operations, entry by entry in its order),
-// on warp 0: lane i holds row i of L, then column i of W
+// S.W = L^-1 for L L^T = cov + 1e-8 I, the identity if not finite, on
+// warp 0 (imu.cuh::sqrt_info_warp: a row of L, then a column of W, a lane)
 __device__ void sqrt_info_warp(Shared& S, int lane) {
-    const float* cov = S.pre + O_COV;
-    const int i = lane < 9 ? lane : 8;
-    double L[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) L[k] = 0.0;
-#pragma unroll
-    for (int j = 0; j < 9; ++j) {
-        // row j's entries left of the diagonal, from lane j
-        double Lj[9];
-#pragma unroll
-        for (int k = 0; k < j; ++k) Lj[k] = __shfl_sync(0xffffffffu, L[k], j);
-        double s = (double)(cov[9 * j + j] + 1e-8f);
-#pragma unroll
-        for (int k = 0; k < j; ++k) s -= Lj[k] * Lj[k];
-        const double d = sqrt(s);
-        if (i == j) L[j] = d;
-        if (i > j) {
-            double t = (double)(cov[9 * i + j]);
-#pragma unroll
-            for (int k = 0; k < j; ++k) t -= L[k] * Lj[k];
-            L[j] = t / d;
-        }
-    }
-    // column c = lane of W by forward substitution, row r of L from lane r
     double Wc[9];
-    bool ok = true;
-#pragma unroll
-    for (int r = 0; r < 9; ++r) {
-        double Lr[9];
-#pragma unroll
-        for (int k = 0; k <= r; ++k) Lr[k] = __shfl_sync(0xffffffffu, L[k], r);
-        double s = r == i ? 1.0 : 0.0;
-#pragma unroll
-        for (int k = 0; k < r; ++k) s -= Lr[k] * Wc[k];
-        Wc[r] = s / Lr[r];
-        ok = ok && isfinite(Wc[r]);
-    }
-    ok = __all_sync(0xffffffffu, ok || lane >= 9);
+    const bool ok = imu::sqrt_info_warp(S.pre + O_COV, lane, Wc);
     if (lane < 9) {
 #pragma unroll
         for (int r = 0; r < 9; ++r) {

@@ -159,6 +159,10 @@ KERNELS = (
      "lm_reproj_cost", "lm_reproj_cost_torch",
      "visual_sgraphs_tpu_torch/csrc/lm_reproj.cu",
      "visual_sgraphs_tpu/optim/solve.py:69"),
+    ("lm_inertial_plan", "visual_sgraphs_tpu_torch.optim.lm_kernels",
+     "lm_inertial_plan", "lm_inertial_plan_torch",
+     "visual_sgraphs_tpu_torch/csrc/lm_inertial.cu",
+     "visual_sgraphs_tpu/inertial/init.py:44"),
     ("lm_inertial_assemble", "visual_sgraphs_tpu_torch.optim.lm_kernels",
      "lm_inertial_assemble", "lm_inertial_assemble_torch",
      "visual_sgraphs_tpu_torch/csrc/lm_inertial.cu",
@@ -188,7 +192,6 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # host arrays of device pointers / ints (the LM kernels' family tables)
 _PP, _PI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 _ROWS = [_VP, _I, _VP, _I] + [_VP] * 5 + [_I, _VP, _VP, _F, _F]
-_IMU = [_VP, _VP, _VP, _I, _VP, _I, _VP, _VP, _VP, _F, _PP, _PI]
 # the plane table (5 pointers, P) and the room table (6 pointers, R)
 _ROOMS = [_VP] * 5 + [_I] + [_VP] * 6 + [_I]
 _ARGTYPES = {
@@ -234,8 +237,9 @@ _ARGTYPES = {
     "vsg_lm_reproj_plan": [_VP, _VP, _I, _I, _VP, _VP, _VP],
     "vsg_lm_reproj_reduce": _ROWS + [_VP, _F, _I] + [_VP] * 12,
     "vsg_lm_reproj_cost": _ROWS + [_VP] * 8 + [_I, _VP],
-    "vsg_lm_inertial_assemble": _IMU + [_I, _VP, _VP, _I, _VP],
-    "vsg_lm_inertial_cost": _IMU + [_VP, _I, _VP],
+    "vsg_lm_inertial_plan": [_VP] * 3 + [_I, _I] + [_VP] * 6,
+    "vsg_lm_inertial_assemble": [_VP, _PP, _VP, _VP, _I, _VP],
+    "vsg_lm_inertial_cost": [_VP, _PP, _VP, _I, _VP],
     "vsg_lm_solve": [_VP] * 4 + [_I, _VP, _I, _VP, _F] + [_VP] * 7
                     + [_PI, _VP, _VP],
     "vsg_rooms_walls": _ROOMS + [_F] * 4 + [_I] + [_VP] * 7,

@@ -20,10 +20,12 @@ gdir (2) | scale (1)].  Three hand-written kernels carry an iteration:
   blocks of H and g, in one launch summed in an order fixed by the data;
   ``lm_reproj_cost`` back-substitutes the points at a step and sums the
   robust cost of the rows at the candidate;
-- K22b (``csrc/lm_inertial.cu``): ``lm_inertial_assemble`` adds the
-  preintegration rows (``imu_factor`` with Huber 9, or ``imu_factor_gs``),
-  the bias walks and the bias priors to the same dense H, g;
-  ``lm_inertial_cost`` sums their cost at the candidate;
+- K22b (``csrc/lm_inertial.cu``): ``lm_inertial_plan`` whitens every
+  edge and indexes the valid edges once a solve; ``lm_inertial_assemble``
+  then adds the preintegration rows (``imu_factor`` with Huber 9, or
+  ``imu_factor_gs``), the bias walks and the bias priors to the same dense
+  H, g, in one launch summed in edge order; ``lm_inertial_cost`` sums
+  their cost at the candidate;
 - K22c (``csrc/lm_solve.cu``): ``lm_solve`` damps H, subtracts the pair
   sums, applies the gauge mask, solves by Cholesky and retracts every
   reduced family into candidate tables.
@@ -543,19 +545,6 @@ def lm_inertial_cost_torch(imu: ImuRows, red: Reduced, acc=None):
 lm_inertial_cost_torch.cuda_calls = 0
 
 
-def _value_ptrs(red: Reduced):
-    """Host arrays of the six families' pointers and offsets (-1 where
-    absent), and D."""
-    offs = offsets(red)
-    ptrs = (ctypes.c_void_p * 6)()
-    offa = (ctypes.c_int * 6)()
-    for i, k in enumerate(FAMILIES):
-        v = getattr(red, k)
-        ptrs[i] = None if v is None else v.data_ptr()
-        offa[i] = offs.get(k, -1)
-    return ptrs, offa, offs["D"]
-
-
 def _check_lam(name, lam):
     cuda.require_cuda(name, lam)
     if lam.dtype != torch.float32 or lam.numel() != 1:
@@ -569,43 +558,176 @@ def _check_values(name, red: Reduced):
         raise ValueError(f"{name}: float32 values")
 
 
-def _inertial_args(imu: ImuRows, red: Reduced):
+class InertialPlan(NamedTuple):
+    """K22b's constants of a solve: each edge's whitening and the index of
+    the valid edges (``lm_inertial_plan``); on the card also the kernels'
+    argument block (``args``; None from the twin)."""
+
+    W: torch.Tensor  # (E, 81) float64 W = L^-1, L L^T = cov + 1e-8 I
+    rptr: torch.Tensor  # (R + 1,) int32: row r's edges start at rptr[r]
+    redge: torch.Tensor  # (2E,) int32 valid edges touching each row, -1 after
+    vedge: torch.Tensor  # (E,) int32 the valid edges in order, -1 after
+    nvalid: torch.Tensor  # (1,) int32
+    args: object = None
+
+
+# the rows launch keeps the plan's edge index in shared memory up to this
+# size (beside its 18432 static bytes, under the 48 KB of a plain launch),
+# else reads it from the plan's tensors; staging saves 1-3 % of the
+# launch's device time at 9 and 100 edges (NVIDIA H100 80GB HBM3), and
+# selfcheck.check_lm_inertial holds both sides (1500 edges reads global)
+_IX_SHARED_BYTES = 28672
+
+
+class _ImuSolve(ctypes.Structure):
+    """csrc/lm_inertial.cu's ``ImuSolve``: the constants of a solve."""
+
+    _fields_ = [(k, ctypes.c_void_p) for k in (
+        "pre", "edge", "T_bc", "poses", "info_g", "info_a", "W", "rptr",
+        "redge", "vedge", "nvalid", "jac", "grd")] + [
+        ("E", ctypes.c_int), ("R", ctypes.c_int), ("gs", ctypes.c_int),
+        ("D", ctypes.c_int), ("ix", ctypes.c_int), ("prior", ctypes.c_float),
+        ("off", ctypes.c_int * 6)]
+
+
+class _InertialArgs(NamedTuple):
+    solve: _ImuSolve
+    addr: int  # of ``solve``
+    vals: ctypes.Array  # the six value pointers, filled each call
+    shapes: tuple  # each family's expected shape (None absent)
+    keep: tuple  # the tensors behind ``solve``'s pointers
+
+
+def lm_inertial_plan_torch(imu: ImuRows, red: Reduced) -> InertialPlan:
+    """Plain twin of K22b's plan: ``inertial.init.sqrt_info`` of every
+    edge's covariance in float64, the valid edges (rows inside the
+    layout) in order, and for each row of the per-slot families the valid
+    edges with i or j on it, in edge order."""
+    from visual_sgraphs_tpu_torch.inertial.init import sqrt_info
+    from visual_sgraphs_tpu_torch.inertial.preintegration import unpack
+    if imu.pre.is_cuda:
+        lm_inertial_plan_torch.cuda_calls += 1
+    E, R, dev = imu.edge.shape[0], red.vel.shape[0], imu.pre.device
+    W = sqrt_info(unpack(imu.pre).cov.double()).reshape(E, 81)
+    i, j = imu.edge.long().unbind(-1)
+    ok = imu.valid & (i >= 0) & (i < R) & (j >= 0) & (j < R)
+    i32 = dict(dtype=torch.int32, device=dev)
+    vedge = torch.full((E,), -1, **i32)
+    valid_ids = torch.nonzero(ok)[:, 0]
+    vedge[:valid_ids.shape[0]] = valid_ids.to(torch.int32)
+    rows = torch.arange(R, device=dev)[:, None]
+    touch = ok[None, :] & ((i[None, :] == rows) | (j[None, :] == rows))
+    rptr = torch.zeros((R + 1,), **i32)
+    rptr[1:] = torch.cumsum(touch.sum(dim=1), 0)
+    redge = torch.full((2 * E,), -1, **i32)
+    listed = torch.nonzero(touch)[:, 1]
+    redge[:listed.shape[0]] = listed.to(torch.int32)
+    return InertialPlan(W, rptr, redge, vedge,
+                        torch.full((1,), valid_ids.shape[0], **i32))
+
+
+lm_inertial_plan_torch.cuda_calls = 0
+
+
+def lm_inertial_plan(imu: ImuRows, red: Reduced) -> InertialPlan:
+    """K22b's plan on CUDA tensors (one launch; built once a solve, as
+    ``lm_inertial_plan_torch``, with the kernels' arguments and scratch),
+    the twin on CPU tensors.  ``red`` fixes the layout: its values are
+    not read."""
+    if imu.pre.device.type == "cpu":
+        return lm_inertial_plan_torch(imu, red)
     from visual_sgraphs_tpu_torch.inertial.preintegration import PACKED
-    _check_values("lm_inertial", red)
-    cuda.require_cuda("lm_inertial", imu.pre, imu.edge, imu.valid,
-                      imu.T_bc)
+    _check_values("lm_inertial_plan", red)
     gs = bool(imu.gs)
     extra = (imu.poses,) if gs else (imu.info_g, imu.info_a)
-    cuda.require_cuda("lm_inertial", *extra)
+    cuda.require_cuda("lm_inertial_plan", imu.pre, imu.edge, imu.valid,
+                      imu.T_bc, *extra)
     if (imu.pre.dtype != torch.float32 or imu.pre.shape[1] != PACKED
             or imu.edge.dtype != torch.int32 or imu.valid.dtype != torch.bool
             or any(t.dtype != torch.float32 for t in extra)):
-        raise ValueError("lm_inertial: float32 packed preintegrations and "
-                         "weights, int32 edges, bool validity")
-    ptrs, offa, D = _value_ptrs(red)
+        raise ValueError("lm_inertial_plan: float32 packed preintegrations "
+                         "and weights, int32 edges, bool validity")
+    E, R, dev = imu.edge.shape[0], red.vel.shape[0], imu.pre.device
+    rows = {k: None if v is None else v.shape[0]
+            for k, v in red._asdict().items()}
+    want = (dict(pose=None, vel=R, bg=1, ba=1, gdir=1, scale=1) if gs
+            else dict(pose=R, vel=R, bg=R, ba=R, gdir=None, scale=None))
+    if rows != want:
+        raise ValueError(f"lm_inertial_plan: rows {rows} do not make the "
+                         "VI BA's or the initialisation's layout")
+    i32 = dict(dtype=torch.int32, device=dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    plan = InertialPlan(torch.empty((E, 81), **f64),
+                        torch.empty((R + 1,), **i32),
+                        torch.empty((2 * E,), **i32),
+                        torch.empty((E,), **i32), torch.empty((1,), **i32))
     ptr = cuda.ptr
-    return D, (ptr(imu.pre), ptr(imu.edge), ptr(imu.valid),
-               imu.edge.shape[0], ptr(imu.T_bc), int(gs),
-               ptr(imu.poses if gs else None), ptr(imu.info_g),
-               ptr(imu.info_a), float(imu.prior), ptrs, offa)
+    cuda.call("vsg_lm_inertial_plan", ptr(imu.pre), ptr(imu.edge),
+              ptr(imu.valid), E, R, *map(ptr, plan[:5]), cuda.stream())
+    lm_inertial_plan.launches += 1
+    nd = 15 if gs else 24
+    # the edge index the rows launch stages: edge, vedge, rptr, redge
+    ix = 5 * E + R + 1
+    jac = torch.empty((E * 9 * nd,), **f64)
+    grd = torch.empty((E * (nd + 1),), **f64)
+    offs = offsets(red)
+    solve = _ImuSolve(
+        ptr(imu.pre), ptr(imu.edge), ptr(imu.T_bc),
+        ptr(imu.poses if gs else None), ptr(None if gs else imu.info_g),
+        ptr(None if gs else imu.info_a), *map(ptr, plan[:5]), ptr(jac),
+        ptr(grd), E, R, int(gs), offs["D"],
+        ix if 4 * ix <= _IX_SHARED_BYTES else 0, float(imu.prior),
+        (ctypes.c_int * 6)(*(offs.get(k, -1) for k in FAMILIES)))
+    args = _InertialArgs(solve, ctypes.addressof(solve),
+                         (ctypes.c_void_p * 6)(),
+                         tuple(None if v is None else tuple(v.shape)
+                               for v in red), (imu, jac, grd))
+    return plan._replace(args=args)
 
 
-def lm_inertial_assemble(imu: ImuRows, red: Reduced, H=None, g=None):
-    """K22b's assembly on CUDA tensors (adds into float64 ``H``, ``g``,
-    zeroed first when None), the twin on CPU tensors; as
-    ``lm_inertial_assemble_torch``."""
+lm_inertial_plan.launches = 0
+
+
+def _inertial_values(name, plan: InertialPlan, red: Reduced) -> ctypes.Array:
+    """The plan's value-pointer array, filled from ``red`` (checked
+    against the plan's layout)."""
+    if plan is None or plan.args is None:
+        raise ValueError(f"{name}: CUDA tensors take the solve's "
+                         "lm_inertial_plan(imu, red)")
+    a = plan.args
+    for i, (v, shape) in enumerate(zip(red, a.shapes)):
+        if v is None and shape is None:
+            a.vals[i] = None
+            continue
+        if (v is None or tuple(v.shape) != shape or not v.is_cuda
+                or v.dtype != torch.float32 or not v.is_contiguous()):
+            raise ValueError(f"{name}: the values do not match the plan's "
+                             "layout (contiguous float32 CUDA tables)")
+        a.vals[i] = v.data_ptr()
+    return a.vals
+
+
+def lm_inertial_assemble(imu: ImuRows, red: Reduced, H=None, g=None,
+                         plan: InertialPlan | None = None):
+    """K22b's assembly on CUDA tensors (adds into float64 ``H``, ``g``, or
+    writes new ones when None; one launch, bitwise equal from launch to
+    launch), the twin on CPU tensors; as ``lm_inertial_assemble_torch``.
+    ``plan`` is the solve's ``lm_inertial_plan(imu, red)``, required on
+    the card (the twin takes none)."""
     if imu.pre.device.type == "cpu":
         return lm_inertial_assemble_torch(imu, red, H, g)
-    D, args = _inertial_args(imu, red)
+    vals = _inertial_values("lm_inertial_assemble", plan, red)
+    D = plan.args.solve.D
     zero = H is None
     if zero:
         H = torch.empty((D, D), dtype=torch.float64, device=imu.pre.device)
         g = torch.empty((D,), dtype=torch.float64, device=imu.pre.device)
-    cuda.require_cuda("lm_inertial_assemble", H, g)
-    if (H.dtype != torch.float64 or g.dtype != torch.float64
-            or H.shape != (D, D)):
-        raise ValueError("lm_inertial_assemble: float64 (D, D) H")
-    cuda.call("vsg_lm_inertial_assemble", *args, D, cuda.ptr(H),
+    elif (not H.is_cuda or not g.is_cuda or H.dtype != torch.float64
+          or g.dtype != torch.float64 or H.shape != (D, D)
+          or g.shape != (D,)):
+        raise ValueError("lm_inertial_assemble: float64 (D, D) H, (D,) g "
+                         "on the card")
+    cuda.call("vsg_lm_inertial_assemble", plan.args.addr, vals, cuda.ptr(H),
               cuda.ptr(g), int(zero), cuda.stream())
     lm_inertial_assemble.launches += 1
     return H, g
@@ -614,17 +736,20 @@ def lm_inertial_assemble(imu: ImuRows, red: Reduced, H=None, g=None):
 lm_inertial_assemble.launches = 0
 
 
-def lm_inertial_cost(imu: ImuRows, red: Reduced, acc=None):
+def lm_inertial_cost(imu: ImuRows, red: Reduced, acc=None,
+                     plan: InertialPlan | None = None):
     """K22b's cost entry on CUDA tensors (float64, added to ``acc`` when
-    given), the twin on CPU tensors; as ``lm_inertial_cost_torch``."""
+    given; one launch), the twin on CPU tensors; as
+    ``lm_inertial_cost_torch``.  ``plan`` as for
+    ``lm_inertial_assemble``."""
     if imu.pre.device.type == "cpu":
         return lm_inertial_cost_torch(imu, red, acc)
-    _, args = _inertial_args(imu, red)
+    vals = _inertial_values("lm_inertial_cost", plan, red)
     cost = acc if acc is not None else torch.empty(
         (), dtype=torch.float64, device=imu.pre.device)
-    if cost.dtype != torch.float64:
-        raise ValueError("lm_inertial_cost: a float64 cost")
-    cuda.call("vsg_lm_inertial_cost", *args, cuda.ptr(cost),
+    if cost.dtype != torch.float64 or not cost.is_cuda:
+        raise ValueError("lm_inertial_cost: a float64 cost on the card")
+    cuda.call("vsg_lm_inertial_cost", plan.args.addr, vals, cuda.ptr(cost),
               int(acc is None), cuda.stream())
     lm_inertial_cost.launches += 1
     return cost
@@ -776,8 +901,10 @@ def optimize_reproj_inertial(red: Reduced, free, iters: int, pts=None,
     D = offsets(red)["D"]
     if bf is None and rows is not None:
         bf = torch.zeros((), dtype=dtype, device=free.device)
-    # the rows do not change across the solve: grouped once
+    # the rows do not change across the solve: grouped once, and the
+    # inertial edges whitened and indexed once
     plan = None if rows is None else lm_reproj_plan(rows, pts.shape[0])
+    iplan = None if imu is None else lm_inertial_plan(imu, red)
 
     def cost_at(r: Reduced, p, state=None, dx=None):
         acc = None
@@ -785,7 +912,7 @@ def optimize_reproj_inertial(red: Reduced, free, iters: int, pts=None,
             p, acc = lm_reproj_cost(r.pose, p, pt_fixed, rows, cam, bf,
                                     state, dx)
         if imu is not None:
-            acc = lm_inertial_cost(imu, r, acc)
+            acc = lm_inertial_cost(imu, r, acc, iplan)
         return p, acc
 
     def as_dict(r: Reduced, p) -> dict:
@@ -802,7 +929,7 @@ def optimize_reproj_inertial(red: Reduced, free, iters: int, pts=None,
             H, g, pairs, rhs_p, state = lm_reproj_reduce(
                 r.pose, p, rows, cam, bf, lam, D, plan)
         if imu is not None:
-            H, g = lm_inertial_assemble(imu, r, H, g)
+            H, g = lm_inertial_assemble(imu, r, H, g, iplan)
         dx, cand = lm_solve(H, g, pairs, rhs_p, free, lam, r)
         cand_pts, cand_cost = cost_at(cand, p, state, dx)
         return as_dict(cand, cand_pts), cand_cost

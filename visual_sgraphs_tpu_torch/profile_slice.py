@@ -56,8 +56,11 @@ its library call's, the host ms of the tracking pass's and K6's wrappers
 (``wrapper_host``), the device ms and device operations of K18 without
 and with the pose prediction, of the prediction alone, of K3 over a
 batch's 8 levels and one frame's (beside ``torch.topk`` of the cells)
-and of K22b's rows and cost (``inertial_front_times``), and the card's
-name and power limit.  With
+(``inertial_front_times``), of K22b's plan, rows and cost on the VI and
+initialisation problems as the solves call them (``k22b_times``), of
+K22b's rows with the edge index staged in shared memory and read from
+global memory (``k22b_index_times``) and of K1's blur, K2, K4, K17a and K22a's cost (``other_device_times``), and
+the card's name and power limit.  With
 ``--track-ops`` it counts the device operations of one tracking call
 (both passes) and of one pipeline scan batch on ``bench_slice``'s map
 (``track_ops``); with ``--k20-sections`` it reads K20's clock at its
@@ -182,7 +185,8 @@ def cells_fps(warm: int = 16) -> None:
     run each, over the frames after the warm-up (``main_path.BENCH_WARMUP``
     on ``bench_slice``, ``INERTIAL_WARMUP`` on ``inertial_slice``), ending
     in a synchronize, as ``chip_smoke.py``; beside each the keyframe
-    stage's mean ms (on ``inertial_slice`` the VI local BA's, ``vi_lba``)."""
+    stage's mean ms (on ``inertial_slice`` the VI local BA's, ``vi_lba``,
+    and the initialisation's attempts in the warm-up, ``imu_init``)."""
     from visual_sgraphs_tpu_torch import cuda, main_path
     cuda.build()
     scene, frames = main_path.frames("cuda")
@@ -208,6 +212,7 @@ def cells_fps(warm: int = 16) -> None:
             if i == lo:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
+                warm_stages = system.timers.summary()
                 system.timers.reset()
             feed(system, frame)
         system.flush()
@@ -215,6 +220,10 @@ def cells_fps(warm: int = 16) -> None:
         out[tag] = (len(fr) - lo) / (time.perf_counter() - t0)
         out[tag + "_kf_ms"] = system.timers.summary().get(stage, {}).get(
             "mean_ms")
+        if stage == "vi_lba":
+            init = warm_stages.get("imu_init", {})
+            out[tag + "_imu_init_ms"] = init.get("mean_ms")
+            out[tag + "_imu_init_attempts"] = init.get("count")
     _line("cells_fps", **out)
 
 
@@ -424,6 +433,10 @@ def kernel_times() -> None:
     kernel_breakdown(dev)
     wrapper_host(dev)
     inertial_front_times(dev)
+    problems = selfcheck.lm_problems(selfcheck.lm_window(dev))
+    k22b_times(dev, problems)
+    k22b_index_times(dev, problems)
+    other_device_times(dev, problems)
     _line("card", nvidia_smi=subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -446,9 +459,8 @@ def inertial_front_times(dev) -> None:
     valid samples of 64) without and with the pose prediction, and the
     prediction alone (``pipeline.predict_state``); K3 over the 8 levels of
     a batch of 8 rendered 480x640 frames and of one frame (1000
-    features), beside ``torch.topk`` of the levels' cells; K22b's rows
-    and cost on the VI local BA problem of ``selfcheck.lm_window`` (9
-    edges, D = 150).  A tree without the fused entries (K18 with the
+    features), beside ``torch.topk`` of the levels' cells.  A tree
+    without the fused entries (K18 with the
     prediction, K3 over all levels) is timed through the calls its main
     path makes instead: K18 then ``predict_state``, K3 once a level."""
     from visual_sgraphs_tpu_torch import selfcheck
@@ -457,7 +469,6 @@ def inertial_front_times(dev) -> None:
     from visual_sgraphs_tpu_torch.features import fast, orb, pyramid
     from visual_sgraphs_tpu_torch.inertial import pipeline
     from visual_sgraphs_tpu_torch.inertial import preintegration as pre
-    from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
     since, tab, bg, ba = selfcheck.preint_inputs(dev)
     T_bc = torch.tensor(ImuConfig().T_bc, dtype=torch.float32, device=dev)
     T_cw = lie.se3_exp(torch.tensor([0.3, -0.2, 1.1, 0.05, -0.4, 0.2],
@@ -505,13 +516,106 @@ def inertial_front_times(dev) -> None:
         _times(f"K3_library@{tag}", lambda c=cells: [
             torch.topk(x, 2, dim=-1) for x in c])
 
-    vi = selfcheck.lm_problems(selfcheck.lm_window(dev))["vi"]
-    edges = int(vi["imu"].valid.sum())
-    _times("K22b_rows", lambda: lmk.lm_inertial_assemble(vi["imu"],
-                                                          vi["red"]),
-           edges=edges, D=lmk.offsets(vi["red"])["D"])
-    _times("K22b_cost", lambda: lmk.lm_inertial_cost(vi["imu"], vi["red"]),
-           edges=edges)
+
+
+def k22b_times(dev, problems: dict) -> None:
+    """K22b's rows and cost as the solves call them: on the VI local BA
+    problem (9 edges, D = 150; the rows added into a float64 H and the
+    cost into a float64 sum, as after K22a) and on the initialisation
+    problem (H, g and the cost written whole), both of
+    ``selfcheck.lm_problems``, and the plan (W and the edge index, once a
+    solve).  A tree without the plan is timed through its own calls."""
+    from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
+    has_plan = hasattr(lmk, "lm_inertial_plan")
+    for tag in ("vi", "init"):
+        imu, red = problems[tag]["imu"], problems[tag]["red"]
+        D = lmk.offsets(red)["D"]
+        info = dict(edges=int(imu.valid.sum()), E=imu.edge.shape[0], D=D)
+        kw = {}
+        if has_plan:
+            kw["plan"] = lmk.lm_inertial_plan(imu, red)
+            _times(f"K22b_plan@{tag}", lambda: lmk.lm_inertial_plan(
+                imu, red), **info)
+        f64 = dict(dtype=torch.float64, device=dev)
+        if tag == "vi":
+            H, g = torch.zeros((D, D), **f64), torch.zeros((D,), **f64)
+            acc = torch.zeros((), **f64)
+        else:
+            H = g = acc = None
+        _times(f"K22b_rows@{tag}", lambda: lmk.lm_inertial_assemble(
+            imu, red, H, g, **kw), **info)
+        _times(f"K22b_cost@{tag}", lambda: lmk.lm_inertial_cost(
+            imu, red, acc, **kw), **info)
+
+
+def k22b_index_times(dev, problems: dict, reps: int = 60) -> None:
+    """K22b's rows as the solves call them with the plan's edge index
+    staged in shared memory (s) and read from global memory (g), in the
+    order s, g, g, s, on the VI, initialisation and 100-edge problems."""
+    from visual_sgraphs_tpu_torch import selfcheck
+    from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
+    staged = lmk._IX_SHARED_BYTES
+    f64 = dict(dtype=torch.float64, device=dev)
+    try:
+        for rnd, mode in enumerate("sggs"):
+            lmk._IX_SHARED_BYTES = staged if mode == "s" else 0
+            for tag in ("vi", "init", "init_x100"):
+                imu, red = problems[tag]["imu"], problems[tag]["red"]
+                plan = lmk.lm_inertial_plan(imu, red)
+                D = lmk.offsets(red)["D"]
+                H = g = None
+                if tag == "vi":
+                    H = torch.zeros((D, D), **f64)
+                    g = torch.zeros((D,), **f64)
+
+                def fn(imu=imu, red=red, H=H, g=g, plan=plan):
+                    return lmk.lm_inertial_assemble(imu, red, H, g, plan)
+
+                _line("kernel_times", name=f"K22b_rows_index@{tag}",
+                      round=rnd, index=mode, staged_ints=plan.args.solve.ix,
+                      device_ms=selfcheck.device_time(fn, reps=reps),
+                      ms=selfcheck.time_cuda(fn, reps=reps))
+    finally:
+        lmk._IX_SHARED_BYTES = staged
+
+
+def other_device_times(dev, problems: dict) -> None:
+    """Device ms of the kernels ranked next by launches x (ms - bound):
+    K1's blur and K2 over the 8 levels of a batch of 8 rendered 480x640
+    frames and of one frame, K4 over one frame's 8 levels (1000
+    keypoints), K17a on a rendered frame, K22a's back-substitution and
+    cost on the VI local BA problem (a zero step)."""
+    from visual_sgraphs_tpu_torch import selfcheck
+    from visual_sgraphs_tpu_torch.features import fast, orb, pyramid
+    from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
+    from visual_sgraphs_tpu_torch.scenegraph import freespace as fs
+    params = orb.OrbParams()
+    grays = selfcheck.batch_frames(dev)
+    for tag, g in (("B8", grays), ("B1", grays[0])):
+        levels = pyramid.build_pyramid_torch(g, params.n_levels,
+                                             params.scale)
+        _times(f"K1_blur@{tag}", lambda lv=levels: [
+            pyramid.gaussian_blur(x) for x in lv], launches=len(levels))
+        _times(f"K2@{tag}", lambda lv=levels: [fast.fast_nms(x) for x in lv],
+               launches=len(levels))
+    _, rcs, blurred = selfcheck.slice_levels(dev)
+    pattern = orb.brief_pattern_tensor(42, dev)
+    _times("K4@B1", lambda: [orb.orb_describe(bl, rc, pattern)
+                             for rc, bl in zip(rcs, blurred)],
+           launches=len(rcs), keypoints=sum(int(rc.shape[0]) for rc in rcs))
+    depth, T_cw, cam_K, origin = selfcheck.freespace_inputs(dev)
+    grid = torch.zeros((32, 32, 32), dtype=torch.bool, device=dev)
+    _times("K17a", lambda: fs.accumulate_freespace(grid, origin, 0.35, depth,
+                                                   T_cw, cam_K))
+    p = problems["vi"]
+    D = lmk.offsets(p["red"])["D"]
+    state = lmk.lm_reproj_reduce(p["red"].pose, p["pts"], p["rows"],
+                                 p["cam"], p["bf"], selfcheck._lam(p["pts"]),
+                                 D)[4]
+    dx = torch.zeros((D,), dtype=torch.float32, device=dev)
+    _times("K22a_cost@vi", lambda: lmk.lm_reproj_cost(
+        p["red"].pose, p["pts"], p["pt_fixed"], p["rows"], p["cam"],
+        p["bf"], state, dx), rows=p["rows"].slot.shape[0])
 
 
 def wrapper_host(dev, reps: int = 200) -> None:

@@ -23,6 +23,7 @@ these; nothing here runs on import.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import math
 import statistics
 from typing import Callable, NamedTuple
@@ -274,10 +275,10 @@ def check_detect(grays: torch.Tensor, n_features: int = 1000,
         p = torch.nn.functional.pad(x, (0, ncx * cs - w, 0, ncy * cs - h))
         cells.append(p.reshape(B, ncy, cs, ncx, cs).permute(
             0, 1, 3, 2, 4).reshape(B, ncy * ncx, cs * cs).contiguous())
-    prof = device_ops(lambda: orb.detect_levels(scores, budgets, params))
-
     def kernel():
         return orb.detect_levels(scores, budgets, params)
+
+    n_ops = graph_ops(kernel)
 
     def library():
         return [torch.topk(c, 2, dim=-1) for c in cells]
@@ -292,14 +293,11 @@ def check_detect(grays: torch.Tensor, n_features: int = 1000,
     B = cells[0].shape[0]
     return dict(
         name="detect_level", max_abs_err=err,
-        # the profiler's count gates at most one operation: in a long
-        # process it can lose the launches of ctypes kernels (it then
-        # reads 0), never add any
         ok=(all(fields.values()) and repro and one_level and per_call == 1
-            and prof["ops"] <= 1),
+            and n_ops == 1),
         fields_bitwise=fields, bitwise_repro=repro,
         one_level_equal=one_level, launches_per_call=per_call,
-        device_ops=prof["ops"], n_valid=int(k.valid.sum()),
+        device_ops=n_ops, n_valid=int(k.valid.sum()),
         # levels with fewer candidates than their budget (K3 pads them)
         padded_levels=sum(2 * c.shape[1] < b
                           for c, b in zip(cells, budgets)),
@@ -1643,18 +1641,17 @@ def check_preint(device) -> dict:
     def kernel(p=pose):
         return preintegration.preint_frame(vec, tab, bg, ba, pose=p)
 
-    prof = device_ops(kernel)
+    n_ops = graph_ops(kernel)
     n_valid = int((tab[:, 7] != 0).sum())
     # per valid sample: the step's 3x3 algebra (~400), Σ's block update
     # (27 lanes x ~120) and the Jacobians (45 x ~8); the merge ~1500; the
     # prediction ~200
     return dict(name="preint", max_abs_err=max(abs_err, pred_err),
-                # at most one device operation (``check_detect``)
                 ok=ok and pred_err <= PRED_TOL and same and repro
-                and per_call == 1 and prof["ops"] <= 1,
+                and per_call == 1 and n_ops == 1,
                 rel_errs=errs, pred_max_abs_err=pred_err,
                 window_without_prediction_equal=same, bitwise_repro=repro,
-                launches_per_call=per_call, device_ops=prof["ops"],
+                launches_per_call=per_call, device_ops=n_ops,
                 n_valid=n_valid,
                 ms=time_cuda(kernel), device_ms=device_time(kernel),
                 ms_without_prediction=time_cuda(lambda: kernel(None)),
@@ -2188,6 +2185,9 @@ def run_inertial(device) -> list[dict]:
 # K22a is held at both dampings of LM_LAMS to LM_REDUCE_TOL, between
 LM_REDUCE_TOL = 2e-4
 LM_REL_TOL = 1e-3  # K22b's H and g
+# K22b's plan: W against the float64 twin's, relative to its largest entry
+# (both float64 Choleskys of the same matrix, in another order)
+LM_PLAN_TOL = 1e-10
 LM_STEP_TOL = 1e-3  # K22a's point steps, relative to the largest step
 LM_COST_TOL = 1e-5  # relative, the float64-summed costs
 # K22c against the twin's float64 solve of the same float64 system: the
@@ -2360,12 +2360,35 @@ def tile_window(p: dict, reps: int) -> dict:
                 free=p["free"].repeat(reps), rows=tiled)
 
 
+def tile_edges(p: dict, n_edges: int = 100) -> dict:
+    """The initialisation problem ``p`` with its keyframe chain repeated
+    until it has ``n_edges`` edges (past the K22b rows launch's 64 edges a
+    round): copy k's rows k n .. k n + n - 1 hold rows 0 .. n - 1's poses
+    and velocities and copy k's edges the same preintegrations between
+    them; every seventh edge is made invalid."""
+    imu, red = p["imu"], p["red"]
+    n, E, dev = red.vel.shape[0], imu.edge.shape[0], red.vel.device
+    t = torch.arange(n_edges, device=dev)
+    src = t % E
+    edge = imu.edge[src] + ((t // E) * n).to(torch.int32)[:, None]
+    rows = torch.arange(-(-n_edges // E) * n, device=dev) % n
+    free = p["free"]
+    return dict(p, red=red._replace(vel=red.vel[rows].contiguous()),
+                free=torch.cat([free[:3 * n].reshape(n, 3)[rows].reshape(-1),
+                                free[3 * n:]]),
+                imu=imu._replace(pre=imu.pre[src].contiguous(),
+                                 edge=edge.contiguous(),
+                                 valid=imu.valid[src] & (t % 7 != 6),
+                                 poses=imu.poses[rows].contiguous()))
+
+
 def lm_problems(win: LmWindows) -> dict:
     """The VI local BA problem of the VI window, the initialisation
     problem over its map's keyframes (as ``ImuPipeline.try_initialize``
-    poses it), the generic local BA problem of the other window and that
-    problem tiled to 22 and 44 slots (past the shared pair-sum
-    accumulator's 33), float32 and float64."""
+    poses it) and that problem tiled to 100 and 1500 edges, the generic
+    local BA problem of the other window and that problem tiled to 22 and
+    44 slots (past the shared pair-sum accumulator's 33), float32 and
+    float64."""
     from visual_sgraphs_tpu_torch.inertial import init as iinit
     from visual_sgraphs_tpu_torch.inertial import vi_ba
     from visual_sgraphs_tpu_torch.inertial.preintegration import (
@@ -2383,8 +2406,10 @@ def lm_problems(win: LmWindows) -> dict:
     b = win.lba
     *_, lba = mapping.lba_problem(b.m, b.kf, b.cam_K, b.cam_bf, b.n_window,
                                   b.n_local_pts)
-    out = {"vi": vi, "init": init, "lba": lba,
-           "lba_x2": tile_window(lba, 2), "lba_x4": tile_window(lba, 4)}
+    out = {"vi": vi, "init": init, "init_x100": tile_edges(init),
+           "init_x1500": tile_edges(init, 1500),
+           "lba": lba, "lba_x2": tile_window(lba, 2),
+           "lba_x4": tile_window(lba, 4)}
     return {**out, **{k + "64": _f64(p) for k, p in out.items()}}
 
 
@@ -2559,57 +2584,117 @@ def check_lm_reproj(problems: dict, tag: str = "vi") -> list[dict]:
              ops=(36 * n_obs_slot + 30 * N) + 60 * n_use, library_ms=None)]
 
 
-def check_lm_inertial(problems: dict) -> list[dict]:
-    """K22b on a real window's VI problem and the initialisation problem
-    over its keyframes: H and g within LM_REL_TOL (scaled) of the float64
-    twin (the generic linearisation), the cost within LM_COST_TOL; the
-    float32 twin's errors beside."""
+def check_lm_inertial(problems: dict,
+                      tags=("vi", "init", "init_x100", "init_x1500")
+                      ) -> list[dict]:
+    """K22b on a real window's VI problem, the initialisation problem over
+    its keyframes and that problem tiled to 100 edges and to 1500 (past
+    the rows launch's shared-memory edge index, ``tile_edges``):
+    the plan's W within LM_PLAN_TOL of the float64 twin's and its edge
+    index equal; H and g within LM_REL_TOL (scaled) of the float64 twin
+    (the generic linearisation), also when added into zeros (equal to the
+    written H, g); the cost within LM_COST_TOL; three more launches of
+    each entry bitwise equal, one device operation a call (``graph_ops``;
+    the VI problem timed as the solve calls it, adding into H, g and the
+    cost); the float32 twin's errors beside."""
     from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
-    out, errs, twin32 = {}, {}, {}
-    for tag in ("vi", "init"):
+    out = []
+    for tag in tags:
         p32, p64 = problems[tag], problems[tag + "64"]
-        kH, kg = lmk.lm_inertial_assemble(p32["imu"], p32["red"])
+        imu, red = p32["imu"], p32["red"]
+        D = lmk.offsets(red)["D"]
+        f64 = dict(dtype=torch.float64, device=imu.pre.device)
+        plan = lmk.lm_inertial_plan(imu, red)
+        tplan = lmk.lm_inertial_plan_torch(p64["imu"], p64["red"])
+        kH, kg = lmk.lm_inertial_assemble(imu, red, plan=plan)
+        aH, ag = lmk.lm_inertial_assemble(
+            imu, red, torch.zeros((D, D), **f64), torch.zeros((D,), **f64),
+            plan)
+        kc = lmk.lm_inertial_cost(imu, red, plan=plan)
+        ac = lmk.lm_inertial_cost(imu, red, torch.full((), 1.5, **f64), plan)
         tH, tg = lmk.lm_inertial_assemble_torch(p64["imu"], p64["red"])
-        sH, sg = lmk.lm_inertial_assemble_torch(p32["imu"], p32["red"])
-        kc = lmk.lm_inertial_cost(p32["imu"], p32["red"])
+        sH, sg = lmk.lm_inertial_assemble_torch(imu, red)
         tc = lmk.lm_inertial_cost_torch(p64["imu"], p64["red"])
+        again = [(*lmk.lm_inertial_assemble(imu, red, plan=plan),
+                  lmk.lm_inertial_cost(imu, red, plan=plan))
+                 for _ in range(3)]
         torch.cuda.synchronize()
+        e_W = _rel(plan.W, tplan.W)
+        index_ok = all(torch.equal(a, b) for a, b in zip(plan[1:5],
+                                                         tplan[1:5]))
         d = torch.diagonal(tH)
-        errs[tag] = dict(H=_rel_scaled(kH, tH, d), g=_rel_scaled(kg, tg, d),
-                         cost=abs(float(kc) - float(tc))
-                         / max(abs(float(tc)), 1e-30))
-        twin32[tag] = dict(H=_rel_scaled(sH.double(), tH, d),
-                           g=_rel_scaled(sg.double(), tg, d))
-        out[tag] = p32
-    vi = out["vi"]
-    E_valid = int(vi["imu"].valid.sum())
-    E = vi["imu"].edge.shape[0]
-    D = lmk.offsets(vi["red"])["D"]
-    in_bytes = (nbytes(vi["imu"].pre, vi["imu"].edge, vi["imu"].valid,
-                       vi["imu"].T_bc, vi["imu"].info_g, vi["imu"].info_a)
-                + nbytes(*(v for v in vi["red"] if v is not None)))
-    a_ms = time_cuda(lambda: lmk.lm_inertial_assemble(vi["imu"], vi["red"]))
-    a_plain = time_cuda(lambda: lmk.lm_inertial_assemble_torch(
-        vi["imu"], vi["red"]), warmup=1, reps=5)
-    c_ms = time_cuda(lambda: lmk.lm_inertial_cost(vi["imu"], vi["red"]))
-    c_plain = time_cuda(lambda: lmk.lm_inertial_cost_torch(
-        vi["imu"], vi["red"]), warmup=1, reps=5)
-    e_a = max(max(e["H"], e["g"]) for e in errs.values())
-    e_c = max(e["cost"] for e in errs.values())
-    # a residual in float64 duals is ~2000 flops a direction (24 a VI
-    # edge), the 9x9 sqrt information ~1500, 24^2 x 9 x 2 for w J^T J;
-    # the cost one value-only residual an edge; the walks 12 an entry
-    return [
-        dict(name="lm_inertial_assemble", max_abs_err=e_a, ok=e_a
-             <= LM_REL_TOL, rel_errs=errs, twin32_rel_errs=twin32,
-             edges=[E_valid, E], D=D, ms=a_ms, plain_ms=a_plain,
-             bytes=in_bytes + 8 * (D * D + D),
-             ops=E_valid * (24 * 2000 + 1500 + 24 * 24 * 18) + 36 * E_valid,
-             library_ms=None),
-        dict(name="lm_inertial_cost", max_abs_err=e_c, ok=e_c <= LM_COST_TOL,
-             rel_err_cost=e_c, ms=c_ms, plain_ms=c_plain,
-             bytes=in_bytes + 8, ops=E_valid * (2000 + 1500) + 12 * E_valid,
-             library_ms=None)]
+        e_H, e_g = _rel_scaled(kH, tH, d), _rel_scaled(kg, tg, d)
+        e_c = abs(float(kc) - float(tc)) / max(abs(float(tc)), 1e-30)
+        added = (torch.equal(aH, kH) and torch.equal(ag, kg)
+                 and float(ac) == 1.5 + float(kc))
+        repro = all(torch.equal(H, kH) and torch.equal(g, kg)
+                    and torch.equal(c, kc) for H, g, c in again)
+        # timed as the solves call them: the VI rows and cost added into
+        # K22a's H, g and cost, the initialisation's written whole
+        H0 = g0 = acc0 = None
+        if tag == "vi":
+            H0, g0 = torch.zeros((D, D), **f64), torch.zeros((D,), **f64)
+            acc0 = torch.zeros((), **f64)
+        calls = {
+            "lm_inertial_plan": (lambda: lmk.lm_inertial_plan(imu, red),
+                                 lambda: lmk.lm_inertial_plan_torch(imu,
+                                                                    red)),
+            "lm_inertial_assemble": (
+                lambda: lmk.lm_inertial_assemble(imu, red, H0, g0, plan),
+                lambda: lmk.lm_inertial_assemble_torch(imu, red)),
+            "lm_inertial_cost": (
+                lambda: lmk.lm_inertial_cost(imu, red, acc0, plan),
+                lambda: lmk.lm_inertial_cost_torch(imu, red))}
+        timed = {k: dict(ms=time_cuda(fn), device_ms=device_time(fn),
+                         device_ops=graph_ops(fn),
+                         plain_ms=time_cuda(twin, warmup=1, reps=5))
+                 for k, (fn, twin) in calls.items()}
+        one_op = all(t["device_ops"] == 1 for t in timed.values())
+        E, R = imu.edge.shape[0], red.vel.shape[0]
+        nv = int(plan.nvalid[0])
+        nd = 15 if imu.gs else 24
+        # what both entries need: each edge's preintegration but its
+        # covariance, its whitening W in its place, the edges, validity,
+        # weights and values (the plan's edge index is derived from them)
+        edge_in = (nbytes(imu.pre) - 4 * 81 * E + nbytes(plan.W)
+                   + nbytes(imu.edge, imu.valid, imu.T_bc, imu.info_g,
+                            imu.info_a, imu.poses)
+                   + nbytes(*(v for v in red if v is not None)))
+        # H, g: the touched entries read and written (adding), or every
+        # entry written
+        touched = int((tH != 0).sum()) + int((tg != 0).sum())
+        out_bytes = 16 * touched if tag == "vi" else 8 * (D * D + D)
+        name = lambda k: _tagged(k, tag, "vi")  # noqa: E731
+        # a residual in float64 duals is ~2000 flops a direction, the
+        # staging nd^2 x 9 x 2, each term of an entry 1, the walks 12 an
+        # entry; the cost one value-only residual an edge; the plan ~1000
+        # flops an edge's W and two passes of R x E index comparisons
+        out += [
+            dict(name=name("lm_inertial_plan"), max_abs_err=e_W,
+                 ok=e_W <= LM_PLAN_TOL and index_ok and one_op,
+                 index_equal=index_ok, edges=[nv, E], R=R,
+                 **timed["lm_inertial_plan"],
+                 bytes=nbytes(imu.edge, imu.valid) + E * 81 * (4 + 8)
+                 + nbytes(*plan[1:5]), ops=1000 * E + 4 * R * E,
+                 library_ms=None),
+            dict(name=name("lm_inertial_assemble"),
+                 max_abs_err=max(e_H, e_g),
+                 ok=max(e_H, e_g) <= LM_REL_TOL and added and repro
+                 and one_op, rel_err_H=e_H, rel_err_g=e_g,
+                 twin32_rel_err_H=_rel_scaled(sH.double(), tH, d),
+                 twin32_rel_err_g=_rel_scaled(sg.double(), tg, d),
+                 bitwise_repro=repro, added_equal=added, edges=[nv, E], D=D,
+                 **timed["lm_inertial_assemble"],
+                 bytes=edge_in + out_bytes,
+                 ops=nv * (nd * 2000 + nd * nd * 18) + touched * 4
+                 + 36 * nv, library_ms=None),
+            dict(name=name("lm_inertial_cost"), max_abs_err=e_c,
+                 ok=e_c <= LM_COST_TOL and repro and one_op,
+                 rel_err_cost=e_c, bitwise_repro=repro, edges=[nv, E],
+                 **timed["lm_inertial_cost"],
+                 bytes=edge_in + 8,
+                 ops=nv * 2000 + 12 * nv, library_ms=None)]
+    return out
 
 
 def check_lm_solve(problems: dict, tags=("vi", "init")) -> dict:
@@ -3138,6 +3223,25 @@ def device_ops(fn) -> dict:
               and e.device_type == torch.autograd.DeviceType.CUDA]
     return dict(ops=sum(e.count for e in events),
                 device_ms=sum(e.device_time_total for e in events) / 1e3)
+
+
+def graph_ops(fn) -> int:
+    """The device operations (kernels, copies, fills) one call of ``fn``
+    enqueues, counted exactly as the nodes of a CUDA graph captured from
+    it: ``device_ops``' profiler can lose the launches of the ctypes
+    kernels late in a long process and read 0.  ``fn`` is called once
+    before the capture, so that nothing loads inside it."""
+    fn()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    del graph
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes: CUDA error {rc}")
+    return n.value
 
 
 @contextlib.contextmanager

@@ -21,7 +21,12 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    empty list, an all-invalid one, heavy overflow and valid out-of-range
    ids (-1, n_pt, n_pt + 1, 10^6), one launch a call, with the
    nearest single PyTorch call timed beside each as a yardstick; K2
-   FAST+NMS, K4 ORB descriptor, K5 window matcher, the tracking pass
+   FAST+NMS and K4 ORB descriptor, each one launch (one device
+   operation) an extraction over every level of a batch of 8 frames, of
+   one frame, at 240x320, at 720x1280 and on levels smaller than the
+   41x41 patch and FAST's ring (K2 bitwise, K4's angles within 1e-5 rad
+   and descriptors bitwise given the twin's angles, both bitwise from
+   launch to launch), K5 window matcher, the tracking pass
    (K5's redesign: projection, gates, binned window match, gathers, one
    launch) on seeded operands at the main path's four radii (15, 7, 60,
    14 px), every integer output exact and the predicted and gathered
@@ -140,9 +145,9 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
       pass, under sync-debug mode: synchronising calls must equal the
       counted readbacks;
    the kernel launch counters are zeroed just before each of (a), (b),
-   (d), (f), (h), (i) and (k) and read just after (K1's resize chain
-   and K3 must launch once an ORB extraction on each, and K3's plain
-   level selection never on the card; on (a), (b), (d) and (i)
+   (d), (f), (h), (i) and (k) and read just after (K1's resize chain,
+   K2, K3 and K4 must launch once an ORB extraction on each, and their
+   plain per-level versions never on the card; on (a), (b), (d) and (i)
    the tracking pass once a tracking pose solve, K6 or its prior branch,
    and tracking no standalone window matcher); the JSON kernel table's
    launches are (d)'s, (i)'s for the inertial path's K18, K20, K6's
@@ -244,26 +249,34 @@ def _check_sg_launches(tag: str, cnt: dict, freespace: bool = False) -> None:
 
 
 def _check_pyramid_launches(tag: str, cnt: dict) -> None:
-    """K1's resize chain and K3 launch once an ORB extraction (a frame on
-    the serial path, a batch on the pipeline; K3 for every budgeted level
-    of it), and no plain K3 level selection runs on CUDA tensors."""
-    from visual_sgraphs_tpu_torch.features import orb
+    """K1's resize chain, K2, K3 and K4 launch once an ORB extraction (a
+    frame on the serial path, a batch on the pipeline; K2, K3 and K4 for
+    every budgeted level of it), and no plain K2, K3 or K4 of a level
+    runs on CUDA tensors."""
+    from visual_sgraphs_tpu_torch.features import fast, orb
     n = cnt["pyramid_resize"][0]
-    plain = orb.detect_level_torch.cuda_calls
-    _check(n > 0 and cnt["detect_level"][0] == n and not plain,
-           f"{tag}: K1's chain launched {n} times for "
-           f"{cnt['detect_level'][0]} K3 launches; {plain} plain level "
-           "selections on the card")
+    plain = (fast.fast_nms_torch.cuda_calls,
+             orb.detect_level_torch.cuda_calls,
+             orb.orb_describe_torch.cuda_calls)
+    per_kernel = {k: cnt[k][0] for k in ("fast_nms", "detect_level",
+                                         "orb_desc")}
+    _check(n > 0 and all(v == n for v in per_kernel.values())
+           and not any(plain),
+           f"{tag}: K1's chain launched {n} times for K2 / K3 / K4 "
+           f"launches {per_kernel}; {plain} plain K2 / K3 / K4 level calls "
+           "on the card")
 
 
 def _reset_plain_counts() -> None:
     """Zero the kernel counts and the plain functions' counts of calls on
     CUDA tensors that ``cuda.counts`` does not hold."""
     from visual_sgraphs_tpu_torch import cuda
-    from visual_sgraphs_tpu_torch.features import orb
+    from visual_sgraphs_tpu_torch.features import fast, orb
     from visual_sgraphs_tpu_torch.inertial import preintegration
     cuda.reset_counts()
+    fast.fast_nms_torch.cuda_calls = 0
     orb.detect_level_torch.cuda_calls = 0
+    orb.orb_describe_torch.cuda_calls = 0
     preintegration.predict_state.cuda_calls = 0
 
 

@@ -45,21 +45,34 @@ def device():
 
 
 @pytest.fixture(scope="module")
-def slice_levels(device):
-    return selfcheck.slice_levels(device)
+def front_k2_k4(device):
+    return {r["name"]: r for r in selfcheck.check_front_k2_k4(device)}
+
+
+FRONT_CASES = ("", "@B1", "@240x320", "@720x1280", "@tiny")
 
 
 @pytest.mark.gpu
-def test_fast_nms_kernel(slice_levels):
-    r = selfcheck.check_fast_nms(slice_levels[0])
-    assert r["ok"], r
+@pytest.mark.parametrize("case", FRONT_CASES)
+def test_fast_nms_kernel(front_k2_k4, case):
+    # K2 over every level of an extraction in one launch (one device
+    # operation), bitwise equal to the twin and from launch to launch, on
+    # a batch of 8 480x640 frames, one frame, 240x320, 720x1280 and levels
+    # smaller than FAST's ring; fast_nms (one level) equal on each level
+    r = front_k2_k4["fast_nms" + case]
+    assert r["ok"] and r["device_ops"] == 1, r
 
 
 @pytest.mark.gpu
-def test_orb_desc_kernel(slice_levels):
-    _, rcs, blurred = slice_levels
-    r = selfcheck.check_orb_desc(rcs, blurred)
-    assert r["ok"], r
+@pytest.mark.parametrize("case", FRONT_CASES)
+def test_orb_desc_kernel(front_k2_k4, case):
+    # K4 over every keypoint of an extraction in one launch: angles within
+    # 1e-5 rad of the twin, descriptors bitwise given the twin's angles,
+    # bitwise from launch to launch, on the same cases (the tiny levels
+    # are smaller than the 41x41 patch); orb_describe (one level's rows)
+    # likewise
+    r = front_k2_k4["orb_desc" + case]
+    assert r["ok"] and r["device_ops"] == 1, r
 
 
 @pytest.mark.gpu
@@ -307,7 +320,7 @@ def _extract_orb_one_k3_launch(img):
     t = orb.extract_orb(img.cpu())
     assert counts["detect_level"] == (1, 0)
     assert counts["pyramid_resize"] == (1, 0)
-    assert counts["orb_desc"] == (8, 0) and counts["fast_nms"] == (8, 0)
+    assert counts["orb_desc"] == (1, 0) and counts["fast_nms"] == (1, 0)
     for f in ("uv", "response", "level", "valid"):
         assert torch.equal(getattr(k, f).cpu(), getattr(t, f)), f
     assert float((k.angle.cpu() - t.angle).abs().max()) <= 1e-5
@@ -316,8 +329,8 @@ def _extract_orb_one_k3_launch(img):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B", [1, 8])
 def test_extract_orb_one_k3_launch(device, B):
-    # extract_orb on the card: K3 launches once, K1's chain once, K2, K1's
-    # blur and K4 once a level; the selected keypoints (uv, response,
+    # extract_orb on the card: K1's chain, K2, K3 and K4 launch once, K1's
+    # blur once a level; the selected keypoints (uv, response,
     # level, valid) equal to the extraction on the CPU twins of the same
     # frames, the angles within 1e-5 rad (atan2 on two devices; the
     # descriptors, which follow the angles, are held bitwise given the

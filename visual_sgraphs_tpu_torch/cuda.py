@@ -47,15 +47,16 @@ KERNELS = (
      "gaussian_blur", "gaussian_blur_torch",
      "visual_sgraphs_tpu_torch/csrc/pyramid.cu",
      "visual_sgraphs_tpu/features/pyramid.py:27"),
-    ("fast_nms", "visual_sgraphs_tpu_torch.features.fast", "fast_nms",
-     "fast_nms_torch", "visual_sgraphs_tpu_torch/csrc/fast.cu",
+    ("fast_nms", "visual_sgraphs_tpu_torch.features.fast", "fast_levels",
+     "fast_levels_torch", "visual_sgraphs_tpu_torch/csrc/fast.cu",
      "visual_sgraphs_tpu/features/fast.py:36"),
     ("detect_level", "visual_sgraphs_tpu_torch.features.orb",
      "detect_levels", "detect_levels_torch",
      "visual_sgraphs_tpu_torch/csrc/detect.cu",
      "visual_sgraphs_tpu/features/orb.py:90"),
-    ("orb_desc", "visual_sgraphs_tpu_torch.features.orb", "orb_describe",
-     "orb_describe_torch", "visual_sgraphs_tpu_torch/csrc/orb_desc.cu",
+    ("orb_desc", "visual_sgraphs_tpu_torch.features.orb",
+     "orb_describe_levels", "orb_describe_levels_torch",
+     "visual_sgraphs_tpu_torch/csrc/orb_desc.cu",
      "visual_sgraphs_tpu/features/orb.py:121"),
     ("match_window", "visual_sgraphs_tpu_torch.features.match",
      "match_window", "match_window_torch",
@@ -197,10 +198,10 @@ _ROOMS = [_VP] * 5 + [_I] + [_VP] * 6 + [_I]
 _ARGTYPES = {
     "vsg_blur": [_VP, _VP, _VP, _I, _I, _I, _VP],
     "vsg_pyramid": [_VP, _VP, _I, _VP, _PI] + [_I] * 4 + [_VP],
-    "vsg_fast_nms": [_VP, _VP, _VP, _I, _I, _I, _VP],
+    "vsg_fast_levels": [_PP, _PP, _PI, _I, _I, _I, _VP],
     "vsg_detect_levels": [_PP, _PI, ctypes.POINTER(ctypes.c_float)]
                          + [_I] * 4 + [_F] + [_VP] * 6,
-    "vsg_orb_desc": [_VP, _I, _I, _I, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP],
+    "vsg_orb_desc_levels": [_PP, _PI, _I, _I, _VP, _I, _I] + [_VP] * 5,
     "vsg_compact": [_VP, _I, _I, _VP, _VP],
     "vsg_group_obs": [_VP] * 4 + [_I] * 8 + [_VP] * 7,
     "vsg_match_window": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,

@@ -2,7 +2,8 @@
 
 Port of ``visual_sgraphs_tpu/features/orb.py``:
 
-- per-level FAST score + NMS is kernel K2 (``features/fast.py``);
+- FAST score + NMS is kernel K2 (``features/fast.py``): ``fast_levels``
+  scores every budgeted level of an extraction in one launch;
 - keypoint selection (K3: per-32x32-cell top-2, then per-level
   top-budget) is the kernel in ``csrc/detect.cu``: ``detect_levels``
   selects every budgeted level of an extraction in one launch, straight
@@ -10,17 +11,18 @@ Port of ``visual_sgraphs_tpu/features/orb.py``:
   kernel on one level), with the plain twin ``detect_levels_torch`` over
   ``detect_level_torch``, whose stable descending sorts reproduce
   ``lax.top_k``'s lower-index-first tie order;
-- ``orb_describe`` is kernel K4 (IC angle over the r=15 disc + steered
-  BRIEF-256 from the blurred level, ``csrc/orb_desc.cu``) with the plain
-  twin ``orb_describe_torch``; it reads a level's rows of the
-  concatenated keypoints and writes its rows of the angles and
-  descriptors in place.
+- ``orb_describe_levels`` is kernel K4 (IC angle over the r=15 disc +
+  steered BRIEF-256 from the blurred levels, ``csrc/orb_desc.cu``) over
+  every budgeted level's keypoints of an extraction in one launch,
+  straight into the extraction's angles and descriptors, with the plain
+  twin ``orb_describe_levels_torch`` over ``orb_describe_torch``;
+  ``orb_describe`` is the same kernel on one level's rows.
 
 The BRIEF pattern is the reference's seeded numpy pattern, drawn with the
 same numpy call.  All keypoint tensors are fixed capacity with validity
 masks.  ``extract_orb`` takes one frame or a (B, H, W) batch: K1's resize
-chain and K3 launch once an extraction, K2, K1's blur and K4 once a level,
-each for the whole batch.
+chain, K2, K3 and K4 launch once an extraction and K1's blur once a
+level, each for the whole batch.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from visual_sgraphs_tpu_torch import cuda
-from visual_sgraphs_tpu_torch.features.fast import fast_nms
+from visual_sgraphs_tpu_torch.features.fast import fast_levels
 from visual_sgraphs_tpu_torch.features.pyramid import (
     build_pyramid,
     gaussian_blur,
@@ -377,16 +379,121 @@ def _describe(blurred, rc, pattern, angle):
 orb_describe_torch.cuda_calls = 0
 
 
+def orb_describe_levels_torch(blurred, rc: torch.Tensor, budgets,
+                              pattern: torch.Tensor,
+                              angle: torch.Tensor | None = None):
+    """Plain twin of K4 over an extraction: ``orb_describe_torch`` on each
+    budgeted level's rows of the concatenated keypoints ``rc`` (..., N, 2)
+    (N the budgets' sum, in level order), with ``blurred[lv]`` its blurred
+    level; returns (angle (..., N), desc (..., N, 32))."""
+    if rc.is_cuda:
+        orb_describe_levels_torch.cuda_calls += 1
+    angles, descs, off = [], [], 0
+    for bl, b in zip(blurred, budgets):
+        if b <= 0:
+            continue
+        rows = slice(off, off + b)
+        a, d = orb_describe_torch(bl, rc[..., rows, :], pattern,
+                                  None if angle is None else angle[..., rows])
+        angles.append(a)
+        descs.append(d)
+        off += b
+    return torch.cat(angles, dim=-1), torch.cat(descs, dim=-2)
+
+
+orb_describe_levels_torch.cuda_calls = 0
+
+# levels a K4 launch takes (the kernel's descriptor table)
+K4_MAX_LEVELS = 8
+
+
+def orb_describe_levels(blurred, rc: torch.Tensor, budgets,
+                        pattern: torch.Tensor,
+                        angle: torch.Tensor | None = None,
+                        out: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """IC angle + steered BRIEF of every keypoint of an extraction: ``rc``
+    (N, 2) or (B, N, 2) int32, the budgeted levels' keypoints concatenated
+    in level order (N the budgets' sum, as ``detect_levels`` writes them),
+    ``blurred[lv]`` the (H_lv, W_lv) or (B, H_lv, W_lv) blurred level (None
+    for a level without a budget).  Kernel K4, one launch for every level
+    and frame, on CUDA tensors, the plain twin on CPU tensors.  Writes the
+    extraction's (..., N) angles and (..., N, 32) descriptors (into ``out``
+    when given) and returns them; given ``angle``, the IC angle is not
+    recomputed."""
+    if rc.device.type == "cpu":
+        a, d = orb_describe_levels_torch(blurred, rc, budgets, pattern, angle)
+        if out is None:
+            return a, d
+        out[0].copy_(a)
+        out[1].copy_(d)
+        return out
+    lead, n = rc.shape[:-2], rc.shape[-2]
+    if out is None:
+        out = (torch.empty((*lead, n), dtype=torch.float32,
+                           device=rc.device),
+               torch.empty((*lead, n, 32), dtype=torch.uint8,
+                           device=rc.device))
+    live = [(bl, b) for bl, b in zip(blurred, budgets) if b > 0]
+    levels = [bl for bl, _ in live]
+    cuda.require_cuda("orb_describe_levels", rc, pattern, *out, *levels,
+                      *(() if angle is None else (angle,)))
+    if (rc.dtype != torch.int32 or rc.dim() not in (2, 3)
+            or rc.shape[-1] != 2 or n != sum(b for _, b in live)
+            or len(live) > K4_MAX_LEVELS
+            or any(bl.dtype != torch.float32 or bl.shape[:-2] != lead
+                   or bl.dim() != rc.dim() for bl in levels)
+            or out[0].dtype != torch.float32 or out[0].shape != (*lead, n)
+            or out[1].dtype != torch.uint8 or out[1].shape != (*lead, n, 32)
+            or (angle is not None and (angle.dtype != torch.float32
+                                       or angle.shape != (*lead, n)))):
+        raise ValueError("orb_describe_levels: bad dtype or shape")
+    _desc_launch(levels, desc_plan([bl.shape[-2:] for bl in levels],
+                                   [b for _, b in live]),
+                 rc, n, n, pattern, angle, *out)
+    return out
+
+
+orb_describe_levels.launches = 0
+
+
+def desc_plan(shapes, budgets) -> list[int]:
+    """K4's level table over the budgeted levels of ``shapes`` [(h, w)]
+    and positive ``budgets``: (h, w, first row) per level, its rows of the
+    concatenated keypoints running to the next level's first row (a row's
+    level is the last whose first row is <= the row)."""
+    plan, off = [], 0
+    for (h, w), b in zip(shapes, budgets):
+        plan += [h, w, off]
+        off += b
+    return plan
+
+
+def _desc_launch(levels, plan, rc, n, stride, pattern, angle, angle_out,
+                 desc):
+    """One launch of K4 over ``levels`` (``plan``: ``desc_plan``'s) for
+    rows 0..n-1 of every frame, frames ``stride`` rows apart."""
+    if pattern.shape != (256, 4) or pattern.dtype != torch.float32 or (
+            pattern.data_ptr() % 16 or desc.data_ptr() % 4):
+        raise ValueError("K4: expected a (256, 4) float32 pattern on 16 "
+                         "bytes and descriptors on 4")
+    B = rc.shape[0] if rc.dim() == 3 else 1
+    cuda.call("vsg_orb_desc_levels", cuda.ptr_array(levels),
+              (ctypes.c_int * len(plan))(*plan), len(levels), B,
+              cuda.ptr(rc), n, stride, cuda.ptr(pattern), cuda.ptr(angle),
+              cuda.ptr(angle_out), cuda.ptr(desc), cuda.stream())
+    orb_describe_levels.launches += 1
+
+
 def orb_describe(blurred: torch.Tensor, rc: torch.Tensor,
                  pattern: torch.Tensor, angle: torch.Tensor | None = None,
                  out: tuple[torch.Tensor, torch.Tensor] | None = None):
     """IC angle + steered BRIEF of one level's keypoints, of one frame
-    ((H, W) level, (K, 2) rc) or a batch ((B, H, W), (B, K, 2)): kernel K4
-    on CUDA tensors, the plain twin on CPU tensors.  ``rc`` may be a
-    level's rows of the extraction's keypoints (a view whose frames are
-    ``S`` keypoints apart); with ``out`` = (angle (..., K), desc (..., K,
-    32)), views with the same frame stride, the results are written there
-    and returned."""
+    ((H, W) level, (K, 2) rc) or a batch ((B, H, W), (B, K, 2)): K4 with
+    one level's descriptor on CUDA tensors, the plain twin on CPU
+    tensors.  ``rc`` may be a level's rows of the extraction's keypoints
+    (a view whose frames are ``S`` keypoints apart); with ``out`` = (angle
+    (..., K), desc (..., K, 32)), views with the same frame stride, the
+    results are written there and returned."""
     if blurred.device.type == "cpu":
         a, d = orb_describe_torch(blurred, rc, pattern, angle)
         if out is None:
@@ -407,7 +514,6 @@ def orb_describe(blurred: torch.Tensor, rc: torch.Tensor,
     views = [(rc, 2), (angle_out, 1), (desc, 32)] + (
         [(angle, 1)] if angle is not None else [])
     if (blurred.dtype != torch.float32 or rc.dtype != torch.int32
-            or pattern.dtype != torch.float32 or pattern.shape != (256, 4)
             or angle_out.dtype != torch.float32 or desc.dtype != torch.uint8
             or (angle is not None and angle.dtype != torch.float32)
             or blurred.dim() not in (2, 3) or rc.dim() != blurred.dim()
@@ -421,42 +527,26 @@ def orb_describe(blurred: torch.Tensor, rc: torch.Tensor,
                    or (batched and t.stride(0) != S * w)
                    for t, w in views)):
         raise ValueError("orb_describe: bad dtype, shape, device or strides")
-    h, w = blurred.shape[-2:]
-    B = blurred.numel() // (h * w)
-    cuda.call("vsg_orb_desc", cuda.ptr(blurred), B, h, w, cuda.ptr(rc), n,
-              S, cuda.ptr(pattern), cuda.ptr(angle), cuda.ptr(angle_out),
-              cuda.ptr(desc), cuda.stream())
-    orb_describe.launches += 1
+    if n > 0:
+        _desc_launch([blurred], [*blurred.shape[-2:], 0], rc, n, S, pattern,
+                     angle, angle_out, desc)
     return angle_out, desc
-
-
-orb_describe.launches = 0
 
 
 def extract_orb(img: torch.Tensor, params: OrbParams = OrbParams()) -> Keypoints:
     """Full ORB extraction on a grayscale image (H, W) float32 [0, 255], or
     on a (B, H, W) batch (every field then gains a leading B; each frame's
-    result equals its extraction alone): K1's resize chain, K2 on each
-    level, one K3 over every level into the concatenated keypoints, then
-    K1's blur and K4 on each level, writing the level's rows of the angles
-    and descriptors; every launch for the whole batch."""
+    result equals its extraction alone): K1's resize chain, K2 over every
+    budgeted level, K3 over every level into the concatenated keypoints,
+    K1's blur on each level, then K4 over every level's keypoints into the
+    extraction's angles and descriptors; every launch for the whole
+    batch, each of K1's chain, K2, K3 and K4 once an extraction."""
     pattern = brief_pattern_tensor(params.pattern_seed, img.device)
     levels = build_pyramid(img, params.n_levels, params.scale)
     budgets = level_budgets(params)
-    scores = [fast_nms(lv) if b > 0 else None
-              for lv, b in zip(levels, budgets)]
-    kp = detect_levels(scores, budgets, params)
-    angle = torch.empty(kp.response.shape, dtype=torch.float32,
-                        device=img.device)
-    desc = torch.empty((*kp.response.shape, 32), dtype=torch.uint8,
-                       device=img.device)
-    off = 0
-    for level_img, budget in zip(levels, budgets):
-        if budget <= 0:
-            continue
-        rows = slice(off, off + budget)
-        orb_describe(gaussian_blur(level_img), kp.rc[..., rows, :], pattern,
-                     out=(angle[..., rows], desc[..., rows, :]))
-        off += budget
+    live = [lv if b > 0 else None for lv, b in zip(levels, budgets)]
+    kp = detect_levels(fast_levels(live), budgets, params)
+    blurred = [None if lv is None else gaussian_blur(lv) for lv in live]
+    angle, desc = orb_describe_levels(blurred, kp.rc, budgets, pattern)
     return Keypoints(uv=kp.uv, response=kp.response, level=kp.level,
                      angle=angle, valid=kp.valid, desc=desc)

@@ -8,6 +8,7 @@
     python -m visual_sgraphs_tpu_torch.profile_slice --small-vs-cpu
     python -m visual_sgraphs_tpu_torch.profile_slice --cells
     python -m visual_sgraphs_tpu_torch.profile_slice --kernel-times
+    python -m visual_sgraphs_tpu_torch.profile_slice --orb-times
     python -m visual_sgraphs_tpu_torch.profile_slice --track-ops
     python -m visual_sgraphs_tpu_torch.profile_slice --k20-sections
     python -m visual_sgraphs_tpu_torch.profile_slice --schur-times PATH
@@ -59,8 +60,10 @@ batch's 8 levels and one frame's (beside ``torch.topk`` of the cells)
 (``inertial_front_times``), of K22b's plan, rows and cost on the VI and
 initialisation problems as the solves call them (``k22b_times``), of
 K22b's rows with the edge index staged in shared memory and read from
-global memory (``k22b_index_times``) and of K1's blur, K2, K4, K17a and K22a's cost (``other_device_times``), and
-the card's name and power limit.  With
+global memory (``k22b_index_times``), of K1's blur, K17a and K22a's
+cost (``other_device_times``) and of K2, K4 and the whole ``extract_orb``
+at B = 8 and B = 1, with their host ms (``orb_front_times``; alone with
+``--orb-times``), and the card's name and power limit.  With
 ``--track-ops`` it counts the device operations of one tracking call
 (both passes) and of one pipeline scan batch on ``bench_slice``'s map
 (``track_ops``); with ``--k20-sections`` it reads K20's clock at its
@@ -85,6 +88,7 @@ import argparse
 import cProfile
 import json
 import pstats
+import statistics
 import time
 
 import numpy as np
@@ -218,7 +222,9 @@ def cells_fps(warm: int = 16) -> None:
         system.flush()
         torch.cuda.synchronize()
         out[tag] = (len(fr) - lo) / (time.perf_counter() - t0)
-        out[tag + "_kf_ms"] = system.timers.summary().get(stage, {}).get(
+        stages = system.timers.summary()
+        out[tag + "_kf_ms"] = stages.get(stage, {}).get("mean_ms")
+        out[tag + "_orb_extract_ms"] = stages.get("orb_extract", {}).get(
             "mean_ms")
         if stage == "vi_lba":
             init = warm_stages.get("imu_init", {})
@@ -417,7 +423,6 @@ def small_vs_cpu(n: int = 96) -> None:
 
 def kernel_times() -> None:
     """The kernels' checks that carry a device time, one line each."""
-    import subprocess
     from visual_sgraphs_tpu_torch import cuda, selfcheck
     cuda.build()
     dev = torch.device("cuda")
@@ -437,6 +442,13 @@ def kernel_times() -> None:
     k22b_times(dev, problems)
     k22b_index_times(dev, problems)
     other_device_times(dev, problems)
+    orb_front_times(dev)
+    _card_line()
+
+
+def _card_line() -> None:
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
+    import subprocess
     _line("card", nvidia_smi=subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -579,14 +591,86 @@ def k22b_index_times(dev, problems: dict, reps: int = 60) -> None:
         lmk._IX_SHARED_BYTES = staged
 
 
-def other_device_times(dev, problems: dict) -> None:
-    """Device ms of the kernels ranked next by launches x (ms - bound):
-    K1's blur and K2 over the 8 levels of a batch of 8 rendered 480x640
-    frames and of one frame, K4 over one frame's 8 levels (1000
-    keypoints), K17a on a rendered frame, K22a's back-substitution and
-    cost on the VI local BA problem (a zero step)."""
+def orb_front_times(dev) -> None:
+    """K2 and K4 over one ORB extraction (480x640, 1000 features), at
+    B = 8 (a batch of rendered frames, as the pipeline extracts it) and
+    B = 1, and the whole ``extract_orb``: CUDA-event ms, device ms
+    (``selfcheck.device_time``), host ms (the first less the second) and
+    device operations (the nodes of a CUDA graph captured from the call,
+    ``selfcheck.graph_ops``), and the host ms of the call alone
+    (``host_call_ms``: the host clock around it, the device synchronised
+    before each; the event less device ms hides the host's time wherever
+    the device is the busier).  K4 reads the twins' keypoints and blurred
+    levels and writes the extraction's arrays.  A tree without the
+    one-launch entries (``fast_levels``, ``orb_describe_levels``) is timed
+    through the per-level calls its ``extract_orb`` makes."""
     from visual_sgraphs_tpu_torch import selfcheck
     from visual_sgraphs_tpu_torch.features import fast, orb, pyramid
+    params = orb.OrbParams()
+    budgets = orb.level_budgets(params)
+    pattern = orb.brief_pattern_tensor(params.pattern_seed, dev)
+    grays = selfcheck.batch_frames(dev)
+    for tag, g in (("B8", grays), ("B1", grays[0])):
+        levels = pyramid.build_pyramid_torch(g, params.n_levels,
+                                             params.scale)
+        kp = orb.detect_levels_torch(
+            [fast.fast_nms_torch(lv) for lv in levels], budgets, params)
+        blurred = [pyramid.gaussian_blur_torch(lv) for lv in levels]
+        angle = torch.empty(kp.response.shape, device=dev)
+        desc = torch.empty((*kp.response.shape, 32), dtype=torch.uint8,
+                           device=dev)
+        if hasattr(fast, "fast_levels"):
+            def k2(lv=levels):
+                return fast.fast_levels(lv)
+
+            def k4(bl=blurred, rc=kp.rc, a=angle, d=desc):
+                return orb.orb_describe_levels(bl, rc, budgets, pattern,
+                                               out=(a, d))
+        else:
+            def k2(lv=levels):
+                return [fast.fast_nms(x) for x in lv]
+
+            def k4(bl=blurred, rc=kp.rc, a=angle, d=desc):
+                off = 0
+                for x, b in zip(bl, budgets):
+                    rows = slice(off, off + b)
+                    orb.orb_describe(x, rc[..., rows, :], pattern,
+                                     out=(a[..., rows], d[..., rows, :]))
+                    off += b
+
+        for name, fn in (("K2", k2), ("K4", k4), ("extract_orb", lambda x=g:
+                                                 orb.extract_orb(x, params))):
+            ms = selfcheck.time_cuda(fn)
+            dev_ms = selfcheck.device_time(fn)
+            _line("orb_front_times", name=f"{name}@{tag}", ms=ms,
+                  device_ms=dev_ms, host_ms=ms - dev_ms,
+                  host_call_ms=_host_call_ms(fn),
+                  device_ops=selfcheck.graph_ops(fn),
+                  keypoints=int(kp.response.numel()))
+
+
+def _host_call_ms(fn, reps: int = 200) -> float:
+    """Median host ms of one call of ``fn`` (the host clock around the
+    call alone, the device synchronised before each)."""
+    for _ in range(10):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e3 * statistics.median(times)
+
+
+def other_device_times(dev, problems: dict) -> None:
+    """Device ms of the kernels ranked next by launches x (ms - bound):
+    K1's blur over the 8 levels of a batch of 8 rendered 480x640 frames
+    and of one frame, K17a on a rendered frame, K22a's back-substitution
+    and cost on the VI local BA problem (a zero step)."""
+    from visual_sgraphs_tpu_torch import selfcheck
+    from visual_sgraphs_tpu_torch.features import orb, pyramid
     from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
     from visual_sgraphs_tpu_torch.scenegraph import freespace as fs
     params = orb.OrbParams()
@@ -596,13 +680,6 @@ def other_device_times(dev, problems: dict) -> None:
                                              params.scale)
         _times(f"K1_blur@{tag}", lambda lv=levels: [
             pyramid.gaussian_blur(x) for x in lv], launches=len(levels))
-        _times(f"K2@{tag}", lambda lv=levels: [fast.fast_nms(x) for x in lv],
-               launches=len(levels))
-    _, rcs, blurred = selfcheck.slice_levels(dev)
-    pattern = orb.brief_pattern_tensor(42, dev)
-    _times("K4@B1", lambda: [orb.orb_describe(bl, rc, pattern)
-                             for rc, bl in zip(rcs, blurred)],
-           launches=len(rcs), keypoints=sum(int(rc.shape[0]) for rc in rcs))
     depth, T_cw, cam_K, origin = selfcheck.freespace_inputs(dev)
     grid = torch.zeros((32, 32, 32), dtype=torch.bool, device=dev)
     _times("K17a", lambda: fs.accumulate_freespace(grid, origin, 0.35, depth,
@@ -623,8 +700,6 @@ def wrapper_host(dev, reps: int = 200) -> None:
     alone, the device synchronised between calls) of the tracking pass and
     of K6, with their C call and with it replaced by a no-op: the CUDA-event
     ms of a latency-bound kernel is mostly this."""
-    import statistics
-
     from visual_sgraphs_tpu_torch import cuda
     from visual_sgraphs_tpu_torch.features import match
     from visual_sgraphs_tpu_torch.selfcheck import (pose_inputs,
@@ -638,23 +713,11 @@ def wrapper_host(dev, reps: int = 200) -> None:
                                               gate0=900.0, depth=depth,
                                               bf=bf))
 
-    def host_ms(fn):
-        for _ in range(10):
-            fn()
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        return 1e3 * statistics.median(times)
-
-    out = {name: host_ms(fn) for name, fn in calls.items()}
+    out = {name: _host_call_ms(fn, reps) for name, fn in calls.items()}
     real = cuda.call
     cuda.call = lambda *a: None
     try:
-        out.update({name + "_without_c_call": host_ms(fn)
+        out.update({name + "_without_c_call": _host_call_ms(fn, reps)
                     for name, fn in calls.items()})
     finally:
         cuda.call = real
@@ -966,6 +1029,9 @@ def main() -> None:
     ap.add_argument("--kernel-times", action="store_true",
                     help="K9, K6, K6's prior, K5's window matcher, the "
                     "tracking pass and K20: CUDA-event and device times")
+    ap.add_argument("--orb-times", action="store_true",
+                    help="K2, K4 and extract_orb at B = 8 and B = 1: "
+                    "device ms, host ms, device operations")
     ap.add_argument("--schur-times", metavar="PATH", default=None,
                     help="K8 and K22a's reduction: times, device operations "
                     "and bitwise repeats (windows recorded into PATH)")
@@ -979,6 +1045,11 @@ def main() -> None:
         cells_fps()
     elif args.kernel_times:
         kernel_times()
+    elif args.orb_times:
+        from visual_sgraphs_tpu_torch import cuda
+        cuda.build()
+        orb_front_times(torch.device("cuda"))
+        _card_line()
     elif args.track_ops:
         track_ops()
     elif args.k20_sections:

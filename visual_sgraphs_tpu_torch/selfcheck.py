@@ -117,23 +117,36 @@ def time_cuda(fn: Callable[[], object], warmup: int = 3,
     return statistics.median(times)
 
 
-def slice_levels(device, h: int = 480, w: int = 640, frame: int = 10,
-                 n_features: int = 1000):
-    """Pyramid levels, per-level keypoints (rc) and blurred levels of one
-    rendered ``orbit2`` frame at the slice's size (from the plain twins,
-    so the kernels downstream are checked alone)."""
-    scene = SyntheticScene(h=h, w=w, device=device)
-    T = scene.trajectory(96, "orbit2")[frame]
-    gray, _, _ = scene.render(T)
+def front_inputs(grays: torch.Tensor, n_features: int = 1000):
+    """An ORB extraction's levels, budgets, concatenated keypoints (rc)
+    and blurred levels for a (B, H, W) batch or an (H, W) frame, from the
+    plain twins (so that K2 and K4 are checked alone)."""
     params = orb.OrbParams(n_features=n_features)
-    levels = pyramid.build_pyramid_torch(gray, params.n_levels, params.scale)
+    levels = pyramid.build_pyramid_torch(grays, params.n_levels,
+                                         params.scale)
     budgets = orb.level_budgets(params)
-    rcs, blurred = [], []
-    for lv, b in zip(levels, budgets):
-        rc, _, _ = orb.detect_level_torch(fast.fast_nms_torch(lv), b, params)
-        rcs.append(rc)
-        blurred.append(pyramid.gaussian_blur_torch(lv))
-    return levels, rcs, blurred
+    kp = orb.detect_levels_torch([fast.fast_nms_torch(lv) for lv in levels],
+                                 budgets, params)
+    return (levels, budgets, kp.rc,
+            [pyramid.gaussian_blur_torch(lv) for lv in levels])
+
+
+# levels smaller than K4's 41x41 patch, and than FAST's 7x7 ring
+TINY_LEVELS = ((3, 5), (6, 6), (7, 7), (9, 12), (30, 36), (40, 52))
+
+
+def tiny_inputs(device, B: int = 2, per_level: int = 8, seed: int = 0):
+    """Seeded random (B, h, w) levels of ``TINY_LEVELS`` (also standing
+    for their blurred levels), ``per_level`` keypoints anywhere on each,
+    as ``front_inputs`` returns them."""
+    rng = np.random.default_rng(seed)
+    levels = [torch.from_numpy(rng.uniform(0, 255, (B, h, w)).astype(
+        np.float32)).to(device) for h, w in TINY_LEVELS]
+    rc = np.concatenate([np.stack([rng.integers(0, h, (B, per_level)),
+                                   rng.integers(0, w, (B, per_level))], -1)
+                         for h, w in TINY_LEVELS], 1).astype(np.int32)
+    return (levels, [per_level] * len(levels),
+            torch.from_numpy(rc).to(device), levels)
 
 
 def batch_frames(device, B: int = 8, h: int = 480, w: int = 640,
@@ -466,49 +479,140 @@ def check_group(device) -> dict:
         ops=8 * m)
 
 
-def check_fast_nms(levels) -> dict:
-    """K2 on every level: bitwise equal to the twin."""
-    err = 0.0
-    for lv in levels:
-        k = fast.fast_nms(lv)
-        t = fast.fast_nms_torch(lv)
-        torch.cuda.synchronize()
-        err = max(err, float((k - t).abs().max()))
-    ms = time_cuda(lambda: [fast.fast_nms(lv) for lv in levels])
-    plain = time_cuda(lambda: [fast.fast_nms_torch(lv) for lv in levels])
+def check_fast_nms(levels, tag: str = "") -> dict:
+    """K2 over an extraction's levels (``levels[lv]``: (B, h, w) or (h,
+    w)): ``fast_levels`` bitwise (by value) equal to its twin, one launch
+    and one device operation (the nodes of a CUDA graph captured from the
+    call) a call, bitwise from launch to launch; ``fast_nms`` (the kernel
+    with one level's descriptor) equal to the twin on each level."""
+    n0 = fast.fast_levels.launches
+    k = fast.fast_levels(levels)
+    per_call = fast.fast_levels.launches - n0
+    t = fast.fast_levels_torch(levels)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(k, t))
+    repro = all(torch.equal(a, b) for _ in range(3)
+                for a, b in zip(k, fast.fast_levels(levels)))
+    one_level = all(torch.equal(fast.fast_nms(lv), b)
+                    for lv, b in zip(levels, t))
+
+    def kernel():
+        return fast.fast_levels(levels)
+
+    n_ops = graph_ops(kernel)
     pixels = sum(lv.numel() for lv in levels)
-    # per pixel: 32 ring differences, 16 arcs x 2 polarities x 8 mins,
-    # 32 maxima, 8 NMS comparisons
-    return dict(name="fast_nms", max_abs_err=err, ms=ms, plain_ms=plain,
-                ok=err == 0.0, shapes=[list(lv.shape) for lv in levels],
-                bytes=2 * 4 * pixels, ops=330 * pixels)
+    return dict(
+        name="fast_nms" + tag, max_abs_err=err,
+        ok=err == 0.0 and repro and one_level and per_call == 1
+        and n_ops == 1, bitwise_repro=repro, one_level_equal=one_level,
+        launches_per_call=per_call, device_ops=n_ops,
+        shapes=[list(lv.shape) for lv in levels],
+        ms=time_cuda(kernel), device_ms=device_time(kernel),
+        plain_ms=time_cuda(lambda: fast.fast_levels_torch(levels)),
+        # each level read once, each score written once; per pixel (the
+        # scores of a 32x32 tile's 34x34 ring, 1.13 a pixel): 2 x 47 arc
+        # minima / maxima, 2 subtractions, 2 maxima; the NMS's ~5 maxima
+        bytes=2 * 4 * pixels, ops=116 * pixels)
 
 
-def check_orb_desc(rcs, blurred) -> dict:
-    """K4 on every level's keypoints: angle within ANGLE_TOL, descriptor
-    bitwise equal given the twin's angle."""
-    pattern = orb.brief_pattern_tensor(42, blurred[0].device)
-    err, bits = 0.0, 0
-    for rc, bl in zip(rcs, blurred):
-        ka, _ = orb.orb_describe(bl, rc, pattern)
-        ta, td = orb.orb_describe_torch(bl, rc, pattern)
-        _, kd = orb.orb_describe(bl, rc, pattern, angle=ta)
-        torch.cuda.synchronize()
-        err = max(err, float((ka - ta).abs().max()))
-        bits += int((kd != td).sum())
-    ms = time_cuda(lambda: [orb.orb_describe(bl, rc, pattern)
-                            for rc, bl in zip(rcs, blurred)])
-    plain = time_cuda(lambda: [orb.orb_describe_torch(bl, rc, pattern)
-                               for rc, bl in zip(rcs, blurred)],
-                      warmup=1, reps=5)
-    n_kp = sum(int(rc.shape[0]) for rc in rcs)
-    # per keypoint: intensity moments over the r=15 disc (~709 px x 3)
-    # and 256 rotated pair tests (~14 operations each)
-    return dict(name="orb_desc", max_abs_err=err, ms=ms, plain_ms=plain,
-                ok=err <= ANGLE_TOL and bits == 0, desc_bytes_differ=bits,
-                n_keypoints=n_kp,
-                bytes=nbytes(*blurred, *rcs, pattern) + n_kp * (32 + 4),
-                ops=5700 * n_kp)
+def _patch_pixels(blurred, rc, budgets) -> int:
+    """The blurred pixels the keypoints' 41x41 patches cover (their
+    union, per level and frame): the bytes K4 must read are 4 a pixel."""
+    n, off = 0, 0
+    size = 2 * orb.GATHER_RADIUS + 1
+    for bl, b in zip(blurred, budgets):
+        if b <= 0:
+            continue
+        x = bl.reshape(-1, *bl.shape[-2:])
+        B, h, w = x.shape
+        r = rc.reshape(B, -1, 2)[:, off:off + b].long()
+        r0 = (r[..., 0] - orb.GATHER_RADIUS).clamp(0, max(h, size) - size)
+        c0 = (r[..., 1] - orb.GATHER_RADIUS).clamp(0, max(w, size) - size)
+        r1, c1 = (r0 + size).clamp(max=h), (c0 + size).clamp(max=w)
+        f = torch.arange(B, device=rc.device)[:, None].expand_as(r0)
+        diff = torch.zeros((B, h + 1, w + 1), dtype=torch.int32,
+                           device=rc.device)
+        one = torch.ones_like(r0, dtype=torch.int32)
+        for rr, cc, sign in ((r0, c0, 1), (r0, c1, -1), (r1, c0, -1),
+                             (r1, c1, 1)):
+            diff.index_put_((f, rr, cc), sign * one, accumulate=True)
+        n += int((diff.cumsum(1).cumsum(2)[:, :h, :w] > 0).sum())
+        off += b
+    return n
+
+
+def check_orb_desc(blurred, rc, budgets, tag: str = "") -> dict:
+    """K4 over an extraction's keypoints (``rc`` (B, N, 2) or (N, 2), the
+    budgeted levels' rows concatenated; ``blurred[lv]`` the level's
+    blurred image): ``orb_describe_levels``' angles within ANGLE_TOL of
+    its twin's and its descriptors bitwise equal given the twin's angles,
+    one launch and one device operation a call, bitwise from launch to
+    launch; ``orb_describe`` (one level's descriptor) on each level's rows
+    likewise.  The bytes count the union of the keypoints' patches."""
+    pattern = orb.brief_pattern_tensor(42, rc.device)
+    n0 = orb.orb_describe_levels.launches
+    ka, kd = orb.orb_describe_levels(blurred, rc, budgets, pattern)
+    per_call = orb.orb_describe_levels.launches - n0
+    ta, td = orb.orb_describe_levels_torch(blurred, rc, budgets, pattern)
+    _, kd_t = orb.orb_describe_levels(blurred, rc, budgets, pattern,
+                                      angle=ta)
+    torch.cuda.synchronize()
+    err = float((ka - ta).abs().max())
+    bits = int((kd_t != td).sum())
+    repro = all(_bits_equal(x, y) for _ in range(3) for x, y in zip(
+        (ka, kd), orb.orb_describe_levels(blurred, rc, budgets, pattern)))
+    # one level's rows at a time, as views of the extraction's arrays
+    la, ld = torch.empty_like(ta), torch.empty_like(td)
+    spare_a, spare_d = torch.empty_like(ta), torch.empty_like(td)
+    off = 0
+    for bl, b in zip(blurred, budgets):
+        rows = slice(off, off + b)
+        orb.orb_describe(bl, rc[..., rows, :], pattern,
+                         out=(la[..., rows], spare_d[..., rows, :]))
+        orb.orb_describe(bl, rc[..., rows, :], pattern, angle=ta[..., rows],
+                         out=(spare_a[..., rows], ld[..., rows, :]))
+        off += b
+    torch.cuda.synchronize()
+    one_level = (float((la - ta).abs().max()) <= ANGLE_TOL
+                 and torch.equal(ld, td))
+
+    def kernel():
+        return orb.orb_describe_levels(blurred, rc, budgets, pattern)
+
+    n_ops = graph_ops(kernel)
+    n_kp = int(rc.numel() // 2)
+    return dict(
+        name="orb_desc" + tag, max_abs_err=err,
+        ok=(err <= ANGLE_TOL and bits == 0 and repro and one_level
+            and per_call == 1 and n_ops == 1),
+        desc_bytes_differ=bits, bitwise_repro=repro,
+        one_level_equal=one_level, launches_per_call=per_call,
+        device_ops=n_ops, n_keypoints=n_kp,
+        ms=time_cuda(kernel), device_ms=device_time(kernel),
+        plain_ms=time_cuda(lambda: orb.orb_describe_levels_torch(
+            blurred, rc, budgets, pattern), warmup=1, reps=5),
+        bytes=4 * _patch_pixels(blurred, rc, budgets)
+        + nbytes(rc, pattern) + n_kp * (32 + 4),
+        # per keypoint: the moments' 2 x 678 multiply-adds, 256 rotated
+        # pair tests (~14 operations each)
+        ops=5700 * n_kp)
+
+
+def check_front_k2_k4(device) -> list[dict]:
+    """K2 and K4 over an extraction of a batch of 8 rendered 480x640
+    frames (1000 features), of its first frame (as the serial path
+    extracts it), of 8 frames at 240x320 (600 features), of one 720x1280
+    frame, and over seeded levels smaller than the 41x41 patch and than
+    FAST's ring (``tiny_inputs``)."""
+    grays = batch_frames(device)
+    cases = (("", front_inputs(grays)), ("@B1", front_inputs(grays[0])),
+             ("@240x320", front_inputs(batch_frames(device, h=240, w=320),
+                                       n_features=600)),
+             ("@720x1280", front_inputs(batch_frames(
+                 device, B=1, h=720, w=1280)[0])),
+             ("@tiny", tiny_inputs(device)))
+    return ([check_fast_nms(c[0], tag) for tag, c in cases]
+            + [check_orb_desc(c[3], c[2], c[1], tag) for tag, c in cases])
 
 
 def match_inputs(device, n_a: int = 4096, n_b: int = 1000, seed: int = 0):
@@ -3304,14 +3408,13 @@ def run_loop_seeded(device) -> list[dict]:
 def run_all(device) -> list[dict]:
     """Every kernel against its twin at the slice's shapes (K1's resize
     chain also on one frame, as the serial path extracts it)."""
-    levels, rcs, blurred = slice_levels(device)
     grays = batch_frames(device)
     one = check_pyramid(grays[:1])[0]
     one["name"] += "@B1"
     return [*check_pyramid(grays), one, check_detect(grays),
             *check_detect_cases(device),
             check_compact(device), check_group(device),
-            check_fast_nms(levels), check_orb_desc(rcs, blurred),
+            *check_front_k2_k4(device),
             check_match_window(device),
             *check_track_pass_radii(device, tag="@seeded"),
             check_pose_gn(device),

@@ -12,7 +12,10 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
 3. every kernel against its plain PyTorch twin on the card, at the main
    path's shapes (K1's resize chain, one launch a pyramid, over a batch
    of 8 frames and over one frame as the serial path extracts it, K1's
-   blur over the batch, K3 keypoint selection over every level of the
+   blur, one launch (one device operation) an extraction over every
+   level of the batch, of one frame, at 240x320, at 720x1280 and on
+   levels smaller than its taps, bitwise equal to its twin and from
+   launch to launch, K3 keypoint selection over every level of the
    batch in one launch (all five fields bitwise, also on one frame, on
    tie-heavy quantised scores and at 240x320 / 600 features), K7
    compaction on
@@ -70,9 +73,10 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    (the row plan, exact; the LM engine's reprojection rows and landmark
    reduction at two dampings, one launch a call given the plan and
    bitwise equal from launch to launch, and its back-substitution and
-   cost), K22b (the plan: each edge's whitening and the valid-edge
-   index, once a solve; the inertial rows and their cost; each entry one
-   device operation a call, counted as the nodes of a CUDA graph
+   cost, one device operation a call with and without a step, bitwise
+   from launch to launch), K22b (the plan: each edge's whitening and the
+   valid-edge index, once a solve; the inertial rows and their cost;
+   each entry one device operation a call, counted as the nodes of a CUDA graph
    captured from the call; H, g and the cost bitwise equal from launch
    to launch, also on the initialisation problem over that map's
    keyframes and that problem tiled to 100 and 1500 edges) and K22c (the
@@ -146,12 +150,12 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
       counted readbacks;
    the kernel launch counters are zeroed just before each of (a), (b),
    (d), (f), (h), (i) and (k) and read just after (K1's resize chain,
-   K2, K3 and K4 must launch once an ORB extraction on each, and their
-   plain per-level versions never on the card; on (a), (b), (d) and (i)
-   the tracking pass once a tracking pose solve, K6 or its prior branch,
-   and tracking no standalone window matcher); the JSON kernel table's
-   launches are (d)'s, (i)'s for the inertial path's K18, K20, K6's
-   prior branch and K22, and (k)'s for K17a and K17b;
+   K2, K3, K1's blur and K4 must launch once an ORB extraction on each,
+   and their plain per-level versions never on the card; on (a), (b),
+   (d) and (i) the tracking pass once a tracking pose solve, K6 or its
+   prior branch, and tracking no standalone window matcher); the JSON
+   kernel table's launches are (d)'s, (i)'s for the inertial path's K18,
+   K20, K6's prior branch and K22, and (k)'s for K17a and K17b;
 5. the same 12 small frames through the port on the card (kernels) and on
    the CPU (twins), with the scene graph off and on, whose positions must
    agree; the loop correction chain (verification, pose graph, map
@@ -249,33 +253,35 @@ def _check_sg_launches(tag: str, cnt: dict, freespace: bool = False) -> None:
 
 
 def _check_pyramid_launches(tag: str, cnt: dict) -> None:
-    """K1's resize chain, K2, K3 and K4 launch once an ORB extraction (a
-    frame on the serial path, a batch on the pipeline; K2, K3 and K4 for
-    every budgeted level of it), and no plain K2, K3 or K4 of a level
-    runs on CUDA tensors."""
-    from visual_sgraphs_tpu_torch.features import fast, orb
+    """K1's resize chain, K2, K3, K1's blur and K4 launch once an ORB
+    extraction (a frame on the serial path, a batch on the pipeline; K2,
+    K3, the blur and K4 for every budgeted level of it), and no plain K2,
+    K3, blur or K4 of a level runs on CUDA tensors."""
+    from visual_sgraphs_tpu_torch.features import fast, orb, pyramid
     n = cnt["pyramid_resize"][0]
     plain = (fast.fast_nms_torch.cuda_calls,
              orb.detect_level_torch.cuda_calls,
+             pyramid.gaussian_blur_torch.cuda_calls,
              orb.orb_describe_torch.cuda_calls)
     per_kernel = {k: cnt[k][0] for k in ("fast_nms", "detect_level",
-                                         "orb_desc")}
+                                         "gaussian_blur", "orb_desc")}
     _check(n > 0 and all(v == n for v in per_kernel.values())
            and not any(plain),
-           f"{tag}: K1's chain launched {n} times for K2 / K3 / K4 "
-           f"launches {per_kernel}; {plain} plain K2 / K3 / K4 level calls "
-           "on the card")
+           f"{tag}: K1's chain launched {n} times for K2 / K3 / blur / K4 "
+           f"launches {per_kernel}; {plain} plain K2 / K3 / blur / K4 level "
+           "calls on the card")
 
 
 def _reset_plain_counts() -> None:
     """Zero the kernel counts and the plain functions' counts of calls on
     CUDA tensors that ``cuda.counts`` does not hold."""
     from visual_sgraphs_tpu_torch import cuda
-    from visual_sgraphs_tpu_torch.features import fast, orb
+    from visual_sgraphs_tpu_torch.features import fast, orb, pyramid
     from visual_sgraphs_tpu_torch.inertial import preintegration
     cuda.reset_counts()
     fast.fast_nms_torch.cuda_calls = 0
     orb.detect_level_torch.cuda_calls = 0
+    pyramid.gaussian_blur_torch.cuda_calls = 0
     orb.orb_describe_torch.cuda_calls = 0
     preintegration.predict_state.cuda_calls = 0
 

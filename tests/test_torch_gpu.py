@@ -281,6 +281,9 @@ def test_scenegraph_slice_on_card_uses_every_kernel(device):
 def front_end_checks(device):
     grays = selfcheck.batch_frames(device)
     out = selfcheck.check_pyramid(grays) + [selfcheck.check_detect(grays)]
+    one = selfcheck.check_pyramid(grays[:1])[1]
+    one["name"] += "@B1"
+    out += [one] + selfcheck.check_blur_cases(device)
     out += selfcheck.check_front_end_small(device)
     out += selfcheck.check_detect_cases(device)
     return {r["name"]: r for r in out}
@@ -290,20 +293,27 @@ def front_end_checks(device):
 @pytest.mark.parametrize("name", [
     n + size for size in ("", "@240x320")
     for n in ("pyramid_resize", "gaussian_blur", "detect_level")]
-    + ["detect_level@B1", "detect_level@ties", "detect_level@720x1280",
+    + ["gaussian_blur@B1", "gaussian_blur@720x1280", "gaussian_blur@tiny",
+       "detect_level@B1", "detect_level@ties", "detect_level@720x1280",
        "detect_level@cell48"])
 def test_front_end_kernels(front_end_checks, name):
-    # K1 (resize, blur) within 1e-4 of the twins (expected bitwise) with no
-    # FAST keypoint flipped downstream; K3 bitwise on all five fields (rc,
-    # response, valid, uv, level) in one launch a call, bitwise from launch
-    # to launch; on a batch of 8 frames at 480x640 / 1000 features, on one
-    # frame, on the batch's tie-heavy quantised scores, at 240x320 / 600
-    # features, where K3's deepest levels are shorter than their budget, on
-    # a 720x1280 frame (1840 candidates on level 0) and with 48-pixel cells
+    # K1's resize within 1e-4 of the twin (expected bitwise) with no FAST
+    # keypoint flipped downstream; K1's blur over every level in one launch
+    # (one device operation) a call, bitwise equal to the twin and from
+    # launch to launch; K3 bitwise on all five fields (rc, response, valid,
+    # uv, level) in one launch a call, bitwise from launch to launch; on a
+    # batch of 8 frames at 480x640 / 1000 features, on one frame, on the
+    # batch's tie-heavy quantised scores, at 240x320 / 600 features, where
+    # K3's deepest levels are shorter than their budget, on a 720x1280
+    # frame (1840 candidates on level 0), with 48-pixel cells and (the
+    # blur) on levels smaller than its taps
     r = front_end_checks[name]
     assert r["ok"], r
     if name.startswith("pyramid_resize"):
         assert sum(r["fast_keypoints_differ_per_level"]) == 0, r
+    if name.startswith("gaussian_blur"):
+        assert r["bitwise"] and r["bitwise_repro"], r
+        assert r["launches_per_call"] == 1 and r["device_ops"] == 1, r
     if name.startswith("detect_level"):
         assert r["launches_per_call"] == 1 and r["bitwise_repro"], r
     if name == "detect_level@240x320":
@@ -320,6 +330,7 @@ def _extract_orb_one_k3_launch(img):
     t = orb.extract_orb(img.cpu())
     assert counts["detect_level"] == (1, 0)
     assert counts["pyramid_resize"] == (1, 0)
+    assert counts["gaussian_blur"] == (1, 0)
     assert counts["orb_desc"] == (1, 0) and counts["fast_nms"] == (1, 0)
     for f in ("uv", "response", "level", "valid"):
         assert torch.equal(getattr(k, f).cpu(), getattr(t, f)), f
@@ -329,8 +340,8 @@ def _extract_orb_one_k3_launch(img):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B", [1, 8])
 def test_extract_orb_one_k3_launch(device, B):
-    # extract_orb on the card: K1's chain, K2, K3 and K4 launch once, K1's
-    # blur once a level; the selected keypoints (uv, response,
+    # extract_orb on the card: K1's chain, K2, K3, K1's blur and K4 launch
+    # once each; the selected keypoints (uv, response,
     # level, valid) equal to the extraction on the CPU twins of the same
     # frames, the angles within 1e-5 rad (atan2 on two devices; the
     # descriptors, which follow the angles, are held bitwise given the
@@ -503,9 +514,15 @@ def test_lm_kernels(lm_checks, name):
     # and its cost within 1e-5 on the VI problem, the initialisation
     # problem and that problem tiled to 100 and 1500 edges; K22c's step
     # within 1e-6
-    # of the twin's float64 solve, its candidates within 1e-5
+    # of the twin's float64 solve, its candidates within 1e-5; K22a's
+    # back-substitution and cost one device operation a call (the nodes
+    # of a CUDA graph captured from the call, with a step and without),
+    # its points and cost bitwise equal over repeated launches
     r = lm_checks[name]
     assert r["ok"], r
+    if name.startswith("lm_reproj_cost"):
+        assert r["device_ops"] == 1 and r["device_ops_no_step"] == 1, r
+        assert r["bitwise_repro"], r
 
 
 @pytest.mark.gpu

@@ -54,9 +54,38 @@
 // back-substitution reads).  Float32 like the engine's rows (the landmark
 // blocks span ~8 orders of magnitude, as K8's: no TF32); the cross-CTA
 // sums in float64.  The CTA's accumulator holds (6L)^2 / 2 + 96 L floats
-// in shared memory: windows up to L = 47 (K22a raises past it).  The
-// back-substitution takes a landmark a thread, the cost a row a thread
-// with a float64 block sum.
+// in shared memory: windows up to L = 47 (K22a raises past it).
+//
+// The back-substitution and cost (vsg_lm_reproj_cost) is one launch a
+// call as well, with no memset and no float atomics: a CTA owns a
+// contiguous range of COST_LANDMARKS (16) landmarks, and so the
+// contiguous range idx[ptr[n0] .. ptr[n1]) of the plan's rows.  Given a
+// step, 16 lanes take a landmark (the slots of its mask split between
+// them, one each up to 16 slots, their P_s dx_s summed by shuffles in a
+// fixed order: a landmark's P loads are one round), and lane 0 writes the
+// candidate point -L^-T (c + L^-1 sum_s P_s dx_s) + X (zero step where
+// fixed or not finite) to ``out`` and to shared memory, for every
+// landmark, those without a row too; without a step the points are
+// staged as they are.  After a barrier the CTA's threads take its rows
+// in the plan's order, reading the window's poses and the candidate
+// points from shared memory, and sum the rows' Huber costs in float64.
+// The launch is latency-bound (a VI window's call reads ~0.5 MB), so
+// every load that depends on nothing (the CTA's row range, the camera,
+// the poses, each landmark's factor, c and point) is issued first, and
+// each thread's first row is fetched while the step runs: a call waits
+// on three rounds of dependent loads.  The sums:
+// each thread its rows in order, a warp's by a fixed shuffle tree, the
+// warps in order; the CTA partials go to scratch, and the last CTA to
+// take a ticket sums them in CTA order and writes the cost (or adds it to
+// the given one).  So the cost is summed in an order fixed by the data
+// (plan order, not the twin's mono-then-stereo order: within
+// LM_COST_TOL) and is bitwise equal from launch to launch.  Rows outside
+// the plan: every caller builds its rows with mapping.py::window_rows,
+// whose used rows all have a landmark id in [0, N) (a clamped local id,
+// used only where it is >= 0) and a slot in [0, L), so the plan holds
+// every used row and the cost reads no other; a used row with an id
+// outside [0, N) or a slot outside [0, L) adds nothing (the reduction
+// skips such rows as well; the twin's gathers would fail on them).
 #include "gram.cuh"
 #include "lie.cuh"
 
@@ -70,8 +99,11 @@ using gram::Q_P;
 using gram::Q_R;
 using gram::QS;
 
-constexpr int THREADS = 256;  // back-substitution and cost kernels
-constexpr int WARPS = THREADS / 32;
+constexpr int COST_THREADS = 256;  // the step and cost launch
+constexpr int COST_LANES = 16;  // a landmark's lanes in the step
+// landmarks a CTA (optim/lm_kernels.py::COST_LANDMARKS)
+constexpr int COST_LANDMARKS = COST_THREADS / COST_LANES;
+constexpr int POSE_STAGE = 64;  // windows whose poses the cost stages
 constexpr int PLAN_THREADS = 1024;
 
 __device__ unsigned g_lm_tickets[gram::CLUSTER];
@@ -96,25 +128,45 @@ struct Rows {
     float huber_mono, huber_stereo;
 };
 
+// The camera (pinhole, stereo baseline bf) and a row's observation (u, v,
+// u_r; stereo or not).
+struct Cam {
+    float fx, fy, cx, cy, bf;
+};
+
+struct Obs {
+    float u, v, ur;
+    bool st;
+};
+
+__device__ __forceinline__ Cam cam_of(const Rows& a) {
+    return Cam{a.cam[0], a.cam[1], a.cam[2], a.cam[3], a.bf[0]};
+}
+
+__device__ __forceinline__ Obs row_obs(const Rows& a, int m) {
+    return Obs{a.uvr[3 * m], a.uvr[3 * m + 1], a.uvr[3 * m + 2],
+               a.stereo[m] != 0};
+}
+
 // The row's camera point p, residual r (r[2] = 0 on mono rows) and d r /
 // d p (row 2 zero on mono rows), at pose T and point X.
-__device__ void row_residual(const Rows& a, int m, const float* T,
-                             const float* X, float* p, float* r,
+__device__ void row_residual(const Cam& K, const float* T, const float* X,
+                             const Obs& o, float* p, float* r,
                              float (*Jr)[3]) {
     quat_rot(T, X, p);
     for (int k = 0; k < 3; ++k) p[k] += T[4 + k];
-    const float fx = a.cam[0], fy = a.cam[1], cx = a.cam[2], cy = a.cam[3];
+    const float fx = K.fx, fy = K.fy, cx = K.cx, cy = K.cy;
     const float z = p[2];
     const bool tiny = fabsf(z) < 1e-9f;
     const float iz = 1.0f / (tiny ? 1e-9f : z);
     const float u = fx * p[0] * iz + cx;
     const float v = fy * p[1] * iz + cy;
-    const bool st = a.stereo[m] != 0;
-    const float bf = a.bf[0];
+    const bool st = o.st;
+    const float bf = K.bf;
     const float zc = fmaxf(z, 1e-6f);
-    r[0] = u - a.uvr[3 * m];
-    r[1] = v - a.uvr[3 * m + 1];
-    r[2] = st ? (u - bf / zc) - a.uvr[3 * m + 2] : 0.0f;
+    r[0] = u - o.u;
+    r[1] = v - o.v;
+    r[2] = st ? (u - bf / zc) - o.ur : 0.0f;
     const float dinv = tiny ? 0.0f : iz * iz;
     const float dz_ur = z > 1e-6f ? bf / (zc * zc) : 0.0f;
     Jr[0][0] = fx * iz;
@@ -258,7 +310,8 @@ __device__ void lm_landmark(const Rows& a, const int* __restrict__ ptr,
         if (on) {
             const float* T = a.pose + 7 * s;
             float p[3], Jr[3][3], R[9];
-            row_residual(a, m, T, a.pts + 3 * n, p, r, Jr);
+            row_residual(cam_of(a), T, a.pts + 3 * n, row_obs(a, m), p, r,
+                         Jr);
             const float chi2 = r[0] * r[0] + r[1] * r[1] + r[2] * r[2];
             const float delta = a.stereo[m] ? a.huber_stereo : a.huber_mono;
             w = fminf((1.0f / sqrtf(fmaxf(chi2, 1e-12f))) * delta, 1.0f);
@@ -471,65 +524,156 @@ reduce_kernel(Rows a, const int* __restrict__ ptr,
     });
 }
 
-__global__ void __launch_bounds__(THREADS)
-backsub_kernel(int N, int L, const float* __restrict__ pts,
-               const uint8_t* __restrict__ fixed,
-               const float* __restrict__ Linv, const float* __restrict__ c,
-               const float* __restrict__ P,
-               const unsigned* __restrict__ mask,
-               const float* __restrict__ dx, float* __restrict__ out) {
-    const int n = blockIdx.x * THREADS + threadIdx.x;
-    if (n >= N) return;
-    // y = c + L^-1 sum_s P_s dx_s, dx_pt = -L^-T y
-    float t[3] = {0.0f, 0.0f, 0.0f};
-    const unsigned* mk = mask + (size_t)n * mask_words(L);
-    for (int s = 0; s < L; ++s) {
-        if (!((mk[s / 32] >> (s % 32)) & 1u)) continue;
-        const float* Ps = P + 18 * ((size_t)n * L + s);
-        const float* d = dx + 6 * s;
-        for (int i = 0; i < 3; ++i) {
-            float v = 0.0f;
-            for (int j = 0; j < 6; ++j) v += Ps[6 * i + j] * d[j];
-            t[i] += v;
-        }
-    }
-    const float* li = Linv + 6 * n;
-    const float y0 = c[3 * n] + li[0] * t[0];
-    const float y1 = c[3 * n + 1] + li[1] * t[0] + li[2] * t[1];
-    const float y2 = c[3 * n + 2] + li[3] * t[0] + li[4] * t[1] + li[5] * t[2];
-    const float d[3] = {-(li[0] * y0 + li[1] * y1 + li[3] * y2),
-                        -(li[2] * y1 + li[4] * y2), -(li[5] * y2)};
-    for (int i = 0; i < 3; ++i) {
-        const float v = (fixed[n] || !isfinite(d[i])) ? 0.0f : d[i];
-        out[3 * n + i] = pts[3 * n + i] + v;
-    }
-}
+// The step and cost launch's inputs beside the rows.
+struct CostIn {
+    const int* ptr;  // the plan
+    const int* idx;
+    const uint8_t* fixed;  // (N,)
+    const float* Linv;     // (N, 6), null without a step
+    const float* c;        // (N, 3)
+    const float* P;        // (N, L, 3, 6)
+    const unsigned* mask;  // (N, mask_words(L))
+    const float* dx;       // (D,) or null
+    float* out;            // (N, 3) the candidate points, with a step
+    int per;               // landmarks a CTA (COST_LANDMARKS)
+};
 
-__global__ void __launch_bounds__(THREADS)
-cost_kernel(Rows a, double* __restrict__ cost) {
-    __shared__ double part[WARPS];
-    double acc = 0.0;
-    for (int m = blockIdx.x * THREADS + threadIdx.x; m < a.M;
-         m += gridDim.x * THREADS) {
-        if (!a.use[m]) continue;
-        float p[3], r[3], Jr[3][3];
-        row_residual(a, m, a.pose + 7 * a.slot[m], a.pts + 3 * a.pt[m], p, r,
-                     Jr);
-        const float chi2 = r[0] * r[0] + r[1] * r[1] + r[2] * r[2];
-        acc += (double)huber_cost(
-            chi2, a.stereo[m] ? a.huber_stereo : a.huber_mono);
-    }
+__device__ unsigned g_cost_ticket;
+
+// a double summed over the CTA in a fixed order: a shuffle tree a warp,
+// then the warps in order; the total on thread 0
+__device__ __forceinline__ double cta_sum(double v, double* wsum) {
     for (int off = 16; off > 0; off >>= 1) {
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        v += __shfl_xor_sync(FULL, v, off);
     }
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (lane == 0) part[warp] = acc;
+    if (lane == 0) wsum[warp] = v;
     __syncthreads();
+    double total = 0.0;
     if (threadIdx.x == 0) {
-        double s = 0.0;
-        for (int w = 0; w < WARPS; ++w) s += part[w];
-        atomicAdd(cost, s);
+        for (int w = 0; w < COST_THREADS / 32; ++w) total += wsum[w];
     }
+    __syncthreads();
+    return total;
+}
+
+__global__ void __launch_bounds__(COST_THREADS)
+cost_kernel(Rows a, CostIn in, double* __restrict__ part,
+            double* __restrict__ cost, int add) {
+    __shared__ float X[COST_LANDMARKS * 3];
+    __shared__ float T[POSE_STAGE * 7];
+    __shared__ double wsum[COST_THREADS / 32];
+    __shared__ bool last;
+    const int tid = threadIdx.x, L = a.L;
+    const int n0 = blockIdx.x * in.per;
+    const int n1 = min(a.N, n0 + in.per);
+    const bool staged = L <= POSE_STAGE;
+    // the loads that depend on nothing first: the CTA's row range, the
+    // camera, the poses, this lane's landmark
+    const int kb = n1 > n0 ? in.ptr[n0] : 0;
+    const int ke = n1 > n0 ? in.ptr[n1] : 0;
+    const Cam K = cam_of(a);
+    if (staged) {
+        for (int t = tid; t < 7 * L; t += COST_THREADS) T[t] = a.pose[t];
+    }
+    const int n = n0 + tid / COST_LANES, q = tid % COST_LANES;
+    const bool lane_on = n < n1;
+    float x0[3] = {0.0f, 0.0f, 0.0f}, li[6] = {}, c[3] = {};
+    bool fx = false;
+    if (lane_on) {
+        for (int i = 0; i < 3; ++i) x0[i] = a.pts[3 * n + i];
+        if (in.dx != nullptr) {
+            for (int i = 0; i < 6; ++i) li[i] = in.Linv[6 * n + i];
+            for (int i = 0; i < 3; ++i) c[i] = in.c[3 * n + i];
+            fx = in.fixed[n] != 0;
+        }
+    }
+    // the thread's first row, fetched while the step runs
+    const int m0 = kb + tid < ke ? in.idx[kb + tid] : -1;
+    if (in.dx != nullptr) {
+        // COST_LANES lanes a landmark, the mask's slots split between them
+        float t[3] = {0.0f, 0.0f, 0.0f};
+        if (lane_on) {
+            const unsigned* mk = in.mask + (size_t)n * mask_words(L);
+            for (int s = q; s < L; s += COST_LANES) {
+                if (!((mk[s / 32] >> (s % 32)) & 1u)) continue;
+                const float* Ps = in.P + 18 * ((size_t)n * L + s);
+                const float* d = in.dx + 6 * s;
+#pragma unroll
+                for (int i = 0; i < 3; ++i) {
+                    float v = 0.0f;
+#pragma unroll
+                    for (int j = 0; j < 6; ++j) v += Ps[6 * i + j] * d[j];
+                    t[i] += v;
+                }
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+#pragma unroll
+            for (int off = 1; off < COST_LANES; off <<= 1) {
+                t[i] += __shfl_xor_sync(FULL, t[i], off);
+            }
+        }
+        // y = c + L^-1 t, dx_pt = -L^-T y
+        const float y0 = c[0] + li[0] * t[0];
+        const float y1 = c[1] + li[1] * t[0] + li[2] * t[1];
+        const float y2 = c[2] + li[3] * t[0] + li[4] * t[1] + li[5] * t[2];
+        const float d[3] = {-(li[0] * y0 + li[1] * y1 + li[3] * y2),
+                            -(li[2] * y1 + li[4] * y2), -(li[5] * y2)};
+        for (int i = 0; i < 3; ++i) {
+            x0[i] += (fx || !isfinite(d[i])) ? 0.0f : d[i];
+        }
+        if (lane_on && q == 0) {
+            for (int i = 0; i < 3; ++i) in.out[3 * n + i] = x0[i];
+        }
+    }
+    if (lane_on && q == 0) {
+        for (int i = 0; i < 3; ++i) X[3 * (n - n0) + i] = x0[i];
+    }
+    int s0 = -1, p0 = 0;
+    Obs o0 = {};
+    if (m0 >= 0) {
+        s0 = a.slot[m0];
+        p0 = a.pt[m0] - n0;
+        o0 = row_obs(a, m0);
+    }
+    __syncthreads();
+    // the CTA's rows in plan order, each thread its own in order
+    double acc = 0.0;
+    for (int k = kb + tid; k < ke; k += COST_THREADS) {
+        int s = s0, pl = p0;
+        Obs o = o0;
+        if (k != kb + tid) {
+            const int m = in.idx[k];
+            s = a.slot[m];
+            pl = a.pt[m] - n0;
+            o = row_obs(a, m);
+        }
+        if (s < 0 || s >= L) continue;
+        float p[3], r[3], Jr[3][3];
+        row_residual(K, staged ? T + 7 * s : a.pose + 7 * s, X + 3 * pl, o,
+                     p, r, Jr);
+        const float chi2 = r[0] * r[0] + r[1] * r[1] + r[2] * r[2];
+        acc += (double)huber_cost(chi2, o.st ? a.huber_stereo
+                                             : a.huber_mono);
+    }
+    const double mine = cta_sum(acc, wsum);
+    if (tid == 0) {
+        part[blockIdx.x] = mine;
+        __threadfence();
+        last = atomicInc(&g_cost_ticket, gridDim.x - 1) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    // the CTA partials in CTA order: each thread a strided run, in order
+    double v = 0.0;
+    for (int b = tid; b < (int)gridDim.x; b += COST_THREADS) {
+        v += __ldcg(part + b);
+    }
+    const double total = cta_sum(v, wsum);
+    if (tid == 0) *cost = add ? *cost + total : total;
 }
 
 Rows make_rows(const float* pose, int L, const float* pts, int N,
@@ -552,13 +696,6 @@ Rows make_rows(const float* pose, int L, const float* pts, int N,
     a.huber_mono = hm;
     a.huber_stereo = hs;
     return a;
-}
-
-int sm_count() {
-    int dev = 0, sms = 132;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return sms;
 }
 
 int smem_limit() {
@@ -671,38 +808,29 @@ VSG_API int vsg_lm_reproj_reduce(
                                     part));
 }
 
-// As vsg_lm_reproj_reduce's rows, with fixed (N,) u8.  With a step dx
-// (D,) f32 (the pose block first): out (N, 3) = pts + the points' step
-// from Linv, c, P, mask (zero where fixed or not finite), and the cost at
-// (pose, out); without (dx null): the cost at (pose, pts).  cost () f64
-// += the rows' robust cost (zeroed first when ``zero``).
+// As vsg_lm_reproj_reduce's rows and plan, with fixed (N,) u8.  With a
+// step dx (D,) f32 (the pose block first): out (N, 3) = pts + the points'
+// step from Linv, c, P, mask (zero where fixed or not finite), and the
+// cost at (pose, out); without (dx null): the cost at (pose, pts).  cost
+// () f64 = the rows' robust cost (``add``: += it); per: landmarks a CTA
+// (COST_LANDMARKS), ctas = ceil(N / per) (at least 1); part: ctas f64 of
+// scratch, not initialised.
 VSG_API int vsg_lm_reproj_cost(
     const float* pose, int L, const float* pts, int N, const int* slot,
     const int* pt, const float* uvr, const uint8_t* use,
     const uint8_t* stereo, int M, const float* cam, const float* bf,
-    float huber_mono, float huber_stereo, const uint8_t* fixed,
-    const float* Linv, const float* c, const float* P,
-    const unsigned* mask,
-    const float* dx, float* out, double* cost, int zero,
-    cudaStream_t stream) {
-    if (zero) {
-        const cudaError_t err =
-            cudaMemsetAsync(cost, 0, sizeof(double), stream);
-        if (err != cudaSuccess) return (int)err;
+    float huber_mono, float huber_stereo, const int* ptr, const int* idx,
+    const uint8_t* fixed, const float* Linv, const float* c, const float* P,
+    const unsigned* mask, const float* dx, float* out, int per, int ctas,
+    double* part, double* cost, int add, cudaStream_t stream) {
+    if (per != COST_LANDMARKS || ctas < 1
+        || (long long)ctas * per < (long long)N
+        || (long long)(ctas - 1) * per >= (long long)max(N, 1)) {
+        return (int)cudaErrorInvalidValue;
     }
-    const float* at = pts;
-    if (dx != nullptr && N > 0) {
-        backsub_kernel<<<(N + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
-            N, L, pts, fixed, Linv, c, P, mask, dx, out);
-        const cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-        at = out;
-    }
-    const Rows a = make_rows(pose, L, at, N, slot, pt, uvr, use, stereo, M,
+    const Rows a = make_rows(pose, L, pts, N, slot, pt, uvr, use, stereo, M,
                              cam, bf, huber_mono, huber_stereo);
-    if (M > 0) {
-        const int blocks = min((M + THREADS - 1) / THREADS, 2 * sm_count());
-        cost_kernel<<<blocks, THREADS, 0, stream>>>(a, cost);
-    }
+    const CostIn in = {ptr, idx, fixed, Linv, c, P, mask, dx, out, per};
+    cost_kernel<<<ctas, COST_THREADS, 0, stream>>>(a, in, part, cost, add);
     return (int)cudaGetLastError();
 }

@@ -13,76 +13,182 @@
 // writes ~3.4 MB per pass; per pixel the work is 3-4 (resize) or 14 (blur)
 // multiply-adds.  The resize chain of a batch of 8 moves ~50 MB, 0.015 ms
 // at the card's rate, where 7 resizes of two launches each and their
-// scratch images cost far more in launches and host time.
+// scratch images cost far more in launches and host time; the blur of the
+// batch's 8 levels moves 60.8 MB, 0.018 ms.
 //
-// Design: the resize's bands (first source index and up to T float32
-// weights per output, T = 3 at 1/1.2) of every level, rows and columns,
-// are computed once per (h, w, levels, scale) on the host from the same
-// float64-derived float32 weights as the twin's and packed into one
-// device table.  One launch builds levels 1..n of the batch into one
-// buffer: a thread-block cluster a frame, a cluster barrier between
+// Design of the resize chain: the resize's bands (first source index and
+// up to T float32 weights per output, T = 3 at 1/1.2) of every level, rows
+// and columns, are computed once per (h, w, levels, scale) on the host
+// from the same float64-derived float32 weights as the twin's and packed
+// into one device table.  One launch builds levels 1..n of the batch into
+// one buffer: a thread-block cluster a frame, a cluster barrier between
 // levels, each tile's rows pass kept in shared memory (no scratch image).
 // Each output accumulates its taps in order, the first a product and each
 // next one fused multiply-add (__fmaf_rn), the rounding of a matrix
 // product's dot over the dense weights (the zero weights add nothing);
-// the twin emulates the fused step in float64.  The blur loads a
-// (TH + 6) x (TW + 6) tile with clamped coordinates into shared memory,
-// runs the vertical taps into a second tile and the horizontal taps out
-// of it, each product and sum written with __fmul_rn / __fadd_rn in the
-// twin's order (nvcc would contract a * b + c into an FMA).  Both are
-// bitwise equal to the twin on the card but for a rare double rounding in
-// the twin's emulation.
+// the twin emulates the fused step in float64.  Bitwise equal to the twin
+// on the card but for a rare double rounding in the twin's emulation.
+//
+// Design of the blur (vsg_blur_levels): one launch for every level and
+// frame of an extraction.  The levels' descriptors (image and output
+// pointers, and the plan of features/pyramid.py::blur_tile_plan: h, w,
+// tiles across, first tile) and the 7 taps go in a by-value kernel
+// parameter, so a launch needs no host-to-device copy; the grid is (every
+// level's output tiles, frames) and a CTA finds its level from the
+// first-tile offsets, as K2 does.  A CTA of 256 threads blurs a 32 x 64
+// output tile from a 38 x 70 staged window (each input read ~1.3 times,
+// against ~2.1 with the 8 x 32 tiles of one launch a level before): every
+// load of the window in flight before the first shared store, coordinates
+// clamped to the level's own edges (edge replication, any level size,
+// also under 7 pixels a side); the vertical taps run into a second shared
+// tile, a thread a column and 8 rows from 14 loaded inputs, the
+// horizontal taps out of it, a thread a row and 8 columns, into a third
+// (the window's, now free), which the CTA writes out row by row,
+// coalesced.  The window is staged and written a warp a row, so that a
+// coordinate is clamped once a row and once a column, not divided and
+// clamped at every load: per CTA the index work had been about as many
+// instructions as the taps' sums.  Each product and sum is written with
+// __fmul_rn / __fadd_rn in the twin's order (nvcc would contract a * b +
+// c into an FMA), so the blur is bitwise equal to the twin.
 #include "common.cuh"
 
 namespace {
 
-constexpr int TW = 32;
-constexpr int TH = 8;
 constexpr int HALF = 3;
 constexpr int TAPS = 2 * HALF + 1;
+constexpr int BLUR_MAX_LEVELS = 8;   // pyramid.py::BLUR_MAX_LEVELS
+constexpr int BLUR_THREADS = 256;
+constexpr int BT_R = 32;             // output tile (pyramid.py::BLUR_TILE)
+constexpr int BT_C = 64;
+constexpr int BW_R = BT_R + 2 * HALF;  // staged window
+constexpr int BW_C = BT_C + 2 * HALF;
+constexpr int BW_S = BW_C + 1;       // odd row strides: no bank conflicts
+constexpr int BO_S = BT_C + 1;
+constexpr int WARPS_B = BLUR_THREADS / 32;
+constexpr int WIN_ROWS = (BW_R + WARPS_B - 1) / WARPS_B;  // a warp's rows
+constexpr int WIN_COLS = (BW_C + 31) / 32;  // a lane's columns
+constexpr int RUN = 8;               // outputs a thread in each pass
+static_assert(BT_R * BT_C == RUN * BLUR_THREADS, "a thread 8 outputs");
+static_assert(BT_R * BO_S <= BW_R * BW_S, "the output tile fits");
 
-__global__ void blur_kernel(const float* __restrict__ img,
-                            const float* __restrict__ taps,
-                            float* __restrict__ out, int h, int w) {
-    __shared__ float tin[TH + 2 * HALF][TW + 2 * HALF];
-    __shared__ float tmid[TH][TW + 2 * HALF];
-    const int b = blockIdx.z;
-    const float* src = img + (size_t)b * h * w;
-    float* dst = out + (size_t)b * h * w;
-    const int r0 = blockIdx.y * TH - HALF;
-    const int c0 = blockIdx.x * TW - HALF;
-    const int tid = threadIdx.y * TW + threadIdx.x;
-    float k[TAPS];
+struct BlurLevel {
+    const float* img;  // (B, h, w)
+    float* out;        // (B, h, w)
+    int h, w, tiles_x, tile0;
+};
+
+struct BlurLevels {
+    BlurLevel lv[BLUR_MAX_LEVELS];
+    float taps[TAPS];
+    int n;
+};
+
+// RUN outputs of the 7-tap sum over x[0 .. RUN + 5], the taps in order
+__device__ __forceinline__ void blur_run(const float (&x)[RUN + 2 * HALF],
+                                         const float* k, float (&y)[RUN]) {
 #pragma unroll
-    for (int i = 0; i < TAPS; ++i) k[i] = taps[i];
-    for (int i = tid; i < (TH + 2 * HALF) * (TW + 2 * HALF); i += TW * TH) {
-        const int tr = i / (TW + 2 * HALF);
-        const int tc = i % (TW + 2 * HALF);
-        const int rr = min(max(r0 + tr, 0), h - 1);
-        const int cc = min(max(c0 + tc, 0), w - 1);
-        tin[tr][tc] = src[(size_t)rr * w + cc];
-    }
-    __syncthreads();
-    for (int i = tid; i < TH * (TW + 2 * HALF); i += TW * TH) {
-        const int tr = i / (TW + 2 * HALF);
-        const int tc = i % (TW + 2 * HALF);
-        float acc = __fmul_rn(k[0], tin[tr][tc]);
+    for (int o = 0; o < RUN; ++o) {
+        float acc = __fmul_rn(k[0], x[o]);
 #pragma unroll
         for (int t = 1; t < TAPS; ++t) {
-            acc = __fadd_rn(acc, __fmul_rn(k[t], tin[tr + t][tc]));
+            acc = __fadd_rn(acc, __fmul_rn(k[t], x[o + t]));
         }
-        tmid[tr][tc] = acc;
+        y[o] = acc;
+    }
+}
+
+__global__ void __launch_bounds__(BLUR_THREADS)
+blur_levels_kernel(const BlurLevels L) {
+    __shared__ float win[BW_R * BW_S];  // the window, then the output tile
+    __shared__ float mid[BT_R * BW_S];  // the vertical pass
+    int l = 0;
+#pragma unroll
+    for (int i = 1; i < BLUR_MAX_LEVELS; ++i) {
+        if (i < L.n && (int)blockIdx.x >= L.lv[i].tile0) l = i;
+    }
+    const BlurLevel lv = L.lv[l];
+    const int h = lv.h, w = lv.w;
+    const int tile = blockIdx.x - lv.tile0;
+    const int ty = tile / lv.tiles_x;
+    const int r0 = ty * BT_R, c0 = (tile - ty * lv.tiles_x) * BT_C;
+    const size_t frame = (size_t)blockIdx.y * h * w;
+    const float* src = lv.img + frame;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    float k[TAPS];
+#pragma unroll
+    for (int t = 0; t < TAPS; ++t) k[t] = L.taps[t];
+
+    // the window: a warp a row (rows warp, warp + 8, ...), a lane columns
+    // lane, lane + 32 and lane + 64 (the last 6), each coordinate clamped
+    // once; every load in flight before the first shared store
+    int col[WIN_COLS];
+#pragma unroll
+    for (int j = 0; j < WIN_COLS; ++j) {
+        col[j] = min(max(c0 - HALF + lane + 32 * j, 0), w - 1);
+    }
+    float v[WIN_ROWS][WIN_COLS];
+#pragma unroll
+    for (int i = 0; i < WIN_ROWS; ++i) {
+        const int rr = min(max(r0 - HALF + warp + WARPS_B * i, 0), h - 1);
+        const float* row = src + (size_t)rr * w;
+#pragma unroll
+        for (int j = 0; j < WIN_COLS; ++j) {
+            v[i][j] = (warp + WARPS_B * i < BW_R && lane + 32 * j < BW_C)
+                          ? __ldg(row + col[j]) : 0.0f;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < WIN_ROWS; ++i) {
+#pragma unroll
+        for (int j = 0; j < WIN_COLS; ++j) {
+            if (warp + WARPS_B * i < BW_R && lane + 32 * j < BW_C) {
+                win[(warp + WARPS_B * i) * BW_S + lane + 32 * j] = v[i][j];
+            }
+        }
     }
     __syncthreads();
-    const int r = blockIdx.y * TH + threadIdx.y;
-    const int c = blockIdx.x * TW + threadIdx.x;
-    if (r >= h || c >= w) return;
-    float acc = __fmul_rn(k[0], tmid[threadIdx.y][threadIdx.x]);
+
+    // vertical: a thread a window column and RUN output rows
+    for (int it = tid; it < BW_C * (BT_R / RUN); it += BLUR_THREADS) {
+        const int c = it % BW_C, rb = it / BW_C * RUN;
+        float x[RUN + 2 * HALF], y[RUN];
 #pragma unroll
-    for (int t = 1; t < TAPS; ++t) {
-        acc = __fadd_rn(acc, __fmul_rn(k[t], tmid[threadIdx.y][threadIdx.x + t]));
+        for (int j = 0; j < RUN + 2 * HALF; ++j) {
+            x[j] = win[(rb + j) * BW_S + c];
+        }
+        blur_run(x, k, y);
+#pragma unroll
+        for (int o = 0; o < RUN; ++o) mid[(rb + o) * BW_S + c] = y[o];
     }
-    dst[(size_t)r * w + c] = acc;
+    __syncthreads();
+
+    // horizontal: a thread an output row (the lane) and RUN columns
+    {
+        const int cb = warp * RUN;
+        float x[RUN + 2 * HALF], y[RUN];
+#pragma unroll
+        for (int j = 0; j < RUN + 2 * HALF; ++j) {
+            x[j] = mid[lane * BW_S + cb + j];
+        }
+        blur_run(x, k, y);
+#pragma unroll
+        for (int o = 0; o < RUN; ++o) win[lane * BO_S + cb + o] = y[o];
+    }
+    __syncthreads();
+
+    // out: a warp a row, a lane columns lane and lane + 32
+    float* dst = lv.out + frame;
+#pragma unroll
+    for (int i = 0; i < BT_R / WARPS_B; ++i) {
+        const int rt = warp + WARPS_B * i, r = r0 + rt;
+#pragma unroll
+        for (int j = 0; j < BT_C / 32; ++j) {
+            const int c = c0 + lane + 32 * j;
+            if (r < h && c < w) {
+                dst[(size_t)r * w + c] = win[rt * BO_S + lane + 32 * j];
+            }
+        }
+    }
 }
 
 // The resize chain: levels 1..n of the pyramid, each from the one before,
@@ -324,12 +430,26 @@ pyramid_chain_kernel(const float* img, float* out,
 
 }  // namespace
 
-// img, out: (B, h, w) f32; taps: (7,) f32.
-VSG_API int vsg_blur(const float* img, const float* taps, float* out, int B,
-                     int h, int w, cudaStream_t stream) {
-    if (B == 0) return 0;
-    dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, B);
-    blur_kernel<<<grid, dim3(TW, TH), 0, stream>>>(img, taps, out, h, w);
+// imgs, outs: n_levels pointers to (B, h, w) float32 levels and their
+// blurred images, contiguous, on the device; plan: (h, w, tiles across,
+// first tile) per level, n_tiles the tiles a frame
+// (features/pyramid.py::blur_tile_plan); taps: the 7 float32 taps (host).
+VSG_API int vsg_blur_levels(const float* const* imgs, float* const* outs,
+                            const int* plan, int n_levels, int n_tiles,
+                            int B, const float* taps, cudaStream_t stream) {
+    if (B == 0 || n_levels == 0) return 0;
+    if (n_levels > BLUR_MAX_LEVELS || B > 65535 || n_tiles < 1) {
+        return (int)cudaErrorInvalidValue;
+    }
+    BlurLevels L = {};
+    L.n = n_levels;
+    for (int t = 0; t < TAPS; ++t) L.taps[t] = taps[t];
+    for (int l = 0; l < n_levels; ++l) {
+        const int* p = plan + 4 * l;
+        if (p[0] < 1 || p[1] < 1) return (int)cudaErrorInvalidValue;
+        L.lv[l] = BlurLevel{imgs[l], outs[l], p[0], p[1], p[2], p[3]};
+    }
+    blur_levels_kernel<<<dim3(n_tiles, B), BLUR_THREADS, 0, stream>>>(L);
     return (int)cudaGetLastError();
 }
 

@@ -44,7 +44,7 @@ KERNELS = (
      "visual_sgraphs_tpu_torch/csrc/pyramid.cu",
      "visual_sgraphs_tpu/features/pyramid.py:56"),
     ("gaussian_blur", "visual_sgraphs_tpu_torch.features.pyramid",
-     "gaussian_blur", "gaussian_blur_torch",
+     "gaussian_blur_levels", "gaussian_blur_levels_torch",
      "visual_sgraphs_tpu_torch/csrc/pyramid.cu",
      "visual_sgraphs_tpu/features/pyramid.py:27"),
     ("fast_nms", "visual_sgraphs_tpu_torch.features.fast", "fast_levels",
@@ -196,7 +196,8 @@ _ROWS = [_VP, _I, _VP, _I] + [_VP] * 5 + [_I, _VP, _VP, _F, _F]
 # the plane table (5 pointers, P) and the room table (6 pointers, R)
 _ROOMS = [_VP] * 5 + [_I] + [_VP] * 6 + [_I]
 _ARGTYPES = {
-    "vsg_blur": [_VP, _VP, _VP, _I, _I, _I, _VP],
+    "vsg_blur_levels": [_PP, _PP, _PI, _I, _I, _I,
+                        ctypes.POINTER(ctypes.c_float), _VP],
     "vsg_pyramid": [_VP, _VP, _I, _VP, _PI] + [_I] * 4 + [_VP],
     "vsg_fast_levels": [_PP, _PP, _PI, _I, _I, _I, _VP],
     "vsg_detect_levels": [_PP, _PI, ctypes.POINTER(ctypes.c_float)]
@@ -237,7 +238,7 @@ _ARGTYPES = {
                        + [_I] + [_VP] * 8 + [_F] * 5 + [_VP] * 3,
     "vsg_lm_reproj_plan": [_VP, _VP, _I, _I, _VP, _VP, _VP],
     "vsg_lm_reproj_reduce": _ROWS + [_VP, _F, _I] + [_VP] * 12,
-    "vsg_lm_reproj_cost": _ROWS + [_VP] * 8 + [_I, _VP],
+    "vsg_lm_reproj_cost": _ROWS + [_VP] * 9 + [_I, _I, _VP, _VP, _I, _VP],
     "vsg_lm_inertial_plan": [_VP] * 3 + [_I, _I] + [_VP] * 6,
     "vsg_lm_inertial_assemble": [_VP, _PP, _VP, _VP, _I, _VP],
     "vsg_lm_inertial_cost": [_VP, _PP, _VP, _I, _VP],

@@ -21,8 +21,8 @@ Port of ``visual_sgraphs_tpu/features/orb.py``:
 The BRIEF pattern is the reference's seeded numpy pattern, drawn with the
 same numpy call.  All keypoint tensors are fixed capacity with validity
 masks.  ``extract_orb`` takes one frame or a (B, H, W) batch: K1's resize
-chain, K2, K3 and K4 launch once an extraction and K1's blur once a
-level, each for the whole batch.
+chain, K2, K3, K1's blur (``pyramid.gaussian_blur_levels``) and K4 launch
+once an extraction each, for the whole batch.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from visual_sgraphs_tpu_torch import cuda
 from visual_sgraphs_tpu_torch.features.fast import fast_levels
 from visual_sgraphs_tpu_torch.features.pyramid import (
     build_pyramid,
-    gaussian_blur,
+    gaussian_blur_levels,
 )
 
 PATCH_RADIUS = 15  # IC-angle circular patch
@@ -538,15 +538,16 @@ def extract_orb(img: torch.Tensor, params: OrbParams = OrbParams()) -> Keypoints
     on a (B, H, W) batch (every field then gains a leading B; each frame's
     result equals its extraction alone): K1's resize chain, K2 over every
     budgeted level, K3 over every level into the concatenated keypoints,
-    K1's blur on each level, then K4 over every level's keypoints into the
-    extraction's angles and descriptors; every launch for the whole
-    batch, each of K1's chain, K2, K3 and K4 once an extraction."""
+    K1's blur over every budgeted level, then K4 over every level's
+    keypoints into the extraction's angles and descriptors; every launch
+    for the whole batch, each of K1's chain, K2, K3, K1's blur and K4
+    once an extraction."""
     pattern = brief_pattern_tensor(params.pattern_seed, img.device)
     levels = build_pyramid(img, params.n_levels, params.scale)
     budgets = level_budgets(params)
     live = [lv if b > 0 else None for lv, b in zip(levels, budgets)]
     kp = detect_levels(fast_levels(live), budgets, params)
-    blurred = [None if lv is None else gaussian_blur(lv) for lv in live]
+    blurred = gaussian_blur_levels(live)
     angle, desc = orb_describe_levels(blurred, kp.rc, budgets, pattern)
     return Keypoints(uv=kp.uv, response=kp.response, level=kp.level,
                      angle=angle, valid=kp.valid, desc=desc)

@@ -9,13 +9,15 @@ to float32, and keeps each output's band of them (first source index and
 ``T`` taps; ``T`` = 3 at 1/1.2), accumulated with one fused multiply-add a
 tap, the rounding of the dense weight product.
 
-``gaussian_blur`` and ``build_pyramid`` launch the hand kernels of
-``csrc/pyramid.cu`` on CUDA tensors (the whole resize chain in one launch,
-from ``pyramid_table``'s packed bands) and run the plain twins
-``gaussian_blur_torch`` / ``build_pyramid_torch`` on CPU tensors.  Both
-take one image (H, W) or a batch (B, H, W); the twins round as the
-kernels do, so on the card the two agree to the last bit (but for a rare
-double rounding in the twin's float64 emulation of the fused step).
+``gaussian_blur_levels`` and ``build_pyramid`` launch the hand kernels of
+``csrc/pyramid.cu`` on CUDA tensors (the blur of every level of an
+extraction in one launch, over ``blur_tile_plan``'s tiles; the whole
+resize chain in one launch, from ``pyramid_table``'s packed bands) and run
+the plain twins ``gaussian_blur_levels_torch`` / ``build_pyramid_torch``
+on CPU tensors; ``gaussian_blur`` is the blur kernel on one level.  Each
+takes images (H, W) or a batch (B, H, W); the twins round as the kernels
+do, so on the card the two agree to the last bit (but for a rare double
+rounding in the twin's float64 emulation of the resize's fused step).
 """
 
 from __future__ import annotations
@@ -76,33 +78,100 @@ def gaussian_blur_torch(img: torch.Tensor, ksize: int = 7,
 gaussian_blur_torch.cuda_calls = 0
 
 
-def _batched(img: torch.Tensor) -> torch.Tensor:
-    if img.dim() not in (2, 3):
-        raise ValueError("expected an (H, W) image or a (B, H, W) batch")
-    return img if img.dim() == 3 else img[None]
+# levels a blur launch takes (the kernel's descriptor table), and its
+# output tile, rows x columns (csrc/pyramid.cu BLUR_MAX_LEVELS, BT_R, BT_C)
+BLUR_MAX_LEVELS = 8
+BLUR_TILE = (32, 64)
+
+
+def blur_tile_plan(shapes) -> tuple[list[int], int]:
+    """The blur's launch plan over levels of ``shapes`` [(h, w)]: (h, w,
+    tiles across, first tile) per level, and the tiles a frame (the grid's
+    x extent; a CTA's level is the last whose first tile is <= its
+    index)."""
+    plan, n = [], 0
+    for h, w in shapes:
+        tx = -(-w // BLUR_TILE[1])
+        plan += [h, w, tx, n]
+        n += tx * -(-h // BLUR_TILE[0])
+    if n >= 2**31:
+        raise ValueError("gaussian_blur_levels: more than 2^31 - 1 tiles a "
+                         "frame")
+    return plan, n
+
+
+def gaussian_blur_levels_torch(levels):
+    """Plain twin of K1's blur over an extraction: ``gaussian_blur_torch``
+    on each level (None, a level without a budget, stays None)."""
+    if any(lv is not None and lv.is_cuda for lv in levels):
+        gaussian_blur_levels_torch.cuda_calls += 1
+    return [None if lv is None else gaussian_blur_torch(lv) for lv in levels]
+
+
+gaussian_blur_levels_torch.cuda_calls = 0
+
+
+def gaussian_blur_levels(levels):
+    """7-tap sigma-2 Gaussian blur of every level of an extraction
+    (``levels[lv]``: (H_lv, W_lv) or (B, H_lv, W_lv) float32, one batch;
+    None for a level without a budget, returned as None): kernel K1's
+    blur, one launch for every level and frame, on CUDA tensors (the
+    blurred levels are views of one level-major buffer); the plain twin on
+    CPU tensors."""
+    live = [lv for lv in levels if lv is not None]
+    if not live:
+        return list(levels)
+    if live[0].device.type == "cpu":
+        return gaussian_blur_levels_torch(levels)
+    outs = iter(_blur_launch(live, "gaussian_blur_levels"))
+    return [None if lv is None else next(outs) for lv in levels]
+
+
+gaussian_blur_levels.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _blur_taps_host() -> ctypes.Array:
+    return (ctypes.c_float * 7)(*_blur_taps(7, 2.0))
+
+
+def _blur_launch(live, name: str) -> list[torch.Tensor]:
+    """One launch of K1's blur over the levels ``live``; their blurred
+    images."""
+    cuda.require_cuda(name, *live)
+    lead = live[0].shape[:-2]
+    if (len(live) > BLUR_MAX_LEVELS
+            or any(lv.dtype != torch.float32 or lv.dim() not in (2, 3)
+                   or lv.shape[:-2] != lead or 0 in lv.shape[-2:]
+                   for lv in live)):
+        raise ValueError(f"{name}: expected at most {BLUR_MAX_LEVELS} "
+                         "non-empty float32 (H, W) or (B, H, W) levels of "
+                         "one batch")
+    B = lead[0] if lead else 1
+    if B > 65535:
+        raise ValueError(f"{name}: more than 65535 frames")
+    sizes = [lv.numel() for lv in live]
+    buf = torch.empty((sum(sizes),), dtype=torch.float32,
+                      device=live[0].device)
+    outs = [v.view(lv.shape) for v, lv in zip(buf.split(sizes), live)]
+    plan, n_tiles = blur_tile_plan(lv.shape[-2:] for lv in live)
+    cuda.call("vsg_blur_levels", cuda.ptr_array(live), cuda.ptr_array(outs),
+              (ctypes.c_int * len(plan))(*plan), len(live), n_tiles, B,
+              _blur_taps_host(), cuda.stream())
+    gaussian_blur_levels.launches += 1
+    return outs
 
 
 def gaussian_blur(img: torch.Tensor, ksize: int = 7,
                   sigma: float = 2.0) -> torch.Tensor:
     """7-tap sigma-2 Gaussian blur of (H, W) or (B, H, W) float32 images:
-    kernel K1 on CUDA tensors, the plain twin on CPU tensors."""
+    K1's blur with one level's descriptor on CUDA tensors, the plain twin
+    on CPU tensors."""
     if img.device.type == "cpu":
         return gaussian_blur_torch(img, ksize, sigma)
     if (ksize, sigma) != (7, 2.0):
         raise ValueError("gaussian_blur: the K1 kernel has 7 taps, sigma 2")
-    cuda.require_cuda("gaussian_blur", img)
-    if img.dtype != torch.float32:
-        raise ValueError("gaussian_blur: expected float32 images")
-    x = _batched(img)
-    out = torch.empty_like(x)
-    cuda.call("vsg_blur", cuda.ptr(x), cuda.ptr(_blur_taps_on(
-        ksize, sigma, img.device)), cuda.ptr(out), x.shape[0], x.shape[1],
-        x.shape[2], cuda.stream())
-    gaussian_blur.launches += 1
-    return out if img.dim() == 3 else out[0]
-
-
-gaussian_blur.launches = 0
+    return _blur_launch([img], "gaussian_blur")[0]
 
 
 @functools.lru_cache(maxsize=None)

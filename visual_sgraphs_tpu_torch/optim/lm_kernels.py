@@ -19,7 +19,8 @@ gdir (2) | scale (1)].  Three hand-written kernels carry an iteration:
   L^-1 P, Hxx = L L^T) and their rhs, beside the undamped pose-diagonal
   blocks of H and g, in one launch summed in an order fixed by the data;
   ``lm_reproj_cost`` back-substitutes the points at a step and sums the
-  robust cost of the rows at the candidate;
+  robust cost of the rows at the candidate, in one launch over the same
+  plan, summed in an order fixed by the data;
 - K22b (``csrc/lm_inertial.cu``): ``lm_inertial_plan`` whitens every
   edge and indexes the valid edges once a solve; ``lm_inertial_assemble``
   then adds the preintegration rows (``imu_factor`` with Huber 9, or
@@ -322,8 +323,9 @@ def _reproj_cost(poses, pts, rows: ReprojRows, cam, bf):
 
 def lm_reproj_cost_torch(poses, pts, pt_fixed, rows: ReprojRows, cam, bf,
                          state: ReprojState | None = None, dx=None,
-                         acc=None):
-    """Plain twin of K22a's back-substitute-and-cost entry.  With a step
+                         acc=None, plan: ReprojPlan | None = None):
+    """Plain twin of K22a's back-substitute-and-cost entry (``plan``, the
+    kernel's row grouping, is not needed here).  With a step
     ``dx`` (D,): the points' step -L^-T (c + B dx[:6L]) (zero where not
     finite, where the factorisation failed and on fixed points), the
     candidate points and the rows' robust cost at (``poses``, candidate
@@ -417,28 +419,53 @@ def lm_reproj_reduce(poses, pts, rows: ReprojRows, cam, bf, lam, D: int,
 lm_reproj_reduce.launches = 0
 
 
+# landmarks a CTA of K22a's step-and-cost launch (csrc/lm_reproj.cu
+# COST_LANDMARKS)
+COST_LANDMARKS = 16
+
+
+def cost_ctas(N: int) -> int:
+    """The CTAs of K22a's step-and-cost launch over N landmarks: CTA b
+    owns landmarks [b COST_LANDMARKS, min(N, (b + 1) COST_LANDMARKS)) and
+    the plan's rows of those landmarks (at least one CTA, which writes the
+    cost)."""
+    return max(1, -(-N // COST_LANDMARKS))
+
+
 def lm_reproj_cost(poses, pts, pt_fixed, rows: ReprojRows, cam, bf,
-                   state=None, dx=None, acc=None):
+                   state=None, dx=None, acc=None,
+                   plan: ReprojPlan | None = None):
     """K22a's back-substitute-and-cost entry on CUDA tensors (the cost in
-    float64), the twin on CPU tensors; as ``lm_reproj_cost_torch``."""
+    float64, added into ``acc`` when given; one launch, bitwise equal from
+    launch to launch), the twin on CPU tensors; as
+    ``lm_reproj_cost_torch``.  ``plan`` is the solve's
+    ``lm_reproj_plan(rows, N)``, built here when not given."""
     if poses.device.type == "cpu":
         return lm_reproj_cost_torch(poses, pts, pt_fixed, rows, cam, bf,
                                     state, dx, acc)
     args = _reproj_args(poses, pts, rows, cam, bf)
-    cuda.require_cuda("lm_reproj_cost", pt_fixed)
-    dev = poses.device
+    N, dev = pts.shape[0], poses.device
+    if plan is None:
+        plan = lm_reproj_plan(rows, N)
+    cuda.require_cuda("lm_reproj_cost", pt_fixed, *plan,
+                      *(() if acc is None else (acc,)))
+    if ((acc is not None and acc.dtype != torch.float64)
+            or (dx is not None and (dx.dtype != torch.float32
+                                    or state is None))):
+        raise ValueError("lm_reproj_cost: a float64 cost, a float32 step "
+                         "with the reduction's state")
     out = torch.empty_like(pts) if dx is not None else pts
-    cost = acc if acc is not None else torch.empty(
-        (), dtype=torch.float64, device=dev)
-    if cost.dtype != torch.float64 or (dx is not None
-                                       and dx.dtype != torch.float32):
-        raise ValueError("lm_reproj_cost: a float64 cost, a float32 step")
+    G = cost_ctas(N)
+    scratch = torch.empty((1 + G,), dtype=torch.float64, device=dev)
+    cost = acc if acc is not None else scratch[0]
     ptr = cuda.ptr
     st = state if dx is not None else ReprojKernelState(None, None, None,
                                                         None)
-    cuda.call("vsg_lm_reproj_cost", *args, ptr(pt_fixed), ptr(st.Linv),
-              ptr(st.c), ptr(st.P), ptr(st.mask), ptr(dx), ptr(out),
-              ptr(cost), int(acc is None), cuda.stream())
+    cuda.call("vsg_lm_reproj_cost", *args, ptr(plan.ptr), ptr(plan.idx),
+              ptr(pt_fixed), ptr(st.Linv), ptr(st.c), ptr(st.P),
+              ptr(st.mask), ptr(dx), ptr(out), COST_LANDMARKS, G,
+              ptr(scratch) + 8, ptr(cost), int(acc is not None),
+              cuda.stream())
     lm_reproj_cost.launches += 1
     return out, cost
 
@@ -910,7 +937,7 @@ def optimize_reproj_inertial(red: Reduced, free, iters: int, pts=None,
         acc = None
         if rows is not None:
             p, acc = lm_reproj_cost(r.pose, p, pt_fixed, rows, cam, bf,
-                                    state, dx)
+                                    state, dx, plan=plan)
         if imu is not None:
             acc = lm_inertial_cost(imu, r, acc, iplan)
         return p, acc

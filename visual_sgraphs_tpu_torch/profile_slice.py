@@ -9,6 +9,7 @@
     python -m visual_sgraphs_tpu_torch.profile_slice --cells
     python -m visual_sgraphs_tpu_torch.profile_slice --kernel-times
     python -m visual_sgraphs_tpu_torch.profile_slice --orb-times
+    python -m visual_sgraphs_tpu_torch.profile_slice --other-times
     python -m visual_sgraphs_tpu_torch.profile_slice --track-ops
     python -m visual_sgraphs_tpu_torch.profile_slice --k20-sections
     python -m visual_sgraphs_tpu_torch.profile_slice --schur-times PATH
@@ -60,10 +61,13 @@ batch's 8 levels and one frame's (beside ``torch.topk`` of the cells)
 (``inertial_front_times``), of K22b's plan, rows and cost on the VI and
 initialisation problems as the solves call them (``k22b_times``), of
 K22b's rows with the edge index staged in shared memory and read from
-global memory (``k22b_index_times``), of K1's blur, K17a and K22a's
-cost (``other_device_times``) and of K2, K4 and the whole ``extract_orb``
-at B = 8 and B = 1, with their host ms (``orb_front_times``; alone with
-``--orb-times``), and the card's name and power limit.  With
+global memory (``k22b_index_times``), of K1's blur (beside its library
+yardstick), K17a and K22a's cost without a step, with a zero step and
+with a solve's step on the VI and generic local BA problems
+(``other_device_times``; alone with ``--other-times``) and of K2, K4 and
+the whole ``extract_orb`` at B = 8 and B = 1, with their host ms
+(``orb_front_times``; alone with ``--orb-times``), and the card's name
+and power limit.  With
 ``--track-ops`` it counts the device operations of one tracking call
 (both passes) and of one pipeline scan batch on ``bench_slice``'s map
 (``track_ops``); with ``--k20-sections`` it reads K20's clock at its
@@ -190,7 +194,8 @@ def cells_fps(warm: int = 16) -> None:
     on ``bench_slice``, ``INERTIAL_WARMUP`` on ``inertial_slice``), ending
     in a synchronize, as ``chip_smoke.py``; beside each the keyframe
     stage's mean ms (on ``inertial_slice`` the VI local BA's, ``vi_lba``,
-    and the initialisation's attempts in the warm-up, ``imu_init``)."""
+    and the initialisation's attempts in the warm-up, ``imu_init``), the
+    ORB extraction's mean ms, the tracked frames and the ATE."""
     from visual_sgraphs_tpu_torch import cuda, main_path
     cuda.build()
     scene, frames = main_path.frames("cuda")
@@ -226,11 +231,23 @@ def cells_fps(warm: int = 16) -> None:
         out[tag + "_kf_ms"] = stages.get(stage, {}).get("mean_ms")
         out[tag + "_orb_extract_ms"] = stages.get("orb_extract", {}).get(
             "mean_ms")
+        out[tag + "_tracked"], out[tag + "_ate_m"] = _cell_ate(
+            system, fr, 2 if feed is main_path.feed_inertial else 3)
         if stage == "vi_lba":
             init = warm_stages.get("imu_init", {})
             out[tag + "_imu_init_ms"] = init.get("mean_ms")
             out[tag + "_imu_init_attempts"] = init.get("count")
     _line("cells_fps", **out)
+
+
+def _cell_ate(system, frames, pose_at: int) -> tuple[int, float]:
+    """Tracked frames and the ATE of the tracked frames' camera centres
+    against the frames' ground truth (``frame[pose_at]``, T_wc)."""
+    from visual_sgraphs_tpu_torch.core import geometry
+    gt = np.stack([np.asarray(f[pose_at])[4:7] for f in frames])
+    pos, tracked = system.positions(), system.tracked_mask()
+    return int(tracked.sum()), float(geometry.ate_rmse(
+        torch.from_numpy(pos[tracked]), torch.from_numpy(gt[tracked]))[0])
 
 
 def plain_scenegraph_ops(system) -> dict:
@@ -664,35 +681,89 @@ def _host_call_ms(fn, reps: int = 200) -> float:
     return 1e3 * statistics.median(times)
 
 
+def _device_line(name: str, fn, **info) -> None:
+    """One ``other_device_times`` line: device ms
+    (``selfcheck.device_time``) and device operations (the nodes of a
+    CUDA graph captured from one call, ``selfcheck.graph_ops``: the
+    profiler can lose ctypes launches) of one call of ``fn``."""
+    from visual_sgraphs_tpu_torch import selfcheck
+    _line("other_device_times", name=name,
+          device_ms=selfcheck.device_time(fn),
+          device_ops=selfcheck.graph_ops(fn), **info)
+
+
 def other_device_times(dev, problems: dict) -> None:
-    """Device ms of the kernels ranked next by launches x (ms - bound):
-    K1's blur over the 8 levels of a batch of 8 rendered 480x640 frames
-    and of one frame, K17a on a rendered frame, K22a's back-substitution
-    and cost on the VI local BA problem (a zero step)."""
+    """Device ms and device operations (``_device_line``) of K1's blur over
+    the 8 levels of a batch of 8 rendered 480x640 frames and of one frame
+    (``gaussian_blur_levels``, one launch; a tree without it: a
+    ``gaussian_blur`` call a level) beside its library yardstick (a
+    separable ``F.conv2d`` pair a level on replicate-padded levels), of
+    K17a on a rendered frame, and of K22a's back-substitution and cost on
+    the VI and generic local BA problems as a solve calls it: without a
+    step (the initial cost), with a zero step and with the step of the
+    kernel route's own solve at lambda 1e-4, given the solve's row plan (a
+    tree whose ``lm_reproj_cost`` takes no ``plan``: its own call)."""
+    import inspect
+
     from visual_sgraphs_tpu_torch import selfcheck
     from visual_sgraphs_tpu_torch.features import orb, pyramid
     from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
     from visual_sgraphs_tpu_torch.scenegraph import freespace as fs
+    F_ = torch.nn.functional
     params = orb.OrbParams()
     grays = selfcheck.batch_frames(dev)
+    taps = pyramid._blur_taps_on(7, 2.0, dev)
     for tag, g in (("B8", grays), ("B1", grays[0])):
         levels = pyramid.build_pyramid_torch(g, params.n_levels,
                                              params.scale)
-        _times(f"K1_blur@{tag}", lambda lv=levels: [
-            pyramid.gaussian_blur(x) for x in lv], launches=len(levels))
+        if hasattr(pyramid, "gaussian_blur_levels"):
+            blur = lambda lv=levels: pyramid.gaussian_blur_levels(lv)  # noqa
+        else:
+            blur = lambda lv=levels: [  # noqa: E731
+                pyramid.gaussian_blur(x) for x in lv]
+
+        def conv_blur(lv=levels):
+            out = []
+            for x in lv:
+                x = F_.pad(x.reshape(-1, 1, *x.shape[-2:]), (3, 3, 3, 3),
+                           mode="replicate")
+                x = F_.conv2d(x, taps.reshape(1, 1, 7, 1))
+                out.append(F_.conv2d(x, taps.reshape(1, 1, 1, 7)))
+            return out
+
+        px = sum(x.numel() for x in levels)
+        _device_line(f"K1_blur@{tag}", blur, pixels=px)
+        _device_line(f"K1_blur_library@{tag}", conv_blur, pixels=px)
     depth, T_cw, cam_K, origin = selfcheck.freespace_inputs(dev)
     grid = torch.zeros((32, 32, 32), dtype=torch.bool, device=dev)
-    _times("K17a", lambda: fs.accumulate_freespace(grid, origin, 0.35, depth,
-                                                   T_cw, cam_K))
-    p = problems["vi"]
-    D = lmk.offsets(p["red"])["D"]
-    state = lmk.lm_reproj_reduce(p["red"].pose, p["pts"], p["rows"],
-                                 p["cam"], p["bf"], selfcheck._lam(p["pts"]),
-                                 D)[4]
-    dx = torch.zeros((D,), dtype=torch.float32, device=dev)
-    _times("K22a_cost@vi", lambda: lmk.lm_reproj_cost(
-        p["red"].pose, p["pts"], p["pt_fixed"], p["rows"], p["cam"],
-        p["bf"], state, dx), rows=p["rows"].slot.shape[0])
+    _device_line("K17a", lambda: fs.accumulate_freespace(
+        grid, origin, 0.35, depth, T_cw, cam_K))
+    with_plan = "plan" in inspect.signature(lmk.lm_reproj_cost).parameters
+    for tag in ("vi", "lba"):
+        p = problems[tag]
+        red, rows, pts = p["red"], p["rows"], p["pts"]
+        D = lmk.offsets(red)["D"]
+        plan = lmk.lm_reproj_plan(rows, pts.shape[0])
+        H, g, pairs, rhs, state = lmk.lm_reproj_reduce(
+            red.pose, pts, rows, p["cam"], p["bf"], selfcheck._lam(pts), D,
+            plan)
+        if p.get("imu") is not None:
+            H, g = lmk.lm_inertial_assemble(
+                p["imu"], red, H, g, lmk.lm_inertial_plan(p["imu"], red))
+        dx, cand = lmk.lm_solve(H, g, pairs, rhs, p["free"],
+                                selfcheck._lam(pts), red)
+        kw = dict(plan=plan) if with_plan else {}
+        info = dict(M=rows.slot.shape[0], rows_used=int(rows.use.sum()),
+                    N=pts.shape[0], L=red.pose.shape[0])
+        for step, pose, d in (
+                ("none", red.pose, None),
+                ("zero", red.pose, torch.zeros_like(dx)),
+                ("solve", cand.pose, dx)):
+            _device_line(
+                f"K22a_cost@{tag}:{step}",
+                lambda pose=pose, d=d: lmk.lm_reproj_cost(
+                    pose, pts, p["pt_fixed"], rows, p["cam"], p["bf"],
+                    None if d is None else state, d, **kw), **info)
 
 
 def wrapper_host(dev, reps: int = 200) -> None:
@@ -1032,6 +1103,9 @@ def main() -> None:
     ap.add_argument("--orb-times", action="store_true",
                     help="K2, K4 and extract_orb at B = 8 and B = 1: "
                     "device ms, host ms, device operations")
+    ap.add_argument("--other-times", action="store_true",
+                    help="K1's blur, K17a and K22a's cost: device ms and "
+                    "device operations")
     ap.add_argument("--schur-times", metavar="PATH", default=None,
                     help="K8 and K22a's reduction: times, device operations "
                     "and bitwise repeats (windows recorded into PATH)")
@@ -1049,6 +1123,13 @@ def main() -> None:
         from visual_sgraphs_tpu_torch import cuda
         cuda.build()
         orb_front_times(torch.device("cuda"))
+        _card_line()
+    elif args.other_times:
+        from visual_sgraphs_tpu_torch import cuda, selfcheck
+        cuda.build()
+        dev = torch.device("cuda")
+        other_device_times(dev, selfcheck.lm_problems(
+            selfcheck.lm_window(dev)))
         _card_line()
     elif args.track_ops:
         track_ops()

@@ -98,6 +98,13 @@ def device_time(fn: Callable[[], object], reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def _timed(fn: Callable[[], object], **kw) -> dict:
+    """``ms`` (``time_cuda``, with ``kw``) and ``device_ms``
+    (``device_time``) of ``fn``: the CUDA-event ms of a latency-bound
+    kernel is mostly its wrapper's host time."""
+    return dict(ms=time_cuda(fn, **kw), device_ms=device_time(fn))
+
+
 def time_cuda(fn: Callable[[], object], warmup: int = 3,
               reps: int = 20) -> float:
     """Median milliseconds of ``fn`` over ``reps`` runs (CUDA events,
@@ -160,17 +167,16 @@ def batch_frames(device, B: int = 8, h: int = 480, w: int = 640,
 
 def check_pyramid(grays: torch.Tensor, n_levels: int = 8,
                   scale: float = 1.2) -> list[dict]:
-    """K1 over a (B, H, W) batch: the resize chain (one launch a call) and
-    every level's blur against the twins (expected bitwise; the gate is
-    1e-4 abs on [0, 255], the twin's tolerance against the reference), the
-    chain also on the first frame alone as an (H, W) image; the FAST
-    keypoints per level of the kernel's pyramid against the twin's.
-    Library yardsticks: the chain's 7 ``F.interpolate(bilinear,
-    antialias=True)`` calls (each from the twin's level before) and a
-    separable ``F.conv2d`` pair per blur.  Beside the chain's and the
-    interpolations' CUDA-event times their device time (``device_time``);
-    the chain also timed with clusters of 8 and of 16 CTAs a frame
-    forced."""
+    """K1 over a (B, H, W) batch: the resize chain (one launch a call)
+    against the twin (expected bitwise; the gate is 1e-4 abs on [0, 255],
+    the twin's tolerance against the reference), also on the first frame
+    alone as an (H, W) image, the FAST keypoints per level of the kernel's
+    pyramid against the twin's; and the blur of the twin's levels
+    (``check_blur``).  Library yardstick: the chain's 7
+    ``F.interpolate(bilinear, antialias=True)`` calls (each from the
+    twin's level before).  Beside the chain's and the interpolations'
+    CUDA-event times their device time (``device_time``); the chain also
+    timed with clusters of 8 and of 16 CTAs a frame forced."""
     F_ = torch.nn.functional
     levels = pyramid.build_pyramid_torch(grays, n_levels, scale)
     shapes = [tuple(lv.shape[-2:]) for lv in levels]
@@ -180,9 +186,6 @@ def check_pyramid(grays: torch.Tensor, n_levels: int = 8,
     per_call = (pyramid.build_pyramid.launches - n0) / 2
     r_err = max(max(float((k - t).abs().max()), float((o - t[0]).abs().max()))
                 for k, o, t in zip(k_levels[1:], one[1:], levels[1:]))
-    b_err = max(float((pyramid.gaussian_blur(lv)
-                       - pyramid.gaussian_blur_torch(lv)).abs().max())
-                for lv in levels)
     kp_diff = [int((fast.fast_nms(k) > 0).ne(fast.fast_nms(t) > 0).sum())
                for k, t in zip(k_levels, levels)]
     torch.cuda.synchronize()
@@ -199,13 +202,6 @@ def check_pyramid(grays: torch.Tensor, n_levels: int = 8,
                                mode="bilinear", antialias=True,
                                align_corners=False)
                 for i in range(n_levels - 1)]
-
-    taps = pyramid._blur_taps_on(7, 2.0, grays.device)
-
-    def conv_blur(lv):
-        x = F_.pad(lv[:, None], (3, 3, 3, 3), mode="replicate")
-        x = F_.conv2d(x, taps.reshape(1, 1, 7, 1))
-        return F_.conv2d(x, taps.reshape(1, 1, 1, 7))
 
     B = grays.shape[0]
     px_in = sum(B * a * b for a, b in shapes[:-1])
@@ -227,15 +223,71 @@ def check_pyramid(grays: torch.Tensor, n_levels: int = 8,
         library_device_ms=device_time(interpolate),
         shapes=[[B, *sh] for sh in shapes],
         bytes=4 * (px_in + px_out), ops=6 * (rows_px + px_out))
-    px = sum(B * a * b for a, b in shapes)
-    blur = dict(
-        name="gaussian_blur", max_abs_err=b_err, ok=b_err <= 1e-4,
-        ms=time_cuda(lambda: [pyramid.gaussian_blur(lv) for lv in levels]),
-        plain_ms=time_cuda(lambda: [pyramid.gaussian_blur_torch(lv)
-                                    for lv in levels]),
-        library_ms=time_cuda(lambda: [conv_blur(lv) for lv in levels]),
-        bytes=8 * px, ops=28 * px)
-    return [resize, blur]
+    return [resize, check_blur(levels)]
+
+
+def check_blur(levels, tag: str = "") -> dict:
+    """K1's blur over an extraction's levels (``levels[lv]``: (B, h, w) or
+    (h, w)): ``gaussian_blur_levels`` bitwise equal to its twin, one
+    launch and one device operation (the nodes of a CUDA graph captured
+    from the call) a call, bitwise from launch to launch;
+    ``gaussian_blur`` (the kernel with one level's descriptor) bitwise on
+    each level.  Library yardstick: a replicate pad and a separable
+    ``F.conv2d`` pair a level (TF32 off, as ``chip_smoke.py`` sets it)."""
+    F_ = torch.nn.functional
+    n0 = pyramid.gaussian_blur_levels.launches
+    k = pyramid.gaussian_blur_levels(levels)
+    per_call = pyramid.gaussian_blur_levels.launches - n0
+    t = pyramid.gaussian_blur_levels_torch(levels)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(k, t))
+    bitwise = all(_bits_equal(a, b) for a, b in zip(k, t))
+    repro = all(_bits_equal(a, b) for _ in range(3)
+                for a, b in zip(k, pyramid.gaussian_blur_levels(levels)))
+    one_level = all(_bits_equal(pyramid.gaussian_blur(lv), b)
+                    for lv, b in zip(levels, t))
+    taps = pyramid._blur_taps_on(7, 2.0, levels[0].device)
+
+    def kernel():
+        return pyramid.gaussian_blur_levels(levels)
+
+    def library():
+        out = []
+        for lv in levels:
+            x = F_.pad(lv.reshape(-1, 1, *lv.shape[-2:]), (3, 3, 3, 3),
+                       mode="replicate")
+            x = F_.conv2d(x, taps.reshape(1, 1, 7, 1))
+            out.append(F_.conv2d(x, taps.reshape(1, 1, 1, 7)))
+        return out
+
+    n_ops = graph_ops(kernel)
+    px = sum(lv.numel() for lv in levels)
+    return dict(
+        name="gaussian_blur" + tag, max_abs_err=err,
+        ok=bitwise and repro and one_level and per_call == 1 and n_ops == 1,
+        bitwise=bitwise, bitwise_repro=repro, one_level_equal=one_level,
+        launches_per_call=per_call, device_ops=n_ops,
+        shapes=[list(lv.shape) for lv in levels],
+        ms=time_cuda(kernel), device_ms=device_time(kernel),
+        plain_ms=time_cuda(lambda: pyramid.gaussian_blur_levels_torch(
+            levels)),
+        library_ms=time_cuda(library), library_device_ms=device_time(
+            library),
+        # each level read once, each blurred pixel written once; 7 products
+        # and 6 sums a pass, two passes
+        bytes=8 * px, ops=26 * px)
+
+
+def check_blur_cases(device) -> list[dict]:
+    """K1's blur over the levels of one 720x1280 frame and over seeded
+    levels smaller than the 7 taps and than a 32 x 64 tile
+    (``tiny_inputs``)."""
+    params = orb.OrbParams()
+    hd = pyramid.build_pyramid_torch(
+        batch_frames(device, B=1, h=720, w=1280)[0], params.n_levels,
+        params.scale)
+    return [check_blur(hd, "@720x1280"),
+            check_blur(tiny_inputs(device)[0], "@tiny")]
 
 
 def tie_scores(scores, step: float = 8.0):
@@ -375,7 +427,7 @@ def check_compact(device, n: int = 32768, seed: int = 0) -> dict:
     mask = torch.from_numpy(cases[0][0]).to(device)
     return dict(
         name="compact_true", max_abs_err=err, ok=err == 0.0,
-        ms=time_cuda(lambda: map_state.compact_true(mask, 4096)),
+        **_timed(lambda: map_state.compact_true(mask, 4096)),
         plain_ms=time_cuda(lambda: map_state.compact_true_torch(mask, 4096)),
         library_ms=time_cuda(lambda: torch.nonzero(mask)),
         bytes=n + 8 * 4096, ops=2 * n)
@@ -1152,7 +1204,7 @@ def check_scenegraph(device, frames=SG_FRAMES) -> list[dict]:
                         (k[6] - t[6]).abs().max()))
         M = t[0].shape[0]
         merge("depth_cloud", exact and err <= CLOUD_TOL, err, lambda: dict(
-            ms=time_cuda(lambda: pointcloud.depth_cloud(*dc_args)),
+            **_timed(lambda: pointcloud.depth_cloud(*dc_args)),
             plain_ms=time_cuda(lambda: pointcloud.depth_cloud_torch(
                 *dc_args)),
             # the function reads only the M strided samples of the depth
@@ -1178,7 +1230,7 @@ def check_scenegraph(device, frames=SG_FRAMES) -> list[dict]:
         merge("extract_planes",
               same_valid and err <= PLANE_TOL and agree >= ASSIGN_AGREE
               and n_planes >= MIN_PLANES, err, lambda: dict(
-                  ms=time_cuda(lambda: plane_fit.extract_planes(*ep_args)),
+                  **_timed(lambda: plane_fit.extract_planes(*ep_args)),
                   plain_ms=time_cuda(
                       lambda: plane_fit.extract_planes_torch(*ep_args)),
                   bytes=nbytes(cloud, cvalid, cweight, hyp, *t),
@@ -1202,7 +1254,7 @@ def check_scenegraph(device, frames=SG_FRAMES) -> list[dict]:
         err = max(_rel(k[i], t[i]) for i in (1, 2, 3))
         D = coeffs_c.shape[0]
         merge("plane_epilogue", exact and err <= REL_TOL, err, lambda: dict(
-            ms=time_cuda(lambda: epilogue.plane_epilogue(*pe_args)),
+            **_timed(lambda: epilogue.plane_epilogue(*pe_args)),
             plain_ms=time_cuda(
                 lambda: epilogue.plane_epilogue_torch(*pe_args)),
             bytes=nbytes(pts, valid, labels, conf, coeffs_c, coeffs_w, T_wc,
@@ -1260,7 +1312,7 @@ def check_bow(device, inputs=None) -> dict:
     L, K, W = len(tree.centers), tree.branching, tree.n_words
     return dict(name="bow_vectors", max_abs_err=err, ok=words_equal
                 and err <= BOW_TOL, words_equal=words_equal, n_words=W,
-                ms=time_cuda(lambda: vocab_mod.bow_vectors(tree, d1, v1)),
+                **_timed(lambda: vocab_mod.bow_vectors(tree, d1, v1)),
                 plain_ms=time_cuda(
                     lambda: vocab_mod.bow_vectors_torch(tree, d1, v1)),
                 backfill_ms=time_cuda(
@@ -1299,7 +1351,7 @@ def check_place_query(device, inputs=None) -> dict:
     return dict(name="place_query", max_abs_err=err,
                 ok=ids_equal and err <= BOW_TOL, ids_equal=ids_equal,
                 packed=k.tolist(),
-                ms=time_cuda(lambda: database.place_query(*args)),
+                **_timed(lambda: database.place_query(*args)),
                 plain_ms=time_cuda(lambda: database.place_query_torch(*args)),
                 bytes=K * W * 5 + 4 * W + 3 * K + 4 * 8,
                 # per row and word: min, add, compare, add
@@ -1336,7 +1388,7 @@ def check_match_nn(device, inputs=None) -> dict:
     n_pairs = int(va.sum()) * int(vb.sum())
     return dict(name="match_nn_ratio", max_abs_err=err, ok=err == 0.0,
                 n_matched=int((km >= 0).sum()),
-                ms=time_cuda(lambda: match.match_nn_ratio(da, va, db_, vb,
+                **_timed(lambda: match.match_nn_ratio(da, va, db_, vb,
                                                           **kw)),
                 plain_ms=time_cuda(lambda: match.match_nn_ratio_torch(
                     da, va, db_, vb, **kw)),
@@ -1376,7 +1428,7 @@ def check_guided(device, inputs=None) -> dict:
     near = pairs & (torch.sum((uv_a[:, None, :] - uv_b[None, :, :]) ** 2,
                               dim=-1) < 64.0)
     return dict(name="guided_count", max_abs_err=err, ok=err == 0.0,
-                count=int(k), ms=time_cuda(lambda: match.guided_count(*args)),
+                count=int(k), **_timed(lambda: match.guided_count(*args)),
                 plain_ms=time_cuda(lambda: match.guided_count_torch(*args)),
                 bytes=nbytes(*args) + 4, n_in_window=int(near.sum()),
                 # per pair of valid rows the window test (5); per pair
@@ -1418,7 +1470,7 @@ def check_sim3(device, inputs=None, thresh: float = 0.12) -> dict:
     return dict(name="verify_sim3", max_abs_err=err,
                 ok=err <= SIM3_TOL and same_n,
                 n_inliers=[int(k.n_inliers), int(tw.n_inliers)],
-                ms=time_cuda(lambda: sim3_ransac.verify_sim3(
+                **_timed(lambda: sim3_ransac.verify_sim3(
                     p_a, p_b, valid, samples, **kw)),
                 plain_ms=time_cuda(lambda: sim3_ransac.verify_sim3_torch(
                     p_a, p_b, valid, samples, **kw)),
@@ -1492,7 +1544,7 @@ def check_pnp(device, inputs=None) -> dict:
                 best_count_f32_twin=int(ct32.max()),
                 refined_pose_err=refined_err,
                 refined_inliers=[int(ik.sum()), int(it.sum())],
-                ms=time_cuda(lambda: pnp.pnp_hypotheses(xw, uv, valid, K,
+                **_timed(lambda: pnp.pnp_hypotheses(xw, uv, valid, K,
                                                         picks)),
                 plain_ms=time_cuda(lambda: pnp.pnp_hypotheses_torch(
                     xw, uv, valid, K, picks, eig_dtype=torch.float64)),
@@ -1567,7 +1619,7 @@ def check_pgo(device, inputs=None, iters: int = 20) -> list[dict]:
                ok=max(errH, errg) <= REL_TOL and errS <= SIM3_TOL,
                rel_err_H=errH, rel_err_g=errg, solve_pose_err=errS,
                cost=[float(solve["kernel"].cost), float(solve["plain"].cost)],
-               ms=time_cuda(lambda: pgo.pgo_assemble(S, var_idx, S_meas,
+               **_timed(lambda: pgo.pgo_assemble(S, var_idx, S_meas,
                                                      info, valid, True)),
                plain_ms=time_cuda(lambda: pgo.pgo_assemble_torch(
                    S, var_idx, S_meas, info, valid, True), warmup=1, reps=5),
@@ -1578,7 +1630,7 @@ def check_pgo(device, inputs=None, iters: int = 20) -> list[dict]:
                                                        info, valid),
                ops=E * (14 * 2000 + 196 * 14 + 14 * 14))
     cost = dict(name="pgo_cost", max_abs_err=errc, ok=errc <= REL_TOL,
-                ms=time_cuda(lambda: pgo.pgo_cost(S, var_idx, S_meas, info,
+                **_timed(lambda: pgo.pgo_cost(S, var_idx, S_meas, info,
                                                   valid)),
                 plain_ms=time_cuda(lambda: pgo.pgo_cost_torch(
                     S, var_idx, S_meas, info, valid)),
@@ -2017,7 +2069,7 @@ def check_freespace_carve(device, frame: int = FREESPACE_FRAME,
     return dict(name="freespace_carve", max_abs_err=float(n_diff),
                 ok=n_diff == 0 and int(t.sum()) > 0, n_free=int(t.sum()),
                 n_free_two_frames=int(t2.sum()), voxels_differ=n_diff,
-                ms=time_cuda(lambda: carve(fs.accumulate_freespace, grid)),
+                **_timed(lambda: carve(fs.accumulate_freespace, grid)),
                 plain_ms=time_cuda(lambda: carve(
                     fs.accumulate_freespace_torch, grid)),
                 # the hs x ws strided depth samples read, the grid written;
@@ -2043,7 +2095,7 @@ def check_freespace_components(device, grid, origin, voxel: float = 0.35,
                                 "top_labels", "labels"), same)),
                 n_free=int(grid.sum()), top_sizes=t[2].tolist(),
                 valid=t[1].tolist(),
-                ms=time_cuda(lambda: fs.freespace_components(
+                **_timed(lambda: fs.freespace_components(
                     grid, origin, voxel, with_labels=False)),
                 plain_ms=time_cuda(lambda: fs.freespace_components_torch(
                     grid, origin, voxel), reps=5),
@@ -2165,7 +2217,7 @@ def check_sg_assemble(device, inputs=None) -> dict:
                 rel_err_H=errH, rel_err_g=errg,
                 twin32_rel_err_H=_rel(tH.double(), dH),
                 twin32_rel_err_g=_rel(tg.double(), dg), live_items=live, D=D,
-                ms=time_cuda(lambda: fast_ba.sg_assemble(*ops32)),
+                **_timed(lambda: fast_ba.sg_assemble(*ops32)),
                 plain_ms=time_cuda(lambda: fast_ba.sg_assemble_torch(*ops32),
                                    warmup=1, reps=5),
                 bytes=4 * (D * D + D) + nbytes(*ops32[:4], *ops32[4]),
@@ -2559,7 +2611,9 @@ def check_lm_reproj(problems: dict, tag: str = "vi") -> list[dict]:
     twin's error, and what leaving out Hxx's damping would move, beside);
     then the back-substitution of the float64 twin's full step: the
     points' steps within LM_STEP_TOL of the largest, the candidate cost
-    within LM_COST_TOL."""
+    and the cost without a step within LM_COST_TOL, both one device
+    operation a call given the solve's plan and bitwise from launch to
+    launch."""
     from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
     p32, p64 = problems[tag], problems[tag + "64"]
     D = lmk.offsets(p32["red"])["D"]
@@ -2599,17 +2653,36 @@ def check_lm_reproj(problems: dict, tag: str = "vi") -> list[dict]:
     dx64, cand64 = lmk.lm_solve_torch(H64, g64, t64[2], t64[3], p64["free"],
                                       _lam(H64, torch.float64), p64["red"])
     cand32 = lmk.Reduced(*(None if v is None else v.float() for v in cand64))
-    pk, ck = lmk.lm_reproj_cost(cand32.pose, p32["pts"], p32["pt_fixed"],
-                                p32["rows"], p32["cam"], p32["bf"], k[4],
-                                dx64.float())
+    cost_args = (cand32.pose, p32["pts"], p32["pt_fixed"], p32["rows"],
+                 p32["cam"], p32["bf"])
+    dx32 = dx64.float()
+
+    def cost_step():
+        return lmk.lm_reproj_cost(*cost_args, k[4], dx32, plan=plan)
+
+    def cost_none():
+        return lmk.lm_reproj_cost(*cost_args, plan=plan)
+
+    pk, ck = cost_step()
+    c0k = cost_none()[1]
     pt, ct = lmk.lm_reproj_cost_torch(cand64.pose, p64["pts"],
                                       p64["pt_fixed"], p64["rows"],
                                       p64["cam"], p64["bf"], t64[4], dx64)
+    c0t = lmk.lm_reproj_cost_torch(cand64.pose, p64["pts"], p64["pt_fixed"],
+                                   p64["rows"], p64["cam"], p64["bf"])[1]
     torch.cuda.synchronize()
     step = pt - p64["pts"]
     e_step = float(((pk.double() - p64["pts"]) - step).abs().max()
                    / step.abs().max().clamp(min=1e-30))
-    e_cost = abs(float(ck) - float(ct)) / max(abs(float(ct)), 1e-30)
+    e_cost = max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+                 for a, b in ((ck, ct), (c0k, c0t)))
+    # points and cost bitwise from launch to launch, one device operation
+    # a call with a step and without
+    cost_repro = all(_bits_equal(pk, o[0]) and torch.equal(ck, o[1])
+                     for o in (cost_step() for _ in range(3)))
+    cost_repro = cost_repro and all(torch.equal(c0k, cost_none()[1])
+                                    for _ in range(3))
+    cost_ops = [graph_ops(cost_step), graph_ops(cost_none)]
     rows = p32["rows"]
     M, L, N = rows.slot.shape[0], p32["red"].pose.shape[0], p32["pts"].shape[0]
     # bitwise from launch to launch, one device operation a call given
@@ -2639,13 +2712,11 @@ def check_lm_reproj(problems: dict, tag: str = "vi") -> list[dict]:
                                          torch.float32))
     reduce_plain = time_cuda(lambda: reduce(
         p32, lmk.lm_reproj_reduce_torch, torch.float32), reps=5)
-    cost_args = (cand32.pose, p32["pts"], p32["pt_fixed"], rows, p32["cam"],
-                 p32["bf"])
     t32_state = t32[4]
-    cost_ms = time_cuda(lambda: lmk.lm_reproj_cost(
-        *cost_args, k[4], dx64.float()))
+    cost_ms = time_cuda(cost_step)
+    cost_dev = device_time(cost_step)
     cost_plain = time_cuda(lambda: lmk.lm_reproj_cost_torch(
-        *cost_args, t32_state, dx64.float()), reps=5)
+        *cost_args, t32_state, dx32), reps=5)
     n_obs_slot = int(npres.sum())
     e_red = max(errs.values())
     return [
@@ -2679,9 +2750,15 @@ def check_lm_reproj(problems: dict, tag: str = "vi") -> list[dict]:
              + 36 * n_obs_slot, library_ms=None),
         dict(name=_tagged("lm_reproj_cost", tag, "vi"),
              max_abs_err=max(e_step, e_cost),
-             ok=e_step <= LM_STEP_TOL and e_cost <= LM_COST_TOL,
+             ok=e_step <= LM_STEP_TOL and e_cost <= LM_COST_TOL
+             and cost_repro and cost_ops == [1, 1],
              rel_err_step=e_step, rel_err_cost=e_cost,
-             cost=[float(ck), float(ct)], ms=cost_ms, plain_ms=cost_plain,
+             cost=[float(ck), float(ct)], cost_no_step=[float(c0k),
+                                                        float(c0t)],
+             bitwise_repro=cost_repro, device_ops=cost_ops[0],
+             device_ops_no_step=cost_ops[1], device_ms=cost_dev,
+             device_ms_no_step=device_time(cost_none),
+             ms=cost_ms, plain_ms=cost_plain,
              bytes=row_bytes + N * (12 + 24 + 12 + 4 * ((L + 31) // 32) + 1)
              + 72 * n_obs_slot + 4 * D + 8,
              # 36 + 30 a landmark's step, ~60 a used row's robust cost
@@ -3242,7 +3319,7 @@ def check_rooms(device, sg, kind: str = "walls", centers=None, valid=None,
              sg.room_valid, sg.room_ground, sg.n_rooms)
     return dict(name=name or f"rooms_{kind}", max_abs_err=err, ok=ok,
                 cases=per_case,
-                ms=time_cuda(lambda: kern(sg, *args, **kw)),
+                **_timed(lambda: kern(sg, *args, **kw)),
                 plain_ms=time_cuda(lambda: twin(sg, *args, **kw)),
                 twin_profile=device_ops(lambda: twin(sg, *args, **kw)),
                 kernel_profile=device_ops(lambda: kern(sg, *args, **kw)),
@@ -3295,8 +3372,8 @@ def check_plane_assoc(device, sg, dets, kf: int, name: str = "plane_assoc",
     P, V = sg.pl_vox.shape
     tables = [getattr(sg, k) for k in sgm._ASSOC_TABLES]
     return dict(name=name, max_abs_err=err, ok=ok, cases=per_case,
-                ms=time_cuda(lambda: call(sgm.associate_and_update, sg,
-                                          dets, kf)),
+                **_timed(lambda: call(sgm.associate_and_update, sg,
+                                      dets, kf)),
                 plain_ms=time_cuda(lambda: call(
                     sgm.associate_and_update_torch, sg, dets, kf)),
                 twin_profile=device_ops(lambda: call(
@@ -3409,10 +3486,11 @@ def run_all(device) -> list[dict]:
     """Every kernel against its twin at the slice's shapes (K1's resize
     chain also on one frame, as the serial path extracts it)."""
     grays = batch_frames(device)
-    one = check_pyramid(grays[:1])[0]
-    one["name"] += "@B1"
-    return [*check_pyramid(grays), one, check_detect(grays),
-            *check_detect_cases(device),
+    one = check_pyramid(grays[:1])
+    for r in one:
+        r["name"] += "@B1"
+    return [*check_pyramid(grays), *one, *check_blur_cases(device),
+            check_detect(grays), *check_detect_cases(device),
             check_compact(device), check_group(device),
             *check_front_k2_k4(device),
             check_match_window(device),

@@ -18,8 +18,12 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    launch to launch, K3 keypoint selection over every level of the
    batch in one launch (all five fields bitwise, also on one frame, on
    tie-heavy quantised scores and at 240x320 / 600 features), K7
-   compaction on
-   32768-entry masks, K9
+   compaction, one launch (one device operation) a call, bitwise equal to
+   its twin and from launch to launch: its plain entry on 32768-entry
+   masks at the main path's three shapes, an empty one and one off a
+   16-byte boundary, its observed entry (the observed-point mask built in
+   the same launch) on a seeded map and, after phase 4d, on
+   ``bench_slice``'s map at the tracking table's keyframes, K9
    observation grouping at the local and global BAs' shapes and on an
    empty list, an all-invalid one, heavy overflow and valid out-of-range
    ids (-1, n_pt, n_pt + 1, 10^6), one launch a call, with the
@@ -29,12 +33,15 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    one frame, at 240x320, at 720x1280 and on levels smaller than the
    41x41 patch and FAST's ring (K2 bitwise, K4's angles within 1e-5 rad
    and descriptors bitwise given the twin's angles, both bitwise from
-   launch to launch), K5 window matcher, the tracking pass
+   launch to launch), K5 window matcher (no main-path caller since
+   ``fuse_observations`` runs on the tracking pass: checked here only),
+   the tracking pass
    (K5's redesign: projection, gates, binned window match, gathers, one
    launch) on seeded operands at the main path's four radii (15, 7, 60,
    14 px), every integer output exact and the predicted and gathered
    pixels bitwise, and again after phase 4d on ``bench_slice``'s map and
-   last frame, K6
+   last frame, and there at ``fuse_observations``' 4 px on the reference
+   keyframe, its even keypoints unlinked (no image gate, no depths), K6
    pose-only GN (also at 1 to 4096 matches, mono and stereo, with and
    without its prior: bitwise equal from launch to launch, one launch a
    call), K8 Schur reduction and back-substitution at the local
@@ -152,8 +159,10 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    (d), (f), (h), (i) and (k) and read just after (K1's resize chain,
    K2, K3, K1's blur and K4 must launch once an ORB extraction on each,
    and their plain per-level versions never on the card; on (a), (b),
-   (d) and (i) the tracking pass once a tracking pose solve, K6 or its
-   prior branch, and tracking no standalone window matcher); the JSON
+   (d), (f), (i) and (k) the tracking pass once a tracking pose solve, K6
+   or its prior branch, plus once a ``fuse_observations`` call, no
+   standalone window matcher launched, K7's observed entry launched and
+   ``observed_mask`` never run on the card); the JSON
    kernel table's launches are (d)'s, (i)'s for the inertial path's K18,
    K20, K6's prior branch and K22, and (k)'s for K17a and K17b;
 5. the same 12 small frames through the port on the card (kernels) and on
@@ -211,11 +220,14 @@ LM_KERNELS = {"lm_reproj_plan", "lm_reproj_reduce", "lm_reproj_cost",
               "lm_inertial_plan", "lm_inertial_assemble", "lm_inertial_cost",
               "lm_solve"}
 INERTIAL_ONLY = {"pose_gn_prior", "preint", "vi_pose"} | LM_KERNELS
+# kernels checked in phase 3 only: K5's standalone window matcher has no
+# main-path caller since fuse_observations runs on the tracking pass
+PHASE3_ONLY = {"match_window"}
 # the kernels of the inertial path
 INERTIAL_PATH = INERTIAL_ONLY | {"pyramid_resize", "gaussian_blur",
                                  "fast_nms", "detect_level", "orb_desc",
-                                 "match_window", "track_pass", "pose_gn",
-                                 "compact_true"}
+                                 "track_pass", "pose_gn", "compact_true",
+                                 "compact_observed"}
 
 
 def _line(tag: str, **kw) -> None:
@@ -278,12 +290,25 @@ def _reset_plain_counts() -> None:
     from visual_sgraphs_tpu_torch import cuda
     from visual_sgraphs_tpu_torch.features import fast, orb, pyramid
     from visual_sgraphs_tpu_torch.inertial import preintegration
+    from visual_sgraphs_tpu_torch.slam import map_state, mapping
     cuda.reset_counts()
     fast.fast_nms_torch.cuda_calls = 0
     orb.detect_level_torch.cuda_calls = 0
     pyramid.gaussian_blur_torch.cuda_calls = 0
     orb.orb_describe_torch.cuda_calls = 0
     preintegration.predict_state.cuda_calls = 0
+    mapping.fuse_observations.cuda_calls = 0
+    map_state.observed_mask.cuda_calls = 0
+
+
+def _path_calls() -> dict:
+    """The calls on the card that ``cuda.counts`` does not hold, read just
+    after a main path's run: ``fuse_observations``' (one tracking pass
+    each) and ``observed_mask``'s (the plain composition K7's observed
+    entry replaces)."""
+    from visual_sgraphs_tpu_torch.slam import map_state, mapping
+    return dict(fuse=mapping.fuse_observations.cuda_calls,
+                observed_mask=map_state.observed_mask.cuda_calls)
 
 
 @contextlib.contextmanager
@@ -358,16 +383,32 @@ def _inertial_solves():
         lmk.optimize_reproj_inertial = orig
 
 
-def _check_track_launches(tag: str, cnt: dict, callers) -> None:
+def _check_track_launches(tag: str, cnt: dict, callers,
+                          calls: dict) -> None:
     """The tracking pass launches once a pose solve of tracking (K6 and
-    its prior branch, less the PnP refinement of each relocalisation), and
-    tracking launches no standalone window matcher."""
+    its prior branch, less the PnP refinement of each relocalisation) and
+    once a ``fuse_observations`` call, and no module launches the
+    standalone window matcher."""
     k6 = (cnt["pose_gn"][0] + cnt["pose_gn_prior"][0]
           - cnt["pnp_hypotheses"][0])
     n = cnt["track_pass"][0]
-    _check(n > 0 and n == k6 and not callers.get("tracking.py"),
-           f"{tag}: {n} tracking passes for {k6} tracking pose solves; "
-           f"window matcher callers {dict(callers)}")
+    _check(calls["fuse"] > 0 and n == k6 + calls["fuse"] and not callers
+           and cnt["match_window"][0] == 0,
+           f"{tag}: {n} tracking passes for {k6} tracking pose solves and "
+           f"{calls['fuse']} fuse_observations calls; window matcher "
+           f"{cnt['match_window'][0]} launches, callers {dict(callers)}")
+
+
+def _check_compact_launches(tag: str, cnt: dict, calls: dict) -> None:
+    """K7's observed entry launches where the plain composition
+    (``observed_mask`` & ``pt_valid``, then ``compact_true``) ran: at least
+    once a ``fuse_observations`` call (the tracking tables and the BA
+    windows add theirs), and ``observed_mask`` never runs on the card."""
+    n = cnt["compact_observed"][0]
+    _check(n >= calls["fuse"] > 0 and calls["observed_mask"] == 0,
+           f"{tag}: K7's observed entry {n} launches for {calls['fuse']} "
+           f"fuse_observations calls; {calls['observed_mask']} "
+           "observed_mask calls on the card")
 
 
 def _bound(r: dict) -> tuple[float, str]:
@@ -627,6 +668,7 @@ def main() -> None:
             perf = _drive(system, frames)
         total_s = time.perf_counter() - t0
         counts[tag] = cuda.counts()
+        calls = _path_calls()
         acc = _accuracy(system, frames)
         extra = _scenegraph_summary(system) if with_sg else {}
         _line(tag, frames=n_frames, **acc, fps_16_95=perf["fps"],
@@ -636,7 +678,7 @@ def main() -> None:
               kf_culled=system.events.count("kf_culled"),
               peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20, **extra)
         _line(tag + "_stages", **system.timers.summary())
-        _line(tag + "_launches", **{
+        _line(tag + "_launches", path_calls=calls, **{
             k: {"launches": v[0], "twin_calls_on_cuda": v[1]}
             for k, v in counts[tag].items()})
         _check(acc["tracked"] >= 90,
@@ -646,7 +688,8 @@ def main() -> None:
         _check(all(v[1] == 0 for v in counts[tag].values()),
                f"{tag}: a twin ran on CUDA tensors: {counts[tag]}")
         _check_pyramid_launches(tag, counts[tag])
-        _check_track_launches(tag, counts[tag], callers)
+        _check_track_launches(tag, counts[tag], callers, calls)
+        _check_compact_launches(tag, counts[tag], calls)
         if with_sg:
             _check(extra["n_planes"] >= 2,
                    f"{tag}: n_planes {extra['n_planes']}")
@@ -655,7 +698,7 @@ def main() -> None:
             _check_sg_launches(tag, counts[tag])
         # the loop kernels run on loop_slice only, the plane kernels with
         # the scene graph only
-        skip = (LOOP_ONLY | INERTIAL_ONLY | FREESPACE_ONLY
+        skip = (LOOP_ONLY | INERTIAL_ONLY | FREESPACE_ONLY | PHASE3_ONLY
                 | (set() if with_sg else SG_ONLY))
         _check(all(v[0] > 0 for k, v in counts[tag].items()
                    if k not in skip),
@@ -687,6 +730,7 @@ def main() -> None:
         perf = _drive(system, bench_frames, warm=main_path.BENCH_WARMUP)
     total_s = time.perf_counter() - t0
     counts["bench_slice"] = cuda.counts()
+    calls = _path_calls()
     acc = _accuracy(system, bench_frames)
     loops = _loop_summary(system, bench_frames, bench_watch["closed"])
     sg_sum = _scenegraph_summary(system)
@@ -701,7 +745,7 @@ def main() -> None:
           peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20,
           **sg_sum, **loops)
     _line("bench_slice_stages", **system.timers.summary())
-    _line("bench_slice_launches", **{
+    _line("bench_slice_launches", path_calls=calls, **{
         k: {"launches": v[0], "twin_calls_on_cuda": v[1]}
         for k, v in counts["bench_slice"].items()})
     _check(acc["tracked"] >= 0.9 * len(bench_frames),
@@ -721,15 +765,29 @@ def main() -> None:
            f"{counts['bench_slice']}")
     _check(all(v[0] > 0 for k, v in counts["bench_slice"].items()
                if k != "pnp_hypotheses"
-               and k not in INERTIAL_ONLY | FREESPACE_ONLY),
+               and k not in INERTIAL_ONLY | FREESPACE_ONLY | PHASE3_ONLY),
            f"bench_slice: a kernel was not launched: "
            f"{counts['bench_slice']}")
     _check_sg_launches("bench_slice", counts["bench_slice"])
-    _check_track_launches("bench_slice", counts["bench_slice"], callers)
+    _check_track_launches("bench_slice", counts["bench_slice"], callers,
+                          calls)
+    _check_compact_launches("bench_slice", counts["bench_slice"], calls)
     # the tracking pass at the four radii on the cell's map and last frame
     gray, depth, _, _, ts = bench_frames[-1]
     report(selfcheck.check_track_pass_radii(
         device, selfcheck.track_pass_map_inputs(system, gray, depth, ts)))
+    # K7's observed entry on the cell's map at the tracking table's
+    # keyframes; the tracking pass at fuse_observations' 4 px on the
+    # reference keyframe, its even keypoints unlinked (every keypoint with
+    # depth seeds a point: none is free otherwise)
+    report([selfcheck.check_compact_observed(
+        device, selfcheck.observed_map_inputs(system),
+        name="compact_observed@map"), selfcheck.check_track_pass(
+        device, selfcheck.fuse_pass_inputs(system.map, system.ref_kf_host,
+                                           system.cam_K),
+        selfcheck.FUSE_RADIUS, "track_pass@fuse", want_depth=False)])
+    _check(checks["track_pass@fuse"]["n_matched"] > 0,
+           "track_pass@fuse: no match on the unlinked keyframe")
     # K23's wall entry on the cell's final scene graph
     report([selfcheck.check_rooms(device, system.scenegraph.state, "walls",
                                   min_votes=bench_cfg.scenegraph
@@ -772,9 +830,11 @@ def main() -> None:
     watch = _watch_loops(system)
     _reset_plain_counts()
     t0 = time.perf_counter()
-    perf = _drive(system, frames)
+    with _match_window_callers() as callers:
+        perf = _drive(system, frames)
     total_s = time.perf_counter() - t0
     counts["loop_slice"] = cuda.counts()
+    calls = _path_calls()
     acc = _accuracy(system, frames)
     loops = _loop_summary(system, frames, watch["closed"])
     _line("loop_slice", frames=n_frames, **acc, fps_16_95=perf["fps"],
@@ -785,7 +845,7 @@ def main() -> None:
           peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20,
           **_scenegraph_summary(system), **loops)
     _line("loop_slice_stages", **system.timers.summary())
-    _line("loop_slice_launches", **{
+    _line("loop_slice_launches", path_calls=calls, **{
         k: {"launches": v[0], "twin_calls_on_cuda": v[1]}
         for k, v in counts["loop_slice"].items()})
     _check(acc["tracked"] >= 90, f"loop_slice: tracked {acc['tracked']}")
@@ -799,8 +859,10 @@ def main() -> None:
            f"loop_slice: a twin ran on CUDA tensors: {counts['loop_slice']}")
     _check(all(v[0] > 0 for k, v in counts["loop_slice"].items()
                if k != "pnp_hypotheses"
-               and k not in INERTIAL_ONLY | FREESPACE_ONLY),
+               and k not in INERTIAL_ONLY | FREESPACE_ONLY | PHASE3_ONLY),
            f"loop_slice: a kernel was not launched: {counts['loop_slice']}")
+    _check_track_launches("loop_slice", counts["loop_slice"], callers, calls)
+    _check_compact_launches("loop_slice", counts["loop_slice"], calls)
     _check(watch["saved"] is not None, "loop_slice: no map saved at a loop")
     loop_system = system
 
@@ -873,6 +935,7 @@ def main() -> None:
                       feed=main_path.feed_inertial, after=note_init)
     total_s = time.perf_counter() - t0
     counts["inertial_slice"] = cuda.counts()
+    calls = _path_calls()
     generic_lin = graph.linearize_batch.cuda_calls
     acc = _accuracy(system, vi_frames, vi_gt)
     ev = system.events
@@ -895,7 +958,7 @@ def main() -> None:
           generic_linearizations_on_card=generic_lin)
     _line("inertial_slice_stages", **system.timers.summary())
     _line("inertial_slice_warmup_stages", **perf["warm_stages"])
-    _line("inertial_slice_launches", **{
+    _line("inertial_slice_launches", path_calls=calls, **{
         k: {"launches": v[0], "twin_calls_on_cuda": v[1]}
         for k, v in counts["inertial_slice"].items()})
     _check(system.imu.initialized, "inertial_slice: the IMU never initialised")
@@ -932,7 +995,9 @@ def main() -> None:
            f"{n_pred} predict_state calls and packs {dict(packs)} on the "
            f"card for {len(kfs)} keyframes")
     _check_track_launches("inertial_slice", counts["inertial_slice"],
-                          callers)
+                          callers, calls)
+    _check_compact_launches("inertial_slice", counts["inertial_slice"],
+                            calls)
     # K22b's plan once a solve with inertial rows (its whitening and edge
     # index), the rows once an iteration and the cost once a candidate
     k22b = {k: counts["inertial_slice"][k][0] for k in (
@@ -990,9 +1055,11 @@ def main() -> None:
 
     _reset_plain_counts()
     t0 = time.perf_counter()
-    perf = _drive(system, frames, after=note_maint)
+    with _match_window_callers() as callers:
+        perf = _drive(system, frames, after=note_maint)
     total_s = time.perf_counter() - t0
     counts["freespace_slice"] = cnt = cuda.counts()
+    calls = _path_calls()
     acc = _accuracy(system, frames)
     mgr = system.scenegraph
     ev = system.events
@@ -1014,7 +1081,7 @@ def main() -> None:
           peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20, **fs_sum,
           **sg_sum)
     _line("freespace_slice_stages", **system.timers.summary())
-    _line("freespace_slice_launches", **{
+    _line("freespace_slice_launches", path_calls=calls, **{
         k: {"launches": v[0], "twin_calls_on_cuda": v[1]}
         for k, v in cnt.items()})
     _check(acc["tracked"] >= 90, f"freespace_slice: tracked {acc['tracked']}")
@@ -1027,8 +1094,11 @@ def main() -> None:
     _check(all(v[1] == 0 for v in cnt.values()),
            f"freespace_slice: a twin ran on CUDA tensors: {cnt}")
     _check(all(v[0] > 0 for k, v in cnt.items()
-               if k not in LOOP_ONLY | INERTIAL_ONLY | WALLS_ONLY),
+               if k not in LOOP_ONLY | INERTIAL_ONLY | WALLS_ONLY
+               | PHASE3_ONLY),
            f"freespace_slice: a kernel was not launched: {cnt}")
+    _check_track_launches("freespace_slice", cnt, callers, calls)
+    _check_compact_launches("freespace_slice", cnt, calls)
     _check_sg_launches("freespace_slice", cnt, freespace=True)
     _check(cnt["freespace_carve"][0] == len(fused),
            f"freespace_slice: K17a {cnt['freespace_carve'][0]} launches for "

@@ -34,6 +34,9 @@ INERTIAL_ONLY = ("pose_gn_prior", "preint", "vi_pose") + LM_KERNELS
 # kernels that only the free-space room method launches
 FREESPACE_ONLY = ("freespace_carve", "freespace_components",
                   "rooms_freespace")
+# kernels no main path launches (K5's standalone window matcher: since
+# fuse_observations runs on the tracking pass, only its checks call it)
+CHECK_ONLY = ("match_window",)
 
 
 @pytest.fixture(scope="module")
@@ -87,12 +90,19 @@ def track_pass_args(device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("radius", selfcheck.TRACK_RADII)
+@pytest.mark.parametrize("radius", selfcheck.TRACK_RADII
+                         + (selfcheck.FUSE_RADIUS,))
 def test_track_pass_kernel(device, track_pass_args, radius):
-    # the tracking pass (K5's redesign) at the main path's four radii:
-    # every integer and bool output equal to the twin's, the predicted
-    # and gathered pixels and depths bitwise
-    r = selfcheck.check_track_pass(device, track_pass_args, radius)
+    # the tracking pass (K5's redesign) at the main path's four tracking
+    # radii and at fuse_observations' (no image gate, no depths): every
+    # integer and bool output equal to the twin's, the predicted and
+    # gathered pixels and depths bitwise
+    fuse = radius == selfcheck.FUSE_RADIUS
+    args = track_pass_args
+    if fuse:
+        args = args[:5] + (None,) + args[6:]
+    r = selfcheck.check_track_pass(device, args, radius,
+                                   want_depth=not fuse)
     assert r["ok"] and r["n_matched"] > 100, r
 
 
@@ -234,7 +244,7 @@ def test_slice_on_card_uses_every_kernel(device):
     assert all(launches > 0 and twin == 0
                for name, (launches, twin) in counts.items()
                if name not in sg_only + LOOP_ONLY + INERTIAL_ONLY
-               + FREESPACE_ONLY), counts
+               + FREESPACE_ONLY + CHECK_ONLY), counts
     assert np.isfinite(pos).all() and system.tracked_mask().all()
     err = np.linalg.norm(pos - pos[0] - (np.stack(gt) - gt[0]), axis=1)
     assert err.max() < 0.1
@@ -269,8 +279,8 @@ def test_scenegraph_slice_on_card_uses_every_kernel(device):
     counts = cuda.counts()
     assert all(launches > 0 and twin == 0
                for name, (launches, twin) in counts.items()
-               if name not in LOOP_ONLY + INERTIAL_ONLY + FREESPACE_ONLY), \
-        counts
+               if name not in LOOP_ONLY + INERTIAL_ONLY + FREESPACE_ONLY
+               + CHECK_ONLY), counts
     assert np.isfinite(pos).all() and system.tracked_mask().all()
     planes = system.scenegraph.planes()
     assert len(planes["coeffs"]) >= 2
@@ -379,8 +389,13 @@ def test_pyramid_chain_bitwise(chain_frames, B):
 
 @pytest.mark.gpu
 def test_compact_kernel(device):
-    r = selfcheck.check_compact(device)
-    assert r["ok"], r
+    # K7's plain entry at the main path's three shapes, an empty mask and
+    # one off a 16-byte boundary, and its observed entry on a seeded map
+    # (duplicate and masked keyframes): bitwise equal to the twins, one
+    # device operation a call, bitwise from launch to launch
+    for r in (selfcheck.check_compact(device),
+              selfcheck.check_compact_observed(device)):
+        assert r["ok"] and r["graph_ops"] == 1, r
 
 
 @pytest.mark.gpu
@@ -420,7 +435,7 @@ def test_bench_path_on_card_uses_every_kernel(device):
                if name not in ("pnp_hypotheses", "verify_sim3",
                                "match_nn_ratio", "guided_count",
                                "pgo_assemble", "pgo_cost")
-               + INERTIAL_ONLY + FREESPACE_ONLY), counts
+               + INERTIAL_ONLY + FREESPACE_ONLY + CHECK_ONLY), counts
     assert system.tracked_mask().sum() >= 0.9 * 96
     assert system.host_readbacks < 96
     assert np.isfinite(system.positions()).all()

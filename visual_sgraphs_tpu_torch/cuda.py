@@ -76,6 +76,10 @@ KERNELS = (
      "compact_true", "compact_true_torch",
      "visual_sgraphs_tpu_torch/csrc/compact.cu",
      "visual_sgraphs_tpu/slam/tracking.py:67"),
+    ("compact_observed", "visual_sgraphs_tpu_torch.slam.map_state",
+     "compact_observed", "compact_observed_torch",
+     "visual_sgraphs_tpu_torch/csrc/compact.cu",
+     "visual_sgraphs_tpu/slam/map_state.py:156"),
     ("group_observations", "visual_sgraphs_tpu_torch.parallel.dist_ba",
      "group_observations", "group_observations_torch",
      "visual_sgraphs_tpu_torch/csrc/group_obs.cu",
@@ -203,7 +207,9 @@ _ARGTYPES = {
     "vsg_detect_levels": [_PP, _PI, ctypes.POINTER(ctypes.c_float)]
                          + [_I] * 4 + [_F] + [_VP] * 6,
     "vsg_orb_desc_levels": [_PP, _PI, _I, _I, _VP, _I, _I] + [_VP] * 5,
-    "vsg_compact": [_VP, _I, _I, _VP, _VP],
+    "vsg_compact": [_VP, _I, _I, _I, _I, _VP, _VP],
+    "vsg_compact_observed": [_VP, _VP, _I, _I, _VP, _VP, _I, _VP, _I, _I,
+                             _I, _I, _I, _VP, _VP],
     "vsg_group_obs": [_VP] * 4 + [_I] * 8 + [_VP] * 7,
     "vsg_match_window": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                          _F, _I, _F, _I, _VP, _VP, _VP, _VP],

@@ -45,10 +45,9 @@ from visual_sgraphs_tpu_torch.parallel.dist_ba import (
 from visual_sgraphs_tpu_torch.scenegraph.manager import plane_covis_bonus
 from visual_sgraphs_tpu_torch.slam.map_state import (
     MapState,
-    compact_true,
+    compact_observed,
     covisibility_counts,
     index_set_last,
-    observed_mask,
 )
 from visual_sgraphs_tpu_torch.slam.tracking import topk_stable
 
@@ -74,8 +73,7 @@ def _observation_tables(m: MapState, kf_ids, kf_mask, cam_bf,
     obs_safe = torch.clamp(obs, min=0).long()
     obs_ok = (m.kf_kp_valid[kf_ids] & kf_mask[:, None] & (obs >= 0)
               & m.pt_valid[obs_safe])
-    local_pt = compact_true(observed_mask(m, kf_ids, kf_mask) & m.pt_valid,
-                            n_local_pts)
+    local_pt = compact_observed(m, kf_ids, kf_mask, n_local_pts)
     pt_ok = local_pt >= 0
     safe_pt = torch.clamp(local_pt, min=0)
     inv = torch.full((m.N + 1,), -1, dtype=torch.int32, device=dev)

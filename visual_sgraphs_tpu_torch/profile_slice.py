@@ -9,6 +9,7 @@
     python -m visual_sgraphs_tpu_torch.profile_slice --cells
     python -m visual_sgraphs_tpu_torch.profile_slice --kernel-times
     python -m visual_sgraphs_tpu_torch.profile_slice --orb-times
+    python -m visual_sgraphs_tpu_torch.profile_slice --compact-times PATH
     python -m visual_sgraphs_tpu_torch.profile_slice --other-times
     python -m visual_sgraphs_tpu_torch.profile_slice --track-ops
     python -m visual_sgraphs_tpu_torch.profile_slice --k20-sections
@@ -46,16 +47,20 @@ counterpart: the front end (K1-K4) frame by frame, then positions,
 tracking and keyframes.  With ``--cells`` it runs ``slice``,
 ``scenegraph_slice``, ``bench_slice``, ``freespace_slice`` and
 ``inertial_slice`` once each and prints their fps as ``chip_smoke.py``
-times them, and the keyframe program's mean host ms (a cycle's on
-``bench_slice``, the VI local BA's on ``inertial_slice``).  To compare two
+times them, the keyframe program's mean host ms (a cycle's on
+``bench_slice``, the VI local BA's on ``inertial_slice``), and a digest
+of each cell's final ``kf_obs_pt``.  To compare two
 trees on one card, run this file by path with ``PYTHONPATH`` set to the
 other tree's root: the package and kernels are then that tree's.  With
 ``--kernel-times`` it runs ``selfcheck``'s checks of K9, K6, K6's prior
 branch, K5's window matcher, the tracking pass (seeded operands, the
 coarse radius) and K20 at the main path's shapes and prints
 each one's CUDA-event and device times (``selfcheck.device_time``) beside
-its library call's, the host ms of the tracking pass's and K6's wrappers
-(``wrapper_host``), the device ms and device operations of K18 without
+its library call's, K7's two entries and ``fuse_observations``' match at
+4 px (``compact_fuse_times``; alone with ``--compact-times PATH``, the
+operands recorded into PATH, or loaded from it when it exists), the host
+ms of the tracking pass's and K6's wrappers (``wrapper_host``), the
+device ms and device operations of K18 without
 and with the pose prediction, of the prediction alone, of K3 over a
 batch's 8 levels and one frame's (beside ``torch.topk`` of the cells)
 (``inertial_front_times``), of K22b's plan, rows and cost on the VI and
@@ -90,6 +95,7 @@ from __future__ import annotations
 
 import argparse
 import cProfile
+import hashlib
 import json
 import pstats
 import statistics
@@ -233,6 +239,8 @@ def cells_fps(warm: int = 16) -> None:
             "mean_ms")
         out[tag + "_tracked"], out[tag + "_ate_m"] = _cell_ate(
             system, fr, 2 if feed is main_path.feed_inertial else 3)
+        out[tag + "_kf_obs_pt_sha256"] = hashlib.sha256(
+            system.map.kf_obs_pt.cpu().numpy().tobytes()).hexdigest()[:16]
         if stage == "vi_lba":
             init = warm_stages.get("imu_init", {})
             out[tag + "_imu_init_ms"] = init.get("mean_ms")
@@ -453,6 +461,7 @@ def kernel_times() -> None:
             "library_device_ms", "plain_ms", "launches_per_call",
             "failed")})
     kernel_breakdown(dev)
+    compact_fuse_times(dev)
     wrapper_host(dev)
     inertial_front_times(dev)
     problems = selfcheck.lm_problems(selfcheck.lm_window(dev))
@@ -764,6 +773,163 @@ def other_device_times(dev, problems: dict) -> None:
                 lambda pose=pose, d=d: lmk.lm_reproj_cost(
                     pose, pts, p["pt_fixed"], rows, p["cam"], p["bf"],
                     None if d is None else state, d, **kw), **info)
+
+
+def _fuse_operands_spy(which: int = 8):
+    """(spy, seen): a stand-in for ``mapping.fuse_observations`` that
+    records a copy of the map, the keyframe and the camera at its
+    ``which``-th call (``seen["operands"]``) and counts the calls."""
+    from visual_sgraphs_tpu_torch.slam import mapping
+    orig = mapping.fuse_observations
+    seen = {"calls": 0}
+
+    def spy(m, kf_id, cam_K, *args, **kw):
+        seen["calls"] += 1
+        if seen["calls"] == which:
+            seen["operands"] = (type(m)(*(t.clone() for t in m)), int(kf_id),
+                                cam_K.clone())
+        return orig(m, kf_id, cam_K, *args, **kw)
+
+    # a tree whose fuse_observations counts its calls does so on the name
+    # it is bound to
+    spy.cuda_calls = getattr(orig, "cuda_calls", 0)
+    return spy, seen
+
+
+def compact_fuse_times(dev, path: str | None = None) -> None:
+    """K7 and ``fuse_observations``' match, each with its device ms
+    (``selfcheck.device_time``), device operations (``selfcheck.graph_ops``),
+    CUDA-event ms and host ms of the call alone (``_host_call_ms``):
+    - K7's plain entry at the main path's three shapes (seeded 32768-entry
+      masks: 8 % True and size 4096, 20 % and 8192, 90 % and 1000) beside
+      ``torch.nonzero``'s CUDA-event ms (it synchronises: no device time);
+    - a run of ``bench_slice`` (192 frames; its tracked frames, ATE and a
+      digest of its final ``kf_obs_pt`` printed), which gives the operands
+      below: its final map and the operands (map, keyframe, camera) of its
+      eighth ``fuse_observations`` call; with ``path`` they are saved there
+      (``torch.save``) when it does not exist and loaded from it when it
+      does, so that two trees are timed on the same operands;
+    - the tracking table's compaction on the final map at the reference
+      keyframe's tracking keyframes (``mapping.lba_slots``), as the
+      composition (``observed_mask`` & ``pt_valid``, ``compact_true``, the
+      int32 cast) and as K7's observed entry;
+    - on the fuse operands as recorded (``fuse``; on the synthetic scenes
+      every keypoint with depth seeds a point, so the keyframe has no free
+      keypoint) and with the keyframe's even keypoints unlinked
+      (``fuse_unlinked``: their points stay in the covisible keyframes):
+      the match at 4 px as K5's window matcher on the projected points and
+      as the tracking pass (``mapping.fuse_candidates``' operands, no image
+      gate, no depths), and the whole ``fuse_observations``, with a digest
+      of the keyframe's new row and its links;
+    - K5's window matcher at 4 px on the seeded window problem
+      (``selfcheck.match_inputs``).
+    A tree without ``compact_observed`` / ``fuse_candidates`` times only
+    its own calls."""
+    import os
+
+    from visual_sgraphs_tpu_torch import main_path, selfcheck
+    from visual_sgraphs_tpu_torch.core import cameras, lie
+    from visual_sgraphs_tpu_torch.features import match
+    from visual_sgraphs_tpu_torch.slam import map_state as ms
+    from visual_sgraphs_tpu_torch.slam import mapping, tracking
+
+    def line(name, fn, **info):
+        _line("compact_fuse_times", name=name,
+              device_ms=selfcheck.device_time(fn),
+              device_ops=selfcheck.graph_ops(fn), ms=selfcheck.time_cuda(fn),
+              host_call_ms=_host_call_ms(fn), **info)
+
+    def sha(t):
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+    rng = np.random.default_rng(0)
+    for tag, p, size in (("track", 0.08, 4096), ("lba", 0.2, 8192),
+                         ("free", 0.9, 1000)):
+        mask = torch.from_numpy(rng.uniform(size=32768) < p).to(dev)
+        line(f"K7@{tag}", lambda m=mask, s=size: ms.compact_true(m, s),
+             true_entries=int(mask.sum()), size=size,
+             nonzero_ms=selfcheck.time_cuda(lambda m=mask: torch.nonzero(m)))
+
+    scene, frames = main_path.frames(dev, main_path.BENCH_FRAMES)
+    cfg = main_path.bench_config(scene)
+    system = main_path.make_system(cfg, dev, True)
+    orig = mapping.fuse_observations
+    spy, seen = _fuse_operands_spy()
+    mapping.fuse_observations = spy
+    try:
+        for frame in frames:
+            main_path.feed(system, frame)
+        system.flush()
+    finally:
+        mapping.fuse_observations = orig
+        if hasattr(orig, "cuda_calls"):
+            orig.cuda_calls = spy.cuda_calls
+    tracked, ate = _cell_ate(system, frames, 3)
+    _line("compact_fuse", cell="bench_slice", tracked=tracked, ate_m=ate,
+          kf_obs_pt_sha256=sha(system.map.kf_obs_pt),
+          fuse_calls=seen["calls"])
+    mf, kf, cam = seen["operands"]
+    rec = dict(map=system.map._asdict(), ref_kf=system.ref_kf_host,
+               fuse_map=mf._asdict(), kf=kf, cam=cam)
+    if path is not None:
+        if os.path.exists(path):
+            rec = torch.load(path, map_location=dev)
+        else:
+            torch.save(rec, path)
+    m, mf = ms.MapState(**rec["map"]), ms.MapState(**rec["fuse_map"])
+    kf, cam = rec["kf"], rec["cam"]
+    kf_ids, kf_mask = mapping.lba_slots(m, rec["ref_kf"],
+                                        cfg.mapping.local_window)
+    info = dict(L=kf_ids.shape[0], rows=int(kf_mask.sum()),
+                map_sha=sha(m.kf_obs_pt))
+    line("K7_composition@bench_map", lambda: ms.compact_true(
+        ms.observed_mask(m, kf_ids, kf_mask) & m.pt_valid, 4096).to(
+            torch.int32), **info)
+    if hasattr(ms, "compact_observed"):
+        line("K7_observed@bench_map", lambda: ms.compact_observed(
+            m, kf_ids, kf_mask, 4096, torch.int32), **info)
+
+    unlinked = mf.kf_obs_pt.clone()
+    unlinked[kf, ::2] = -1
+    for tag, mk in (("fuse", mf),
+                    ("fuse_unlinked", mf._replace(kf_obs_pt=unlinked))):
+        counts = ms.covisibility_counts(mk, kf)
+        _, top = tracking.topk_stable(counts, 8)
+        ids = ms.compact_true(ms.observed_mask(mk, top, counts[top] > 0)
+                              & mk.pt_valid, 4096)
+        safe = torch.clamp(ids, min=0)
+        p_cam = lie.se3_apply(mk.kf_pose[kf], mk.pt_pos[safe])
+        free = mk.kf_kp_valid[kf] & (mk.kf_obs_pt[kf] < 0)
+        wargs = (mk.pt_desc[safe].contiguous(),
+                 cameras.project_pinhole(cam, p_cam).contiguous(),
+                 (p_cam[:, 2] > 0.05) & (ids >= 0),
+                 mk.kf_desc[kf].contiguous(), mk.kf_uv[kf].contiguous(),
+                 free)
+        window = match.match_window(*wargs, radius=4.0)[0]
+        row = mapping.fuse_observations(mk, kf, cam).kf_obs_pt[kf]
+        info = dict(kf=kf, n_ids=int((ids >= 0).sum()), free=int(free.sum()),
+                    matches=int((window >= 0).sum()),
+                    links=int(((mk.kf_obs_pt[kf] < 0) & (row >= 0)).sum()),
+                    operands_sha=sha(mk.kf_obs_pt), new_row_sha=sha(row))
+        line(f"K5_window@{tag}", lambda a=wargs: match.match_window(
+            *a, radius=4.0), **info)
+        if hasattr(mapping, "fuse_candidates"):
+            fids, kp = mapping.fuse_candidates(mk, kf)
+
+            def fuse_pass(mk=mk, fids=fids, kp=kp):
+                return match.track_pass(mk.pt_pos, mk.pt_desc, fids,
+                                        mk.kf_pose[kf], cam, None, 4.0, kp,
+                                        want_depth=False)
+
+            tp = fuse_pass()
+            same = bool(torch.equal(fids.long(), ids) and torch.equal(
+                torch.where(tp.ok, tp.slot, -1).to(torch.int32), window))
+            line(f"track_pass@{tag}", fuse_pass, same_as_window=same, **info)
+        line(f"fuse_observations@{tag}",
+             lambda mk=mk: mapping.fuse_observations(mk, kf, cam), **info)
+    seeded = selfcheck.match_inputs(dev)
+    line("K5_window@seeded4px", lambda: match.match_window(
+        *seeded, radius=4.0))
 
 
 def wrapper_host(dev, reps: int = 200) -> None:
@@ -1103,6 +1269,10 @@ def main() -> None:
     ap.add_argument("--orb-times", action="store_true",
                     help="K2, K4 and extract_orb at B = 8 and B = 1: "
                     "device ms, host ms, device operations")
+    ap.add_argument("--compact-times", metavar="PATH", default=None,
+                    help="K7's two entries and fuse_observations' match: "
+                    "device ms, device operations, host ms (operands "
+                    "recorded into PATH, or loaded from it)")
     ap.add_argument("--other-times", action="store_true",
                     help="K1's blur, K17a and K22a's cost: device ms and "
                     "device operations")
@@ -1123,6 +1293,11 @@ def main() -> None:
         from visual_sgraphs_tpu_torch import cuda
         cuda.build()
         orb_front_times(torch.device("cuda"))
+        _card_line()
+    elif args.compact_times:
+        from visual_sgraphs_tpu_torch import cuda
+        cuda.build()
+        compact_fuse_times(torch.device("cuda"), args.compact_times)
         _card_line()
     elif args.other_times:
         from visual_sgraphs_tpu_torch import cuda, selfcheck

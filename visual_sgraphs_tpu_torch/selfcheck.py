@@ -406,31 +406,152 @@ def check_front_end_small(device) -> list[dict]:
     return out
 
 
+# K7's main-path shapes on the map's 32768-point masks: the tracking
+# table's (8 % True, size 4096), the local BA's (20 %, 8192) and the
+# keyframe insertion's free ids (90 %, size 1000: more True entries than
+# size)
+COMPACT_SHAPES = (("track", 0.08, 4096), ("lba", 0.2, 8192),
+                  ("free", 0.9, 1000))
+
+
+def _repeats_bitwise(fn, reps: int = 4) -> bool:
+    """Whether ``reps`` more calls of ``fn`` return its first output."""
+    first = fn()
+    return all(torch.equal(first, fn()) for _ in range(reps))
+
+
 def check_compact(device, n: int = 32768, seed: int = 0) -> dict:
-    """K7 on bool masks of the map's point capacity: the tracking table's
-    (size 4096), the local BA's (8192) and the keyframe insertion's free
-    ids (1000, more True entries than size), and an empty one; exactly
-    equal to the twin.  Timed at the tracking table's shape; library
+    """K7's plain entry on bool masks of the map's point capacity at the
+    main path's three shapes (``COMPACT_SHAPES``), on an empty one and on
+    one that starts off a 16-byte boundary (its scalar loads): bitwise
+    equal to the twin, one device operation
+    (``graph_ops``), bitwise from launch to launch.  Timed at the tracking
+    table's shape (device ms at all three: ``device_ms_shapes``); library
     yardstick ``torch.nonzero`` (which synchronises)."""
     rng = np.random.default_rng(seed)
-    cases = [(rng.uniform(size=n) < 0.08, 4096),
-             (rng.uniform(size=n) < 0.2, 8192),
-             (rng.uniform(size=n) < 0.9, 1000),
-             (np.zeros(n, bool), 64)]
-    err = 0.0
-    for mask, size in cases:
-        mk = torch.from_numpy(mask).to(device)
+    masks = {tag: (torch.from_numpy(rng.uniform(size=n) < p).to(device),
+                   size) for tag, p, size in COMPACT_SHAPES}
+    cases = list(masks.values()) + [
+        (torch.zeros(n, dtype=torch.bool, device=device), 64),
+        (masks["lba"][0][1:], 8192)]
+    err, same = 0.0, True
+    for mk, size in cases:
         k = map_state.compact_true(mk, size)
         t = map_state.compact_true_torch(mk, size)
-        torch.cuda.synchronize()
+        same = same and torch.equal(k, t)
         err = max(err, float((k - t).abs().max()))
-    mask = torch.from_numpy(cases[0][0]).to(device)
+    mask, size = masks["track"]
+
+    def kernel():
+        return map_state.compact_true(mask, size)
+
+    ops = graph_ops(kernel)
+    repeat = _repeats_bitwise(kernel)
     return dict(
-        name="compact_true", max_abs_err=err, ok=err == 0.0,
-        **_timed(lambda: map_state.compact_true(mask, 4096)),
-        plain_ms=time_cuda(lambda: map_state.compact_true_torch(mask, 4096)),
+        name="compact_true", max_abs_err=err, ok=same and ops == 1 and repeat,
+        graph_ops=ops, bitwise_repeat=repeat, **_timed(kernel),
+        device_ms_shapes={tag: device_time(
+            lambda m=m, s=s: map_state.compact_true(m, s))
+            for tag, (m, s) in masks.items()},
+        plain_ms=time_cuda(lambda: map_state.compact_true_torch(mask, size)),
         library_ms=time_cuda(lambda: torch.nonzero(mask)),
-        bytes=n + 8 * 4096, ops=2 * n)
+        bytes=n + 8 * size, ops=2 * n)
+
+
+def observed_inputs(device, K: int = 128, F: int = 1000, N: int = 32768,
+                    L: int = 11, seed: int = 0) -> tuple:
+    """Seeded operands of K7's observed entry at the tracking table's
+    shape: a (K, F) observation table (40 % -1, the rest ids below N), 5 %
+    of the keypoints invalid, 15 % of the points invalid, L keyframe ids
+    with one repeated, a fifth of them masked.  Returns (map, kf_ids,
+    kf_mask)."""
+    from visual_sgraphs_tpu_torch.config import CapacityConfig
+    rng = np.random.default_rng(seed)
+    obs = rng.integers(0, N, (K, F)).astype(np.int32)
+    obs[rng.uniform(size=(K, F)) < 0.4] = -1
+    ids = rng.choice(K, L - 1, replace=False)
+    kf_ids = np.concatenate([ids, ids[:1]]).astype(np.int64)
+    kf_mask = rng.uniform(size=L) > 0.2
+    kf_mask[0] = True
+    t = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    m = map_state.empty_map(CapacityConfig(K, N), OrbConfig(n_features=F),
+                            device)._replace(
+        kf_obs_pt=t(obs), kf_kp_valid=t(rng.uniform(size=(K, F)) > 0.05),
+        pt_valid=t(rng.uniform(size=N) > 0.15))
+    return m, t(kf_ids), t(kf_mask)
+
+
+def observed_map_inputs(system) -> tuple:
+    """K7's observed entry's operands on a system's map: the tracking
+    table's keyframes at the reference keyframe (``mapping.lba_slots``,
+    as ``tracking._local_point_table`` picks them)."""
+    from visual_sgraphs_tpu_torch.slam import mapping
+    m = system.map
+    return (m, *mapping.lba_slots(m, system.ref_kf_host,
+                                  system.cfg.mapping.local_window))
+
+
+def check_compact_observed(device, inputs: tuple | None = None,
+                           name: str = "compact_observed") -> dict:
+    """K7's observed entry (``map_state.compact_observed``) against its
+    twin (``observed_mask`` & ``pt_valid``, then ``compact_true_torch``)
+    on ``inputs`` (``observed_inputs`` / ``observed_map_inputs``): int64
+    and int32 ids at the tracking table's size (4096) and at 1024 (below
+    the seeded count), all bitwise; one device operation (``graph_ops``;
+    the twin's beside it), bitwise from launch to launch.  Timed at size
+    4096 with int32 ids, as tracking calls it."""
+    m, kf_ids, kf_mask = observed_inputs(device) if inputs is None \
+        else inputs
+    same = True
+    err = 0.0
+    for size in (1024, 4096):
+        for dt in (torch.int64, torch.int32):
+            k = map_state.compact_observed(m, kf_ids, kf_mask, size, dt)
+            t = map_state.compact_observed_torch(m, kf_ids, kf_mask, size, dt)
+            same = same and k.dtype == dt and torch.equal(k, t)
+            err = max(err, float((k.long() - t.long()).abs().max()))
+
+    def kernel():
+        return map_state.compact_observed(m, kf_ids, kf_mask, 4096,
+                                          torch.int32)
+
+    def twin():
+        return map_state.compact_observed_torch(m, kf_ids, kf_mask, 4096,
+                                                torch.int32)
+
+    ops = graph_ops(kernel)
+    repeat = _repeats_bitwise(kernel)
+    out = twin()
+    # the rows of the unmasked keyframes (each read once), the keyframe
+    # ids and mask, pt_valid; the ids written
+    rows = len({int(i) for i, ok in zip(kf_ids.tolist(), kf_mask.tolist())
+                if ok})
+    F = m.kf_obs_pt.shape[1]
+    return dict(
+        name=name, max_abs_err=err, ok=same and ops == 1 and repeat,
+        graph_ops=ops, plain_graph_ops=graph_ops(twin),
+        bitwise_repeat=repeat, n_ids=int((out >= 0).sum()),
+        L=kf_ids.shape[0], rows=rows, **_timed(kernel),
+        plain_ms=time_cuda(twin), plain_device_ms=device_time(twin),
+        library_ms=None, bytes=5 * F * rows + 9 * kf_ids.shape[0] + m.N
+        + 4 * 4096, ops=F * rows + 2 * m.N)
+
+
+def fuse_pass_inputs(m, kf_id: int, cam_K) -> tuple:
+    """``fuse_observations``' tracking pass operands on map ``m`` at
+    keyframe ``kf_id`` (``mapping.fuse_candidates``) with the keyframe's
+    even keypoints unassociated first (their points stay in the covisible
+    keyframes: on the synthetic scenes every keypoint with depth seeds a
+    point, so a keyframe has no free keypoint to match otherwise), in
+    ``track_pass_inputs``' layout, without the image gate: (pt_pos,
+    pt_desc, ids, T, cam_K, None, keypoints)."""
+    from visual_sgraphs_tpu_torch.slam import mapping
+    obs = m.kf_obs_pt.clone()
+    obs[kf_id, ::2] = -1
+    m = m._replace(kf_obs_pt=obs)
+    ids, keypoints = mapping.fuse_candidates(m, kf_id)
+    return (m.pt_pos, m.pt_desc, ids, m.kf_pose[kf_id], cam_K, None,
+            keypoints)
 
 
 def group_inputs(device, L: int, F: int, n_pt: int, seed: int = 0,
@@ -710,8 +831,10 @@ def check_match_window(device, radius: float = 15.0) -> dict:
 
 
 # the tracking pass's radii on the main path: the first attempt's coarse
-# and fine windows, the retry's 4x and 2x (TrackingConfig)
+# and fine windows, the retry's 4x and 2x (TrackingConfig); and
+# fuse_observations' window
 TRACK_RADII = (15.0, 7.0, 60.0, 14.0)
+FUSE_RADIUS = 4.0
 
 
 def track_pass_inputs(device, n: int = 4096, F: int = 1000,
@@ -794,15 +917,18 @@ TRACK_PASS_FIELDS = ("uv_pred", "vis", "vis_pt", "match", "dist", "ok",
 
 
 def check_track_pass(device, args: tuple, radius: float,
-                     name: str = "track_pass") -> dict:
+                     name: str = "track_pass",
+                     want_depth: bool = True) -> dict:
     """The tracking pass (``match.track_pass``) against its twin on
-    ``args`` (``track_pass_inputs`` / ``track_pass_map_inputs``) at
-    ``radius``: every integer and bool output equal, ``uv_pred`` and the
-    gathered pixels and depths bitwise; the main path's call (without
+    ``args`` (``track_pass_inputs`` / ``track_pass_map_inputs`` /
+    ``fuse_pass_inputs``, the last without depths: ``want_depth=False``)
+    at ``radius``: every integer and bool output equal, ``uv_pred`` and
+    the gathered pixels and depths bitwise; the main path's call (without
     ``full``) bitwise the full call's in the fields it returns."""
-    k = match.track_pass(*args[:6], radius, args[6], full=True)
-    hot = match.track_pass(*args[:6], radius, args[6])
-    t = match.track_pass_torch(*args[:6], radius, args[6])
+    wd = dict(want_depth=want_depth)
+    k = match.track_pass(*args[:6], radius, args[6], full=True, **wd)
+    hot = match.track_pass(*args[:6], radius, args[6], **wd)
+    t = match.track_pass_torch(*args[:6], radius, args[6], **wd)
     torch.cuda.synchronize()
     same = {f: bool(torch.equal(getattr(k, f), getattr(t, f)))
             for f in ("vis", "vis_pt", "match", "dist", "ok", "slot",
@@ -814,8 +940,8 @@ def check_track_pass(device, args: tuple, radius: float,
         for a, b in zip(hot, k) if a is not None)
     err = max(float((getattr(k, f).double() - getattr(t, f).double()
                      ).abs().nan_to_num(nan=float("inf")).max())
-              if getattr(k, f).numel() else 0.0
-              for f in TRACK_PASS_FIELDS)
+              if getattr(k, f) is not None and getattr(k, f).numel()
+              else 0.0 for f in TRACK_PASS_FIELDS)
     ids, frame = args[2], args[6]
     n, F = ids.shape[0], frame.uv.shape[0]
     # the pairs the window admits: the work this run's data needs (their
@@ -831,7 +957,7 @@ def check_track_pass(device, args: tuple, radius: float,
     n_kp = int(frame.valid.sum())
 
     def kernel():
-        return match.track_pass(*args[:6], radius, args[6])
+        return match.track_pass(*args[:6], radius, args[6], **wd)
 
     return dict(
         name=name, radius=radius, max_abs_err=err, ok=all(same.values()),
@@ -839,14 +965,15 @@ def check_track_pass(device, args: tuple, radius: float,
         window_pairs=pairs, ms=time_cuda(kernel),
         device_ms=device_time(kernel),
         plain_ms=time_cuda(lambda: match.track_pass_torch(
-            *args[:6], radius, args[6]), reps=5),
+            *args[:6], radius, args[6], **wd), reps=5),
         launches_per_call=1,
         # ids, the points' positions and descriptors, pose and camera, the
         # keypoints' flags, pixels, descriptors and matched depths; the
-        # timed (main-path) call's outputs vis_pt, ok, slot, uv_m, depth_m,
-        # n_match
+        # timed (main-path) call's outputs vis_pt, ok, slot, uv_m, depth_m
+        # (with want_depth), n_match
         bytes=4 * n + 12 * n_ids + 32 * n_vis + 4 * 11 + F + 40 * n_kp
-        + 4 * int(t.n_match) + n * (4 + 1 + 8 + 8 + 4) + 4,
+        + (4 * int(t.n_match) + 4 * n if want_depth else 0)
+        + n * (4 + 1 + 8 + 8) + 4,
         # a real id's projection and gates (~40); a pair in the window:
         # its test (6), 8 XOR + 8 popcount + 7 adds, best-2 (4)
         ops=40 * n_ids + 33 * pairs, library_ms=None)
@@ -3491,7 +3618,8 @@ def run_all(device) -> list[dict]:
         r["name"] += "@B1"
     return [*check_pyramid(grays), *one, *check_blur_cases(device),
             check_detect(grays), *check_detect_cases(device),
-            check_compact(device), check_group(device),
+            check_compact(device), check_compact_observed(device),
+            check_group(device),
             *check_front_k2_k4(device),
             check_match_window(device),
             *check_track_pass_radii(device, tag="@seeded"),

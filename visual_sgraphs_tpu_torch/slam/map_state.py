@@ -5,11 +5,14 @@ shapes and dtypes, so a reference map converts field for field
 (``interop.map_from_numpy``).  Keyframes own per-slot keypoint tables;
 ``kf_obs_pt`` is the primary keyframe -> point association, from which
 covisibility is derived on demand by batched reductions.
-``compact_true`` is kernel K7 (sync-free fixed-size compaction).
+``compact_true`` and ``compact_observed`` are kernel K7 (sync-free
+fixed-size compaction; the second builds its observed-point mask in the
+same launch).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -126,6 +129,38 @@ def compact_true_torch(mask: torch.Tensor, size: int) -> torch.Tensor:
 compact_true_torch.cuda_calls = 0
 
 
+# K7's launch plan (csrc/compact.cu): one CTA of COMPACT_THREADS threads,
+# each owning ``wpt`` consecutive 32-entry words of the mask, ``wpt`` one of
+# COMPACT_WPT (the kernel's instantiations); in shared memory the staged
+# ids (4 bytes a slot of the output) and, for the observed entry, the
+# membership bitmap of the N points before them (4 bytes a word)
+COMPACT_THREADS = 1024
+COMPACT_WPT = (1, 2, 4, 8, 16, 32, 64)
+
+
+class CompactPlan(NamedTuple):
+    words: int  # 32-entry words covering the mask
+    wpt: int  # words a thread
+    smem_true: int  # the plain entry's shared bytes: the staged ids
+    smem_observed: int  # the observed entry's: the bitmap, the staged ids
+
+
+@functools.lru_cache(maxsize=64)
+def compact_plan(n: int, size: int) -> CompactPlan:
+    """K7's words a thread and shared-memory bytes for a mask of ``n``
+    entries compacted to ``size`` ids; raises when the observed entry's
+    bitmap and staged ids exceed a CTA's shared memory (n + 32 size <
+    ~1.86M)."""
+    words = -(-n // 32)
+    smem = 4 * (words + size)
+    if smem > cuda.SMEM_LIMIT:
+        raise ValueError(f"compact: {n} entries and {size} ids exceed the "
+                         "kernel's shared memory")
+    wpt = next(w for w in COMPACT_WPT if w * COMPACT_THREADS >= words)
+    return CompactPlan(words=words, wpt=wpt, smem_true=4 * size,
+                       smem_observed=smem)
+
+
 def compact_true(mask: torch.Tensor, size: int) -> torch.Tensor:
     """``jnp.nonzero(mask, size=size, fill_value=-1)`` without a
     device-to-host sync: (size,) int64 indices of the first ``size`` True
@@ -137,14 +172,71 @@ def compact_true(mask: torch.Tensor, size: int) -> torch.Tensor:
     cuda.require_cuda("compact_true", mask)
     if mask.dtype != torch.bool or mask.dim() != 1:
         raise ValueError("compact_true: expected a 1-D bool mask")
+    plan = compact_plan(mask.shape[0], size)
     out = torch.empty((size,), dtype=torch.int64, device=mask.device)
-    cuda.call("vsg_compact", cuda.ptr(mask), mask.shape[0], size,
-              cuda.ptr(out), cuda.stream())
-    compact_true.launches += 1
+    if size:
+        cuda.call("vsg_compact", mask.data_ptr(), mask.shape[0], size,
+                  plan.wpt, plan.smem_true, out.data_ptr(), cuda.stream())
+        compact_true.launches += 1
     return out
 
 
 compact_true.launches = 0
+
+
+def compact_observed_torch(m: MapState, kf_ids: torch.Tensor,
+                           kf_mask: torch.Tensor, size: int,
+                           dtype: torch.dtype = torch.int64) -> torch.Tensor:
+    """Plain twin of K7's observed entry: ``compact_true(observed_mask(m,
+    kf_ids, kf_mask) & m.pt_valid, size)``, cast to ``dtype``."""
+    if m.pt_valid.is_cuda:
+        compact_observed_torch.cuda_calls += 1
+    return compact_true_torch(observed_mask(m, kf_ids, kf_mask) & m.pt_valid,
+                              size).to(dtype)
+
+
+compact_observed_torch.cuda_calls = 0
+
+
+def compact_observed(m: MapState, kf_ids: torch.Tensor,
+                     kf_mask: torch.Tensor, size: int,
+                     dtype: torch.dtype = torch.int64) -> torch.Tensor:
+    """(size,) ids of the first ``size`` valid map points that any of the
+    keyframes ``kf_ids`` (masked by ``kf_mask``) observes, ascending, -1
+    padded, int64 (or ``dtype`` int32): ``compact_observed_torch``'s
+    composition as one launch of K7's observed entry on CUDA tensors (the
+    membership bitmap built in the launch; no host read), the twin on CPU
+    tensors."""
+    if m.pt_valid.device.type == "cpu":
+        return compact_observed_torch(m, kf_ids, kf_mask, size, dtype)
+    obs, kp_valid, pt_valid = m.kf_obs_pt, m.kf_kp_valid, m.pt_valid
+    cuda.require_cuda("compact_observed", obs, kp_valid, kf_ids, kf_mask,
+                      pt_valid)
+    if (obs.dtype != torch.int32 or kp_valid.dtype != torch.bool
+            or obs.shape != kp_valid.shape or obs.dim() != 2
+            or kf_ids.dtype != torch.int64 or kf_mask.dtype != torch.bool
+            or pt_valid.dtype != torch.bool or kf_ids.dim() != 1
+            or kf_mask.shape != kf_ids.shape
+            or dtype not in (torch.int64, torch.int32)):
+        raise ValueError("compact_observed: expected (K, F) int32 "
+                         "observations and bool flags, (L,) int64 keyframe "
+                         "ids and a bool mask, (N,) bool pt_valid, int64 or "
+                         "int32 ids")
+    K, F = obs.shape
+    n = pt_valid.shape[0]
+    plan = compact_plan(n, size)
+    out = torch.empty((size,), dtype=dtype, device=pt_valid.device)
+    if size:
+        cuda.call("vsg_compact_observed", obs.data_ptr(), kp_valid.data_ptr(),
+                  K, F, kf_ids.data_ptr(), kf_mask.data_ptr(),
+                  kf_ids.shape[0], pt_valid.data_ptr(), n, size, plan.wpt,
+                  plan.smem_observed, int(dtype == torch.int32),
+                  out.data_ptr(), cuda.stream())
+        compact_observed.launches += 1
+    return out
+
+
+compact_observed.launches = 0
 
 
 def index_set_last(dst: torch.Tensor, idx: torch.Tensor,
@@ -193,8 +285,16 @@ def covisibility_counts(m: MapState, kf_id) -> torch.Tensor:
 
 def observed_mask(m: MapState, kf_ids: torch.Tensor,
                   kf_mask: torch.Tensor) -> torch.Tensor:
-    """(N,) bool — map points observed by any of ``kf_ids`` (masked)."""
+    """(N,) bool — map points observed by any of ``kf_ids`` (masked).  The
+    main path compacts it with ``compact_observed`` (K7's observed entry)
+    and never builds it on the card: ``observed_mask.cuda_calls`` counts
+    the calls on CUDA tensors."""
+    if kf_ids.is_cuda:
+        observed_mask.cuda_calls += 1
     obs = m.kf_obs_pt[kf_ids]
     ok = m.kf_kp_valid[kf_ids] & kf_mask[:, None]
     flat = torch.where(ok, obs, -1).reshape(-1)
     return _member_of(flat, m.N)[1:]
+
+
+observed_mask.cuda_calls = 0

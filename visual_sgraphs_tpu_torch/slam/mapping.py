@@ -22,21 +22,22 @@ creation is not ported yet.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from visual_sgraphs_tpu_torch.core import cameras, lie
-from visual_sgraphs_tpu_torch.features.match import match_window
+from visual_sgraphs_tpu_torch.features.match import track_pass
 from visual_sgraphs_tpu_torch.optim import factors
 from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
 from visual_sgraphs_tpu_torch.optim.graph import FactorBatch
 from visual_sgraphs_tpu_torch.slam.frame import FrameObs
 from visual_sgraphs_tpu_torch.slam.map_state import (
     MapState,
+    compact_observed,
     compact_true,
     covisibility_counts,
     index_set_last,
-    observed_mask,
     point_obs_count,
 )
 from visual_sgraphs_tpu_torch.slam.tracking import topk_stable
@@ -166,36 +167,52 @@ def apply_found_stats(m: MapState, slot_pts: torch.Tensor,
     return m._replace(pt_found=pt_found, pt_visible=pt_visible)
 
 
+class KeyframeKeypoints(NamedTuple):
+    """A keyframe's keypoints as the tracking pass reads a frame."""
+
+    uv: torch.Tensor  # (F, 2) float32
+    desc: torch.Tensor  # (F, 32) uint8
+    valid: torch.Tensor  # (F,) bool
+
+
+def fuse_candidates(m: MapState, kf_id: int, n_local: int = 4096):
+    """``fuse_observations``' operands: (ids, keypoints), the (n_local,)
+    int32 ids of the valid points that the top-8 covisible keyframes of
+    ``kf_id`` observe (K7's observed entry; ascending, -1 padded) and the
+    keyframe's keypoints, valid where still unassociated."""
+    counts = covisibility_counts(m, kf_id)
+    _, top_kfs = topk_stable(counts, 8)
+    kf_mask = counts[top_kfs] > 0
+    ids = compact_observed(m, top_kfs, kf_mask, n_local, torch.int32)
+    free = m.kf_kp_valid[kf_id] & (m.kf_obs_pt[kf_id] < 0)
+    return ids, KeyframeKeypoints(m.kf_uv[kf_id], m.kf_desc[kf_id], free)
+
+
 def fuse_observations(m: MapState, kf_id: int, cam_K: torch.Tensor,
                       n_local: int = 4096, radius: float = 4.0) -> MapState:
     """Link map points seen by covisible keyframes to this keyframe's
     unassociated keypoints (the observation-completing half of
-    LocalMapping::SearchInNeighbors): one projection + window match
-    (kernel K5), then a scatter-max."""
-    counts = covisibility_counts(m, kf_id)
-    _, top_kfs = topk_stable(counts, 8)
-    kf_mask = counts[top_kfs] > 0
-    pmask = observed_mask(m, top_kfs, kf_mask) & m.pt_valid
-    ids = compact_true(pmask, n_local)
-    lvalid = ids >= 0
-    safe = torch.clamp(ids, min=0)
-    xw = m.pt_pos[safe]
-    p_cam = lie.se3_apply(m.kf_pose[kf_id], xw)
-    uv_pred = cameras.project_pinhole(cam_K, p_cam).contiguous()
-    vis = (p_cam[:, 2] > 0.05) & lvalid
-    free = m.kf_kp_valid[kf_id] & (m.kf_obs_pt[kf_id] < 0)
-    match, _ = match_window(
-        m.pt_desc[safe].contiguous(), uv_pred, vis,
-        m.kf_desc[kf_id].contiguous(), m.kf_uv[kf_id].contiguous(), free,
-        radius=radius,
-    )
-    ok = match >= 0
-    slot = torch.where(ok, match, m.F - 1).long()
+    LocalMapping::SearchInNeighbors): the points of ``fuse_candidates``,
+    projected at the keyframe's pose and window-matched against its free
+    keypoints in one tracking pass (K5's redesign, without the image gate:
+    the reference's projection + match_window), then a scatter-max.
+    ``fuse_observations.cuda_calls`` counts the calls on CUDA tensors (one
+    tracking pass each)."""
+    if m.pt_pos.is_cuda:
+        fuse_observations.cuda_calls += 1
+    ids, keypoints = fuse_candidates(m, kf_id, n_local)
+    tp = track_pass(m.pt_pos, m.pt_desc, ids, m.kf_pose[kf_id], cam_K, None,
+                    radius, keypoints, want_depth=False)
+    # slot = max(match, 0): where(ok, slot, F - 1) is where(ok, match, F - 1)
     new_obs = m.kf_obs_pt[kf_id].scatter_reduce(
-        0, slot, torch.where(ok, ids, -1).to(torch.int32), "amax")
+        0, torch.where(tp.ok, tp.slot, m.F - 1), torch.where(tp.ok, ids, -1),
+        "amax")
     kf_obs_pt = m.kf_obs_pt.clone()
     kf_obs_pt[kf_id] = new_obs
     return m._replace(kf_obs_pt=kf_obs_pt)
+
+
+fuse_observations.cuda_calls = 0
 
 
 def cull_keyframes(m: MapState, kf_id: int, redundancy: float = 0.9):
@@ -285,8 +302,7 @@ def window_rows(m: MapState, kf_ids, kf_mask, cam_bf, n_local_pts: int):
     obs_safe = torch.clamp(obs, min=0).long()
     obs_ok = (m.kf_kp_valid[kf_ids] & kf_mask[:, None] & (obs >= 0)
               & m.pt_valid[obs_safe])
-    local_pt = compact_true(observed_mask(m, kf_ids, kf_mask) & m.pt_valid,
-                            n_local_pts)
+    local_pt = compact_observed(m, kf_ids, kf_mask, n_local_pts)
     pt_ok = local_pt >= 0
     safe_pt = torch.clamp(local_pt, min=0)
     inv = torch.full((m.N + 1,), -1, dtype=torch.int32, device=dev)

@@ -40,9 +40,8 @@ from visual_sgraphs_tpu_torch.slam.frame import (
 )
 from visual_sgraphs_tpu_torch.slam.map_state import (
     MapState,
-    compact_true,
+    compact_observed,
     covisibility_counts,
-    observed_mask,
 )
 
 CHI2_MONO = 5.991
@@ -81,10 +80,9 @@ def _local_point_table(m: MapState, ref_kf: int, n_window: int,
     kf_ids = torch.cat([torch.full((1,), ref_kf, device=dev), top_kfs])
     kf_mask = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
                          top_counts > 0]) & m.kf_valid[kf_ids]
-    mask = observed_mask(m, kf_ids, kf_mask) & m.pt_valid
-    ids = compact_true(mask, n_local)
+    ids = compact_observed(m, kf_ids, kf_mask, n_local, torch.int32)
     valid = ids >= 0
-    return LocalTable(ids=ids.to(torch.int32), valid=valid,
+    return LocalTable(ids=ids, valid=valid,
                       xw=m.pt_pos[torch.clamp(ids, min=0)].contiguous(),
                       n_pts=valid.sum(dtype=torch.int32))
 

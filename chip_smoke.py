@@ -51,9 +51,12 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    ``bench_slice``'s scene-graph BAs (the back-substitution there against
    the float64 twin within the reduction's tolerance), K10 BoW rows, K11
    database
-   query, K12 depth cloud + voxel downsample, K13 weighted RANSAC, K14
-   plane statistics; K5's NN-ratio entry, K15's Sim3 half, K16 and K19 on
-   the loop path's map saved at its first accepted loop, after phase 4;
+   query, K12 depth cloud + voxel downsample, K13 weighted RANSAC (every
+   round of a detection in one launch, one device operation, bitwise
+   equal from launch to launch; also after phase 4e on one of
+   ``bench_slice``'s detections), K14 plane statistics; K5's NN-ratio
+   entry, K15's Sim3 half, K16 and K19 on the loop path's map saved at
+   its first accepted loop, after phase 4;
    K15's PnP half on seeded picks, and again on phase 5's
    relocalisation; the inertial path's K18 (preintegration, merge and
    the dead-reckoned pose prediction in one launch) on a 64-row sample
@@ -64,11 +67,16 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    rendered 640x480 frame at a non-identity pose, K17b's components on a
    serpentine grid longer than its 48 sweeps reach and, after phase 4, on
    ``freespace_slice``'s accumulated grid, both exact; K21, the
-   scene-graph BA's assembly, on seeded operands at D = 402 with live items
-   of all five factor types, against the float64 twin, and a whole
-   scene-graph BA on ``freespace_slice``'s final map with a seeded room,
-   corridor and door, K21 against the float64 twin; K23's two entries (the
-   room pair analysis, walls and free space) and K24 (plane association)
+   scene-graph BA's reduced system (S and rhs with the landmarks' keyframe
+   block, one device operation an iteration, bitwise equal from launch to
+   launch, S exactly symmetric) and its once-a-call plan (exactly its
+   twin's), on seeded operands at D = 402 with live items of all five
+   factor types and after phase 4e on the operands of one of
+   ``bench_slice``'s scene-graph BA iterations, against the float64 twin,
+   and a whole scene-graph BA on ``freespace_slice``'s final map with a
+   seeded room, corridor and door, K21 against the float64 twin; K23's
+   two entries (the room pair analysis, walls and free space) and K24
+   (plane association)
    on the seeded cases the CPU parity tests use, and again on real inputs:
    K23's wall entry on ``bench_slice``'s final scene graph, K24 on one
    keyframe's detections recorded in phase 4e's untimed run, K23's
@@ -122,7 +130,9 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    e. path (d) again over frames 0-95, frames 64-95 under sync-debug
       mode (four batches, across keyframe cycles): synchronising calls
       must equal the counted readbacks (this run, not timed, also records
-      the operands of its eighth plane association for K24's check);
+      the operands of its eighth plane association for K24's check, of
+      its 17th K8 reduction, of its 17th scene-graph BA iteration for
+      K21's and of its eighth plane detection for K13's);
    f. ``loop_slice``: path (b) with loop closing, a global BA after each
       accepted loop and relocalisation of lost frames;
    g. path (f) again over frames 0-79 under sync-debug mode, across a loop
@@ -162,7 +172,9 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    (d), (f), (i) and (k) the tracking pass once a tracking pose solve, K6
    or its prior branch, plus once a ``fuse_observations`` call, no
    standalone window matcher launched, K7's observed entry launched and
-   ``observed_mask`` never run on the card); the JSON
+   ``observed_mask`` never run on the card; on (b), (d), (f) and (k) K21's
+   system once a scene-graph BA iteration, its plan once a call and the
+   plain assembly never on the card); the JSON
    kernel table's launches are (d)'s, (i)'s for the inertial path's K18,
    K20, K6's prior branch and K22, and (k)'s for K17a and K17b;
 5. the same 12 small frames through the port on the card (kernels) and on
@@ -205,7 +217,7 @@ PEAK_OPS_PER_S = 67e12
 
 WARM = 16
 SG_ONLY = {"depth_cloud", "extract_planes", "plane_epilogue", "sg_assemble",
-           "plane_assoc", "rooms_walls"}
+           "sg_plan", "plane_assoc", "rooms_walls"}
 # the free-space room method's kernels (room_method="freespace" only)
 FREESPACE_ONLY = {"freespace_carve", "freespace_components",
                   "rooms_freespace"}
@@ -290,8 +302,12 @@ def _reset_plain_counts() -> None:
     from visual_sgraphs_tpu_torch import cuda
     from visual_sgraphs_tpu_torch.features import fast, orb, pyramid
     from visual_sgraphs_tpu_torch.inertial import preintegration
+    from visual_sgraphs_tpu_torch.optim import fast_ba
     from visual_sgraphs_tpu_torch.slam import map_state, mapping
     cuda.reset_counts()
+    fast_ba.fast_scenegraph_ba.cuda_calls = 0
+    fast_ba.fast_scenegraph_ba.cuda_iters = 0
+    fast_ba.sg_assemble_torch.cuda_calls = 0
     fast.fast_nms_torch.cuda_calls = 0
     orb.detect_level_torch.cuda_calls = 0
     pyramid.gaussian_blur_torch.cuda_calls = 0
@@ -304,11 +320,17 @@ def _reset_plain_counts() -> None:
 def _path_calls() -> dict:
     """The calls on the card that ``cuda.counts`` does not hold, read just
     after a main path's run: ``fuse_observations``' (one tracking pass
-    each) and ``observed_mask``'s (the plain composition K7's observed
-    entry replaces)."""
+    each), ``observed_mask``'s (the plain composition K7's observed
+    entry replaces), the scene-graph BA's calls and iterations (K21's plan
+    once a call, its system once an iteration) and the plain assembly
+    K21 replaces."""
+    from visual_sgraphs_tpu_torch.optim import fast_ba
     from visual_sgraphs_tpu_torch.slam import map_state, mapping
     return dict(fuse=mapping.fuse_observations.cuda_calls,
-                observed_mask=map_state.observed_mask.cuda_calls)
+                observed_mask=map_state.observed_mask.cuda_calls,
+                sg_ba=fast_ba.fast_scenegraph_ba.cuda_calls,
+                sg_ba_iters=fast_ba.fast_scenegraph_ba.cuda_iters,
+                sg_assemble_torch=fast_ba.sg_assemble_torch.cuda_calls)
 
 
 @contextlib.contextmanager
@@ -409,6 +431,19 @@ def _check_compact_launches(tag: str, cnt: dict, calls: dict) -> None:
            f"{tag}: K7's observed entry {n} launches for {calls['fuse']} "
            f"fuse_observations calls; {calls['observed_mask']} "
            "observed_mask calls on the card")
+
+
+def _check_sg_system_launches(tag: str, cnt: dict, calls: dict) -> None:
+    """K21's system launches once a scene-graph BA iteration and its plan
+    once a call, and the plain assembly never runs on the card."""
+    _check(calls["sg_ba"] > 0
+           and cnt["sg_assemble"][0] == calls["sg_ba_iters"]
+           and cnt["sg_plan"][0] == calls["sg_ba"]
+           and calls["sg_assemble_torch"] == 0,
+           f"{tag}: K21 {cnt['sg_assemble'][0]} system / "
+           f"{cnt['sg_plan'][0]} plan launches for {calls['sg_ba']} "
+           f"scene-graph BAs of {calls['sg_ba_iters']} iterations; "
+           f"{calls['sg_assemble_torch']} plain assemblies on the card")
 
 
 def _bound(r: dict) -> tuple[float, str]:
@@ -696,6 +731,7 @@ def main() -> None:
             _check(not extra["sign_duplicates"],
                    f"{tag}: sign-duplicate planes {extra['sign_duplicates']}")
             _check_sg_launches(tag, counts[tag])
+            _check_sg_system_launches(tag, counts[tag], calls)
         # the loop kernels run on loop_slice only, the plane kernels with
         # the scene graph only
         skip = (LOOP_ONLY | INERTIAL_ONLY | FREESPACE_ONLY | PHASE3_ONLY
@@ -769,6 +805,7 @@ def main() -> None:
            f"bench_slice: a kernel was not launched: "
            f"{counts['bench_slice']}")
     _check_sg_launches("bench_slice", counts["bench_slice"])
+    _check_sg_system_launches("bench_slice", counts["bench_slice"], calls)
     _check_track_launches("bench_slice", counts["bench_slice"], callers,
                           calls)
     _check_compact_launches("bench_slice", counts["bench_slice"], calls)
@@ -798,7 +835,9 @@ def main() -> None:
     # under sync-debug mode, across keyframe cycles
     system = main_path.make_system(bench_cfg, device, True)
     with selfcheck.watch_assoc(which=8) as assoc_seen, \
-            selfcheck.watch_schur(which=17) as schur_seen:
+            selfcheck.watch_schur(which=17) as schur_seen, \
+            selfcheck.watch_sg_system(which=17) as sg_seen, \
+            selfcheck.watch_planes(which=8) as planes_seen:
         syncs = _drive(system, bench_frames[:96], warm=64,
                        sync_window=(64, 96))
     _line("bench_sync_debug", frames="64-95", keyframes=syncs["keyframes"],
@@ -816,6 +855,16 @@ def main() -> None:
     _check("operands" in schur_seen, "bench_sync_debug: no K8 call")
     report(selfcheck.check_schur(device, args=schur_seen["operands"],
                                  name="schur_reduce@window", back="f64"))
+    # K21's plan and system on the operands of a scene-graph BA iteration
+    # of the same run (most factor items dead), K13 on one keyframe's
+    # detection
+    _check("operands" in sg_seen and "operands" in planes_seen,
+           "bench_sync_debug: no scene-graph BA or no plane detection")
+    report([selfcheck.check_sg_plan(device, sg_seen["operands"],
+                                    name="sg_plan@window"),
+            selfcheck.check_sg_assemble(device, args=sg_seen["operands"],
+                                        name="sg_assemble@window"),
+            selfcheck.check_extract_planes(device, planes_seen["operands"])])
     sg_cfg_b = bench_cfg.scenegraph
     report([selfcheck.check_plane_assoc(
         device, *assoc_seen["operands"],
@@ -863,6 +912,7 @@ def main() -> None:
            f"loop_slice: a kernel was not launched: {counts['loop_slice']}")
     _check_track_launches("loop_slice", counts["loop_slice"], callers, calls)
     _check_compact_launches("loop_slice", counts["loop_slice"], calls)
+    _check_sg_system_launches("loop_slice", counts["loop_slice"], calls)
     _check(watch["saved"] is not None, "loop_slice: no map saved at a loop")
     loop_system = system
 
@@ -1100,6 +1150,7 @@ def main() -> None:
     _check_track_launches("freespace_slice", cnt, callers, calls)
     _check_compact_launches("freespace_slice", cnt, calls)
     _check_sg_launches("freespace_slice", cnt, freespace=True)
+    _check_sg_system_launches("freespace_slice", cnt, calls)
     _check(cnt["freespace_carve"][0] == len(fused),
            f"freespace_slice: K17a {cnt['freespace_carve'][0]} launches for "
            f"{len(fused)} keyframes")

@@ -232,7 +232,7 @@ def test_slice_on_card_uses_every_kernel(device):
                        mapping=MappingConfig(lba_iters=6, lba_interval=2,
                                              cull_interval=2))
     sg_only = ("depth_cloud", "extract_planes", "plane_epilogue",
-               "sg_assemble", "plane_assoc", "rooms_walls")
+               "sg_assemble", "sg_plan", "plane_assoc", "rooms_walls")
     cuda.reset_counts()
     system = SlamSystem(cfg, device=device)
     gt = []
@@ -585,14 +585,27 @@ def freespace_checks(device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["freespace_carve",
                                   "freespace_components@snake",
-                                  "sg_assemble"])
+                                  "sg_assemble", "sg_plan"])
 def test_freespace_and_sg_assemble_kernels(freespace_checks, name):
     # K17a on a rendered 480x640 frame at a non-identity pose and K17b on
-    # the serpentine grid, both exactly equal to their twins; K21 on seeded
-    # operands with live items of all five factor types, H and g within
-    # 1e-4 of the float64 twin's largest entries
+    # the serpentine grid, both exactly equal to their twins; K21's system
+    # on seeded operands with live items of all five factor types, S and
+    # rhs (with a seeded keyframe block) within 1e-4 of the float64 twin's
+    # largest entries, and its plan exactly its twin's
     r = freespace_checks[name]
     assert r["ok"], r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sg_assemble", "sg_plan",
+                                  "extract_planes"])
+def test_sg_system_plan_and_ransac_one_launch(freespace_checks,
+                                              scenegraph_checks, name):
+    # K21's system and plan and K13's extraction: one device operation a
+    # call (the nodes of a CUDA graph captured from it), outputs bitwise
+    # equal from launch to launch
+    r = {**freespace_checks, **scenegraph_checks}[name]
+    assert r["device_ops"] == 1 and r["bitwise_repro"], r
 
 
 @pytest.mark.gpu
@@ -630,6 +643,7 @@ def test_freespace_slice_on_card_uses_every_kernel(device):
     assert counts["freespace_carve"][0] == len(fused) >= 2, counts
     assert counts["freespace_components"][0] == mgr._kf_count // 2 >= 1
     assert counts["sg_assemble"][0] == cfg.mapping.lba_iters * n_lba > 0
+    assert counts["sg_plan"][0] == n_lba, counts
     assert (counts["rooms_freespace"][0]
             == counts["freespace_components"][0]), counts
     assert counts["rooms_walls"][0] == 0, counts

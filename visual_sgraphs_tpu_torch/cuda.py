@@ -149,8 +149,11 @@ KERNELS = (
      "freespace_components", "freespace_components_torch",
      "visual_sgraphs_tpu_torch/csrc/freespace.cu",
      "visual_sgraphs_tpu/scenegraph/freespace.py:75"),
-    ("sg_assemble", "visual_sgraphs_tpu_torch.optim.fast_ba", "sg_assemble",
-     "sg_assemble_torch", "visual_sgraphs_tpu_torch/csrc/sg_assemble.cu",
+    ("sg_assemble", "visual_sgraphs_tpu_torch.optim.fast_ba", "sg_system",
+     "sg_system_torch", "visual_sgraphs_tpu_torch/csrc/sg_assemble.cu",
+     "visual_sgraphs_tpu/optim/fast_ba.py:46"),
+    ("sg_plan", "visual_sgraphs_tpu_torch.optim.fast_ba", "sg_plan",
+     "sg_plan_torch", "visual_sgraphs_tpu_torch/csrc/sg_assemble.cu",
      "visual_sgraphs_tpu/optim/fast_ba.py:46"),
     ("lm_reproj_reduce", "visual_sgraphs_tpu_torch.optim.lm_kernels",
      "lm_reproj_reduce", "lm_reproj_reduce_torch",
@@ -227,7 +230,7 @@ _ARGTYPES = {
     "vsg_schur_reduce": [_VP] * 7 + [_I, _I, _I, _F, _F] + [_VP] * 8,
     "vsg_schur_backsub": [_VP] * 6 + [_I, _I, _I, _VP, _VP],
     "vsg_depth_cloud": [_VP] * 4 + [_I, _I, _I, _F, _I, _I] + [_VP] * 10,
-    "vsg_extract_planes": [_VP] * 4 + [_I, _I, _I, _F, _F] + [_VP] * 7,
+    "vsg_extract_planes": [_VP] * 4 + [_I, _I, _I, _F, _F] + [_VP] * 4,
     "vsg_plane_epilogue": [_VP] * 7 + [_I, _I, _F, _F, _I] + [_VP] * 7,
     "vsg_bow_vectors": [_VP] * 3 + [_I] * 13 + [_VP] * 5,
     "vsg_place_query": [_VP] * 6 + [_I, _I, _F, _I] + [_VP] * 4,
@@ -240,8 +243,10 @@ _ARGTYPES = {
     "vsg_freespace_carve": [_VP, _I, _I, _I] + [_VP] * 4 + [_F, _I, _VP,
                                                             _VP],
     "vsg_freespace_components": [_VP, _I, _VP, _F, _I, _I] + [_VP] * 6,
-    "vsg_sg_assemble": [_VP, _I, _VP, _I, _VP, _I, _VP, _I] + [_VP] * 7
-                       + [_I] + [_VP] * 8 + [_F] * 5 + [_VP] * 3,
+    "vsg_sg_plan": [_VP] * 4 + [_I] + [_VP] * 3 + [_I] + [_VP] * 2
+                   + [_I] * 5 + [_VP] * 9,
+    "vsg_sg_system": [_VP, _I] * 4 + [_VP] * 5 + [_I] + [_VP] * 5
+                     + [_F] * 5 + [_VP] * 15,
     "vsg_lm_reproj_plan": [_VP, _VP, _I, _I, _VP, _VP, _VP],
     "vsg_lm_reproj_reduce": _ROWS + [_VP, _F, _I] + [_VP] * 12,
     "vsg_lm_reproj_cost": _ROWS + [_VP] * 9 + [_I, _I, _VP, _VP, _I, _VP],

@@ -10,7 +10,8 @@ iteration reduces the landmarks with the Schur kernel K8
 (``parallel/dist_ba.py``), adds the scene-graph factor blocks (linearised
 and assembled by kernel K21, ``csrc/sg_assemble.cu``; its twin is the
 generic ``optim/graph.py`` linearisation) as dense rows of the same
-system, solves it by Cholesky and back-substitutes the points.
+system, with the keyframe block and its right-hand side added in the same
+launch, solves it by Cholesky and back-substitutes the points.
 
 Layout of the reduced tangent vector of the scene-graph variant:
     [ kf (L, 6) | plane (P, 3) | room (R, 3) | door (D, 6) ]
@@ -290,11 +291,13 @@ def sg_factor_batches(fac: SgFactors) -> list:
 
 
 def sg_assemble_torch(poses, planes, rooms, doors, fac: SgFactors):
-    """Plain twin of K21: the five factor types linearised generically
-    (``graph.linearize_batch``, forward-mode AD through each family's
-    retraction) and scattered densely (``_assemble_dense``).  Returns
-    (H (D, D), g (D,)) over [kf (L, 6) | plane (P, 3) | room (R, 3) |
-    door (Dn, 6)], in the dtype of the values."""
+    """The scene-graph factors' normal equations in plain torch (K21's
+    twin, ``sg_system_torch``, adds the keyframe block): the five factor
+    types linearised generically (``graph.linearize_batch``, forward-mode
+    AD through each family's retraction) and scattered densely
+    (``_assemble_dense``).  Returns (H (D, D), g (D,)) over [kf (L, 6) |
+    plane (P, 3) | room (R, 3) | door (Dn, 6)], in the dtype of the
+    values."""
     if poses.is_cuda:
         sg_assemble_torch.cuda_calls += 1
     problem = GraphProblem(
@@ -308,43 +311,211 @@ def sg_assemble_torch(poses, planes, rooms, doors, fac: SgFactors):
 sg_assemble_torch.cuda_calls = 0
 
 
-def sg_assemble(poses, planes, rooms, doors, fac: SgFactors):
-    """The scene-graph factors' dense normal equations H, g (kernel K21
-    on CUDA tensors, the twin on CPU); as ``sg_assemble_torch``."""
+class SgPlan(NamedTuple):
+    """K21's plan of one scene-graph BA call (``sg_plan``), constant over
+    its iterations.  Items are numbered [plane_kf Q | quadric Q | room4 R |
+    room2 R | door Dn], variables [kf L | plane P | room R | door Dn]
+    (V of them); a contributor code n * 25 + si * 5 + sj is live item n's
+    slots si and sj.  Past the counts the lists hold -1."""
+
+    live: torch.Tensor  # (NI,) int32 live items in item order
+    pairs: torch.Tensor  # (np_cap,) int32 coupled pairs a * V + b, a <= b
+    pptr: torch.Tensor  # (np_cap + 1,) int32 first contributor of a pair
+    pent: torch.Tensor  # (ne_cap,) int32 contributors, (n, si, sj) order
+    epos: torch.Tensor  # (NI * 25,) int32 each contributor code's position
+    pmap: torch.Tensor  # (V, V) bool pairs some item couples
+    rot: torch.Tensor  # (Q, 9) float64 each observation's chart rotation
+    meta: torch.Tensor  # (2,) int32 [live items, coupled pairs]
+    # scratch of the system launch, by contributor position: its block of
+    # w J^T J (6 x 6 at most) and, on a diagonal pair, of w J^T r
+    M: torch.Tensor | None  # (ne_cap, 36) float64
+    G: torch.Tensor | None  # (ne_cap, 6) float64
+
+
+def sg_plan_sizes(L: int, P: int, R: int, Dn: int, Q: int):
+    """(NI, V, np_cap, ne_cap): items, variables, and the capacities of
+    the coupled pairs (each item couples at most ns (ns + 1) / 2 of them)
+    and of their contributors (ns^2 an item)."""
+    NI, V = 2 * Q + 2 * R + Dn, L + P + R + Dn
+    return (NI, V, min(V * (V + 1) // 2, 6 * Q + 21 * R + 3 * Dn),
+            8 * Q + 34 * R + 4 * Dn)
+
+
+def _slot_vars(fac: SgFactors, L: int, P: int) -> torch.Tensor:
+    """(NI, 5) the variable of each item's slots, -1 past its slots."""
+    ob, rm, dr = (fac.ob_idx.long(), fac.room_idx.long(),
+                  fac.door_idx.long())
+    R = rm.shape[0]
+
+    def pad(v):
+        return torch.cat([v, torch.full((v.shape[0], 5 - v.shape[1]), -1,
+                                        dtype=v.dtype, device=v.device)], 1)
+
+    kfpl = pad(torch.stack([ob[:, 0], L + ob[:, 1]], 1))
+    room4 = torch.cat([L + P + rm[:, :1], L + rm[:, 1:]], 1)
+    return torch.cat([kfpl, kfpl, room4, pad(room4[:, :3]), pad(torch.stack(
+        [L + P + R + dr[:, 0], L + P + dr[:, 1]], 1))])
+
+
+def sg_plan_torch(fac: SgFactors, L: int, P: int) -> SgPlan:
+    """Plain twin of K21's plan: the live items, the coupled pairs and
+    each one's contributors (every slot pair of a live item on variables
+    a <= b, stably sorted by pair), the pair map and the observations'
+    chart rotations.  ``M`` and ``G`` are None."""
+    if fac.ob_idx.is_cuda:
+        sg_plan_torch.cuda_calls += 1
+    dev = fac.ob_idx.device
+    Q, R, Dn = (fac.ob_idx.shape[0], fac.room_idx.shape[0],
+                fac.door_idx.shape[0])
+    NI, V, np_cap, ne_cap = sg_plan_sizes(L, P, R, Dn, Q)
+    flags = torch.cat([fac.ob_valid, fac.quad_valid, fac.room4_valid,
+                       fac.room2_valid, fac.door_valid])
+    items = torch.nonzero(flags).flatten()
+    n_live = items.shape[0]
+    iv = _slot_vars(fac, L, P)[items]
+    vi, vj = iv[:, :, None].expand(-1, 5, 5), iv[:, None, :].expand(-1, 5, 5)
+    both = (vi >= 0) & (vj >= 0)
+    k5 = torch.arange(5, device=dev)
+    code = (torch.arange(n_live, device=dev)[:, None, None] * 25
+            + k5[None, :, None] * 5 + k5[None, None, :])
+    up = both & (vi <= vj)
+    keys, order = torch.sort((vi * V + vj)[up], stable=True)
+    pairs_u, counts = torch.unique_consecutive(keys, return_counts=True)
+    n_pairs, n_ent = pairs_u.shape[0], keys.shape[0]
+
+    def filled(n, head, fill):
+        out = torch.full((n,), fill, dtype=torch.int32, device=dev)
+        out[:head.shape[0]] = head
+        return out
+
+    pmap = torch.zeros((V * V,), dtype=torch.bool, device=dev)
+    pmap[(vi * V + vj)[both]] = True
+    pent = code[up][order]
+    epos = torch.full((25 * NI,), -1, dtype=torch.int32, device=dev)
+    epos[pent] = torch.arange(n_ent, dtype=torch.int32, device=dev)
+    return SgPlan(
+        live=filled(NI, items, -1), pairs=filled(np_cap, pairs_u, -1),
+        pptr=filled(np_cap + 1, torch.cumsum(counts, 0) - counts, n_ent),
+        pent=filled(ne_cap, pent, -1), epos=epos, pmap=pmap.reshape(V, V),
+        rot=plane_mod.normal_rotation(
+            fac.ob_coeffs[:, :3].double()).reshape(Q, 9),
+        meta=torch.tensor([n_live, n_pairs], dtype=torch.int32, device=dev),
+        M=None, G=None)
+
+
+sg_plan_torch.cuda_calls = 0
+
+
+def sg_plan(fac: SgFactors, L: int, P: int) -> SgPlan:
+    """K21's plan of a BA call over ``L`` keyframes and ``P`` planes (one
+    launch on CUDA tensors, with the system launch's scratch; the twin on
+    CPU)."""
+    if fac.ob_idx.device.type == "cpu":
+        return sg_plan_torch(fac, L, P)
+    cuda.require_cuda("sg_plan", *fac)
+    Q, R, Dn = (fac.ob_idx.shape[0], fac.room_idx.shape[0],
+                fac.door_idx.shape[0])
+    NI, V, np_cap, ne_cap = sg_plan_sizes(L, P, R, Dn, Q)
+    dev = fac.ob_idx.device
+
+    def ints(n):
+        return torch.empty((n,), dtype=torch.int32, device=dev)
+
+    plan = SgPlan(
+        live=ints(NI), pairs=ints(np_cap), pptr=ints(np_cap + 1),
+        pent=ints(ne_cap), epos=ints(25 * NI),
+        pmap=torch.empty((V, V), dtype=torch.bool, device=dev),
+        rot=torch.empty((Q, 9), dtype=torch.float64, device=dev),
+        meta=ints(2),
+        M=torch.empty((ne_cap, 36), dtype=torch.float64, device=dev),
+        G=torch.empty((ne_cap, 6), dtype=torch.float64, device=dev))
+    ptr = cuda.ptr
+    cuda.call("vsg_sg_plan", ptr(fac.ob_idx), ptr(fac.ob_coeffs),
+              ptr(fac.ob_valid), ptr(fac.quad_valid), Q, ptr(fac.room_idx),
+              ptr(fac.room4_valid), ptr(fac.room2_valid), R,
+              ptr(fac.door_idx), ptr(fac.door_valid), Dn, L, P, np_cap,
+              ne_cap, *map(ptr, plan[:8]), cuda.stream())
+    sg_plan.launches += 1
+    return plan
+
+
+sg_plan.launches = 0
+
+
+def sg_system_torch(poses, planes, rooms, doors, fac: SgFactors,
+                    plan: SgPlan | None, S_kf, rhs_kf):
+    """Plain twin of K21's system: ``sg_assemble_torch``'s H, g and the
+    reference's S = H + S_kf on the keyframe block, rhs = [rhs_kf - g_kf |
+    -g_rest] (fast_ba.py:388-389), in the dtype of the values; ``plan``
+    is not read."""
+    if poses.is_cuda:
+        sg_system_torch.cuda_calls += 1
+    H, g = sg_assemble_torch(poses, planes, rooms, doors, fac)
+    kd = S_kf.shape[0]
+    H[:kd, :kd] += S_kf.to(H.dtype)
+    rhs = -g
+    rhs[:kd] += rhs_kf.to(g.dtype)
+    return H, rhs
+
+
+sg_system_torch.cuda_calls = 0
+
+
+def sg_system(poses, planes, rooms, doors, fac: SgFactors, plan: SgPlan,
+              S_kf, rhs_kf):
+    """A scene-graph BA iteration's reduced system (S, rhs): kernel K21,
+    one launch over the call's ``plan`` on CUDA tensors, the twin on CPU;
+    as ``sg_system_torch``."""
     if poses.device.type == "cpu":
-        return sg_assemble_torch(poses, planes, rooms, doors, fac)
+        return sg_system_torch(poses, planes, rooms, doors, fac, plan, S_kf,
+                               rhs_kf)
+    if plan is None or plan.M is None:
+        raise ValueError("sg_system: the call's plan (sg_plan) is required "
+                         "on CUDA tensors")
     values = (poses, planes, rooms, doors)
-    cuda.require_cuda("sg_assemble", *values, *fac)
+    cuda.require_cuda("sg_system", *values, *fac, *plan, S_kf, rhs_kf)
     floats = values + (fac.ob_coeffs, fac.ob_info, fac.ob_quadric,
                        fac.quad_info, fac.room_info, fac.door_rel,
-                       fac.door_info)
-    masks = (fac.ob_valid, fac.quad_valid, fac.room4_valid,
-             fac.room2_valid, fac.door_valid)
+                       fac.door_info, S_kf, rhs_kf)
     if (any(t.dtype != torch.float32 for t in floats)
-            or any(t.dtype != torch.bool for t in masks)
             or any(t.dtype != torch.int32
                    for t in (fac.ob_idx, fac.room_idx, fac.door_idx))):
-        raise ValueError("sg_assemble: float32 values, bool masks, int32 "
-                         "indices")
+        raise ValueError("sg_system: float32 values, int32 indices")
     L, P, R, Dn = (poses.shape[0], planes.shape[0], rooms.shape[0],
                    doors.shape[0])
     D = 6 * L + 3 * P + 3 * R + 6 * Dn
-    H = torch.zeros((D, D), dtype=torch.float32, device=poses.device)
-    g = torch.zeros((D,), dtype=torch.float32, device=poses.device)
+    if S_kf.shape != (6 * L, 6 * L) or rhs_kf.shape != (6 * L,):
+        raise ValueError("sg_system: S_kf (6L, 6L) and rhs_kf (6L,)")
+    S = torch.empty((D, D), dtype=torch.float32, device=poses.device)
+    rhs = torch.empty((D,), dtype=torch.float32, device=poses.device)
     ptr = cuda.ptr
-    cuda.call("vsg_sg_assemble", ptr(poses), L, ptr(planes), P, ptr(rooms),
+    cuda.call("vsg_sg_system", ptr(poses), L, ptr(planes), P, ptr(rooms),
               R, ptr(doors), Dn, ptr(fac.ob_idx), ptr(fac.ob_coeffs),
-              ptr(fac.ob_info), ptr(fac.ob_valid), ptr(fac.ob_quadric),
-              ptr(fac.quad_info), ptr(fac.quad_valid), fac.ob_idx.shape[0],
-              ptr(fac.room_idx), ptr(fac.room_info), ptr(fac.room4_valid),
-              ptr(fac.room2_valid), ptr(fac.door_idx), ptr(fac.door_rel),
-              ptr(fac.door_info), ptr(fac.door_valid), *SG_HUBER, ptr(H),
-              ptr(g), cuda.stream())
-    sg_assemble.launches += 1
-    return H, g
+              ptr(fac.ob_info), ptr(fac.ob_quadric), ptr(fac.quad_info),
+              fac.ob_idx.shape[0], ptr(fac.room_idx), ptr(fac.room_info),
+              ptr(fac.door_idx), ptr(fac.door_rel), ptr(fac.door_info),
+              *SG_HUBER, *map(ptr, plan), ptr(S_kf), ptr(rhs_kf), ptr(S),
+              ptr(rhs), cuda.stream())
+    sg_system.launches += 1
+    return S, rhs
 
 
-sg_assemble.launches = 0
+sg_system.launches = 0
+
+
+def sg_assemble(poses, planes, rooms, doors, fac: SgFactors):
+    """The scene-graph factors' dense normal equations H, g alone: K21's
+    plan and system with a zero keyframe block on CUDA tensors (H = S, g =
+    -rhs), the twin on CPU; as ``sg_assemble_torch``."""
+    if poses.device.type == "cpu":
+        return sg_assemble_torch(poses, planes, rooms, doors, fac)
+    kd = 6 * poses.shape[0]
+    S, rhs = sg_system(
+        poses, planes, rooms, doors, fac,
+        sg_plan(fac, poses.shape[0], planes.shape[0]),
+        torch.zeros((kd, kd), dtype=torch.float32, device=poses.device),
+        torch.zeros((kd,), dtype=torch.float32, device=poses.device))
+    return S, -rhs
 
 
 def fast_scenegraph_ba(m: MapState, sg, kf_id: int, cam_K: torch.Tensor,
@@ -352,15 +523,20 @@ def fast_scenegraph_ba(m: MapState, sg, kf_id: int, cam_K: torch.Tensor,
                        n_local_pts: int = 8192, max_obs: int = 12,
                        iters: int = 8, lam: float = 1e-4,
                        config: SceneGraphConfig | None = None,
-                       assemble=sg_assemble):
+                       system=None):
     """Analytic LBA with the scene-graph families in the same reduced
     solve: landmarks reduce per landmark (K8); plane-KF, Gij-quadric, room
-    and door factors are linearised and assembled densely (K21,
-    ``assemble``: ``sg_assemble_torch`` forces the twin) and added to the
-    same system, so planes still pull keyframe poses.  Returns (map,
+    and door factors are linearised and assembled densely into the same
+    system, with the landmarks' keyframe block added (K21, ``system``,
+    over a plan made once a call; None: ``sg_system``, ``sg_system_torch``
+    forces the twin), so planes still pull keyframe poses.  Returns (map,
     scenegraph, final cost)."""
     config = config or SceneGraphConfig()
+    system = system or sg_system
     dev = m.kf_pose.device
+    if m.kf_pose.is_cuda:
+        fast_scenegraph_ba.cuda_calls += 1
+        fast_scenegraph_ba.cuda_iters += iters
     counts = covisibility_counts(m, kf_id).to(torch.float32)
     if config.plane_covis_enabled:
         # shared planes boost the pair weight before the window is picked
@@ -392,15 +568,14 @@ def fast_scenegraph_ba(m: MapState, sg, kf_id: int, cam_K: torch.Tensor,
 
     poses, pts = m.kf_pose[kf_ids], m.pt_pos[safe_pt]
     planes, rooms, doors = sg.pl_coeffs, sg.room_center, sg.door_pose
+    plan = sg_plan(fac, L, P)
     cost = None
     for _ in range(iters):
         S_kf, rhs_kf, Hinv, bx, W, cost = local_reduced_system(
             poses, pts, kf_tab, uvr_tab, val_tab, cam_K, bf, lam, 2.45)
-        S, g = assemble(poses.contiguous(), planes.contiguous(),
-                        rooms.contiguous(), doors.contiguous(), fac)
-        S[:kf_dim, :kf_dim] += S_kf
-        rhs = -g
-        rhs[:kf_dim] += rhs_kf
+        S, rhs = system(poses.contiguous(), planes.contiguous(),
+                        rooms.contiguous(), doors.contiguous(), fac, plan,
+                        S_kf, rhs_kf)
         dx = solve_damped(S, rhs, free, lam)
         dkf = dx[:kf_dim].reshape(L, 6)
         off = kf_dim
@@ -427,3 +602,9 @@ def fast_scenegraph_ba(m: MapState, sg, kf_id: int, cam_K: torch.Tensor,
         room_center=torch.where(room_fixed[:, None], sg.room_center, rooms),
         door_pose=torch.where(door_fixed[:, None], sg.door_pose, doors))
     return m, sg, cost
+
+
+# calls and iterations on the card (K21's plan launches once a call, its
+# system once an iteration)
+fast_scenegraph_ba.cuda_calls = 0
+fast_scenegraph_ba.cuda_iters = 0

@@ -14,6 +14,7 @@
     python -m visual_sgraphs_tpu_torch.profile_slice --track-ops
     python -m visual_sgraphs_tpu_torch.profile_slice --k20-sections
     python -m visual_sgraphs_tpu_torch.profile_slice --schur-times PATH
+    python -m visual_sgraphs_tpu_torch.profile_slice --sg-times PATH
 
 Runs the main path of ``main_path`` (640x480, 1000 features, 96
 ``orbit2`` frames) through ``SlamSystem.track_rgbd`` on the card (with
@@ -87,7 +88,9 @@ agree bitwise, and K8's back-substitution on the ``bench_slice`` window
 against the float64 twin (``_backsub_errors``); the two windows are
 recorded into PATH (a ``torch.save``
 of plain tensors) when it does not exist, so that two trees are timed on
-the same operands.
+the same operands.  With ``--sg-times PATH`` it times K21 (the scene-graph
+BA iteration's assembly, its kernel and plan) and K13 on seeded operands
+and on ``bench_slice``'s, recorded into PATH likewise (``sg_times``).
 Prints one JSON line per result; needs a card.
 """
 
@@ -1239,6 +1242,138 @@ def schur_times(path: str) -> None:
         timeout=60).stdout.strip())
 
 
+def _implied_winners(points, valid, weights, hyp_idx, assign,
+                     dist_thresh: float) -> list[int]:
+    """Each round's winning hypothesis implied by an extraction's
+    assignment: the twin's scores (``plane_fit.ransac_plane_torch``'s)
+    over the points that remained at the round (valid, and unassigned or
+    assigned to a later round), first maximum on ties."""
+    from visual_sgraphs_tpu_torch.scenegraph import plane_fit
+    out = []
+    for i in range(hyp_idx.shape[0]):
+        rem = valid & ((assign < 0) | (assign >= i))
+        idx = hyp_idx[i].long()
+        coeffs, degen = plane_fit.hypothesis_planes(points, idx)
+        inl = (plane_fit.abs_distance(coeffs, points) < dist_thresh) & rem
+        scores = torch.where(rem[idx].all(dim=1) & ~degen,
+                             torch.sum(inl * weights, dim=1), -1.0)
+        out.append(int(torch.argmax(scores)))
+    return out
+
+
+def _record_sg_operands(path: str) -> None:
+    """K21's operands of ``bench_slice``'s 17th scene-graph BA iteration
+    and K13's of its eighth plane detection (96 frames), and seeded K21
+    operands with every factor type live, saved as plain tensors (needs a
+    tree with ``fast_ba.sg_system``)."""
+    from visual_sgraphs_tpu_torch import main_path, selfcheck
+    scene, frames = main_path.frames("cuda", main_path.BENCH_FRAMES)
+    system = main_path.make_system(main_path.bench_config(scene), "cuda",
+                                   True)
+    with selfcheck.watch_sg_system(which=17) as sg_seen, \
+            selfcheck.watch_planes(which=8) as planes_seen:
+        for frame in frames[:96]:
+            main_path.feed(system, frame)
+        system.flush()
+    del system
+
+    def plain(args):
+        poses, planes, rooms, doors, fac, S_kf, rhs_kf = args
+        return dict(values=[poses, planes, rooms, doors], fac=fac._asdict(),
+                    S_kf=S_kf, rhs_kf=rhs_kf)
+
+    torch.save(dict(
+        bench=plain(sg_seen["operands"]),
+        seeded=plain(selfcheck.sg_system_args(
+            selfcheck.sg_assemble_inputs(), torch.device("cuda"))),
+        detection=list(planes_seen["operands"])), path)
+
+
+def sg_times(path: str) -> None:
+    """K21 and K13 on the operands recorded in ``path`` (recorded there
+    first when it does not exist): for K21 on seeded operands (every factor
+    type live) and on a ``bench_slice`` scene-graph BA iteration's, the
+    iteration's assembly (this tree's: one ``sg_system`` launch, or the
+    former ``sg_assemble`` and the five operations that built S and rhs
+    around it), the kernel alone and the plan; for K13 a ``bench_slice``
+    detection and the seeded keyframes 21 and 48: device ms
+    (``selfcheck.device_time``), device operations (``selfcheck.graph_ops``)
+    and host ms (``_host_call_ms``) of each, whether four calls agree
+    bitwise, and K13's outputs (plane flags, the implied winners, a digest
+    of coefficients and assignment).  Run by path with ``PYTHONPATH`` set
+    to another tree's root to time that tree on the same operands."""
+    import os
+
+    from visual_sgraphs_tpu_torch import cuda, selfcheck
+    from visual_sgraphs_tpu_torch.optim import fast_ba
+    from visual_sgraphs_tpu_torch.scenegraph import plane_fit, pointcloud
+    cuda.build()
+    dev = torch.device("cuda")
+    if not os.path.exists(path):
+        _record_sg_operands(path)
+    rec = torch.load(path, map_location=dev)
+    redesigned = hasattr(fast_ba, "sg_system")
+
+    def line(name, fn, **info):
+        first = fn()
+        flat = lambda o: [t for t in o if isinstance(t, torch.Tensor)]  # noqa
+        repro = all(all(torch.equal(a, b) for a, b in zip(flat(first),
+                                                          flat(fn())))
+                    for _ in range(3))
+        _line("sg_times", name=name, tree="change" if redesigned
+              else "parent", device_ms=selfcheck.device_time(fn),
+              device_ops=selfcheck.graph_ops(fn),
+              host_call_ms=_host_call_ms(fn), bitwise_repro=repro, **info)
+
+    for tag in ("seeded", "bench"):
+        r = rec[tag]
+        poses, planes, rooms, doors = r["values"]
+        fac = fast_ba.SgFactors(**r["fac"])
+        S_kf, rhs_kf = r["S_kf"], r["rhs_kf"]
+        kd = S_kf.shape[0]
+        info = dict(live={k: int(getattr(fac, k).sum()) for k in (
+            "ob_valid", "quad_valid", "room4_valid", "room2_valid",
+            "door_valid")}, D=6 * poses.shape[0] + 3 * planes.shape[0]
+            + 3 * rooms.shape[0] + 6 * doors.shape[0])
+        if redesigned:
+            L, P = poses.shape[0], planes.shape[0]
+            plan = fast_ba.sg_plan(fac, L, P)
+            line(f"K21_assembly@{tag}", lambda: fast_ba.sg_system(
+                poses, planes, rooms, doors, fac, plan, S_kf, rhs_kf),
+                n_pairs=int(plan.meta[1]), **info)
+            # (the plan's scratch, M and G, is not compared)
+            line(f"K21_plan@{tag}", lambda: fast_ba.sg_plan(fac, L, P)[:8],
+                 **info)
+        else:
+            def assembly():
+                S, g = fast_ba.sg_assemble(poses, planes, rooms, doors, fac)
+                S[:kd, :kd] += S_kf
+                rhs = -g
+                rhs[:kd] += rhs_kf
+                return S, rhs
+
+            line(f"K21_assembly@{tag}", assembly, **info)
+            line(f"K21_kernel@{tag}", lambda: fast_ba.sg_assemble(
+                poses, planes, rooms, doors, fac), **info)
+
+    def sha(t):
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+    detections = [("bench", tuple(rec["detection"]))]
+    for frame in (21, 48):
+        depth, sem, _, cam_K, hyp = selfcheck.keyframe_inputs(dev, frame)
+        t = pointcloud.depth_cloud_torch(depth, sem, None, cam_K, 0.08, 2048)
+        detections.append((f"seeded{frame}",
+                           (t[4], t[5], t[6], hyp, 0.04, 150.0)))
+    for tag, args in detections:
+        coeffs, pvalid, assign = plane_fit.extract_planes(*args)
+        line(f"K13@{tag}", lambda a=args: plane_fit.extract_planes(*a),
+             planes_valid=pvalid.tolist(),
+             winners=_implied_winners(*args[:4], assign, args[4]),
+             coeffs_sha=sha(coeffs), assign_sha=sha(assign))
+    _card_line()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenegraph", action="store_true",
@@ -1279,6 +1414,10 @@ def main() -> None:
     ap.add_argument("--schur-times", metavar="PATH", default=None,
                     help="K8 and K22a's reduction: times, device operations "
                     "and bitwise repeats (windows recorded into PATH)")
+    ap.add_argument("--sg-times", metavar="PATH", default=None,
+                    help="K21's assembly and plan and K13: device ms, "
+                    "device operations, host ms (operands recorded into "
+                    "PATH, or loaded from it)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false")
@@ -1312,6 +1451,8 @@ def main() -> None:
         k20_sections()
     elif args.schur_times:
         schur_times(args.schur_times)
+    elif args.sg_times:
+        sg_times(args.sg_times)
     elif args.loop_runs:
         loop_spread(args.loop_runs)
     else:

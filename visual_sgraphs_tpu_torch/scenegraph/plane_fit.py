@@ -17,8 +17,9 @@ Two departures from the reference, both deliberate:
   keeps whatever sign LAPACK's ``eigh`` returns, which flips between
   keyframes and leaves one physical plane as two map planes.
 
-``extract_planes`` launches the hand kernel in ``csrc/ransac.cu`` on CUDA
-tensors and runs the plain twin ``extract_planes_torch`` on CPU tensors.
+``extract_planes`` launches the hand kernel in ``csrc/ransac.cu`` (one
+launch a detection, every round inside it) on CUDA tensors and runs the
+plain twin ``extract_planes_torch`` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -121,16 +122,11 @@ def extract_planes(points, valid, weights, hyp_idx,
     coeffs = torch.empty((n_planes, 4), dtype=torch.float32, device=dev)
     pvalid = torch.empty((n_planes,), dtype=torch.bool, device=dev)
     assign = torch.empty((N,), dtype=torch.int32, device=dev)
-    remaining = torch.empty((N,), dtype=torch.bool, device=dev)
-    scores = torch.empty((n_hyp,), dtype=torch.float32, device=dev)
-    counter = torch.empty((1,), dtype=torch.int32, device=dev)
     cuda.call(
         "vsg_extract_planes", cuda.ptr(points), cuda.ptr(valid),
         cuda.ptr(weights), cuda.ptr(hyp_idx), N, n_planes, n_hyp,
         float(np.float32(dist_thresh)), float(np.float32(min_inliers)),
-        cuda.ptr(coeffs), cuda.ptr(pvalid), cuda.ptr(assign),
-        cuda.ptr(remaining), cuda.ptr(scores), cuda.ptr(counter),
-        cuda.stream())
+        cuda.ptr(coeffs), cuda.ptr(pvalid), cuda.ptr(assign), cuda.stream())
     extract_planes.launches += 1
     return coeffs, pvalid, assign
 

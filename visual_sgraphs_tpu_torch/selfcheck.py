@@ -1304,7 +1304,8 @@ def check_scenegraph(device, frames=SG_FRAMES) -> list[dict]:
     and backprojected points exactly equal, centroids within CLOUD_TOL;
     K13's planes within PLANE_TOL (signs pinned in both) and point
     assignments equal on >= ASSIGN_AGREE, with >= MIN_PLANES planes found
-    on every frame; K14's counts and voxel rows exactly equal, centroids /
+    on every frame, one device operation a call and bitwise equal over
+    four launches; K14's counts and voxel rows exactly equal, centroids /
     votes / quadrics within REL_TOL.  Each kernel gets the twin's upstream
     outputs, so each is checked alone.  Errors are the worst over
     ``frames``; times, bytes and operations are those of the first."""
@@ -1347,6 +1348,9 @@ def check_scenegraph(device, frames=SG_FRAMES) -> list[dict]:
 
         ep_args = (cloud, cvalid, cweight, hyp, 0.04, 150.0)
         k = plane_fit.extract_planes(*ep_args)
+        repro = all(all(torch.equal(a, b) for a, b in zip(
+            k, plane_fit.extract_planes(*ep_args))) for _ in range(3))
+        n_ops = graph_ops(lambda: plane_fit.extract_planes(*ep_args))
         t = plane_fit.extract_planes_torch(*ep_args)
         torch.cuda.synchronize()
         err = float((k[0] - t[0]).abs().max())
@@ -1356,7 +1360,8 @@ def check_scenegraph(device, frames=SG_FRAMES) -> list[dict]:
         N, H = cloud.shape[0], hyp.shape[1]
         merge("extract_planes",
               same_valid and err <= PLANE_TOL and agree >= ASSIGN_AGREE
-              and n_planes >= MIN_PLANES, err, lambda: dict(
+              and n_planes >= MIN_PLANES and repro and n_ops == 1, err,
+              lambda: dict(
                   **_timed(lambda: plane_fit.extract_planes(*ep_args)),
                   plain_ms=time_cuda(
                       lambda: plane_fit.extract_planes_torch(*ep_args)),
@@ -1365,7 +1370,8 @@ def check_scenegraph(device, frames=SG_FRAMES) -> list[dict]:
                   # (2), four refit passes over N (~12 each), the 3x3
                   # eigensolve (~2000)
                   ops=hyp.shape[0] * (9 * H * N + 48 * N + 2000)),
-              assign_agreement=agree, planes_valid=t[1].tolist())
+              assign_agreement=agree, planes_valid=t[1].tolist(),
+              bitwise_repro=repro, device_ops=n_ops)
         coeffs_c = t[0]
 
         T_wc = lie.se3_inverse(T_cw)
@@ -2316,39 +2322,224 @@ def sg_assemble_operands(d: dict, device, dtype=torch.float32):
             SgFactors(**{k: to(d[k]) for k in SgFactors._fields}))
 
 
-def check_sg_assemble(device, inputs=None) -> dict:
-    """K21 on seeded operands where every factor type has live items: H
-    and g within REL_TOL of the float64 twin (relative to each one's
-    largest entry); the float32 twin's own error is reported beside."""
+SG_LIVE = ("ob_valid", "quad_valid", "room4_valid", "room2_valid",
+           "door_valid")
+
+
+def sg_system_args(d: dict, device, seed: int = 1) -> tuple:
+    """K21's operands for ``sg_assemble_inputs`` ``d``: (poses, planes,
+    rooms, doors, SgFactors, S_kf, rhs_kf), the keyframe block a seeded
+    symmetric positive matrix and vector scaled to the largest entries of
+    the scene-graph H and g (so that neither part hides the other)."""
     from visual_sgraphs_tpu_torch.optim import fast_ba
-    d = inputs or sg_assemble_inputs()
-    ops32 = sg_assemble_operands(d, device)
-    kH, kg = fast_ba.sg_assemble(*ops32)
-    tH, tg = fast_ba.sg_assemble_torch(*ops32)
-    dH, dg = fast_ba.sg_assemble_torch(*sg_assemble_operands(
+    ops = sg_assemble_operands(d, device)
+    H, g = fast_ba.sg_assemble_torch(*sg_assemble_operands(
         d, device, torch.float64))
-    torch.cuda.synchronize()
-    errH, errg = _rel(kH.double(), dH), _rel(kg.double(), dg)
-    live = {k: int(np.sum(d[k])) for k in ("ob_valid", "quad_valid",
-                                           "room4_valid", "room2_valid",
-                                           "door_valid")}
-    # directions x flops a direction (the residual in dual numbers), then
-    # directions^2 x rows multiply-adds into H
+    kd = 6 * ops[0].shape[0]
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(kd, kd))
+    S_kf = A @ A.T
+    S_kf *= float(H.abs().max()) / np.abs(S_kf).max()
+    rhs_kf = rng.normal(size=kd)
+    rhs_kf *= float(g.abs().max()) / np.abs(rhs_kf).max()
+    return (*ops, torch.from_numpy(S_kf.astype(np.float32)).to(device),
+            torch.from_numpy(rhs_kf.astype(np.float32)).to(device))
+
+
+def _sg_work(fac) -> int:
+    """Operations of K21's system on ``fac``'s live items: directions x
+    flops a direction (the residual in dual numbers), then directions^2 x
+    rows multiply-adds of w J^T J, then one add a contributor."""
     per_item = {"ob_valid": 9 * 600 + 81 * 6, "quad_valid": 9 * 650 + 81 * 2,
                 "room4_valid": 15 * 450 + 225 * 6,
                 "room2_valid": 9 * 250 + 81 * 6,
                 "door_valid": 9 * 400 + 81 * 6}
-    D = kH.shape[0]
-    return dict(name="sg_assemble", max_abs_err=max(errH, errg),
-                ok=max(errH, errg) <= REL_TOL and min(live.values()) > 0,
-                rel_err_H=errH, rel_err_g=errg,
-                twin32_rel_err_H=_rel(tH.double(), dH),
-                twin32_rel_err_g=_rel(tg.double(), dg), live_items=live, D=D,
-                **_timed(lambda: fast_ba.sg_assemble(*ops32)),
-                plain_ms=time_cuda(lambda: fast_ba.sg_assemble_torch(*ops32),
+    return sum(int(getattr(fac, k).sum()) * v for k, v in per_item.items())
+
+
+def check_sg_assemble(device, inputs=None, args=None,
+                      name: str = "sg_assemble") -> dict:
+    """K21's system (``fast_ba.sg_system``: the scene-graph factors' H and
+    g with the landmarks' keyframe block, S = H + S_kf, rhs = [rhs_kf - g_kf
+    | -g_rest]) over the call's plan against the float64 twin: S and rhs
+    within REL_TOL of each one's largest entry; S exactly symmetric; one
+    device operation a call (the nodes of a captured CUDA graph); S and
+    rhs bitwise equal over four launches.  ``args`` (poses, planes, rooms,
+    doors, SgFactors, S_kf, rhs_kf), else seeded ones from ``inputs``
+    (``sg_assemble_inputs``, every factor type live); the float32 twin's
+    own error is reported beside."""
+    from visual_sgraphs_tpu_torch.optim import fast_ba
+    if args is None:
+        args = sg_system_args(inputs or sg_assemble_inputs(), device)
+    poses, planes, rooms, doors, fac, S_kf, rhs_kf = args
+    plan = fast_ba.sg_plan(fac, poses.shape[0], planes.shape[0])
+
+    def fn():
+        return fast_ba.sg_system(poses, planes, rooms, doors, fac, plan,
+                                 S_kf, rhs_kf)
+
+    kS, krhs = fn()
+    repro = all(torch.equal(kS, S2) and torch.equal(krhs, r2)
+                for S2, r2 in (fn() for _ in range(3)))
+
+    def f64(t):
+        return t.double() if t.is_floating_point() else t
+
+    dS, drhs = fast_ba.sg_system_torch(
+        *map(f64, (poses, planes, rooms, doors)), type(fac)(*map(f64, fac)),
+        None, S_kf.double(), rhs_kf.double())
+    tS, trhs = fast_ba.sg_system_torch(poses, planes, rooms, doors, fac,
+                                       None, S_kf, rhs_kf)
+    torch.cuda.synchronize()
+    errS, errr = _rel(kS.double(), dS), _rel(krhs.double(), drhs)
+    live = {k: int(getattr(fac, k).sum()) for k in SG_LIVE}
+    n_ops = graph_ops(fn)
+    symmetric = bool(torch.equal(kS, kS.T))
+    D = kS.shape[0]
+    return dict(name=name, max_abs_err=max(errS, errr),
+                ok=(max(errS, errr) <= REL_TOL and repro and n_ops == 1
+                    and symmetric),
+                rel_err_S=errS, rel_err_rhs=errr,
+                twin32_rel_err_S=_rel(tS.double(), dS),
+                twin32_rel_err_rhs=_rel(trhs.double(), drhs),
+                live_items=live, n_pairs=int(plan.meta[1]), D=D,
+                device_ops=n_ops, bitwise_repro=repro, symmetric=symmetric,
+                **_timed(fn),
+                plain_ms=time_cuda(lambda: fast_ba.sg_system_torch(
+                    poses, planes, rooms, doors, fac, None, S_kf, rhs_kf),
+                    warmup=1, reps=5),
+                bytes=4 * (D * D + D) + nbytes(poses, planes, rooms, doors,
+                                               *fac, S_kf, rhs_kf),
+                ops=_sg_work(fac), library_ms=None)
+
+
+def check_sg_plan(device, args=None, name: str = "sg_plan") -> dict:
+    """K21's plan against its twin: the live items, the coupled pairs,
+    their contributor lists and offsets, the pair map and the counts
+    exactly, the observations' chart rotations within 1e-12; one device
+    operation a call, bitwise equal over two launches.  ``args`` as
+    ``check_sg_assemble``'s."""
+    from visual_sgraphs_tpu_torch.optim import fast_ba
+    if args is None:
+        args = sg_system_args(sg_assemble_inputs(), device)
+    fac, L, P = args[4], args[0].shape[0], args[1].shape[0]
+    fields = ("live", "pairs", "pptr", "pent", "epos", "pmap", "meta")
+
+    def fn():
+        return fast_ba.sg_plan(fac, L, P)
+
+    k, k2 = fn(), fn()
+    t = fast_ba.sg_plan_torch(fac, L, P)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(getattr(k, f), getattr(t, f)) for f in fields)
+    repro = all(torch.equal(getattr(k, f), getattr(k2, f))
+                for f in fields + ("rot",))
+    err = float((k.rot - t.rot).abs().max()) if k.rot.numel() else 0.0
+    n_ops = graph_ops(fn)
+    n_live, n_pairs = (int(x) for x in t.meta)
+    n_ent = int(t.pptr[n_pairs])
+    V = k.pmap.shape[0]
+    return dict(name=name, max_abs_err=err,
+                ok=exact and repro and err <= 1e-12 and n_ops == 1,
+                exact=exact, bitwise_repro=repro, device_ops=n_ops,
+                n_live=n_live, n_pairs=n_pairs, contributors=n_ent,
+                **_timed(fn),
+                plain_ms=time_cuda(lambda: fast_ba.sg_plan_torch(fac, L, P),
                                    warmup=1, reps=5),
-                bytes=4 * (D * D + D) + nbytes(*ops32[:4], *ops32[4]),
-                ops=sum(live[k] * per_item[k] for k in live),
+                bytes=nbytes(*fac[:2], fac.ob_valid, fac.quad_valid,
+                             fac.room_idx, fac.room4_valid, fac.room2_valid,
+                             fac.door_idx, fac.door_valid,
+                             *(getattr(k, f) for f in fields + ("rot",))),
+                # the rotations (~60 float64 flops a plane observation),
+                # 5 slot tests an item, the ranks (~10 an entry), the pair
+                # map, the walks (~6 a visited entry, twice)
+                ops=60 * fac.ob_idx.shape[0] + 5 * k.live.shape[0]
+                + 10 * 5 * n_live + V * V + 12 * n_ent, library_ms=None)
+
+
+@contextlib.contextmanager
+def watch_sg_system(which: int = 17):
+    """Inside the block, record the operands of the ``which``-th call of
+    K21's system from ``fast_scenegraph_ba`` (the last one if fewer ran)
+    as copies: (poses, planes, rooms, doors, SgFactors, S_kf, rhs_kf).  The
+    copies cost device time: watch a run that is not timed."""
+    from visual_sgraphs_tpu_torch.optim import fast_ba
+    out = {"calls": 0}
+    orig = fast_ba.sg_system
+
+    def spy(poses, planes, rooms, doors, fac, plan, S_kf, rhs_kf):
+        out["calls"] += 1
+        if out["calls"] <= which:
+            out["operands"] = tuple(t.clone() for t in (
+                poses, planes, rooms, doors)) + (
+                type(fac)(*(t.clone() for t in fac)), S_kf.clone(),
+                rhs_kf.clone())
+        return orig(poses, planes, rooms, doors, fac, plan, S_kf, rhs_kf)
+
+    spy.launches = orig.launches
+    fast_ba.sg_system = spy
+    try:
+        yield out
+    finally:
+        fast_ba.sg_system = orig
+
+
+@contextlib.contextmanager
+def watch_planes(which: int = 8):
+    """Inside the block, record the operands of the ``which``-th plane
+    extraction (K13) of a scene-graph keyframe (the last one if fewer ran)
+    as copies: (points, valid, weights, hyp_idx, dist_thresh,
+    min_inliers)."""
+    from visual_sgraphs_tpu_torch.scenegraph import manager as sgm
+    out = {"calls": 0}
+    orig = sgm.extract_planes
+
+    def spy(points, valid, weights, hyp_idx, dist_thresh=0.04,
+            min_inliers=50.0):
+        out["calls"] += 1
+        if out["calls"] <= which:
+            out["operands"] = (points.clone(), valid.clone(),
+                               weights.clone(), hyp_idx.clone(),
+                               dist_thresh, min_inliers)
+        return orig(points, valid, weights, hyp_idx, dist_thresh,
+                    min_inliers)
+
+    sgm.extract_planes = spy
+    try:
+        yield out
+    finally:
+        sgm.extract_planes = orig
+
+
+def check_extract_planes(device, args, name: str = "extract_planes@bench"
+                         ) -> dict:
+    """K13 on recorded operands (``watch_planes``) against its twin: the
+    same planes found, coefficients within PLANE_TOL, assignments equal on
+    >= ASSIGN_AGREE; one device operation a call; bitwise equal over four
+    launches."""
+    def fn():
+        return plane_fit.extract_planes(*args)
+
+    k = fn()
+    repro = all(all(torch.equal(a, b) for a, b in zip(k, fn()))
+                for _ in range(3))
+    t = plane_fit.extract_planes_torch(*args)
+    torch.cuda.synchronize()
+    err = float((k[0] - t[0]).abs().max())
+    agree = float((k[2] == t[2]).float().mean())
+    same_valid = bool(torch.equal(k[1], t[1]))
+    n_ops = graph_ops(fn)
+    cloud, cvalid, cweight, hyp = args[:4]
+    N, H = cloud.shape[0], hyp.shape[1]
+    return dict(name=name, max_abs_err=err,
+                ok=(same_valid and err <= PLANE_TOL and agree >= ASSIGN_AGREE
+                    and repro and n_ops == 1),
+                planes_valid=k[1].tolist(), assign_agreement=agree,
+                bitwise_repro=repro, device_ops=n_ops,
+                **_timed(fn), plain_ms=time_cuda(
+                    lambda: plane_fit.extract_planes_torch(*args)),
+                bytes=nbytes(cloud, cvalid, cweight, hyp, *t),
+                ops=hyp.shape[0] * (9 * H * N + 48 * N + 2000),
                 library_ms=None)
 
 
@@ -2386,16 +2577,18 @@ def seed_rooms_and_doors(sg):
                        n_doors=torch.full_like(sg.n_doors, 1))
 
 
-def _sg_assemble_f64(poses, planes, rooms, doors, fac):
-    """K21's twin evaluated in float64, its H and g rounded to float32."""
+def _sg_system_f64(poses, planes, rooms, doors, fac, plan, S_kf, rhs_kf):
+    """K21's twin evaluated in float64, its S and rhs rounded to
+    float32."""
     from visual_sgraphs_tpu_torch.optim import fast_ba
 
     def f64(t):
         return t.double() if t.is_floating_point() else t
 
-    H, g = fast_ba.sg_assemble_torch(*map(f64, (poses, planes, rooms, doors)),
-                                     type(fac)(*map(f64, fac)))
-    return H.float(), g.float()
+    S, rhs = fast_ba.sg_system_torch(
+        *map(f64, (poses, planes, rooms, doors)), type(fac)(*map(f64, fac)),
+        plan, S_kf.double(), rhs_kf.double())
+    return S.float(), rhs.float()
 
 
 def check_sg_ba(m, sg, kf: int, cam_K, cam_bf, config,
@@ -2409,11 +2602,11 @@ def check_sg_ba(m, sg, kf: int, cam_K, cam_bf, config,
     reported beside, not gated."""
     from visual_sgraphs_tpu_torch.optim import fast_ba
     out = {}
-    for tag, fn in (("kernel", fast_ba.sg_assemble),
-                    ("plain64", _sg_assemble_f64),
-                    ("plain32", fast_ba.sg_assemble_torch)):
+    for tag, fn in (("kernel", fast_ba.sg_system),
+                    ("plain64", _sg_system_f64),
+                    ("plain32", fast_ba.sg_system_torch)):
         out[tag] = fast_ba.fast_scenegraph_ba(
-            m, sg, kf, cam_K, cam_bf, iters=6, config=config, assemble=fn)
+            m, sg, kf, cam_K, cam_bf, iters=6, config=config, system=fn)
     torch.cuda.synchronize()
 
     def errs(a, b):
@@ -2438,13 +2631,16 @@ def check_sg_ba(m, sg, kf: int, cam_K, cam_bf, config,
 
 
 def run_freespace(device) -> list[dict]:
-    """K17a on a rendered frame, K17b on the snake grid, K21 on seeded
-    operands (K17b on a slice's accumulated grid is ``chip_smoke.py``'s)."""
+    """K17a on a rendered frame, K17b on the snake grid, K21's plan and
+    system on seeded operands (K17b on a slice's accumulated grid is
+    ``chip_smoke.py``'s)."""
     _, _, _, origin = freespace_inputs(device)
+    args = sg_system_args(sg_assemble_inputs(), device)
     return [check_freespace_carve(device),
             check_freespace_components(device, snake_grid(), origin,
                                        name="freespace_components@snake"),
-            check_sg_assemble(device)]
+            check_sg_plan(device, args), check_sg_assemble(device,
+                                                           args=args)]
 
 
 def run_inertial(device) -> list[dict]:

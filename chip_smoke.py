@@ -49,16 +49,24 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    call, S and rhs bitwise equal from launch to launch, S exactly
    symmetric), and after phase 4e on the tables of one of
    ``bench_slice``'s scene-graph BAs (the back-substitution there against
-   the float64 twin within the reduction's tolerance), K10 BoW rows, K11
-   database
-   query, K12 depth cloud + voxel downsample, K13 weighted RANSAC (every
+   the float64 twin within the reduction's tolerance), K10 BoW rows, K11's
+   two entries (the query, and the keyframe program's query with the
+   validity sync, the insertion and the packed vector; one launch, one
+   device operation a call, ids, valid count and database bitwise, both
+   bitwise from launch to launch) on a seeded (128, 512) database, on
+   ``selfcheck.place_cases`` and after phase 4e on a ``bench_slice``
+   keyframe's recorded operands, K5's NN ratio (one launch, one device
+   operation a call, exact) at the three call shapes on seeded operands
+   (1000 x 1000 with angles at 0.85; without at 0.8; 1000 x 1237), on
+   ``selfcheck.nn_cases`` and on ``bench_slice``'s first loop
+   verification's recorded operands, K12 depth cloud + voxel downsample, K13 weighted RANSAC (every
    round of a detection in one launch, one device operation, bitwise
    equal from launch to launch; also after phase 4e on one of
    ``bench_slice``'s detections), K14 plane statistics; K5's NN-ratio
    entry, K15's Sim3 half, K16 and K19 on the loop path's map saved at
    its first accepted loop, after phase 4;
-   K15's PnP half on seeded picks, and again on phase 5's
-   relocalisation; the inertial path's K18 (preintegration, merge and
+   K15's PnP half on seeded picks, and again (with K5's NN ratio as the
+   relocalisation calls it) on phase 5's relocalisation; the inertial path's K18 (preintegration, merge and
    the dead-reckoned pose prediction in one launch) on a 64-row sample
    window, K20 per-frame visual-inertial solve on a rendered
    frame's 1000 keypoints and K6's pose-prior branch at 4096 matches,
@@ -174,7 +182,9 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    standalone window matcher launched, K7's observed entry launched and
    ``observed_mask`` never run on the card; on (b), (d), (f) and (k) K21's
    system once a scene-graph BA iteration, its plan once a call and the
-   plain assembly never on the card); the JSON
+   plain assembly never on the card; on (d) and (f) K11 once a place
+   query, the keyframe program's and the relocalisations', and the plain
+   insertion never on the card); the JSON
    kernel table's launches are (d)'s, (i)'s for the inertial path's K18,
    K20, K6's prior branch and K22, and (k)'s for K17a and K17b;
 5. the same 12 small frames through the port on the card (kernels) and on
@@ -303,6 +313,7 @@ def _reset_plain_counts() -> None:
     from visual_sgraphs_tpu_torch.features import fast, orb, pyramid
     from visual_sgraphs_tpu_torch.inertial import preintegration
     from visual_sgraphs_tpu_torch.optim import fast_ba
+    from visual_sgraphs_tpu_torch.place import database, loop_closer
     from visual_sgraphs_tpu_torch.slam import map_state, mapping
     cuda.reset_counts()
     fast_ba.fast_scenegraph_ba.cuda_calls = 0
@@ -315,6 +326,9 @@ def _reset_plain_counts() -> None:
     preintegration.predict_state.cuda_calls = 0
     mapping.fuse_observations.cuda_calls = 0
     map_state.observed_mask.cuda_calls = 0
+    loop_closer._detect_program.cuda_calls = 0
+    loop_closer.reloc_in_map.cuda_calls = 0
+    database.add_keyframe.cuda_calls = 0
 
 
 def _path_calls() -> dict:
@@ -322,11 +336,17 @@ def _path_calls() -> dict:
     after a main path's run: ``fuse_observations``' (one tracking pass
     each), ``observed_mask``'s (the plain composition K7's observed
     entry replaces), the scene-graph BA's calls and iterations (K21's plan
-    once a call, its system once an iteration) and the plain assembly
-    K21 replaces."""
+    once a call, its system once an iteration), the plain assembly K21
+    replaces, the place queries (the keyframe program's and the
+    relocalisations', K11 once each) and the plain insertion K11's
+    keyframe entry replaces."""
     from visual_sgraphs_tpu_torch.optim import fast_ba
+    from visual_sgraphs_tpu_torch.place import database, loop_closer
     from visual_sgraphs_tpu_torch.slam import map_state, mapping
-    return dict(fuse=mapping.fuse_observations.cuda_calls,
+    return dict(place_queries=loop_closer._detect_program.cuda_calls,
+                reloc_queries=loop_closer.reloc_in_map.cuda_calls,
+                add_keyframe=database.add_keyframe.cuda_calls,
+                fuse=mapping.fuse_observations.cuda_calls,
                 observed_mask=map_state.observed_mask.cuda_calls,
                 sg_ba=fast_ba.fast_scenegraph_ba.cuda_calls,
                 sg_ba_iters=fast_ba.fast_scenegraph_ba.cuda_iters,
@@ -444,6 +464,19 @@ def _check_sg_system_launches(tag: str, cnt: dict, calls: dict) -> None:
            f"{cnt['sg_plan'][0]} plan launches for {calls['sg_ba']} "
            f"scene-graph BAs of {calls['sg_ba_iters']} iterations; "
            f"{calls['sg_assemble_torch']} plain assemblies on the card")
+
+
+def _check_place_launches(tag: str, cnt: dict, calls: dict) -> None:
+    """K11 launches once a place query (the keyframe program's, each with
+    its insertion, and each relocalisation's), and the plain insertion
+    never runs on the card."""
+    n = calls["place_queries"] + calls["reloc_queries"]
+    _check(calls["place_queries"] > 0 and cnt["place_query"][0] == n
+           and calls["add_keyframe"] == 0,
+           f"{tag}: K11 {cnt['place_query'][0]} launches for "
+           f"{calls['place_queries']} keyframe place queries and "
+           f"{calls['reloc_queries']} relocalisations; "
+           f"{calls['add_keyframe']} plain insertions on the card")
 
 
 def _bound(r: dict) -> tuple[float, str]:
@@ -665,6 +698,13 @@ def main() -> None:
 
     report(selfcheck.run_all(device) + [
         selfcheck.check_bow(device), selfcheck.check_place_query(device),
+        *selfcheck.run_place_cases(device),
+        selfcheck.check_match_nn(device, name="match_nn_ratio@seeded"),
+        selfcheck.check_match_nn(device, ratio=0.8, angles=False,
+                                 name="match_nn_ratio@reloc_seeded"),
+        selfcheck.check_match_nn(device, selfcheck.nn_inputs(
+            device, 1000, n_b=1237), name="match_nn_ratio@1000x1237"),
+        *selfcheck.run_nn_cases(device),
         *selfcheck.check_schur_gba(device),
         *selfcheck.check_front_end_small(device)])
     _check(checks["detect_level@240x320"]["padded_levels"] >= 1,
@@ -762,7 +802,10 @@ def main() -> None:
     bench_watch = _watch_loops(system)
     _reset_plain_counts()
     t0 = time.perf_counter()
-    with _match_window_callers() as callers:
+    # (the first loop verification's NN-ratio operands are copied once:
+    # two 32 KB descriptor sets)
+    with _match_window_callers() as callers, \
+            selfcheck.watch_nn(which=1) as nn_seen:
         perf = _drive(system, bench_frames, warm=main_path.BENCH_WARMUP)
     total_s = time.perf_counter() - t0
     counts["bench_slice"] = cuda.counts()
@@ -809,6 +852,12 @@ def main() -> None:
     _check_track_launches("bench_slice", counts["bench_slice"], callers,
                           calls)
     _check_compact_launches("bench_slice", counts["bench_slice"], calls)
+    _check_place_launches("bench_slice", counts["bench_slice"], calls)
+    # K5's NN ratio on the cell's first loop verification's operands
+    _check("operands" in nn_seen, "bench_slice: no loop verification")
+    report([selfcheck.check_match_nn(device, nn_seen["operands"],
+                                     name="match_nn_ratio@bench",
+                                     **nn_seen["kw"])])
     # the tracking pass at the four radii on the cell's map and last frame
     gray, depth, _, _, ts = bench_frames[-1]
     report(selfcheck.check_track_pass_radii(
@@ -837,7 +886,8 @@ def main() -> None:
     with selfcheck.watch_assoc(which=8) as assoc_seen, \
             selfcheck.watch_schur(which=17) as schur_seen, \
             selfcheck.watch_sg_system(which=17) as sg_seen, \
-            selfcheck.watch_planes(which=8) as planes_seen:
+            selfcheck.watch_planes(which=8) as planes_seen, \
+            selfcheck.watch_place(which=8) as place_seen:
         syncs = _drive(system, bench_frames[:96], warm=64,
                        sync_window=(64, 96))
     _line("bench_sync_debug", frames="64-95", keyframes=syncs["keyframes"],
@@ -848,6 +898,11 @@ def main() -> None:
     _check(syncs["syncs_per_frame"] == syncs["readbacks_per_frame"],
            f"bench_sync_debug: syncs differ from counted readbacks: {syncs}")
     del system
+    # K11's two entries on the recorded keyframe place query's database
+    _check("operands" in place_seen, "bench_sync_debug: no place query")
+    pq = place_seen["operands"]
+    report([selfcheck.check_place_query(device, pq[:7], "place_query@bench",
+                                        ratio=pq[7], top_n=pq[8])])
     # K24 on the recorded keyframe's detections and scene graph
     _check("operands" in assoc_seen, "bench_sync_debug: no plane association")
     # K8 on the tables of a scene-graph BA of the same run (8192 rows,
@@ -913,6 +968,7 @@ def main() -> None:
     _check_track_launches("loop_slice", counts["loop_slice"], callers, calls)
     _check_compact_launches("loop_slice", counts["loop_slice"], calls)
     _check_sg_system_launches("loop_slice", counts["loop_slice"], calls)
+    _check_place_launches("loop_slice", counts["loop_slice"], calls)
     _check(watch["saved"] is not None, "loop_slice: no map saved at a loop")
     loop_system = system
 
@@ -1352,6 +1408,13 @@ def main() -> None:
     _check(reloc["cuda"][0] == reloc["cpu"][0]
            and abs(reloc["cuda"][2] - reloc["cpu"][2]) <= 2
            and p_err <= 1e-3, "relocalisation: card disagrees with CPU")
+    # K5's NN ratio as the relocalisation calls it (ratio 0.8, no angles)
+    m_r, c_r = loop_system.map, reloc["cuda"][0]
+    report([selfcheck.check_match_nn(
+        device, (frame.desc, frame.valid, m_r.kf_desc[c_r],
+                 m_r.kf_kp_valid[c_r] & (m_r.kf_obs_pt[c_r] >= 0), None,
+                 None), ratio=0.8, angles=False,
+        name="match_nn_ratio@reloc")])
     pnp_map = selfcheck.check_pnp(device, selfcheck.reloc_inputs(
         loop_system.map, frame, reloc["cuda"][0], cam))
     _line("pnp_real_map", **pnp_map)

@@ -219,6 +219,33 @@ def test_loop_kernels(loop_checks, name):
     assert r["ok"], r
 
 
+@pytest.fixture(scope="module")
+def place_nn_checks(device):
+    return {r["name"]: r for r in (
+        selfcheck.run_place_cases(device) + selfcheck.run_nn_cases(device)
+        + [selfcheck.check_match_nn(device, ratio=0.8, angles=False,
+                                    name="match_nn_ratio@reloc_seeded"),
+           selfcheck.check_match_nn(device, selfcheck.nn_inputs(
+               device, 1000, n_b=1237), name="match_nn_ratio@1000x1237")])}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    *(f"place_query@{c}" for c in ("ties", "all_excluded", "top1", "top8",
+                                   "reused_slot", "covis_top",
+                                   "odd_width")),
+    *(f"match_nn_ratio@{c}" for c in ("tie", "nb1", "all_a_invalid",
+                                      "na_ne_nb", "no_mutual", "no_angles",
+                                      "angle_wrap", "reloc_seeded", "1000x1237"))])
+def test_place_query_and_nn_ratio_cases(place_nn_checks, name):
+    # K11's two entries and K5's NN ratio against their twins on the CPU
+    # parity test's cases (and the NN ratio's relocalisation and
+    # n_a != n_b shapes at 1000 descriptors): integers and the database
+    # exact, one device operation a call, bitwise from launch to launch
+    r = place_nn_checks[name]
+    assert r["ok"], r
+
+
 @pytest.mark.gpu
 def test_slice_on_card_uses_every_kernel(device):
     from visual_sgraphs_tpu_torch.config import (

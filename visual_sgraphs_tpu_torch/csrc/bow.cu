@@ -22,16 +22,42 @@
 // differs from the plain version).
 //
 // K11 replaces visual_sgraphs_tpu/place/database.py::l1_scores,
-// ::detect_candidates and ::best_covisible_score as the keyframe program
-// runs them (loop_closer.py::_detect_program).  Bound: bytes, the (Kmax, W)
+// ::detect_candidates and ::best_covisible_score, and around them the
+// keyframe program's validity sync and insertion (::add_keyframe) as
+// loop_closer.py::_detect_program runs them.  Bound: bytes, the (Kmax, W)
 // float32 rows and bool occupancy (128 x 512 on this path, 320 KB), read
-// once.  Design: one block per database row reduces sum_w min(q, bow) and
-// the common-word count over W; one final thread applies the validity
-// and exclusion masks, the min_common_ratio gate (float32 product
-// truncated to int, as the reference), the top-n with lower indices
-// first among equal scores (lax.top_k), the best covisible score and the
-// valid-row count, and writes the packed scalars.
+// once: ~0.1 us at the memory rate, so a call is latency-bound, and what
+// costs is every dependent step (a serial select over the rows, or
+// separate operations for the validity sync, insertion and packing).
+//
+// Design: one launch of one cluster of 8 CTAs of 16 warps, a warp a row
+// (rows r, r + 128, ...).  The warp reads its row with 16-byte loads (a
+// float4 of the BoW row, the query and the row's four occupancy bytes a
+// lane; scalar loads when W is not a multiple of 4), sums min(q, bow) in
+// lane order and a fixed shuffle tree (so the scores are bitwise equal
+// from launch to launch and within BOW_TOL of the twin's sum), counts the
+// common words, and its lane 0 writes (score, count, flags) into CTA 0's
+// shared tables through distributed shared memory.  After the cluster
+// barrier warp 0 of CTA 0 selects: max_common as a warp reduction, the
+// min_common_ratio gate (float32 product truncated to int, then
+// max(., 1), as the reference), the best covisible score and the valid
+// count as reductions, and the top-n as n rounds of a warp arg-max over
+// (score descending, index ascending), lax.top_k's order.  With an
+// insertion (kf >= 0) the launch also ANDs the database's validity with
+// the map's keyframe validity before it reads anything and writes row
+// kf's BoW, occupancy (bow > 0) and valid bit in place: only the warp
+// that owns a row reads or writes it, and it writes after its own reads,
+// so the candidates, scores and valid count read the database before the
+// insertion, as the reference does.  The best covisible score is read
+// there too; the reference reads it after the insertion, which is the
+// same value because covisibility_counts zeroes the keyframe's own entry
+// (covis[kf] is false).  The launch writes the keyframe program's whole
+// packed vector, the caller's extra scalars included.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -108,81 +134,213 @@ __global__ void bow_norm_kernel(const int* __restrict__ tf,
     }
 }
 
-__global__ void place_scores_kernel(const float* __restrict__ bow,
-                                    const uint8_t* __restrict__ has_word,
-                                    const float* __restrict__ q, int W,
-                                    float* __restrict__ scores,
-                                    int* __restrict__ common) {
-    __shared__ float scratch[32];
-    __shared__ int iscratch[32];
-    const int k = blockIdx.x;
+constexpr int PQ_CTAS = 8;  // the cluster
+constexpr int PQ_WARPS = 16;  // a warp a row
+constexpr int PQ_THREADS = 32 * PQ_WARPS;
+constexpr int PQ_MAX_ROWS = 4096;  // CTA 0's gathered tables
+constexpr int PQ_MAX_TOP = 8;
+constexpr int PQ_UNROLL = 4;  // 16-byte chunks a lane loads at once
+// gathered flags of a row
+constexpr uint8_t PQ_VALID = 1, PQ_EXCLUDE = 2, PQ_COVIS = 4;
+
+struct PlaceArgs {
+    float* bow;  // (K, W); row kf written with an insertion
+    uint8_t* has_word;  // (K, W)
+    uint8_t* valid;  // (K,); synced and written with an insertion
+    const float* q;  // (W,)
+    const uint8_t* exclude;  // (K,)
+    const uint8_t* covis;  // (K,)
+    const uint8_t* kf_valid;  // (K,) or null (no validity sync)
+    const int* extra;  // (n_extra,) int32, or null (zeros)
+    float* packed;  // (2 top_n + 2 + n_extra,)
+    int K, W, top_n, kf, n_extra;
+    int vec;  // W % 4 == 0 and the rows 16-byte (occupancy 4-byte) aligned
+    float ratio;
+};
+
+__device__ __forceinline__ void pq_cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void pq_cluster_wait() {
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// one row's sum_w min(q_w, bow_w) and common-word count, in every lane
+// (the sum in lane order, then a fixed shuffle tree: lane 0's value is
+// the same from launch to launch)
+__device__ __forceinline__ void pq_row(const PlaceArgs& a, int r, int lane,
+                                       float& score, int& common) {
+    const float* row = a.bow + (size_t)r * a.W;
+    const uint8_t* hw = a.has_word + (size_t)r * a.W;
     float s = 0.0f;
     int c = 0;
-    for (int w = threadIdx.x; w < W; w += blockDim.x) {
-        const float qw = q[w];
-        s += fminf(qw, bow[(size_t)k * W + w]);
-        c += (has_word[(size_t)k * W + w] != 0 && qw > 0.0f) ? 1 : 0;
+    if (a.vec) {
+        const float4* r4 = reinterpret_cast<const float4*>(row);
+        const float4* q4 = reinterpret_cast<const float4*>(a.q);
+        const uint32_t* h4 = reinterpret_cast<const uint32_t*>(hw);
+        const int n4 = a.W >> 2;
+        // PQ_UNROLL chunks' loads in flight, then summed in chunk order
+        for (int j0 = lane; j0 < n4; j0 += 32 * PQ_UNROLL) {
+            float4 b[PQ_UNROLL], q[PQ_UNROLL];
+            uint32_t h[PQ_UNROLL];
+#pragma unroll
+            for (int u = 0; u < PQ_UNROLL; ++u) {
+                const int j = j0 + 32 * u;
+                if (j < n4) {
+                    b[u] = r4[j];
+                    q[u] = __ldg(q4 + j);
+                    h[u] = h4[j];
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < PQ_UNROLL; ++u) {
+                if (j0 + 32 * u >= n4) break;
+                s += fminf(q[u].x, b[u].x);
+                s += fminf(q[u].y, b[u].y);
+                s += fminf(q[u].z, b[u].z);
+                s += fminf(q[u].w, b[u].w);
+                c += ((h[u] & 0xffu) != 0 && q[u].x > 0.0f) +
+                     ((h[u] & 0xff00u) != 0 && q[u].y > 0.0f) +
+                     ((h[u] & 0xff0000u) != 0 && q[u].z > 0.0f) +
+                     ((h[u] >> 24) != 0 && q[u].w > 0.0f);
+            }
+        }
+    } else {
+        for (int w = lane; w < a.W; w += 32) {
+            const float q = __ldg(a.q + w);
+            s += fminf(q, row[w]);
+            c += (hw[w] != 0 && q > 0.0f) ? 1 : 0;
+        }
     }
-    const float total = block_sum_f(s, scratch);
+    score = vsg_warp_sum(s);
     for (int off = 16; off > 0; off >>= 1) {
         c += __shfl_xor_sync(0xffffffffu, c, off);
     }
-    if ((threadIdx.x & 31) == 0) iscratch[threadIdx.x >> 5] = c;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        int ct = 0;
-        for (int i = 0; i < (int)(blockDim.x >> 5); ++i) ct += iscratch[i];
-        scores[k] = total;
-        common[k] = ct;
-    }
+    common = c;
 }
 
-__global__ void place_select_kernel(const float* __restrict__ scores,
-                                    const int* __restrict__ common,
-                                    const uint8_t* __restrict__ valid,
-                                    const uint8_t* __restrict__ exclude,
-                                    const uint8_t* __restrict__ covis, int K,
-                                    float ratio, int top_n,
-                                    float* __restrict__ packed) {
-    if (threadIdx.x != 0) return;
-    int max_common = 0;
-    for (int k = 0; k < K; ++k) {
-        if (valid[k] && !exclude[k]) max_common = max(max_common, common[k]);
-    }
-    const int thr = max((int)__fmul_rn(ratio, (float)max_common), 1);
-    float ts[8];
-    int ti[8];
-    for (int i = 0; i < top_n; ++i) {
-        ts[i] = -INFINITY;
-        ti[i] = 0;
-    }
-    float ref = 0.0f;
-    int n_valid = 0;
-    for (int k = 0; k < K; ++k) {
-        const float l1 = valid[k] ? scores[k] : 0.0f;
-        const int cm = (valid[k] && !exclude[k]) ? common[k] : 0;
-        const float sc = cm >= thr ? l1 : 0.0f;
-        if (covis[k]) ref = fmaxf(ref, l1);
-        n_valid += valid[k] ? 1 : 0;
-        // strict comparison: an equal later score never displaces an
-        // earlier one (lower index first)
-        int pos = top_n;
-        for (int i = top_n - 1; i >= 0 && sc > ts[i]; --i) pos = i;
-        if (pos < top_n) {
-            for (int i = top_n - 1; i > pos; --i) {
-                ts[i] = ts[i - 1];
-                ti[i] = ti[i - 1];
+__global__ void __cluster_dims__(PQ_CTAS, 1, 1) __launch_bounds__(PQ_THREADS)
+place_query_kernel(const __grid_constant__ PlaceArgs a) {
+    // CTA 0's tables, written by every CTA's warps
+    __shared__ float s_score[PQ_MAX_ROWS];
+    __shared__ int s_common[PQ_MAX_ROWS];
+    __shared__ uint8_t s_flags[PQ_MAX_ROWS];
+    cg::cluster_group cl = cg::this_cluster();
+    const int rank = (int)cl.block_rank();
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    pq_cluster_arrive();
+    float* d_score = cl.map_shared_rank(s_score, 0);
+    int* d_common = cl.map_shared_rank(s_common, 0);
+    uint8_t* d_flags = cl.map_shared_rank(s_flags, 0);
+    const bool insert = a.kf >= 0;
+    bool waited = false;
+    for (int r = rank * PQ_WARPS + warp; r < a.K;
+         r += PQ_CTAS * PQ_WARPS) {
+        const bool v = a.valid[r] != 0 &&
+                       (a.kf_valid == nullptr || a.kf_valid[r] != 0);
+        float score;
+        int common;
+        pq_row(a, r, lane, score, common);
+        if (!waited) {
+            // every CTA has started before the first remote write
+            pq_cluster_wait();
+            waited = true;
+        }
+        if (lane == 0) {
+            d_score[r] = score;
+            d_common[r] = common;
+            d_flags[r] = (v ? PQ_VALID : 0) |
+                         (a.exclude[r] ? PQ_EXCLUDE : 0) |
+                         (a.covis[r] ? PQ_COVIS : 0);
+            if (insert) a.valid[r] = (v || r == a.kf) ? 1 : 0;
+        }
+        if (r == a.kf) {
+            // the insertion, after this warp's reads of the row
+            __syncwarp();
+            for (int w = lane; w < a.W; w += 32) {
+                const float q = __ldg(a.q + w);
+                a.bow[(size_t)r * a.W + w] = q;
+                a.has_word[(size_t)r * a.W + w] = q > 0.0f ? 1 : 0;
             }
-            ts[pos] = sc;
-            ti[pos] = k;
         }
     }
-    packed[0] = ref;
-    for (int i = 0; i < top_n; ++i) {
-        packed[1 + i] = ts[i] > 0.0f ? (float)ti[i] : -1.0f;
-        packed[1 + top_n + i] = ts[i];
+    if (!waited) pq_cluster_wait();
+    // the tables are complete once every CTA has arrived again
+    pq_cluster_arrive();
+    pq_cluster_wait();
+    if (rank != 0 || warp != 0) return;
+
+    // ---- the select, warp 0 of CTA 0, lanes striding the rows; the
+    // warp reductions in the redux unit (gated scores and the reference
+    // score are >= 0, so their float bits order as unsigned integers)
+    int mc = 0;
+    for (int k = lane; k < a.K; k += 32) {
+        if ((s_flags[k] & (PQ_VALID | PQ_EXCLUDE)) == PQ_VALID) {
+            mc = max(mc, s_common[k]);
+        }
     }
-    packed[1 + 2 * top_n] = (float)n_valid;
+    mc = (int)__reduce_max_sync(0xffffffffu, (unsigned)mc);
+    const int thr = max((int)__fmul_rn(a.ratio, (float)mc), 1);
+    // each row's gated score (in place), the covisible maximum, the valid
+    // count, and the lane's first best row
+    float ref = 0.0f;
+    int n_valid = 0;
+    float bv = -1.0f;
+    int bi = 0x7fffffff;
+    for (int k = lane; k < a.K; k += 32) {
+        const uint8_t f = s_flags[k];
+        const float l1 = (f & PQ_VALID) ? s_score[k] : 0.0f;
+        const int cm = (f & (PQ_VALID | PQ_EXCLUDE)) == PQ_VALID
+                           ? s_common[k] : 0;
+        const float sc = cm >= thr ? l1 : 0.0f;
+        s_score[k] = sc;
+        if (f & PQ_COVIS) ref = fmaxf(ref, l1);
+        n_valid += (f & PQ_VALID) ? 1 : 0;
+        if (sc > bv) {
+            bv = sc;
+            bi = k;
+        }
+    }
+    ref = __uint_as_float(
+        __reduce_max_sync(0xffffffffu, __float_as_uint(ref)));
+    n_valid = (int)__reduce_add_sync(0xffffffffu, (unsigned)n_valid);
+    // the top-n: a round takes the first best (score, index): the largest
+    // score, then the least row among the lanes that hold it; its lane
+    // rescans its rows without it (a taken row reads -1, below every
+    // gated score; a lane without rows left holds -1 too)
+    float* out = a.packed;
+    for (int i = 0; i < a.top_n; ++i) {
+        const unsigned key = bv < 0.0f ? 0u : __float_as_uint(bv) + 1u;
+        const unsigned top = __reduce_max_sync(0xffffffffu, key);
+        const int idx = (int)__reduce_min_sync(
+            0xffffffffu, key == top ? (unsigned)bi : 0xffffffffu);
+        const float v = __uint_as_float(top - 1u);
+        if (lane == 0) {
+            out[1 + i] = v > 0.0f ? (float)idx : -1.0f;
+            out[1 + a.top_n + i] = v;
+        }
+        if ((idx & 31) == lane) {
+            s_score[idx] = -1.0f;
+            bv = -1.0f;
+            bi = 0x7fffffff;
+            for (int k = lane; k < a.K; k += 32) {
+                if (s_score[k] > bv) {
+                    bv = s_score[k];
+                    bi = k;
+                }
+            }
+        }
+        __syncwarp();
+    }
+    if (lane == 0) {
+        out[0] = ref;
+        out[1 + 2 * a.top_n] = (float)n_valid;
+    }
+    for (int e = lane; e < a.n_extra; e += 32) {
+        out[2 + 2 * a.top_n + e] =
+            a.extra != nullptr ? (float)a.extra[e] : 0.0f;
+    }
 }
 
 }  // namespace
@@ -214,21 +372,41 @@ VSG_API int vsg_bow_vectors(const uint32_t* desc, const uint8_t* valid,
 }
 
 // bow: (K, W) f32, has_word: (K, W) u8, valid / exclude / covis: (K,) u8,
-// q: (W,) f32; scratch scores (K,) f32 and common (K,) i32.  Output packed
-// (2 top_n + 2,) f32: [best covisible score, ids (-1 = none), scores,
-// valid rows].
-VSG_API int vsg_place_query(const float* bow, const uint8_t* has_word,
-                            const uint8_t* valid, const float* q,
-                            const uint8_t* exclude, const uint8_t* covis,
-                            int K, int W, float ratio, int top_n,
-                            float* scores, int* common, float* packed,
+// q: (W,) f32; K <= 4096.  Output packed (2 top_n + 2 + n_extra,) f32:
+// [best covisible score, ids (-1 = none), scores, valid rows, extra].
+// With kf >= 0 (an insertion) valid is first ANDed with kf_valid (null:
+// no sync), and row kf's bow, has_word (bow > 0) and valid bit are
+// written in place after the query read them; extra: n_extra int32
+// values, or null for zeros.  One launch.
+VSG_API int vsg_place_query(float* bow, uint8_t* has_word, uint8_t* valid,
+                            const float* q, const uint8_t* exclude,
+                            const uint8_t* covis, const uint8_t* kf_valid,
+                            int K, int W, float ratio, int top_n, int kf,
+                            const int* extra, int n_extra, float* packed,
                             cudaStream_t stream) {
-    if (K == 0) return 0;
-    place_scores_kernel<<<K, 128, 0, stream>>>(bow, has_word, q, W, scores,
-                                               common);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    place_select_kernel<<<1, 32, 0, stream>>>(scores, common, valid, exclude,
-                                              covis, K, ratio, top_n, packed);
+    if (K <= 0 || K > PQ_MAX_ROWS || top_n < 1 || top_n > PQ_MAX_TOP ||
+        top_n > K || kf >= K) {
+        return (int)cudaErrorInvalidValue;
+    }
+    PlaceArgs a;
+    a.bow = bow;
+    a.has_word = has_word;
+    a.valid = valid;
+    a.q = q;
+    a.exclude = exclude;
+    a.covis = covis;
+    a.kf_valid = kf_valid;
+    a.extra = extra;
+    a.packed = packed;
+    a.K = K;
+    a.W = W;
+    a.top_n = top_n;
+    a.kf = kf;
+    a.n_extra = n_extra;
+    a.ratio = ratio;
+    a.vec = (W & 3) == 0 &&
+            (((uintptr_t)bow | (uintptr_t)q) & 15) == 0 &&
+            ((uintptr_t)has_word & 3) == 0;
+    place_query_kernel<<<PQ_CTAS, PQ_THREADS, 0, stream>>>(a);
     return (int)cudaGetLastError();
 }

@@ -127,138 +127,267 @@ __global__ void match_pass2(int n_a, const int* __restrict__ claimed,
 // descriptors).  The JAX version top-2s the full (Na, Nb) Hamming matrix,
 // argmins its transpose for the mutual check and scatters a 30-bin
 // histogram.  Bound: integer operations (Na*Nb XOR+popcount pairs, twice:
-// once by rows, once by columns).  Design: one launch whose first blocks
-// scan rows (running best-2, lower index on ties) and whose last blocks
-// scan columns (first best row), each staging the other side's
-// descriptors in shared memory; no (Na, Nb) matrix exists.  A second
-// launch, one block, applies the gates, the mutual check and the rotation
-// histogram (shared-memory atomics, the third-largest count by one
-// thread) and writes the outputs.  Integers throughout: exact.
+// once by rows, once by columns); at 1000 x 1000 that is ~2 us of
+// popcounts spread over the card, so what matters is using every SM and
+// keeping each round of global loads in flight together.
+//
+// Design: one launch.  A CTA takes 16 queries (8 warps, two queries a
+// warp, their descriptors in registers): the first ceil(n_a / 16) CTAs
+// take rows of a against b, the next ceil(n_b / 16) (with the mutual
+// check) columns of b against a, so 1000 x 1000 runs on 126 CTAs, one
+// wave.  Each CTA stages the other side's descriptors in shared memory
+// in tiles of 1024 (9 words a target, so that a warp's 32 lanes reading
+// word k of 32 consecutive targets hit 32 banks) and a warp's lanes
+// stride the targets, each target read once for both queries.  A lane
+// keeps a running best-2 (rows: best, its column, second; the lower
+// column wins ties, an equal later distance goes to second) or first
+// best row (columns); a shuffle tree merges the lanes with the same rule
+// (best of the union by (distance, index), second = min(winner's second,
+// loser's best)), exact on integers, so every lane ends equal.  The last
+// CTA to take a self-resetting ticket finishes: the ratio and max_dist
+// gates, the mutual check, the 30-bin rotation histogram in shared-memory
+// integer atomics (exact, order-free) with the twin's fmodf / floorf
+// rounding, the third-largest count by three rounds of a warp arg-max,
+// and the outputs.  Integers throughout: exact.  The ticket is one global
+// counter: launches of this kernel must not overlap (one stream).
 constexpr float TWO_PI_F = 6.28318548202514648f;  // float32(2 pi)
 constexpr int HISTO = 30;
+constexpr int NN_THREADS = 256;
+constexpr int NN_WARPS = NN_THREADS / 32;
+constexpr int NN_QPW = 2;  // queries a warp
+constexpr int NN_QPC = NN_WARPS * NN_QPW;  // queries a CTA
+constexpr int NN_TILE = 1024;  // targets staged a pass
+constexpr int NN_STRIDE = 9;  // words a staged target (8 + 1 pad)
+constexpr int NN_STAGE = 2 * NN_TILE / NN_THREADS;  // 16-byte loads a thread
+constexpr int NN_ROWS = 4;  // the finish's rows a thread a round
+// the finish's (ok << 7 | bin) a row, in the staging buffer
+constexpr int NN_MAX_A = NN_TILE * NN_STRIDE * 4;
 
-__global__ void nn_scan(const uint32_t* __restrict__ desc_a,
-                        const uint8_t* __restrict__ valid_a,
-                        const uint32_t* __restrict__ desc_b,
-                        const uint8_t* __restrict__ valid_b, int n_a,
-                        int n_b, int row_blocks, int* __restrict__ nn,
-                        int* __restrict__ best, int* __restrict__ second,
-                        int* __restrict__ back) {
-    __shared__ uint32_t s_desc[TILE][8];
-    __shared__ uint8_t s_valid[TILE];
-    const bool rows = (int)blockIdx.x < row_blocks;
-    // rows: query = a, targets = b; columns: query = b, targets = a
-    const uint32_t* qd = rows ? desc_a : desc_b;
-    const uint8_t* qv = rows ? valid_a : valid_b;
-    const uint32_t* td = rows ? desc_b : desc_a;
-    const uint8_t* tv = rows ? valid_b : valid_a;
-    const int n_q = rows ? n_a : n_b;
-    const int n_t = rows ? n_b : n_a;
-    const int q = (rows ? blockIdx.x : blockIdx.x - row_blocks) * blockDim.x
-                  + threadIdx.x;
-    const bool active = q < n_q;
-    uint32_t dq[8];
-    bool okq = false;
-    if (active) {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) dq[k] = qd[8 * q + k];
-        okq = qv[q] != 0;
-    }
-    int b1 = 0x7fffffff, b2 = 0x7fffffff, b1_i = 0;
-    for (int t0 = 0; t0 < n_t; t0 += TILE) {
-        __syncthreads();
-        for (int i = threadIdx.x; i < TILE; i += blockDim.x) {
-            const int t = t0 + i;
-            if (t < n_t) {
-#pragma unroll
-                for (int k = 0; k < 8; ++k) s_desc[i][k] = td[8 * t + k];
-                s_valid[i] = tv[t];
-            }
-        }
-        __syncthreads();
-        if (!active) continue;
-        const int cnt = min(TILE, n_t - t0);
-        for (int i = 0; i < cnt; ++i) {
-            int d = BIG;
-            if (okq && s_valid[i] != 0) {
-                d = 0;
-#pragma unroll
-                for (int k = 0; k < 8; ++k) d += __popc(dq[k] ^ s_desc[i][k]);
-            }
-            if (d < b1) {
-                b2 = b1;
-                b1 = d;
-                b1_i = t0 + i;
-            } else if (d < b2) {
-                b2 = d;
-            }
-        }
-    }
-    if (!active) return;
-    if (rows) {
-        nn[q] = b1_i;
-        best[q] = b1;
-        second[q] = b2;
-    } else {
-        back[q] = b1_i;
-    }
-}
+__device__ unsigned g_nn_ticket;
 
-__global__ void nn_finish(const int* __restrict__ nn,
-                          const int* __restrict__ best,
-                          const int* __restrict__ second,
-                          const int* __restrict__ back,
-                          const uint8_t* __restrict__ valid_a,
-                          const float* __restrict__ angle_a,
-                          const float* __restrict__ angle_b, int n_a,
-                          float ratio, int max_dist, int mutual,
-                          int* __restrict__ match, int* __restrict__ dist) {
-    __shared__ int counts[HISTO];
-    __shared__ int thresh;
-    for (int i = threadIdx.x; i < HISTO; i += blockDim.x) counts[i] = 0;
-    __syncthreads();
-    for (int a = threadIdx.x; a < n_a; a += blockDim.x) {
-        const int j = nn[a];
-        bool ok = best[a] <= max_dist &&
-                  (float)best[a] <= __fmul_rn(ratio, (float)second[a]) &&
-                  valid_a[a] != 0;
-        if (mutual) ok = ok && back[j] == a;
-        match[a] = ok ? 1 : 0;
-        if (angle_a != nullptr) {
-            const float da = __fsub_rn(angle_a[a], angle_b[j]);
-            float m = fmodf(da, TWO_PI_F);
-            if (m != 0.0f && m < 0.0f) m = __fadd_rn(m, TWO_PI_F);
-            const int bin =
-                ((int)floorf(__fmul_rn(__fdiv_rn(m, TWO_PI_F), (float)HISTO)))
-                % HISTO;
-            dist[a] = bin;  // the bin, until the final pass
-            if (ok) atomicAdd(&counts[bin], 1);
-        }
+struct NNArgs {
+    const uint32_t* desc_a;  // (n_a, 8)
+    const uint8_t* valid_a;
+    const uint32_t* desc_b;  // (n_b, 8)
+    const uint8_t* valid_b;
+    const float* angle_a;  // (n_a,) or null
+    const float* angle_b;  // (n_b,) or null
+    int n_a, n_b, row_ctas, mutual, max_dist;
+    float ratio;
+    int* nn;  // scratch (n_a,): each row's best column
+    int* best;  // (n_a,)
+    int* second;  // (n_a,)
+    int* back;  // (n_b,): each column's first best row
+    int* match;  // (n_a,) out
+    int* dist;  // (n_a,) out
+};
+
+__global__ void __launch_bounds__(NN_THREADS)
+nn_ratio_kernel(const __grid_constant__ NNArgs a) {
+    __shared__ uint32_t s_t[NN_TILE * NN_STRIDE];
+    __shared__ uint8_t s_tv[NN_TILE];
+    __shared__ int s_counts[HISTO];
+    __shared__ int s_thresh;
+    __shared__ bool s_last;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const bool rows = (int)blockIdx.x < a.row_ctas;
+    // rows: queries of a, targets of b; columns: queries of b, targets of a
+    const uint32_t* qd = rows ? a.desc_a : a.desc_b;
+    const uint8_t* qv = rows ? a.valid_a : a.valid_b;
+    const uint32_t* td = rows ? a.desc_b : a.desc_a;
+    const uint8_t* tv = rows ? a.valid_b : a.valid_a;
+    const int n_q = rows ? a.n_a : a.n_b;
+    const int n_t = rows ? a.n_b : a.n_a;
+    const int q0 = ((rows ? blockIdx.x : blockIdx.x - a.row_ctas) * NN_QPC)
+                   + warp * NN_QPW;
+    uint32_t dq[NN_QPW][8];
+    bool okq[NN_QPW];
+#pragma unroll
+    for (int j = 0; j < NN_QPW; ++j) {
+        const int q = q0 + j;
+        okq[j] = q < n_q && qv[q] != 0;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) dq[j][k] = q < n_q ? qd[8 * q + k] : 0u;
     }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        int c1 = -1, c2 = -1, c3 = -1;
-        for (int i = 0; i < HISTO; ++i) {
-            const int c = counts[i];
-            if (c > c1) {
-                c3 = c2;
-                c2 = c1;
-                c1 = c;
-            } else if (c > c2) {
-                c3 = c2;
-                c2 = c;
-            } else if (c > c3) {
-                c3 = c;
+    // a lane's running best (distance, index) and, for rows, second
+    int b1[NN_QPW], i1[NN_QPW], b2[NN_QPW];
+#pragma unroll
+    for (int j = 0; j < NN_QPW; ++j) {
+        b1[j] = 0x7fffffff;
+        i1[j] = 0x7fffffff;
+        b2[j] = 0x7fffffff;
+    }
+    const uint4* td4 = reinterpret_cast<const uint4*>(td);
+    for (int t0 = 0; t0 < n_t; t0 += NN_TILE) {
+        const int cnt = min(NN_TILE, n_t - t0);
+        __syncthreads();
+        // every load of the tile in flight before the first store
+        uint4 v[NN_STAGE];
+        uint8_t f[NN_STAGE / 2];
+#pragma unroll
+        for (int u = 0; u < NN_STAGE; ++u) {
+            const int i = u * NN_THREADS + tid;
+            if (i < 2 * cnt) v[u] = td4[2 * t0 + i];
+            if (u < NN_STAGE / 2 && i < cnt) f[u] = tv[t0 + i];
+        }
+#pragma unroll
+        for (int u = 0; u < NN_STAGE; ++u) {
+            const int i = u * NN_THREADS + tid;
+            if (i < 2 * cnt) {
+                uint32_t* dst = s_t + (i >> 1) * NN_STRIDE + 4 * (i & 1);
+                dst[0] = v[u].x;
+                dst[1] = v[u].y;
+                dst[2] = v[u].z;
+                dst[3] = v[u].w;
+            }
+            if (u < NN_STAGE / 2 && i < cnt) s_tv[i] = f[u];
+        }
+        __syncthreads();
+        for (int t = lane; t < cnt; t += 32) {
+            const uint32_t* w = s_t + t * NN_STRIDE;
+            uint32_t x[8];
+#pragma unroll
+            for (int k = 0; k < 8; ++k) x[k] = w[k];
+            const bool vt = s_tv[t] != 0;
+#pragma unroll
+            for (int j = 0; j < NN_QPW; ++j) {
+                int d = BIG;
+                if (okq[j] && vt) {
+                    d = 0;
+#pragma unroll
+                    for (int k = 0; k < 8; ++k) d += __popc(dq[j][k] ^ x[k]);
+                }
+                if (d < b1[j]) {
+                    b2[j] = b1[j];
+                    b1[j] = d;
+                    i1[j] = t0 + t;
+                } else if (d < b2[j]) {
+                    b2[j] = d;
+                }
             }
         }
-        thresh = max(c3, 1);
+    }
+    // merge the lanes: best of the union by (distance, index); the
+    // second is the least of the winner's second and the loser's best
+#pragma unroll
+    for (int j = 0; j < NN_QPW; ++j) {
+        for (int off = 16; off > 0; off >>= 1) {
+            const int ob = __shfl_xor_sync(0xffffffffu, b1[j], off);
+            const int oi = __shfl_xor_sync(0xffffffffu, i1[j], off);
+            const int os = __shfl_xor_sync(0xffffffffu, b2[j], off);
+            if (ob < b1[j] || (ob == b1[j] && oi < i1[j])) {
+                b2[j] = min(os, b1[j]);
+                b1[j] = ob;
+                i1[j] = oi;
+            } else {
+                b2[j] = min(b2[j], ob);
+            }
+        }
+        const int q = q0 + j;
+        if (lane == 0 && q < n_q) {
+            if (rows) {
+                a.nn[q] = i1[j];
+                a.best[q] = b1[j];
+                a.second[q] = b2[j];
+            } else {
+                a.back[q] = i1[j];
+            }
+            __threadfence();
+        }
+    }
+    // ---- the last CTA to finish applies the gates and the histogram
+    __syncthreads();
+    if (tid == 0) {
+        __threadfence();
+        s_last = atomicInc(&g_nn_ticket, gridDim.x - 1) == gridDim.x - 1;
     }
     __syncthreads();
-    for (int a = threadIdx.x; a < n_a; a += blockDim.x) {
-        bool ok = match[a] != 0;
-        if (angle_a != nullptr) ok = ok && counts[dist[a]] >= thresh;
-        match[a] = ok ? nn[a] : -1;
-        dist[a] = ok ? best[a] : BIG;
+    if (!s_last) return;
+    __threadfence();
+    const bool angles = a.angle_a != nullptr;
+    uint8_t* s_flag = reinterpret_cast<uint8_t*>(s_t);
+    if (tid < HISTO) s_counts[tid] = 0;
+    __syncthreads();
+    // NN_ROWS rows a thread a round, each round's loads issued together
+    for (int base = 0; base < a.n_a; base += NN_ROWS * NN_THREADS) {
+        int j[NN_ROWS], bq[NN_ROWS], sq[NN_ROWS], bk[NN_ROWS];
+        uint8_t va[NN_ROWS];
+        float da[NN_ROWS];
+#pragma unroll
+        for (int u = 0; u < NN_ROWS; ++u) {
+            const int q = base + u * NN_THREADS + tid;
+            const bool in = q < a.n_a;
+            j[u] = in ? __ldcg(a.nn + q) : 0;
+            bq[u] = in ? __ldcg(a.best + q) : BIG;
+            sq[u] = in ? __ldcg(a.second + q) : BIG;
+            va[u] = in ? a.valid_a[q] : 0;
+        }
+#pragma unroll
+        for (int u = 0; u < NN_ROWS; ++u) {
+            const int q = base + u * NN_THREADS + tid;
+            bk[u] = a.mutual && q < a.n_a ? __ldcg(a.back + j[u]) : q;
+            da[u] = angles && q < a.n_a
+                        ? __fsub_rn(a.angle_a[q], a.angle_b[j[u]]) : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < NN_ROWS; ++u) {
+            const int q = base + u * NN_THREADS + tid;
+            if (q >= a.n_a) continue;
+            const bool ok =
+                bq[u] <= a.max_dist &&
+                (float)bq[u] <= __fmul_rn(a.ratio, (float)sq[u]) &&
+                va[u] != 0 && bk[u] == q;
+            int bin = 0;
+            if (angles) {
+                float m = fmodf(da[u], TWO_PI_F);
+                if (m != 0.0f && m < 0.0f) m = __fadd_rn(m, TWO_PI_F);
+                bin = ((int)floorf(__fmul_rn(__fdiv_rn(m, TWO_PI_F),
+                                             (float)HISTO))) % HISTO;
+                if (ok) atomicAdd(&s_counts[bin], 1);
+            }
+            s_flag[q] = (uint8_t)((ok ? 0x80 : 0) | bin);
+        }
+    }
+    __syncthreads();
+    if (warp == 0) {
+        // the third-largest count (with repeats, as torch.topk): three
+        // rounds of a warp arg-max, each taking its first maximum out
+        int c = lane < HISTO ? s_counts[lane] : -1;
+        int third = 0;
+        for (int r = 0; r < 3; ++r) {
+            int v = c, i = lane;
+            for (int off = 16; off > 0; off >>= 1) {
+                const int ov = __shfl_xor_sync(0xffffffffu, v, off);
+                const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+                if (ov > v || (ov == v && oi < i)) {
+                    v = ov;
+                    i = oi;
+                }
+            }
+            if (i == lane) c = -1;
+            third = v;
+        }
+        if (lane == 0) s_thresh = max(third, 1);
+    }
+    __syncthreads();
+    for (int base = 0; base < a.n_a; base += NN_ROWS * NN_THREADS) {
+        int j[NN_ROWS], bq[NN_ROWS];
+#pragma unroll
+        for (int u = 0; u < NN_ROWS; ++u) {
+            const int q = base + u * NN_THREADS + tid;
+            j[u] = q < a.n_a ? __ldcg(a.nn + q) : 0;
+            bq[u] = q < a.n_a ? __ldcg(a.best + q) : 0;
+        }
+#pragma unroll
+        for (int u = 0; u < NN_ROWS; ++u) {
+            const int q = base + u * NN_THREADS + tid;
+            if (q >= a.n_a) continue;
+            const uint8_t fl = s_flag[q];
+            const bool ok = (fl & 0x80) &&
+                            (!angles || s_counts[fl & 0x7f] >= s_thresh);
+            a.match[q] = ok ? j[u] : -1;
+            a.dist[q] = ok ? bq[u] : BIG;
+        }
     }
 }
 
@@ -328,9 +457,11 @@ __global__ void guided_count_kernel(const float* __restrict__ uv_a,
 
 }  // namespace
 
-// desc_*: (N, 32) u8 as (N, 8) u32; valid_*: (N,) u8; angle_*: (N,) f32 or
-// both NULL (no rotation histogram); scratch: (3 n_a + n_b) i32.  Outputs
-// match (n_a,) i32 (-1 = none), dist (n_a,) i32 (10000 = none).
+// desc_*: (N, 32) u8 as (N, 8) u32 on a 16-byte boundary; valid_*: (N,)
+// u8; angle_*: (N,) f32 or both NULL (no rotation histogram); n_b >= 1,
+// n_a <= 36864;
+// scratch: (3 n_a + n_b) i32, no fill needed.  Outputs match (n_a,) i32
+// (-1 = none), dist (n_a,) i32 (10000 = none).  One launch.
 VSG_API int vsg_match_nn_ratio(const uint32_t* desc_a, const uint8_t* valid_a,
                                const uint32_t* desc_b, const uint8_t* valid_b,
                                const float* angle_a, const float* angle_b,
@@ -338,21 +469,31 @@ VSG_API int vsg_match_nn_ratio(const uint32_t* desc_a, const uint8_t* valid_a,
                                int mutual, int* scratch, int* match,
                                int* dist, cudaStream_t stream) {
     if (n_a == 0) return 0;
-    const int threads = 64;
-    const int row_blocks = (n_a + threads - 1) / threads;
-    const int col_blocks = (n_b + threads - 1) / threads;
-    int* nn = scratch;
-    int* best = scratch + n_a;
-    int* second = scratch + 2 * n_a;
-    int* back = scratch + 3 * n_a;
-    nn_scan<<<row_blocks + col_blocks, threads, 0, stream>>>(
-        desc_a, valid_a, desc_b, valid_b, n_a, n_b, row_blocks, nn, best,
-        second, back);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    nn_finish<<<1, 1024, 0, stream>>>(nn, best, second, back, valid_a,
-                                      angle_a, angle_b, n_a, ratio, max_dist,
-                                      mutual, match, dist);
+    if (n_b < 1 || n_a > NN_MAX_A ||
+        (((uintptr_t)desc_a | (uintptr_t)desc_b) & 15) != 0) {
+        return (int)cudaErrorInvalidValue;
+    }
+    NNArgs a;
+    a.desc_a = desc_a;
+    a.valid_a = valid_a;
+    a.desc_b = desc_b;
+    a.valid_b = valid_b;
+    a.angle_a = angle_a;
+    a.angle_b = angle_b;
+    a.n_a = n_a;
+    a.n_b = n_b;
+    a.row_ctas = (n_a + NN_QPC - 1) / NN_QPC;
+    a.mutual = mutual;
+    a.max_dist = max_dist;
+    a.ratio = ratio;
+    a.nn = scratch;
+    a.best = scratch + n_a;
+    a.second = scratch + 2 * n_a;
+    a.back = scratch + 3 * n_a;
+    a.match = match;
+    a.dist = dist;
+    const int col_ctas = mutual ? (n_b + NN_QPC - 1) / NN_QPC : 0;
+    nn_ratio_kernel<<<a.row_ctas + col_ctas, NN_THREADS, 0, stream>>>(a);
     return (int)cudaGetLastError();
 }
 

@@ -233,7 +233,7 @@ _ARGTYPES = {
     "vsg_extract_planes": [_VP] * 4 + [_I, _I, _I, _F, _F] + [_VP] * 4,
     "vsg_plane_epilogue": [_VP] * 7 + [_I, _I, _F, _F, _I] + [_VP] * 7,
     "vsg_bow_vectors": [_VP] * 3 + [_I] * 13 + [_VP] * 5,
-    "vsg_place_query": [_VP] * 6 + [_I, _I, _F, _I] + [_VP] * 4,
+    "vsg_place_query": [_VP] * 7 + [_I, _I, _F, _I, _I, _VP, _I, _VP, _VP],
     "vsg_match_nn_ratio": [_VP] * 6 + [_I, _I, _F, _I, _I] + [_VP] * 4,
     "vsg_guided_count": [_VP] * 6 + [_I, _I, _F, _I] + [_VP] * 2,
     "vsg_verify_sim3": [_VP] * 4 + [_I, _I, _F, _I, _I] + [_VP] * 6,

@@ -204,8 +204,8 @@ def _check_desc(name, *descs):
 def match_nn_ratio(desc_a, valid_a, desc_b, valid_b, ratio: float = 0.75,
                    max_dist: int = TH_LOW, angle_a=None, angle_b=None,
                    mutual: bool = True):
-    """NN-ratio matcher (kernel K5's second entry on CUDA tensors, the
-    twin on CPU); the outputs of ``match_nn_ratio_torch``."""
+    """NN-ratio matcher (kernel K5's second entry on CUDA tensors, one
+    launch; the twin on CPU); the outputs of ``match_nn_ratio_torch``."""
     if desc_a.device.type == "cpu":
         return match_nn_ratio_torch(desc_a, valid_a, desc_b, valid_b, ratio,
                                     max_dist, angle_a, angle_b, mutual)
@@ -220,10 +220,15 @@ def match_nn_ratio(desc_a, valid_a, desc_b, valid_b, ratio: float = 0.75,
                       or angle_b.dtype != torch.float32):
         raise ValueError("match_nn_ratio: angles must be float32")
     n_a, n_b = desc_a.shape[0], desc_b.shape[0]
+    if (n_b < 1 or n_a > 36864 or desc_a.data_ptr() % 16
+            or desc_b.data_ptr() % 16):
+        raise ValueError("match_nn_ratio: 1 <= n_b, n_a <= 36864, "
+                         "descriptors on a 16-byte boundary")
     dev = desc_a.device
     match = torch.empty((n_a,), dtype=torch.int32, device=dev)
     dist = torch.empty((n_a,), dtype=torch.int32, device=dev)
-    # per row: nn, best, second; per column: best row
+    # per row: nn, best, second; per column: best row (no fill: the
+    # launch writes each before it reads it)
     scratch = torch.empty((3 * n_a + n_b,), dtype=torch.int32, device=dev)
     cuda.call("vsg_match_nn_ratio", cuda.ptr(desc_a), cuda.ptr(valid_a),
               cuda.ptr(desc_b), cuda.ptr(valid_b),

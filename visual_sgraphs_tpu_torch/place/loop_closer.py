@@ -141,20 +141,25 @@ def _exclusion_mask(m: MapState, kf: int, min_gap: int = 10):
 def _detect_program(m: MapState, db: db_mod.PlaceDB,
                     vocab: vocab_mod.VocabTree, kf: int, min_gap: int,
                     top_n: int, extra=None):
-    """The per-keyframe place query: BoW vector (K10), exclusion, database
-    validity sync, candidates and covisible reference score (K11), then
-    the insertion.  Returns (database, packed (2 top_n + 3,) [ref, ids,
-    scores, valid rows, extra])."""
+    """The per-keyframe place query: BoW vector (K10), exclusion, then the
+    database step (K11's insertion entry, one launch): validity sync,
+    candidates and covisible reference score, the insertion and the
+    packed vector.  Returns (database, packed (2 top_n + 3,) [ref, ids,
+    scores, valid rows, extra]); ``_detect_program.cuda_calls`` counts the
+    calls on the card."""
     bow = vocab_mod.bow_vector(vocab, m.kf_desc[kf], m.kf_kp_valid[kf])
+    if bow.is_cuda:
+        _detect_program.cuda_calls += 1
     exclude, covis = _exclusion_mask(m, kf, min_gap)
-    db = db._replace(valid=db.valid & m.kf_valid)
-    packed = db_mod.place_query(db, bow, exclude, covis, 0.8, top_n)
     # the query reads the rows before the insertion writes row ``kf``
-    # (stream order); ``kf`` is excluded from its own query anyway
-    db = db_mod.add_keyframe(db, kf, bow)
-    if extra is None:
-        extra = torch.zeros((1,), dtype=torch.float32, device=bow.device)
-    return db, torch.cat([packed, extra.to(torch.float32).reshape(-1)])
+    # (``kf`` is excluded from its own query, and covis[kf] is false, so
+    # the reference's reading of the reference score after the insertion
+    # gives the same value)
+    return db_mod.place_query_insert(db, bow, exclude, covis, m.kf_valid,
+                                     kf, extra, 0.8, top_n)
+
+
+_detect_program.cuda_calls = 0
 
 
 def _loop_drift(kf_pose, cur: int, cand: int, S_est):
@@ -181,6 +186,8 @@ def reloc_in_map(m: MapState, db: db_mod.PlaceDB,
     (7,), kf slot) or None."""
     min_eff = max(12, min_inliers * int(frame.valid.shape[0]) // 1000)
     bow = vocab_mod.bow_vector(vocab, frame.desc, frame.valid)
+    if bow.is_cuda:
+        reloc_in_map.cuda_calls += 1
     packed = db_mod.place_query(db, bow, ~m.kf_valid,
                                 torch.zeros_like(m.kf_valid), 0.5, top_n)
     cand_ids = read(packed[1:1 + top_n]).astype(np.int64)
@@ -193,6 +200,9 @@ def reloc_in_map(m: MapState, db: db_mod.PlaceDB,
         if int(read(n_inl)) >= min_eff:
             return lie.se3_normalize(pose), int(cid)
     return None
+
+
+reloc_in_map.cuda_calls = 0
 
 
 def _consume_board(system, value: float) -> None:

@@ -15,6 +15,7 @@
     python -m visual_sgraphs_tpu_torch.profile_slice --k20-sections
     python -m visual_sgraphs_tpu_torch.profile_slice --schur-times PATH
     python -m visual_sgraphs_tpu_torch.profile_slice --sg-times PATH
+    python -m visual_sgraphs_tpu_torch.profile_slice --place-times PATH
 
 Runs the main path of ``main_path`` (640x480, 1000 features, 96
 ``orbit2`` frames) through ``SlamSystem.track_rgbd`` on the card (with
@@ -91,6 +92,11 @@ of plain tensors) when it does not exist, so that two trees are timed on
 the same operands.  With ``--sg-times PATH`` it times K21 (the scene-graph
 BA iteration's assembly, its kernel and plan) and K13 on seeded operands
 and on ``bench_slice``'s, recorded into PATH likewise (``sg_times``).
+With ``--place-times PATH`` it times K11 (the keyframe program's database
+step and the relocalisation's query) on a ``bench_slice`` keyframe's
+operands and seeded ones, and K5's NN ratio on ``bench_slice``'s first
+loop verification's operands and at its three seeded call shapes,
+recorded into PATH likewise (``place_times``).
 Prints one JSON line per result; needs a card.
 """
 
@@ -1374,6 +1380,142 @@ def sg_times(path: str) -> None:
     _card_line()
 
 
+def _record_place_operands(path: str) -> None:
+    """The operands of ``bench_slice``'s eighth keyframe place query (the
+    database before it, the keyframe's BoW row, the exclusion and
+    covisibility masks, the map's keyframe validity, the slot, the extra
+    scalar) and of its first loop verification's NN ratio (192 frames),
+    with seeded K11 and NN-ratio operands, saved as plain tensors.  Needs
+    a tree with ``selfcheck.watch_place``."""
+    from visual_sgraphs_tpu_torch import main_path, selfcheck
+    dev = torch.device("cuda")
+    scene, frames = main_path.frames("cuda", main_path.BENCH_FRAMES)
+    system = main_path.make_system(main_path.bench_config(scene), "cuda",
+                                   True)
+    with selfcheck.watch_place(which=8) as place_seen, \
+            selfcheck.watch_nn(which=1) as nn_seen:
+        for frame in frames:
+            main_path.feed(system, frame)
+        system.flush()
+    del system
+    db, q, exclude, covis, kf_valid, kf, extra, ratio, top_n = \
+        place_seen["operands"]
+    sdb, sq, sex, scov, skv, skf, sextra = selfcheck.place_query_inputs(dev)
+    torch.save(dict(
+        place=dict(db=list(db), q=q, exclude=exclude, covis=covis,
+                   kf_valid=kf_valid, kf=kf, extra=extra, ratio=ratio,
+                   top_n=top_n),
+        place_seeded=dict(db=list(sdb), q=sq, exclude=sex, covis=scov,
+                          kf_valid=skv, kf=skf, extra=sextra, ratio=0.8,
+                          top_n=3),
+        nn_bench=dict(operands=list(nn_seen["operands"]), **nn_seen["kw"]),
+        nn_seeded=dict(operands=list(selfcheck.nn_inputs(dev)), ratio=0.85,
+                       max_dist=50, angles=True, mutual=True),
+        nn_1237=dict(operands=list(selfcheck.nn_inputs(dev, 1000,
+                                                       n_b=1237)),
+                     ratio=0.85, max_dist=50, angles=True, mutual=True)),
+        path)
+
+
+def place_times(path: str) -> None:
+    """K11 and K5's NN ratio on the operands recorded in ``path``
+    (recorded there first when it does not exist): the keyframe program's
+    database step (this tree's: K11's insertion entry, one launch; or the
+    former validity sync, query, insertion and packing), the
+    relocalisation's query, on a ``bench_slice`` keyframe's operands and
+    seeded ones; the NN ratio on ``bench_slice``'s first loop
+    verification's operands, and seeded as the loop verification (1000 x
+    1000, angles, 0.85), the relocalisation (no angles, 0.8) and at 1000 x
+    1237: device ms (``selfcheck.device_time``), device operations
+    (``selfcheck.graph_ops``), host ms (``_host_call_ms``), whether three
+    calls agree bitwise, and digests of the outputs.  Run by path with
+    ``PYTHONPATH`` set to another tree's root to time that tree on the
+    same operands."""
+    import os
+
+    from visual_sgraphs_tpu_torch import cuda, selfcheck
+    from visual_sgraphs_tpu_torch.features import match
+    from visual_sgraphs_tpu_torch.place import database
+    cuda.build()
+    dev = torch.device("cuda")
+    if not os.path.exists(path):
+        _record_place_operands(path)
+    rec = torch.load(path, map_location=dev)
+    fused = hasattr(database, "place_query_insert")
+
+    def sha(ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    def line(name, fn, fresh=None, **info):
+        # ``fresh()`` gives each repeat its own copy of what fn updates
+        outs = [fn(*(fresh() if fresh else ())) for _ in range(3)]
+        flat = [[t for t in (o if isinstance(o, tuple) else (o,))
+                 if isinstance(t, torch.Tensor)] for o in outs]
+        repro = all(all(torch.equal(a, b) for a, b in zip(flat[0], f))
+                    for f in flat[1:])
+        args = fresh() if fresh else ()
+        call = lambda: fn(*args)  # noqa: E731
+        _line("place_times", name=name, tree="change" if fused else
+              "parent", device_ms=selfcheck.device_time(call),
+              device_ops=selfcheck.graph_ops(call),
+              host_call_ms=_host_call_ms(call), bitwise_repro=repro,
+              out_sha=sha(flat[0]), head=flat[0][0][:12].tolist(), **info)
+
+    for tag in ("place", "place_seeded"):
+        r = rec[tag]
+        db0 = database.PlaceDB(*r["db"])
+        q, ex, cov, kfv, kf, extra = (r["q"], r["exclude"], r["covis"],
+                                      r["kf_valid"], r["kf"], r["extra"])
+        ratio, top_n = r["ratio"], r["top_n"]
+
+        def fresh(db0=db0):
+            return (database.PlaceDB(*(t.clone() for t in db0)),)
+
+        if fused:
+            def step(db, q=q, ex=ex, cov=cov, kfv=kfv, kf=kf, extra=extra,
+                     ratio=ratio, top_n=top_n):
+                out_db, packed = database.place_query_insert(
+                    db, q, ex, cov, kfv, kf, extra, ratio, top_n)
+                return (packed, *out_db)
+        else:
+            def step(db, q=q, ex=ex, cov=cov, kfv=kfv, kf=kf, extra=extra,
+                     ratio=ratio, top_n=top_n):
+                db = db._replace(valid=db.valid & kfv)
+                packed = database.place_query(db, q, ex, cov, ratio, top_n)
+                db = database.add_keyframe(db, kf, q)
+                return (torch.cat([packed, extra.to(torch.float32)
+                                   .reshape(-1)]), *db)
+
+        K, W = db0.bow.shape
+        line(f"K11_keyframe@{tag}", step, fresh, K=K, W=W, kf=kf)
+        # the relocalisation's masks: invalid keyframes, no covisibility
+        masks = (~kfv, torch.zeros_like(kfv))
+        line(f"K11_query@{tag}", lambda db0=db0, q=q, masks=masks,
+             top_n=top_n: database.place_query(db0, q, *masks, 0.5, top_n),
+             K=K, W=W)
+    for tag in ("nn_bench", "nn_seeded", "nn_1237"):
+        r = rec[tag]
+        da, va, db_, vb, aa, ab = r["operands"]
+        kw = dict(ratio=r["ratio"], max_dist=r["max_dist"],
+                  mutual=r["mutual"])
+        if r["angles"]:
+            kw.update(angle_a=aa, angle_b=ab)
+        line(f"K5_nn_ratio@{tag}", lambda da=da, va=va, db_=db_, vb=vb,
+             kw=kw: match.match_nn_ratio(da, va, db_, vb, **kw),
+             n_a=int(da.shape[0]), n_b=int(db_.shape[0]), **{
+                 k: v for k, v in r.items() if k != "operands"})
+        if tag == "nn_seeded":
+            kw = dict(ratio=0.8, max_dist=r["max_dist"], mutual=True)
+            line("K5_nn_ratio@reloc_seeded", lambda da=da, va=va, db_=db_,
+                 vb=vb, kw=kw: match.match_nn_ratio(da, va, db_, vb, **kw),
+                 n_a=int(da.shape[0]), n_b=int(db_.shape[0]), ratio=0.8,
+                 angles=False, mutual=True)
+    _card_line()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenegraph", action="store_true",
@@ -1418,6 +1560,10 @@ def main() -> None:
                     help="K21's assembly and plan and K13: device ms, "
                     "device operations, host ms (operands recorded into "
                     "PATH, or loaded from it)")
+    ap.add_argument("--place-times", metavar="PATH", default=None,
+                    help="K11's two entries and K5's NN ratio: device ms, "
+                    "device operations, host ms (operands recorded into "
+                    "PATH, or loaded from it)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false")
@@ -1453,6 +1599,8 @@ def main() -> None:
         schur_times(args.schur_times)
     elif args.sg_times:
         sg_times(args.sg_times)
+    elif args.place_times:
+        place_times(args.place_times)
     elif args.loop_runs:
         loop_spread(args.loop_runs)
     else:

@@ -1458,78 +1458,361 @@ def check_bow(device, inputs=None) -> dict:
                 ops=F * L * K * 25 + 3 * W)
 
 
-def check_place_query(device, inputs=None) -> dict:
-    """K11 on a (128, 512) database: packed candidate ids, valid count
-    and ordering exactly equal, scores within BOW_TOL relative."""
-    if inputs is None:
-        tree, desc, valid = place_inputs(device)
-        bows = vocab_mod.bow_vectors_torch(tree, desc, valid)
-        rng = np.random.default_rng(1)
-        K = bows.shape[0]
-        t = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
-        db = database.build_db(bows, t(rng.uniform(size=K) > 0.1))
-        q = bows[7]
-        exclude = t(rng.uniform(size=K) < 0.3)
-        covis = t(rng.uniform(size=K) < 0.2)
-    else:
-        db, q, exclude, covis = inputs
-    args = (db, q, exclude, covis, 0.8, 3)
-    k = database.place_query(*args)
-    tw = database.place_query_torch(*args)
+def place_query_inputs(device, seed: int = 1):
+    """K11's operands on a (128, 512) database of ``place_inputs``' rows:
+    (db, query, exclude, covis, kf_valid, kf, extra); row kf (a slot
+    being reused) still holds another keyframe's row, valid."""
+    tree, desc, valid = place_inputs(device)
+    bows = vocab_mod.bow_vectors_torch(tree, desc, valid)
+    rng = np.random.default_rng(seed)
+    K = bows.shape[0]
+    t = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    db_valid = rng.uniform(size=K) > 0.1
+    kf = 40
+    db_valid[kf] = True
+    db = database.build_db(bows, t(db_valid))
+    q = bows[7].clone()
+    exclude = rng.uniform(size=K) < 0.3
+    exclude[kf] = True
+    covis = rng.uniform(size=K) < 0.2
+    covis[kf] = False
+    kf_valid = rng.uniform(size=K) > 0.05
+    kf_valid[kf] = True
+    extra = torch.tensor([1234], dtype=torch.int32, device=device)
+    return (db, q, t(exclude), t(covis), t(kf_valid), kf, extra)
+
+
+def _db_copy(db):
+    return type(db)(*(t.clone() for t in db))
+
+
+def check_place_query(device, inputs=None, name: str = "place_query",
+                      ratio: float = 0.8, top_n: int = 3) -> dict:
+    """K11's two entries on one database: the query (relocalisation's) and
+    the keyframe program's insertion entry (validity sync, query,
+    insertion, packed vector with the extra scalars), each from a fresh
+    copy of the database.  Candidate ids, valid count, extra and the
+    database after the insertion exactly equal to the twins', scores
+    within BOW_TOL relative; each entry one device operation a call
+    (``graph_ops``) and bitwise equal from launch to launch.  Times are
+    the insertion entry's (the main path's); ``query_*`` the query's."""
+    db, q, exclude, covis, kf_valid, kf, extra = (
+        inputs or place_query_inputs(device))
+    qargs = (q, exclude, covis, ratio, top_n)
+    iargs = (q, exclude, covis, kf_valid, kf, extra, ratio, top_n)
+    k = database.place_query(db, *qargs)
+    tw = database.place_query_torch(db, *qargs)
+    k_db, ki = database.place_query_insert(_db_copy(db), *iargs)
+    t_db, ti = database.place_query_insert_torch(_db_copy(db), *iargs)
+    again = [database.place_query_insert(_db_copy(db), *iargs)
+             for _ in range(2)]
     torch.cuda.synchronize()
-    ids_equal = bool(torch.equal(k[1:4], tw[1:4])) and float(k[7]) == \
-        float(tw[7])
-    err = _rel(torch.cat([k[:1], k[4:7]]), torch.cat([tw[:1], tw[4:7]]))
+    n = 1 + 2 * top_n
+
+    def exact(a, b):  # ids, valid count (and extra)
+        return (bool(torch.equal(a[1:1 + top_n], b[1:1 + top_n]))
+                and bool(torch.equal(a[n:], b[n:])))
+
+    def scores(x):
+        return torch.cat([x[:1], x[1 + top_n:n]])
+
+    ids_equal = exact(k, tw) and exact(ki, ti)
+    db_equal = all(bool(torch.equal(x, y)) for x, y in zip(k_db, t_db))
+    repro = all(bool(torch.equal(ki, p)) and all(
+        bool(torch.equal(x, y)) for x, y in zip(k_db, d))
+        for d, p in again) and bool(torch.equal(
+            k, database.place_query(db, *qargs)))
+    err = max(_rel(scores(k), scores(tw)), _rel(scores(ki), scores(ti)))
+    work = _db_copy(db)
+    ops = graph_ops(lambda: database.place_query_insert(work, *iargs))
+    q_ops = graph_ops(lambda: database.place_query(db, *qargs))
     K, W = db.bow.shape
-    return dict(name="place_query", max_abs_err=err,
-                ok=ids_equal and err <= BOW_TOL, ids_equal=ids_equal,
-                packed=k.tolist(),
-                **_timed(lambda: database.place_query(*args)),
-                plain_ms=time_cuda(lambda: database.place_query_torch(*args)),
-                bytes=K * W * 5 + 4 * W + 3 * K + 4 * 8,
-                # per row and word: min, add, compare, add
-                ops=4 * K * W + 20 * K)
+    return dict(name=name, max_abs_err=err,
+                ok=ids_equal and db_equal and repro and err <= BOW_TOL
+                and ops == 1 and q_ops == 1,
+                ids_equal=ids_equal, db_equal=db_equal, bitwise_repro=repro,
+                device_ops=ops, query_device_ops=q_ops, K=K, W=W, kf=kf,
+                packed=ki.tolist(),
+                **_timed(lambda: database.place_query_insert(work, *iargs)),
+                query_ms=time_cuda(lambda: database.place_query(db, *qargs)),
+                query_device_ms=device_time(
+                    lambda: database.place_query(db, *qargs)),
+                plain_ms=time_cuda(lambda: database.place_query_insert_torch(
+                    _db_copy(db), *iargs)),
+                # the rows and occupancy read once, the query, the masks;
+                # row kf and its occupancy written, the valid bits
+                bytes=K * W * 5 + 4 * W + 4 * K + 5 * W + K
+                + 4 * (2 * top_n + 3),
+                # per row and word: min, add, compare, add; per row the
+                # gates and the top-n rounds
+                ops=4 * K * W + (20 + 2 * top_n) * K)
 
 
-def nn_inputs(device, n: int = 1000, seed: int = 0):
+def place_cases(K: int = 32, W: int = 64, seed: int = 3) -> list[dict]:
+    """Seeded numpy cases of K11's insertion entry (the CPU tests hold the
+    twin against the reference's steps on them; the card tests the kernel
+    against the twin): ties at the top score (the lower index first),
+    every row excluded (no candidate), top_n 1 and 8, a reused slot whose
+    row still holds an old keyframe's BoW and valid bit, covisible rows at
+    the top score, and a width that is not a multiple of 4 (the kernel's
+    scalar loads)."""
+    rng = np.random.default_rng(seed)
+
+    def base(w=W):
+        bows = rng.uniform(size=(K, w)) * (rng.uniform(size=(K, w)) < 0.3)
+        bows = (bows / np.maximum(bows.sum(1, keepdims=True), 1e-12)
+                ).astype(np.float32)
+        q = (bows[5] * rng.uniform(0.5, 1.5, w)).astype(np.float32)
+        q = (q / q.sum()).astype(np.float32)
+        return dict(bows=bows, db_valid=rng.uniform(size=K) > 0.2, q=q,
+                    exclude=rng.uniform(size=K) < 0.25,
+                    covis=rng.uniform(size=K) < 0.3,
+                    kf_valid=rng.uniform(size=K) > 0.1, kf=11, top_n=3,
+                    ratio=0.8, extra=np.array([7], np.int32))
+
+    def finish(c, name):
+        # the program's own masks: kf excluded from its own query (its
+        # recency), not covisible with itself, a valid keyframe
+        c["exclude"][c["kf"]] = True
+        c["covis"][c["kf"]] = False
+        c["kf_valid"][c["kf"]] = True
+        c["name"] = name
+        return c
+
+    cases = []
+    c = base()
+    for r in (3, 9, 20, 26):  # the same row four times: equal scores
+        c["bows"][r] = c["bows"][5]
+        c["db_valid"][r] = c["kf_valid"][r] = True
+        c["exclude"][r] = c["covis"][r] = False
+    c["exclude"][5] = True
+    cases.append(finish(c, "ties"))
+    c = base()
+    c["exclude"][:] = True
+    cases.append(finish(c, "all_excluded"))
+    for n in (1, 8):
+        c = base()
+        c["top_n"] = n
+        c["ratio"] = 0.5
+        cases.append(finish(c, f"top{n}"))
+    c = base()
+    c["db_valid"][c["kf"]] = True  # the old keyframe's row, still valid
+    c["bows"][c["kf"]] = c["bows"][5]  # ... that would score at the top
+    c["extra"] = np.array([3, -2], np.int32)
+    cases.append(finish(c, "reused_slot"))
+    c = base()
+    for r in (5, 6):
+        c["bows"][r] = c["q"]
+        c["db_valid"][r] = c["kf_valid"][r] = True
+        c["covis"][r] = c["exclude"][r] = True
+    c["extra"] = None
+    cases.append(finish(c, "covis_top"))
+    c = base(W - 3)
+    cases.append(finish(c, "odd_width"))
+    return cases
+
+
+def place_case_operands(c: dict, device):
+    """A ``place_cases`` entry as the insertion entry's operands: (db,
+    query, exclude, covis, kf_valid, kf, extra)."""
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa
+    db = database.build_db(t(c["bows"]), t(c["db_valid"]))
+    return (db, t(c["q"]), t(c["exclude"]), t(c["covis"]), t(c["kf_valid"]),
+            c["kf"], None if c["extra"] is None else t(c["extra"]))
+
+
+def run_place_cases(device) -> list[dict]:
+    """K11's two entries on every ``place_cases`` case."""
+    return [check_place_query(device, place_case_operands(c, device),
+                              name=f"place_query@{c['name']}",
+                              ratio=c["ratio"], top_n=c["top_n"])
+            for c in place_cases()]
+
+
+@contextlib.contextmanager
+def watch_place(which: int = 8):
+    """Inside the block, record the operands of the ``which``-th place
+    query of the keyframe program (K11's insertion entry; the last one if
+    fewer ran) as copies: (db, query, exclude, covis, kf_valid, kf, extra,
+    min_common_ratio, top_n), the database as it was before the call."""
+    out = {"calls": 0}
+    orig = database.place_query_insert
+
+    def spy(db, q, exclude, covis, kf_valid, kf, extra=None,
+            min_common_ratio=0.8, top_n=3):
+        out["calls"] += 1
+        if out["calls"] <= which:
+            out["operands"] = (_db_copy(db), q.clone(), exclude.clone(),
+                               covis.clone(), kf_valid.clone(), kf,
+                               None if extra is None else extra.clone(),
+                               min_common_ratio, top_n)
+        return orig(db, q, exclude, covis, kf_valid, kf, extra,
+                    min_common_ratio, top_n)
+
+    database.place_query_insert = spy
+    try:
+        yield out
+    finally:
+        database.place_query_insert = orig
+
+
+@contextlib.contextmanager
+def watch_nn(which: int = 1):
+    """Inside the block, record the operands of the ``which``-th NN-ratio
+    match of the loop closer (a loop verification's or a relocalisation
+    attempt's; the last one if fewer ran) as copies: (desc_a, valid_a,
+    desc_b, valid_b, angle_a, angle_b) and the call's ratio, max_dist,
+    whether it had angles and mutual."""
+    from visual_sgraphs_tpu_torch.place import loop_closer
+    out = {"calls": 0}
+    orig = loop_closer.match_nn_ratio
+
+    def spy(desc_a, valid_a, desc_b, valid_b, ratio=0.75,
+            max_dist=match.TH_LOW, angle_a=None, angle_b=None, mutual=True):
+        out["calls"] += 1
+        if out["calls"] <= which:
+            angles = angle_a is not None and angle_b is not None
+            out["operands"] = tuple(
+                None if x is None else x.clone()
+                for x in (desc_a, valid_a, desc_b, valid_b, angle_a,
+                          angle_b))
+            out["kw"] = dict(ratio=ratio, max_dist=max_dist, angles=angles,
+                             mutual=mutual)
+        return orig(desc_a, valid_a, desc_b, valid_b, ratio, max_dist,
+                    angle_a, angle_b, mutual)
+
+    loop_closer.match_nn_ratio = spy
+    try:
+        yield out
+    finally:
+        loop_closer.match_nn_ratio = orig
+
+
+def nn_inputs(device, n: int = 1000, seed: int = 0, n_b: int | None = None):
     """Two keyframes' descriptor sets (a third of b's rows are perturbed
     copies of a's, with a common rotation), validity and angles."""
     rng = np.random.default_rng(seed)
+    n_b = n if n_b is None else n_b
     desc_a = _clustered_descriptors(rng, n, n_base=n)
-    desc_b = _clustered_descriptors(rng, n, n_base=n)
-    src = rng.permutation(n)[: n // 3]
-    bits = (rng.uniform(size=(n // 3, 256)) < 0.05).astype(np.uint8)
-    desc_b[: n // 3] = desc_a[src] ^ np.packbits(bits, axis=1)
+    desc_b = _clustered_descriptors(rng, n_b, n_base=n_b)
+    m = min(n, n_b) // 3
+    src = rng.permutation(n)[:m]
+    bits = (rng.uniform(size=(m, 256)) < 0.05).astype(np.uint8)
+    desc_b[:m] = desc_a[src] ^ np.packbits(bits, axis=1)
     ang_a = rng.uniform(0, 2 * np.pi, n).astype(np.float32)
-    ang_b = rng.uniform(0, 2 * np.pi, n).astype(np.float32)
-    ang_b[: n // 3] = (ang_a[src] + 0.3
-                       + rng.normal(size=n // 3) * 0.05).astype(np.float32)
+    ang_b = rng.uniform(0, 2 * np.pi, n_b).astype(np.float32)
+    ang_b[:m] = (ang_a[src] + 0.3
+                 + rng.normal(size=m) * 0.05).astype(np.float32)
     t = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
     return (t(desc_a), t(rng.uniform(size=n) > 0.1), t(desc_b),
-            t(rng.uniform(size=n) > 0.1), t(ang_a), t(ang_b))
+            t(rng.uniform(size=n_b) > 0.1), t(ang_a), t(ang_b))
 
 
-def check_match_nn(device, inputs=None) -> dict:
-    """K5's NN-ratio entry (ratio 0.85, angles), 1000 x 1000: matches and
-    distances exactly equal."""
+def check_match_nn(device, inputs=None, ratio: float = 0.85,
+                   angles: bool = True, mutual: bool = True,
+                   max_dist: int = match.TH_LOW,
+                   name: str = "match_nn_ratio") -> dict:
+    """K5's NN-ratio entry (by default the loop verification's: ratio
+    0.85, angles, mutual) on 1000 x 1000 seeded descriptors or ``inputs``
+    (desc_a, valid_a, desc_b, valid_b, angle_a, angle_b): matches and
+    distances exactly equal to the twin's, one device operation a call
+    (``graph_ops``), bitwise equal from launch to launch."""
     da, va, db_, vb, aa, ab = inputs or nn_inputs(device)
-    kw = dict(ratio=0.85, angle_a=aa, angle_b=ab)
+    kw = dict(ratio=ratio, max_dist=max_dist, mutual=mutual)
+    if angles:
+        kw.update(angle_a=aa, angle_b=ab)
     km, kd = match.match_nn_ratio(da, va, db_, vb, **kw)
     tm, td = match.match_nn_ratio_torch(da, va, db_, vb, **kw)
+    again = [match.match_nn_ratio(da, va, db_, vb, **kw) for _ in range(2)]
     torch.cuda.synchronize()
     err = float(max((km - tm).abs().max(), (kd - td).abs().max()))
+    repro = all(bool(torch.equal(km, m_)) and bool(torch.equal(kd, d_))
+                for m_, d_ in again)
+    ops = graph_ops(lambda: match.match_nn_ratio(da, va, db_, vb, **kw))
     n_pairs = int(va.sum()) * int(vb.sum())
-    return dict(name="match_nn_ratio", max_abs_err=err, ok=err == 0.0,
-                n_matched=int((km >= 0).sum()),
+    return dict(name=name, max_abs_err=err,
+                ok=err == 0.0 and repro and ops == 1, bitwise_repro=repro,
+                device_ops=ops, n_a=int(da.shape[0]), n_b=int(db_.shape[0]),
+                n_matched=int((km >= 0).sum()), ratio=ratio, angles=angles,
+                mutual=mutual,
                 **_timed(lambda: match.match_nn_ratio(da, va, db_, vb,
                                                           **kw)),
                 plain_ms=time_cuda(lambda: match.match_nn_ratio_torch(
                     da, va, db_, vb, **kw)),
-                bytes=nbytes(da, va, db_, vb, aa, ab, km, kd),
+                bytes=nbytes(da, va, db_, vb, *((aa, ab) if angles else ()),
+                             km, kd),
                 # per pair of valid rows, once: the distance (8 XOR + 8
                 # popcount + 7 adds), the row's best-2 update (4) and the
                 # column's argmin update (2)
                 ops=29 * n_pairs)
+
+
+def nn_cases(n: int = 200, seed: int = 5) -> list[dict]:
+    """Seeded numpy cases of K5's NN ratio (the CPU tests hold the twin
+    against the reference, the card tests the kernel against the twin): a
+    best tied at two columns, one target (n_b = 1), every row of a
+    invalid, n_a != n_b, no mutual check, no angles, and angle differences
+    of exactly 0 and just below 2 pi."""
+    rng = np.random.default_rng(seed)
+
+    def case(name, n_a=n, n_b=n, **kw):
+        da = _clustered_descriptors(rng, n_a, n_base=max(n_a // 2, 1),
+                                    flip=0.03)
+        db_ = _clustered_descriptors(rng, n_b, n_base=max(n_b // 2, 1),
+                                     flip=0.03)
+        m = min(n_a, n_b) // 2
+        db_[:m] = da[:m] ^ np.packbits(
+            (rng.uniform(size=(m, 256)) < 0.04).astype(np.uint8), axis=1)
+        c = dict(name=name, desc_a=da, valid_a=rng.uniform(size=n_a) > 0.1,
+                 desc_b=db_, valid_b=rng.uniform(size=n_b) > 0.1,
+                 angle_a=rng.uniform(0, 2 * np.pi, n_a).astype(np.float32),
+                 angle_b=rng.uniform(0, 2 * np.pi, n_b).astype(np.float32),
+                 ratio=0.85, mutual=True, angles=True)
+        c["angle_b"][:m] = (c["angle_a"][:m] + 0.5).astype(np.float32)
+        c.update(kw)
+        return c
+
+    cases = []
+    c = case("tie")
+    c["desc_b"][7] = c["desc_b"][3] = c["desc_a"][2]  # the best at two
+    c["valid_a"][2] = c["valid_b"][3] = c["valid_b"][7] = True
+    c["ratio"] = 1.0  # a tied best passes the ratio test only at 1
+    cases.append(c)
+    cases.append(case("nb1", n_b=1))
+    c = case("all_a_invalid")
+    c["valid_a"][:] = False
+    cases.append(c)
+    cases.append(case("na_ne_nb", n_b=n + 77))
+    cases.append(case("no_mutual", mutual=False))
+    cases.append(case("no_angles", angles=False, ratio=0.8))
+    c = case("angle_wrap")
+    # the first half's differences exactly 0, every other one the largest
+    # float32 below 2 pi: the two bins at the wrap
+    m = n // 2
+    below = np.nextafter(np.float32(2 * np.pi), np.float32(0))
+    c["angle_a"][:m] = np.float32(0.25)
+    c["angle_b"][:m] = np.float32(0.25)
+    c["angle_a"][:m:2] = below
+    c["angle_b"][:m:2] = np.float32(0.0)
+    cases.append(c)
+    return cases
+
+
+def nn_case_operands(c: dict, device):
+    """An ``nn_cases`` entry as (desc_a, valid_a, desc_b, valid_b,
+    angle_a, angle_b) tensors."""
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa
+    return tuple(t(c[k]) for k in ("desc_a", "valid_a", "desc_b", "valid_b",
+                                   "angle_a", "angle_b"))
+
+
+def run_nn_cases(device) -> list[dict]:
+    """K5's NN ratio on every ``nn_cases`` case."""
+    return [check_match_nn(device, nn_case_operands(c, device),
+                           ratio=c["ratio"], angles=c["angles"],
+                           mutual=c["mutual"],
+                           name=f"match_nn_ratio@{c['name']}")
+            for c in nn_cases()]
 
 
 def guided_inputs(device, n: int = 1000, seed: int = 0):

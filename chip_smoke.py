@@ -64,7 +64,12 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    equal from launch to launch; also after phase 4e on one of
    ``bench_slice``'s detections), K14 plane statistics; K5's NN-ratio
    entry, K15's Sim3 half, K16 and K19 on the loop path's map saved at
-   its first accepted loop, after phase 4;
+   its first accepted loop, after phase 4; K16 (the guided re-match
+   count: the rows' validity, the refined Sim3's projection, the gate
+   and the count in one launch, one device operation, exact, bitwise
+   from launch to launch) also at 1000 x 1000 seeded, on
+   ``selfcheck.guided_cases`` and on ``bench_slice``'s first loop
+   verification's recorded operands;
    K15's PnP half on seeded picks, and again (with K5's NN ratio as the
    relocalisation calls it) on phase 5's relocalisation; the inertial path's K18 (preintegration, merge and
    the dead-reckoned pose prediction in one launch) on a 64-row sample
@@ -84,7 +89,8 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    and a whole scene-graph BA on ``freespace_slice``'s final map with a
    seeded room, corridor and door, K21 against the float64 twin; K23's
    two entries (the room pair analysis, walls and free space) and K24
-   (plane association)
+   (plane association: one device operation a call, every table bitwise
+   from launch to launch)
    on the seeded cases the CPU parity tests use, and again on real inputs:
    K23's wall entry on ``bench_slice``'s final scene graph, K24 on one
    keyframe's detections recorded in phase 4e's untimed run, K23's
@@ -134,7 +140,8 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
       frames 64-191, the reference's bench-scale gates (ATE <= 0.1 m,
       >= 90 % tracked, >= 20 keyframes, >= 1 loop), planes,
       serial-relief windows and batch re-tracks, K23's wall entry and K24
-      launched once per scene-graph keyframe (as often as K14);
+      launched once per scene-graph keyframe (as often as K14), K16 once
+      a loop verification and its twin never on the card (also on (f));
    e. path (d) again over frames 0-95, frames 64-95 under sync-debug
       mode (four batches, across keyframe cycles): synchronising calls
       must equal the counted readbacks (this run, not timed, also records
@@ -328,6 +335,7 @@ def _reset_plain_counts() -> None:
     map_state.observed_mask.cuda_calls = 0
     loop_closer._detect_program.cuda_calls = 0
     loop_closer.reloc_in_map.cuda_calls = 0
+    loop_closer._loop_geometry.cuda_calls = 0
     database.add_keyframe.cuda_calls = 0
 
 
@@ -338,14 +346,15 @@ def _path_calls() -> dict:
     entry replaces), the scene-graph BA's calls and iterations (K21's plan
     once a call, its system once an iteration), the plain assembly K21
     replaces, the place queries (the keyframe program's and the
-    relocalisations', K11 once each) and the plain insertion K11's
-    keyframe entry replaces."""
+    relocalisations', K11 once each), the plain insertion K11's keyframe
+    entry replaces, and the loop verifications (K16 once each)."""
     from visual_sgraphs_tpu_torch.optim import fast_ba
     from visual_sgraphs_tpu_torch.place import database, loop_closer
     from visual_sgraphs_tpu_torch.slam import map_state, mapping
     return dict(place_queries=loop_closer._detect_program.cuda_calls,
                 reloc_queries=loop_closer.reloc_in_map.cuda_calls,
                 add_keyframe=database.add_keyframe.cuda_calls,
+                loop_verifications=loop_closer._loop_geometry.cuda_calls,
                 fuse=mapping.fuse_observations.cuda_calls,
                 observed_mask=map_state.observed_mask.cuda_calls,
                 sg_ba=fast_ba.fast_scenegraph_ba.cuda_calls,
@@ -477,6 +486,17 @@ def _check_place_launches(tag: str, cnt: dict, calls: dict) -> None:
            f"{calls['place_queries']} keyframe place queries and "
            f"{calls['reloc_queries']} relocalisations; "
            f"{calls['add_keyframe']} plain insertions on the card")
+
+
+def _check_loop_launches(tag: str, cnt: dict, calls: dict) -> None:
+    """K16 launches once a loop verification (the rows' validity, the Sim3
+    projection and the count in the one launch), and its twin never runs
+    on the card."""
+    n = calls["loop_verifications"]
+    _check(n > 0 and cnt["guided_count"][0] == n
+           and cnt["guided_count"][1] == 0,
+           f"{tag}: K16 {cnt['guided_count'][0]} launches for {n} loop "
+           f"verifications; {cnt['guided_count'][1]} twin calls on the card")
 
 
 def _bound(r: dict) -> tuple[float, str]:
@@ -705,6 +725,8 @@ def main() -> None:
         selfcheck.check_match_nn(device, selfcheck.nn_inputs(
             device, 1000, n_b=1237), name="match_nn_ratio@1000x1237"),
         *selfcheck.run_nn_cases(device),
+        selfcheck.check_guided(device, name="guided_count@seeded"),
+        *selfcheck.run_guided_cases(device),
         *selfcheck.check_schur_gba(device),
         *selfcheck.check_front_end_small(device)])
     _check(checks["detect_level@240x320"]["padded_levels"] >= 1,
@@ -802,10 +824,11 @@ def main() -> None:
     bench_watch = _watch_loops(system)
     _reset_plain_counts()
     t0 = time.perf_counter()
-    # (the first loop verification's NN-ratio operands are copied once:
-    # two 32 KB descriptor sets)
+    # (the first loop verification's NN-ratio and guided-count operands
+    # are copied once: two 32 KB descriptor sets and their keyframes' rows)
     with _match_window_callers() as callers, \
-            selfcheck.watch_nn(which=1) as nn_seen:
+            selfcheck.watch_nn(which=1) as nn_seen, \
+            selfcheck.watch_guided(which=1) as guided_seen:
         perf = _drive(system, bench_frames, warm=main_path.BENCH_WARMUP)
     total_s = time.perf_counter() - t0
     counts["bench_slice"] = cuda.counts()
@@ -853,11 +876,16 @@ def main() -> None:
                           calls)
     _check_compact_launches("bench_slice", counts["bench_slice"], calls)
     _check_place_launches("bench_slice", counts["bench_slice"], calls)
-    # K5's NN ratio on the cell's first loop verification's operands
-    _check("operands" in nn_seen, "bench_slice: no loop verification")
+    _check_loop_launches("bench_slice", counts["bench_slice"], calls)
+    # K5's NN ratio and K16 on the cell's first loop verification's
+    # operands
+    _check("operands" in nn_seen and "operands" in guided_seen,
+           "bench_slice: no loop verification")
     report([selfcheck.check_match_nn(device, nn_seen["operands"],
                                      name="match_nn_ratio@bench",
-                                     **nn_seen["kw"])])
+                                     **nn_seen["kw"]),
+            selfcheck.check_guided(device, guided_seen["operands"],
+                                   name="guided_count@bench")])
     # the tracking pass at the four radii on the cell's map and last frame
     gray, depth, _, _, ts = bench_frames[-1]
     report(selfcheck.check_track_pass_radii(
@@ -969,6 +997,7 @@ def main() -> None:
     _check_compact_launches("loop_slice", counts["loop_slice"], calls)
     _check_sg_system_launches("loop_slice", counts["loop_slice"], calls)
     _check_place_launches("loop_slice", counts["loop_slice"], calls)
+    _check_loop_launches("loop_slice", counts["loop_slice"], calls)
     _check(watch["saved"] is not None, "loop_slice: no map saved at a loop")
     loop_system = system
 

@@ -707,3 +707,31 @@ def test_rooms_and_plane_assoc_kernels(rooms_checks, name):
     # floats within 1e-5
     r = rooms_checks[name]
     assert r["ok"], r
+
+
+@pytest.fixture(scope="module")
+def guided_assoc_checks(device):
+    out = selfcheck.run_guided_cases(device) + [
+        selfcheck.check_guided(device, name="guided_count@seeded")]
+    for c in selfcheck.assoc_cases():
+        out.append(selfcheck.check_plane_assoc(
+            device, *selfcheck.assoc_operands(c, device),
+            name=f"plane_assoc@{c['name']}"))
+    return {r["name"]: r for r in out}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    *(f"guided_count@{c}" for c in ("seeded", "behind", "no_valid_b",
+                                    "hamming_64", "one_b", "scaled")),
+    *(f"plane_assoc@{c}" for c in ("same_plane_twice", "full_planes",
+                                   "full_obs", "argmin_tie",
+                                   "two_on_one"))])
+def test_guided_count_and_plane_assoc_cases(guided_assoc_checks, name):
+    # K16 (the rows' validity, the Sim3 projection, the gate and the
+    # count in one launch) exactly its twin's, and K24 (the score table in
+    # parallel, the detections resolved in order) with integer fields
+    # exact and floats within 1e-5, each on the CPU parity tests' cases:
+    # one device operation a call, bitwise from launch to launch
+    r = guided_assoc_checks[name]
+    assert r["ok"] and r["device_ops"] == 1, r

@@ -252,7 +252,7 @@ def test_guided_count_matches_dense_rule(rng):
     hd = rmatch.hamming_matrix(jnp.asarray(da), jnp.asarray(db_))
     want = int(jnp.sum(jnp.any((d2 < 64.0) & jnp.asarray(va)[:, None]
                                & jnp.asarray(vb)[None] & (hd <= 64), axis=1)))
-    got = pmatch.guided_count(*(torch.from_numpy(x) for x in (
+    got = pmatch.guided_count_torch(*(torch.from_numpy(x) for x in (
         uv_a, va, da, uv_b, vb, db_)))
     assert int(got) == want > 20
 

@@ -10,7 +10,8 @@ twins stand in on the CPU.  The cases come from
 - rooms (free space): an invalid cluster, two clusters competing for one
   wall pair;
 - association: one plane detected twice in one call, a full plane table,
-  a full observation table, an arg-min tie.
+  a full observation table, an arg-min tie, two detections of one table
+  plane.
 
 Tolerances: room walls, flags, ground ids, n_rooms, plane ids, n_planes,
 n_obs, ob_plane, ob_kf, pl_nobs and pl_vox exact; room centres within
@@ -39,7 +40,7 @@ N_ROOMS = {"support_ties": 2, "corridor_wall0": 2, "full_table": 16,
            "match_distance_vs_walls": 4, "fs_invalid_cluster": 1,
            "fs_compete": 2}
 NEW_OBS = {"same_plane_twice": 3, "full_planes": 2, "full_obs": 0,
-           "argmin_tie": 4}
+           "argmin_tie": 4, "two_on_one": 4}
 
 
 def ref_state(d: dict):

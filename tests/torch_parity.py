@@ -5,7 +5,9 @@ snapshot of the reference, so port functions run on exactly the
 reference's state (carried across as numpy).  The snapshot and the
 rendered semantic frames are built once per test run and shared by the
 test processes through ``build/test_cache`` (keyed by a digest of the
-reference's sources and this file, under a file lock).
+reference's sources and this file, under a file lock), as are the
+reference's compiled programs (JAX's persistent compilation cache,
+``build/test_cache/jax``).
 """
 
 import dataclasses
@@ -21,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.compilation_cache import compilation_cache
 
 from visual_sgraphs_tpu import config as rcfg
 from visual_sgraphs_tpu.core import lie as rlie
@@ -35,6 +38,16 @@ from visual_sgraphs_tpu_torch import interop
 H, W, N_FEATURES = 240, 320, 300
 REPO = Path(__file__).resolve().parent.parent
 CACHE_DIR = REPO / "build" / "test_cache"
+
+# The reference's jitted programs compile in every test process, the same
+# ones in several modules (the slice, scan and scene-graph programs): their
+# executables are kept on disk beside the cached runs, so that a process
+# after the first loads them.  A reference test module compiles while it
+# is imported, before this one is: resetting the cache lets the directory
+# apply to the rest of the process.
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+compilation_cache.set_cache_dir(str(CACHE_DIR / "jax"))
+compilation_cache.reset_cache()
 
 
 def _digest() -> str:

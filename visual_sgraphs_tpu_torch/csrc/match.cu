@@ -391,68 +391,167 @@ nn_ratio_kernel(const __grid_constant__ NNArgs a) {
     }
 }
 
-// ---- guided re-match count (K16) ----------------------------------------
+// ---- guided re-match count under the refined Sim3 (K16) ----------------
 //
-// Replaces the guided count of place/loop_closer.py::_loop_geometry
-// (:86-100), which builds (F, F) squared-distance and Hamming matrices
-// and reduces an any-per-row.  Bound: integer operations, F x F window
-// tests and (for pairs in the window) XOR+popcounts.  Design: one thread
-// per row of ``a``; the block stages ``b``'s pixels, validity and
-// descriptors in shared memory; a row stops scanning at its first hit and
-// adds one to the count with an integer atomic (exact).  The window test
-// uses correctly rounded operations in the plain version's order.
-__global__ void guided_count_kernel(const float* __restrict__ uv_a,
-                                    const uint8_t* __restrict__ valid_a,
-                                    const uint32_t* __restrict__ desc_a,
-                                    const float* __restrict__ uv_b,
-                                    const uint8_t* __restrict__ valid_b,
-                                    const uint32_t* __restrict__ desc_b,
-                                    int n_a, int n_b, float r2, int max_hd,
-                                    int* __restrict__ count) {
-    __shared__ uint32_t s_desc[TILE][8];
-    __shared__ float s_u[TILE];
-    __shared__ float s_v[TILE];
-    __shared__ uint8_t s_valid[TILE];
-    const int a = blockIdx.x * blockDim.x + threadIdx.x;
-    const bool active = a < n_a && valid_a[a] != 0;
-    uint32_t da[8];
-    float ua = 0.0f, va = 0.0f;
-    if (active) {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) da[k] = desc_a[8 * a + k];
-        ua = uv_a[2 * a];
-        va = uv_a[2 * a + 1];
+// Replaces the tail of place/loop_closer.py::_loop_geometry (:86-100 of
+// the reference): each row's validity (keypoint valid, observed, its
+// point valid), every point of ``cur`` moved by the refined Sim3
+// (lie.sim3_apply) and projected (cameras.project_pinhole), the z > 0.05
+// gate, and the number of rows with a valid keypoint of ``cand`` within
+// 8 px (squared distance below r2) and 64 bits.  The plain version builds
+// (F, F) distance and Hamming matrices in ~28 device operations.
+//
+// Bound: latency; the work is F x F window tests and, for the pairs inside
+// the window, 8 XOR + popcounts.  Design: a warp a row of ``a``, 8 rows a
+// CTA (125 CTAs at F = 1000: one wave), the lanes over ``b``.  Each CTA
+// stages b's pixels, validity and descriptors in shared memory, up to
+// GC_TILE keypoints a pass (41 bytes each), while its warps load their
+// rows (the point's validity is a dependent gather).  A lane tests
+// GC_UNROLL keypoints a step (their shared loads issued together), reads
+// the descriptors of those inside the window, and the row ends at the
+// first step in which a lane hits (__any_sync).  The projection rounds
+// every operation as the plain version's eager torch ops do on the card
+// (the cross products as one FMA over the rounded second product, as in
+// csrc/track_pass.cu), so the count is exact.  Each CTA adds its rows to a
+// device accumulator; the last CTA to take a self-resetting ticket writes
+// the count and zeroes the accumulator: one launch, no memset.  Launches
+// must not overlap (one stream).
+constexpr int GC_WARPS = 8;
+constexpr int GC_THREADS = 32 * GC_WARPS;
+constexpr int GC_UNROLL = 4;  // keypoints a lane tests a step
+constexpr int GC_TILE = 2048;  // keypoints staged a pass
+constexpr int GC_STAGE = 32 + 8 + 1;  // bytes staged a keypoint
+constexpr int GC_MAX_B = 65536;
+
+__device__ unsigned g_guided_ticket;
+__device__ int g_guided_sum;
+
+struct GuidedArgs {
+    const float* S;  // (8,): quaternion (w, x, y, z), translation, scale
+    const float* cam;  // (4,): fx, fy, cx, cy
+    const float* p_a;  // (n_a, 3) points of ``cur`` in its camera frame
+    const int* obs_a;  // (n_a,) point ids or -1
+    const uint8_t* kp_valid_a;  // (n_a,)
+    const uint8_t* pt_valid;  // (n_pts,)
+    const uint4* desc_a;  // (n_a, 2)
+    const float2* uv_b;  // (n_b,)
+    const uint8_t* valid_b;  // (n_b,)
+    const uint4* desc_b;  // (n_b, 2)
+    int n_a, n_b, n_pts, max_hd;
+    float r2;
+    int* count;
+};
+
+__device__ __forceinline__ void gc_cross(const float a[3], const float b[3],
+                                         float c[3]) {
+    c[0] = __fmaf_rn(a[1], b[2], -__fmul_rn(a[2], b[1]));
+    c[1] = __fmaf_rn(a[2], b[0], -__fmul_rn(a[0], b[2]));
+    c[2] = __fmaf_rn(a[0], b[1], -__fmul_rn(a[1], b[0]));
+}
+
+__global__ void __launch_bounds__(GC_THREADS)
+guided_count_sim3_kernel(const GuidedArgs g) {
+    // a pass's keypoints: descriptors (2 x 16 B), pixels, validity
+    extern __shared__ uint4 s_desc[];
+    const int tile = min(g.n_b, GC_TILE);
+    float2* s_uv = reinterpret_cast<float2*>(s_desc + 2 * tile);
+    uint8_t* s_ok = reinterpret_cast<uint8_t*>(s_uv + tile);
+    __shared__ int s_rows[GC_WARPS];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int a = blockIdx.x * GC_WARPS + warp;
+
+    // this warp's row (every lane the same), projected once
+    bool row_ok = false;
+    float u = 0.0f, v = 0.0f;
+    uint4 da0 = make_uint4(0, 0, 0, 0), da1 = da0;
+    if (a < g.n_a) {
+        const int obs = g.obs_a[a];
+        const bool kp = g.kp_valid_a[a] != 0;
+        const float pa[3] = {g.p_a[3 * a], g.p_a[3 * a + 1],
+                             g.p_a[3 * a + 2]};
+        da0 = __ldg(g.desc_a + 2 * a);
+        da1 = __ldg(g.desc_a + 2 * a + 1);
+        // lie.sim3_apply: s (X + q0 u + qv x u) + t, u = 2 qv x X
+        const float q0 = g.S[0];
+        const float qv[3] = {g.S[1], g.S[2], g.S[3]};
+        const float s = g.S[7];
+        float c1[3], u1[3], c2[3], p[3];
+        gc_cross(qv, pa, c1);
+        for (int i = 0; i < 3; ++i) u1[i] = __fmul_rn(2.0f, c1[i]);
+        gc_cross(qv, u1, c2);
+        for (int i = 0; i < 3; ++i) {
+            const float r = __fadd_rn(__fadd_rn(pa[i], __fmul_rn(q0, u1[i])),
+                                      c2[i]);
+            p[i] = __fadd_rn(__fmul_rn(s, r), g.S[4 + i]);
+        }
+        // cameras.project_pinhole, then the in-front gate
+        const float z = p[2];
+        const float iz = __frcp_rn(fabsf(z) < 1e-9f ? 1e-9f : z);
+        u = __fadd_rn(__fmul_rn(__fmul_rn(g.cam[0], p[0]), iz), g.cam[2]);
+        v = __fadd_rn(__fmul_rn(__fmul_rn(g.cam[1], p[1]), iz), g.cam[3]);
+        row_ok = kp && obs >= 0 && obs < g.n_pts && g.pt_valid[obs] != 0 &&
+                 z > 0.05f;
     }
-    bool hit = false;
-    for (int t0 = 0; t0 < n_b; t0 += TILE) {
-        __syncthreads();
-        for (int i = threadIdx.x; i < TILE; i += blockDim.x) {
-            const int b = t0 + i;
-            if (b < n_b) {
-#pragma unroll
-                for (int k = 0; k < 8; ++k) s_desc[i][k] = desc_b[8 * b + k];
-                s_u[i] = uv_b[2 * b];
-                s_v[i] = uv_b[2 * b + 1];
-                s_valid[i] = valid_b[b];
-            }
+
+    int hit = 0;
+    for (int t0 = 0; t0 < g.n_b; t0 += GC_TILE) {
+        const int nt = min(GC_TILE, g.n_b - t0);
+        if (t0 > 0) __syncthreads();
+#pragma unroll 4
+        for (int i = tid; i < nt; i += GC_THREADS) {
+            s_desc[2 * i] = __ldg(g.desc_b + 2 * (t0 + i));
+            s_desc[2 * i + 1] = __ldg(g.desc_b + 2 * (t0 + i) + 1);
+            s_uv[i] = g.uv_b[t0 + i];
+            s_ok[i] = g.valid_b[t0 + i];
         }
         __syncthreads();
-        if (!active || hit) continue;
-        const int cnt = min(TILE, n_b - t0);
-        for (int i = 0; i < cnt && !hit; ++i) {
-            if (s_valid[i] == 0) continue;
-            const float du = __fsub_rn(ua, s_u[i]);
-            const float dv = __fsub_rn(va, s_v[i]);
-            if (!(__fadd_rn(__fmul_rn(du, du), __fmul_rn(dv, dv)) < r2)) {
-                continue;
-            }
-            int d = 0;
+        if (!row_ok || hit) continue;
+        for (int b0 = 0; b0 < nt; b0 += 32 * GC_UNROLL) {
+            bool near[GC_UNROLL];
 #pragma unroll
-            for (int k = 0; k < 8; ++k) d += __popc(da[k] ^ s_desc[i][k]);
-            hit = d <= max_hd;
+            for (int k = 0; k < GC_UNROLL; ++k) {
+                const int b = b0 + 32 * k + lane;
+                near[k] = false;
+                if (b < nt && s_ok[b] != 0) {
+                    const float2 kb = s_uv[b];
+                    const float du = __fsub_rn(u, kb.x);
+                    const float dv = __fsub_rn(v, kb.y);
+                    near[k] = __fadd_rn(__fmul_rn(du, du),
+                                        __fmul_rn(dv, dv)) < g.r2;
+                }
+            }
+            bool h = false;
+#pragma unroll
+            for (int k = 0; k < GC_UNROLL; ++k) {
+                if (near[k]) {
+                    const int b = b0 + 32 * k + lane;
+                    const uint4 e0 = s_desc[2 * b], e1 = s_desc[2 * b + 1];
+                    const int d =
+                        __popc(da0.x ^ e0.x) + __popc(da0.y ^ e0.y) +
+                        __popc(da0.z ^ e0.z) + __popc(da0.w ^ e0.w) +
+                        __popc(da1.x ^ e1.x) + __popc(da1.y ^ e1.y) +
+                        __popc(da1.z ^ e1.z) + __popc(da1.w ^ e1.w);
+                    h = h || d <= g.max_hd;
+                }
+            }
+            if (__any_sync(0xffffffffu, h)) {
+                hit = 1;
+                break;
+            }
         }
     }
-    if (hit) atomicAdd(count, 1);
+    if (lane == 0) s_rows[warp] = hit;
+    __syncthreads();
+    if (tid == 0) {
+        int rows = 0;
+        for (int w = 0; w < GC_WARPS; ++w) rows += s_rows[w];
+        if (rows != 0) atomicAdd(&g_guided_sum, rows);
+        __threadfence();
+        if (atomicInc(&g_guided_ticket, gridDim.x - 1) == gridDim.x - 1) {
+            __threadfence();
+            *g.count = atomicExch(&g_guided_sum, 0);
+        }
+    }
 }
 
 }  // namespace
@@ -497,18 +596,53 @@ VSG_API int vsg_match_nn_ratio(const uint32_t* desc_a, const uint8_t* valid_a,
     return (int)cudaGetLastError();
 }
 
-// uv_a: (n_a, 2) f32 projections, uv_b: (n_b, 2) f32 keypoints; r2: the
-// squared radius rounded to f32; count: 0-d i32 zero-filled by the caller.
-VSG_API int vsg_guided_count(const float* uv_a, const uint8_t* valid_a,
-                             const uint32_t* desc_a, const float* uv_b,
-                             const uint8_t* valid_b, const uint32_t* desc_b,
-                             int n_a, int n_b, float r2, int max_hd,
-                             int* count, cudaStream_t stream) {
-    if (n_a == 0) return 0;
-    const int threads = 128;
-    guided_count_kernel<<<(n_a + threads - 1) / threads, threads, 0,
-                          stream>>>(uv_a, valid_a, desc_a, uv_b, valid_b,
-                                    desc_b, n_a, n_b, r2, max_hd, count);
+// S: (8,) f32 Sim3 (q, t, s); cam: (4,) f32; p_a: (n_a, 3) f32; obs_a:
+// (n_a,) i32; kp_valid_a, pt_valid, valid_b: u8; desc_*: (N, 32) u8 as
+// (N, 8) u32 on a 16-byte boundary; uv_b: (n_b, 2) f32; n_b <= 65536; r2:
+// the squared radius rounded to f32.  Output count: 0-d i32 (no fill
+// needed).  One launch.
+VSG_API int vsg_guided_count_sim3(const float* S, const float* cam,
+                                  const float* p_a, const int* obs_a,
+                                  const uint8_t* kp_valid_a,
+                                  const uint8_t* pt_valid,
+                                  const uint32_t* desc_a, const float* uv_b,
+                                  const uint8_t* valid_b,
+                                  const uint32_t* desc_b, int n_a, int n_b,
+                                  int n_pts, float r2, int max_hd,
+                                  int* count, cudaStream_t stream) {
+    if (n_a < 0 || n_b < 0 || n_b > GC_MAX_B ||
+        (((uintptr_t)desc_a | (uintptr_t)desc_b) & 15) != 0 ||
+        ((uintptr_t)uv_b & 7) != 0) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const size_t smem = (size_t)(n_b < GC_TILE ? n_b : GC_TILE) * GC_STAGE;
+    static bool attr_set = false;
+    if (!attr_set) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            guided_count_sim3_kernel,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, GC_TILE * GC_STAGE);
+        if (e != cudaSuccess) return (int)e;
+        attr_set = true;
+    }
+    GuidedArgs g;
+    g.S = S;
+    g.cam = cam;
+    g.p_a = p_a;
+    g.obs_a = obs_a;
+    g.kp_valid_a = kp_valid_a;
+    g.pt_valid = pt_valid;
+    g.desc_a = reinterpret_cast<const uint4*>(desc_a);
+    g.uv_b = reinterpret_cast<const float2*>(uv_b);
+    g.valid_b = valid_b;
+    g.desc_b = reinterpret_cast<const uint4*>(desc_b);
+    g.n_a = n_a;
+    g.n_b = n_b;
+    g.n_pts = n_pts;
+    g.max_hd = max_hd;
+    g.r2 = r2;
+    g.count = count;
+    const int ctas = n_a > 0 ? (n_a + GC_WARPS - 1) / GC_WARPS : 1;
+    guided_count_sim3_kernel<<<ctas, GC_THREADS, smem, stream>>>(g);
     return (int)cudaGetLastError();
 }
 

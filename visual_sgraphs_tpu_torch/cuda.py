@@ -116,7 +116,7 @@ KERNELS = (
      "visual_sgraphs_tpu_torch/csrc/match.cu",
      "visual_sgraphs_tpu/features/match.py:62"),
     ("guided_count", "visual_sgraphs_tpu_torch.features.match",
-     "guided_count", "guided_count_torch",
+     "guided_count_sim3", "guided_count_sim3_torch",
      "visual_sgraphs_tpu_torch/csrc/match.cu",
      "visual_sgraphs_tpu/place/loop_closer.py:86"),
     ("verify_sim3", "visual_sgraphs_tpu_torch.place.sim3_ransac",
@@ -235,7 +235,7 @@ _ARGTYPES = {
     "vsg_bow_vectors": [_VP] * 3 + [_I] * 13 + [_VP] * 5,
     "vsg_place_query": [_VP] * 7 + [_I, _I, _F, _I, _I, _VP, _I, _VP, _VP],
     "vsg_match_nn_ratio": [_VP] * 6 + [_I, _I, _F, _I, _I] + [_VP] * 4,
-    "vsg_guided_count": [_VP] * 6 + [_I, _I, _F, _I] + [_VP] * 2,
+    "vsg_guided_count_sim3": [_VP] * 10 + [_I, _I, _I, _F, _I] + [_VP] * 2,
     "vsg_verify_sim3": [_VP] * 4 + [_I, _I, _F, _I, _I] + [_VP] * 6,
     "vsg_pnp_hypotheses": [_VP] * 5 + [_I, _I, _F] + [_VP] * 4,
     "vsg_pgo_assemble": [_VP] * 5 + [_I, _I, _I] + [_VP] * 3,

@@ -12,9 +12,12 @@ Port of ``visual_sgraphs_tpu/features/match.py``:
 - ``match_nn_ratio`` (SearchByBoW semantics): brute-force nearest
   neighbour with the Lowe ratio test, the mutual-best check and the
   30-bin rotation histogram;
-- ``guided_count`` (``place/loop_closer.py::_loop_geometry``'s
-  SearchByProjection verification): rows whose projection lands within
-  8 px of a descriptor-compatible keypoint;
+- ``guided_count_sim3`` (the tail of
+  ``place/loop_closer.py::_loop_geometry``, its SearchByProjection
+  verification): the rows of ``cur`` whose point, moved by the refined
+  Sim3 and projected into ``cand``, lands within 8 px of a
+  descriptor-compatible keypoint, in one launch (``guided_count_torch``
+  is its twin's count);
 - ``track_pass`` (one pass of ``slam/tracking.py::_track_frame_impl``):
   the local map projected at a pose, its visibility gates, the window
   match against the frame's keypoints and the gathers that feed the pose
@@ -251,44 +254,87 @@ match_nn_ratio.launches = 0
 
 def guided_count_torch(uv_proj, valid_a, desc_a, uv_b, valid_b, desc_b,
                        radius: float = 8.0, max_hamming: int = 64):
-    """Plain twin of K16: the number of rows of ``a`` with a keypoint of
-    ``b`` within ``radius`` px of its projection (squared distance below
-    radius^2) and within ``max_hamming`` bits.  Returns a 0-d int32."""
-    if uv_proj.is_cuda:
-        guided_count_torch.cuda_calls += 1
+    """The count of the twin below: the number of rows of ``a`` with a
+    keypoint of ``b`` within ``radius`` px of its projection (squared
+    distance below radius^2) and within ``max_hamming`` bits.  Returns a
+    0-d int32."""
     d2 = torch.sum((uv_proj[:, None, :] - uv_b[None, :, :]) ** 2, dim=-1)
     near = (d2 < radius * radius) & valid_a[:, None] & valid_b[None, :]
     guided = near & (hamming_matrix(desc_a, desc_b) <= max_hamming)
     return torch.any(guided, dim=1).sum(dtype=torch.int32)
 
 
-guided_count_torch.cuda_calls = 0
+def guided_count_sim3_torch(S_ab, p_a, obs_a, kp_valid_a, pt_valid, desc_a,
+                            uv_b, kp_valid_b, desc_b, cam_K,
+                            radius: float = 8.0, max_hamming: int = 64):
+    """Plain twin of K16: loop verification's guided re-match count under
+    the refined Sim3 ``S_ab`` (8,).  Rows of ``a`` (keyframe ``cur``: its
+    points ``p_a`` (F, 3) in its camera frame, point ids ``obs_a``,
+    keypoint validity and descriptors) count when the keypoint is valid and
+    observed, its point is valid (``pt_valid``), the point moved by
+    ``S_ab`` lies more than 0.05 in front of the camera, and its pinhole
+    projection (``cam_K``) lands within ``radius`` px of a valid keypoint of
+    ``b`` (``cand``: ``uv_b``, ``kp_valid_b``, ``desc_b``) within
+    ``max_hamming`` bits.  Returns a 0-d int32."""
+    if p_a.is_cuda:
+        guided_count_sim3_torch.cuda_calls += 1
+    pt_a = torch.clamp(obs_a, min=0).long()
+    va_all = kp_valid_a & (obs_a >= 0) & pt_valid[pt_a]
+    p_cam = lie.sim3_apply(S_ab, p_a)
+    uv_proj = cameras.project_pinhole(cam_K, p_cam).contiguous()
+    return guided_count_torch(uv_proj, va_all & (p_cam[:, 2] > 0.05),
+                              desc_a, uv_b, kp_valid_b, desc_b, radius,
+                              max_hamming)
 
 
-def guided_count(uv_proj, valid_a, desc_a, uv_b, valid_b, desc_b,
-                 radius: float = 8.0, max_hamming: int = 64):
-    """Guided re-match count (kernel K16 on CUDA tensors, the twin on
-    CPU)."""
-    if uv_proj.device.type == "cpu":
-        return guided_count_torch(uv_proj, valid_a, desc_a, uv_b, valid_b,
-                                  desc_b, radius, max_hamming)
-    cuda.require_cuda("guided_count", uv_proj, valid_a, desc_a, uv_b,
-                      valid_b, desc_b)
-    _check_desc("guided_count", desc_a, desc_b)
-    if uv_proj.dtype != torch.float32 or uv_b.dtype != torch.float32 \
-            or valid_a.dtype != torch.bool or valid_b.dtype != torch.bool:
-        raise ValueError("guided_count: float32 pixels and bool masks")
-    count = torch.zeros((), dtype=torch.int32, device=uv_proj.device)
-    cuda.call("vsg_guided_count", cuda.ptr(uv_proj), cuda.ptr(valid_a),
-              cuda.ptr(desc_a), cuda.ptr(uv_b), cuda.ptr(valid_b),
-              cuda.ptr(desc_b), uv_proj.shape[0], uv_b.shape[0],
-              float(np.float32(radius * radius)), int(max_hamming),
-              cuda.ptr(count), cuda.stream())
-    guided_count.launches += 1
+guided_count_sim3_torch.cuda_calls = 0
+GUIDED_MAX_B = 65536
+
+
+def guided_count_sim3(S_ab, p_a, obs_a, kp_valid_a, pt_valid, desc_a, uv_b,
+                      kp_valid_b, desc_b, cam_K, radius: float = 8.0,
+                      max_hamming: int = 64):
+    """Guided re-match count under the refined Sim3 (kernel K16 on CUDA
+    tensors: the rows' validity, the Sim3, the projection, the gate and
+    the count in one launch; the twin on CPU)."""
+    if p_a.device.type == "cpu":
+        return guided_count_sim3_torch(S_ab, p_a, obs_a, kp_valid_a,
+                                       pt_valid, desc_a, uv_b, kp_valid_b,
+                                       desc_b, cam_K, radius, max_hamming)
+    tensors = (S_ab, p_a, obs_a, kp_valid_a, pt_valid, desc_a, uv_b,
+               kp_valid_b, desc_b, cam_K)
+    cuda.require_cuda("guided_count_sim3", *tensors)
+    _check_desc("guided_count_sim3", desc_a, desc_b)
+    n_a, n_b = p_a.shape[0], uv_b.shape[0]
+    if (S_ab.dtype != torch.float32 or tuple(S_ab.shape) != (8,)
+            or p_a.dtype != torch.float32 or tuple(p_a.shape) != (n_a, 3)
+            or cam_K.dtype != torch.float32 or cam_K.numel() < 4
+            or uv_b.dtype != torch.float32 or tuple(uv_b.shape) != (n_b, 2)
+            or obs_a.dtype != torch.int32
+            or any(t.dtype != torch.bool
+                   for t in (kp_valid_a, pt_valid, kp_valid_b))
+            or obs_a.shape[0] != n_a or kp_valid_a.shape[0] != n_a
+            or desc_a.shape[0] != n_a or kp_valid_b.shape[0] != n_b
+            or desc_b.shape[0] != n_b):
+        raise ValueError("guided_count_sim3: float32 Sim3 (8,), points (F, "
+                         "3), camera and pixels (F_b, 2); int32 point ids; "
+                         "bool masks")
+    if (n_b > GUIDED_MAX_B or desc_a.data_ptr() % 16
+            or desc_b.data_ptr() % 16):
+        raise ValueError(f"guided_count_sim3: n_b <= {GUIDED_MAX_B}, "
+                         "descriptors on a 16-byte boundary")
+    count = torch.empty((), dtype=torch.int32, device=p_a.device)
+    cuda.call("vsg_guided_count_sim3", cuda.ptr(S_ab), cuda.ptr(cam_K),
+              cuda.ptr(p_a), cuda.ptr(obs_a), cuda.ptr(kp_valid_a),
+              cuda.ptr(pt_valid), cuda.ptr(desc_a), cuda.ptr(uv_b),
+              cuda.ptr(kp_valid_b), cuda.ptr(desc_b), n_a, n_b,
+              pt_valid.shape[0], float(np.float32(radius * radius)),
+              int(max_hamming), cuda.ptr(count), cuda.stream())
+    guided_count_sim3.launches += 1
     return count
 
 
-guided_count.launches = 0
+guided_count_sim3.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -38,9 +38,9 @@ import numpy as np
 import torch
 
 from visual_sgraphs_tpu_torch.config import PlaceConfig
-from visual_sgraphs_tpu_torch.core import cameras, lie
+from visual_sgraphs_tpu_torch.core import lie
 from visual_sgraphs_tpu_torch.features.match import (
-    guided_count,
+    guided_count_sim3,
     match_nn_ratio,
 )
 from visual_sgraphs_tpu_torch.place import database as db_mod
@@ -86,9 +86,13 @@ def _loop_geometry(m: MapState, cur: int, cand: int, draw,
     NN-ratio matches with rotation consistency (K5), both sides' points in
     their own camera frames, Sim3 RANSAC + refinement (K15) on samples
     ``draw(valid)``, and the guided re-match count under the refined Sim3
-    (K16).  Returns device (S_cand_cur (8,), n_inliers, n_guided,
-    n_match)."""
+    (K16: the rows' validity, the projection and the count in one
+    launch).  Returns device (S_cand_cur (8,), n_inliers, n_guided,
+    n_match); ``_loop_geometry.cuda_calls`` counts the verifications on
+    the card."""
     desc_a, desc_b = m.kf_desc[cur], m.kf_desc[cand]
+    if desc_a.is_cuda:
+        _loop_geometry.cuda_calls += 1
     obs_a, obs_b = m.kf_obs_pt[cur], m.kf_obs_pt[cand]
     va = m.kf_kp_valid[cur] & (obs_a >= 0)
     vb = m.kf_kp_valid[cand] & (obs_b >= 0)
@@ -99,19 +103,20 @@ def _loop_geometry(m: MapState, cur: int, cand: int, draw,
     pt_a = torch.clamp(obs_a, min=0).long()
     pt_b = torch.clamp(obs_b[torch.clamp(match, min=0).long()], min=0).long()
     ok = ok & m.pt_valid[pt_a] & m.pt_valid[pt_b]
+    n_match = ok.sum(dtype=torch.int32)
     # points in each keyframe's camera frame (drift cancels locally)
     p_a = lie.se3_apply(m.kf_pose[cur], m.pt_pos[pt_a]).contiguous()
     p_b = lie.se3_apply(m.kf_pose[cand], m.pt_pos[pt_b]).contiguous()
     res = verify_sim3(p_a, p_b, ok, draw(ok), inlier_thresh, fix_scale)
     # guided re-matching: every point of ``cur`` projected into ``cand``
     # under the refined Sim3 must land near a compatible keypoint
-    va_all = m.kf_kp_valid[cur] & (obs_a >= 0) & m.pt_valid[pt_a]
-    p_a_cam = lie.sim3_apply(res.S_ab, p_a)
-    uv_proj = cameras.project_pinhole(cam_K, p_a_cam).contiguous()
-    n_guided = guided_count(uv_proj, va_all & (p_a_cam[:, 2] > 0.05),
-                            desc_a, m.kf_uv[cand], m.kf_kp_valid[cand],
-                            desc_b)
-    return res.S_ab, res.n_inliers, n_guided, ok.sum(dtype=torch.int32)
+    n_guided = guided_count_sim3(res.S_ab, p_a, obs_a, m.kf_kp_valid[cur],
+                                 m.pt_valid, desc_a, m.kf_uv[cand],
+                                 m.kf_kp_valid[cand], desc_b, cam_K)
+    return res.S_ab, res.n_inliers, n_guided, n_match
+
+
+_loop_geometry.cuda_calls = 0
 
 
 def _reloc_attempt(m: MapState, frame, cand: int, cam_K, draw):

@@ -16,6 +16,7 @@
     python -m visual_sgraphs_tpu_torch.profile_slice --schur-times PATH
     python -m visual_sgraphs_tpu_torch.profile_slice --sg-times PATH
     python -m visual_sgraphs_tpu_torch.profile_slice --place-times PATH
+    python -m visual_sgraphs_tpu_torch.profile_slice --assoc-guided-times PATH
 
 Runs the main path of ``main_path`` (640x480, 1000 features, 96
 ``orbit2`` frames) through ``SlamSystem.track_rgbd`` on the card (with
@@ -96,7 +97,13 @@ With ``--place-times PATH`` it times K11 (the keyframe program's database
 step and the relocalisation's query) on a ``bench_slice`` keyframe's
 operands and seeded ones, and K5's NN ratio on ``bench_slice``'s first
 loop verification's operands and at its three seeded call shapes,
-recorded into PATH likewise (``place_times``).
+recorded into PATH likewise (``place_times``).  With
+``--assoc-guided-times PATH`` it times K16 (loop verification's guided
+re-match count from the refined Sim3 on: this tree's one launch, or the
+former rows' validity, projection, gate and count) on ``bench_slice``'s
+first loop verification's operands and seeded ones, and K24 (plane
+association) on ``bench_slice``'s eighth plane association's operands
+and a seeded case, recorded into PATH likewise (``assoc_guided_times``).
 Prints one JSON line per result; needs a card.
 """
 
@@ -1516,6 +1523,118 @@ def place_times(path: str) -> None:
     _card_line()
 
 
+def _record_assoc_guided_operands(path: str) -> None:
+    """The operands of ``bench_slice``'s first loop verification's guided
+    count (K16) and of its eighth plane association (K24; 192 frames),
+    with seeded ones of each, saved as plain tensors.  Needs a tree with
+    ``selfcheck.watch_guided``."""
+    from visual_sgraphs_tpu_torch import main_path, selfcheck
+    dev = torch.device("cuda")
+    scene, frames = main_path.frames("cuda", main_path.BENCH_FRAMES)
+    system = main_path.make_system(main_path.bench_config(scene), "cuda",
+                                   True)
+    with selfcheck.watch_guided(which=1) as guided_seen, \
+            selfcheck.watch_assoc(which=8) as assoc_seen:
+        for frame in frames:
+            main_path.feed(system, frame)
+        system.flush()
+    del system
+    sg, dets, kf = assoc_seen["operands"]
+    ssg, sdets, skf = selfcheck.assoc_operands(selfcheck.assoc_cases()[0],
+                                               dev)
+    torch.save(dict(
+        guided_bench=list(guided_seen["operands"]),
+        guided_seeded=list(selfcheck.guided_inputs(dev)),
+        assoc_bench=dict(sg=list(sg), dets=list(dets), kf=kf),
+        assoc_seeded=dict(sg=list(ssg), dets=list(sdets), kf=skf)), path)
+
+
+def assoc_guided_times(path: str) -> None:
+    """K16 and K24 on the operands recorded in ``path`` (recorded there
+    first when it does not exist): loop verification's guided count from
+    the refined Sim3 on (this tree's: K16's one launch; or the former
+    rows' validity, Sim3 projection, gate and count kernel) on
+    ``bench_slice``'s first loop verification's operands and at 1000 x
+    1000 seeded, and the plane association on ``bench_slice``'s eighth
+    keyframe association's operands and a seeded case: device ms
+    (``selfcheck.device_time``), device operations
+    (``selfcheck.graph_ops``), host ms (``_host_call_ms``), whether three
+    calls agree bitwise, and digests of the outputs (for K24 also of its
+    integer and bool tables).  Run by path with ``PYTHONPATH`` set to
+    another tree's root to time that tree on the same operands."""
+    import os
+
+    from visual_sgraphs_tpu_torch import cuda, selfcheck
+    from visual_sgraphs_tpu_torch.config import SceneGraphConfig
+    from visual_sgraphs_tpu_torch.core import cameras, lie
+    from visual_sgraphs_tpu_torch.features import match
+    from visual_sgraphs_tpu_torch.scenegraph import manager as sgm
+    from visual_sgraphs_tpu_torch.scenegraph.state import SceneGraphState
+    cuda.build()
+    dev = torch.device("cuda")
+    if not os.path.exists(path):
+        _record_assoc_guided_operands(path)
+    rec = torch.load(path, map_location=dev)
+    fused = hasattr(match, "guided_count_sim3")
+
+    def sha(ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    def line(name, fn, **info):
+        outs = [fn() for _ in range(3)]
+        flat = [list(o) if isinstance(o, tuple) else [o] for o in outs]
+        repro = all(all(torch.equal(a, b) for a, b in zip(flat[0], f))
+                    for f in flat[1:])
+        _line("assoc_guided_times", name=name,
+              tree="change" if fused else "parent",
+              device_ms=selfcheck.device_time(fn),
+              device_ops=selfcheck.graph_ops(fn),
+              host_call_ms=_host_call_ms(fn), bitwise_repro=repro,
+              out_sha=sha(flat[0]), **info)
+
+    for tag in ("guided_bench", "guided_seeded"):
+        args = tuple(rec[tag])
+        if fused:
+            def fn(args=args):
+                return match.guided_count_sim3(*args)
+        else:
+            def fn(args=args):
+                S, p_a, obs_a, kva, ptv, da, uv_b, kvb, db_, cam = args
+                pt_a = torch.clamp(obs_a, min=0).long()
+                va_all = kva & (obs_a >= 0) & ptv[pt_a]
+                p_cam = lie.sim3_apply(S, p_a)
+                uv = cameras.project_pinhole(cam, p_cam).contiguous()
+                return match.guided_count(uv, va_all & (p_cam[:, 2] > 0.05),
+                                          da, uv_b, kvb, db_)
+        line(f"K16@{tag}", fn, count=int(fn()), n_a=int(args[1].shape[0]),
+             n_b=int(args[6].shape[0]))
+    cfg = SceneGraphConfig()
+    for tag in ("assoc_bench", "assoc_seeded"):
+        r = rec[tag]
+        sg, dets, kf = SceneGraphState(*r["sg"]), r["dets"], r["kf"]
+
+        def fn(sg=sg, dets=dets, kf=kf):
+            return tuple(sgm.associate_and_update(
+                sg, *dets[:6], kf, det_quadric=dets[6], det_vox=dets[7],
+                ominus_thresh=cfg.plane_assoc_ominus_thresh,
+                dist_thresh=cfg.plane_assoc_dist_thresh))
+
+        out = sgm.associate_and_update(
+            sg, *dets[:6], kf, det_quadric=dets[6], det_vox=dets[7],
+            ominus_thresh=cfg.plane_assoc_ominus_thresh,
+            dist_thresh=cfg.plane_assoc_dist_thresh)
+        ints = [getattr(out, f) for f in ("pl_valid", "pl_nobs", "n_planes",
+                                           "pl_vox", "ob_kf", "ob_plane",
+                                           "ob_valid", "n_obs")]
+        line(f"K24@{tag}", fn, n_det=int(dets[0].shape[0]), P=sg.P,
+             n_planes=[int(sg.n_planes), int(out.n_planes)],
+             n_obs=[int(sg.n_obs), int(out.n_obs)], int_sha=sha(ints))
+    _card_line()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenegraph", action="store_true",
@@ -1564,6 +1683,9 @@ def main() -> None:
                     help="K11's two entries and K5's NN ratio: device ms, "
                     "device operations, host ms (operands recorded into "
                     "PATH, or loaded from it)")
+    ap.add_argument("--assoc-guided-times", metavar="PATH", default=None,
+                    help="K16 and K24: device ms, device operations, host "
+                    "ms (operands recorded into PATH, or loaded from it)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false")
@@ -1601,6 +1723,8 @@ def main() -> None:
         sg_times(args.sg_times)
     elif args.place_times:
         place_times(args.place_times)
+    elif args.assoc_guided_times:
+        assoc_guided_times(args.assoc_guided_times)
     elif args.loop_runs:
         loop_spread(args.loop_runs)
     else:

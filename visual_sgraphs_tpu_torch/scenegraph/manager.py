@@ -249,6 +249,9 @@ def associate_and_update(sg: SceneGraphState, det_coeffs, det_valid,
         raise ValueError("associate_and_update: the state's dtypes and "
                          f"detections of shapes {shapes} in float32 (bool "
                          "valid, int32 voxels)")
+    if P > 128 or V > 512 or n_det > 16:
+        raise ValueError("associate_and_update: P <= 128, V <= 512, "
+                         "n_det <= 16")
     outs = [torch.empty_like(t) for t in tables]
     cuda.call("vsg_plane_assoc", cuda.ptr_array(tables),
               cuda.ptr_array(outs), cuda.ptr_array(dets), n_det, P, V, Q,

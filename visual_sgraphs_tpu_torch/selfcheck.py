@@ -1815,42 +1815,202 @@ def run_nn_cases(device) -> list[dict]:
             for c in nn_cases()]
 
 
-def guided_inputs(device, n: int = 1000, seed: int = 0):
-    """Projections of ``cur``'s points into ``cand`` (half near one of its
-    keypoints, with similar descriptors) and ``cand``'s keypoints."""
+GUIDED_KEYS = ("S", "p_a", "obs_a", "kp_valid_a", "pt_valid", "desc_a",
+               "uv_b", "kp_valid_b", "desc_b", "cam")
+
+
+def _quat(rng, angle: float) -> np.ndarray:
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    return np.concatenate([[np.cos(angle / 2)], np.sin(angle / 2) * axis])
+
+
+def _sim3_np(S: np.ndarray, p: np.ndarray) -> np.ndarray:
+    """lie.sim3_apply in float64 numpy, S = (q (w, x, y, z), t, s)."""
+    q0, qv = S[0], S[1:4]
+    u = 2.0 * np.cross(qv, p)
+    return S[7] * (p + q0 * u + np.cross(qv, u)) + S[4:7]
+
+
+def _sim3_inv_np(S: np.ndarray, p: np.ndarray) -> np.ndarray:
+    q_inv = np.concatenate([S[:1], -S[1:4]])
+    return _sim3_np(np.concatenate([q_inv, np.zeros(3), [1.0]]),
+                    (p - S[4:7]) / S[7])
+
+
+def guided_case(rng, name: str, n_a: int = 1000, n_b: int = 1000,
+                scale: float = 1.0) -> dict:
+    """One K16 case as numpy (``GUIDED_KEYS``): the refined Sim3 S (8,),
+    ``cur``'s points in its camera frame (their images under S in front of
+    ``cand``'s 640x480 camera), point ids (10 % -1) and validity, half of
+    ``cand``'s keypoints within ~4 px of an image of a point of ``cur``
+    with its descriptor ~51 bits off, the rest anywhere; 90 % valid."""
+    cam = np.array([260.0, 260.0, 319.5, 239.5])
+    S = np.concatenate([_quat(rng, 0.2), rng.normal(size=3) * 0.2, [scale]])
+    p_cam = np.stack([rng.uniform(-2.0, 2.0, n_a),
+                      rng.uniform(-1.5, 1.5, n_a),
+                      rng.uniform(1.5, 6.0, n_a)], -1)
+    p_a = _sim3_inv_np(S, p_cam)
+    uv_a = cam[:2] * p_cam[:, :2] / p_cam[:, 2:] + cam[2:]
+    uv_b = rng.uniform((0, 0), (640, 480), (n_b, 2))
+    m = n_b // 2
+    src = rng.integers(0, n_a, m)
+    uv_b[:m] = uv_a[src] + rng.normal(size=(m, 2)) * 4.0
+    desc_a = _clustered_descriptors(rng, n_a, n_base=n_a)
+    desc_b = _clustered_descriptors(rng, n_b, n_base=n_b)
+    desc_b[:m] = desc_a[src] ^ np.packbits(
+        (rng.uniform(size=(m, 256)) < 0.2).astype(np.uint8), axis=1)
+    n_pts = 4 * n_a
+    obs = rng.permutation(n_pts)[:n_a].astype(np.int32)
+    obs[rng.uniform(size=n_a) < 0.1] = -1
+    return dict(name=name, S=S.astype(np.float32),
+                p_a=p_a.astype(np.float32), obs_a=obs,
+                kp_valid_a=rng.uniform(size=n_a) > 0.1,
+                pt_valid=rng.uniform(size=n_pts) > 0.1, desc_a=desc_a,
+                uv_b=uv_b.astype(np.float32),
+                kp_valid_b=rng.uniform(size=n_b) > 0.1, desc_b=desc_b,
+                cam=cam.astype(np.float32), src=src)
+
+
+def guided_cases(n: int = 200, seed: int = 11) -> list[dict]:
+    """Seeded numpy cases of K16 (the CPU tests hold the twin against the
+    reference, the card tests the kernel against the twin): points moved
+    behind the camera or to z <= 0.05 whose images still land on keypoints
+    (the in-front gate decides), no valid keypoint of ``cand``, pairs at
+    exactly 64 and 65 bits inside the window, one keypoint of ``cand``,
+    and a scaled Sim3 with n_a != n_b."""
     rng = np.random.default_rng(seed)
-    uv_b = rng.uniform((0, 0), (640, 480), (n, 2)).astype(np.float32)
-    uv_a = rng.uniform((0, 0), (640, 480), (n, 2)).astype(np.float32)
-    src = rng.integers(0, n, n // 2)
-    uv_a[: n // 2] = uv_b[src] + rng.normal(size=(n // 2, 2)) * 5
-    desc_b = _clustered_descriptors(rng, n, n_base=n)
-    desc_a = _clustered_descriptors(rng, n, n_base=n)
-    bits = (rng.uniform(size=(n // 2, 256)) < 0.2).astype(np.uint8)
-    desc_a[: n // 2] = desc_b[src] ^ np.packbits(bits, axis=1)
+    cases = []
+    c = guided_case(rng, "behind", n, n)
+    S = c["S"].astype(np.float64)
+    p_cam = _sim3_np(S, c["p_a"].astype(np.float64))
+    # the first quarter mirrored through the camera centre (the same
+    # image, z < 0), the next eighth moved along their rays to z = 0.04
+    # (gated) or 0.0625 (not): the same images
+    q, e = n // 4, n // 8
+    p_cam[:q] = -p_cam[:q]
+    z = np.where(np.arange(e) % 2 == 0, 0.04, 0.0625)
+    p_cam[q:q + e] *= (z / p_cam[q:q + e, 2])[:, None]
+    c["p_a"] = _sim3_inv_np(S, p_cam).astype(np.float32)
+    cases.append(c)
+    c = guided_case(rng, "no_valid_b", n, n)
+    c["kp_valid_b"][:] = False
+    cases.append(c)
+    c = guided_case(rng, "hamming_64", n, n)
+    # every matched keypoint 1 px from its point's image, its descriptor
+    # exactly 64 (even rows) or 65 bits off
+    S = c["S"].astype(np.float64)
+    p_cam = _sim3_np(S, c["p_a"].astype(np.float64))
+    uv = c["cam"][:2] * p_cam[:, :2] / p_cam[:, 2:] + c["cam"][2:]
+    m = n // 2
+    for j, i in enumerate(c["src"]):
+        c["uv_b"][j] = (uv[i] + [1.0, 0.0]).astype(np.float32)
+        bits = np.zeros(256, np.uint8)
+        bits[rng.permutation(256)[:64 + (j % 2)]] = 1
+        c["desc_b"][j] = c["desc_a"][i] ^ np.packbits(bits)
+    c["uv_b"][m:] = rng.uniform((0, 0), (640, 480), (n - m, 2))
+    cases.append(c)
+    c = guided_case(rng, "one_b", n, 1)
+    S = c["S"].astype(np.float64)
+    i = int(np.flatnonzero(c["kp_valid_a"] & (c["obs_a"] >= 0))[0])
+    c["pt_valid"][c["obs_a"][i]] = True
+    p = _sim3_np(S, c["p_a"][i].astype(np.float64))
+    c["uv_b"][0] = (c["cam"][:2] * p[:2] / p[2] + c["cam"][2:]).astype(
+        np.float32)
+    c["desc_b"][0] = c["desc_a"][i]
+    c["kp_valid_b"][0] = True
+    cases.append(c)
+    cases.append(guided_case(rng, "scaled", n, n + 37, scale=1.3))
+    return cases
+
+
+def guided_operands(c: dict, device) -> tuple:
+    """A ``guided_case`` as the K16 entry's operands (S_ab, p_a, obs_a,
+    kp_valid_a, pt_valid, desc_a, uv_b, kp_valid_b, desc_b, cam_K)."""
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa
-    return (t(uv_a), t(rng.uniform(size=n) > 0.1), t(desc_a), t(uv_b),
-            t(rng.uniform(size=n) > 0.1), t(desc_b))
+    return tuple(t(c[k]) for k in GUIDED_KEYS)
 
 
-def check_guided(device, inputs=None) -> dict:
-    """K16, 1000 x 1000: the count exactly equal."""
+def guided_inputs(device, n: int = 1000, seed: int = 0) -> tuple:
+    """K16's operands at the loop verification's shape (1000 x 1000)."""
+    return guided_operands(guided_case(np.random.default_rng(seed),
+                                       "seeded", n, n), device)
+
+
+def _guided_pairs(args) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rows that pass the validity and in-front gates, (n_a, n_b) pairs
+    inside the window among them and the valid keypoints), by the twin's
+    steps."""
+    S, p_a, obs_a, kva, ptv, _, uv_b, kvb, _, cam = args
+    pt = torch.clamp(obs_a, min=0).long()
+    p_cam = lie.sim3_apply(S, p_a)
+    rows = kva & (obs_a >= 0) & ptv[pt] & (p_cam[:, 2] > 0.05)
+    uv = cameras.project_pinhole(cam, p_cam)
+    d2 = torch.sum((uv[:, None, :] - uv_b[None, :, :]) ** 2, dim=-1)
+    return rows, (d2 < 64.0) & rows[:, None] & kvb[None, :]
+
+
+def check_guided(device, inputs=None, name: str = "guided_count") -> dict:
+    """K16 (``guided_count_sim3``, 1000 x 1000 seeded or ``inputs``): the
+    count exactly the twin's, one device operation a call (``graph_ops``),
+    bitwise equal from launch to launch."""
     args = inputs or guided_inputs(device)
-    k = match.guided_count(*args)
-    tw = match.guided_count_torch(*args)
+    k = match.guided_count_sim3(*args)
+    tw = match.guided_count_sim3_torch(*args)
+    again = [match.guided_count_sim3(*args) for _ in range(2)]
     torch.cuda.synchronize()
     err = float(abs(int(k) - int(tw)))
-    uv_a, va, _, uv_b, vb, _ = args
-    pairs = va[:, None] & vb[None, :]
-    near = pairs & (torch.sum((uv_a[:, None, :] - uv_b[None, :, :]) ** 2,
-                              dim=-1) < 64.0)
-    return dict(name="guided_count", max_abs_err=err, ok=err == 0.0,
-                count=int(k), **_timed(lambda: match.guided_count(*args)),
-                plain_ms=time_cuda(lambda: match.guided_count_torch(*args)),
-                bytes=nbytes(*args) + 4, n_in_window=int(near.sum()),
-                # per pair of valid rows the window test (5); per pair
-                # inside the 8 px window the distance (8 XOR + 8 popcount
+    repro = all(bool(torch.equal(k, a)) for a in again)
+    ops = graph_ops(lambda: match.guided_count_sim3(*args))
+    rows, near = _guided_pairs(args)
+    n_b_valid = int(args[7].sum())
+    n_a = int(args[1].shape[0])
+    return dict(name=name, max_abs_err=err,
+                ok=err == 0.0 and repro and ops == 1, bitwise_repro=repro,
+                device_ops=ops, count=int(k), n_a=n_a,
+                n_b=int(args[6].shape[0]), rows_in_front=int(rows.sum()),
+                n_in_window=int(near.sum()),
+                **_timed(lambda: match.guided_count_sim3(*args)),
+                plain_ms=time_cuda(lambda: match.guided_count_sim3_torch(
+                    *args)),
+                # the operands read once (the point validity gathered a
+                # row), the count written
+                bytes=nbytes(*args[:4], *args[5:]) + n_a + 4,
+                # per row the validity, the Sim3 and the projection (~60);
+                # per gated row and valid keypoint the window test (5); per
+                # pair inside the window the distance (8 XOR + 8 popcount
                 # + 7 adds)
-                ops=5 * int(pairs.sum()) + 23 * int(near.sum()))
+                ops=60 * n_a + 5 * int(rows.sum()) * n_b_valid
+                + 23 * int(near.sum()))
+
+
+def run_guided_cases(device) -> list[dict]:
+    """K16 on every ``guided_cases`` case."""
+    return [check_guided(device, guided_operands(c, device),
+                         name=f"guided_count@{c['name']}")
+            for c in guided_cases()]
+
+
+@contextlib.contextmanager
+def watch_guided(which: int = 1):
+    """Inside the block, record the operands of the ``which``-th guided
+    re-match count of the loop closer (K16; the last one if fewer ran) as
+    copies, in ``guided_count_sim3``'s order."""
+    from visual_sgraphs_tpu_torch.place import loop_closer
+    out = {"calls": 0}
+    orig = loop_closer.guided_count_sim3
+
+    def spy(*args, **kw):
+        out["calls"] += 1
+        if out["calls"] <= which:
+            out["operands"] = tuple(t.clone() for t in args[:10])
+        return orig(*args, **kw)
+
+    loop_closer.guided_count_sim3 = spy
+    try:
+        yield out
+    finally:
+        loop_closer.guided_count_sim3 = orig
 
 
 def sim3_inputs(device, n: int = 1000, seed: int = 0):
@@ -2087,11 +2247,8 @@ def loop_map_inputs(m, cur: int, cand: int, cam_K, thresh: float = 0.12,
     p_b = lie.se3_apply(m.kf_pose[cand], m.pt_pos[pt_b]).contiguous()
     sim3 = (p_a, p_b, ok, default_draw("sim3", key, ok))
     res = sim3_ransac.verify_sim3_torch(*sim3, thresh, True)
-    p_cam = lie.sim3_apply(res.S_ab, p_a)
-    va_all = m.kf_kp_valid[cur] & (obs_a >= 0) & m.pt_valid[pt_a]
-    guided = (cameras.project_pinhole(cam_K, p_cam).contiguous(),
-              va_all & (p_cam[:, 2] > 0.05), desc_a, m.kf_uv[cand],
-              m.kf_kp_valid[cand], desc_b)
+    guided = (res.S_ab, p_a, obs_a, m.kf_kp_valid[cur], m.pt_valid, desc_a,
+              m.kf_uv[cand], m.kf_kp_valid[cand], desc_b, cam_K)
     edges = pgo.build_covis_edges(m, 30, 512)
     S, var_idx, S_meas, info, valid = pgo.essential_graph(
         m.kf_pose, m.kf_valid, edges, cand, cur, lie.sim3_inverse(res.S_ab))
@@ -3808,10 +3965,11 @@ def assoc_cases() -> list[dict]:
     full_planes: 64 planes, so unmatched detections get no slot and no
     observation; full_obs: 1024 observations, so nothing is recorded while
     planes still update and allocate; argmin_tie: two identical planes, the
-    lower slot wins."""
+    lower slot wins; two_on_one: two detections of one table plane (the
+    second matches the plane the first blended)."""
     cases = []
     for k, name in enumerate(("same_plane_twice", "full_planes", "full_obs",
-                              "argmin_tie")):
+                              "argmin_tie", "two_on_one")):
         rng = np.random.default_rng(100 + k)
         d = _sg_numpy()
         P, V = d["pl_vox"].shape
@@ -3841,6 +3999,14 @@ def assoc_cases() -> list[dict]:
             coeffs[3], cen[3] = _near(rng, d["pl_coeffs"][5],
                                       d["pl_centroid"][5])
             valid[3] = False
+        elif name == "two_on_one":
+            coeffs[0], cen[0] = _near(rng, d["pl_coeffs"][3],
+                                      d["pl_centroid"][3])
+            coeffs[1], cen[1] = _near(rng, d["pl_coeffs"][3],
+                                      d["pl_centroid"][3])
+            coeffs[2], cen[2] = _near(rng, d["pl_coeffs"][5],
+                                      d["pl_centroid"][5])
+            coeffs[3], cen[3] = _far(rng, d)
         else:
             coeffs[0], cen[0] = _near(rng, d["pl_coeffs"][3],
                                       d["pl_centroid"][3])
@@ -3952,8 +4118,10 @@ def check_plane_assoc(device, sg, dets, kf: int, name: str = "plane_assoc",
     """K24 (``associate_and_update``) against its twin on ``sg`` with the
     detections ``dets`` (coeffs, valid, centroid, npts, votes, local,
     quadric, vox) of keyframe ``kf``: the integer and bool fields exactly
-    equal, the float fields within ASSOC_TOL; also on each of ``cases``
-    (``assoc_cases()`` entries), if given.  Times are those on ``sg``."""
+    equal, the float fields within ASSOC_TOL, every table bitwise equal
+    from launch to launch; also on each of ``cases`` (``assoc_cases()``
+    entries), if given; one device operation a call on ``sg``
+    (``graph_ops``).  Times are those on ``sg``."""
     from visual_sgraphs_tpu_torch.scenegraph import manager as sgm
 
     def call(fn, s, d, k):
@@ -3966,18 +4134,25 @@ def check_plane_assoc(device, sg, dets, kf: int, name: str = "plane_assoc",
     for tag, s, d, k in runs:
         out_k = call(sgm.associate_and_update, s, d, k)
         out_t = call(sgm.associate_and_update_torch, s, d, k)
+        again = [call(sgm.associate_and_update, s, d, k) for _ in range(2)]
         torch.cuda.synchronize()
         bad, e = _state_errs(out_k, out_t, ASSOC_INT_FIELDS,
                              ASSOC_FLOAT_FIELDS)
-        per_case[tag] = dict(bad=bad, err=e, n_planes=int(out_t.n_planes),
+        repro = all(torch.equal(getattr(out_k, f), getattr(a, f))
+                    for a in again for f in sgm._ASSOC_TABLES)
+        per_case[tag] = dict(bad=bad, err=e, bitwise_repro=repro,
+                             n_planes=int(out_t.n_planes),
                              n_obs=int(out_t.n_obs),
                              new_obs=int(out_t.n_obs - s.n_obs))
-        ok = ok and not bad and e <= ASSOC_TOL
+        ok = ok and not bad and e <= ASSOC_TOL and repro
         err = max(err, e)
+    ops = graph_ops(lambda: call(sgm.associate_and_update, sg, dets, kf))
+    ok = ok and ops == 1
     n_det = dets[0].shape[0]
     P, V = sg.pl_vox.shape
     tables = [getattr(sg, k) for k in sgm._ASSOC_TABLES]
     return dict(name=name, max_abs_err=err, ok=ok, cases=per_case,
+                device_ops=ops,
                 **_timed(lambda: call(sgm.associate_and_update, sg,
                                       dets, kf)),
                 plain_ms=time_cuda(lambda: call(

@@ -44,7 +44,9 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    keyframe, its even keypoints unlinked (no image gate, no depths), K6
    pose-only GN (also at 1 to 4096 matches, mono and stereo, with and
    without its prior: bitwise equal from launch to launch, one launch a
-   call), K8 Schur reduction and back-substitution at the local
+   call), K8 Schur reduction and back-substitution (with the points'
+   update, as the Schur BAs launch it; a seeded eighth of the points
+   masked and bitwise unmoved) at the local
    BA's L = 11 and the global BA's L = 128 (the reduction one launch a
    call, S and rhs bitwise equal from launch to launch, S exactly
    symmetric), and after phase 4e on the tables of one of
@@ -121,7 +123,17 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    window matcher and K20 also the device time of one call
    (``selfcheck.device_time``), for the kernel and for its library call) and
    the bytes / operations each function needs, from which its bound is
-   derived;
+   derived; K25 (the scan's per-frame bookkeeping: its frame entry on
+   seeded attempts with the retry taken and accepted, not taken, taken and
+   rejected, and after phase 4e on a recorded ``bench_slice`` scan frame;
+   its first-frame and tail entries) with integers and decisions exact and
+   poses within ``selfcheck.SCAN_POSE_TOL``, and K26 (the Schur BAs' damped
+   solve and retraction) at D = 66, 402, 768 and 1536 (each of its three
+   paths) on seeded systems, on one
+   that is not positive definite (a zero step) and after phase 4e on a
+   recorded ``bench_slice`` scene-graph BA iteration, against the float64
+   twin with ``cholesky_ex`` + ``cholesky_solve`` timed beside it; both
+   one device operation a call and bitwise from launch to launch;
 4. the port's main paths at full size through its public entry point
    (``SlamSystem.track_rgbd``), 640x480 RGB-D, 1000 ORB features,
    128 keyframes / 32768 points, 96 frames of the two-lap ``orbit2``
@@ -147,7 +159,8 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
       must equal the counted readbacks (this run, not timed, also records
       the operands of its eighth plane association for K24's check, of
       its 17th K8 reduction, of its 17th scene-graph BA iteration for
-      K21's and of its eighth plane detection for K13's);
+      K21's and K26's, of its eighth plane detection for K13's and of its
+      40th scan frame for K25's);
    f. ``loop_slice``: path (b) with loop closing, a global BA after each
       accepted loop and relocalisation of lost frames;
    g. path (f) again over frames 0-79 under sync-debug mode, across a loop
@@ -181,7 +194,13 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
       pass, under sync-debug mode: synchronising calls must equal the
       counted readbacks;
    the kernel launch counters are zeroed just before each of (a), (b),
-   (d), (f), (h), (i) and (k) and read just after (K1's resize chain,
+   (d), (f), (h), (i) and (k) and read just after (K25's frame entry once
+   a scan frame and its first-frame entry once a scan, on (d) only, its
+   tail entry once a tracking attempt outside the scan, no K25 twin on the
+   card, on (a), (b), (d), (f), (i) and (k); K26 and K8's
+   back-substitution once a Schur BA iteration and no ``cholesky_ex`` on
+   the card from ``fast_ba.py`` / ``dist_ba.py``, on (a), (b), (d), (f)
+   and (k); K1's resize chain,
    K2, K3, K1's blur and K4 must launch once an ORB extraction on each,
    and their plain per-level versions never on the card; on (a), (b),
    (d), (f), (i) and (k) the tracking pass once a tracking pose solve, K6
@@ -252,6 +271,8 @@ INERTIAL_ONLY = {"pose_gn_prior", "preint", "vi_pose"} | LM_KERNELS
 # kernels checked in phase 3 only: K5's standalone window matcher has no
 # main-path caller since fuse_observations runs on the tracking pass
 PHASE3_ONLY = {"match_window"}
+# K25's scan entries: only the B-frame pipeline's scan launches them
+PIPELINE_ONLY = {"scan_prologue", "scan_epilogue"}
 # the kernels of the inertial path
 INERTIAL_PATH = INERTIAL_ONLY | {"pyramid_resize", "gaussian_blur",
                                  "fast_nms", "detect_level", "orb_desc",
@@ -320,11 +341,16 @@ def _reset_plain_counts() -> None:
     from visual_sgraphs_tpu_torch.features import fast, orb, pyramid
     from visual_sgraphs_tpu_torch.inertial import preintegration
     from visual_sgraphs_tpu_torch.optim import fast_ba
+    from visual_sgraphs_tpu_torch.parallel import dist_ba
     from visual_sgraphs_tpu_torch.place import database, loop_closer
-    from visual_sgraphs_tpu_torch.slam import map_state, mapping
+    from visual_sgraphs_tpu_torch.slam import map_state, mapping, tracking
     cuda.reset_counts()
     fast_ba.fast_scenegraph_ba.cuda_calls = 0
     fast_ba.fast_scenegraph_ba.cuda_iters = 0
+    fast_ba.fast_local_ba.cuda_iters = 0
+    dist_ba.global_ba_sharded.cuda_iters = 0
+    tracking.make_frame_scan.cuda_scans = 0
+    tracking.make_frame_scan.cuda_frames = 0
     fast_ba.sg_assemble_torch.cuda_calls = 0
     fast.fast_nms_torch.cuda_calls = 0
     orb.detect_level_torch.cuda_calls = 0
@@ -347,10 +373,13 @@ def _path_calls() -> dict:
     once a call, its system once an iteration), the plain assembly K21
     replaces, the place queries (the keyframe program's and the
     relocalisations', K11 once each), the plain insertion K11's keyframe
-    entry replaces, and the loop verifications (K16 once each)."""
+    entry replaces, the loop verifications (K16 once each), the scans and
+    their frames (K25's two scan entries once each) and the Schur BAs'
+    iterations (K26 once each)."""
     from visual_sgraphs_tpu_torch.optim import fast_ba
+    from visual_sgraphs_tpu_torch.parallel import dist_ba
     from visual_sgraphs_tpu_torch.place import database, loop_closer
-    from visual_sgraphs_tpu_torch.slam import map_state, mapping
+    from visual_sgraphs_tpu_torch.slam import map_state, mapping, tracking
     return dict(place_queries=loop_closer._detect_program.cuda_calls,
                 reloc_queries=loop_closer.reloc_in_map.cuda_calls,
                 add_keyframe=database.add_keyframe.cuda_calls,
@@ -359,7 +388,13 @@ def _path_calls() -> dict:
                 observed_mask=map_state.observed_mask.cuda_calls,
                 sg_ba=fast_ba.fast_scenegraph_ba.cuda_calls,
                 sg_ba_iters=fast_ba.fast_scenegraph_ba.cuda_iters,
-                sg_assemble_torch=fast_ba.sg_assemble_torch.cuda_calls)
+                sg_assemble_torch=fast_ba.sg_assemble_torch.cuda_calls,
+                scans=tracking.make_frame_scan.cuda_scans,
+                scan_frames=tracking.make_frame_scan.cuda_frames,
+                schur_iters=(fast_ba.fast_local_ba.cuda_iters
+                             + fast_ba.fast_scenegraph_ba.cuda_iters
+                             + dist_ba.global_ba_sharded.cuda_iters),
+                gba_iters=dist_ba.global_ba_sharded.cuda_iters)
 
 
 @contextlib.contextmanager
@@ -386,6 +421,27 @@ def _match_window_callers():
     finally:
         for m in bound:
             m.match_window = orig
+
+
+@contextlib.contextmanager
+def _schur_choleskies():
+    """Inside the block, count the calls of ``torch.linalg.cholesky_ex`` on
+    CUDA tensors from the Schur BAs' modules (``optim/fast_ba.py``,
+    ``parallel/dist_ba.py``), where K26 factors on the card."""
+    orig = torch.linalg.cholesky_ex
+    seen = collections.Counter()
+
+    def spy(A, *args, **kw):
+        f = sys._getframe(1).f_code.co_filename.rsplit("/", 1)[-1]
+        if A.is_cuda and f in ("fast_ba.py", "dist_ba.py"):
+            seen[f] += 1
+        return orig(A, *args, **kw)
+
+    torch.linalg.cholesky_ex = spy
+    try:
+        yield seen
+    finally:
+        torch.linalg.cholesky_ex = orig
 
 
 @contextlib.contextmanager
@@ -448,6 +504,41 @@ def _check_track_launches(tag: str, cnt: dict, callers,
            f"{tag}: {n} tracking passes for {k6} tracking pose solves and "
            f"{calls['fuse']} fuse_observations calls; window matcher "
            f"{cnt['match_window'][0]} launches, callers {dict(callers)}")
+
+
+def _check_scan_launches(tag: str, cnt: dict, calls: dict,
+                         pipeline: bool) -> None:
+    """K25's frame entry launches once a scan frame and its first-frame
+    entry once a scan (the pipeline's cells only), its tail entry once a
+    tracking attempt outside the scan (two pose solves each, two attempts
+    a scan frame), and no twin of K25 runs on the card."""
+    k6 = (cnt["pose_gn"][0] + cnt["pose_gn_prior"][0]
+          - cnt["pnp_hypotheses"][0])
+    serial = k6 // 2 - 2 * calls["scan_frames"]
+    twins = sum(cnt[k][1] for k in ("scan_epilogue", "scan_prologue",
+                                    "inlier_tail"))
+    _check((calls["scan_frames"] > 0) == pipeline
+           and cnt["scan_epilogue"][0] == calls["scan_frames"]
+           and cnt["scan_prologue"][0] == calls["scans"]
+           and cnt["inlier_tail"][0] == serial and twins == 0,
+           f"{tag}: K25 {cnt['scan_epilogue'][0]} frame / "
+           f"{cnt['scan_prologue'][0]} first-frame / "
+           f"{cnt['inlier_tail'][0]} tail launches for "
+           f"{calls['scan_frames']} scan frames in {calls['scans']} scans "
+           f"and {serial} serial attempts; {twins} twin calls on the card")
+
+
+def _check_ba_launches(tag: str, cnt: dict, calls: dict, chol) -> None:
+    """K26 launches once a Schur BA iteration (windowed, scene-graph and
+    global), as does K8's back-substitution, and no ``cholesky_ex`` runs
+    on the card from the Schur BAs' modules."""
+    n = calls["schur_iters"]
+    _check(n > 0 and cnt["ba_solve"][0] == n
+           and cnt["schur_backsub"][0] == n and not chol
+           and cnt["ba_solve"][1] == 0,
+           f"{tag}: K26 {cnt['ba_solve'][0]} / K8 back-substitution "
+           f"{cnt['schur_backsub'][0]} launches for {n} Schur BA "
+           f"iterations; cholesky_ex on the card {dict(chol)}")
 
 
 def _check_compact_launches(tag: str, cnt: dict, calls: dict) -> None:
@@ -728,7 +819,8 @@ def main() -> None:
         selfcheck.check_guided(device, name="guided_count@seeded"),
         *selfcheck.run_guided_cases(device),
         *selfcheck.check_schur_gba(device),
-        *selfcheck.check_front_end_small(device)])
+        *selfcheck.check_front_end_small(device),
+        *selfcheck.run_scan(device), *selfcheck.run_ba_solve(device)])
     _check(checks["detect_level@240x320"]["padded_levels"] >= 1,
            "K3 at 240x320: no level shorter than its budget")
     _check(checks["detect_level@720x1280"]["max_candidates"] > 1024,
@@ -761,7 +853,8 @@ def main() -> None:
         system = main_path.make_system(c, device, with_sg)
         _reset_plain_counts()
         t0 = time.perf_counter()
-        with _match_window_callers() as callers:
+        with _match_window_callers() as callers, \
+                _schur_choleskies() as chol:
             perf = _drive(system, frames)
         total_s = time.perf_counter() - t0
         counts[tag] = cuda.counts()
@@ -787,6 +880,8 @@ def main() -> None:
         _check_pyramid_launches(tag, counts[tag])
         _check_track_launches(tag, counts[tag], callers, calls)
         _check_compact_launches(tag, counts[tag], calls)
+        _check_scan_launches(tag, counts[tag], calls, pipeline=False)
+        _check_ba_launches(tag, counts[tag], calls, chol)
         if with_sg:
             _check(extra["n_planes"] >= 2,
                    f"{tag}: n_planes {extra['n_planes']}")
@@ -797,7 +892,7 @@ def main() -> None:
         # the loop kernels run on loop_slice only, the plane kernels with
         # the scene graph only
         skip = (LOOP_ONLY | INERTIAL_ONLY | FREESPACE_ONLY | PHASE3_ONLY
-                | (set() if with_sg else SG_ONLY))
+                | PIPELINE_ONLY | (set() if with_sg else SG_ONLY))
         _check(all(v[0] > 0 for k, v in counts[tag].items()
                    if k not in skip),
                f"{tag}: a kernel was not launched: {counts[tag]}")
@@ -827,6 +922,7 @@ def main() -> None:
     # (the first loop verification's NN-ratio and guided-count operands
     # are copied once: two 32 KB descriptor sets and their keyframes' rows)
     with _match_window_callers() as callers, \
+            _schur_choleskies() as chol, \
             selfcheck.watch_nn(which=1) as nn_seen, \
             selfcheck.watch_guided(which=1) as guided_seen:
         perf = _drive(system, bench_frames, warm=main_path.BENCH_WARMUP)
@@ -877,6 +973,11 @@ def main() -> None:
     _check_compact_launches("bench_slice", counts["bench_slice"], calls)
     _check_place_launches("bench_slice", counts["bench_slice"], calls)
     _check_loop_launches("bench_slice", counts["bench_slice"], calls)
+    _check_scan_launches("bench_slice", counts["bench_slice"], calls,
+                         pipeline=True)
+    _check_ba_launches("bench_slice", counts["bench_slice"], calls, chol)
+    _check(calls["gba_iters"] > 0, "bench_slice: no global BA iteration")
+    bench_calls = calls
     # K5's NN ratio and K16 on the cell's first loop verification's
     # operands
     _check("operands" in nn_seen and "operands" in guided_seen,
@@ -915,7 +1016,9 @@ def main() -> None:
             selfcheck.watch_schur(which=17) as schur_seen, \
             selfcheck.watch_sg_system(which=17) as sg_seen, \
             selfcheck.watch_planes(which=8) as planes_seen, \
-            selfcheck.watch_place(which=8) as place_seen:
+            selfcheck.watch_place(which=8) as place_seen, \
+            selfcheck.watch_scan(which=40) as scan_seen, \
+            selfcheck.watch_ba_solve(which=17) as ba_seen:
         syncs = _drive(system, bench_frames[:96], warm=64,
                        sync_window=(64, 96))
     _line("bench_sync_debug", frames="64-95", keyframes=syncs["keyframes"],
@@ -948,6 +1051,16 @@ def main() -> None:
             selfcheck.check_sg_assemble(device, args=sg_seen["operands"],
                                         name="sg_assemble@window"),
             selfcheck.check_extract_planes(device, planes_seen["operands"])])
+    # K25 on a recorded scan frame (its frame entry; the tail entry on its
+    # first attempt) and K26 on a recorded scene-graph BA iteration
+    _check("operands" in scan_seen and "operands" in ba_seen,
+           "bench_sync_debug: no scan frame or no scene-graph BA")
+    sc = scan_seen["operands"]
+    report([*selfcheck.check_scan_epilogue(device, sc),
+            selfcheck.check_inlier_tail(device, (sc[0], sc[2], sc[6]),
+                                        "inlier_tail@bench"),
+            selfcheck.check_ba_solve(device, ba_seen["operands"],
+                                     "ba_solve@bench")])
     sg_cfg_b = bench_cfg.scenegraph
     report([selfcheck.check_plane_assoc(
         device, *assoc_seen["operands"],
@@ -962,7 +1075,7 @@ def main() -> None:
     watch = _watch_loops(system)
     _reset_plain_counts()
     t0 = time.perf_counter()
-    with _match_window_callers() as callers:
+    with _match_window_callers() as callers, _schur_choleskies() as chol:
         perf = _drive(system, frames)
     total_s = time.perf_counter() - t0
     counts["loop_slice"] = cuda.counts()
@@ -991,8 +1104,12 @@ def main() -> None:
            f"loop_slice: a twin ran on CUDA tensors: {counts['loop_slice']}")
     _check(all(v[0] > 0 for k, v in counts["loop_slice"].items()
                if k != "pnp_hypotheses"
-               and k not in INERTIAL_ONLY | FREESPACE_ONLY | PHASE3_ONLY),
+               and k not in INERTIAL_ONLY | FREESPACE_ONLY | PHASE3_ONLY
+               | PIPELINE_ONLY),
            f"loop_slice: a kernel was not launched: {counts['loop_slice']}")
+    _check_scan_launches("loop_slice", counts["loop_slice"], calls,
+                         pipeline=False)
+    _check_ba_launches("loop_slice", counts["loop_slice"], calls, chol)
     _check_track_launches("loop_slice", counts["loop_slice"], callers, calls)
     _check_compact_launches("loop_slice", counts["loop_slice"], calls)
     _check_sg_system_launches("loop_slice", counts["loop_slice"], calls)
@@ -1131,6 +1248,8 @@ def main() -> None:
            f"card for {len(kfs)} keyframes")
     _check_track_launches("inertial_slice", counts["inertial_slice"],
                           callers, calls)
+    _check_scan_launches("inertial_slice", counts["inertial_slice"], calls,
+                         pipeline=False)
     _check_compact_launches("inertial_slice", counts["inertial_slice"],
                             calls)
     # K22b's plan once a solve with inertial rows (its whitening and edge
@@ -1190,7 +1309,7 @@ def main() -> None:
 
     _reset_plain_counts()
     t0 = time.perf_counter()
-    with _match_window_callers() as callers:
+    with _match_window_callers() as callers, _schur_choleskies() as chol:
         perf = _drive(system, frames, after=note_maint)
     total_s = time.perf_counter() - t0
     counts["freespace_slice"] = cnt = cuda.counts()
@@ -1230,8 +1349,10 @@ def main() -> None:
            f"freespace_slice: a twin ran on CUDA tensors: {cnt}")
     _check(all(v[0] > 0 for k, v in cnt.items()
                if k not in LOOP_ONLY | INERTIAL_ONLY | WALLS_ONLY
-               | PHASE3_ONLY),
+               | PHASE3_ONLY | PIPELINE_ONLY),
            f"freespace_slice: a kernel was not launched: {cnt}")
+    _check_scan_launches("freespace_slice", cnt, calls, pipeline=False)
+    _check_ba_launches("freespace_slice", cnt, calls, chol)
     _check_track_launches("freespace_slice", cnt, callers, calls)
     _check_compact_launches("freespace_slice", cnt, calls)
     _check_sg_launches("freespace_slice", cnt, freespace=True)
@@ -1467,24 +1588,30 @@ def main() -> None:
             **{k: r[k] for k in ("device_ms", "library_device_ms")
                if k in r}))
     local_k8 = counts["bench_slice"]["schur_reduce"][0] - bench_watch["gba_k8"]
+    ref = "visual_sgraphs_tpu/"
     for name, src, replaces, launches in (
-            ("schur_reduce@L128", "schur_reduce", "dist_ba.py:395",
-             bench_watch["gba_k8"]),
-            ("schur_backsub@L128", "schur_backsub", "dist_ba.py:395",
-             bench_watch["gba_k8"]),
-            ("schur_reduce@window", "schur_reduce", "dist_ba.py:148",
-             local_k8),
-            ("schur_backsub@window", "schur_backsub", "dist_ba.py:257",
-             local_k8)):
+            ("schur_reduce@L128", "schur_reduce",
+             ref + "parallel/dist_ba.py:395", bench_watch["gba_k8"]),
+            ("schur_backsub@L128", "schur_backsub",
+             ref + "parallel/dist_ba.py:395", bench_watch["gba_k8"]),
+            ("schur_reduce@window", "schur_reduce",
+             ref + "parallel/dist_ba.py:148", local_k8),
+            ("schur_backsub@window", "schur_backsub",
+             ref + "parallel/dist_ba.py:257", local_k8),
+            ("ba_solve@gba", "ba_solve", ref + "parallel/dist_ba.py:294",
+             bench_calls["gba_iters"]),
+            ("ba_solve@lba", "ba_solve", ref + "optim/fast_ba.py:169",
+             counts["slice"]["ba_solve"][0])):
         r = checks[name]
         kernels.append(dict(
             name=name, route="cuda", source=kernels[
                 [k["name"] for k in kernels].index(src)]["source"],
-            replaces="visual_sgraphs_tpu/parallel/" + replaces,
+            replaces=replaces,
             launches=launches, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=None,
-            **{k: r[k] for k in ("device_ms",) if k in r}))
+            bound_by=r["bound_by"], library_ms=r.get("library_ms"),
+            **{k: r[k] for k in ("device_ms", "library_device_ms")
+               if k in r}))
     print(_card(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

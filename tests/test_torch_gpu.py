@@ -37,6 +37,8 @@ FREESPACE_ONLY = ("freespace_carve", "freespace_components",
 # kernels no main path launches (K5's standalone window matcher: since
 # fuse_observations runs on the tracking pass, only its checks call it)
 CHECK_ONLY = ("match_window",)
+# K25's scan entries: only the B-frame pipeline's scan launches them
+PIPELINE_ONLY = ("scan_prologue", "scan_epilogue")
 
 
 @pytest.fixture(scope="module")
@@ -189,6 +191,31 @@ def test_schur_bitwise_one_launch(device, L):
     assert selfcheck.device_ops(kernel)["ops"] == 1
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [11, 128])
+def test_schur_backsub_points(device, L):
+    # K8's back-substitution as the Schur BAs launch it, with the points'
+    # update: masked points bitwise unmoved, the moved points within
+    # REL_TOL (of the largest point step) of the float32 twin's, bitwise
+    # from launch to launch, at the local and the global BA's shapes
+    n, O = (8192, 12) if L == 11 else (32768, 8)
+    args = selfcheck.schur_inputs(device, n, O, L)
+    _, _, Hinv, bx, W, _ = dist_ba.local_reduced_system(
+        *args, lam=1e-4, huber=2.45)
+    dx6 = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(L, 6)).astype(np.float32) * 1e-3).to(device)
+    pts, pt_ok = selfcheck.backsub_points(device, args[1])
+    sub = (Hinv, bx, W, args[2], args[4], dx6, pts, pt_ok)
+    first = dist_ba.back_substitute(*sub)
+    for _ in range(3):
+        assert torch.equal(first, dist_ba.back_substitute(*sub))
+    assert (~pt_ok).any()
+    assert torch.equal(first[~pt_ok], pts[~pt_ok])
+    twin = dist_ba.back_substitute_torch(*sub)
+    step = float((twin - pts).abs().max())
+    assert float((first - twin).abs().max()) <= selfcheck.REL_TOL * step
+
+
 @pytest.fixture(scope="module")
 def scenegraph_checks(device):
     return {r["name"]: r for r in selfcheck.check_scenegraph(device)}
@@ -271,7 +298,7 @@ def test_slice_on_card_uses_every_kernel(device):
     assert all(launches > 0 and twin == 0
                for name, (launches, twin) in counts.items()
                if name not in sg_only + LOOP_ONLY + INERTIAL_ONLY
-               + FREESPACE_ONLY + CHECK_ONLY), counts
+               + FREESPACE_ONLY + CHECK_ONLY + PIPELINE_ONLY), counts
     assert np.isfinite(pos).all() and system.tracked_mask().all()
     err = np.linalg.norm(pos - pos[0] - (np.stack(gt) - gt[0]), axis=1)
     assert err.max() < 0.1
@@ -307,7 +334,7 @@ def test_scenegraph_slice_on_card_uses_every_kernel(device):
     assert all(launches > 0 and twin == 0
                for name, (launches, twin) in counts.items()
                if name not in LOOP_ONLY + INERTIAL_ONLY + FREESPACE_ONLY
-               + CHECK_ONLY), counts
+               + CHECK_ONLY + PIPELINE_ONLY), counts
     assert np.isfinite(pos).all() and system.tracked_mask().all()
     planes = system.scenegraph.planes()
     assert len(planes["coeffs"]) >= 2
@@ -735,3 +762,38 @@ def test_guided_count_and_plane_assoc_cases(guided_assoc_checks, name):
     # one device operation a call, bitwise from launch to launch
     r = guided_assoc_checks[name]
     assert r["ok"] and r["device_ops"] == 1, r
+
+
+@pytest.fixture(scope="module")
+def scan_ba_checks(device):
+    return {r["name"]: r for r in selfcheck.run_scan(device)
+            + selfcheck.run_ba_solve(device)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    *(f"scan_epilogue@{c}" for c, _, _ in selfcheck.SCAN_CASES),
+    "scan_prologue", "inlier_tail"])
+def test_scan_epilogue_kernel(scan_ba_checks, name):
+    # K25's three entries against their twins on seeded attempts (the
+    # retry taken and accepted, not taken, taken but rejected): integers,
+    # decisions and the packed row exact, poses within SCAN_POSE_TOL,
+    # bitwise from launch to launch; the frame entry one device operation
+    r = scan_ba_checks[name]
+    assert r["ok"], r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ba_solve@lba", "ba_solve",
+                                  "ba_solve@gba", "ba_solve@gba256",
+                                  "ba_solve@not_pd"])
+def test_ba_solve_kernel(scan_ba_checks, name):
+    # K26 at D = 66, 402 (the scene-graph BA's, fixed keyframes, planes,
+    # rooms and doors), 768 and 1536 (its one-block path and its cluster
+    # over distributed shared memory and over global scratch), and on a
+    # system that is not positive definite (a zero step): the step within
+    # BA_STEP_TOL of the float64 twin's largest entry, the moved values
+    # within BA_VALUE_TOL, bitwise from launch to launch, one device
+    # operation a call
+    r = scan_ba_checks[name]
+    assert r["ok"], r

@@ -744,7 +744,9 @@ __global__ void schur_backsub(const float* __restrict__ Hinv,
                               const int* __restrict__ kf_tab,
                               const uint8_t* __restrict__ val,
                               const float* __restrict__ dx6, int n, int O,
-                              int L, float* __restrict__ dxe) {
+                              int L, const float* __restrict__ pts,
+                              const uint8_t* __restrict__ pt_ok,
+                              float* __restrict__ pts_out) {
     const int lm = blockIdx.x * blockDim.x + threadIdx.x;
     if (lm >= n) return;
     float y[3] = {bx[3 * lm], bx[3 * lm + 1], bx[3 * lm + 2]};
@@ -764,7 +766,9 @@ __global__ void schur_backsub(const float* __restrict__ Hinv,
     for (int i = 0; i < 3; ++i) {
         const float v = -(Hi[3 * i] * y[0] + Hi[3 * i + 1] * y[1] +
                           Hi[3 * i + 2] * y[2]);
-        dxe[3 * lm + i] = isfinite(v) ? v : 0.0f;
+        // the points' update pts + where(pt_ok, dxe, 0)
+        const float d = isfinite(v) ? v : 0.0f;
+        pts_out[3 * lm + i] = pts[3 * lm + i] + (pt_ok[lm] ? d : 0.0f);
     }
 }
 
@@ -918,15 +922,17 @@ VSG_API int vsg_schur_reduce(const float* pose, const float* pts,
     return (int)err;
 }
 
-// Hinv (n, 3, 3), bx (n, 3), W (n, O, 6, 3), kf_tab (n, O) i32, val (n, O)
-// u8, dx6 (L, 6) the solved camera steps.  Output dxe (n, 3) (non-finite
-// -> 0).
+// K8's back-substitution with the points' update folded in: dxe = -Hxx^-1
+// (bx + sum_a W_a^T dxi_{kf_a}) (non-finite -> 0), then pts_out = pts +
+// where(pt_ok, dxe, 0) for pts (n, 3) f32 and pt_ok (n,) u8.
 VSG_API int vsg_schur_backsub(const float* Hinv, const float* bx,
                               const float* W, const int* kf_tab,
                               const uint8_t* val, const float* dx6, int n,
-                              int O, int L, float* dxe, cudaStream_t stream) {
+                              int O, int L, const float* pts,
+                              const uint8_t* pt_ok, float* pts_out,
+                              cudaStream_t stream) {
     if (n == 0) return 0;
-    schur_backsub<<<(n + 127) / 128, 128, 0, stream>>>(Hinv, bx, W, kf_tab,
-                                                       val, dx6, n, O, L, dxe);
+    schur_backsub<<<(n + 127) / 128, 128, 0, stream>>>(
+        Hinv, bx, W, kf_tab, val, dx6, n, O, L, pts, pt_ok, pts_out);
     return (int)cudaGetLastError();
 }

@@ -72,6 +72,18 @@ KERNELS = (
      "pose_only_gn_prior", "pose_only_gn_prior_torch",
      "visual_sgraphs_tpu_torch/csrc/pose_gn.cu",
      "visual_sgraphs_tpu/slam/tracking.py:183"),
+    ("inlier_tail", "visual_sgraphs_tpu_torch.slam.tracking",
+     "inlier_tail", "inlier_tail_torch",
+     "visual_sgraphs_tpu_torch/csrc/scan_epilogue.cu",
+     "visual_sgraphs_tpu/slam/tracking.py:320"),
+    ("scan_prologue", "visual_sgraphs_tpu_torch.slam.tracking",
+     "scan_prologue", "scan_prologue_torch",
+     "visual_sgraphs_tpu_torch/csrc/scan_epilogue.cu",
+     "visual_sgraphs_tpu/slam/tracking.py:475"),
+    ("scan_epilogue", "visual_sgraphs_tpu_torch.slam.tracking",
+     "scan_epilogue", "scan_epilogue_torch",
+     "visual_sgraphs_tpu_torch/csrc/scan_epilogue.cu",
+     "visual_sgraphs_tpu/slam/tracking.py:480"),
     ("compact_true", "visual_sgraphs_tpu_torch.slam.map_state",
      "compact_true", "compact_true_torch",
      "visual_sgraphs_tpu_torch/csrc/compact.cu",
@@ -92,6 +104,9 @@ KERNELS = (
      "back_substitute", "back_substitute_torch",
      "visual_sgraphs_tpu_torch/csrc/schur.cu",
      "visual_sgraphs_tpu/parallel/dist_ba.py:257"),
+    ("ba_solve", "visual_sgraphs_tpu_torch.parallel.dist_ba", "ba_solve",
+     "ba_solve_torch", "visual_sgraphs_tpu_torch/csrc/ba_solve.cu",
+     "visual_sgraphs_tpu/optim/fast_ba.py:401"),
     ("depth_cloud", "visual_sgraphs_tpu_torch.scenegraph.pointcloud",
      "depth_cloud", "depth_cloud_torch",
      "visual_sgraphs_tpu_torch/csrc/voxel.cu",
@@ -228,7 +243,12 @@ _ARGTYPES = {
                             + [_VP] * 8 + [_F, _F, _I, _VP, _VP, _VP, _I,
                                            _VP],
     "vsg_schur_reduce": [_VP] * 7 + [_I, _I, _I, _F, _F] + [_VP] * 8,
-    "vsg_schur_backsub": [_VP] * 6 + [_I, _I, _I, _VP, _VP],
+    "vsg_schur_backsub": [_VP] * 6 + [_I, _I, _I] + [_VP] * 4,
+    "vsg_ba_solve": [_VP, _VP, _VP, _I, ctypes.c_double]
+                    + [_VP, _I] * 4 + [_VP, _VP, _VP],
+    "vsg_scan_prologue": [_VP] * 4,
+    "vsg_scan_epilogue": [_VP] * 14 + [_I, _I, _VP, _I] + [_VP] * 10,
+    "vsg_inlier_tail": [_VP] * 6 + [_I, _I, _I] + [_VP] * 4,
     "vsg_depth_cloud": [_VP] * 4 + [_I, _I, _I, _F, _I, _I] + [_VP] * 10,
     "vsg_extract_planes": [_VP] * 4 + [_I, _I, _I, _F, _F] + [_VP] * 4,
     "vsg_plane_epilogue": [_VP] * 7 + [_I, _I, _F, _F, _I] + [_VP] * 7,
@@ -264,6 +284,7 @@ _ARGTYPES = {
 _QUERIES = {
     "vsg_schur_scratch_bytes": ([_I, _I, _I], ctypes.c_longlong),
     "vsg_lm_reproj_scratch_bytes": ([_I, _I], ctypes.c_longlong),
+    "vsg_ba_solve_scratch": ([_I], ctypes.c_longlong),
 }
 
 _lib: ctypes.CDLL | None = None

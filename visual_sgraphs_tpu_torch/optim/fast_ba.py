@@ -11,7 +11,9 @@ iteration reduces the landmarks with the Schur kernel K8
 and assembled by kernel K21, ``csrc/sg_assemble.cu``; its twin is the
 generic ``optim/graph.py`` linearisation) as dense rows of the same
 system, with the keyframe block and its right-hand side added in the same
-launch, solves it by Cholesky and back-substitutes the points.
+launch, solves it and retracts every variable in one launch (kernel K26,
+``parallel/dist_ba.py::ba_solve``) and back-substitutes and moves the
+points in K8's second launch.
 
 Layout of the reduced tangent vector of the scene-graph variant:
     [ kf (L, 6) | plane (P, 3) | room (R, 3) | door (D, 6) ]
@@ -26,7 +28,6 @@ import torch
 
 from visual_sgraphs_tpu_torch import cuda
 from visual_sgraphs_tpu_torch.config import SceneGraphConfig
-from visual_sgraphs_tpu_torch.core import lie
 from visual_sgraphs_tpu_torch.core import plane as plane_mod
 from visual_sgraphs_tpu_torch.optim import factors as factors_mod
 from visual_sgraphs_tpu_torch.optim.graph import (
@@ -39,9 +40,9 @@ from visual_sgraphs_tpu_torch.optim.graph import (
 )
 from visual_sgraphs_tpu_torch.parallel.dist_ba import (
     back_substitute,
+    ba_solve,
     group_observations,
     local_reduced_system,
-    solve_damped,
 )
 from visual_sgraphs_tpu_torch.scenegraph.manager import plane_covis_bonus
 from visual_sgraphs_tpu_torch.slam.map_state import (
@@ -135,17 +136,20 @@ def fast_local_ba(m: MapState, kf_id: int, cam_K: torch.Tensor,
     pts = m.pt_pos[safe_pt]
     free = (~kf_fixed).repeat_interleave(6).to(poses.dtype)
     cost = None
+    if poses.is_cuda:
+        fast_local_ba.cuda_iters += iters
     for _ in range(iters):
         S, rhs, Hinv, bx, W, cost = local_reduced_system(
             poses, pts, kf_tab, uvr_tab, val_tab, cam_K, bf, lam, 2.45)
-        dxr6 = solve_damped(S, rhs, free, lam).reshape(L, 6)
-        new_poses = lie.se3_normalize(lie.se3_boxplus(
-            poses, torch.where(kf_fixed[:, None], 0.0, dxr6)))
-        dxe = back_substitute(Hinv, bx, W, kf_tab, val_tab, dxr6)
-        pts = pts + torch.where(pt_ok[:, None], dxe, 0.0)
-        poses = new_poses
+        dx, poses, *_ = ba_solve(S, rhs, free, lam, poses)
+        pts = back_substitute(Hinv, bx, W, kf_tab, val_tab, dx.view(L, 6),
+                              pts, pt_ok)
     return _write_back(m, kf_ids, kf_mask, kf_fixed, poses, safe_pt, pt_ok,
                        pts), cost
+
+
+# iterations on the card (K26 launches once each)
+fast_local_ba.cuda_iters = 0
 
 
 def _assemble_dense(problem: GraphProblem, values: dict):
@@ -567,33 +571,20 @@ def fast_scenegraph_ba(m: MapState, sg, kf_id: int, cam_K: torch.Tensor,
     ]).to(torch.float32)
 
     poses, pts = m.kf_pose[kf_ids], m.pt_pos[safe_pt]
-    planes, rooms, doors = sg.pl_coeffs, sg.room_center, sg.door_pose
+    planes, rooms, doors = (sg.pl_coeffs.contiguous(),
+                            sg.room_center.contiguous(),
+                            sg.door_pose.contiguous())
     plan = sg_plan(fac, L, P)
     cost = None
     for _ in range(iters):
         S_kf, rhs_kf, Hinv, bx, W, cost = local_reduced_system(
             poses, pts, kf_tab, uvr_tab, val_tab, cam_K, bf, lam, 2.45)
-        S, rhs = system(poses.contiguous(), planes.contiguous(),
-                        rooms.contiguous(), doors.contiguous(), fac, plan,
-                        S_kf, rhs_kf)
-        dx = solve_damped(S, rhs, free, lam)
-        dkf = dx[:kf_dim].reshape(L, 6)
-        off = kf_dim
-        dpl = dx[off:off + 3 * P].reshape(P, 3)
-        off += 3 * P
-        drm = dx[off:off + 3 * R].reshape(R, 3)
-        off += 3 * R
-        ddr = dx[off:off + 6 * Dn].reshape(Dn, 6)
-        new_poses = lie.se3_normalize(lie.se3_boxplus(
-            poses, torch.where(kf_fixed[:, None], 0.0, dkf)))
-        planes = plane_mod.oplus(
-            planes, torch.where(plane_fixed[:, None], 0.0, dpl))
-        rooms = rooms + torch.where(room_fixed[:, None], 0.0, drm)
-        doors = lie.se3_normalize(lie.se3_boxplus(
-            doors, torch.where(door_fixed[:, None], 0.0, ddr)))
-        dxe = back_substitute(Hinv, bx, W, kf_tab, val_tab, dkf)
-        pts = pts + torch.where(pt_ok[:, None], dxe, 0.0)
-        poses = new_poses
+        S, rhs = system(poses, planes, rooms, doors, fac, plan, S_kf,
+                        rhs_kf)
+        dx, poses, planes, rooms, doors = ba_solve(S, rhs, free, lam, poses,
+                                                   planes, rooms, doors)
+        pts = back_substitute(Hinv, bx, W, kf_tab, val_tab,
+                              dx[:kf_dim].view(L, 6), pts, pt_ok)
     m = _write_back(m, kf_ids, kf_mask, kf_fixed, poses, safe_pt, pt_ok, pts)
     planes = planes / torch.clamp(
         torch.linalg.norm(planes[:, :3], dim=-1, keepdim=True), min=1e-9)

@@ -1,4 +1,5 @@
-"""Landmark-grouped Schur reduction for bundle adjustment (kernel K8).
+"""Landmark-grouped Schur reduction for bundle adjustment (kernel K8),
+and the damped reduced solve with the retraction (kernel K26).
 
 Port of the single-device core of ``visual_sgraphs_tpu/parallel/
 dist_ba.py``: with landmark n observed by keyframes k in obs(n),
@@ -20,6 +21,14 @@ global BA's L = 128 on a CPU); the kernel reduces per landmark in one
 launch, as a Gram sum: each landmark's observations of one slot collapse
 into P_s, B_s = chol(Hxx)^-1 P_s^T and the pair blocks are B_s^T B_t.
 
+``ba_solve`` is a Schur BA iteration's damped, gauge-masked reduced
+solve and the retraction of its keyframes (and the scene-graph BA's
+planes, rooms and doors): kernel K26 (``csrc/ba_solve.cu``, one launch)
+on CUDA tensors, the plain twin ``ba_solve_torch`` (``solve_damped`` and
+``_retract``) on CPU tensors.  Each iteration of the windowed, scene-graph
+and global BAs is then K8's reduction, K21 (scene graph only), K26 and
+K8's back-substitution with the points' update folded in.
+
 ``global_ba_sharded`` is the one-device global BA of loop closing
 (LoopClosing::RunGlobalBundleAdjustment): every keyframe and point of the
 map, observations grouped per landmark (``max_obs`` = 8), K8 at L = K.
@@ -37,6 +46,7 @@ import torch
 
 from visual_sgraphs_tpu_torch import cuda
 from visual_sgraphs_tpu_torch.core import lie
+from visual_sgraphs_tpu_torch.core import plane as plane_mod
 
 
 def group_observations_torch(obs_kf, obs_pt, uvr, valid, n_pt: int,
@@ -280,9 +290,12 @@ def local_reduced_system_torch(kf_pose, pts, kf_tab, uvr_tab, val_tab, cam_K,
     return S.reshape(6 * K, 6 * K), rhs.reshape(6 * K), Hinv, bx, W, cost
 
 
-def back_substitute_torch(Hinv, bx, W, kf_tab, val_tab, dxr6):
+def back_substitute_torch(Hinv, bx, W, kf_tab, val_tab, dxr6, pts=None,
+                          pt_ok=None):
     """Plain twin of K8's back-substitution: the per-landmark update
-    dx_n = -Hxx^-1 (bx + sum_a W_a^T dxi_{kf_a}) (non-finite -> 0)."""
+    dx_n = -Hxx^-1 (bx + sum_a W_a^T dxi_{kf_a}) (non-finite -> 0); given
+    the points ``pts`` (n, 3) and their mask ``pt_ok`` (n,), the moved
+    points pts + where(pt_ok, dx, 0) instead."""
     if Hinv.is_cuda:
         back_substitute_torch.cuda_calls += 1
     kf_safe = torch.clamp(kf_tab, min=0).long()
@@ -290,7 +303,10 @@ def back_substitute_torch(Hinv, bx, W, kf_tab, val_tab, dxr6):
     dpose = dxr6[kf_safe] * slot_ok[..., None]
     y = bx + torch.einsum("nari,nar->ni", W, dpose)
     dxe = -torch.einsum("nij,nj->ni", Hinv, y)
-    return torch.where(torch.isfinite(dxe), dxe, 0.0)
+    dxe = torch.where(torch.isfinite(dxe), dxe, 0.0)
+    if pts is None:
+        return dxe
+    return pts + torch.where(pt_ok[:, None], dxe, 0.0)
 
 
 local_reduced_system_torch.cuda_calls = 0
@@ -299,14 +315,103 @@ back_substitute_torch.cuda_calls = 0
 
 def solve_damped(S, rhs, free, lam: float):
     """Levenberg-damped, gauge-masked Cholesky solve.  ``cholesky_ex``
-    reports failure on the device (no sync): a failed factorisation shows
-    up as non-finite steps, zeroed here."""
+    reports failure on the device (no sync): a failed factorisation zeroes
+    the whole step, as the reference's all-NaN factor does, and
+    non-finite steps are zeroed."""
     diag = torch.clamp(torch.diagonal(S), min=1e-6)
     S = S + torch.diag(lam * diag + 1e-5)
     S = S * free[:, None] * free[None, :] + torch.diag(1.0 - free)
-    chol, _ = torch.linalg.cholesky_ex(S)
+    chol, info = torch.linalg.cholesky_ex(S)
     dx = torch.cholesky_solve((rhs * free)[:, None], chol)[:, 0]
-    return torch.where(torch.isfinite(dx), dx, 0.0) * free
+    return torch.where(torch.isfinite(dx) & (info == 0), dx, 0.0) * free
+
+
+def _retract(dx, free, poses, planes, rooms, doors):
+    """The reduced tangent [kf (L, 6) | plane (P, 3) | room (R, 3) | door
+    (Dn, 6)] applied to its variables, a zero step where a variable is
+    fixed (its rows of ``free`` 0): poses and doors normalize(exp(d) T),
+    planes by ``plane.oplus``, rooms by addition.  Absent families (None)
+    stay None."""
+    out, off = [], 0
+    for vals, t in ((poses, 6), (planes, 3), (rooms, 3), (doors, 6)):
+        if vals is None:
+            out.append(None)
+            continue
+        n = vals.shape[0]
+        fixed = free[off:off + t * n:t] == 0
+        d = torch.where(fixed[:, None], 0.0,
+                        dx[off:off + t * n].reshape(n, t))
+        if t == 6:
+            out.append(lie.se3_normalize(lie.se3_boxplus(vals, d)))
+        elif vals is planes:
+            out.append(plane_mod.oplus(vals, d))
+        else:
+            out.append(vals + d)
+        off += t * n
+    return out
+
+
+def ba_solve_torch(S, rhs, free, lam: float, poses, planes=None, rooms=None,
+                   doors=None):
+    """Plain twin of K26: ``solve_damped`` in the system's dtype (float64
+    on the card, as the kernel factors; the CPU callers' float32 there),
+    the step cast to the values' dtype and the retraction (``_retract``).
+    Returns (dx (D,), poses, planes, rooms, doors), None for an absent
+    family."""
+    if S.is_cuda:
+        ba_solve_torch.cuda_calls += 1
+    dx = solve_damped(S, rhs, free, lam).to(poses.dtype)
+    return (dx, *_retract(dx, free, poses, planes, rooms, doors))
+
+
+ba_solve_torch.cuda_calls = 0
+
+@functools.lru_cache(maxsize=64)
+def _ba_solve_scratch(D: int) -> int:
+    """The float64 scratch entries K26 needs at D: 0 when its tiles fit
+    one block's shared memory or its cluster's distributed shared memory
+    (D <= 896), else the cluster's tiles in global memory."""
+    return cuda.query("vsg_ba_solve_scratch", D)
+
+
+def ba_solve(S, rhs, free, lam: float, poses, planes=None, rooms=None,
+             doors=None):
+    """A Schur BA iteration's damped solve and retraction (see
+    ``ba_solve_torch``): kernel K26 on CUDA tensors (``csrc/ba_solve.cu``,
+    one launch: the float32 system factored in float64, a float32 step),
+    the twin on CPU tensors.  The step and the moved values are views of
+    one output buffer."""
+    if S.device.type == "cpu":
+        return ba_solve_torch(S, rhs, free, lam, poses, planes, rooms, doors)
+    fams = (poses, planes, rooms, doors)
+    cuda.require_cuda("ba_solve", S, rhs, free,
+                      *(v for v in fams if v is not None))
+    n = [0 if v is None else v.shape[0] for v in fams]
+    D = 6 * n[0] + 3 * n[1] + 3 * n[2] + 6 * n[3]
+    widths = (7, 4, 3, 7)
+    if (S.shape != (D, D) or rhs.shape != (D,) or free.shape != (D,)
+            or any(t.dtype != torch.float32 for t in (S, rhs, free))
+            or any(v is not None and (v.dtype != torch.float32
+                                      or v.shape[1:] != (w,))
+                   for v, w in zip(fams, widths))):
+        raise ValueError("ba_solve: float32 (D, D) system, rhs and mask for "
+                         "D = 6 L + 3 P + 3 R + 6 Dn, float32 values")
+    sizes = [D] + [k * w for k, w in zip(n, widths)]
+    out = torch.empty((sum(sizes),), dtype=torch.float32, device=S.device)
+    n_scratch = _ba_solve_scratch(D)
+    scratch = (torch.empty((n_scratch,), dtype=torch.float64,
+                           device=S.device) if n_scratch else None)
+    ptr = cuda.ptr
+    cuda.call("vsg_ba_solve", ptr(S), ptr(rhs), ptr(free), D, float(lam),
+              ptr(poses), n[0], ptr(planes), n[1], ptr(rooms), n[2],
+              ptr(doors), n[3], ptr(out), ptr(scratch), cuda.stream())
+    ba_solve.launches += 1
+    dx, *parts = out.split(sizes)
+    return (dx, *(None if v is None else p.view(k, w)
+                  for v, p, k, w in zip(fams, parts, n, widths)))
+
+
+ba_solve.launches = 0
 
 
 def _check_tables(name, kf_tab, uvr_tab, val_tab):
@@ -363,23 +468,29 @@ def local_reduced_system(kf_pose, pts, kf_tab, uvr_tab, val_tab, cam_K, bf,
 local_reduced_system.launches = 0
 
 
-def back_substitute(Hinv, bx, W, kf_tab, val_tab, dxr6):
-    """Landmark back-substitution (kernel K8 on CUDA tensors, the twin on
-    CPU).  Same results as ``back_substitute_torch``."""
+def back_substitute(Hinv, bx, W, kf_tab, val_tab, dxr6, pts, pt_ok):
+    """Landmark back-substitution and the points' update (kernel K8 on
+    CUDA tensors, one launch; the twin on CPU): the moved points pts +
+    where(pt_ok, dx, 0).  Same results as ``back_substitute_torch``."""
     if Hinv.device.type == "cpu":
-        return back_substitute_torch(Hinv, bx, W, kf_tab, val_tab, dxr6)
-    cuda.require_cuda("back_substitute", Hinv, bx, W, kf_tab, val_tab, dxr6)
-    for t in (Hinv, bx, W, dxr6):
+        return back_substitute_torch(Hinv, bx, W, kf_tab, val_tab, dxr6,
+                                     pts, pt_ok)
+    cuda.require_cuda("back_substitute", Hinv, bx, W, kf_tab, val_tab, dxr6,
+                      pts, pt_ok)
+    for t in (Hinv, bx, W, dxr6, pts):
         if t.dtype != torch.float32:
             raise ValueError("back_substitute: float32 inputs only")
+    if pt_ok.dtype != torch.bool:
+        raise ValueError("back_substitute: pt_ok must be bool")
     _check_tables("back_substitute", kf_tab, None, val_tab)
     n, O = kf_tab.shape
-    dxe = torch.empty((n, 3), dtype=torch.float32, device=Hinv.device)
-    cuda.call("vsg_schur_backsub", cuda.ptr(Hinv), cuda.ptr(bx), cuda.ptr(W),
-              cuda.ptr(kf_tab), cuda.ptr(val_tab), cuda.ptr(dxr6), n, O,
-              dxr6.shape[0], cuda.ptr(dxe), cuda.stream())
+    out = torch.empty((n, 3), dtype=torch.float32, device=Hinv.device)
+    ptr = cuda.ptr
+    cuda.call("vsg_schur_backsub", ptr(Hinv), ptr(bx), ptr(W), ptr(kf_tab),
+              ptr(val_tab), ptr(dxr6), n, O, dxr6.shape[0], ptr(pts),
+              ptr(pt_ok), ptr(out), cuda.stream())
     back_substitute.launches += 1
-    return dxe
+    return out
 
 
 back_substitute.launches = 0
@@ -393,20 +504,19 @@ back_substitute.launches = 0
 def _step_body(kf_pose, pts, kf_tab, uvr_tab, val_tab, valid_pt, cam_K,
                fixed_kf, lam: float, bf, huber: float, iters: int):
     """``iters`` Gauss-Newton iterations: K8's reduction, the damped
-    reduced solve, the pose update and K8's back-substitution.  Returns
-    (poses, points, costs (iters,))."""
+    reduced solve and the pose update (K26), K8's back-substitution with
+    the points' update.  Returns (poses, points, costs (iters,))."""
     K = kf_pose.shape[0]
     free = (~fixed_kf).repeat_interleave(6).to(kf_pose.dtype)
     pose, costs = kf_pose, []
+    if kf_pose.is_cuda:
+        global_ba_sharded.cuda_iters += iters
     for _ in range(iters):
         S, rhs, Hinv, bx, W, cost = local_reduced_system(
             pose, pts, kf_tab, uvr_tab, val_tab, cam_K, bf, lam, huber)
-        dxr6 = solve_damped(S, rhs, free, lam).reshape(K, 6)
-        new_pose = lie.se3_normalize(lie.se3_boxplus(
-            pose, torch.where(fixed_kf[:, None], 0.0, dxr6)))
-        dxe = back_substitute(Hinv, bx, W, kf_tab, val_tab, dxr6)
-        pts = pts + torch.where(valid_pt[:, None], dxe, 0.0)
-        pose = new_pose
+        dx, pose, *_ = ba_solve(S, rhs, free, lam, pose)
+        pts = back_substitute(Hinv, bx, W, kf_tab, val_tab, dx.view(K, 6),
+                              pts, valid_pt)
         costs.append(cost)
     return pose, pts, torch.stack(costs)
 
@@ -439,3 +549,7 @@ def global_ba_sharded(m, cam_K, cam_bf, iters: int = 10, max_obs: int = 8):
     return m._replace(
         kf_pose=torch.where(fixed[:, None], m.kf_pose, pose),
         pt_pos=torch.where(m.pt_valid[:, None], pts, m.pt_pos)), costs
+
+
+# iterations on the card (K26 launches once each)
+global_ba_sharded.cuda_iters = 0

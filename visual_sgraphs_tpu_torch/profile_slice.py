@@ -86,9 +86,13 @@ tables of ``bench_slice``'s 17th scene-graph BA call) and K22a's
 reduction (``lm_kernels.lm_reproj_reduce`` on ``inertial_slice``'s fourth
 VI local BA, and its last generic local BA), each with its CUDA-event
 and device ms, its device operations a call and whether three launches
-agree bitwise, and K8's back-substitution on the ``bench_slice`` window
-against the float64 twin (``_backsub_errors``); the two windows are
-recorded into PATH (a ``torch.save``
+agree bitwise, K8's back-substitution on the ``bench_slice`` window
+against the float64 twin (``_backsub_errors``), and a Schur BA
+iteration's damped solve and retraction (K26, ``dist_ba.ba_solve``; on a
+tree without it the plain ``solve_damped`` and retraction chain,
+``_damped_step``) on ``bench_slice``'s 17th scene-graph BA iteration and
+on seeded systems at D = 66, 402 and 768; the windows are recorded into
+PATH (a ``torch.save``
 of plain tensors) when it does not exist, so that two trees are timed on
 the same operands.  With ``--sg-times PATH`` it times K21 (the scene-graph
 BA iteration's assembly, its kernel and plan) and K13 on seeded operands
@@ -110,6 +114,7 @@ Prints one JSON line per result; needs a card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import cProfile
 import hashlib
 import json
@@ -1089,6 +1094,8 @@ def track_ops(n_frames: int = 96) -> None:
                     system.velocity, ref, K, t.min_inliers_ok, bf)
 
     res = one()
+    if not isinstance(res, tracking.TrackResult):  # (result, packed)
+        res = res[0]
     _line("track_ops", call="_track_frame_impl", frame=n_frames,
           n_local=int(res.n_local_pts), n_matches=int(res.n_matches),
           n_inliers=int(res.n_inliers), **selfcheck.device_ops(one),
@@ -1122,9 +1129,10 @@ def k20_sections() -> None:
 
 def _record_schur_windows(path: str) -> None:
     """The operands of ``bench_slice``'s 17th K8 call from a scene-graph BA
-    (96 frames) and of the K22a reductions of ``inertial_slice``'s fourth
-    VI local BA and last generic local BA (96 frames), saved as plain
-    tensors."""
+    and of its 17th damped solve (K26, by a tree that has it; 96 frames),
+    K26's seeded systems at D = 66, 402 and 768, and the K22a reductions of
+    ``inertial_slice``'s fourth VI local BA and last generic local BA (96
+    frames), saved as plain tensors."""
     from visual_sgraphs_tpu_torch import main_path, selfcheck
     from visual_sgraphs_tpu_torch.optim import fast_ba
     from visual_sgraphs_tpu_torch.optim import lm_kernels as lmk
@@ -1141,13 +1149,21 @@ def _record_schur_windows(path: str) -> None:
     system = main_path.make_system(main_path.bench_config(scene), "cuda",
                                    True)
     fast_ba.local_reduced_system = spy
+    watch = (selfcheck.watch_ba_solve(which=17)
+             if hasattr(selfcheck, "watch_ba_solve")
+             else contextlib.nullcontext({}))
     try:
-        for frame in frames[:96]:
-            main_path.feed(system, frame)
-        system.flush()
+        with watch as ba_seen:
+            for frame in frames[:96]:
+                main_path.feed(system, frame)
+            system.flush()
     finally:
         fast_ba.local_reduced_system = orig
     del system
+    if "operands" in ba_seen:
+        out["k26"] = list(ba_seen["operands"])
+        out["k26_seeded"] = {lay: list(selfcheck.ba_solve_inputs("cuda", lay))
+                             for lay in selfcheck.BA_LAYOUTS}
     vi_scene, vi_frames = main_path.inertial_frames("cuda")
     system = main_path.make_system(main_path.inertial_config(vi_scene),
                                    "cuda", False)
@@ -1164,12 +1180,16 @@ def _record_schur_windows(path: str) -> None:
 
 
 def _backsub_errors(args, seed: int = 1) -> dict:
-    """K8's back-substitution on a window's tables, given the factors of
-    K8's reduction there and seeded pose steps (1e-3): its error relative
-    to the largest point step against the float64 twin on the same
-    (float32) operands, and against the float32 twin; the error of the
-    whole chain (K8's reduction and back-substitution) against the float64
-    twin's; CUDA-event and device ms."""
+    """K8's back-substitution with the points' update on a window's
+    tables, given the factors of K8's reduction there, seeded pose steps
+    (1e-3) and a seeded point mask: the moved points' error relative to
+    the largest point step against the float64 twin on the same (float32)
+    operands, and against the float32 twin; the error of the whole chain
+    (K8's reduction and back-substitution) against the float64 twin's;
+    CUDA-event and device ms.  A tree whose entry returns the step alone
+    is timed through it, the points' update added after."""
+    import inspect
+
     from visual_sgraphs_tpu_torch import selfcheck
     from visual_sgraphs_tpu_torch.parallel import dist_ba
     kw = dict(lam=1e-4, huber=2.45)
@@ -1180,22 +1200,74 @@ def _backsub_errors(args, seed: int = 1) -> dict:
     _, _, H64, b64, W64, _ = dist_ba.local_reduced_system_torch(*f64, **kw)
     dx6 = torch.from_numpy(np.random.default_rng(seed).normal(
         size=(L, 6)).astype(np.float32) * 1e-3).to(args[0].device)
-    fn = lambda: dist_ba.back_substitute(Hinv, bx, W, kf_tab, val, dx6)  # noqa
+    pts, pt_ok = args[1], torch.from_numpy(
+        np.random.default_rng(seed).uniform(size=args[1].shape[0])
+        >= 0.125).to(args[1].device)
+    sub = (Hinv, bx, W, kf_tab, val, dx6)
+    if "pts" in inspect.signature(dist_ba.back_substitute).parameters:
+        fn = lambda: dist_ba.back_substitute(*sub, pts, pt_ok)  # noqa
+    else:
+        fn = lambda: pts + torch.where(  # noqa: E731
+            pt_ok[:, None], dist_ba.back_substitute(*sub), 0.0)
     kd = fn().double()
-    same = dist_ba.back_substitute_torch(Hinv.double(), bx.double(),
-                                         W.double(), kf_tab, val,
-                                         dx6.double())
-    twin32 = dist_ba.back_substitute_torch(Hinv, bx, W, kf_tab, val, dx6)
-    chain = dist_ba.back_substitute_torch(H64, b64, W64, kf_tab, val,
-                                          dx6.double())
+    p64 = pts.double()
+
+    def moved(*ops):
+        return p64 + torch.where(pt_ok[:, None], dist_ba.back_substitute_torch(
+            *ops, kf_tab, val, dx6.double()).double(), 0.0)
+
+    same = moved(Hinv.double(), bx.double(), W.double())
+    twin32 = pts + torch.where(pt_ok[:, None],
+                               dist_ba.back_substitute_torch(*sub), 0.0)
+    chain = moved(H64, b64, W64)
 
     def rel(a, b):
-        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+        return float((a - b).abs().max()
+                     / (b - p64).abs().max().clamp(min=1e-30))
 
     return dict(rel_err_vs_f64=rel(kd, same),
                 rel_err_vs_f32_twin=rel(kd, twin32.double()),
                 chain_rel_err_vs_f64=rel(kd, chain),
                 ms=selfcheck.time_cuda(fn), device_ms=selfcheck.device_time(fn))
+
+
+def _damped_step(ops):
+    """A Schur BA iteration's damped solve and retraction on ``ops`` (S,
+    rhs, free, lam, poses, planes, rooms, doors) as the tree runs it: K26
+    (``dist_ba.ba_solve``), or on a tree without it the plain chain its
+    BAs ran (``solve_damped``, then each family's retraction)."""
+    from visual_sgraphs_tpu_torch.core import lie
+    from visual_sgraphs_tpu_torch.core import plane as plane_mod
+    from visual_sgraphs_tpu_torch.parallel import dist_ba
+    if hasattr(dist_ba, "ba_solve"):
+        return lambda: dist_ba.ba_solve(*ops)
+    S, rhs, free, lam, poses, planes, rooms, doors = ops
+    counts = [0 if v is None else v.shape[0]
+              for v in (poses, planes, rooms, doors)]
+    fixed = []
+    off = 0
+    for n, t in zip(counts, (6, 3, 3, 6)):
+        fixed.append(free[off:off + t * n:t] == 0)
+        off += t * n
+
+    def plain():
+        dx = dist_ba.solve_damped(S, rhs, free, lam)
+        L, P, R, Dn = counts
+        o = 6 * L
+        out = [lie.se3_normalize(lie.se3_boxplus(poses, torch.where(
+            fixed[0][:, None], 0.0, dx[:o].reshape(L, 6))))]
+        if P:
+            out.append(plane_mod.oplus(planes, torch.where(
+                fixed[1][:, None], 0.0, dx[o:o + 3 * P].reshape(P, 3))))
+            o += 3 * P
+            out.append(rooms + torch.where(
+                fixed[2][:, None], 0.0, dx[o:o + 3 * R].reshape(R, 3)))
+            o += 3 * R
+            out.append(lie.se3_normalize(lie.se3_boxplus(doors, torch.where(
+                fixed[3][:, None], 0.0, dx[o:o + 6 * Dn].reshape(Dn, 6)))))
+        return [dx] + out
+
+    return plain
 
 
 def schur_times(path: str) -> None:
@@ -1236,6 +1308,13 @@ def schur_times(path: str) -> None:
             n=args[2].shape[0], O=args[2].shape[1], L=args[0].shape[0],
             observed=int(args[4].any(dim=1).sum()))
     _line("schur_times", name="K8_backsub@window", **_backsub_errors(args))
+    for tag, ops in [("window", rec.get("k26"))] + sorted(
+            rec.get("k26_seeded", {}).items()):
+        if ops is not None:
+            fn = _damped_step(ops)
+            measure(f"K26@{tag}", fn, D=ops[0].shape[0],
+                    route="ba_solve" if hasattr(dist_ba, "ba_solve")
+                    else "solve_damped + retraction")
     with_plan = "plan" in inspect.signature(lmk.lm_reproj_reduce).parameters
     for tag in ("vi", "lba"):
         w = rec[tag]

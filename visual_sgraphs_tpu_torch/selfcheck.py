@@ -1160,18 +1160,27 @@ def _schur_work(args) -> tuple[int, int]:
     return nbytes_, ops
 
 
-def _backsub_work(kf_tab, val, L: int) -> tuple[int, int]:
-    """(bytes, operations) K8's back-substitution needs, counted from the
-    data as ``_schur_work`` counts the reduction's: the observed
-    landmarks' Hinv, bx, W and kf_tab rows, every row's val (to find
-    them), the pose steps and the (n, 3) output; per valid observation
-    W^T dxi (36 flops), per observed landmark the 3x3 product (18)."""
+def _backsub_work(kf_tab, val, L: int, pt_ok) -> tuple[int, int]:
+    """(bytes, operations) K8's back-substitution with the points' update
+    needs, counted from the data as ``_schur_work`` counts the
+    reduction's: the observed landmarks' Hinv, bx, W and kf_tab rows,
+    every row's val (to find them), the pose steps, every point, its
+    mask and its moved copy; per valid observation W^T dxi (36 flops),
+    per observed landmark the 3x3 product (18), per moved point 3 adds."""
     n, O = kf_tab.shape
     n_obs = val.sum(dim=1)
     seen = int((n_obs > 0).sum())
     row = 4 * (9 + 3 + O * 18) + 4 * O
-    return (seen * row + n * O + 4 * 6 * L + 4 * 3 * n,
-            36 * int(n_obs.sum()) + 18 * seen)
+    return (seen * row + n * O + 4 * 6 * L + (12 + 1 + 12) * n,
+            36 * int(n_obs.sum()) + 18 * seen + 3 * int(pt_ok.sum()))
+
+
+def backsub_points(device, X, seed: int = 1):
+    """Seeded operands of the back-substitution's points' update for the
+    points ``X`` (n, 3): the points and a mask with ~1/8 of them False."""
+    rng = np.random.default_rng(seed)
+    ok = torch.from_numpy(rng.uniform(size=X.shape[0]) >= 0.125)
+    return X.contiguous(), ok.to(device)
 
 
 def check_schur(device, n: int = 8192, O: int = 12, L: int = 11,
@@ -1184,12 +1193,14 @@ def check_schur(device, n: int = 8192, O: int = 12, L: int = 11,
     relative to the output's largest entry; S and rhs bitwise equal over
     repeated launches, S exactly symmetric; the device operations of a
     call reported (``device_ops``).
-    Back-substitution (given the reduction's factors and seeded pose
-    steps), with ``back`` "f32": within REL_TOL of the float32 twin; with
-    "f64" (a real window, where single-observation landmarks' Hinv
-    amplify the summation order): within SCHUR_TOL, relative to the
-    largest point step, of the float64 twin on the same operands, as the
-    reduction is held."""
+    Back-substitution with the points' update (given the reduction's
+    factors, seeded pose steps and a seeded point mask with some entries
+    False, as the BAs launch it): the masked points bitwise unmoved, and
+    with ``back`` "f32" the moved points within REL_TOL of the float32
+    twin's; with "f64" (a real window, where single-observation
+    landmarks' Hinv amplify the summation order) within SCHUR_TOL of the
+    float64 twin's on the same operands, as the reduction is held; both
+    relative to the largest point step."""
     if args is None:
         args = schur_inputs(device, n, O, L)
     kw = dict(lam=1e-4, huber=2.45)
@@ -1230,25 +1241,32 @@ def check_schur(device, n: int = 8192, O: int = 12, L: int = 11,
     Hinv, bx, W = (kout if back == "f64" else tout)[2:5]
     dx6 = torch.from_numpy(np.random.default_rng(1).normal(
         size=(L, 6)).astype(np.float32) * 1e-3).to(device)
-    kd = dist_ba.back_substitute(Hinv, bx, W, kf_tab, val, dx6)
-    td = dist_ba.back_substitute_torch(Hinv, bx, W, kf_tab, val, dx6)
+    pts, pt_ok = backsub_points(device, X)
+    sub = (Hinv, bx, W, kf_tab, val, dx6, pts, pt_ok)
+    kd = dist_ba.back_substitute(*sub)
+    td = dist_ba.back_substitute_torch(*sub)
     t64 = dist_ba.back_substitute_torch(Hinv.double(), bx.double(),
                                         W.double(), kf_tab, val,
-                                        dx6.double())
+                                        dx6.double(), pts.double(), pt_ok)
     torch.cuda.synchronize()
-    err_f32, err_f64 = _rel(kd, td), _rel(kd.double(), t64)
+    p64 = pts.double()
+    # the moved points' errors relative to the largest point step
+    err_f32 = float((kd.double() - td.double()).abs().max()
+                    / (td.double() - p64).abs().max().clamp(min=1e-30))
+    err_f64 = float((kd.double() - t64).abs().max()
+                    / (t64 - p64).abs().max().clamp(min=1e-30))
     err = err_f64 if back == "f64" else err_f32
-    ms = time_cuda(lambda: dist_ba.back_substitute(Hinv, bx, W, kf_tab, val,
-                                                    dx6))
-    plain = time_cuda(lambda: dist_ba.back_substitute_torch(
-        Hinv, bx, W, kf_tab, val, dx6))
+    unmoved = bool(torch.equal(kd[~pt_ok], pts[~pt_ok]))
+    ms = time_cuda(lambda: dist_ba.back_substitute(*sub))
+    plain = time_cuda(lambda: dist_ba.back_substitute_torch(*sub))
     back = dict(name=name.replace("schur_reduce", "schur_backsub"),
                 max_abs_err=err, rel_err_vs_f64=err_f64,
                 rel_err_vs_f32_twin=err_f32, ms=ms, plain_ms=plain,
-                device_ms=device_time(lambda: dist_ba.back_substitute(
-                    Hinv, bx, W, kf_tab, val, dx6)),
-                ok=err <= (SCHUR_TOL if back == "f64" else REL_TOL))
-    back["bytes"], back["ops"] = _backsub_work(kf_tab, val, L)
+                masked_unmoved=unmoved, masked=int((~pt_ok).sum()),
+                device_ms=device_time(lambda: dist_ba.back_substitute(*sub)),
+                ok=unmoved and int((~pt_ok).sum()) > 0
+                and err <= (SCHUR_TOL if back == "f64" else REL_TOL))
+    back["bytes"], back["ops"] = _backsub_work(kf_tab, val, L, pt_ok)
     return [reduce, back]
 
 
@@ -4261,6 +4279,415 @@ def run_loop_seeded(device) -> list[dict]:
             check_match_nn(device), check_guided(device),
             check_sim3(device), check_pnp(device), *check_pgo(device),
             *check_schur_gba(device)]
+
+
+# ---------------------------------------------------------------------------
+# K25: the tracking scan's per-frame bookkeeping; K26: the Schur BAs'
+# damped solve and retraction
+# ---------------------------------------------------------------------------
+
+# K25's poses against its twin, per component: the kernel rounds the
+# twin's operations op for op but for the order of |q|^2's four terms
+SCAN_POSE_TOL = 2e-7
+# K26's step relative to its largest |dx| against the float64 twin (both
+# float64 factorisations, in different orders), and its moved values per
+# component (float32 retractions of nearly equal steps)
+BA_STEP_TOL = 1e-6
+BA_VALUE_TOL = 1e-5
+LAM_BA = 1e-4  # the Schur BAs' damping
+# (L, P, R, Dn) of the three Schur BAs: the windowed local BA (D = 66),
+# the scene-graph BA (D = 402) and the global BA at 128 keyframes (D =
+# 768, K26's cluster over distributed shared memory) and at the default
+# capacity's 256 (D = 1536, the cluster over global scratch)
+BA_LAYOUTS = {"lba": (11, 0, 0, 0), "sg": (11, 64, 16, 16),
+              "gba": (128, 0, 0, 0), "gba256": (256, 0, 0, 0)}
+
+
+def _random_poses(rng, n: int, spread: float = 1.0) -> np.ndarray:
+    xi = np.concatenate([rng.normal(size=(n, 3)) * spread,
+                         rng.normal(size=(n, 3)) * 0.5], axis=1)
+    return lie.se3_exp(torch.tensor(xi, dtype=torch.float32)).numpy()
+
+
+def scan_epilogue_inputs(device, retry: bool, accept: bool = True,
+                         N: int = 4096, F: int = 1000, seed: int = 0):
+    """Seeded operands of K25 at the scan's shapes (4096 local ids, 1000
+    keypoint slots): two attempts (matched flags ~30 %, slots with
+    repeats, visible ids, the solves' inliers and poses), the table's ids
+    (ascending, -1 padded), the reference keyframe's pose, a state and
+    ``min_inliers`` chosen between the attempts' kept counts so that the
+    retry is taken or not, and the chosen attempt accepted or not.
+    Returns (a1, a2, table, kf_base, min_inliers, state, F)."""
+    from visual_sgraphs_tpu_torch.features.match import TrackPass
+    rng = np.random.default_rng(seed)
+    n_pts = int(0.9 * N)
+    ids = np.full(N, -1, np.int32)
+    ids[:n_pts] = np.sort(rng.choice(32768, n_pts, replace=False))
+    f = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa
+
+    def attempt(p_ok):
+        ok = (rng.uniform(size=N) < p_ok) & (ids >= 0)
+        slot = np.where(ok, rng.integers(0, F, N), 0).astype(np.int64)
+        vis = np.where(rng.uniform(size=N) < 0.6, ids, -1).astype(np.int32)
+        inl = rng.uniform(size=N) < 0.8
+        fine = TrackPass(uv_pred=None, vis=None, vis_pt=f(vis), match=None,
+                         dist=None, ok=f(ok), slot=f(slot), uv_m=None,
+                         depth_m=None,
+                         n_match=torch.tensor(int(ok.sum()),
+                                              dtype=torch.int32,
+                                              device=device))
+        return tracking.Attempt(pose=f(_random_poses(rng, 1)[0]), fine=fine,
+                                inliers=f(inl)), int((ok & inl).sum())
+
+    a1, k1 = attempt(0.15)
+    a2, k2 = attempt(0.35)
+    # the retry replaces a short first attempt; either result may still
+    # fall short of the floor
+    if retry:
+        min_inliers = k2 if accept else k2 + 1
+    else:
+        min_inliers = k1 if accept else k1 + 1
+        if not accept:
+            raise ValueError("a first attempt below the floor retries")
+    table = tracking.LocalTable(ids=f(ids), valid=f(ids >= 0), xw=None,
+                                n_pts=torch.tensor(n_pts, dtype=torch.int32,
+                                                   device=device))
+    state = f(_random_poses(rng, 3).reshape(3, 7))
+    return (a1, a2, table, f(_random_poses(rng, 1)[0]), min_inliers, state,
+            F)
+
+
+SCAN_CASES = (("retry_accepted", True, True),
+              ("first_accepted", False, True),
+              ("retry_rejected", True, False))
+
+
+def _scan_run(fn, ops, B: int = 2, i: int = 1):
+    """Fresh B-frame outputs (every row poisoned) after one ``fn`` (K25 or
+    its twin) call on the operands ``ops`` (a1, a2, table, kf_base,
+    min_inliers, state, F) at row ``i``."""
+    a1, a2, table, kf_base, min_inliers, state, F = ops
+    out = tracking.scan_outputs(B, F, table.ids.shape[0], kf_base.device)
+    for t in out.results + (out.T_rels, out.packeds):
+        t.fill_(-7)
+    out.state.copy_(state)
+    fn(a1, a2, table, kf_base, min_inliers, i, out)
+    return out
+
+
+def _scan_errors(k, t) -> dict:
+    """Integer fields' equality and float fields' largest difference of
+    two scan outputs."""
+    ints = all(torch.equal(x, y) for x, y in zip(
+        (k.results.slot_pt, k.results.vis_pt, k.results.n_matches,
+         k.results.n_inliers, k.results.n_local_pts, k.packeds),
+        (t.results.slot_pt, t.results.vis_pt, t.results.n_matches,
+         t.results.n_inliers, t.results.n_local_pts, t.packeds)))
+    err = max(float((x - y).abs().max()) for x, y in (
+        (k.results.pose, t.results.pose), (k.T_rels, t.T_rels),
+        (k.state, t.state)))
+    return dict(ints_equal=ints, max_abs_err=err)
+
+
+def _scan_work(table, F: int) -> tuple[int, int]:
+    """(bytes, operations) of a K25 frame: both attempts' match flags and
+    inlier masks (both keep counts), the chosen attempt's slots, visible
+    ids, count and pose, the table's ids, its size, the keyframe pose and
+    T_prev read once; the row's slot_pt, vis_pt, counts, pose, T_rel,
+    packed row and the state written once; per table entry and attempt a
+    test and an add, per kept entry a max, ~300 pose flops."""
+    N = table.ids.shape[0]
+    read = 2 * N * (1 + 1) + N * (8 + 4) + 4 + 28 + 4 * N + 4 + 28 + 28
+    write = 4 * F + 4 * N + 12 + 28 + 28 + 16 + 84
+    return read + write, 4 * N + N + 300
+
+
+def check_scan_epilogue(device, operands=None, name: str = "scan_epilogue",
+                        cases=SCAN_CASES) -> list[dict]:
+    """K25's frame entry against its twin: on seeded operands with the
+    retry taken and accepted, not taken, and taken but rejected (or on
+    recorded ``operands``): integers, decisions and the packed row exact,
+    poses (the row's pose, T_rel, the next state) within SCAN_POSE_TOL;
+    bitwise from launch to launch; one device operation a call (CUDA-graph
+    nodes).  Timed on the first case against the twin."""
+    runs = ([(name, operands)] if operands is not None else
+            [(f"{name}@{c}", scan_epilogue_inputs(device, r, a))
+             for c, r, a in cases])
+    out = []
+    for tag, ops in runs:
+        k = _scan_run(tracking.scan_epilogue, ops)
+        t = _scan_run(tracking.scan_epilogue_torch, ops)
+        torch.cuda.synchronize()
+        errs = _scan_errors(k, t)
+        again = [_scan_run(tracking.scan_epilogue, ops) for _ in range(3)]
+        repro = all(torch.equal(x, y) for o in again
+                    for x, y in zip((*k.results, k.T_rels, k.packeds,
+                                     k.state),
+                                    (*o.results, o.T_rels, o.packeds,
+                                     o.state)))
+        work_bytes, work_ops = _scan_work(ops[2], ops[6])
+        out.append(dict(name=tag, **errs, bitwise_repro=repro,
+                        retried=bool(k.packeds[1, 3] > 0),
+                        n_inliers=int(k.results.n_inliers[1]),
+                        min_inliers=ops[4], ms=None, plain_ms=None,
+                        library_ms=None, bytes=work_bytes, ops=work_ops,
+                        ok=errs["ints_equal"] and repro
+                        and errs["max_abs_err"] <= SCAN_POSE_TOL))
+    a1, a2, table, kf_base, min_inl, state, F = runs[0][1]
+    res = tracking.scan_outputs(2, F, table.ids.shape[0], device)
+    res.state.copy_(state)
+
+    def kernel():
+        tracking.scan_epilogue(a1, a2, table, kf_base, min_inl, 1, res)
+
+    def twin():
+        tracking.scan_epilogue_torch(a1, a2, table, kf_base, min_inl, 1, res)
+
+    first = out[0]
+    first.update(ms=time_cuda(kernel), device_ms=device_time(kernel),
+                 plain_ms=time_cuda(twin), plain_device_ms=device_time(twin),
+                 graph_ops=graph_ops(kernel),
+                 plain_device_ops=device_ops(twin)["ops"], library_ms=None)
+    first["ok"] = first["ok"] and first["graph_ops"] == 1
+    return out
+
+
+def check_scan_prologue(device, seed: int = 0) -> dict:
+    """K25's first-frame entry against its twin on seeded poses: the state
+    within SCAN_POSE_TOL, the copies exact; bitwise from launch to launch."""
+    rng = np.random.default_rng(seed)
+    T, v = (torch.from_numpy(x).to(device) for x in _random_poses(rng, 2))
+    k = torch.empty((3, 7), dtype=torch.float32, device=device)
+    t = torch.empty_like(k)
+    tracking.scan_prologue(T, v, k)
+    tracking.scan_prologue_torch(T, v, t)
+    torch.cuda.synchronize()
+    err = float((k - t).abs().max())
+    again = torch.empty_like(k)
+    tracking.scan_prologue(T, v, again)
+    fn = lambda: tracking.scan_prologue(T, v, again)  # noqa: E731
+    return dict(name="scan_prologue", max_abs_err=err,
+                copies_exact=bool(torch.equal(k[1:], t[1:])),
+                bitwise_repro=bool(torch.equal(k, again)),
+                ok=err <= SCAN_POSE_TOL and bool(torch.equal(k[1:], t[1:]))
+                and bool(torch.equal(k, again)),
+                ms=time_cuda(fn), device_ms=device_time(fn),
+                plain_ms=time_cuda(lambda: tracking.scan_prologue_torch(
+                    T, v, again)), library_ms=None, bytes=4 * (7 + 7 + 21),
+                ops=120)
+
+
+def check_inlier_tail(device, operands=None,
+                      name: str = "inlier_tail") -> dict:
+    """K25's tail entry against its twin on each seeded attempt (or on
+    ``operands`` (attempt, table, F)), with and without the retry flag:
+    every output exact, bitwise from launch to launch."""
+    if operands is None:
+        a1, a2, table, *_, F = scan_epilogue_inputs(device, True)
+        runs = [(a1, table, False), (a2, table, True)]
+    else:
+        a1, table, F = operands
+        runs = [(a1, table, False)]
+    exact = True
+    for a, tab, retried in runs:
+        k = tracking.inlier_tail(a, tab, F, retried)
+        t = tracking.inlier_tail_torch(a, tab, F, retried)
+        again = tracking.inlier_tail(a, tab, F, retried)
+        exact = exact and all(torch.equal(x, y) for x, y in zip(k, t)) \
+            and all(torch.equal(x, y) for x, y in zip(k, again))
+    a, tab, retried = runs[0]
+    kernel = lambda: tracking.inlier_tail(a, tab, F, retried)  # noqa: E731
+    N = tab.ids.shape[0]
+    return dict(name=name, max_abs_err=0.0 if exact else float("inf"),
+                exact=exact, ok=exact, ms=time_cuda(kernel),
+                device_ms=device_time(kernel), graph_ops=graph_ops(kernel),
+                plain_ms=time_cuda(lambda: tracking.inlier_tail_torch(
+                    a, tab, F, retried)), library_ms=None,
+                bytes=N * (1 + 8 + 1 + 4) + 8 + 4 * F + 4 + 16, ops=3 * N)
+
+
+@contextlib.contextmanager
+def watch_scan(which: int = 40):
+    """Inside the block, record the operands of the ``which``-th K25 frame
+    of the scans (the last one if fewer ran) as copies: (a1, a2, table,
+    kf_base, min_inliers, state before the frame, keypoint slots).  The
+    copies cost device time: watch a run that is not timed."""
+    from visual_sgraphs_tpu_torch.features.match import TrackPass
+    out = {"calls": 0}
+    orig = tracking.scan_epilogue
+
+    def copy_attempt(a):
+        fine = TrackPass(*(None if x is None else x.clone()
+                           for x in a.fine))
+        return tracking.Attempt(a.pose.clone(), fine, a.inliers.clone())
+
+    def spy(a1, a2, table, kf_base, min_inliers, i, res):
+        out["calls"] += 1
+        if out["calls"] <= which:
+            tab = tracking.LocalTable(table.ids.clone(), table.valid.clone(),
+                                      None, table.n_pts.clone())
+            out["operands"] = (copy_attempt(a1), copy_attempt(a2), tab,
+                               kf_base.clone(), int(min_inliers),
+                               res.state.clone(),
+                               res.results.slot_pt.shape[1])
+        return orig(a1, a2, table, kf_base, min_inliers, i, res)
+
+    spy.launches = orig.launches
+    tracking.scan_epilogue = spy
+    try:
+        yield out
+    finally:
+        tracking.scan_epilogue = orig
+
+
+def ba_solve_inputs(device, layout: str = "sg", seed: int = 0,
+                    pd: bool = True) -> tuple:
+    """Seeded operands of K26 for one of BA_LAYOUTS: a symmetric positive
+    definite float32 S (a Gram matrix plus a diagonal spanning ~1e-2 to
+    1e4, as a reduced camera system's), rhs (LM-sized steps), the gauge
+    mask (keyframe 0
+    and every fourth keyframe fixed; on the scene-graph layout every fifth
+    plane, the first room and door fixed), unit-quaternion poses and
+    doors, unit-normal planes, rooms; ``pd`` False negates the free
+    block's diagonal (not positive definite).  Returns (S, rhs, free,
+    lam, poses, planes, rooms, doors)."""
+    L, P, R, Dn = BA_LAYOUTS[layout]
+    rng = np.random.default_rng(seed)
+    D = 6 * L + 3 * P + 3 * R + 6 * Dn
+    A = rng.normal(size=(D, D // 2)) / math.sqrt(D)
+    S = A @ A.T + np.diag(10.0 ** rng.uniform(-2, 4, D))
+    fixed_kf = np.arange(L) % 4 == 0
+    free = np.concatenate([
+        np.repeat(~fixed_kf, 6), np.repeat(np.arange(P) % 5 != 0, 3),
+        np.repeat(np.arange(R) != 0, 3), np.repeat(np.arange(Dn) != 0, 6)])
+    if not pd:
+        S[free, free] *= -1.0
+    S = S.astype(np.float32)
+    S = (S + S.T) / np.float32(2.0)
+    # LM-sized steps: rhs = S x for x of 1e-4 to 1e-1 an entry
+    rhs = S.astype(np.float64) @ (rng.normal(size=D)
+                                  * 10.0 ** rng.uniform(-4, -1, D))
+    n = rng.normal(size=(P, 3))
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    f = lambda x: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(x, dtype=np.float32)).to(device)
+    opt = lambda x, k: f(x) if k else None  # noqa: E731
+    return (f(S), f(rhs), f(free), LAM_BA, f(_random_poses(rng, L, 3.0)),
+            opt(np.concatenate([n, rng.uniform(-4, 4, (P, 1))], 1), P),
+            opt(rng.uniform(-5, 5, (R, 3)), R),
+            opt(_random_poses(rng, Dn, 3.0), Dn))
+
+
+def _ba_work(S, n_values: int) -> tuple[int, int]:
+    """(bytes, operations) of K26 on a D x D system: S's lower triangle
+    (the only part either path reads), rhs and the mask read once, the
+    values read and their moved copies and the step written once; the
+    Cholesky's D^3 / 3 flops, the two triangular solves' 2 D^2 and ~300
+    flops a moved variable."""
+    D = S.shape[0]
+    return 4 * (D * (D + 1) // 2 + 3 * D) + 8 * n_values, \
+        D ** 3 // 3 + 2 * D * D + 300 * n_values // 7
+
+
+def _ba_twin64(S, rhs, free, lam, *values):
+    """K26's twin on the float64 system (as the kernel factors) and the
+    float32 values."""
+    return dist_ba.ba_solve_torch(S.double(), rhs.double(), free.double(),
+                                  lam, *values)
+
+
+def check_ba_solve(device, operands=None, name: str = "ba_solve") -> dict:
+    """K26 against its float64 twin on ``operands`` (S, rhs, free, lam,
+    poses, planes, rooms, doors): the step within BA_STEP_TOL of the
+    largest |dx|, the moved values within BA_VALUE_TOL; bitwise from
+    launch to launch; one device operation a call.  Timed against the
+    float32 twin (the plain solve and retraction) and the library's
+    ``cholesky_ex`` + ``cholesky_solve`` of the damped, masked float32
+    system."""
+    ops = operands
+    k = dist_ba.ba_solve(*ops)
+    t = _ba_twin64(*ops)
+    torch.cuda.synchronize()
+    dx_err = _rel(k[0].double(), t[0].double())
+    val_err = max([float((a - b).abs().max()) for a, b in zip(k[1:], t[1:])
+                   if a is not None and a.numel()] or [0.0])
+    again = [dist_ba.ba_solve(*ops) for _ in range(3)]
+    repro = all(torch.equal(x, y) for o in again for x, y in zip(k, o)
+                if x is not None)
+    S, rhs, free, lam = ops[:4]
+    Sd = S + torch.diag(lam * torch.clamp(torch.diagonal(S), min=1e-6)
+                        + 1e-5)
+    Sd = Sd * free[:, None] * free[None, :] + torch.diag(1.0 - free)
+    b = (rhs * free)[:, None]
+
+    def library():
+        Ls, _ = torch.linalg.cholesky_ex(Sd)
+        return torch.cholesky_solve(b, Ls)
+
+    kernel = lambda: dist_ba.ba_solve(*ops)  # noqa: E731
+    plain = lambda: dist_ba.ba_solve_torch(*ops)  # noqa: E731
+    n_values = sum(v.numel() for v in ops[4:] if v is not None)
+    work_bytes, work_ops = _ba_work(S, n_values)
+    g_ops = graph_ops(kernel)
+    return dict(name=name, D=S.shape[0], max_abs_err=max(dx_err, val_err),
+                dx_rel_err_vs_f64=dx_err, value_err=val_err,
+                step_zero=bool((k[0] == 0).all()), bitwise_repro=repro,
+                graph_ops=g_ops, ms=time_cuda(kernel),
+                device_ms=device_time(kernel), plain_ms=time_cuda(plain),
+                plain_device_ops=device_ops(plain)["ops"],
+                library_ms=time_cuda(library),
+                library_device_ms=device_time(library),
+                ok=dx_err <= BA_STEP_TOL and val_err <= BA_VALUE_TOL
+                and repro and g_ops == 1,
+                bytes=work_bytes, ops=work_ops)
+
+
+def run_ba_solve(device) -> list[dict]:
+    """K26 on the seeded systems of the three Schur BAs (D = 66, 402,
+    768 and 1536: each of its three paths), and on the scene-graph system
+    made not positive definite, where kernel and twin must both give a
+    zero step."""
+    out = [check_ba_solve(device, ba_solve_inputs(device, lay),
+                          f"ba_solve@{lay}") for lay in BA_LAYOUTS]
+    bad = check_ba_solve(device, ba_solve_inputs(device, "sg", pd=False),
+                         "ba_solve@not_pd")
+    twin = _ba_twin64(*ba_solve_inputs(device, "sg", pd=False))
+    bad["twin_step_zero"] = bool((twin[0] == 0).all())
+    bad["ok"] = bad["ok"] and bad["step_zero"] and bad["twin_step_zero"]
+    out[1]["name"] = "ba_solve"  # the scene-graph BA's: the JSON line's row
+    return out + [bad]
+
+
+@contextlib.contextmanager
+def watch_ba_solve(which: int = 17):
+    """Inside the block, record the operands of the ``which``-th K26 call
+    of ``fast_scenegraph_ba`` (the last one if fewer ran) as copies: (S,
+    rhs, free, lam, poses, planes, rooms, doors).  The copies cost device
+    time: watch a run that is not timed."""
+    from visual_sgraphs_tpu_torch.optim import fast_ba
+    out = {"calls": 0}
+    orig = fast_ba.ba_solve
+
+    def spy(S, rhs, free, lam, *values):
+        out["calls"] += 1
+        if out["calls"] <= which:
+            out["operands"] = (S.clone(), rhs.clone(), free.clone(), lam,
+                               *(None if v is None else v.clone()
+                                 for v in values))
+        return orig(S, rhs, free, lam, *values)
+
+    spy.launches = orig.launches
+    fast_ba.ba_solve = spy
+    try:
+        yield out
+    finally:
+        fast_ba.ba_solve = orig
+
+
+def run_scan(device) -> list[dict]:
+    """K25's three entries on seeded operands."""
+    return [*check_scan_epilogue(device), check_scan_prologue(device),
+            check_inlier_tail(device)]
 
 
 def run_all(device) -> list[dict]:

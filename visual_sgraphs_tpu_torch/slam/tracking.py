@@ -1,5 +1,6 @@
 """Tracking: local-map matching + motion-only pose solve (kernel K6, and
-its pose-prior branch on the inertial path).
+its pose-prior branch on the inertial path), and the scan's per-frame
+bookkeeping (kernel K25).
 
 Port of ``visual_sgraphs_tpu/slam/tracking.py`` (Tracking::Track's
 TrackWithMotionModel / TrackLocalMap / PoseOptimization): gather the local
@@ -17,8 +18,10 @@ first attempt's three counters back to the host (one readback per frame)
 and decides there; the same host copy then serves the keyframe policy, so
 no second readback is needed.  The B-frame scan (``make_frame_scan``) must
 not sync the host inside a batch: it runs the wide-window retry for every
-frame and keeps it with ``torch.where`` where the first attempt fell
-short, which gives the reference's results exactly.
+frame, and one K25 launch a frame keeps it where the first attempt fell
+short, which gives the reference's results exactly.  Each attempt's
+inlier tail (the kept ids by keypoint slot, their count) is K25 too: its
+tail entry on the serial path, inside the frame's launch on the scan.
 """
 
 from __future__ import annotations
@@ -284,16 +287,24 @@ def pose_only_gn_prior(T_init, xw, uv, valid, cam_K, T_prior,
 pose_only_gn_prior.launches = 0
 
 
-def _track_frame_impl(m: MapState, frame: FrameObs, T_pred, ref_kf: int,
-                      cam_K, n_window: int = 10, n_local: int = 4096,
-                      fx_radius: float = 15.0, fine_radius: float = 7.0,
-                      cam_bf=None, img_wh: tuple | None = None,
-                      local_table: LocalTable | None = None,
-                      prior_weight: float = 0.0) -> TrackResult:
+class Attempt(NamedTuple):
+    """One tracking attempt: the fine pass's pose solve and its inputs."""
+    pose: torch.Tensor  # (7,) the fine solve's T_cw
+    fine: object  # the fine tracking pass (``features.match.TrackPass``)
+    inliers: torch.Tensor  # (n_local,) bool the fine solve's inliers
+
+
+def _track_attempt(m: MapState, frame: FrameObs, T_pred, ref_kf: int,
+                   cam_K, n_window: int = 10, n_local: int = 4096,
+                   fx_radius: float = 15.0, fine_radius: float = 7.0,
+                   cam_bf=None, img_wh: tuple | None = None,
+                   local_table: LocalTable | None = None,
+                   prior_weight: float = 0.0):
     """Track one frame against the local map from predicted pose
     ``T_pred``: coarse window match + solve, then fine re-match + solve;
     with ``prior_weight > 0`` both solves pull towards ``T_pred``.  Each
-    pass is one ``track_pass`` (projection, gates, window match, gathers)."""
+    pass is one ``track_pass`` (projection, gates, window match, gathers).
+    Returns (attempt, local table)."""
     if local_table is None:
         local_table = _local_point_table(m, ref_kf, n_window, n_local)
     ids, xw = local_table.ids, local_table.xw
@@ -313,29 +324,95 @@ def _track_frame_impl(m: MapState, frame: FrameObs, T_pred, ref_kf: int,
                   (2.0 * fx_radius) ** 2)
     fine = match_at(T1, fine_radius)
     T2, inlier_mask = solve(T1, fine, None)
-
-    # the inliers' point ids by keypoint: a row that is not kept scatters
-    # -1, which the max over a table of -1 ignores wherever it lands
-    keep = fine.ok & inlier_mask
-    slot_pt = torch.full((frame.uv.shape[0],), -1, dtype=torch.int32,
-                         device=ids.device)
-    slot_pt.scatter_reduce_(0, fine.slot, torch.where(keep, ids, -1), "amax")
-    return TrackResult(
-        pose=T2,
-        slot_pt=slot_pt,
-        vis_pt=fine.vis_pt,
-        n_matches=fine.n_match,
-        n_inliers=keep.sum(dtype=torch.int32),
-        n_local_pts=local_table.n_pts,
-    )
+    return Attempt(pose=T2, fine=fine, inliers=inlier_mask), local_table
 
 
-def _packed(res: TrackResult, retried) -> torch.Tensor:
-    return torch.stack([
-        res.n_matches.to(torch.float32), res.n_inliers.to(torch.float32),
-        res.n_local_pts.to(torch.float32),
-        torch.full((), float(retried), device=res.pose.device),
-    ])
+def _kept_slots(a: Attempt, ids, F: int):
+    """The inliers' point ids by keypoint slot and their count: a row that
+    is not kept scatters -1, which the max over a table of -1 ignores
+    wherever it lands."""
+    keep = a.fine.ok & a.inliers
+    slot_pt = torch.full((F,), -1, dtype=torch.int32, device=ids.device)
+    slot_pt.scatter_reduce_(0, a.fine.slot, torch.where(keep, ids, -1),
+                            "amax")
+    return slot_pt, keep.sum(dtype=torch.int32)
+
+
+def _attempt_result(a: Attempt, table: LocalTable, F: int) -> TrackResult:
+    slot_pt, n_inl = _kept_slots(a, table.ids, F)
+    return TrackResult(pose=a.pose, slot_pt=slot_pt, vis_pt=a.fine.vis_pt,
+                       n_matches=a.fine.n_match, n_inliers=n_inl,
+                       n_local_pts=table.n_pts)
+
+
+def inlier_tail_torch(a: Attempt, table: LocalTable, F: int,
+                      retried: bool):
+    """Plain twin of K25's tail entry: one attempt's kept ids by keypoint
+    slot (F,) int32, its inlier count () int32 and the packed (4,) float32
+    [n_matches, n_inliers, n_local_pts, retried]."""
+    if table.ids.is_cuda:
+        inlier_tail_torch.cuda_calls += 1
+    slot_pt, n_inl = _kept_slots(a, table.ids, F)
+    return slot_pt, n_inl, torch.stack([
+        a.fine.n_match.to(torch.float32), n_inl.to(torch.float32),
+        table.n_pts.to(torch.float32),
+        torch.full((), float(retried), device=table.ids.device)])
+
+
+inlier_tail_torch.cuda_calls = 0
+
+
+def _check_attempt(name: str, a: Attempt, ids) -> None:
+    fine = a.fine
+    if (fine.ok.dtype != torch.bool or a.inliers.dtype != torch.bool
+            or fine.slot.dtype != torch.int64 or ids.dtype != torch.int32
+            or a.pose.dtype != torch.float32):
+        raise ValueError(f"{name}: expected bool masks, int64 slots, int32 "
+                         "ids and a float32 pose")
+
+
+def inlier_tail(a: Attempt, table: LocalTable, F: int, retried: bool):
+    """One attempt's inlier tail (see ``inlier_tail_torch``): K25's tail
+    entry (``csrc/scan_epilogue.cu``, one launch) on CUDA tensors, the
+    twin on CPU tensors.  The three outputs are views of one buffer."""
+    if table.ids.device.type == "cpu":
+        return inlier_tail_torch(a, table, F, retried)
+    cuda.require_cuda("inlier_tail", a.fine.ok, a.fine.slot, a.inliers,
+                      table.ids, a.fine.n_match, table.n_pts)
+    _check_attempt("inlier_tail", a, table.ids)
+    dev = table.ids.device
+    ints = torch.empty((F + 1,), dtype=torch.int32, device=dev)
+    packed = torch.empty((4,), dtype=torch.float32, device=dev)
+    p = ints.data_ptr()
+    cuda.call("vsg_inlier_tail", a.fine.ok.data_ptr(),
+              a.fine.slot.data_ptr(), a.inliers.data_ptr(),
+              table.ids.data_ptr(), a.fine.n_match.data_ptr(),
+              table.n_pts.data_ptr(), table.ids.shape[0], F, int(retried),
+              p, p + 4 * F, packed.data_ptr(), cuda.stream())
+    inlier_tail.launches += 1
+    return ints[:F], ints[F], packed
+
+
+inlier_tail.launches = 0
+
+
+def _track_frame_impl(m: MapState, frame: FrameObs, T_pred, ref_kf: int,
+                      cam_K, n_window: int = 10, n_local: int = 4096,
+                      fx_radius: float = 15.0, fine_radius: float = 7.0,
+                      cam_bf=None, img_wh: tuple | None = None,
+                      local_table: LocalTable | None = None,
+                      prior_weight: float = 0.0, retried: bool = False):
+    """One tracking attempt (``_track_attempt``) and its inlier tail (K25's
+    tail entry).  Returns (result, packed (4,) float32 [n_matches,
+    n_inliers, n_local_pts, retried] on the device)."""
+    a, table = _track_attempt(m, frame, T_pred, ref_kf, cam_K, n_window,
+                              n_local, fx_radius, fine_radius, cam_bf,
+                              img_wh, local_table, prior_weight)
+    slot_pt, n_inl, packed = inlier_tail(a, table, frame.uv.shape[0],
+                                         retried)
+    return TrackResult(pose=a.pose, slot_pt=slot_pt, vis_pt=a.fine.vis_pt,
+                       n_matches=a.fine.n_match, n_inliers=n_inl,
+                       n_local_pts=table.n_pts), packed
 
 
 def _track_with_retry(m: MapState, frame: FrameObs, T_pred, T_last,
@@ -348,16 +425,18 @@ def _track_with_retry(m: MapState, frame: FrameObs, T_pred, T_last,
     (result, packed host (4,) float32 array [n_matches, n_inliers,
     n_local_pts, retried], device-to-host reads made: 1, or 2 when it
     retried)."""
-    res = _track_frame_impl(m, frame, T_pred, ref_kf, cam_K, n_window,
-                            n_local, fx_radius, fine_radius, cam_bf, img_wh,
-                            prior_weight=prior_weight)
-    packed = _packed(res, False).cpu().numpy()
+    res, packed = _track_frame_impl(m, frame, T_pred, ref_kf, cam_K,
+                                    n_window, n_local, fx_radius,
+                                    fine_radius, cam_bf, img_wh,
+                                    prior_weight=prior_weight)
+    packed = packed.cpu().numpy()
     if packed[1] >= min_inliers:
         return res, packed, 1
-    res = _track_frame_impl(m, frame, T_last, ref_kf, cam_K, n_window,
-                            n_local, fx_radius * 4.0, fine_radius * 2.0,
-                            cam_bf, img_wh)
-    return res, _packed(res, True).cpu().numpy(), 2
+    res, packed = _track_frame_impl(m, frame, T_last, ref_kf, cam_K,
+                                    n_window, n_local, fx_radius * 4.0,
+                                    fine_radius * 2.0, cam_bf, img_wh,
+                                    retried=True)
+    return res, packed.cpu().numpy(), 2
 
 
 def track_frame_full(m: MapState, frame: FrameObs, T_pred, T_last,
@@ -424,6 +503,138 @@ def _select(cond, a: TrackResult, b: TrackResult) -> TrackResult:
     return TrackResult(*(torch.where(cond, x, y) for x, y in zip(a, b)))
 
 
+class ScanOut(NamedTuple):
+    """A scan batch's outputs, allocated once a batch and written a row a
+    frame by K25, and the scan's state, which each frame's K25 writes for
+    the next frame."""
+    results: TrackResult  # each field stacked along a leading B
+    T_rels: torch.Tensor  # (B, 7) float32
+    packeds: torch.Tensor  # (B, 4) float32 [n_matches, n_inliers,
+    # n_local_pts, retried]
+    state: torch.Tensor  # (3, 7) float32 [T_pred, T_prev, velocity]
+
+
+def scan_outputs(B: int, F: int, n_local: int, device) -> ScanOut:
+    """Uninitialised outputs of a B-frame scan: views of one float32 and
+    one int32 buffer (a wrapper's host time counts)."""
+    fl = torch.empty((B * 18 + 21,), dtype=torch.float32, device=device)
+    pose, T_rels, packeds, state = fl.split((7 * B, 7 * B, 4 * B, 21))
+    it = torch.empty((B * (F + n_local + 3),), dtype=torch.int32,
+                     device=device)
+    slot_pt, vis_pt, counts = it.split((B * F, B * n_local, 3 * B))
+    n_matches, n_inliers, n_local_pts = counts.view(3, B)
+    return ScanOut(
+        results=TrackResult(pose=pose.view(B, 7), slot_pt=slot_pt.view(B, F),
+                            vis_pt=vis_pt.view(B, n_local),
+                            n_matches=n_matches, n_inliers=n_inliers,
+                            n_local_pts=n_local_pts),
+        T_rels=T_rels.view(B, 7), packeds=packeds.view(B, 4),
+        state=state.view(3, 7))
+
+
+def scan_prologue_torch(T_last, velocity, state) -> None:
+    """Plain twin of K25's first-frame entry: state = [normalize(velocity
+    T_last), T_last, velocity]."""
+    if state.is_cuda:
+        scan_prologue_torch.cuda_calls += 1
+    state[0] = lie.se3_normalize(lie.se3_multiply(velocity, T_last))
+    state[1] = T_last
+    state[2] = velocity
+
+
+scan_prologue_torch.cuda_calls = 0
+
+
+def scan_prologue(T_last, velocity, state) -> None:
+    """The scan's first prediction (see ``scan_prologue_torch``): K25's
+    first-frame entry (one thread) on CUDA tensors, the twin on CPU."""
+    if state.device.type == "cpu":
+        return scan_prologue_torch(T_last, velocity, state)
+    cuda.require_cuda("scan_prologue", T_last, velocity, state)
+    if (T_last.dtype != torch.float32 or velocity.dtype != torch.float32
+            or state.dtype != torch.float32):
+        raise ValueError("scan_prologue: float32 poses")
+    cuda.call("vsg_scan_prologue", T_last.data_ptr(), velocity.data_ptr(),
+              state.data_ptr(), cuda.stream())
+    scan_prologue.launches += 1
+
+
+scan_prologue.launches = 0
+
+
+def scan_epilogue_torch(a1: Attempt, a2: Attempt, table: LocalTable,
+                        kf_base, min_inliers: int, i: int,
+                        out: ScanOut) -> None:
+    """Plain twin of K25: the reference's scan step after the two attempts
+    (``tracking.py:478-510``; the attempts' inlier tails, the retry
+    choice, the accepted pose, the velocity, T_rel, the packed row), the
+    results written into row ``i`` of ``out`` and the next frame's
+    prediction, pose and velocity into ``out.state``."""
+    if kf_base.is_cuda:
+        scan_epilogue_torch.cuda_calls += 1
+    F = out.results.slot_pt.shape[1]
+    T_prev = out.state[1]
+    res1, res2 = (_attempt_result(a, table, F) for a in (a1, a2))
+    need_retry = res1.n_inliers < min_inliers
+    res = _select(need_retry, res2, res1)
+    accepted = res.n_inliers >= min_inliers
+    new_pose = lie.se3_normalize(res.pose)
+    pose_sel = torch.where(accepted, new_pose, T_prev)
+    vel_new = lie.se3_normalize(
+        lie.se3_multiply(new_pose, lie.se3_inverse(T_prev)))
+    vel_sel = torch.where(accepted, vel_new,
+                          lie.se3_identity(device=T_prev.device))
+    for field, value in zip(out.results, res):
+        field[i] = value
+    out.T_rels[i] = lie.se3_normalize(
+        lie.se3_multiply(pose_sel, lie.se3_inverse(kf_base)))
+    out.packeds[i] = torch.stack([
+        res.n_matches.to(torch.float32), res.n_inliers.to(torch.float32),
+        res.n_local_pts.to(torch.float32), need_retry.to(torch.float32)])
+    out.state[0] = lie.se3_normalize(lie.se3_multiply(vel_sel, pose_sel))
+    out.state[1] = pose_sel
+    out.state[2] = vel_sel
+
+
+scan_epilogue_torch.cuda_calls = 0
+
+
+def scan_epilogue(a1: Attempt, a2: Attempt, table: LocalTable, kf_base,
+                  min_inliers: int, i: int, out: ScanOut) -> None:
+    """A scan frame's bookkeeping (see ``scan_epilogue_torch``): kernel
+    K25 (``csrc/scan_epilogue.cu``, one launch) on CUDA tensors, the twin
+    on CPU tensors."""
+    if kf_base.device.type == "cpu":
+        return scan_epilogue_torch(a1, a2, table, kf_base, min_inliers, i,
+                                   out)
+    r = out.results
+    B, F = r.slot_pt.shape
+    N = table.ids.shape[0]
+    if not 0 <= i < B or r.vis_pt.shape[1] != N:
+        raise ValueError("scan_epilogue: row or table size out of range")
+    cuda.require_cuda("scan_epilogue", *(t for a in (a1, a2) for t in (
+        a.fine.ok, a.fine.slot, a.fine.vis_pt, a.fine.n_match, a.pose,
+        a.inliers)), table.ids, table.n_pts, kf_base, out.state)
+    _check_attempt("scan_epilogue", a1, table.ids)
+    _check_attempt("scan_epilogue", a2, table.ids)
+    att = [t.data_ptr() for a in (a1, a2) for t in (
+        a.fine.ok, a.fine.slot, a.fine.vis_pt, a.fine.n_match, a.pose,
+        a.inliers)]
+    cuda.call("vsg_scan_epilogue", *att, table.ids.data_ptr(),
+              table.n_pts.data_ptr(), N, F, kf_base.data_ptr(),
+              int(min_inliers), out.state.data_ptr(),
+              r.pose.data_ptr() + 28 * i, r.slot_pt.data_ptr() + 4 * F * i,
+              r.vis_pt.data_ptr() + 4 * N * i, r.n_matches.data_ptr() + 4 * i,
+              r.n_inliers.data_ptr() + 4 * i,
+              r.n_local_pts.data_ptr() + 4 * i,
+              out.T_rels.data_ptr() + 28 * i,
+              out.packeds.data_ptr() + 16 * i, cuda.stream())
+    scan_epilogue.launches += 1
+
+
+scan_epilogue.launches = 0
+
+
 @functools.lru_cache(maxsize=None)
 def make_frame_scan(cam, orb, n_window: int, n_local: int, fx_radius: float,
                     fine_radius: float, has_depth: bool,
@@ -434,9 +645,13 @@ def make_frame_scan(cam, orb, n_window: int, n_local: int, fx_radius: float,
     are constant inside it), ORB is
     extracted for all B frames at once (K1-K4 launch once per level for
     the batch; tracking does not depend on it frame by frame), then the
-    per-frame step runs over the frames in order, carrying (T_prev, vel).
-    The retry is computed for every frame and chosen on the device, so the
-    scan makes no host sync.
+    per-frame step runs over the frames in order, carrying (T_prev, vel)
+    in a small device state: K25's first-frame entry makes the first
+    prediction, and each frame's two attempts (the prediction's, and the
+    wide retry from the last pose, computed for every frame) are followed
+    by one K25 launch that chooses between them on the device, writes the
+    frame's row of the batch's outputs and the next frame's prediction.
+    The scan makes no host sync.
 
     ``scan(m, grays, depths, tss, T_last, velocity, ref_kf, cam_K,
     min_inliers, cam_bf=None, timers=None)`` returns (frames, results,
@@ -455,42 +670,32 @@ def make_frame_scan(cam, orb, n_window: int, n_local: int, fx_radius: float,
               else contextlib.nullcontext()):
             frames = make_frame_obs(grays, depths if has_depth else None,
                                     tss, cam, orb)
-        T_prev, vel = T_last, velocity
-        results, T_rels, packeds = [], [], []
-        identity = lie.se3_identity(device=T_last.device)
+        if T_last.is_cuda:
+            make_frame_scan.cuda_scans += 1
+            make_frame_scan.cuda_frames += batch
+        out = scan_outputs(batch, frames.uv.shape[1], n_local, T_last.device)
+        scan_prologue(T_last, velocity, out.state)
+        T_pred, T_prev = out.state[0], out.state[1]
         for i in range(batch):
             frame = frame_at(frames, i)
-            T_pred = lie.se3_normalize(lie.se3_multiply(vel, T_prev))
-            res1 = _track_frame_impl(m, frame, T_pred, ref_kf, cam_K,
-                                     n_window, n_local, fx_radius,
-                                     fine_radius, cam_bf, wh,
-                                     local_table=table)
-            need_retry = res1.n_inliers < min_inliers
-            res2 = _track_frame_impl(m, frame, T_prev, ref_kf, cam_K,
-                                     n_window, n_local, fx_radius * 4.0,
-                                     fine_radius * 2.0, cam_bf, wh,
-                                     local_table=table)
-            res = _select(need_retry, res2, res1)
-            accepted = res.n_inliers >= min_inliers
-            new_pose = lie.se3_normalize(res.pose)
-            pose_sel = torch.where(accepted, new_pose, T_prev)
-            vel_new = lie.se3_normalize(
-                lie.se3_multiply(new_pose, lie.se3_inverse(T_prev)))
-            vel_sel = torch.where(accepted, vel_new, identity)
-            T_rels.append(lie.se3_normalize(
-                lie.se3_multiply(pose_sel, lie.se3_inverse(kf_base))))
-            packeds.append(torch.stack([
-                res.n_matches.to(torch.float32),
-                res.n_inliers.to(torch.float32),
-                res.n_local_pts.to(torch.float32),
-                need_retry.to(torch.float32)]))
-            results.append(res)
-            T_prev, vel = pose_sel, vel_sel
-        stacked = TrackResult(*(torch.stack(f) for f in zip(*results)))
-        return (frames, stacked, torch.stack(T_rels), torch.stack(packeds),
-                T_prev, vel)
+            a1, _ = _track_attempt(m, frame, T_pred, ref_kf, cam_K,
+                                   n_window, n_local, fx_radius, fine_radius,
+                                   cam_bf, wh, local_table=table)
+            a2, _ = _track_attempt(m, frame, T_prev, ref_kf, cam_K,
+                                   n_window, n_local, fx_radius * 4.0,
+                                   fine_radius * 2.0, cam_bf, wh,
+                                   local_table=table)
+            scan_epilogue(a1, a2, table, kf_base, min_inliers, i, out)
+        return (frames, out.results, out.T_rels, out.packeds, out.state[1],
+                out.state[2])
 
     return scan
+
+
+# scans and frames scanned on the card (K25's first-frame entry launches
+# once a scan, its frame entry once a frame)
+make_frame_scan.cuda_scans = 0
+make_frame_scan.cuda_frames = 0
 
 
 def update_point_stats(m: MapState, track: TrackResult) -> MapState:

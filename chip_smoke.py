@@ -133,7 +133,16 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    that is not positive definite (a zero step) and after phase 4e on a
    recorded ``bench_slice`` scene-graph BA iteration, against the float64
    twin with ``cholesky_ex`` + ``cholesky_solve`` timed beside it; both
-   one device operation a call and bitwise from launch to launch;
+   one device operation a call and bitwise from launch to launch; the
+   keyframe program's map maintenance, K27 (found stats; insertion), K28
+   (fusion's prologue and write-back) and K29 (point and keyframe
+   culling), on the seeded maps of ``selfcheck.maint_cases`` at the
+   cells' capacities (an empty map's first keyframe, a fold, evictions
+   with a full ledger and without a parent, tied parents, tied
+   covisibility and redundancy) and after phase 4e on a recorded
+   ``bench_slice`` keyframe program's operands: integer fields exact,
+   floats within ``selfcheck.MAINT_TOL``, the input map unmodified, one
+   device operation a call, bitwise from launch to launch;
 4. the port's main paths at full size through its public entry point
    (``SlamSystem.track_rgbd``), 640x480 RGB-D, 1000 ORB features,
    128 keyframes / 32768 points, 96 frames of the two-lap ``orbit2``
@@ -159,8 +168,10 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
       must equal the counted readbacks (this run, not timed, also records
       the operands of its eighth plane association for K24's check, of
       its 17th K8 reduction, of its 17th scene-graph BA iteration for
-      K21's and K26's, of its eighth plane detection for K13's and of its
-      40th scan frame for K25's);
+      K21's and K26's, of its eighth plane detection for K13's, of its
+      40th scan frame for K25's, and of its eighth keyframe insertion, the
+      fuse and the cull after it and its eighth cycle's fold for K27's,
+      K28's and K29's);
    f. ``loop_slice``: path (b) with loop closing, a global BA after each
       accepted loop and relocalisation of lost frames;
    g. path (f) again over frames 0-79 under sync-debug mode, across a loop
@@ -206,7 +217,12 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
    (d), (f), (i) and (k) the tracking pass once a tracking pose solve, K6
    or its prior branch, plus once a ``fuse_observations`` call, no
    standalone window matcher launched, K7's observed entry launched and
-   ``observed_mask`` never run on the card; on (b), (d), (f) and (k) K21's
+   ``observed_mask`` never run on the card, K7's plain entry not
+   launched; on (a), (b), (d), (f), (i) and (k) K27's insert entry once a
+   keyframe insertion, its stats entry once a cycle and once a frame the
+   serial step tracks, K28's two entries once a ``fuse_observations`` call and K29
+   once a cull, and none of their twins on the card; on (b), (d), (f) and
+   (k) K21's
    system once a scene-graph BA iteration, its plan once a call and the
    plain assembly never on the card; on (d) and (f) K11 once a place
    query, the keyframe program's and the relocalisations', and the plain
@@ -269,15 +285,24 @@ LM_KERNELS = {"lm_reproj_plan", "lm_reproj_reduce", "lm_reproj_cost",
               "lm_solve"}
 INERTIAL_ONLY = {"pose_gn_prior", "preint", "vi_pose"} | LM_KERNELS
 # kernels checked in phase 3 only: K5's standalone window matcher has no
-# main-path caller since fuse_observations runs on the tracking pass
-PHASE3_ONLY = {"match_window"}
+# main-path caller since fuse_observations runs on the tracking pass, K7's
+# plain entry none since the keyframe insertion's free ids are K27's
+PHASE3_ONLY = {"match_window", "compact_true"}
+# the keyframe program's map maintenance (K27, K28, K29)
+MAP_KERNELS = ("found_stats", "kf_insert", "fuse_prologue", "fuse_writeback",
+               "map_cull")
+# K27's stats entry folds a cycle's batch (the pipeline) or a frame the
+# serial step tracks (every inertial frame, a frame after a loss); the
+# serial visual path queues its frames' stats for the keyframe program's
+# insertion instead, so a clean serial visual run may not launch it
+FOLD_ONLY = {"found_stats"}
 # K25's scan entries: only the B-frame pipeline's scan launches them
 PIPELINE_ONLY = {"scan_prologue", "scan_epilogue"}
 # the kernels of the inertial path
 INERTIAL_PATH = INERTIAL_ONLY | {"pyramid_resize", "gaussian_blur",
                                  "fast_nms", "detect_level", "orb_desc",
-                                 "track_pass", "pose_gn", "compact_true",
-                                 "compact_observed"}
+                                 "track_pass", "pose_gn",
+                                 "compact_observed", *MAP_KERNELS}
 
 
 def _line(tag: str, **kw) -> None:
@@ -343,8 +368,11 @@ def _reset_plain_counts() -> None:
     from visual_sgraphs_tpu_torch.optim import fast_ba
     from visual_sgraphs_tpu_torch.parallel import dist_ba
     from visual_sgraphs_tpu_torch.place import database, loop_closer
-    from visual_sgraphs_tpu_torch.slam import map_state, mapping, tracking
+    from visual_sgraphs_tpu_torch.slam import (cycle_program, map_state,
+                                               mapping, tracking)
     cuda.reset_counts()
+    cycle_program.make_cycle_program.cuda_cycles = 0
+    tracking.track_frame_full.cuda_calls = 0
     fast_ba.fast_scenegraph_ba.cuda_calls = 0
     fast_ba.fast_scenegraph_ba.cuda_iters = 0
     fast_ba.fast_local_ba.cuda_iters = 0
@@ -365,21 +393,26 @@ def _reset_plain_counts() -> None:
     database.add_keyframe.cuda_calls = 0
 
 
-def _path_calls() -> dict:
+def _path_calls(system) -> dict:
     """The calls on the card that ``cuda.counts`` does not hold, read just
-    after a main path's run: ``fuse_observations``' (one tracking pass
-    each), ``observed_mask``'s (the plain composition K7's observed
-    entry replaces), the scene-graph BA's calls and iterations (K21's plan
-    once a call, its system once an iteration), the plain assembly K21
-    replaces, the place queries (the keyframe program's and the
-    relocalisations', K11 once each), the plain insertion K11's keyframe
-    entry replaces, the loop verifications (K16 once each), the scans and
-    their frames (K25's two scan entries once each) and the Schur BAs'
-    iterations (K26 once each)."""
+    after ``system``'s run of a main path: ``fuse_observations``' (one
+    tracking pass each), ``observed_mask``'s (the plain composition K7's
+    observed entry replaces), the scene-graph BA's calls and iterations
+    (K21's plan once a call, its system once an iteration), the plain
+    assembly K21 replaces, the place queries (the keyframe program's and
+    the relocalisations', K11 once each), the plain insertion K11's
+    keyframe entry replaces, the loop verifications (K16 once each), the
+    scans and their frames (K25's two scan entries once each), the Schur
+    BAs' iterations (K26 once each), the cycles and the serial frames
+    (K27's stats entry once each), the keyframe insertions (the map's
+    n_kf: K27's insert entry once each) and the culls (the keyframes
+    events marked ``cull``: K29 once each)."""
     from visual_sgraphs_tpu_torch.optim import fast_ba
     from visual_sgraphs_tpu_torch.parallel import dist_ba
     from visual_sgraphs_tpu_torch.place import database, loop_closer
-    from visual_sgraphs_tpu_torch.slam import map_state, mapping, tracking
+    from visual_sgraphs_tpu_torch.slam import (cycle_program, map_state,
+                                               mapping, tracking)
+    ev = system.events
     return dict(place_queries=loop_closer._detect_program.cuda_calls,
                 reloc_queries=loop_closer.reloc_in_map.cuda_calls,
                 add_keyframe=database.add_keyframe.cuda_calls,
@@ -394,7 +427,12 @@ def _path_calls() -> dict:
                 schur_iters=(fast_ba.fast_local_ba.cuda_iters
                              + fast_ba.fast_scenegraph_ba.cuda_iters
                              + dist_ba.global_ba_sharded.cuda_iters),
-                gba_iters=dist_ba.global_ba_sharded.cuda_iters)
+                gba_iters=dist_ba.global_ba_sharded.cuda_iters,
+                cycles=cycle_program.make_cycle_program.cuda_cycles,
+                serial_frames=tracking.track_frame_full.cuda_calls,
+                inserts=int(system.map.n_kf),
+                culls=sum(bool(e.get("cull")) for e in ev.of_kind("keyframe")
+                          + ev.of_kind("recovery_keyframe")))
 
 
 @contextlib.contextmanager
@@ -543,14 +581,42 @@ def _check_ba_launches(tag: str, cnt: dict, calls: dict, chol) -> None:
 
 def _check_compact_launches(tag: str, cnt: dict, calls: dict) -> None:
     """K7's observed entry launches where the plain composition
-    (``observed_mask`` & ``pt_valid``, then ``compact_true``) ran: at least
-    once a ``fuse_observations`` call (the tracking tables and the BA
-    windows add theirs), and ``observed_mask`` never runs on the card."""
+    (``observed_mask`` & ``pt_valid``, then ``compact_true``) ran (the
+    tracking tables and the BA windows; the fuse's runs inside K28),
+    ``observed_mask`` never runs on the card, and K7's plain entry, whose
+    last caller was the insertion's free ids (now K27's), is not
+    launched."""
     n = cnt["compact_observed"][0]
-    _check(n >= calls["fuse"] > 0 and calls["observed_mask"] == 0,
-           f"{tag}: K7's observed entry {n} launches for {calls['fuse']} "
-           f"fuse_observations calls; {calls['observed_mask']} "
+    _check(n > 0 and calls["observed_mask"] == 0
+           and cnt["compact_true"][0] == 0,
+           f"{tag}: K7's observed entry {n} / plain entry "
+           f"{cnt['compact_true'][0]} launches; {calls['observed_mask']} "
            "observed_mask calls on the card")
+
+
+def _check_map_launches(tag: str, cnt: dict, calls: dict) -> None:
+    """K27's insert entry launches once a keyframe insertion (the
+    program's, the serial keyframe's and the first frame's: the map's
+    n_kf), its stats entry once a cycle (the batch's fold, its acceptance
+    mask inside) and once a frame the serial step tracks
+    (``track_frame_full``), K28's prologue and write-back
+    once a ``fuse_observations`` call each and K29 once a cull (a
+    keyframe program with ``do_cull``, every serial keyframe), and none of
+    their twins runs on the card."""
+    stats = calls["cycles"] + calls["serial_frames"]
+    twins = {k: cnt[k][1] for k in MAP_KERNELS if cnt[k][1]}
+    _check(cnt["kf_insert"][0] == calls["inserts"] > 0
+           and cnt["found_stats"][0] == stats
+           and cnt["fuse_prologue"][0] == cnt["fuse_writeback"][0]
+           == calls["fuse"] > 0
+           and cnt["map_cull"][0] == calls["culls"] > 0 and not twins,
+           f"{tag}: K27 insert {cnt['kf_insert'][0]} launches for "
+           f"{calls['inserts']} insertions, stats {cnt['found_stats'][0]} "
+           f"for {calls['cycles']} cycles and {calls['serial_frames']} "
+           f"serial frames; K28 {cnt['fuse_prologue'][0]} / "
+           f"{cnt['fuse_writeback'][0]} for {calls['fuse']} fuses; K29 "
+           f"{cnt['map_cull'][0]} for {calls['culls']} culls; twins on the "
+           f"card {twins}")
 
 
 def _check_sg_system_launches(tag: str, cnt: dict, calls: dict) -> None:
@@ -820,7 +886,8 @@ def main() -> None:
         *selfcheck.run_guided_cases(device),
         *selfcheck.check_schur_gba(device),
         *selfcheck.check_front_end_small(device),
-        *selfcheck.run_scan(device), *selfcheck.run_ba_solve(device)])
+        *selfcheck.run_scan(device), *selfcheck.run_ba_solve(device),
+        *selfcheck.run_maintenance(device)])
     _check(checks["detect_level@240x320"]["padded_levels"] >= 1,
            "K3 at 240x320: no level shorter than its budget")
     _check(checks["detect_level@720x1280"]["max_candidates"] > 1024,
@@ -858,7 +925,7 @@ def main() -> None:
             perf = _drive(system, frames)
         total_s = time.perf_counter() - t0
         counts[tag] = cuda.counts()
-        calls = _path_calls()
+        calls = _path_calls(system)
         acc = _accuracy(system, frames)
         extra = _scenegraph_summary(system) if with_sg else {}
         _line(tag, frames=n_frames, **acc, fps_16_95=perf["fps"],
@@ -880,6 +947,7 @@ def main() -> None:
         _check_pyramid_launches(tag, counts[tag])
         _check_track_launches(tag, counts[tag], callers, calls)
         _check_compact_launches(tag, counts[tag], calls)
+        _check_map_launches(tag, counts[tag], calls)
         _check_scan_launches(tag, counts[tag], calls, pipeline=False)
         _check_ba_launches(tag, counts[tag], calls, chol)
         if with_sg:
@@ -892,7 +960,7 @@ def main() -> None:
         # the loop kernels run on loop_slice only, the plane kernels with
         # the scene graph only
         skip = (LOOP_ONLY | INERTIAL_ONLY | FREESPACE_ONLY | PHASE3_ONLY
-                | PIPELINE_ONLY | (set() if with_sg else SG_ONLY))
+                | PIPELINE_ONLY | FOLD_ONLY | (set() if with_sg else SG_ONLY))
         _check(all(v[0] > 0 for k, v in counts[tag].items()
                    if k not in skip),
                f"{tag}: a kernel was not launched: {counts[tag]}")
@@ -928,7 +996,7 @@ def main() -> None:
         perf = _drive(system, bench_frames, warm=main_path.BENCH_WARMUP)
     total_s = time.perf_counter() - t0
     counts["bench_slice"] = cuda.counts()
-    calls = _path_calls()
+    calls = _path_calls(system)
     acc = _accuracy(system, bench_frames)
     loops = _loop_summary(system, bench_frames, bench_watch["closed"])
     sg_sum = _scenegraph_summary(system)
@@ -971,6 +1039,7 @@ def main() -> None:
     _check_track_launches("bench_slice", counts["bench_slice"], callers,
                           calls)
     _check_compact_launches("bench_slice", counts["bench_slice"], calls)
+    _check_map_launches("bench_slice", counts["bench_slice"], calls)
     _check_place_launches("bench_slice", counts["bench_slice"], calls)
     _check_loop_launches("bench_slice", counts["bench_slice"], calls)
     _check_scan_launches("bench_slice", counts["bench_slice"], calls,
@@ -1018,7 +1087,8 @@ def main() -> None:
             selfcheck.watch_planes(which=8) as planes_seen, \
             selfcheck.watch_place(which=8) as place_seen, \
             selfcheck.watch_scan(which=40) as scan_seen, \
-            selfcheck.watch_ba_solve(which=17) as ba_seen:
+            selfcheck.watch_ba_solve(which=17) as ba_seen, \
+            selfcheck.watch_maintenance(which=8) as maint_seen:
         syncs = _drive(system, bench_frames[:96], warm=64,
                        sync_window=(64, 96))
     _line("bench_sync_debug", frames="64-95", keyframes=syncs["keyframes"],
@@ -1061,6 +1131,12 @@ def main() -> None:
                                         "inlier_tail@bench"),
             selfcheck.check_ba_solve(device, ba_seen["operands"],
                                      "ba_solve@bench")])
+    # K27-K29 on the eighth keyframe program's insertion, fuse and cull
+    # and the eighth cycle's fold
+    _check(all(k in maint_seen for k in ("operands", "fuse", "cull",
+                                         "fold")),
+           "bench_sync_debug: no keyframe program with a cull, or no fold")
+    report(selfcheck.check_recorded_maintenance(device, maint_seen))
     sg_cfg_b = bench_cfg.scenegraph
     report([selfcheck.check_plane_assoc(
         device, *assoc_seen["operands"],
@@ -1079,7 +1155,7 @@ def main() -> None:
         perf = _drive(system, frames)
     total_s = time.perf_counter() - t0
     counts["loop_slice"] = cuda.counts()
-    calls = _path_calls()
+    calls = _path_calls(system)
     acc = _accuracy(system, frames)
     loops = _loop_summary(system, frames, watch["closed"])
     _line("loop_slice", frames=n_frames, **acc, fps_16_95=perf["fps"],
@@ -1105,13 +1181,14 @@ def main() -> None:
     _check(all(v[0] > 0 for k, v in counts["loop_slice"].items()
                if k != "pnp_hypotheses"
                and k not in INERTIAL_ONLY | FREESPACE_ONLY | PHASE3_ONLY
-               | PIPELINE_ONLY),
+               | PIPELINE_ONLY | FOLD_ONLY),
            f"loop_slice: a kernel was not launched: {counts['loop_slice']}")
     _check_scan_launches("loop_slice", counts["loop_slice"], calls,
                          pipeline=False)
     _check_ba_launches("loop_slice", counts["loop_slice"], calls, chol)
     _check_track_launches("loop_slice", counts["loop_slice"], callers, calls)
     _check_compact_launches("loop_slice", counts["loop_slice"], calls)
+    _check_map_launches("loop_slice", counts["loop_slice"], calls)
     _check_sg_system_launches("loop_slice", counts["loop_slice"], calls)
     _check_place_launches("loop_slice", counts["loop_slice"], calls)
     _check_loop_launches("loop_slice", counts["loop_slice"], calls)
@@ -1187,7 +1264,7 @@ def main() -> None:
                       feed=main_path.feed_inertial, after=note_init)
     total_s = time.perf_counter() - t0
     counts["inertial_slice"] = cuda.counts()
-    calls = _path_calls()
+    calls = _path_calls(system)
     generic_lin = graph.linearize_batch.cuda_calls
     acc = _accuracy(system, vi_frames, vi_gt)
     ev = system.events
@@ -1252,6 +1329,7 @@ def main() -> None:
                          pipeline=False)
     _check_compact_launches("inertial_slice", counts["inertial_slice"],
                             calls)
+    _check_map_launches("inertial_slice", counts["inertial_slice"], calls)
     # K22b's plan once a solve with inertial rows (its whitening and edge
     # index), the rows once an iteration and the cost once a candidate
     k22b = {k: counts["inertial_slice"][k][0] for k in (
@@ -1313,7 +1391,7 @@ def main() -> None:
         perf = _drive(system, frames, after=note_maint)
     total_s = time.perf_counter() - t0
     counts["freespace_slice"] = cnt = cuda.counts()
-    calls = _path_calls()
+    calls = _path_calls(system)
     acc = _accuracy(system, frames)
     mgr = system.scenegraph
     ev = system.events
@@ -1349,12 +1427,13 @@ def main() -> None:
            f"freespace_slice: a twin ran on CUDA tensors: {cnt}")
     _check(all(v[0] > 0 for k, v in cnt.items()
                if k not in LOOP_ONLY | INERTIAL_ONLY | WALLS_ONLY
-               | PHASE3_ONLY | PIPELINE_ONLY),
+               | PHASE3_ONLY | PIPELINE_ONLY | FOLD_ONLY),
            f"freespace_slice: a kernel was not launched: {cnt}")
     _check_scan_launches("freespace_slice", cnt, calls, pipeline=False)
     _check_ba_launches("freespace_slice", cnt, calls, chol)
     _check_track_launches("freespace_slice", cnt, callers, calls)
     _check_compact_launches("freespace_slice", cnt, calls)
+    _check_map_launches("freespace_slice", cnt, calls)
     _check_sg_launches("freespace_slice", cnt, freespace=True)
     _check_sg_system_launches("freespace_slice", cnt, calls)
     _check(cnt["freespace_carve"][0] == len(fused),

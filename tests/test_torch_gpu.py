@@ -35,10 +35,16 @@ INERTIAL_ONLY = ("pose_gn_prior", "preint", "vi_pose") + LM_KERNELS
 FREESPACE_ONLY = ("freespace_carve", "freespace_components",
                   "rooms_freespace")
 # kernels no main path launches (K5's standalone window matcher: since
-# fuse_observations runs on the tracking pass, only its checks call it)
-CHECK_ONLY = ("match_window",)
+# fuse_observations runs on the tracking pass, only its checks call it;
+# K7's plain entry: since the keyframe insertion's free ids are K27's,
+# likewise)
+CHECK_ONLY = ("match_window", "compact_true")
 # K25's scan entries: only the B-frame pipeline's scan launches them
 PIPELINE_ONLY = ("scan_prologue", "scan_epilogue")
+# K27's stats entry folds a cycle's batch or a frame the serial step
+# tracks (the inertial path, a frame after a loss); the serial visual path
+# folds its frames' stats inside K27's insertion instead
+FOLD_ONLY = ("found_stats",)
 
 
 @pytest.fixture(scope="module")
@@ -298,7 +304,8 @@ def test_slice_on_card_uses_every_kernel(device):
     assert all(launches > 0 and twin == 0
                for name, (launches, twin) in counts.items()
                if name not in sg_only + LOOP_ONLY + INERTIAL_ONLY
-               + FREESPACE_ONLY + CHECK_ONLY + PIPELINE_ONLY), counts
+               + FREESPACE_ONLY + CHECK_ONLY + PIPELINE_ONLY
+               + FOLD_ONLY), counts
     assert np.isfinite(pos).all() and system.tracked_mask().all()
     err = np.linalg.norm(pos - pos[0] - (np.stack(gt) - gt[0]), axis=1)
     assert err.max() < 0.1
@@ -334,7 +341,7 @@ def test_scenegraph_slice_on_card_uses_every_kernel(device):
     assert all(launches > 0 and twin == 0
                for name, (launches, twin) in counts.items()
                if name not in LOOP_ONLY + INERTIAL_ONLY + FREESPACE_ONLY
-               + CHECK_ONLY + PIPELINE_ONLY), counts
+               + CHECK_ONLY + PIPELINE_ONLY + FOLD_ONLY), counts
     assert np.isfinite(pos).all() and system.tracked_mask().all()
     planes = system.scenegraph.planes()
     assert len(planes["coeffs"]) >= 2
@@ -796,4 +803,29 @@ def test_ba_solve_kernel(scan_ba_checks, name):
     # within BA_VALUE_TOL, bitwise from launch to launch, one device
     # operation a call
     r = scan_ba_checks[name]
+    assert r["ok"], r
+
+
+@pytest.fixture(scope="module")
+def maint_checks(device):
+    return {r["name"]: r for r in selfcheck.run_maintenance(device)}
+
+
+MAINT_CASES = ("first_keyframe", "free_slot_fold", "evict",
+               "evict_full_ledger", "evict_alone", "evict_tie", "ties")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    f"{k}@{c}" for c in MAINT_CASES
+    for k in ("kf_insert", "fuse_prologue", "fuse_writeback", "map_cull")]
+    + ["found_stats@free_slot_fold", "found_stats@frame"])
+def test_map_maintenance_kernels(maint_checks, name):
+    # K27's two entries, K28's two and K29 against their twins on the
+    # seeded maps of tests/test_torch_kf_maintenance.py at the cells'
+    # capacities (128 keyframes, 1000 keypoints, 32768 points, the 4096
+    # ledger entries): integer and bool fields exact, pt_pos, kf_pose and
+    # led_T_cp within MAINT_TOL, the input map unmodified, one device
+    # operation a call, bitwise from launch to launch
+    r = maint_checks[name]
     assert r["ok"], r

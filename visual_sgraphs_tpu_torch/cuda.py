@@ -92,6 +92,25 @@ KERNELS = (
      "compact_observed", "compact_observed_torch",
      "visual_sgraphs_tpu_torch/csrc/compact.cu",
      "visual_sgraphs_tpu/slam/map_state.py:156"),
+    ("found_stats", "visual_sgraphs_tpu_torch.slam.mapping",
+     "apply_found_stats", "apply_found_stats_torch",
+     "visual_sgraphs_tpu_torch/csrc/kf_insert.cu",
+     "visual_sgraphs_tpu/slam/mapping.py:194"),
+    ("kf_insert", "visual_sgraphs_tpu_torch.slam.mapping",
+     "insert_keyframe", "insert_keyframe_torch",
+     "visual_sgraphs_tpu_torch/csrc/kf_insert.cu",
+     "visual_sgraphs_tpu/slam/mapping.py:93"),
+    ("fuse_prologue", "visual_sgraphs_tpu_torch.slam.mapping",
+     "fuse_candidates", "fuse_candidates_torch",
+     "visual_sgraphs_tpu_torch/csrc/fuse_obs.cu",
+     "visual_sgraphs_tpu/slam/mapping.py:525"),
+    ("fuse_writeback", "visual_sgraphs_tpu_torch.slam.mapping",
+     "fuse_writeback", "fuse_writeback_torch",
+     "visual_sgraphs_tpu_torch/csrc/fuse_obs.cu",
+     "visual_sgraphs_tpu/slam/mapping.py:556"),
+    ("map_cull", "visual_sgraphs_tpu_torch.slam.mapping", "cull_map",
+     "cull_map_torch", "visual_sgraphs_tpu_torch/csrc/map_cull.cu",
+     "visual_sgraphs_tpu/slam/mapping.py:685"),
     ("group_observations", "visual_sgraphs_tpu_torch.parallel.dist_ba",
      "group_observations", "group_observations_torch",
      "visual_sgraphs_tpu_torch/csrc/group_obs.cu",
@@ -228,6 +247,13 @@ _ARGTYPES = {
     "vsg_compact": [_VP, _I, _I, _I, _I, _VP, _VP],
     "vsg_compact_observed": [_VP, _VP, _I, _I, _VP, _VP, _I, _VP, _I, _I,
                              _I, _I, _I, _VP, _VP],
+    "vsg_found_stats": [_VP, _VP, _I, _VP, _I, _I, _VP, _I, _I, _VP, _F,
+                        _VP, _VP, _VP],
+    "vsg_kf_insert": [_PP, _PP, _PP] + [_I] * 6 + [_VP, _I, _VP, _I, _I,
+                                                   _VP],
+    "vsg_fuse_prologue": [_VP] * 4 + [_I] * 6 + [_VP] * 3,
+    "vsg_fuse_writeback": [_VP, _I, _I, _I, _VP, _VP, _VP, _I, _VP, _VP],
+    "vsg_map_cull": [_PP, _PP] + [_I] * 6 + [_F, _F, _VP, _VP],
     "vsg_group_obs": [_VP] * 4 + [_I] * 8 + [_VP] * 7,
     "vsg_match_window": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                          _F, _I, _F, _I, _VP, _VP, _VP, _VP],
@@ -285,6 +311,7 @@ _QUERIES = {
     "vsg_schur_scratch_bytes": ([_I, _I, _I], ctypes.c_longlong),
     "vsg_lm_reproj_scratch_bytes": ([_I, _I], ctypes.c_longlong),
     "vsg_ba_solve_scratch": ([_I], ctypes.c_longlong),
+    "vsg_map_cull_smem": ([_I, _I], ctypes.c_longlong),
 }
 
 _lib: ctypes.CDLL | None = None

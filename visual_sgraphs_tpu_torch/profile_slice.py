@@ -78,7 +78,9 @@ the whole ``extract_orb`` at B = 8 and B = 1, with their host ms
 and power limit.  With
 ``--track-ops`` it counts the device operations of one tracking call
 (both passes) and of one pipeline scan batch on ``bench_slice``'s map
-(``track_ops``); with ``--k20-sections`` it reads K20's clock at its
+(``track_ops``), and of a keyframe's map maintenance there: the cycle's
+fold, the keyframe program's insertion, fusion and culls, and a serial
+frame's point stats (``kf_maintenance_ops``); with ``--k20-sections`` it reads K20's clock at its
 section boundaries (``selfcheck.vi_pose_sections``).  With
 ``--schur-times PATH`` it times the two landmark Schur reductions, K8
 (``dist_ba.local_reduced_system``: seeded at L = 11 and 128, and on the
@@ -1106,6 +1108,85 @@ def track_ops(n_frames: int = 96) -> None:
           f"{n_frames + B - 1}", **selfcheck.device_ops(one_batch),
           ms=selfcheck.time_cuda(one_batch, reps=5),
           **_ops_by_name(one_batch))
+    kf_maintenance_ops(system, obs, res, one_batch(), cfg)
+    _card_line()
+
+
+def _graph_ops(fn):
+    """``selfcheck.graph_ops`` (exact), or None where the call cannot be
+    captured in a CUDA graph."""
+    from visual_sgraphs_tpu_torch import selfcheck
+    try:
+        return selfcheck.graph_ops(fn)
+    except RuntimeError as e:
+        return f"not captured: {str(e)[:80]}"
+
+
+def kf_maintenance_ops(system, obs, res, batch, cfg) -> None:
+    """Device operations and device ms of a ``bench_slice`` keyframe's map
+    maintenance on the system's map, with the frame ``obs`` and its
+    tracking result ``res`` as the keyframe and the scan ``batch``'s
+    tables as the cycle's fold: the cycle's fold of the accepted frames'
+    stats, the keyframe program's insertion (into the first free slot, or
+    over the oldest keyframe), fusion and culls (a cull keyframe), and a
+    serial frame's ``update_point_stats``; on this tree (one call each of
+    ``apply_found_stats`` with the acceptance mask, ``insert_keyframe``,
+    ``fuse_observations``, ``cull_map``) or on a tree without K27-K29
+    (its own chain: the mask, the fold, the program's empty fold,
+    ``insert_keyframe``, ``fuse_observations``, ``cull_points``,
+    ``cull_keyframes``).  Operations: the profiler's count
+    (``selfcheck.device_ops``) and the nodes of a CUDA graph of the call
+    (``graph_ops``, exact where it captures)."""
+    from visual_sgraphs_tpu_torch import selfcheck
+    from visual_sgraphs_tpu_torch.slam import mapping, tracking
+    m, K = system.map, system.cam_K
+    mc, t = cfg.mapping, cfg.tracking
+    _, results, _, packeds, _, _ = batch
+    free = (~m.kf_valid).nonzero()
+    slot = int(free[0]) if len(free) else int(torch.argmin(
+        torch.where(m.kf_valid, m.kf_seq, 2**30)))
+    pose = res.pose.clone()
+    kernels = hasattr(mapping, "cull_map")
+    cull_args = (mc.point_cull_min_obs, mc.point_cull_min_found_ratio,
+                 mc.kf_cull_redundancy)
+
+    def fold():
+        if kernels:
+            return mapping.apply_found_stats(m, results.slot_pt,
+                                             results.vis_pt, packeds,
+                                             t.min_inliers_ok)
+        acc = packeds[:, 1] >= t.min_inliers_ok
+        return mapping.apply_found_stats(
+            m, torch.where(acc[:, None], results.slot_pt, -1),
+            torch.where(acc[:, None], results.vis_pt, -1))
+
+    def maintain():
+        m0 = m
+        if not kernels:
+            dev = pose.device
+            m0 = mapping.apply_found_stats(
+                m0, torch.full((1, m.F), -1, dtype=torch.int32, device=dev),
+                torch.full((1, results.vis_pt.shape[1]), -1,
+                           dtype=torch.int32, device=dev))
+        m1, kf, _ = mapping.insert_keyframe(m0, obs, pose, res.slot_pt, K,
+                                            slot=slot)
+        m2 = mapping.fuse_observations(m1, kf, K)
+        if kernels:
+            return mapping.cull_map(m2, kf, *cull_args)
+        m3 = mapping.cull_points(m2, min_obs=cull_args[0],
+                                 min_found_ratio=cull_args[1])
+        return mapping.cull_keyframes(m3, kf, cull_args[2])
+
+    def serial_stats():
+        return tracking.update_point_stats(m, res)
+
+    for name, fn in (("cycle_fold", fold), ("keyframe_maintenance", maintain),
+                     ("update_point_stats", serial_stats)):
+        fn()
+        _line("kf_maintenance_ops", call=name, slot=slot,
+              k27_k29=kernels, **selfcheck.device_ops(fn),
+              graph_ops=_graph_ops(fn), ms=selfcheck.time_cuda(fn),
+              device_span_ms=selfcheck.device_time(fn), **_ops_by_name(fn))
 
 
 def k20_sections() -> None:
@@ -1734,8 +1815,9 @@ def main() -> None:
                     help="fps of the serial cells, bench_slice and "
                     "inertial_slice")
     ap.add_argument("--track-ops", action="store_true",
-                    help="device operations of one tracking call and one "
-                    "scan batch on bench_slice's map")
+                    help="device operations of one tracking call, one "
+                    "scan batch and a keyframe's map maintenance on "
+                    "bench_slice's map")
     ap.add_argument("--k20-sections", action="store_true",
                     help="K20's time by section (clock64)")
     ap.add_argument("--kernel-times", action="store_true",

@@ -4684,6 +4684,557 @@ def watch_ba_solve(which: int = 17):
         fast_ba.ba_solve = orig
 
 
+# ---------------------------------------------------------------------------
+# K27-K29: the keyframe program's map maintenance (slam/mapping.py)
+
+# pt_pos, kf_pose and led_T_cp per component, kernel against twin: the
+# back-projection and T_cp round op for op as the torch chain on the card
+# (lie_rn.cuh), so they are expected bitwise; stated at the CPU tests' 1e-5
+MAINT_TOL = 1e-5
+MAINT_CAM = np.array([260.0, 260.0, 320.0, 240.0], np.float32)
+# the cells' capacities: K, F, N, E (the default ledger), the local tables
+MAINT_SHAPES = dict(K=128, F=1000, N=32768, E=4096, V=4096)
+MAINT_MIN_INLIERS = 30
+MAINT_FLOAT_FIELDS = ("kf_pose", "kf_timestamp", "kf_uv", "kf_depth",
+                      "kf_angle", "pt_pos", "led_T_cp")
+
+
+def maint_map_numpy(K: int, F: int, N: int, E: int, seed: int = 0) -> dict:
+    """A seeded map of capacity (K, F, N, E) as numpy: ~3/4 of the
+    keyframe slots valid (slot 0 always), distinct sequence numbers, each
+    valid keyframe's keypoints linked (70 %) to points of a window of the
+    valid ids, so that neighbouring keyframes share points, 2 % of the
+    links stale; half the points valid, a third young, visible / found
+    counts with collapsed ratios among them, freed points inside and past
+    their quarantine; the ledger half full."""
+    rng = np.random.default_rng(seed)
+    n_kf = 3 * K // 2 + 10
+    kf_valid = rng.uniform(size=K) < 0.75
+    kf_valid[0] = True
+    kf_seq = np.full(K, -1, np.int32)
+    kf_seq[kf_valid] = np.sort(rng.choice(n_kf, int(kf_valid.sum()),
+                                          replace=False))
+    pt_valid = rng.uniform(size=N) < 0.5
+    ids = np.flatnonzero(pt_valid)
+    win = max(len(ids) // 6, 1)
+    obs = np.full((K, F), -1, np.int32)
+    for r in np.flatnonzero(kf_valid):
+        pick = ids[(rng.integers(len(ids)) + rng.integers(0, win, F))
+                   % len(ids)]
+        pick = np.where(rng.uniform(size=F) < 0.02, rng.integers(0, N, F),
+                        pick)
+        obs[r] = np.where(rng.uniform(size=F) < 0.7, pick, -1)
+    vis = rng.integers(0, 24, N).astype(np.int32)
+    young = rng.uniform(size=N) < 0.3
+    led_n = E // 2
+    led_seq = np.full(E, -1, np.int32)
+    led_parent = np.full(E, -1, np.int32)
+    led_seq[:led_n] = rng.integers(0, n_kf, led_n)
+    led_parent[:led_n] = rng.integers(0, n_kf, led_n)
+    led_T = np.tile(np.array([1, 0, 0, 0, 0, 0, 0], np.float32), (E, 1))
+    led_T[:led_n] = _random_poses(rng, led_n, 0.3)
+    return dict(
+        kf_pose=_random_poses(rng, K, 0.5), kf_valid=kf_valid,
+        kf_timestamp=np.sort(rng.uniform(0.0, 10.0, K)).astype(np.float32),
+        kf_uv=rng.uniform((0, 0), (640, 480), (K, F, 2)).astype(np.float32),
+        kf_depth=np.where(rng.uniform(size=(K, F)) < 0.8,
+                          rng.uniform(0.5, 6.0, (K, F)), -1.0
+                          ).astype(np.float32),
+        kf_level=rng.integers(0, 8, (K, F)).astype(np.int32),
+        kf_angle=rng.uniform(-np.pi, np.pi, (K, F)).astype(np.float32),
+        kf_desc=rng.integers(0, 256, (K, F, 32), dtype=np.uint8),
+        kf_kp_valid=rng.uniform(size=(K, F)) < 0.9, kf_obs_pt=obs,
+        kf_seq=kf_seq,
+        pt_pos=rng.uniform(-5.0, 5.0, (N, 3)).astype(np.float32),
+        pt_valid=pt_valid,
+        pt_desc=rng.integers(0, 256, (N, 32), dtype=np.uint8),
+        pt_first_kf=rng.choice(np.flatnonzero(kf_valid), N).astype(np.int32),
+        pt_first_seq=np.where(young, rng.integers(n_kf - 4, n_kf + 1, N),
+                              rng.integers(0, n_kf - 4, N)).astype(np.int32),
+        pt_freed_seq=np.where(~pt_valid & (rng.uniform(size=N) < 0.5),
+                              rng.integers(n_kf - 5, n_kf + 1, N),
+                              -10**6).astype(np.int32),
+        pt_visible=vis,
+        pt_found=(vis * rng.uniform(0.0, 1.0, N)).astype(np.int32),
+        led_seq=led_seq, led_parent_seq=led_parent, led_T_cp=led_T,
+        led_n=np.int32(led_n), n_kf=np.int32(n_kf),
+        n_pt=np.int32(pt_valid.sum()))
+
+
+def maint_empty_numpy(K: int, F: int, N: int, E: int) -> dict:
+    """``empty_map`` at capacity (K, F, N, E) as numpy."""
+    from visual_sgraphs_tpu_torch import interop
+    from visual_sgraphs_tpu_torch.config import CapacityConfig
+    return interop.map_to_numpy(map_state.empty_map(
+        CapacityConfig(max_keyframes=K, max_points=N, max_retired=E),
+        OrbConfig(n_features=F)))
+
+
+def maint_tie_numpy(m: dict) -> dict:
+    """``m`` with tied cases: keyframes 1-8 valid with keyframe 1's
+    observations (its points valid and old), so that keyframe 1's
+    covisibility counts tie over 2-8 and 2-8 are equally redundant
+    (every point seen by 8); slot 2's sequence s has two valid neighbours
+    at s + 1 (slot 3) and s - 1 (slot 9), every other sequence 4 or more
+    away (the retirement's parent ties)."""
+    m = {k: np.array(v) for k, v in m.items()}
+    K = m["kf_valid"].shape[0]
+    n_kf = int(m["n_kf"])
+    m["kf_valid"][:10] = True
+    for r in range(2, 9):
+        m["kf_obs_pt"][r] = m["kf_obs_pt"][1]
+        m["kf_kp_valid"][r] = m["kf_kp_valid"][1]
+    row = m["kf_obs_pt"][1]
+    pts = row[row >= 0]
+    m["pt_valid"][pts] = True
+    m["pt_first_seq"][pts] = 0
+    s = n_kf // 2
+    others = np.array([v for v in range(n_kf) if abs(v - s) > 3])
+    rng = np.random.default_rng(7)
+    seq = np.full(K, -1, np.int32)
+    valid = np.flatnonzero(m["kf_valid"])
+    seq[valid] = rng.choice(others, len(valid), replace=False)
+    seq[2], seq[3], seq[9] = s, s + 1, s - 1
+    m["kf_seq"] = seq
+    m["n_pt"] = np.int32(m["pt_valid"].sum())
+    return m
+
+
+def maint_frame_numpy(m: dict, seed: int = 1) -> dict:
+    """A seeded frame for ``m``'s keyframe slots: 92 % of the keypoints
+    valid, 80 % with depth (the rest 0 or -1); its pose, slot_pt and
+    camera, and a copy of ``m`` with fuse targets.  On a map with points:
+    a valid keyframe r0's points split in two halves, 40 % of the
+    keypoints with depth matched to the first (so r0 is covisible with the
+    inserted keyframe), and up to 16 of the valid keypoints without depth
+    (left free by the insertion) made the exact projection, at the pose,
+    of a point of the second half, with its descriptor; the next point of
+    that half copies the last target (position and descriptor), so two
+    points match one keypoint at distance 0 (a repeated slot)."""
+    m = {k: np.array(v) for k, v in m.items()}
+    rng = np.random.default_rng(seed)
+    F = m["kf_obs_pt"].shape[1]
+    valid = rng.uniform(size=F) < 0.92
+    depth = np.where(rng.uniform(size=F) < 0.8, rng.uniform(0.5, 6.0, F),
+                     np.where(rng.uniform(size=F) < 0.5, 0.0, -1.0))
+    uv = rng.uniform((0, 0), (640, 480), (F, 2)).astype(np.float32)
+    desc = rng.integers(0, 256, (F, 32), dtype=np.uint8)
+    pose = _random_poses(rng, 1, 0.5)[0]
+    slot_pt = np.full(F, -1, np.int32)
+    obs, pt_valid = m["kf_obs_pt"], m["pt_valid"]
+    rows = [r for r in np.flatnonzero(m["kf_valid"])
+            if pt_valid[obs[r][obs[r] >= 0]].any()]
+    if rows:
+        r0 = rows[rng.integers(len(rows))]
+        ids = np.unique(obs[r0][obs[r0] >= 0])
+        ids = ids[pt_valid[ids]]
+        rng.shuffle(ids)
+        half = max(len(ids) // 2, 1)
+        slot_pt = np.where(valid & (depth > 0) & (rng.uniform(size=F) < 0.4),
+                           rng.choice(ids[:half], F), -1).astype(np.int32)
+        targets, free_kp = ids[half:], np.flatnonzero(valid & ~(depth > 0))
+        n_t = min(16, len(free_kp), len(targets) - 1)
+        T_wc = lie.se3_inverse(torch.from_numpy(pose))
+        fx, fy, cx, cy = (float(v) for v in MAINT_CAM)
+        for j in range(max(n_t, 0)):
+            i, q = free_kp[j], targets[j]
+            z = rng.uniform(1.0, 4.0)
+            u, v = rng.uniform((20, 20), (620, 460)).astype(np.float32)
+            p = torch.tensor([(u - cx) * z / fx, (v - cy) * z / fy, z],
+                             dtype=torch.float32)
+            m["pt_pos"][q] = lie.se3_apply(T_wc, p).numpy()
+            uv[i] = (u, v)
+            desc[i] = m["pt_desc"][q]
+        if n_t >= 1:
+            q2, q1 = targets[n_t], targets[n_t - 1]
+            m["pt_pos"][q2] = m["pt_pos"][q1]
+            m["pt_desc"][q2] = m["pt_desc"][q1]
+    frame = dict(uv=uv, depth=depth.astype(np.float32),
+                 level=rng.integers(0, 8, F).astype(np.int32),
+                 angle=rng.uniform(-np.pi, np.pi, F).astype(np.float32),
+                 desc=desc, valid=valid, timestamp=np.float32(12.5))
+    return dict(map=m, frame=frame, pose=pose, slot_pt=slot_pt,
+                cam=MAINT_CAM.copy())
+
+
+def maint_stats_numpy(m: dict, rows: int, V: int, seed: int = 2) -> dict:
+    """Seeded found (rows, F) and visible (rows, V) id tables of valid
+    points (-1 elsewhere, the last quarter of the rows all -1: the
+    program's padding) and their packed rows, half of them below
+    MAINT_MIN_INLIERS."""
+    rng = np.random.default_rng(seed)
+    F = m["kf_obs_pt"].shape[1]
+    ids = np.flatnonzero(m["pt_valid"])
+    slots = np.where(rng.uniform(size=(rows, F)) < 0.5,
+                     rng.choice(ids, (rows, F)), -1).astype(np.int32)
+    vis = np.where(rng.uniform(size=(rows, V)) < 0.6,
+                   rng.choice(ids, (rows, V)), -1).astype(np.int32)
+    pad = rows - rows // 4
+    slots[pad:] = -1
+    vis[pad:] = -1
+    packeds = np.stack([rng.integers(50, 400, rows),
+                        MAINT_MIN_INLIERS + rng.integers(-20, 20, rows),
+                        rng.integers(V // 4, V, rows),
+                        rng.integers(0, 2, rows)], 1).astype(np.float32)
+    return dict(slots=slots, vis=vis, packeds=packeds)
+
+
+def maint_cases(K: int, F: int, N: int, E: int, V: int,
+                seed: int = 0) -> list[dict]:
+    """The map-maintenance cases as numpy: a keyframe into an empty map
+    (point 0 free: its last writer), into a free slot with a serial
+    program's fold (32 rows), over a valid occupant, over one with a full
+    ledger, over the only valid keyframe (no parent), over slot 2 of
+    ``maint_tie_numpy`` (tied parents), and into a free slot of it with
+    keyframe 1 fused and culled (tied covisibility counts, tied redundant
+    keyframes, tied parents).  Each: map, frame, pose, slot_pt, cam, slot,
+    the fused and culled keyframe ``kf``, stats (or None)."""
+    base = maint_map_numpy(K, F, N, E, seed)
+    valid = np.flatnonzero(base["kf_valid"])
+    free = int(np.flatnonzero(~base["kf_valid"])[0])
+    full = {k: np.array(v) for k, v in base.items()}
+    full["led_n"] = np.int32(E)
+    full["led_seq"][:] = np.arange(E, dtype=np.int32)
+    alone = {k: np.array(v) for k, v in base.items()}
+    only = int(valid[len(valid) // 2])
+    alone["kf_valid"][:] = False
+    alone["kf_valid"][only] = True
+    alone["kf_seq"][np.arange(K) != only] = -1
+    tie = maint_tie_numpy(base)
+    tie_free = [r for r in range(10, K) if not tie["kf_valid"][r]] + [K - 1]
+    out = []
+    for name, m, slot, kf, stats in (
+            ("first_keyframe", maint_empty_numpy(K, F, N, E), 0, None,
+             False),
+            ("free_slot_fold", base, free, None, True),
+            ("evict", base, int(valid[1]), None, False),
+            ("evict_full_ledger", full, int(valid[2]), None, False),
+            ("evict_alone", alone, only, None, False),
+            ("evict_tie", tie, 2, None, False),
+            ("ties", tie, tie_free[0], 1, False)):
+        c = maint_frame_numpy(m, seed + len(out) + 1)
+        out.append(dict(name=name, slot=slot, kf=slot if kf is None else kf,
+                        stats=(maint_stats_numpy(c["map"], 32, V) if stats
+                               else None), **c))
+    return out
+
+
+class MaintOps(NamedTuple):
+    """One keyframe's maintenance operands on a device."""
+    m: MapState
+    frame: FrameObs
+    pose: torch.Tensor
+    slot_pt: torch.Tensor
+    cam: torch.Tensor
+    slot: int
+    kf: int
+    stats: tuple | None  # (found (B, F), visible (B, V)) or None
+    packeds: torch.Tensor | None  # (B, 4), the stats rows' packed rows
+
+
+def maint_operands(c: dict, device) -> MaintOps:
+    from visual_sgraphs_tpu_torch import interop
+    f = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa
+    st = c["stats"]
+    return MaintOps(
+        m=interop.map_from_numpy(c["map"], device),
+        frame=interop.frame_from_numpy(c["frame"], device), pose=f(c["pose"]),
+        slot_pt=f(c["slot_pt"]), cam=f(c["cam"]), slot=c["slot"], kf=c["kf"],
+        stats=None if st is None else (f(st["slots"]), f(st["vis"])),
+        packeds=None if st is None else f(st["packeds"]))
+
+
+def _clone_map(m: MapState) -> MapState:
+    return MapState(*(t.clone() for t in m))
+
+
+def maint_diff(a: MapState, b: MapState) -> tuple[list, float]:
+    """(the integer / bool fields that differ, the largest float
+    difference) of two maps."""
+    bad = [f for f in MapState._fields if f not in MAINT_FLOAT_FIELDS
+           and not torch.equal(getattr(a, f), getattr(b, f))]
+    err = max(float((getattr(a, f) - getattr(b, f)).abs().max())
+              if getattr(a, f).numel() else 0.0 for f in MAINT_FLOAT_FIELDS)
+    return bad, err
+
+
+def _unchanged(m: MapState, before: MapState) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(m, before))
+
+
+def _maint_result(name: str, kernel, twin, repro_fn, work: tuple,
+                  **extra) -> dict:
+    """Times, device operations and the bound's work of a kernel call
+    ``kernel`` against its twin ``twin``; ``repro_fn`` -> whether three
+    more launches agree bitwise."""
+    plain = device_ops(twin)
+    return dict(name=name, ms=time_cuda(kernel), device_ms=device_time(kernel),
+                graph_ops=graph_ops(kernel), plain_ms=time_cuda(twin),
+                plain_device_ms=plain["device_ms"],
+                plain_device_ops=plain["ops"], library_ms=None,
+                bitwise_repro=repro_fn(), bytes=work[0], ops=work[1],
+                **extra)
+
+
+def check_found_stats(device, m: MapState, slots, vis, packeds=None,
+                      min_inliers: int = MAINT_MIN_INLIERS,
+                      name: str = "found_stats") -> dict:
+    """K27's stats entry against its twin (with the acceptance mask when
+    ``packeds`` is given): both counters exact, the input unmodified, one
+    device operation a call, bitwise from launch to launch."""
+    from visual_sgraphs_tpu_torch.slam import mapping
+    before = _clone_map(m)
+    kernel = lambda: mapping.apply_found_stats(  # noqa: E731
+        m, slots, vis, packeds, min_inliers)
+    twin = lambda: mapping.apply_found_stats_torch(  # noqa: E731
+        m, slots, vis, packeds, min_inliers)
+    k, t = kernel(), twin()
+    torch.cuda.synchronize()
+    exact = (torch.equal(k.pt_found, t.pt_found)
+             and torch.equal(k.pt_visible, t.pt_visible))
+    same = _unchanged(m, before)
+    n_ids = slots.numel() + (0 if vis is None else vis.numel())
+    work = (16 * m.N + 4 * n_ids + nbytes(packeds), 2 * n_ids + 2 * m.N)
+    r = _maint_result(name, kernel, twin, lambda: all(
+        torch.equal(k.pt_found, o.pt_found)
+        and torch.equal(k.pt_visible, o.pt_visible)
+        for o in (kernel() for _ in range(3))), work, exact=exact,
+        input_unchanged=same, rows=slots.numel() // slots.shape[-1],
+        max_abs_err=0.0 if exact else float("inf"))
+    r["ok"] = exact and same and r["bitwise_repro"] and r["graph_ops"] == 1
+    return r
+
+
+def check_kf_insert(device, ops: MaintOps, name: str = "kf_insert",
+                    quarantine: int = 3) -> dict:
+    """K27's insert entry against its twin: every integer and bool field
+    of the new map exact, its float fields within MAINT_TOL, the slot and
+    the eviction flag equal, the input unmodified, one device operation a
+    call, bitwise from launch to launch."""
+    from visual_sgraphs_tpu_torch.slam import mapping
+    m = ops.m
+    before = _clone_map(m)
+
+    def kernel():
+        return mapping.insert_keyframe(m, ops.frame, ops.pose, ops.slot_pt,
+                                       ops.cam, ops.slot, quarantine,
+                                       ops.stats)
+
+    def twin():
+        return mapping.insert_keyframe_torch(m, ops.frame, ops.pose,
+                                             ops.slot_pt, ops.cam, ops.slot,
+                                             quarantine, ops.stats)
+
+    (km, kk, ke), (tm, tk, te) = kernel(), twin()
+    torch.cuda.synchronize()
+    bad, err = maint_diff(km, tm)
+    same = _unchanged(m, before)
+    changed = [getattr(m, f) for f in mapping.INSERT_FIELDS]
+    n_ids = 0 if ops.stats is None else sum(s.numel() for s in ops.stats)
+    work = (2 * nbytes(*changed) + nbytes(m.pt_freed_seq, *ops.frame,
+                                          ops.pose, ops.slot_pt, ops.cam)
+            + 4 * n_ids, 40 * m.F + 6 * m.N + 2 * n_ids)
+    r = _maint_result(name, kernel, twin, lambda: all(
+        all(torch.equal(x, y) for x, y in zip(km, o[0]))
+        for o in (kernel() for _ in range(3))), work, int_fields_differ=bad,
+        max_abs_err=err, input_unchanged=same, evicted=bool(ke),
+        n_new=int(km.n_pt) - int(m.n_pt),
+        led_written=int(km.led_n) - int(m.led_n))
+    r["ok"] = (not bad and err <= MAINT_TOL and kk == tk
+               and bool(ke) == bool(te) and same and r["bitwise_repro"]
+               and r["graph_ops"] == 1)
+    return r
+
+
+def check_fuse(device, m: MapState, kf: int, cam_K, tag: str = "",
+               n_local: int = 4096) -> list[dict]:
+    """K28's two entries against their twins on ``m`` at keyframe ``kf``:
+    the prologue's candidate ids and free keypoints exact, the write-back's
+    kf_obs_pt exact (on the tracking pass's matches at 4 px: the fuse's
+    own), the map unmodified, one device operation a call each, bitwise
+    from launch to launch."""
+    from visual_sgraphs_tpu_torch.slam import mapping
+    before = _clone_map(m)
+    pro_k = lambda: mapping.fuse_candidates(m, kf, n_local)  # noqa: E731
+    pro_t = lambda: mapping.fuse_candidates_torch(m, kf, n_local)  # noqa
+    (ids, kp), (ids_t, kp_t) = pro_k(), pro_t()
+    torch.cuda.synchronize()
+    pro_exact = torch.equal(ids, ids_t) and torch.equal(kp.valid, kp_t.valid)
+    K, F, N = m.K, m.F, m.N
+    pro = _maint_result(
+        f"fuse_prologue{tag}", pro_k, pro_t, lambda: all(
+            torch.equal(ids, o[0]) and torch.equal(kp.valid, o[1].valid)
+            for o in (pro_k() for _ in range(3))),
+        (K * F * 5 + K + N + 4 * n_local + F, K * F * 3 + K * K + N),
+        exact=pro_exact, n_ids=int((ids >= 0).sum()),
+        n_free=int(kp.valid.sum()),
+        max_abs_err=0.0 if pro_exact else float("inf"))
+    pro["ok"] = pro_exact and pro["bitwise_repro"] and pro["graph_ops"] == 1
+    tp = match.track_pass(m.pt_pos, m.pt_desc, ids, m.kf_pose[kf], cam_K,
+                          None, FUSE_RADIUS, kp, want_depth=False)
+    wb_k = lambda: mapping.fuse_writeback(  # noqa: E731
+        m.kf_obs_pt, kf, ids, tp.ok, tp.slot)
+    wb_t = lambda: mapping.fuse_writeback_torch(  # noqa: E731
+        m.kf_obs_pt, kf, ids, tp.ok, tp.slot)
+    ko, to = wb_k(), wb_t()
+    torch.cuda.synchronize()
+    wb_exact = torch.equal(ko, to)
+    same = _unchanged(m, before)
+    n = ids.shape[0]
+    wb = _maint_result(
+        f"fuse_writeback{tag}", wb_k, wb_t, lambda: all(
+            torch.equal(ko, wb_k()) for _ in range(3)),
+        (8 * K * F + n * 13, n + K * F), exact=wb_exact,
+        n_matched=int(tp.ok.sum()), input_unchanged=same,
+        max_abs_err=0.0 if wb_exact else float("inf"))
+    wb["ok"] = (wb_exact and same and wb["bitwise_repro"]
+                and wb["graph_ops"] == 1)
+    return [pro, wb]
+
+
+def check_map_cull(device, m: MapState, kf: int, min_obs: int = 2,
+                   min_found_ratio: float = 0.25, redundancy: float = 0.9,
+                   name: str = "map_cull") -> dict:
+    """K29 against its twin (``cull_points`` then ``cull_keyframes``):
+    every integer field exact, the ledger's T_cp within MAINT_TOL, the
+    culled slot equal, the input unmodified, one device operation a call,
+    bitwise from launch to launch."""
+    from visual_sgraphs_tpu_torch.slam import mapping
+    before = _clone_map(m)
+    kernel = lambda: mapping.cull_map(  # noqa: E731
+        m, kf, min_obs, min_found_ratio, redundancy)
+    twin = lambda: mapping.cull_map_torch(  # noqa: E731
+        m, kf, min_obs, min_found_ratio, redundancy)
+    (km, kc), (tm, tc) = kernel(), twin()
+    torch.cuda.synchronize()
+    bad, err = maint_diff(km, tm)
+    same = _unchanged(m, before)
+    read = nbytes(m.kf_obs_pt, m.kf_kp_valid, m.kf_valid, m.kf_seq,
+                  m.kf_pose, m.pt_valid, m.pt_first_seq, m.pt_found,
+                  m.pt_visible, m.pt_freed_seq, m.pt_first_kf, m.led_seq,
+                  m.led_parent_seq, m.led_T_cp, m.led_n, m.n_kf)
+    write = nbytes(*(getattr(m, f) for f in mapping.CULL_FIELDS)) + 4
+    r = _maint_result(name, kernel, twin, lambda: all(
+        all(torch.equal(x, y) for x, y in zip(km, o[0]))
+        and torch.equal(kc, o[1]) for o in (kernel() for _ in range(3))),
+        (read + write, 6 * m.K * m.F + 12 * m.N), int_fields_differ=bad,
+        max_abs_err=err, input_unchanged=same, culled=int(kc),
+        n_culled_points=int(m.pt_valid.sum()) - int(km.pt_valid.sum()))
+    r["ok"] = (not bad and err <= MAINT_TOL and int(kc) == int(tc) and same
+               and r["bitwise_repro"] and r["graph_ops"] == 1)
+    return r
+
+
+def check_maintenance(device, ops: MaintOps, tag: str) -> list[dict]:
+    """K27's insert entry, K28 and K29 on one case's operands, in the
+    keyframe program's order (the fuse on the inserted map, the cull on
+    the fused one), and K27's stats entry on its stats."""
+    from visual_sgraphs_tpu_torch.slam import mapping
+    out = [check_kf_insert(device, ops, f"kf_insert@{tag}")]
+    m1, k, _ = mapping.insert_keyframe(ops.m, ops.frame, ops.pose,
+                                       ops.slot_pt, ops.cam, ops.slot, 3,
+                                       ops.stats)
+    kf = ops.kf
+    out += check_fuse(device, m1, kf, ops.cam, f"@{tag}")
+    m2 = mapping.fuse_observations(m1, kf, ops.cam)
+    out.append(check_map_cull(device, m2, kf, name=f"map_cull@{tag}"))
+    if ops.stats is not None:
+        out.append(check_found_stats(device, ops.m, *ops.stats, ops.packeds,
+                                     name=f"found_stats@{tag}"))
+    return out
+
+
+def run_maintenance(device, shapes: dict = MAINT_SHAPES) -> list[dict]:
+    """K27-K29 on every seeded case of ``maint_cases`` at the cells'
+    capacities, and K27's stats entry on one serial frame's row."""
+    out = []
+    for c in maint_cases(**shapes):
+        ops = maint_operands(c, device)
+        out += check_maintenance(device, ops, c["name"])
+        if c["stats"] is not None:
+            s = c["stats"]
+            f = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+            out.append(check_found_stats(device, ops.m, f(s["slots"][0]),
+                                         f(s["vis"][0]),
+                                         name="found_stats@frame"))
+    return out
+
+
+@contextlib.contextmanager
+def watch_maintenance(which: int = 8):
+    """Inside the block, record copies of the operands of the ``which``-th
+    keyframe insertion (the last one if fewer ran) and of the fuse and the
+    cull that follow it (the first cull at or after it), and of the
+    ``which``-th stats fold with an acceptance mask (the cycle's): a
+    MaintOps under "operands" (its fold's packeds under "packeds"), the
+    fused map under "fuse" and the culled one under "cull".  The copies
+    cost device time: watch a run that is not timed."""
+    from visual_sgraphs_tpu_torch.slam import mapping
+    out = {"inserts": 0, "folds": 0}
+    orig = (mapping.insert_keyframe, mapping.fuse_observations,
+            mapping.cull_map, mapping.apply_found_stats)
+
+    def ins(m, frame, pose, slot_pt, cam_K, slot, quarantine=3, stats=None):
+        out["inserts"] += 1
+        if out["inserts"] <= which:
+            out["operands"] = MaintOps(
+                _clone_map(m), FrameObs(*(t.clone() for t in frame)),
+                pose.clone(), slot_pt.clone(), cam_K.clone(), int(slot),
+                int(slot), None if stats is None
+                else tuple(s.clone() for s in stats), None)
+            out.pop("fuse", None)
+            out.pop("cull", None)
+        return orig[0](m, frame, pose, slot_pt, cam_K, slot, quarantine,
+                       stats)
+
+    def fuse(m, kf_id, cam_K, *args, **kw):
+        if "operands" in out and "fuse" not in out:
+            out["fuse"] = (_clone_map(m), int(kf_id), cam_K.clone())
+        return orig[1](m, kf_id, cam_K, *args, **kw)
+
+    def cull(m, kf_id, *args):
+        if "fuse" in out and "cull" not in out:
+            out["cull"] = (_clone_map(m), int(kf_id), *args)
+        return orig[2](m, kf_id, *args)
+
+    def stats(m, slot_pts, vis_pts=None, packeds=None, min_inliers=0):
+        if packeds is not None:
+            out["folds"] += 1
+            if out["folds"] <= which:
+                out["fold"] = (_clone_map(m), slot_pts.clone(),
+                               vis_pts.clone(), packeds.clone(),
+                               int(min_inliers))
+        return orig[3](m, slot_pts, vis_pts, packeds, min_inliers)
+
+    # the wrapped functions count their calls through their module names
+    for fn, spy in zip(orig, (ins, fuse, cull, stats)):
+        spy.__dict__.update(fn.__dict__)
+    mapping.insert_keyframe, mapping.fuse_observations = ins, fuse
+    mapping.cull_map, mapping.apply_found_stats = cull, stats
+    try:
+        yield out
+    finally:
+        (mapping.insert_keyframe, mapping.fuse_observations,
+         mapping.cull_map, mapping.apply_found_stats) = orig
+
+
+def check_recorded_maintenance(device, seen: dict) -> list[dict]:
+    """K27-K29 on the operands ``watch_maintenance`` recorded: the
+    insertion, the fuse, the cull and the cycle's fold of a
+    ``bench_slice`` keyframe program (named after the kernels: the
+    ``kernels`` line's rows)."""
+    ops = seen["operands"]
+    fm, fkf, fcam = seen["fuse"]
+    out = [check_kf_insert(device, ops, "kf_insert"),
+           *check_fuse(device, fm, fkf, fcam)]
+    cm, ckf, *cargs = seen["cull"]
+    out.append(check_map_cull(device, cm, ckf, *cargs))
+    fold = seen["fold"]
+    out.append(check_found_stats(device, fold[0], fold[1], fold[2], fold[3],
+                                 fold[4], name="found_stats"))
+    return out
+
+
 def run_scan(device) -> list[dict]:
     """K25's three entries on seeded operands."""
     return [*check_scan_epilogue(device), check_scan_prologue(device),

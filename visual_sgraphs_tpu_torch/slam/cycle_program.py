@@ -65,22 +65,20 @@ def make_cycle_program(cam, orb, n_window: int, fx_radius: float,
               depths, tss, velocity, cam_K, cam_bf, min_inliers: int,
               do_lba: bool, do_cull: bool, do_maint: bool, timers=None):
         # fold the previous batch's per-frame found/visible statistics
-        # (MapPoint mnFound / mnVisible, Tracking::TrackLocalMap)
-        acc = packeds_prev[:, 1] >= min_inliers
-        slots = torch.where(acc[:, None], results_prev.slot_pt, -1)
-        vis = torch.where(acc[:, None], results_prev.vis_pt, -1)
-        m = mapping.apply_found_stats(m, slots, vis)
+        # (MapPoint mnFound / mnVisible, Tracking::TrackLocalMap) of its
+        # accepted frames: one launch of K27's stats entry on the card
+        if T_rels_prev.is_cuda:
+            make_cycle_program.cuda_cycles += 1
+        m = mapping.apply_found_stats(m, results_prev.slot_pt,
+                                      results_prev.vis_pt, packeds_prev,
+                                      min_inliers)
         dev = T_rels_prev.device
         if insert_kf:
             pose_kf = lie.se3_normalize(lie.se3_multiply(
                 T_rels_prev[i_kf], m.kf_pose[ref_old]))
-            no_slots = torch.full((1, slots.shape[1]), -1, dtype=torch.int32,
-                                  device=dev)
-            no_vis = torch.full((1, vis.shape[1]), -1, dtype=torch.int32,
-                                device=dev)
             m, sg, db, kf, board = kf_prog(
                 m, sg, db, vocab, frame_at(frames_prev, i_kf), pose_kf,
-                results_prev.slot_pt[i_kf], kf_slot, no_slots, no_vis,
+                results_prev.slot_pt[i_kf], kf_slot, None, None,
                 depths_prev[i_kf], sem_img, conf_img, hyp_idx, cam_K,
                 cam_bf, do_lba, do_cull, do_maint)
         else:
@@ -103,3 +101,7 @@ def make_cycle_program(cam, orb, n_window: int, fx_radius: float,
                 T_out, vel_out)
 
     return cycle
+
+
+# cycles run on the card (K27's stats entry launches once each)
+make_cycle_program.cuda_cycles = 0

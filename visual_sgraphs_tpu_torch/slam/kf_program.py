@@ -1,9 +1,10 @@
 """The keyframe program: the whole per-keyframe pipeline in one call.
 
 Port of ``visual_sgraphs_tpu/slam/kf_program.py``: lazy found/visible
-stats, insertion + point seeding, observation fusion, point + keyframe
-culling, and either the plain windowed local BA or, with the scene graph
-on, plane detection (K12-K14) and association, the periodic plane
+stats with the insertion and point seeding (K27), observation fusion
+(K28 around a tracking pass), point + keyframe culling (K29), and
+either the plain windowed local BA or, with the scene graph on, plane
+detection (K12-K14) and association, the periodic plane
 maintenance, wall-based room detection (skipped with
 ``room_method="freespace"``, whose rooms the system infers before the
 program), semantic map-point refinement and the scene-graph local BA
@@ -40,7 +41,9 @@ def make_kf_program(sg_cfg, loop_on: bool, n_window: int, lba_iters: int,
     ``program(m, sg, db, vocab, frame, pose, slot_pt, kf_slot,
     stats_slots, stats_vis, depth_img, sem_img, conf_img, hyp_idx, cam_K,
     cam_bf, do_lba, do_cull, do_maint)`` returns (map, scenegraph,
-    database, kf_slot, board) where ``board`` is the device float32 vector
+    database, kf_slot, board); ``stats_slots`` / ``stats_vis`` (None: no
+    fold) are the found / visible tables folded before the insertion, in
+    its launch.  ``board`` is the device float32 vector
     [slot, n_kf, n_pt, culled slot or -1, evicted, n_obs] that the host
     checks against its slot mirror one keyframe later, followed with
     ``loop_on`` by the place query's packed scalars (2 top_n + 3: best
@@ -52,16 +55,17 @@ def make_kf_program(sg_cfg, loop_on: bool, n_window: int, lba_iters: int,
                 hyp_idx, cam_K, cam_bf, do_lba: bool, do_cull: bool,
                 do_maint: bool):
         dev = pose.device
-        m = mapping.apply_found_stats(m, stats_slots, stats_vis)
         m, kf, evicted = mapping.insert_keyframe(
             m, frame, pose, slot_pt, cam_K, slot=kf_slot,
-            quarantine=quarantine)
+            quarantine=quarantine,
+            stats=None if stats_slots is None else (stats_slots, stats_vis))
         m = mapping.fuse_observations(m, kf, cam_K)
-        culled = torch.full((), -1, dtype=torch.int32, device=dev)
         if do_cull:
-            m = mapping.cull_points(m, min_obs=cull_min_obs,
-                                    min_found_ratio=cull_min_found_ratio)
-            m, culled = mapping.cull_keyframes(m, kf, cull_kf_redundancy)
+            m, culled = mapping.cull_map(m, kf, cull_min_obs,
+                                         cull_min_found_ratio,
+                                         cull_kf_redundancy)
+        else:
+            culled = torch.full((), -1, dtype=torch.int32, device=dev)
         if sg_cfg is None:
             if do_lba:
                 m, _ = fast_local_ba(m, kf, cam_K, cam_bf,

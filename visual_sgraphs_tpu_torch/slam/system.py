@@ -1135,13 +1135,11 @@ class SlamSystem:
                 self.map, _ = mapping.local_ba(
                     self.map, kf, self.cam_K, self.cam_bf,
                     n_window=mc.local_window, iters=mc.lba_iters)
-        self.map = mapping.cull_points(
-            self.map, min_obs=mc.point_cull_min_obs,
-            min_found_ratio=mc.point_cull_min_found_ratio)
         # the reference drops the culled slot here without folding it into
         # its host mirror; so does the port
-        self.map, _ = mapping.cull_keyframes(self.map, kf,
-                                             mc.kf_cull_redundancy)
+        self.map, _ = mapping.cull_map(
+            self.map, kf, mc.point_cull_min_obs,
+            mc.point_cull_min_found_ratio, mc.kf_cull_redundancy)
         self.events.emit("recovery_keyframe" if recovered else "keyframe",
                          kf=kf, n_inliers=n_inl, joint_ba=joint,
                          vi_ba=vi_ba, lba=True, cull=True)

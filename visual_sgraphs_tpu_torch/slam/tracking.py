@@ -450,10 +450,16 @@ def track_frame_full(m: MapState, frame: FrameObs, T_pred, T_last,
     ``T_pred`` (the inertial path's prediction).  Returns (result,
     new_map, packed host (4,) float32 array [n_matches, n_inliers,
     n_local_pts, retried])."""
+    if T_last.is_cuda:
+        track_frame_full.cuda_calls += 1
     res, packed, _ = _track_with_retry(
         m, frame, T_pred, T_last, ref_kf, cam_K, min_inliers, n_window,
         n_local, fx_radius, fine_radius, cam_bf, img_wh, prior_weight)
     return res, update_point_stats(m, res), packed
+
+
+# serial frames tracked on the card (K27's stats entry launches once each)
+track_frame_full.cuda_calls = 0
 
 
 def make_frame_step(cam, orb, n_window: int, n_local: int, fx_radius: float,
@@ -700,13 +706,7 @@ make_frame_scan.cuda_frames = 0
 
 def update_point_stats(m: MapState, track: TrackResult) -> MapState:
     """Increment visible/found counters used by point culling
-    (MapPoint::IncreaseVisible/IncreaseFound)."""
-    found_ids = track.slot_pt
-    pt_found = m.pt_found.scatter_add(
-        0, torch.clamp(found_ids, min=0).long(),
-        (found_ids >= 0).to(torch.int32))
-    vis_ids = track.vis_pt
-    pt_visible = m.pt_visible.scatter_add(
-        0, torch.clamp(vis_ids, min=0).long(),
-        (vis_ids >= 0).to(torch.int32))
-    return m._replace(pt_found=pt_found, pt_visible=pt_visible)
+    (MapPoint::IncreaseVisible/IncreaseFound): one row of
+    ``mapping.apply_found_stats`` (K27's stats entry on the card)."""
+    from visual_sgraphs_tpu_torch.slam.mapping import apply_found_stats
+    return apply_found_stats(m, track.slot_pt, track.vis_pt)
